@@ -15,8 +15,10 @@ Public API re-exports.  Layering:
                timers, failure detection knobs
   verify     — safe code injection: install-time verifier + runtime
                resource sandbox (capability stamps, quotas, quarantine)
-  xrdma      — Gatherer / GatherReturn
+  xrdma      — Chaser / ReturnResult / TSI / Spawner / Gatherer /
+               GatherReturn
   cluster    — in-process cluster + deterministic scheduler
+  pointer_chase — the DAPC miniapp (bitcode / binary / AM) + GBPC baseline
 """
 
 from .bitcode import (
@@ -60,6 +62,7 @@ from .pe import (
     Toolchain,
     WireLayer,
 )
+from .pointer_chase import ChaseReport, PointerChaseApp, chase_ref, make_chain
 from .propagate import PropagationConfig
 from .reliability import ReliabilityConfig
 from .transport import (
@@ -75,20 +78,28 @@ from .transport import (
     WireModel,
 )
 from .verify import CapabilityStamp, SandboxConfig, SandboxViolation, Verifier
-from .xrdma import make_gather_return, make_gatherer
+from .xrdma import (
+    make_chaser,
+    make_gather_return,
+    make_gatherer,
+    make_return_result,
+    make_spawner,
+    make_tsi,
+)
 
 __all__ = [
     "ACTION_WIDTH", "A_DONE", "A_FORWARD", "A_NOP", "A_PUBLISH", "A_RETURN",
     "A_SPAWN", "BitcodeSlice", "CacheStats", "Capability", "CapabilityStamp",
-    "Cluster", "CompletionQueue", "CorruptFrame", "DataPlaneConfig", "Endpoint",
+    "ChaseReport", "Cluster", "CompletionQueue", "CorruptFrame", "DataPlaneConfig", "Endpoint",
     "EndpointDead", "Fabric", "FatBitcode", "Frame", "FrameFlags", "FrameKind",
     "GatherFuture", "HopHeader", "IFunc", "ISAMismatch", "MAGIC", "MEM_BW_BUS",
     "MEM_BW_CLASS", "PE", "PEStats", "ProgressEngine", "PropagationConfig",
     "ProtocolError", "RegionWrite", "ReliabilityConfig", "SandboxConfig",
     "SandboxViolation", "SenderCache", "ShapeDtypeStruct", "SlabLayout",
     "TRIPLE_WIRE", "TargetCodeCache", "Toolchain", "Verifier", "WIRE_PROFILES",
-    "WireLayer", "WireModel", "coalesce", "delivery_complete", "local_triple",
-    "make_gather_return", "make_gatherer", "pack_hop", "peek_header",
-    "platform_of", "resolve_device", "split_hop", "split_payloads", "unpack",
-    "unpack_hop",
+    "PointerChaseApp", "WireLayer", "WireModel", "chase_ref", "coalesce",
+    "delivery_complete", "local_triple", "make_chain", "make_chaser",
+    "make_gather_return", "make_gatherer", "make_return_result", "make_spawner",
+    "make_tsi", "pack_hop", "peek_header", "platform_of", "resolve_device",
+    "split_hop", "split_payloads", "unpack", "unpack_hop",
 ]

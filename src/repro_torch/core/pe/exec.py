@@ -40,9 +40,9 @@ against):
   of actions.
 
   Local recursion — the paper's "ifunc calls itself recursively" when the
-  next pointer is local — happens *inside* the shipped code as a
-  ``while_loop``: the blob chases until the frontier leaves its shard,
-  then emits FORWARD.  One network action per locality break, exactly the
+  next pointer is local — happens *inside* the shipped code, as one call
+  of the ``repro_torch::chase_shard`` custom op: the blob chases until the
+  frontier leaves its shard, then emits FORWARD.  One network action per locality break, exactly the
   paper's DAPC behaviour.
 
 The layer is transport-blind: every action that must travel (FORWARD,
@@ -149,7 +149,7 @@ class ExecLayer:
         """Decode N same-type payloads into a ``(bucket, ...)`` block.
 
         Padding rows repeat the last real payload: a real payload is known
-        to terminate (e.g. a Chaser's ``while_loop`` bound), so edge-repeat
+        to terminate (e.g. a Chaser's depth bound), so edge-repeat
         padding can never hang where zero-padding might; padded outputs are
         simply discarded.
         """

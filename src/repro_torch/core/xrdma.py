@@ -1,8 +1,9 @@
-"""X-RDMA operations: the Gatherer and its RETURN (paper Secs. IV-B/IV-C).
+"""X-RDMA operations: Chaser, ReturnResult, TSI, Spawner, and the Gatherer
+with its RETURN (paper Secs. IV-B/IV-C).
 
 An X-RDMA operation is an ifunc whose arrival *executes user code next to
 the data*, and whose code may re-inject itself (FORWARD), answer the
-requester (RETURN), or generate new code (SPAWN).  The decision logic lives
+requester (RETURN via ReturnResult), or generate new code (SPAWN).  The decision logic lives
 in the shipped code; see :mod:`repro_torch.core.pe.exec` for the fixed
 action ABI.
 
@@ -15,21 +16,131 @@ card once loaded there.
 
 from __future__ import annotations
 
+import struct
 from typing import Sequence
 
 import numpy as np
 import torch
 
+from ..kernels.chase import chase_shard_op
 from ..kernels.embed_lookup import embed_lookup_op
 from .bitcode import ShapeDtypeStruct
 from .dataplane import SlabLayout
 from .frame import FrameKind
-from .pe import A_FORWARD, A_NOP, A_RETURN, IFunc
+from .pe import ACTION_WIDTH, A_FORWARD, A_NOP, A_RETURN, A_SPAWN, IFunc
 from .transport import RegionWrite
 
 I32 = torch.int32
+CHASER_PAYLOAD = 4  # [addr, depth, requester, slot]
 GATHER_HDR = 3  # [requester, slot, epoch] routing header (PE.submit convention)
 DEFAULT_TARGETS = ("cpu-host", "cpu-bf2", "cpu-a64fx", "cuda-sm90")
+
+
+def _vec(like: torch.Tensor, *slots) -> torch.Tensor:
+    """Build a padded i32 action vector from (action, dst, plen, payload...).
+
+    One stack of 0-d tensors: every int slot becomes ``one * value`` with
+    ``one`` derived from ``like`` (a 0-d i32 input), so the trace creates no
+    constant on a device of its own and the slice runs wherever it loads.
+    """
+    one = torch.ones_like(like)
+    vals = [s if isinstance(s, torch.Tensor) else one * s for s in slots]
+    zero = one * 0
+    return torch.stack([*vals, *([zero] * (ACTION_WIDTH - len(slots)))])
+
+
+# ------------------------------------------------------------------ Chaser
+def chaser_entry(
+    payload: torch.Tensor, shard: torch.Tensor, meta: torch.Tensor
+) -> torch.Tensor:
+    """One X-RDMA Chaser hop (paper Sec. IV-C).
+
+    Chase locally until the chase completes or the frontier leaves this
+    shard — the paper's in-process recursive call, here one call of the
+    ``repro_torch::chase_shard`` custom op (the hand-written kernel on the
+    card, its plain version on the host; under a batched dispatch its vmap
+    rule runs every Chaser of the group in one launch) — then RETURN the
+    result to the requester or FORWARD *this same code* to the owner of
+    the next entry.
+    """
+    addr0, depth0, requester, slot = payload[0], payload[1], payload[2], payload[3]
+    shard_id, shard_size = meta[0], meta[1]
+    base = shard_id * shard_size
+    f, d = chase_shard_op(shard, addr0[None], depth0[None], base.reshape(1))
+    addr, depth = f[0], d[0]
+    done = depth == 0
+    ret = _vec(addr, A_RETURN, requester, 2, slot, addr)
+    fwd = _vec(addr, A_FORWARD, addr // shard_size, 4, addr, depth, requester, slot)
+    return torch.where(done, ret, fwd)
+
+
+def make_chaser(
+    shard_size: int,
+    targets: Sequence[str] = DEFAULT_TARGETS,
+    kind: FrameKind = FrameKind.BITCODE,
+    name: str = "chaser",
+) -> IFunc:
+    return IFunc.build(
+        name=name,
+        fn=chaser_entry,
+        payload_aval=ShapeDtypeStruct((CHASER_PAYLOAD,), I32),
+        dep_avals=(
+            ShapeDtypeStruct((shard_size,), I32),
+            ShapeDtypeStruct((3,), I32),
+        ),
+        deps=("region:table_shard", "cap:shard_meta", "returns:return_result"),
+        abi="xrdma",
+        targets=targets,
+        kind=kind,
+    )
+
+
+# ------------------------------------------------------------ ReturnResult
+def return_result_entry(payload: torch.Tensor, results: torch.Tensor) -> torch.Tensor:
+    """Write ``value`` into the requester's result slot and bump the
+    completion counter (last element)."""
+    # index_put, not results[slot] = ...: a tensor index traced as .item()
+    # would synchronise the card on every fold
+    out = results.index_put((payload[:1],), payload[1:2])
+    return torch.cat([out[:-1], out[-1:] + 1])
+
+
+def _chase_slab(max_slots: int, region: str = "results") -> SlabLayout:
+    """Zero-copy layout of the chase result buffer: one i32 word per slot
+    plus the completion counter at the end.  A RETURN payload ``[slot,
+    value]`` becomes one 4-byte WRITE at ``slot*4`` whose doorbell
+    FETCH_ADDs the counter word — the paper's 'final PUT' verbatim."""
+
+    def plan(pay: np.ndarray) -> list[RegionWrite]:
+        slot, value = int(pay[0]), int(pay[1])
+        return [
+            RegionWrite(
+                region,
+                slot * 4,
+                struct.pack("<i", value),
+                doorbell=(max_slots * 4, 1, "add"),
+            )
+        ]
+
+    return SlabLayout(region=region, plan=plan)
+
+
+def make_return_result(
+    max_slots: int,
+    targets: Sequence[str] = DEFAULT_TARGETS,
+    kind: FrameKind = FrameKind.BITCODE,
+) -> IFunc:
+    return IFunc.build(
+        name="return_result",
+        fn=return_result_entry,
+        payload_aval=ShapeDtypeStruct((2,), I32),
+        dep_avals=(ShapeDtypeStruct((max_slots + 1,), I32),),
+        deps=("region:results",),
+        abi="update",
+        targets=targets,
+        kind=kind,
+        slab=_chase_slab(max_slots),
+    )
 
 
 # ----------------------------------------------------------------- Gather
@@ -254,4 +365,45 @@ def make_gather_return(
         targets=targets,
         kind=kind,
         slab=_gather_slab(n_keys, dim, region),
+    )
+
+
+# --------------------------------------------------------------------- TSI
+def tsi_entry(payload: torch.Tensor, counter: torch.Tensor) -> torch.Tensor:
+    """Target-Side Increment (paper Sec. IV-B): counter += payload[0]."""
+    return counter + payload[0]
+
+
+def make_tsi(
+    targets: Sequence[str] = DEFAULT_TARGETS,
+    kind: FrameKind = FrameKind.BITCODE,
+    name: str = "tsi",
+) -> IFunc:
+    return IFunc.build(
+        name=name,
+        fn=tsi_entry,
+        payload_aval=ShapeDtypeStruct((1,), I32),
+        dep_avals=(ShapeDtypeStruct((1,), I32),),
+        deps=("region:counter",),
+        abi="update",
+        targets=targets,
+        kind=kind,
+    )
+
+
+# ------------------------------------------------------------------- Spawn
+def spawner_entry(payload: torch.Tensor) -> torch.Tensor:
+    """Demo of 'injected code generating new code' (paper Sec. I): arrival
+    spawns a TSI ifunc at peer ``payload[0]`` with increment ``payload[1]``."""
+    return _vec(payload[0], A_SPAWN, payload[0], 1, payload[1])
+
+
+def make_spawner(targets: Sequence[str] = DEFAULT_TARGETS) -> IFunc:
+    return IFunc.build(
+        name="spawner",
+        fn=spawner_entry,
+        payload_aval=ShapeDtypeStruct((2,), I32),
+        deps=("spawn:tsi",),
+        abi="xrdma",
+        targets=targets,
     )

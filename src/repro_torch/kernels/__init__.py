@@ -10,12 +10,19 @@ performs before it loads a slice that names one.
   embed_lookup/  partial row lookup of one vocab shard (the Gatherer's
                  ``cuda-sm90`` resolver); replaces the Pallas one-hot MXU
                  matmul of ``repro.kernels.embed_lookup``
+  chase/         run-to-exit shard-local pointer chase (the Chaser's local
+                 loop in every slice); replaces the Pallas VMEM block sweep
+                 of ``repro.kernels.chase``
 """
 
+from .chase import kernel as _chase_kernel
 from .embed_lookup import kernel as _embed_lookup_kernel
 
 #: every kernel wrapper, by kernel name (each carries a ``launches`` count)
-WRAPPERS = {"embed_lookup": _embed_lookup_kernel.embed_lookup}
+WRAPPERS = {
+    "embed_lookup": _embed_lookup_kernel.embed_lookup,
+    "chase_shard": _chase_kernel.chase_shard,
+}
 
 
 def launch_counts() -> dict[str, int]:

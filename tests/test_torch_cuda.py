@@ -1,4 +1,5 @@
-"""The hand-written kernels on the card, against their plain versions.
+"""The hand-written kernels on the card, against their plain versions, and
+the batched Chaser slice's one launch per group.
 
 Marked ``cuda``: skipped on a host without a Hopper card.  On the card:
 ``PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py``.
@@ -9,6 +10,9 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.core import make_chain, make_chaser
+from repro_torch.core.bitcode import deserialize_and_jit
+from repro_torch.kernels.chase import chase_shard, chase_shard_op, chase_shard_ref
 from repro_torch.kernels.embed_lookup import embed_lookup, embed_lookup_op, embed_lookup_ref
 
 pytestmark = pytest.mark.cuda
@@ -48,3 +52,74 @@ def test_vmap_rule_is_one_launch(card):
     torch.cuda.synchronize()
     assert embed_lookup.launches == before + 1
     assert torch.equal(got.reshape(64, 16), embed_lookup_ref(tab, ids, lo))
+
+
+def _chase_inputs(card, b, n_loc, kind, seed):
+    """A shard of an 8-way chain (most chases leave after about a hop) or a
+    cycle local to the shard (every chase runs its full depth), with
+    frontiers below, inside and above the shard and some depth-0 chases."""
+    rng = np.random.default_rng(seed)
+    if kind == "chain":
+        lo = 3 * n_loc
+        table = make_chain(8 * n_loc, seed=seed)[lo : lo + n_loc]
+        frontier = rng.integers(0, 8 * n_loc, b)
+        frontier[: b // 2] = rng.integers(lo, lo + n_loc, b // 2)
+        depth = rng.integers(0, 65, b)
+    else:
+        lo = 0
+        table = make_chain(n_loc, seed=seed)
+        frontier = rng.integers(0, 2 * n_loc, b)
+        depth = rng.integers(0, 1025, b)
+    if b >= 8:  # the shard's edges; a lone chase stays a real chase
+        frontier[:3], depth[:3] = [lo - 1, lo + n_loc, lo], [5, 5, 0]
+    else:
+        frontier[:], depth[:] = lo + 1, 64
+    as_t = lambda a: torch.from_numpy(np.asarray(a, np.int32)).to(card)
+    return as_t(table), as_t(frontier), as_t(depth), as_t([lo])
+
+
+@pytest.mark.parametrize("kind", ["chain", "cycle"])
+@pytest.mark.parametrize("b", [1, 8, 256, 65_536])
+def test_chase_kernel_matches_plain(card, b, kind):
+    table, frontier, depth, lo = _chase_inputs(card, b, 1 << 16, kind, b)
+    before = chase_shard.launches
+    f, d = chase_shard(table, frontier, depth, lo)
+    torch.cuda.synchronize()
+    assert chase_shard.launches == before + 1
+    f_want, d_want = chase_shard_ref(table, frontier, depth, lo)
+    assert torch.equal(f, f_want) and torch.equal(d, d_want)
+
+
+def test_chase_vmap_rule_is_one_launch(card):
+    table, frontier, depth, lo = _chase_inputs(card, 64, 4096, "chain", 5)
+    before = chase_shard.launches
+    f, d = torch.vmap(chase_shard_op, in_dims=(None, 0, 0, None))(
+        table, frontier.reshape(64, 1), depth.reshape(64, 1), lo
+    )
+    torch.cuda.synchronize()
+    assert chase_shard.launches == before + 1
+    f_want, d_want = chase_shard_ref(table, frontier, depth, lo)
+    assert torch.equal(f.reshape(-1), f_want) and torch.equal(d.reshape(-1), d_want)
+
+
+def test_batched_chaser_slice_is_one_launch(card):
+    """The Chaser's reloaded cuda-sm90 slice under torch.vmap, as the
+    batched runtime dispatches it: one launch for the group, the same
+    action rows as one call per payload."""
+    shard_size, n_servers = 4096, 8
+    table = make_chain(shard_size * n_servers, seed=1)
+    shard = torch.from_numpy(table[shard_size : 2 * shard_size]).to(card)
+    meta = torch.tensor([1, shard_size, n_servers], dtype=torch.int32, device=card)
+    rng = np.random.default_rng(2)
+    pays = np.stack([
+        rng.integers(shard_size, 2 * shard_size, 16), rng.integers(0, 64, 16),
+        np.full(16, n_servers), np.arange(16),
+    ], axis=1).astype(np.int32)
+    pays = torch.from_numpy(pays).to(card)
+    fn, _ = deserialize_and_jit(make_chaser(shard_size).fat.slices["cuda-sm90"], card)
+    before = chase_shard.launches
+    got = torch.vmap(fn, in_dims=(0, None, None))(pays, shard, meta)
+    torch.cuda.synchronize()
+    assert chase_shard.launches == before + 1
+    want = torch.stack([fn(p, shard, meta) for p in pays])
+    assert torch.equal(got, want)
