@@ -1,4 +1,4 @@
-"""Drive the PyTorch port's Gather service and DAPC once on an NVIDIA card.
+"""Drive the PyTorch port's Gather service, DAPC and yi-9b serving once on an NVIDIA card.
 
 Usage: ``python3 chip_smoke.py [--profile DIR]`` from the root of
 a checkout, on a host with one Hopper card (sm_90) and the CUDA toolkit.
@@ -28,15 +28,38 @@ a checkout, on a host with one Hopper card (sm_90) and the CUDA toolkit.
    ``am`` and ``gbpc``).  Before the arms, ``chase_shard`` is held against
    its plain version on one shard of that chain and on a cycle local to
    the shard, at 1, 8, 256 and 65,536 chases.
-6. Times each kernel on the card (device time per call, torch.profiler)
-   beside its plain version, the PyTorch call that computes the same
-   function where there is one, and its bound from bytes moved; logs the
-   back-to-back wall time per call (CUDA events) too.
+6. Times ``embed_lookup`` and ``chase_shard`` on the card (device time per
+   call: CUDA events around calls queued behind a sleep; torch.profiler for
+   the plain versions, which wait for the card inside a call) beside the plain version, the PyTorch call
+   that computes the same function where there is one, and the bound from
+   bytes moved; logs the back-to-back wall time per call too.
+7. Flash kernel phase: ``flash_attention`` against its plain version at
+   yi-9b's prefill (S = T = 1,000 and 2,048) and decode (B = 8, S = 1 on
+   cache views of T = 1, 777, 4,096) shapes and at the five shapes of the
+   JAX kernel sweep, in f32 and bf16, within 2e-5 / 2e-2; each bf16 call
+   also against the plain version on f32 copies of its inputs, within
+   atol 1e-4 and rtol 1e-2 (bf16 output rounding).
+8. Parity phase: a 2-layer yi-9b at full width in f32, one set of weights
+   from seed 0, 128 prompt tokens and 8 teacher-forced decode steps on the
+   card (kernel) and on the CPU (plain version): logits within 1e-3, equal
+   greedy tokens.
+9. Serving phase: full yi-9b (48 layers, bf16, random weights drawn on the
+   card) behind ``ServeScheduler(slots=8, t_max=4096)``: 16 requests with
+   prompts of 256-3,072 tokens, 32 new tokens each, every logit finite,
+   ``flash_attention`` launched 48 x (prefills + decode groups) times; then
+   a profiled decode burst and prefill (busy share, the kernel's share).
+10. ``repro_torch.launch.serve --no-smoke --batch 4 --prompt-len 2048
+   --gen 32``, local and with ``--remote-embed --embed-servers 2``: the two
+   token streams bit-identical, ``embed_lookup`` launched in the remote run.
+11. Times ``flash_attention`` at the prefill (S = T = 2,048) and decode
+   (B = 8, T = 2,048) shapes beside its plain version,
+   ``scaled_dot_product_attention`` and its bound (operations or bytes).
 
 Prints one JSON line of kernel results, then the nvidia-smi line, then
 ``{"ok": true, "device": {...}}`` last.  Any failure exits non-zero with
 no result.  ``--profile DIR`` also writes torch.profiler tables of a short
-batched Gather burst and of the batched DAPC arm to ``DIR``.
+batched Gather burst, of the batched DAPC arm and of the yi-9b decode and
+prefill bursts to ``DIR``.
 """
 
 from __future__ import annotations
@@ -51,14 +74,41 @@ from pathlib import Path
 import numpy as np
 import torch
 from torch.autograd import DeviceType
-from torch.profiler import ProfilerActivity, profile
+from torch.profiler import ProfilerActivity, profile, record_function
 
 ROOT = Path(__file__).resolve().parent
+WINDOW = "chip_smoke_window"  # profiled()'s record_function range
+LAUNCH_APIS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3, NVIDIA data sheet
+BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak, NVIDIA data sheet
 SHARD_ROWS, DIM, N_SERVERS, N_KEYS, MAX_SLOTS = 524_288, 128, 8, 16, 64
 N_REQUESTS = 1024
 DAPC_ENTRIES, DAPC_CHASES, DAPC_DEPTH = 1 << 27, 256, 64
 CHASE_SIZES = (1, 8, 256, 65_536)
+# the JAX flash sweep's shapes (tests/test_kernels.py): b, h, kh, s, t, d, bq, bk, causal, cap
+SWEEP = [
+    (2, 4, 2, 256, 256, 64, 128, 128, True, None),
+    (1, 8, 8, 128, 128, 128, 128, 64, True, 50.0),
+    (2, 4, 1, 256, 512, 32, 64, 256, False, None),
+    (1, 2, 2, 512, 512, 64, 256, 128, True, None),
+    (1, 6, 2, 128, 256, 64, 128, 128, True, 30.0),
+]
+FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}  # the JAX sweep's tolerances
+# A bf16 call also against the plain version run on f32 copies of the same
+# inputs (f32 probabilities, as the kernel keeps them): the two then differ
+# by the kernel's bf16 output rounding, at most 2**-8 of a value (rtol), and
+# f32 summation order, ~1e-6 (atol).  At T = 4,096 the outputs are ~0.026
+# (sqrt(e / T)), which 2e-2 does not resolve; a key tile skipped moves them
+# by ~3e-3.
+FLASH_F32P_ATOL, FLASH_F32P_RTOL = 1e-4, 1e-2
+# f32 card vs CPU over 2 full-width layers: |logit| is O(1) and the two
+# sides sum 4,096- and 11,008-long f32 products in different orders
+PARITY_ATOL, PARITY_PROMPT, PARITY_STEPS = 1e-3, 128, 8
+SERVE_SLOTS, SERVE_T_MAX, SERVE_REQUESTS, SERVE_NEW = 8, 4096, 16, 32
+SERVE_PROMPT_MIN, SERVE_PROMPT_MAX = 256, 3072
+LAUNCH_BATCH, LAUNCH_PROMPT = 4, 2048  # launch.serve's batch and prompt length
+# timed shapes (B, S, T) with yi's H=32, K=4, d=128 in bf16
+FLASH_TIMING = {"prefill": (1, 2048, 2048), "decode": (8, 1, 2048)}
 
 
 def log(*args) -> None:
@@ -73,31 +123,98 @@ def gpu_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def device_ms(fn, arg_sets, reps: int = 200) -> float:
+def profiled(fn, tries: int = 3):
+    """Runs ``fn`` under torch.profiler, with a run of ``fn`` before and one
+    after it in the same trace, and keeps the events of the middle run (a
+    ``record_function`` window): the profiler can lose a few kernels of a
+    trace, for any launch path (ROADMAP T8).  Tries until the window holds
+    a kernel for every kernel launch the host made in it.  Returns
+    ``(prof, window_events, wall_s, whole)``; ``whole`` is False if no try
+    of ``tries`` was whole."""
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+            with record_function(WINDOW):
+                t = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t
+            fn()
+            torch.cuda.synchronize()
+        events = prof.events()
+        mark = next(e for e in events if e.name == WINDOW and e.device_type == DeviceType.CPU)
+        window = [e for e in events
+                  if mark.time_range.start <= e.time_range.start <= mark.time_range.end]
+        kernels = sum(1 for e in window if e.device_type == DeviceType.CUDA
+                      and e.name != WINDOW and not e.name.startswith("Mem"))
+        launches = sum(1 for e in window
+                       if e.device_type == DeviceType.CPU and e.name in LAUNCH_APIS)
+        if kernels >= launches > 0:
+            return prof, window, wall, True
+        log(f"profiled: {kernels} kernels recorded for {launches} launches; again")
+    return prof, window, wall, False
+
+
+def device_ms(fn, arg_sets, reps: int = 50) -> float:
     """Device time per call: the summed duration of every kernel and copy
-    the calls put on the card (torch.profiler), over ``reps`` calls cycling
-    through ``arg_sets`` (distinct id sets, so rows come from HBM, not L2),
-    after warm-up.  Host time between launches is not counted."""
+    the calls put on the card (torch.profiler, :func:`profiled`), over
+    ``reps`` calls cycling through ``arg_sets``, after warm-up; host time
+    between launches is not counted.  For a function that waits for the
+    card inside a call, which :func:`event_ms` cannot time.  Raises unless
+    the profile is whole."""
     for args in arg_sets[:4]:
         fn(*args)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    _, window, _, whole = profiled(
+        lambda: [fn(*arg_sets[i % len(arg_sets)]) for i in range(reps)])
+    if not whole:
+        raise RuntimeError(f"device_ms: no whole profile of {getattr(fn, '__name__', fn)}")
+    return device_us(window) / 1e3 / reps
+
+
+def device_us(events) -> float:
+    """Summed device time of the kernels and copies among ``events``; the
+    device-side span of :func:`profiled`'s window annotation is no work."""
+    return sum(e.device_time_total for e in events
+               if e.device_type == DeviceType.CUDA and e.name != WINDOW)
+
+
+def event_ms(fn, arg_sets, reps: int = 100) -> float:
+    """Device time per call of ``reps`` calls cycling through ``arg_sets``
+    (distinct inputs, so rows come from HBM, not L2), queued behind a sleep
+    kernel (``torch.cuda._sleep``), from one pair of CUDA events around
+    them, after warm-up.  The card is still asleep when the host has queued
+    the last call (checked; the sleep doubles until it is), so the card
+    runs the calls back to back and no host time between launches is
+    counted; the short gaps between the calls' kernels are.  Keep
+    ``reps`` x kernels per call to a few hundred, inside the stream's
+    launch queue."""
+    for args in arg_sets[:4]:
+        fn(*args)
+    torch.cuda.synchronize()
+    cycles = 1 << 24  # ~8 ms at the H100's 1.98 GHz boost clock
+    for _ in range(8):
+        awake, start, end = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+        torch.cuda._sleep(cycles)
+        awake.record()
+        start.record()
         for i in range(reps):
             fn(*arg_sets[i % len(arg_sets)])
-        torch.cuda.synchronize()
-    us = device_us(prof)
-    if us <= 0:
-        raise RuntimeError("the profiler recorded no device time")
-    return us / 1e3 / reps
-
-
-def device_us(prof) -> float:
-    return sum(e.device_time_total for e in prof.events() if e.device_type == DeviceType.CUDA)
+        end.record()
+        queued_in_time = not awake.query()
+        end.synchronize()
+        if queued_in_time:
+            return start.elapsed_time(end) / reps
+        cycles *= 2
+    raise RuntimeError(f"event_ms: the host could not queue {reps} calls of "
+                       f"{getattr(fn, '__name__', fn)} inside the sleep")
 
 
 def call_ms(fn, arg_sets, reps: int = 200) -> float:
-    """Wall time per call of back-to-back calls (CUDA events): the rate the
-    host can issue them, which bounds a launch-sized kernel."""
+    """Wall time per call of back-to-back calls (CUDA events, no sleep
+    ahead): the rate the host can issue them, which bounds a launch-sized
+    kernel."""
     for args in arg_sets[:4]:
         fn(*args)
     torch.cuda.synchronize()
@@ -169,9 +286,9 @@ def time_kernel(dev, rng) -> dict:
     before = embed_lookup.launches
     library = lambda t, i: torch.index_select(t, 0, i)  # yardstick, unused by the port
     out = {
-        "ms": device_ms(embed_lookup, args),
-        "plain_ms": device_ms(embed_lookup_ref, args),
-        "library_ms": device_ms(library, lib_args),
+        "ms": event_ms(embed_lookup, args),
+        "plain_ms": device_ms(embed_lookup_ref, args),  # waits for a host-to-card copy
+        "library_ms": event_ms(library, lib_args),
         "bound_ms": moved / HBM_BYTES_PER_S * 1e3,
         "bound_by": "bytes",
     }
@@ -431,8 +548,8 @@ def time_chase(dev, rng, tables) -> dict:
         hops = torch.stack([depth - chase_shard_ref(*a)[1] for a in args]).long()
         moved = 16 * b + 4 * hops.sum().item() / len(sets)
         out[kind] = {
-            "ms": device_ms(chase_shard, args),
-            "plain_ms": device_ms(chase_shard_ref, args),
+            "ms": event_ms(chase_shard, args),
+            "plain_ms": device_ms(chase_shard_ref, args),  # waits for the card each hop
             "bound_ms": moved / HBM_BYTES_PER_S * 1e3,
             "bound_by": "bytes",
             "library_ms": None,  # no single PyTorch call chases to exit
@@ -444,6 +561,300 @@ def time_chase(dev, rng, tables) -> dict:
         log(f"timing chase_shard {kind} B={b} depth {DAPC_DEPTH}, {moved:.0f} B moved: "
             f"{json.dumps(out[kind])}")
     chase_shard.launches = before  # timing launches are not main-path launches
+    return out
+
+
+# ------------------------------------------------------------ LM serving
+def _flash_case(dev, g, b, s, t, h, kh, d, dtype, t_max=None):
+    """q (B, S, H, d) and k, v as the first T positions of a (B, T_max, K, d)
+    cache (a strided view when T < T_max)."""
+    t_max = t_max or t
+    q = torch.randn(b, s, h, d, generator=g, device=dev).to(dtype)
+    kc = torch.randn(b, t_max, kh, d, generator=g, device=dev).to(dtype)
+    vc = torch.randn(b, t_max, kh, d, generator=g, device=dev).to(dtype)
+    return q, kc[:, :t], vc[:, :t]
+
+
+def flash_kernel_phase(dev) -> dict:
+    """flash_attention on the card against its plain version: yi's prefill
+    (S = T = 1,000 and 2,048) and decode (B = 8, S = 1 on cache views of
+    T = 1, 777 and 4,096 of a 4,096-slot cache) shapes and the five shapes
+    of the JAX kernel sweep (heads-first tensors transposed into the model
+    layout: strided inputs), each in f32 and bf16.  Every call within
+    FLASH_TOL of the plain version in its own dtype; every bf16 call also
+    within FLASH_F32P_* of the plain version on f32 copies of its inputs."""
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref
+
+    g = torch.Generator(dev).manual_seed(3)
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = []
+    for dtype in (f32, bf16):
+        cases += [(f"prefill S=T={n}", (1, n, n, 32, 4, 128, dtype), dict(causal=True))
+                  for n in (1000, 2048)]
+        cases += [(f"decode B=8 T={t}", (8, 1, t, 32, 4, 128, dtype, 4096), dict(causal=True))
+                  for t in (1, 777, 4096)]
+    for b, h, kh, s, t, d, _, _, causal, cap in SWEEP:
+        for dtype in (f32, bf16):
+            cases.append((f"sweep {(b, h, kh, s, t, d)} causal={causal} softcap={cap}",
+                          (b, h, kh, s, t, d, dtype), dict(causal=causal, softcap=cap)))
+    worst = {f32: 0.0, bf16: 0.0, "f32_probs": 0.0}
+    before = flash_attention.launches
+    for label, shape, kw in cases:
+        if label.startswith("sweep"):
+            b, h, kh, s, t, d, dtype = shape
+            q = torch.randn(b, h, s, d, generator=g, device=dev).to(dtype).transpose(1, 2)
+            k = torch.randn(b, kh, t, d, generator=g, device=dev).to(dtype).transpose(1, 2)
+            v = torch.randn(b, kh, t, d, generator=g, device=dev).to(dtype).transpose(1, 2)
+        else:
+            dtype = shape[6]
+            q, k, v = _flash_case(dev, g, *shape)
+        got = flash_attention(q, k, v, **kw).float()
+        want = flash_attention_ref(q, k, v, **kw).float()
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        tol = FLASH_TOL[dtype]
+        line = (f"kernel flash_attention {label} {str(dtype)[6:]}: max_abs_err={err} "
+                f"(within {tol}), plain |out| max {want.abs().max().item()} rms "
+                f"{want.square().mean().sqrt().item()}")
+        if not torch.allclose(got, want, atol=tol, rtol=tol):
+            raise AssertionError(f"flash_attention differs from plain: {line}")
+        worst[dtype] = max(worst[dtype], err)
+        if dtype == bf16:
+            want = flash_attention_ref(q.float(), k.float(), v.float(), **kw)
+            err = (got - want).abs().max().item()
+            line += (f"; against f32 probabilities max_abs_err={err} (within atol "
+                     f"{FLASH_F32P_ATOL}, rtol {FLASH_F32P_RTOL})")
+            if not torch.allclose(got, want, atol=FLASH_F32P_ATOL, rtol=FLASH_F32P_RTOL):
+                raise AssertionError(f"flash_attention differs from plain: {line}")
+            worst["f32_probs"] = max(worst["f32_probs"], err)
+        log(line)
+    flash_attention.launches = before  # checking launches are not main-path launches
+    return {"max_abs_err": max(worst[f32], worst[bf16]), "max_abs_err_f32_probs":
+            worst["f32_probs"]}
+
+
+def parity_phase(dev) -> dict:
+    """A 2-layer yi-9b at full width (d_model 4,096, 32/4 heads, d_ff
+    11,008, vocab 64,000) in f32, one set of weights drawn on the card from
+    seed 0 and copied to the host; a 128-token prompt and 8 teacher-forced
+    decode steps on the card (kernel) and on the CPU (plain version).
+    The logits must agree within PARITY_ATOL and the greedy tokens exactly."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import zoo
+    from repro_torch.models.common import ParamFactory
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # full f32 products on both sides
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = get_config("yi-9b").replace(n_layers=2, dtype=torch.float32)
+    t = time.perf_counter()
+    card_model = zoo.build_params(cfg, 0, device=dev)
+    host_model = zoo.LM(cfg, ParamFactory(0, torch.float32, torch.device("cpu"), fill=False))
+    host_model.load_state_dict(card_model.state_dict())
+    rng = np.random.default_rng(0)
+    prompt = rng.integers(0, cfg.vocab, (2, PARITY_PROMPT)).astype(np.int32)
+    fed = rng.integers(0, cfg.vocab, (2, PARITY_STEPS)).astype(np.int32)
+
+    def run(model, device):
+        t_max = PARITY_PROMPT + PARITY_STEPS
+        cache = zoo.init_kv_cache(cfg, 2, t_max, dtype=cfg.dtype, device=device)
+        logits, _, _ = zoo.forward(cfg, model, {"tokens": torch.from_numpy(prompt).to(device)},
+                                   caches=cache, offset=0)
+        out = [logits[:, -1].float().cpu()]
+        step = zoo.make_serve_step(cfg)
+        for i in range(PARITY_STEPS):
+            tok = torch.from_numpy(fed[:, i : i + 1]).to(device)
+            logits, cache = step(model, cache, tok, PARITY_PROMPT + i)
+            out.append(logits.float().cpu())
+        return torch.stack(out, 1)  # (B, 1 + steps, Vp)
+
+    card = run(card_model, dev)
+    host = run(host_model, torch.device("cpu"))
+    err = (card - host).abs().max().item()
+    same = torch.equal(card.argmax(-1), host.argmax(-1))
+    log(f"parity: 2-layer yi-9b full width f32, prompt {PARITY_PROMPT} + {PARITY_STEPS} "
+        f"teacher-forced steps, card vs CPU logits max_abs_err={err} (tolerance {PARITY_ATOL}), "
+        f"|logit| max {host.abs().max().item()}, greedy tokens equal: {same}, "
+        f"{time.perf_counter() - t:.1f} s")
+    if not (err <= PARITY_ATOL and same and torch.isfinite(card).all()):
+        raise AssertionError("card and CPU logits disagree on the full-width parity model")
+    del card_model, host_model
+    torch.cuda.empty_cache()
+    return {"max_abs_err": err}
+
+
+def _finite(fn):
+    def checked(*args, **kw):
+        logits, cache = fn(*args, **kw)
+        if not torch.isfinite(logits.float()).all():
+            raise AssertionError("non-finite logits on the serving path")
+        return logits, cache
+    return checked
+
+
+def serving_phase(dev, profile_dir: str | None) -> dict:
+    """Full yi-9b (48 layers, bf16, random weights drawn on the card) behind
+    ServeScheduler(slots 8, t_max 4,096): 16 requests with prompts of
+    256-3,072 tokens (default_rng(0)), 32 new tokens each."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import launch_counts, reset_launches
+    from repro_torch.models import zoo
+    from repro_torch.runtime import ServeScheduler
+
+    cfg = get_config("yi-9b")
+    t = time.perf_counter()
+    model = zoo.build_params(cfg, 0, device=dev)
+    torch.cuda.synchronize()
+    log(f"serving: yi-9b {cfg.n_layers} layers d_model {cfg.d_model} bf16, "
+        f"{zoo.param_count(model)} parameters drawn on the card in "
+        f"{time.perf_counter() - t:.1f} s")
+    rng = np.random.default_rng(0)
+    lengths = rng.integers(SERVE_PROMPT_MIN, SERVE_PROMPT_MAX + 1, SERVE_REQUESTS)
+    prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32) for n in lengths]
+    sched = ServeScheduler(cfg, model, slots=SERVE_SLOTS, t_max=SERVE_T_MAX)
+    sched._prefill, sched._step = _finite(sched._prefill), _finite(sched._step)
+    for p in prompts:
+        sched.submit(p, SERVE_NEW)
+    torch.cuda.synchronize()
+    reset_launches()  # the serving path's launches are counted from here
+    t = time.perf_counter()
+    done = sched.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = launch_counts()
+    if len(done) != SERVE_REQUESTS or any(len(r.out) != SERVE_NEW for r in done):
+        raise AssertionError(f"serving: {len(done)} requests done, lengths "
+                             f"{sorted(len(r.out) for r in done)}")
+    want = cfg.n_layers * (sched.prefills + sched.decode_groups)
+    if launches["flash_attention"] != want:
+        raise AssertionError(f"serving: {launches['flash_attention']} flash launches, want "
+                             f"{cfg.n_layers} x ({sched.prefills} + {sched.decode_groups})")
+    ttft = [r.t_first - r.t_submit for r in done]
+    rec = dict(wall_s=wall, prefills=sched.prefills, decode_groups=sched.decode_groups,
+               prompt_tokens=int(lengths.sum()), new_tokens=SERVE_REQUESTS * SERVE_NEW,
+               tok_s=SERVE_REQUESTS * SERVE_NEW / wall, ttft_s_max=max(ttft),
+               flash_launches=launches["flash_attention"])
+    log(f"serving scheduler: {SERVE_REQUESTS} requests x {SERVE_NEW} tokens, all finite, "
+        f"flash launches = {cfg.n_layers} x (prefills + decode groups): {json.dumps(rec)}")
+    rec["burst"] = decode_burst(cfg, model, sched.cache, dev, profile_dir)
+    del sched, model
+    torch.cuda.empty_cache()
+    rec["launches"] = launches
+    return rec
+
+
+def decode_burst(cfg, model, cache, dev, profile_dir: str | None) -> dict:
+    """torch.profiler over 8 decode steps of all 8 slots at position 2,048
+    and over one 2,048-token prefill: the card's busy share of the wall
+    time, and the flash kernel's share of the device time.  Both shares
+    count only when the profile holds every kernel launched (T8, see
+    :func:`profiled`); else they are null, "not measured"."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models import zoo
+
+    before = flash_attention.launches
+    step = zoo.make_serve_step(cfg)
+    n = LAUNCH_PROMPT
+    tok = torch.zeros(SERVE_SLOTS, 1, dtype=torch.int32, device=dev)
+    prompt = {"tokens": torch.zeros(1, n, dtype=torch.int32, device=dev)}
+    prefill = zoo.make_prefill_step(cfg)
+    step(model, cache, tok, n - 8)
+    prefill(model, prompt)
+    torch.cuda.synchronize()
+    out = {}
+    for name, fn in (("decode", lambda: [step(model, cache, tok, n + i) for i in range(8)]),
+                     ("prefill", lambda: prefill(model, prompt))):
+        prof, window, wall, whole = profiled(fn)
+        busy = device_us(window)
+        flash = [e.device_time_total for e in window
+                 if e.device_type == DeviceType.CUDA and "flash_fwd" in e.name]
+        out[name] = dict(
+            wall_ms=wall * 1e3, flash_recorded=len(flash), whole_profile=whole,
+            device_busy_pct=100 * busy / 1e3 / (wall * 1e3) if whole else None,
+            flash_share_pct=100 * sum(flash) / busy if whole else None,
+        )
+        what = f"8 steps of B={SERVE_SLOTS} at T={n}" if name == "decode" else f"B=1 S={n}"
+        log(f"profile {name} ({what}): {json.dumps(out[name])}")
+        if profile_dir:
+            write_profile(prof, wall, Path(profile_dir) / f"lm_{name}_profile.txt",
+                          f"yi-9b {name} burst")
+    flash_attention.launches = before  # profiled launches are not main-path launches
+    return out
+
+
+def launch_serve_phase(dev) -> dict:
+    """repro_torch.launch.serve at full yi-9b: local, then remote-embed over
+    2 embedding servers, same seed; the streams must be bit-identical."""
+    from repro_torch.kernels import launch_counts, reset_launches
+    from repro_torch.launch.serve import serve
+
+    from repro_torch.configs import get_config
+
+    n_layers = get_config("yi-9b").n_layers
+    argv = ["--arch", "yi-9b", "--no-smoke", "--batch", str(LAUNCH_BATCH), "--prompt-len",
+            str(LAUNCH_PROMPT), "--gen", str(SERVE_NEW), "--seed", "0", "--device", str(dev)]
+    runs = {}
+    for name, extra in (("local", []), ("remote", ["--remote-embed", "--embed-servers", "2"])):
+        reset_launches()
+        t = time.perf_counter()
+        rec, toks = serve(argv + extra)
+        torch.cuda.synchronize()
+        launches = launch_counts()
+        rec["wall_s"], rec["launches"] = time.perf_counter() - t, launches
+        runs[name] = (rec, toks)
+        log(f"launch.serve {name}: {json.dumps(rec)}")
+        if launches["flash_attention"] != n_layers * (1 + SERVE_NEW):
+            raise AssertionError(f"launch.serve {name}: {launches} launches")
+        torch.cuda.empty_cache()
+    if not np.array_equal(runs["local"][1], runs["remote"][1]):
+        raise AssertionError("launch.serve: remote-embed stream differs from the local one")
+    if runs["remote"][0]["launches"]["embed_lookup"] == 0:
+        raise AssertionError("launch.serve remote: no embed_lookup launch")
+    log("launch.serve: local and remote-embed token streams bit-identical "
+        f"({runs['local'][1].size} tokens)")
+    return {name: rec for name, (rec, _) in runs.items()}
+
+
+def time_flash(dev) -> dict:
+    """Device time per call at yi's prefill (B=1, S=T=2,048) and decode
+    (B=8, S=1, T=2,048 on views of 4,096-slot caches, 8 cache sets so the
+    268 MB of K/V exceeds the 50 MB L2) shapes, bf16: the kernel's from
+    CUDA events around calls queued behind a sleep (:func:`event_ms`), beside the plain version's and
+    scaled_dot_product_attention's (a yardstick the port never calls) timed
+    the same way, and the bound: the larger of the FLOPs over the bf16 dense
+    tensor-core peak and the bytes (q, k, v read once, out written once)
+    over the HBM rate."""
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    g = torch.Generator(dev).manual_seed(4)
+    before = flash_attention.launches
+    out = {}
+    h, kh, d = 32, 4, 128
+    for name, (b, s, t) in FLASH_TIMING.items():
+        sets = [_flash_case(dev, g, b, s, t, h, kh, d, torch.bfloat16, None if s > 1 else 2 * t)
+                for _ in range(1 if s > 1 else 8)]
+        lib_sets = [tuple(x.transpose(1, 2).contiguous() for x in qkv) for qkv in sets]
+        causal_pairs = s * (s + 1) // 2 if s == t else s * t
+        flops = 4 * b * h * d * causal_pairs
+        moved = 2 * (2 * b * s * h * d + 2 * b * t * kh * d)  # bf16 q, o, k, v
+        bounds = {"operations": flops / BF16_FLOPS * 1e3, "bytes": moved / HBM_BYTES_PER_S * 1e3}
+        bound_by = max(bounds, key=bounds.get)
+        reps = 20 if s > 1 else 200
+        rec = {
+            "ms": event_ms(flash_attention, sets, reps),
+            "plain_ms": event_ms(flash_attention_ref, sets, 20),  # 14 kernels per call
+            "library_ms": event_ms(
+                lambda q, k, v: sdpa(q, k, v, is_causal=s > 1, enable_gqa=True), lib_sets, 20),
+            "bound_ms": bounds[bound_by],
+            "bound_by": bound_by,
+            "flops": flops,
+            "bytes": moved,
+            "call_ms": call_ms(flash_attention, sets, reps),
+        }
+        out[name] = rec
+        log(f"timing flash_attention {name} B={b} S={s} T={t} H={h} K={kh} d={d} bf16: "
+            f"{json.dumps(rec)}")
+    flash_attention.launches = before  # timing launches are not main-path launches
     return out
 
 
@@ -460,7 +871,7 @@ def profile_burst(svc, reqs, out: Path) -> None:
 
 def write_profile(prof, wall: float, path: Path, what: str) -> None:
     events = prof.key_averages()
-    busy_us = device_us(prof)
+    busy_us = device_us(prof.events())
     path.parent.mkdir(parents=True, exist_ok=True)
     path.write_text(
         events.table(sort_by="self_cpu_time_total", row_limit=40)
@@ -488,7 +899,9 @@ def main() -> int:
     log(f"built {sorted(libs)} in {time.perf_counter() - t:.1f} s")
     for name, text in build.build_logs.items():
         for line in text.splitlines():
-            if "registers" in line or "spill" in line or "error" in line.lower():
+            if any(w in line for w in ("registers", "spill", "entry function")) or (
+                "error" in line.lower()
+            ):
                 log(f"ptxas {name}: {line.strip()}")
     rng = np.random.default_rng(0)
     checked = kernel_phase(dev, rng)
@@ -499,6 +912,13 @@ def main() -> int:
     dapc = dapc_phase(app, starts, oracle, args.profile)
     timing = time_kernel(dev, rng)
     chase_timing = time_chase(dev, rng, tables)
+    del app, tables
+    torch.cuda.empty_cache()
+    flash_checked = flash_kernel_phase(dev)
+    flash_timing = time_flash(dev)
+    parity_phase(dev)
+    serving = serving_phase(dev, args.profile)
+    launch_serve_phase(dev)
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [{
         "name": "embed_lookup",
@@ -516,6 +936,17 @@ def main() -> int:
         "launches": dapc["launches"]["chase_shard"],
         "max_abs_err": chase_checked["max_abs_err"],
         **{k: chase_timing["chain"][k] for k in keys},
+    }, {
+        "name": "flash_attention",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention/kernel.py:90",
+        "launches": serving["launches"]["flash_attention"],
+        "max_abs_err": flash_checked["max_abs_err"],
+        "max_abs_err_f32_probs": flash_checked["max_abs_err_f32_probs"],
+        **{k: flash_timing["prefill"][k] for k in keys},
+        "shape": "prefill B=1 S=T=2048 H=32 K=4 d=128 bf16",
+        "decode": {k: flash_timing["decode"][k] for k in keys},
     }]
     print(json.dumps({"kernels": kernels}))
     print(card)

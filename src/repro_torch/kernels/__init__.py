@@ -1,9 +1,10 @@
 """Hand-written Hopper kernels for the port, one package per TPU kernel.
 
 Each package holds ``kernel.py`` (the wrapper that launches the CUDA kernel
-from ``csrc/`` and counts its launches, plus the ``torch.library`` custom
-op a traced ifunc slice calls it through) and ``ref.py`` (the plain PyTorch
-version the wrapper takes for a CPU tensor and the tests compare against).
+from ``csrc/`` and counts its launches, plus, for a kernel that a traced
+ifunc slice calls, the ``torch.library`` custom op it calls it through)
+and ``ref.py`` (the plain PyTorch version the wrapper takes for a CPU
+tensor and the tests compare against).
 Importing this package registers every custom op — the link step a target
 performs before it loads a slice that names one.
 
@@ -13,15 +14,20 @@ performs before it loads a slice that names one.
   chase/         run-to-exit shard-local pointer chase (the Chaser's local
                  loop in every slice); replaces the Pallas VMEM block sweep
                  of ``repro.kernels.chase``
+  flash_attention/  blockwise online-softmax GQA attention (every attention
+                 call of the LM serving path); replaces the Pallas
+                 ``_flash_kernel`` of ``repro.kernels.flash_attention``
 """
 
 from .chase import kernel as _chase_kernel
 from .embed_lookup import kernel as _embed_lookup_kernel
+from .flash_attention import kernel as _flash_attention_kernel
 
 #: every kernel wrapper, by kernel name (each carries a ``launches`` count)
 WRAPPERS = {
     "embed_lookup": _embed_lookup_kernel.embed_lookup,
     "chase_shard": _chase_kernel.chase_shard,
+    "flash_attention": _flash_attention_kernel.flash_attention,
 }
 
 

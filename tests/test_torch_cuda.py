@@ -1,5 +1,6 @@
-"""The hand-written kernels on the card, against their plain versions, and
-the batched Chaser slice's one launch per group.
+"""The hand-written kernels on the card, against their plain versions, the
+batched Chaser slice's one launch per group, and the LM's one flash
+attention launch per layer.
 
 Marked ``cuda``: skipped on a host without a Hopper card.  On the card:
 ``PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py``.
@@ -14,6 +15,7 @@ from repro_torch.core import make_chain, make_chaser
 from repro_torch.core.bitcode import deserialize_and_jit
 from repro_torch.kernels.chase import chase_shard, chase_shard_op, chase_shard_ref
 from repro_torch.kernels.embed_lookup import embed_lookup, embed_lookup_op, embed_lookup_ref
+from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref
 
 pytestmark = pytest.mark.cuda
 
@@ -123,3 +125,68 @@ def test_batched_chaser_slice_is_one_launch(card):
     assert chase_shard.launches == before + 1
     want = torch.stack([fn(p, shard, meta) for p in pays])
     assert torch.equal(got, want)
+
+
+# tolerances of the JAX kernel sweep: f32 to rounding, bf16 to the oracle's
+# bf16 probabilities
+FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+
+
+def _flash_inputs(card, shapes, dtype, seed):
+    g = torch.Generator(card).manual_seed(seed)
+    return [torch.randn(s, generator=g, device=card).to(dtype) for s in shapes]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_flash_prefill_matches_plain(card, dtype):
+    """yi's head layout (32 query heads over 4 KV heads, d 128) at a prompt
+    length no tile divides."""
+    q, k, v = _flash_inputs(card, [(1, 300, 32, 128), (1, 300, 4, 128), (1, 300, 4, 128)],
+                            dtype, 1)
+    before = flash_attention.launches
+    got = flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    want = flash_attention_ref(q, k, v)
+    tol = FLASH_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_flash_decode_on_a_cache_view_matches_plain(card, dtype):
+    """One query per row against the valid prefix of a (B, T_max, K, d)
+    cache, passed as a strided view (no copy)."""
+    q, kc, vc = _flash_inputs(card, [(8, 1, 32, 128), (8, 512, 4, 128), (8, 512, 4, 128)],
+                              dtype, 2)
+    k, v = kc[:, :257], vc[:, :257]
+    assert not k.is_contiguous()
+    before = flash_attention.launches
+    got = flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    want = flash_attention_ref(q, k.contiguous(), v.contiguous())
+    tol = FLASH_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+def test_lm_launches_one_flash_kernel_per_layer(card):
+    """yi smoke on the card: a prefill and each decode step launch the
+    kernel once per layer, and greedy tokens are finite-logit argmaxes."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import zoo
+
+    cfg = get_config("yi-9b", smoke=True)
+    model = zoo.build_params(cfg, 0, device=card)
+    tokens = torch.randint(0, cfg.vocab, (2, 20), device=card, dtype=torch.int32)
+    cache = zoo.init_kv_cache(cfg, 2, 24, dtype=cfg.dtype, device=card)
+    before = flash_attention.launches
+    logits, _, _ = zoo.forward(cfg, model, {"tokens": tokens}, caches=cache, offset=0)
+    assert flash_attention.launches == before + cfg.n_layers
+    step = zoo.make_serve_step(cfg)
+    tok = torch.argmax(logits[:, -1], -1)[:, None].to(torch.int32)
+    for pos in range(20, 24):
+        logits, cache = step(model, cache, tok, pos)
+        tok = torch.argmax(logits, -1)[:, None].to(torch.int32)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 5 * cfg.n_layers
+    assert torch.isfinite(logits.float()).all()

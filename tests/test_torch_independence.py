@@ -43,6 +43,18 @@ def test_importing_the_port_loads_no_jax():
     assert out.returncode == 0, out.stdout + out.stderr
 
 
+def test_importing_the_lm_loads_no_jax():
+    code = (
+        "import sys, repro_torch.configs, repro_torch.models, repro_torch.launch.serve, "
+        "repro_torch.runtime.serving, repro_torch.runtime.tenancy; "
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]; "
+        "print(bad); sys.exit(1 if bad else 0)"
+    )
+    env = {"PYTHONPATH": str(REPO / "src"), "PATH": "/usr/bin:/bin"}
+    out = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True, text=True)
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
 def test_cluster_without_a_card_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
