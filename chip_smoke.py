@@ -1,4 +1,4 @@
-"""Drive the PyTorch port's Gather service, DAPC and yi-9b serving once on an NVIDIA card.
+"""Drive the PyTorch port's Gather service, DAPC, yi-9b and rwkv6-1.6b serving once on an NVIDIA card.
 
 Usage: ``python3 chip_smoke.py [--profile DIR]`` from the root of
 a checkout, on a host with one Hopper card (sm_90) and the CUDA toolkit.
@@ -54,12 +54,27 @@ a checkout, on a host with one Hopper card (sm_90) and the CUDA toolkit.
 11. Times ``flash_attention`` at the prefill (S = T = 2,048) and decode
    (B = 8, T = 2,048) shapes beside its plain version,
    ``scaled_dot_product_attention`` and its bound (operations or bytes).
+12. wkv6 kernel phase: ``wkv6`` against its plain version at rwkv6-1.6b's
+   prefill (B = 1, T = 2,048, H = 32, M = 64) and decode (B = 8, T = 1
+   from a state) shapes, the three shapes of the JAX wkv6 sweep in f32 and
+   bf16, a constant log-decay of -1 and -1.5 per step over T = 2,048 and
+   T = 777 from a state: outputs within 2e-5 of the largest (bf16 also
+   2**-7 of each value), states within 2e-5 of the largest.
+13. Times ``wkv6`` at the prefill and decode shapes beside its plain
+   version and its bound (no PyTorch call computes WKV6).
+14. The parity phase again on a 2-layer rwkv6-1.6b at full width (d_model
+   2,048, 32 WKV heads, d_ff 7,168, vocab 65,536).
+15. The serving phase on full rwkv6-1.6b (24 layers, bf16): the same 16
+   requests, ``wkv6`` launched 24 x (prefills + decode groups) times, and
+   its profiled decode burst and prefill.
+16. ``launch.serve`` at full rwkv6-1.6b, local and remote-embed: streams
+   bit-identical, ``wkv6`` launched 24 x (1 + 32) times in each.
 
 Prints one JSON line of kernel results, then the nvidia-smi line, then
 ``{"ok": true, "device": {...}}`` last.  Any failure exits non-zero with
 no result.  ``--profile DIR`` also writes torch.profiler tables of a short
 batched Gather burst, of the batched DAPC arm and of the yi-9b decode and
-prefill bursts to ``DIR``.
+prefill bursts (``lm_*``; ``rwkv_*`` for rwkv6-1.6b) to ``DIR``.
 """
 
 from __future__ import annotations
@@ -109,10 +124,29 @@ SERVE_PROMPT_MIN, SERVE_PROMPT_MAX = 256, 3072
 LAUNCH_BATCH, LAUNCH_PROMPT = 4, 2048  # launch.serve's batch and prompt length
 # timed shapes (B, S, T) with yi's H=32, K=4, d=128 in bf16
 FLASH_TIMING = {"prefill": (1, 2048, 2048), "decode": (8, 1, 2048)}
+# each LM arch's path kernel: (wrapper name, the CUDA symbol's stem)
+PATH_KERNEL = {"yi-9b": ("flash_attention", "flash"), "rwkv6-1.6b": ("wkv6", "wkv6")}
+F32_FLOPS = 67e12  # H100 SXM f32 peak outside the tensor cores, NVIDIA data sheet
+# wkv6 against its plain version: both run the recurrence in f32 and sum
+# each output's 64 products in other orders, and the state's rounding
+# carries over the steps where the decay is weak; so f32 agrees within
+# WKV_ATOL of the largest output (or 1).  bf16 outputs may round to the
+# other neighbour: one bf16 step, 2**-7 of the value (WKV_BF16_RTOL).  The
+# state is f32 in both dtypes.
+WKV_ATOL, WKV_BF16_RTOL = 2e-5, 2.0**-7
+# the JAX wkv6 sweep (tests/test_kernels.py): b, t, h, m
+WKV_SWEEP = [(2, 128, 2, 64), (1, 256, 4, 64), (2, 64, 1, 128)]
+# rwkv6-1.6b's WKV at the path's shapes: H = 32 heads of M = 64
+WKV_H, WKV_M = 32, 64
 
 
 def log(*args) -> None:
     print(*args, flush=True)
+
+
+def line_prefix(arch: str) -> str:
+    """The rwkv phases' lines name their arch; yi's keep their PR 14 text."""
+    return "" if arch == "yi-9b" else f"{arch} "
 
 
 def gpu_line() -> str:
@@ -633,19 +667,21 @@ def flash_kernel_phase(dev) -> dict:
             worst["f32_probs"]}
 
 
-def parity_phase(dev) -> dict:
-    """A 2-layer yi-9b at full width (d_model 4,096, 32/4 heads, d_ff
-    11,008, vocab 64,000) in f32, one set of weights drawn on the card from
-    seed 0 and copied to the host; a 128-token prompt and 8 teacher-forced
-    decode steps on the card (kernel) and on the CPU (plain version).
-    The logits must agree within PARITY_ATOL and the greedy tokens exactly."""
+def parity_phase(dev, arch: str = "yi-9b") -> dict:
+    """A 2-layer ``arch`` at full width (yi-9b: d_model 4,096, 32/4 heads,
+    d_ff 11,008, vocab 64,000; rwkv6-1.6b: d_model 2,048, 32 WKV heads,
+    d_ff 7,168, vocab 65,536) in f32, one set of weights drawn on the card
+    from seed 0 and copied to the host; a 128-token prompt and 8
+    teacher-forced decode steps on the card (kernel) and on the CPU (plain
+    version).  The logits must agree within PARITY_ATOL and the greedy
+    tokens exactly."""
     from repro_torch.configs import get_config
     from repro_torch.models import zoo
     from repro_torch.models.common import ParamFactory
 
     torch.backends.cuda.matmul.allow_tf32 = False  # full f32 products on both sides
     torch.backends.cudnn.allow_tf32 = False
-    cfg = get_config("yi-9b").replace(n_layers=2, dtype=torch.float32)
+    cfg = get_config(arch).replace(n_layers=2, dtype=torch.float32)
     t = time.perf_counter()
     card_model = zoo.build_params(cfg, 0, device=dev)
     host_model = zoo.LM(cfg, ParamFactory(0, torch.float32, torch.device("cpu"), fill=False))
@@ -671,7 +707,7 @@ def parity_phase(dev) -> dict:
     host = run(host_model, torch.device("cpu"))
     err = (card - host).abs().max().item()
     same = torch.equal(card.argmax(-1), host.argmax(-1))
-    log(f"parity: 2-layer yi-9b full width f32, prompt {PARITY_PROMPT} + {PARITY_STEPS} "
+    log(f"parity: 2-layer {arch} full width f32, prompt {PARITY_PROMPT} + {PARITY_STEPS} "
         f"teacher-forced steps, card vs CPU logits max_abs_err={err} (tolerance {PARITY_ATOL}), "
         f"|logit| max {host.abs().max().item()}, greedy tokens equal: {same}, "
         f"{time.perf_counter() - t:.1f} s")
@@ -691,20 +727,23 @@ def _finite(fn):
     return checked
 
 
-def serving_phase(dev, profile_dir: str | None) -> dict:
-    """Full yi-9b (48 layers, bf16, random weights drawn on the card) behind
-    ServeScheduler(slots 8, t_max 4,096): 16 requests with prompts of
-    256-3,072 tokens (default_rng(0)), 32 new tokens each."""
+def serving_phase(dev, profile_dir: str | None, arch: str = "yi-9b") -> dict:
+    """Full ``arch`` (yi-9b: 48 layers; rwkv6-1.6b: 24 layers; bf16, random
+    weights drawn on the card) behind ServeScheduler(slots 8, t_max 4,096):
+    16 requests with prompts of 256-3,072 tokens (default_rng(0)), 32 new
+    tokens each.  The arch's kernel (PATH_KERNEL) must launch once per
+    layer per prefill and per decode group."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import launch_counts, reset_launches
     from repro_torch.models import zoo
     from repro_torch.runtime import ServeScheduler
 
-    cfg = get_config("yi-9b")
+    cfg = get_config(arch)
+    kernel, short = PATH_KERNEL[arch]
     t = time.perf_counter()
     model = zoo.build_params(cfg, 0, device=dev)
     torch.cuda.synchronize()
-    log(f"serving: yi-9b {cfg.n_layers} layers d_model {cfg.d_model} bf16, "
+    log(f"serving: {arch} {cfg.n_layers} layers d_model {cfg.d_model} bf16, "
         f"{zoo.param_count(model)} parameters drawn on the card in "
         f"{time.perf_counter() - t:.1f} s")
     rng = np.random.default_rng(0)
@@ -725,33 +764,37 @@ def serving_phase(dev, profile_dir: str | None) -> dict:
         raise AssertionError(f"serving: {len(done)} requests done, lengths "
                              f"{sorted(len(r.out) for r in done)}")
     want = cfg.n_layers * (sched.prefills + sched.decode_groups)
-    if launches["flash_attention"] != want:
-        raise AssertionError(f"serving: {launches['flash_attention']} flash launches, want "
+    if launches[kernel] != want:
+        raise AssertionError(f"serving {arch}: {launches[kernel]} {kernel} launches, want "
                              f"{cfg.n_layers} x ({sched.prefills} + {sched.decode_groups})")
     ttft = [r.t_first - r.t_submit for r in done]
     rec = dict(wall_s=wall, prefills=sched.prefills, decode_groups=sched.decode_groups,
                prompt_tokens=int(lengths.sum()), new_tokens=SERVE_REQUESTS * SERVE_NEW,
                tok_s=SERVE_REQUESTS * SERVE_NEW / wall, ttft_s_max=max(ttft),
-               flash_launches=launches["flash_attention"])
-    log(f"serving scheduler: {SERVE_REQUESTS} requests x {SERVE_NEW} tokens, all finite, "
-        f"flash launches = {cfg.n_layers} x (prefills + decode groups): {json.dumps(rec)}")
-    rec["burst"] = decode_burst(cfg, model, sched.cache, dev, profile_dir)
+               **{f"{short}_launches": launches[kernel]})
+    prefix = line_prefix(arch)
+    log(f"{prefix}serving scheduler: {SERVE_REQUESTS} requests x {SERVE_NEW} tokens, all "
+        f"finite, {short} launches = {cfg.n_layers} x (prefills + decode groups): "
+        f"{json.dumps(rec)}")
+    rec["burst"] = decode_burst(cfg, model, sched.cache, dev, profile_dir, arch)
     del sched, model
     torch.cuda.empty_cache()
     rec["launches"] = launches
     return rec
 
 
-def decode_burst(cfg, model, cache, dev, profile_dir: str | None) -> dict:
+def decode_burst(cfg, model, cache, dev, profile_dir: str | None, arch: str = "yi-9b") -> dict:
     """torch.profiler over 8 decode steps of all 8 slots at position 2,048
     and over one 2,048-token prefill: the card's busy share of the wall
-    time, and the flash kernel's share of the device time.  Both shares
+    time, and the path kernel's share of the device time.  Both shares
     count only when the profile holds every kernel launched (T8, see
     :func:`profiled`); else they are null, "not measured"."""
-    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels import WRAPPERS
     from repro_torch.models import zoo
 
-    before = flash_attention.launches
+    kernel, short = PATH_KERNEL[arch]
+    wrapper = WRAPPERS[kernel]
+    before = wrapper.launches
     step = zoo.make_serve_step(cfg)
     n = LAUNCH_PROMPT
     tok = torch.zeros(SERVE_SLOTS, 1, dtype=torch.int32, device=dev)
@@ -765,33 +808,37 @@ def decode_burst(cfg, model, cache, dev, profile_dir: str | None) -> dict:
                      ("prefill", lambda: prefill(model, prompt))):
         prof, window, wall, whole = profiled(fn)
         busy = device_us(window)
-        flash = [e.device_time_total for e in window
-                 if e.device_type == DeviceType.CUDA and "flash_fwd" in e.name]
-        out[name] = dict(
-            wall_ms=wall * 1e3, flash_recorded=len(flash), whole_profile=whole,
-            device_busy_pct=100 * busy / 1e3 / (wall * 1e3) if whole else None,
-            flash_share_pct=100 * sum(flash) / busy if whole else None,
-        )
+        mine = [e.device_time_total for e in window
+                if e.device_type == DeviceType.CUDA and f"{short}_fwd" in e.name]
+        out[name] = {
+            "wall_ms": wall * 1e3, f"{short}_recorded": len(mine), "whole_profile": whole,
+            "device_busy_pct": 100 * busy / 1e3 / (wall * 1e3) if whole else None,
+            f"{short}_share_pct": 100 * sum(mine) / busy if whole else None,
+        }
         what = f"8 steps of B={SERVE_SLOTS} at T={n}" if name == "decode" else f"B=1 S={n}"
-        log(f"profile {name} ({what}): {json.dumps(out[name])}")
+        prefix = line_prefix(arch)
+        log(f"{prefix}profile {name} ({what}): {json.dumps(out[name])}")
         if profile_dir:
-            write_profile(prof, wall, Path(profile_dir) / f"lm_{name}_profile.txt",
-                          f"yi-9b {name} burst")
-    flash_attention.launches = before  # profiled launches are not main-path launches
+            stem = "lm" if arch == "yi-9b" else "rwkv"
+            write_profile(prof, wall, Path(profile_dir) / f"{stem}_{name}_profile.txt",
+                          f"{arch} {name} burst", busy)
+    wrapper.launches = before  # profiled launches are not main-path launches
     return out
 
 
-def launch_serve_phase(dev) -> dict:
-    """repro_torch.launch.serve at full yi-9b: local, then remote-embed over
-    2 embedding servers, same seed; the streams must be bit-identical."""
+def launch_serve_phase(dev, arch: str = "yi-9b") -> dict:
+    """repro_torch.launch.serve at full ``arch``: local, then remote-embed
+    over 2 embedding servers, same seed; the streams must be bit-identical
+    and the arch's kernel launched once per layer per forward."""
+    from repro_torch.configs import get_config
     from repro_torch.kernels import launch_counts, reset_launches
     from repro_torch.launch.serve import serve
 
-    from repro_torch.configs import get_config
-
-    n_layers = get_config("yi-9b").n_layers
-    argv = ["--arch", "yi-9b", "--no-smoke", "--batch", str(LAUNCH_BATCH), "--prompt-len",
+    n_layers = get_config(arch).n_layers
+    kernel, _ = PATH_KERNEL[arch]
+    argv = ["--arch", arch, "--no-smoke", "--batch", str(LAUNCH_BATCH), "--prompt-len",
             str(LAUNCH_PROMPT), "--gen", str(SERVE_NEW), "--seed", "0", "--device", str(dev)]
+    prefix = line_prefix(arch)
     runs = {}
     for name, extra in (("local", []), ("remote", ["--remote-embed", "--embed-servers", "2"])):
         reset_launches()
@@ -801,15 +848,15 @@ def launch_serve_phase(dev) -> dict:
         launches = launch_counts()
         rec["wall_s"], rec["launches"] = time.perf_counter() - t, launches
         runs[name] = (rec, toks)
-        log(f"launch.serve {name}: {json.dumps(rec)}")
-        if launches["flash_attention"] != n_layers * (1 + SERVE_NEW):
-            raise AssertionError(f"launch.serve {name}: {launches} launches")
+        log(f"{prefix}launch.serve {name}: {json.dumps(rec)}")
+        if launches[kernel] != n_layers * (1 + SERVE_NEW):
+            raise AssertionError(f"{prefix}launch.serve {name}: {launches} launches")
         torch.cuda.empty_cache()
     if not np.array_equal(runs["local"][1], runs["remote"][1]):
-        raise AssertionError("launch.serve: remote-embed stream differs from the local one")
+        raise AssertionError(f"{prefix}launch.serve: remote-embed stream differs from the local one")
     if runs["remote"][0]["launches"]["embed_lookup"] == 0:
-        raise AssertionError("launch.serve remote: no embed_lookup launch")
-    log("launch.serve: local and remote-embed token streams bit-identical "
+        raise AssertionError(f"{prefix}launch.serve remote: no embed_lookup launch")
+    log(f"{prefix}launch.serve: local and remote-embed token streams bit-identical "
         f"({runs['local'][1].size} tokens)")
     return {name: rec for name, (rec, _) in runs.items()}
 
@@ -858,6 +905,121 @@ def time_flash(dev) -> dict:
     return out
 
 
+def _wkv_case(dev, g, b, t, h, m, dtype, w_dtype, lam=None, state=False):
+    """r, k, v ~ N(0, 0.25) in ``dtype``; decays from the JAX sweep's domain
+    (log w = -exp(x), x ~ N(-1, 1) clipped to [-6, 1]) or a constant
+    log-decay ``lam`` per step, in ``w_dtype``; u ~ N(0, 0.09) in ``dtype``;
+    an N(0, 0.25) f32 state when ``state``, else None (zeros)."""
+    r, k, v = (0.5 * torch.randn(b, t, h, m, generator=g, device=dev) for _ in range(3))
+    if lam is None:
+        x = (torch.randn(b, t, h, m, generator=g, device=dev) - 1.0).clamp(-6.0, 1.0)
+        w = torch.exp(-torch.exp(x))
+    else:
+        w = torch.full((b, t, h, m), float(np.exp(lam)), device=dev)
+    u = 0.3 * torch.randn(h, m, generator=g, device=dev)
+    s = 0.5 * torch.randn(b, h, m, m, generator=g, device=dev) if state else None
+    return r.to(dtype), k.to(dtype), v.to(dtype), w.to(w_dtype), u.to(dtype), s
+
+
+def wkv6_kernel_phase(dev) -> dict:
+    """wkv6 on the card against its plain version: rwkv6's prefill (B = 1,
+    T = 2,048) and decode (B = 8, T = 1 from a state) shapes with r, k, v, u
+    in bf16 and w in f32 (the model's types) and in f32; the three shapes
+    of the JAX sweep in f32 and bf16 (w in the inputs' type); a constant
+    log-decay of -1 and -1.5 per step over T = 2,048, where the reference's
+    chunk-64 form passes its clamp; and T = 777 from a state.  Outputs
+    within WKV_ATOL of the largest (f32; bf16 also WKV_BF16_RTOL), states
+    within WKV_ATOL."""
+    from repro_torch.kernels.wkv6 import wkv6, wkv6_ref
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # the plain version's einsum in f32
+    g = torch.Generator(dev).manual_seed(5)
+    bf16, f32 = torch.bfloat16, torch.float32
+    h, m = WKV_H, WKV_M
+    cases = [
+        ("prefill B=1 T=2048", (1, 2048, h, m, bf16, f32), {}),
+        ("prefill B=1 T=2048", (1, 2048, h, m, f32, f32), {}),
+        ("decode B=8 T=1", (8, 1, h, m, bf16, f32), dict(state=True)),
+        ("decode B=8 T=1", (8, 1, h, m, f32, f32), dict(state=True)),
+        ("log-decay -1 B=1 T=2048", (1, 2048, h, m, f32, f32), dict(lam=-1.0)),
+        ("log-decay -1.5 B=1 T=2048", (1, 2048, h, m, f32, f32), dict(lam=-1.5)),
+        ("ragged B=2 T=777", (2, 777, h, m, f32, f32), dict(state=True)),
+        ("ragged B=2 T=777", (2, 777, h, m, bf16, f32), dict(state=True)),
+    ]
+    for b, t, hh, mm in WKV_SWEEP:
+        cases += [(f"sweep {(b, t, hh, mm)}", (b, t, hh, mm, dt, dt), {}) for dt in (f32, bf16)]
+    worst = {f32: 0.0, bf16: 0.0, "state": 0.0}
+    before = wkv6.launches
+    for label, shape, kw in cases:
+        dtype = shape[4]
+        args = _wkv_case(dev, g, *shape, **kw)
+        (out, state), (want, want_state) = wkv6(*args), wkv6_ref(*args)
+        torch.cuda.synchronize()
+        scale = max(1.0, want.float().abs().max().item())
+        rtol = WKV_BF16_RTOL if dtype == bf16 else 0.0
+        err = (out.float() - want.float()).abs().max().item()
+        s_scale = max(1.0, want_state.abs().max().item())
+        s_err = (state - want_state).abs().max().item()
+        line = (f"kernel wkv6 {label} {str(dtype)[6:]} (w {str(shape[5])[6:]}): "
+                f"max_abs_err={err} (within {WKV_ATOL} x {scale} + {rtol} |out|), "
+                f"state max_abs_err={s_err} (within {WKV_ATOL} x {s_scale}), "
+                f"plain |out| max {want.float().abs().max().item()}")
+        if not (torch.allclose(out.float(), want.float(), atol=WKV_ATOL * scale, rtol=rtol)
+                and s_err <= WKV_ATOL * s_scale and out.dtype == want.dtype):
+            raise AssertionError(f"wkv6 differs from plain: {line}")
+        worst[dtype] = max(worst[dtype], err)
+        worst["state"] = max(worst["state"], s_err)
+        log(line)
+    wkv6.launches = before  # checking launches are not main-path launches
+    log(f"kernel wkv6: worst f32 {worst[f32]}, bf16 {worst[bf16]}, state {worst['state']}")
+    return {"max_abs_err": max(worst.values())}
+
+
+def time_wkv6(dev) -> dict:
+    """Device time per call at rwkv6's prefill (B = 1, T = 2,048, H = 32,
+    M = 64; two input sets, 84 MB, beyond the 50 MB L2) and decode (B = 8,
+    T = 1 from a state; 16 state sets, 67 MB) shapes, r, k, v, u in bf16
+    and w in f32: the kernel's from CUDA events around calls queued behind
+    a sleep (:func:`event_ms`).  The plain version's decode the same way;
+    its prefill launches ~10 kernels a step (20,000 a call), more than the
+    launch queue holds behind a sleep, so it is timed by CUDA events around
+    back-to-back calls (:func:`call_ms`): its host issue time counts.  The
+    bound: the larger of the operations (per state entry and step the r^T S
+    product, 2, and the decay-and-add, 3; 4 M per step for the bonus) over
+    the f32 peak, and the bytes (r, k, v, w, u, the state in read once; out
+    and the state out written once) over the HBM rate.  No PyTorch call
+    computes the WKV6 recurrence: library_ms is null."""
+    from repro_torch.kernels.wkv6 import wkv6, wkv6_ref
+
+    g = torch.Generator(dev).manual_seed(6)
+    before = wkv6.launches
+    out = {}
+    h, m = WKV_H, WKV_M
+    for name, (b, t, n_sets, state) in {"prefill": (1, 2048, 2, False),
+                                        "decode": (8, 1, 16, True)}.items():
+        sets = [_wkv_case(dev, g, b, t, h, m, torch.bfloat16, torch.float32, state=state)
+                for _ in range(n_sets)]
+        flops = b * t * h * (5 * m * m + 4 * m)
+        moved = b * t * h * m * (3 * 2 + 4 + 2) + h * m * 2 + b * h * m * m * 4 * (1 + state)
+        bounds = {"operations": flops / F32_FLOPS * 1e3, "bytes": moved / HBM_BYTES_PER_S * 1e3}
+        bound_by = max(bounds, key=bounds.get)
+        rec = {
+            "ms": event_ms(wkv6, sets, 20 if t > 1 else 200),
+            "plain_ms": call_ms(wkv6_ref, sets, 2) if t > 1 else event_ms(wkv6_ref, sets, 20),
+            "plain_timed_by": "call_ms" if t > 1 else "event_ms",
+            "library_ms": None,  # no PyTorch call computes the WKV6 recurrence
+            "bound_ms": bounds[bound_by],
+            "bound_by": bound_by,
+            "flops": flops,
+            "bytes": moved,
+            "call_ms": call_ms(wkv6, sets, 20 if t > 1 else 200),
+        }
+        out[name] = rec
+        log(f"timing wkv6 {name} B={b} T={t} H={h} M={m} bf16 (w f32): {json.dumps(rec)}")
+    wkv6.launches = before  # timing launches are not main-path launches
+    return out
+
+
 def profile_burst(svc, reqs, out: Path) -> None:
     """torch.profiler over one batched burst; its tables go to ``out``."""
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -869,9 +1031,12 @@ def profile_burst(svc, reqs, out: Path) -> None:
                   f"batched burst of {len(reqs)} requests")
 
 
-def write_profile(prof, wall: float, path: Path, what: str) -> None:
+def write_profile(prof, wall: float, path: Path, what: str, busy_us: float | None = None) -> None:
+    """The profile's tables to ``path``; the busy share is ``busy_us`` (the
+    device time of the run ``wall`` timed; default: the whole trace's)."""
     events = prof.key_averages()
-    busy_us = device_us(prof.events())
+    if busy_us is None:
+        busy_us = device_us(prof.events())
     path.parent.mkdir(parents=True, exist_ok=True)
     path.write_text(
         events.table(sort_by="self_cpu_time_total", row_limit=40)
@@ -919,6 +1084,11 @@ def main() -> int:
     parity_phase(dev)
     serving = serving_phase(dev, args.profile)
     launch_serve_phase(dev)
+    wkv_checked = wkv6_kernel_phase(dev)
+    wkv_timing = time_wkv6(dev)
+    parity_phase(dev, "rwkv6-1.6b")
+    rwkv_serving = serving_phase(dev, args.profile, "rwkv6-1.6b")
+    launch_serve_phase(dev, "rwkv6-1.6b")
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [{
         "name": "embed_lookup",
@@ -947,6 +1117,16 @@ def main() -> int:
         **{k: flash_timing["prefill"][k] for k in keys},
         "shape": "prefill B=1 S=T=2048 H=32 K=4 d=128 bf16",
         "decode": {k: flash_timing["decode"][k] for k in keys},
+    }, {
+        "name": "wkv6",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/wkv6.cu",
+        "replaces": "src/repro/kernels/wkv6/kernel.py:91",
+        "launches": rwkv_serving["launches"]["wkv6"],
+        "max_abs_err": wkv_checked["max_abs_err"],
+        **{k: wkv_timing["prefill"][k] for k in keys},
+        "shape": "prefill B=1 T=2048 H=32 M=64 bf16 (w f32)",
+        "decode": {k: wkv_timing["decode"][k] for k in keys},
     }]
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -17,17 +17,22 @@ performs before it loads a slice that names one.
   flash_attention/  blockwise online-softmax GQA attention (every attention
                  call of the LM serving path); replaces the Pallas
                  ``_flash_kernel`` of ``repro.kernels.flash_attention``
+  wkv6/          the RWKV-6 time-mix recurrence, step by step (every WKV
+                 call of the rwkv serving path); replaces the Pallas chunked
+                 ``_wkv6_kernel`` of ``repro.kernels.wkv6``
 """
 
 from .chase import kernel as _chase_kernel
 from .embed_lookup import kernel as _embed_lookup_kernel
 from .flash_attention import kernel as _flash_attention_kernel
+from .wkv6 import kernel as _wkv6_kernel
 
 #: every kernel wrapper, by kernel name (each carries a ``launches`` count)
 WRAPPERS = {
     "embed_lookup": _embed_lookup_kernel.embed_lookup,
     "chase_shard": _chase_kernel.chase_shard,
     "flash_attention": _flash_attention_kernel.flash_attention,
+    "wkv6": _wkv6_kernel.wkv6,
 }
 
 

@@ -1,8 +1,8 @@
 """Serving launcher: batched prefill + greedy decode loop.
 
-``python -m repro_torch.launch.serve --arch yi-9b [--no-smoke] --batch 4
---prompt-len 64 --gen 32 [--remote-embed --embed-servers 2]`` prefills a
-batch of random prompts and decodes greedily, printing one JSON line with
+``python -m repro_torch.launch.serve --arch yi-9b|rwkv6-1.6b [--no-smoke]
+--batch 4 --prompt-len 64 --gen 32 [--remote-embed --embed-servers 2]``
+prefills a batch of random prompts and decodes greedily, printing one JSON line with
 the prefill and decode throughput (the keys of ``repro.launch.serve``).
 It runs on the card; ``--device cpu`` runs it on the host.  With
 ``--remote-embed`` the tokens' embedding rows come from an embedding-shard

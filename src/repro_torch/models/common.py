@@ -27,8 +27,9 @@ def pad_vocab(v: int) -> int:
 @dataclass(frozen=True)
 class ModelConfig:
     """One architecture; the fields of ``repro.models.common.ModelConfig``,
-    with ``dtype`` a ``torch.dtype``.  The port runs the dense family
-    (``repro_torch.models.zoo.LM`` refuses what it does not run yet)."""
+    with ``dtype`` a ``torch.dtype``.  The port runs the dense and rwkv
+    families (``repro_torch.models.zoo.LM`` refuses what it does not run
+    yet)."""
 
     name: str = "tiny"
     family: str = "dense"  # dense | moe | rwkv | hybrid | encdec

@@ -1,13 +1,16 @@
-"""The dense decoder stack: GQA attention + SwiGLU MLP per block.
+"""The decoder stack: dense blocks (GQA attention + SwiGLU MLP) and RWKV6
+blocks.
 
-The counterpart of the dense family of ``repro.models.transformer``.  The
-JAX package stacks layers on a leading axis and scans them; the port holds
-one ``DenseBlock`` module per layer and loops over them.  The same
-``run_blocks`` serves a full sequence (no cache), prefill (cache written
-from offset 0) and decode (cache written at the offset, attention over the
-cache's valid prefix).  Every attention call is one launch of the
-``flash_attention`` kernel on the card.  The MoE, hybrid, RWKV and
-encoder-decoder families wait for their slices (ROADMAP.md section 1).
+The counterpart of the dense and rwkv families of
+``repro.models.transformer``.  The JAX package stacks layers on a leading
+axis and scans them; the port holds one block module per layer and loops
+over them.  The same ``run_blocks`` serves a full sequence (no cache),
+prefill (cache written from offset 0) and decode (cache written at the
+offset).  A dense block's attention is one launch of the
+``flash_attention`` kernel on the card, over the cache's valid prefix; an
+RWKV block's WKV is one launch of the ``wkv6`` kernel, from the layer's
+state.  The MoE, hybrid and encoder-decoder families wait for their
+slices (ROADMAP.md section 1).
 """
 
 from __future__ import annotations
@@ -19,14 +22,15 @@ from torch import nn
 from ..kernels.flash_attention import flash_attention
 from .attention import qkv_proj, update_kv_cache
 from .common import ModelConfig, ParamFactory, mlp, rms_norm, rope
+from .rwkv import RWKVBlock, rwkv_block
 
 
-def require_dense(cfg: ModelConfig) -> None:
+def require_ported(cfg: ModelConfig) -> None:
     """Refuse what the port's stack does not run yet, naming its slice."""
-    if cfg.family != "dense" or cfg.is_encdec:
+    if cfg.family not in ("dense", "rwkv") or cfg.is_encdec:
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family} family is not ported yet "
-            "(ROADMAP.md section 1: rwkv6 and hymba are the next slices)"
+            "(ROADMAP.md section 1: hymba is the next slice)"
         )
     if cfg.frontend is not None:
         raise NotImplementedError(f"{cfg.name}: modality frontends are not ported yet (ROADMAP.md)")
@@ -107,15 +111,27 @@ def attn_sublayer(
 
 def block_apply(
     x: torch.Tensor,
-    p: DenseBlock,
+    p: DenseBlock | RWKVBlock,
     cfg: ModelConfig,
     *,
     pos: torch.Tensor,
-    cache: tuple[torch.Tensor, torch.Tensor] | None,
+    cache: tuple[torch.Tensor, torch.Tensor] | dict[str, torch.Tensor] | None,
     offset: int,
     rows: torch.Tensor | None = None,
 ) -> torch.Tensor:
-    """One dense decoder block; the cache (if any) is updated in place."""
+    """One decoder block; the cache (if any) is updated in place, only
+    batch ``rows`` of it when given.  A dense block's cache is its layer's
+    (K, V); an RWKV block's is its layer's ``tm_shift``, ``cm_shift`` and
+    ``wkv`` state, which the block reads and replaces."""
+    if cfg.family == "rwkv":
+        x, new = rwkv_block(x, p, cfg, cache)
+        if cache is not None:
+            for name, leaf in cache.items():
+                if rows is None:
+                    leaf.copy_(new[name])
+                else:
+                    leaf[rows] = new[name][rows].to(leaf.dtype)
+        return x
     h = rms_norm(x, p.ln1, cfg.norm_eps)
     x = x + attn_sublayer(h, p, cfg, pos=pos, cache=cache, offset=offset, rows=rows)
     h = rms_norm(x, p.ln2, cfg.norm_eps)
@@ -140,11 +156,16 @@ def run_blocks(
     x: torch.Tensor,
     *,
     pos: torch.Tensor,
-    caches: dict[str, torch.Tensor] | None = None,  # {"k", "v"}: (L, B, T, K, hd)
+    caches: dict[str, torch.Tensor] | None = None,  # (L, B, ...) leaves, init_kv_cache's
     offset: int = 0,
     rows: torch.Tensor | None = None,
 ) -> torch.Tensor:
     for layer, p in enumerate(blocks):
-        cache = None if caches is None else (caches["k"][layer], caches["v"][layer])
+        if caches is None:
+            cache = None
+        elif cfg.family == "rwkv":
+            cache = {name: leaf[layer] for name, leaf in caches.items()}
+        else:
+            cache = (caches["k"][layer], caches["v"][layer])
         x = block_apply(x, p, cfg, pos=pos, cache=cache, offset=offset, rows=rows)
     return x

@@ -1,12 +1,13 @@
 """Model zoo: build the weights, forward, and the prefill/serve steps.
 
-The counterpart of ``repro.models.zoo`` for the dense family:
+The counterpart of ``repro.models.zoo`` for the dense and rwkv families:
 
 * ``build_params(cfg, seed, device=...)``   -> ``LM`` (weights on the device)
 * ``from_jax_params(cfg, flat, device=...)`` -> ``LM`` holding the JAX
   package's flat weights (``"blocks.wq"`` stacked ``(L, D, q_dim)`` and so on)
 * ``make_batch(cfg, shape, seed)``          -> random token batch (numpy seed)
-* ``init_kv_cache(cfg, batch, t_max)``      -> ``{"k", "v"}``, ``(L, B, T, K, hd)``
+* ``init_kv_cache(cfg, batch, t_max)``      -> dense ``{"k", "v"}``, ``(L, B, T, K, hd)``;
+  rwkv ``{"tm_shift", "cm_shift", "wkv"}``
 * ``make_prefill_step(cfg)``                -> (model, batch) -> (logits, cache)
 * ``make_serve_step(cfg)``                  -> (model, cache, tok, pos) -> (logits, cache)
 
@@ -28,7 +29,8 @@ from torch import nn
 from ..core.bitcode import resolve_device
 from .common import ModelConfig, ParamFactory, rms_norm, softcap
 from .embedding import embed_plain, lm_head
-from .transformer import DenseBlock, require_dense, run_blocks
+from .rwkv import RWKVBlock
+from .transformer import DenseBlock, require_ported, run_blocks
 
 
 # ------------------------------------------------------------------- shapes
@@ -43,15 +45,17 @@ class ShapeSpec:
 
 # ------------------------------------------------------------------- params
 class LM(nn.Module):
-    """A dense decoder LM's weights; parameter names follow the JAX flat
-    dict (``embed.tok``, ``blocks.<layer>.wq``, ``final_ln``, ``head.w``)."""
+    """A decoder LM's weights; parameter names follow the JAX flat dict
+    (``embed.tok``, ``blocks.<layer>.wq`` or ``blocks.<layer>.tm.wr``,
+    ``final_ln``, ``head.w``)."""
 
     def __init__(self, cfg: ModelConfig, f: ParamFactory) -> None:
         super().__init__()
-        require_dense(cfg)
+        require_ported(cfg)
         self.embed = nn.Module()
         self.embed.tok = f.new((cfg.vocab_padded, cfg.d_model), scale=0.02)
-        self.blocks = nn.ModuleList(DenseBlock(cfg, f) for _ in range(cfg.n_layers))
+        block = RWKVBlock if cfg.family == "rwkv" else DenseBlock
+        self.blocks = nn.ModuleList(block(cfg, f) for _ in range(cfg.n_layers))
         self.final_ln = f.new((cfg.d_model,), "zeros")
         if not cfg.tie_embeddings:
             self.head = nn.Module()
@@ -149,9 +153,19 @@ def init_kv_cache(
     cfg: ModelConfig, batch: int, t_max: int, dtype: torch.dtype = torch.bfloat16,
     device: "torch.device | str | None" = None,
 ) -> dict[str, torch.Tensor]:
-    """The dense family's cache: ``k`` and ``v`` of ``(L, B, T, K, hd)``."""
-    require_dense(cfg)
+    """The dense family's cache: ``k`` and ``v`` of ``(L, B, T, K, hd)``.
+    The rwkv family's state, whatever ``t_max``: ``tm_shift`` and
+    ``cm_shift`` of ``(L, B, 1, D)`` in ``dtype`` and ``wkv`` of
+    ``(L, B, H, M, M)`` in f32."""
+    require_ported(cfg)
     dev = resolve_device(device)
+    if cfg.family == "rwkv":
+        L, D, m = cfg.n_layers, cfg.d_model, cfg.rwkv_head_dim
+        return {
+            "tm_shift": torch.zeros((L, batch, 1, D), dtype=dtype, device=dev),
+            "cm_shift": torch.zeros((L, batch, 1, D), dtype=dtype, device=dev),
+            "wkv": torch.zeros((L, batch, D // m, m, m), dtype=torch.float32, device=dev),
+        }
     shape = (cfg.n_layers, batch, t_max, cfg.n_kv_heads, cfg.head_dim)
     return {
         "k": torch.zeros(shape, dtype=dtype, device=dev),
@@ -174,7 +188,8 @@ def make_batch(
 
 # -------------------------------------------------------------------- steps
 def make_prefill_step(cfg: ModelConfig) -> Callable:
-    """Fill a prompt-length cache from the prompt; logits for the last token."""
+    """Fill a prompt-length cache (the rwkv state) from the prompt; logits
+    for the last token."""
 
     def prefill_step(model: LM, batch: dict):
         b, s = batch["tokens"].shape
@@ -188,14 +203,16 @@ def make_prefill_step(cfg: ModelConfig) -> Callable:
 
 
 def make_serve_step(cfg: ModelConfig) -> Callable:
-    """One decode step: next-token logits, the cache written at ``pos``.
+    """One decode step: next-token logits, the cache written at ``pos`` (the
+    rwkv state replaced).
 
     The one step covers both of the JAX package's variants: given
     ``token_rows`` (``(B, S, D)``, the tokens' embedding rows gathered by
     :class:`repro_torch.runtime.tenancy.RemoteEmbedClient`), it takes them
     instead of looking the tokens up (the serving-tier mode).  ``rows``
-    (keyword) limits the cache write to those batch rows, for a scheduler
-    that decodes one position group at a time."""
+    (keyword) limits the cache write to those batch rows (every state leaf
+    of an rwkv cache), for a scheduler that decodes one position group at
+    a time."""
 
     def serve_step(
         model: LM, cache: Any, tokens: torch.Tensor, pos: int,

@@ -2,14 +2,16 @@
 
 The counterpart of ``repro.runtime.serving``.  A fixed decode batch of
 ``slots`` rides one serve step; requests are admitted into free slots as
-others complete.  Admission runs a single-sequence prefill and writes the
-prompt's K/V into the slot's stripe of the shared cache.  A tick decodes
-one group per distinct position (the step's offset is one number), and
-each group's step writes the cache rows of that group only: the cache is
-updated in place, so writing every row would overwrite the neighbours'
-history at that position (the JAX scheduler merges the old rows back
-instead).  Every attention call of a prefill or a group is one launch of
-the ``flash_attention`` kernel on the card, one per layer.
+others complete.  Admission runs a single-sequence prefill and writes its
+cache into the slot's stripe of the shared cache: the prompt's K/V for the
+dense family, the recurrent state for rwkv.  A tick decodes one group per
+distinct position (the step's offset is one number), and each group's
+step writes the cache rows of that group only: the cache is updated in
+place, so writing every row would overwrite the neighbours' history at
+that position, or advance their rwkv state by a token they did not take
+(the JAX scheduler merges the old rows back instead).  Every attention
+call of a prefill or a group is one launch of the ``flash_attention``
+kernel on the card, one per layer; every WKV call one of ``wkv6``.
 """
 
 from __future__ import annotations
@@ -80,9 +82,12 @@ class ServeScheduler:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
 
     def _write_slot(self, slot: int, cache1: dict[str, torch.Tensor]) -> None:
-        """Copy a 1-batch prompt cache into slot ``slot`` of the shared cache
-        (dim 1 is batch for every leaf: (L, B, T, ...)).  Positions past the
-        prompt keep stale values; no step reads a position before writing it."""
+        """Copy a 1-batch prompt cache into slot ``slot`` of the shared cache,
+        leaf by leaf whatever its shape (dim 1 is batch for every leaf).  A
+        K/V leaf (L, B, T, K, hd) takes the prompt's positions, and positions
+        past the prompt keep stale values (no step reads a position before
+        writing it); a state leaf (rwkv's ``tm_shift``, ``cm_shift``,
+        ``wkv``) is the same size in both and is copied whole."""
         for name, full in self.cache.items():
             one = cache1[name]
             full[:, slot, : one.shape[2]] = one[:, 0]

@@ -16,6 +16,7 @@ from repro_torch.core.bitcode import deserialize_and_jit
 from repro_torch.kernels.chase import chase_shard, chase_shard_op, chase_shard_ref
 from repro_torch.kernels.embed_lookup import embed_lookup, embed_lookup_op, embed_lookup_ref
 from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref
+from repro_torch.kernels.wkv6 import wkv6, wkv6_ref
 
 pytestmark = pytest.mark.cuda
 
@@ -190,3 +191,102 @@ def test_lm_launches_one_flash_kernel_per_layer(card):
     torch.cuda.synchronize()
     assert flash_attention.launches == before + 5 * cfg.n_layers
     assert torch.isfinite(logits.float()).all()
+
+
+# The kernel and the plain version both run the recurrence in f32 and sum
+# each output's M products in other orders; the state's rounding carries
+# over the steps where the decay is weak.  So f32 agrees within WKV_ATOL of
+# the largest output (or 1); bf16 outputs may also round to the other
+# neighbour, one bf16 step: 2**-7 of the value.
+WKV_ATOL = 2e-5
+WKV_RTOL = {torch.float32: 0.0, torch.bfloat16: 2.0**-7}
+
+
+def _wkv_inputs(card, b, t, h, m, dtype, w_dtype, seed, lam=None, state=False):
+    """r, k, v ~ N(0, 0.25), u ~ N(0, 0.09), and decays from the JAX sweep's
+    domain (log w = -exp(x), x ~ N(-1, 1) clipped to [-6, 1]) or a constant
+    log-decay ``lam`` per step; an N(0, 0.25) state in when ``state``."""
+    rng = np.random.default_rng(seed)
+    r, k, v = (rng.standard_normal((b, t, h, m)).astype(np.float32) * 0.5 for _ in range(3))
+    if lam is None:
+        w = np.exp(-np.exp(np.clip(rng.standard_normal((b, t, h, m)) - 1.0, -6.0, 1.0)))
+    else:
+        w = np.full((b, t, h, m), np.exp(lam))
+    u = rng.standard_normal((h, m)) * 0.3
+    s = rng.standard_normal((b, h, m, m)) * 0.5 if state else None
+    on = lambda a, dt: torch.from_numpy(np.asarray(a, np.float32)).to(dt).to(card)
+    return ([on(x, dtype) for x in (r, k, v)] + [on(w, w_dtype), on(u, dtype)]
+            + [None if s is None else on(s, torch.float32)])
+
+
+def _wkv_close(got, want):
+    (o, s), (o_want, s_want) = got, want
+    for x, ref in ((o, o_want), (s, s_want)):
+        assert x.dtype == ref.dtype and x.shape == ref.shape
+        scale = max(1.0, ref.float().abs().max().item())
+        torch.testing.assert_close(x.float(), ref.float(), atol=WKV_ATOL * scale,
+                                   rtol=WKV_RTOL[x.dtype])
+
+
+@pytest.mark.parametrize("case", [
+    # (b, t, h, m, dtype, w dtype, log-decay, state in)
+    ("prefill", 1, 2048, 32, 64, torch.bfloat16, torch.float32, None, False),
+    ("prefill_f32", 1, 512, 32, 64, torch.float32, torch.float32, None, False),
+    ("decode", 8, 1, 32, 64, torch.bfloat16, torch.float32, None, True),
+    ("decode_f32", 8, 1, 32, 64, torch.float32, torch.float32, None, True),
+    ("decay_-1", 1, 256, 2, 64, torch.float32, torch.float32, -1.0, False),
+    ("decay_-1.5", 1, 256, 2, 64, torch.float32, torch.float32, -1.5, False),
+    ("ragged_777", 2, 777, 4, 64, torch.float32, torch.float32, None, True),
+    ("ragged_37_bf16_w", 2, 37, 4, 64, torch.bfloat16, torch.bfloat16, None, True),
+    ("sweep_m128", 2, 64, 1, 128, torch.bfloat16, torch.bfloat16, None, False),
+    ("m32", 2, 64, 2, 32, torch.float32, torch.float32, None, True),
+], ids=lambda c: c[0])
+def test_wkv6_kernel_matches_plain(card, case):
+    _, b, t, h, m, dtype, w_dtype, lam, state = case
+    args = _wkv_inputs(card, b, t, h, m, dtype, w_dtype, t + m, lam, state)
+    before = wkv6.launches
+    got = wkv6(*args)
+    torch.cuda.synchronize()
+    assert wkv6.launches == before + 1
+    _wkv_close(got, wkv6_ref(*args))
+
+
+def test_rwkv_launches_one_wkv6_kernel_per_layer(card):
+    """rwkv6 smoke on the card: a prefill and each decode step launch the
+    kernel once per layer; a step limited to one row leaves the other row's
+    state as it was."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import zoo
+
+    cfg = get_config("rwkv6-1.6b", smoke=True)
+    model = zoo.build_params(cfg, 0, device=card)
+    tokens = torch.randint(0, cfg.vocab, (2, 20), device=card, dtype=torch.int32)
+    cache = zoo.init_kv_cache(cfg, 2, 24, dtype=cfg.dtype, device=card)
+    before = wkv6.launches
+    logits, _, _ = zoo.forward(cfg, model, {"tokens": tokens}, caches=cache, offset=0)
+    assert wkv6.launches == before + cfg.n_layers
+    step = zoo.make_serve_step(cfg)
+    tok = torch.argmax(logits[:, -1], -1)[:, None].to(torch.int32)
+    for pos in range(20, 23):
+        logits, cache = step(model, cache, tok, pos)
+        tok = torch.argmax(logits, -1)[:, None].to(torch.int32)
+    kept = {name: leaf[:, 0].clone() for name, leaf in cache.items()}
+    step(model, cache, tok, 23, rows=torch.tensor([1], device=card))
+    torch.cuda.synchronize()
+    assert wkv6.launches == before + 5 * cfg.n_layers
+    assert torch.isfinite(logits.float()).all()
+    for name, leaf in cache.items():
+        assert torch.equal(leaf[:, 0], kept[name]), name
+
+
+@pytest.mark.parametrize("case", ["head_size", "strided"])
+def test_wkv6_kernel_refuses_what_it_does_not_take(card, case):
+    """A head size with no instance, and operands that are not contiguous."""
+    m = 48 if case == "head_size" else 64
+    r, k, v, w, u, _ = _wkv_inputs(card, 1, 8, 2, m, torch.float32, torch.float32, 0)
+    if case == "strided":
+        r = torch.cat([r, r], dim=1)[:, ::2]
+    before = wkv6.launches
+    with pytest.raises(ValueError):
+        wkv6(r, k, v, w, u)
+    assert wkv6.launches == before

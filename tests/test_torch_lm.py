@@ -57,17 +57,18 @@ def test_yi_config_equals_jax(smoke):
     assert mine.dtype == torch.bfloat16 and theirs.dtype == jnp.bfloat16
     assert mine.vocab_padded == theirs.vocab_padded == (65_536 if not smoke else 2048)
     assert (mine.qkv_dim, mine.kv_dim) == (theirs.qkv_dim, theirs.kv_dim)
-    assert list_archs() == ("yi-9b",)
+    assert list_archs() == ("yi-9b", "rwkv6-1.6b")
 
 
-@pytest.mark.parametrize("arch", [a for a in JAX_ARCH_IDS if a != "yi-9b"] + ["nope"])
+@pytest.mark.parametrize("arch", [a for a in JAX_ARCH_IDS if a not in ("yi-9b", "rwkv6-1.6b")]
+                         + ["nope"])
 def test_unported_arch_raises_naming_roadmap(arch):
     with pytest.raises(KeyError, match="ROADMAP"):
         get_config(arch)
 
 
 @pytest.mark.parametrize("change", [
-    dict(family="moe", n_experts=4, topk=2), dict(family="rwkv"), dict(family="hybrid"),
+    dict(family="moe", n_experts=4, topk=2), dict(family="hybrid"),
     dict(enc_layers=2), dict(window=16), dict(window=16, global_every=2),
     dict(frontend="patch"),
 ])
