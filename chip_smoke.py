@@ -1,4 +1,4 @@
-"""Drive the PyTorch port's Gather service, DAPC, yi-9b and rwkv6-1.6b serving once on an NVIDIA card.
+"""Drive the PyTorch port's Gather service, DAPC, yi-9b, rwkv6-1.6b and hymba-1.5b serving once on an NVIDIA card.
 
 Usage: ``python3 chip_smoke.py [--profile DIR]`` from the root of
 a checkout, on a host with one Hopper card (sm_90) and the CUDA toolkit.
@@ -43,14 +43,16 @@ a checkout, on a host with one Hopper card (sm_90) and the CUDA toolkit.
    from seed 0, 128 prompt tokens and 8 teacher-forced decode steps on the
    card (kernel) and on the CPU (plain version): logits within 1e-3, equal
    greedy tokens.
-9. Serving phase: full yi-9b (48 layers, bf16, random weights drawn on the
-   card) behind ``ServeScheduler(slots=8, t_max=4096)``: 16 requests with
-   prompts of 256-3,072 tokens, 32 new tokens each, every logit finite,
-   ``flash_attention`` launched 48 x (prefills + decode groups) times; then
-   a profiled decode burst and prefill (busy share, the kernel's share).
+9. Serving phase: yi-9b at full width and 16 of its 48 layers (bf16,
+   random weights drawn on the card) behind ``ServeScheduler(slots=8,
+   t_max=4096)``: 16 requests with prompts of 256-3,072 tokens, 32 new
+   tokens each, every logit finite, ``flash_attention`` launched 16 x
+   (prefills + decode groups) times; then a profiled decode burst and
+   prefill (busy share, the kernel's share).
 10. ``repro_torch.launch.serve --no-smoke --batch 4 --prompt-len 2048
-   --gen 32``, local and with ``--remote-embed --embed-servers 2``: the two
-   token streams bit-identical, ``embed_lookup`` launched in the remote run.
+   --gen 32`` at full yi-9b (48 layers), local and with ``--remote-embed
+   --embed-servers 2``: the two token streams bit-identical,
+   ``embed_lookup`` launched in the remote run.
 11. Times ``flash_attention`` at the prefill (S = T = 2,048) and decode
    (B = 8, T = 2,048) shapes beside its plain version,
    ``scaled_dot_product_attention`` and its bound (operations or bytes).
@@ -64,17 +66,43 @@ a checkout, on a host with one Hopper card (sm_90) and the CUDA toolkit.
    version and its bound (no PyTorch call computes WKV6).
 14. The parity phase again on a 2-layer rwkv6-1.6b at full width (d_model
    2,048, 32 WKV heads, d_ff 7,168, vocab 65,536).
-15. The serving phase on full rwkv6-1.6b (24 layers, bf16): the same 16
-   requests, ``wkv6`` launched 24 x (prefills + decode groups) times, and
-   its profiled decode burst and prefill.
+15. The serving phase on rwkv6-1.6b at full width and 12 of its 24 layers
+   (bf16): the same 16 requests, ``wkv6`` launched 12 x (prefills + decode
+   groups) times, and its profiled decode burst and prefill.
 16. ``launch.serve`` at full rwkv6-1.6b, local and remote-embed: streams
    bit-identical, ``wkv6`` launched 24 x (1 + 32) times in each.
+17. ssm_scan kernel phase: ``ssm_scan`` against its plain version at
+   hymba-1.5b's prefill (B = 1, T = 2,048, D = 1,600, N = 16) and decode
+   (B = 8, T = 1 from a state) shapes and T = 777 from a state, in bf16
+   and f32; the three shapes of the JAX ssm_scan sweep in f32 and bf16;
+   decays whose 32-step sum passes -60 over T = 2,048: outputs within
+   2e-5 of the largest (bf16 also 2**-7 of each value), states within 2e-5
+   of the largest.  The flash phase (7) also holds hymba's windowed
+   shapes (25/5 heads of 64, window 2,048: prefill S = T = 3,000, decode
+   T = 2,049 and 4,096, and a global decode case), and the flash timing
+   (11) adds hymba's windowed prefill (S = T = 3,072) and decode (B = 8,
+   T = 4,096).
+18. Times ``ssm_scan`` at the prefill and decode shapes beside its plain
+   version and its bound (no PyTorch call computes the selective scan).
+19. The parity phase on a 2-layer hymba-1.5b at full width (d_model 1,600,
+   25/5 heads, d_ff 5,504, vocab 32,001; both layers windowed) with a
+   2,064-token prompt, so the 2,048 window bites at prefill and decode.
+20. The serving phase on full hymba-1.5b (32 layers, bf16): the same 16
+   requests, ``flash_attention`` and ``ssm_scan`` each launched 32 x
+   (prefills + decode groups) times, and its profiled decode burst and
+   prefill with both kernels' shares.  Each burst line also logs, per
+   kernel, the kernels recorded in the window, those matched to a launch
+   in it by correlation id, the wrapper's launches in it and the names
+   matched (ROADMAP T12).
+21. ``launch.serve`` at full hymba-1.5b, local and remote-embed: streams
+   bit-identical, each kernel launched 32 x (1 + 32) times in each.
 
 Prints one JSON line of kernel results, then the nvidia-smi line, then
 ``{"ok": true, "device": {...}}`` last.  Any failure exits non-zero with
 no result.  ``--profile DIR`` also writes torch.profiler tables of a short
 batched Gather burst, of the batched DAPC arm and of the yi-9b decode and
-prefill bursts (``lm_*``; ``rwkv_*`` for rwkv6-1.6b) to ``DIR``.
+prefill bursts (``lm_*``; ``rwkv_*`` for rwkv6-1.6b, ``hymba_*`` for
+hymba-1.5b) to ``DIR``.
 """
 
 from __future__ import annotations
@@ -119,13 +147,30 @@ FLASH_F32P_ATOL, FLASH_F32P_RTOL = 1e-4, 1e-2
 # f32 card vs CPU over 2 full-width layers: |logit| is O(1) and the two
 # sides sum 4,096- and 11,008-long f32 products in different orders
 PARITY_ATOL, PARITY_PROMPT, PARITY_STEPS = 1e-3, 128, 8
+# hymba's parity prompt passes its 2,048-token window, so the window bites
+# at prefill and at every decode step
+PARITY_PROMPT_BY_ARCH = {"hymba-1.5b": 2064}
 SERVE_SLOTS, SERVE_T_MAX, SERVE_REQUESTS, SERVE_NEW = 8, 4096, 16, 32
 SERVE_PROMPT_MIN, SERVE_PROMPT_MAX = 256, 3072
+# the earlier slices' scheduler phases run at a cut depth, so that the whole
+# run stays near half its 1,200 s limit on a slow host; their launch.serve
+# phases still run the full model
+SERVE_LAYERS = {"yi-9b": 16, "rwkv6-1.6b": 12}
 LAUNCH_BATCH, LAUNCH_PROMPT = 4, 2048  # launch.serve's batch and prompt length
 # timed shapes (B, S, T) with yi's H=32, K=4, d=128 in bf16
 FLASH_TIMING = {"prefill": (1, 2048, 2048), "decode": (8, 1, 2048)}
-# each LM arch's path kernel: (wrapper name, the CUDA symbol's stem)
-PATH_KERNEL = {"yi-9b": ("flash_attention", "flash"), "rwkv6-1.6b": ("wkv6", "wkv6")}
+# hymba's attention: H=25 over K=5 heads of d=64, window 2,048 on 28 of 32
+# layers; timed shapes (B, S, T) at its longest prompt and past the window
+HYMBA_HEADS, HYMBA_WINDOW = (25, 5, 64), 2048
+HYMBA_FLASH_TIMING = {"hymba_prefill": (1, 3072, 3072), "hymba_decode": (8, 1, 4096)}
+# each LM arch's path kernels: (wrapper name, the CUDA symbol's stem), each
+# launched once per layer per forward
+PATH_KERNEL = {
+    "yi-9b": (("flash_attention", "flash"),),
+    "rwkv6-1.6b": (("wkv6", "wkv6"),),
+    "hymba-1.5b": (("flash_attention", "flash"), ("ssm_scan", "ssm_scan")),
+}
+PROFILE_STEM = {"yi-9b": "lm", "rwkv6-1.6b": "rwkv", "hymba-1.5b": "hymba"}
 F32_FLOPS = 67e12  # H100 SXM f32 peak outside the tensor cores, NVIDIA data sheet
 # wkv6 against its plain version: both run the recurrence in f32 and sum
 # each output's 64 products in other orders, and the state's rounding
@@ -138,6 +183,16 @@ WKV_ATOL, WKV_BF16_RTOL = 2e-5, 2.0**-7
 WKV_SWEEP = [(2, 128, 2, 64), (1, 256, 4, 64), (2, 64, 1, 128)]
 # rwkv6-1.6b's WKV at the path's shapes: H = 32 heads of M = 64
 WKV_H, WKV_M = 32, 64
+# ssm_scan against its plain version: both run the recurrence in f32, the
+# kernel fusing the step's product and sum and summing each y's N products
+# in another order; so f32 agrees within SSM_ATOL of the largest output (or
+# 1), bf16 outputs may also round to the other neighbour (SSM_BF16_RTOL),
+# and states agree within SSM_ATOL of the largest
+SSM_ATOL, SSM_BF16_RTOL = 2e-5, 2.0**-7
+# the JAX ssm_scan sweep (tests/test_kernels.py): b, t, d, n
+SSM_SWEEP = [(2, 128, 64, 16), (1, 64, 128, 8), (2, 96, 32, 16)]
+# hymba-1.5b's SSM at the path's shapes: D = 1,600 channels of N = 16 states
+SSM_D, SSM_N = 1600, 16
 
 
 def log(*args) -> None:
@@ -157,24 +212,25 @@ def gpu_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def profiled(fn, tries: int = 3):
-    """Runs ``fn`` under torch.profiler, with a run of ``fn`` before and one
-    after it in the same trace, and keeps the events of the middle run (a
-    ``record_function`` window): the profiler can lose a few kernels of a
-    trace, for any launch path (ROADMAP T8).  Tries until the window holds
-    a kernel for every kernel launch the host made in it.  Returns
-    ``(prof, window_events, wall_s, whole)``; ``whole`` is False if no try
-    of ``tries`` was whole."""
+def profiled(fn, tries: int = 3, edge=None):
+    """Runs ``fn`` under torch.profiler, with a run of ``edge`` (default
+    ``fn``) before and one after it in the same trace, and keeps the events
+    of the middle run (a ``record_function`` window): the profiler can lose
+    a few kernels of a trace, for any launch path (ROADMAP T8), and loses
+    more of a longer one.  Tries until the window holds a kernel for every
+    kernel launch the host made in it.  Returns ``(prof, window_events,
+    wall_s, whole)``; ``whole`` is False if no try of ``tries`` was whole."""
+    edge = edge or fn
     for _ in range(tries):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            fn()
+            edge()
             torch.cuda.synchronize()
             with record_function(WINDOW):
                 t = time.perf_counter()
                 fn()
                 torch.cuda.synchronize()
                 wall = time.perf_counter() - t
-            fn()
+            edge()
             torch.cuda.synchronize()
         events = prof.events()
         mark = next(e for e in events if e.name == WINDOW and e.device_type == DeviceType.CPU)
@@ -190,18 +246,20 @@ def profiled(fn, tries: int = 3):
     return prof, window, wall, False
 
 
-def device_ms(fn, arg_sets, reps: int = 50) -> float:
+def device_ms(fn, arg_sets, reps: int = 10) -> float:
     """Device time per call: the summed duration of every kernel and copy
     the calls put on the card (torch.profiler, :func:`profiled`), over
     ``reps`` calls cycling through ``arg_sets``, after warm-up; host time
     between launches is not counted.  For a function that waits for the
     card inside a call, which :func:`event_ms` cannot time.  Raises unless
-    the profile is whole."""
+    one of ten tries gives a whole profile (ROADMAP T8: three tries in a
+    row have lost kernels of 50 plain chase calls, 2,673 kernels; a shorter
+    window loses fewer and parses faster)."""
     for args in arg_sets[:4]:
         fn(*args)
     torch.cuda.synchronize()
     _, window, _, whole = profiled(
-        lambda: [fn(*arg_sets[i % len(arg_sets)]) for i in range(reps)])
+        lambda: [fn(*arg_sets[i % len(arg_sets)]) for i in range(reps)], tries=10)
     if not whole:
         raise RuntimeError(f"device_ms: no whole profile of {getattr(fn, '__name__', fn)}")
     return device_us(window) / 1e3 / reps
@@ -612,9 +670,11 @@ def _flash_case(dev, g, b, s, t, h, kh, d, dtype, t_max=None):
 def flash_kernel_phase(dev) -> dict:
     """flash_attention on the card against its plain version: yi's prefill
     (S = T = 1,000 and 2,048) and decode (B = 8, S = 1 on cache views of
-    T = 1, 777 and 4,096 of a 4,096-slot cache) shapes and the five shapes
-    of the JAX kernel sweep (heads-first tensors transposed into the model
-    layout: strided inputs), each in f32 and bf16.  Every call within
+    T = 1, 777 and 4,096 of a 4,096-slot cache) shapes, the five shapes of
+    the JAX kernel sweep (heads-first tensors transposed into the model
+    layout: strided inputs) and hymba's (25/5 heads of 64) with its 2,048
+    window at prefill S = T = 3,000 and decode T = 2,049 and 4,096, and
+    global at decode T = 4,096, each in f32 and bf16.  Every call within
     FLASH_TOL of the plain version in its own dtype; every bf16 call also
     within FLASH_F32P_* of the plain version on f32 copies of its inputs."""
     from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref
@@ -631,6 +691,16 @@ def flash_kernel_phase(dev) -> dict:
         for dtype in (f32, bf16):
             cases.append((f"sweep {(b, h, kh, s, t, d)} causal={causal} softcap={cap}",
                           (b, h, kh, s, t, d, dtype), dict(causal=causal, softcap=cap)))
+    h, kh, d = HYMBA_HEADS
+    win = dict(causal=True, window=HYMBA_WINDOW)
+    for dtype in (f32, bf16):  # hymba's shapes, its window biting, and one global case
+        cases += [
+            ("hymba prefill S=T=3000 window 2048", (1, 3000, 3000, h, kh, d, dtype), win),
+            ("hymba decode B=8 T=2049 window 2048", (8, 1, 2049, h, kh, d, dtype, 4096), win),
+            ("hymba decode B=8 T=4096 window 2048", (8, 1, 4096, h, kh, d, dtype, 4096), win),
+            ("hymba decode B=8 T=4096 global", (8, 1, 4096, h, kh, d, dtype, 4096),
+             dict(causal=True)),
+        ]
     worst = {f32: 0.0, bf16: 0.0, "f32_probs": 0.0}
     before = flash_attention.launches
     for label, shape, kw in cases:
@@ -670,11 +740,12 @@ def flash_kernel_phase(dev) -> dict:
 def parity_phase(dev, arch: str = "yi-9b") -> dict:
     """A 2-layer ``arch`` at full width (yi-9b: d_model 4,096, 32/4 heads,
     d_ff 11,008, vocab 64,000; rwkv6-1.6b: d_model 2,048, 32 WKV heads,
-    d_ff 7,168, vocab 65,536) in f32, one set of weights drawn on the card
-    from seed 0 and copied to the host; a 128-token prompt and 8
-    teacher-forced decode steps on the card (kernel) and on the CPU (plain
-    version).  The logits must agree within PARITY_ATOL and the greedy
-    tokens exactly."""
+    d_ff 7,168, vocab 65,536; hymba-1.5b: d_model 1,600, 25/5 heads,
+    d_ff 5,504, vocab 32,001, both layers windowed at 2,048) in f32, one
+    set of weights drawn on the card from seed 0 and copied to the host; a
+    128-token prompt (hymba: 2,064, past its window) and 8 teacher-forced
+    decode steps on the card (kernel) and on the CPU (plain version).  The
+    logits must agree within PARITY_ATOL and the greedy tokens exactly."""
     from repro_torch.configs import get_config
     from repro_torch.models import zoo
     from repro_torch.models.common import ParamFactory
@@ -687,11 +758,12 @@ def parity_phase(dev, arch: str = "yi-9b") -> dict:
     host_model = zoo.LM(cfg, ParamFactory(0, torch.float32, torch.device("cpu"), fill=False))
     host_model.load_state_dict(card_model.state_dict())
     rng = np.random.default_rng(0)
-    prompt = rng.integers(0, cfg.vocab, (2, PARITY_PROMPT)).astype(np.int32)
+    n_prompt = PARITY_PROMPT_BY_ARCH.get(arch, PARITY_PROMPT)
+    prompt = rng.integers(0, cfg.vocab, (2, n_prompt)).astype(np.int32)
     fed = rng.integers(0, cfg.vocab, (2, PARITY_STEPS)).astype(np.int32)
 
     def run(model, device):
-        t_max = PARITY_PROMPT + PARITY_STEPS
+        t_max = n_prompt + PARITY_STEPS
         cache = zoo.init_kv_cache(cfg, 2, t_max, dtype=cfg.dtype, device=device)
         logits, _, _ = zoo.forward(cfg, model, {"tokens": torch.from_numpy(prompt).to(device)},
                                    caches=cache, offset=0)
@@ -699,7 +771,7 @@ def parity_phase(dev, arch: str = "yi-9b") -> dict:
         step = zoo.make_serve_step(cfg)
         for i in range(PARITY_STEPS):
             tok = torch.from_numpy(fed[:, i : i + 1]).to(device)
-            logits, cache = step(model, cache, tok, PARITY_PROMPT + i)
+            logits, cache = step(model, cache, tok, n_prompt + i)
             out.append(logits.float().cpu())
         return torch.stack(out, 1)  # (B, 1 + steps, Vp)
 
@@ -707,7 +779,7 @@ def parity_phase(dev, arch: str = "yi-9b") -> dict:
     host = run(host_model, torch.device("cpu"))
     err = (card - host).abs().max().item()
     same = torch.equal(card.argmax(-1), host.argmax(-1))
-    log(f"parity: 2-layer {arch} full width f32, prompt {PARITY_PROMPT} + {PARITY_STEPS} "
+    log(f"parity: 2-layer {arch} full width f32, prompt {n_prompt} + {PARITY_STEPS} "
         f"teacher-forced steps, card vs CPU logits max_abs_err={err} (tolerance {PARITY_ATOL}), "
         f"|logit| max {host.abs().max().item()}, greedy tokens equal: {same}, "
         f"{time.perf_counter() - t:.1f} s")
@@ -728,18 +800,20 @@ def _finite(fn):
 
 
 def serving_phase(dev, profile_dir: str | None, arch: str = "yi-9b") -> dict:
-    """Full ``arch`` (yi-9b: 48 layers; rwkv6-1.6b: 24 layers; bf16, random
-    weights drawn on the card) behind ServeScheduler(slots 8, t_max 4,096):
-    16 requests with prompts of 256-3,072 tokens (default_rng(0)), 32 new
-    tokens each.  The arch's kernel (PATH_KERNEL) must launch once per
-    layer per prefill and per decode group."""
+    """``arch`` at full width (yi-9b and rwkv6-1.6b at the depth of
+    SERVE_LAYERS, 16 of 48 and 12 of 24 layers; hymba-1.5b full, 32 layers;
+    bf16, random weights drawn on the card) behind ServeScheduler(slots 8,
+    t_max 4,096): 16 requests with prompts of 256-3,072 tokens
+    (default_rng(0)), 32 new tokens each.  Each of the arch's kernels
+    (PATH_KERNEL) must launch once per layer per prefill and per decode
+    group."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import launch_counts, reset_launches
     from repro_torch.models import zoo
     from repro_torch.runtime import ServeScheduler
 
     cfg = get_config(arch)
-    kernel, short = PATH_KERNEL[arch]
+    cfg = cfg.replace(n_layers=SERVE_LAYERS.get(arch, cfg.n_layers))
     t = time.perf_counter()
     model = zoo.build_params(cfg, 0, device=dev)
     torch.cuda.synchronize()
@@ -764,17 +838,19 @@ def serving_phase(dev, profile_dir: str | None, arch: str = "yi-9b") -> dict:
         raise AssertionError(f"serving: {len(done)} requests done, lengths "
                              f"{sorted(len(r.out) for r in done)}")
     want = cfg.n_layers * (sched.prefills + sched.decode_groups)
-    if launches[kernel] != want:
-        raise AssertionError(f"serving {arch}: {launches[kernel]} {kernel} launches, want "
-                             f"{cfg.n_layers} x ({sched.prefills} + {sched.decode_groups})")
+    for kernel, _ in PATH_KERNEL[arch]:
+        if launches[kernel] != want:
+            raise AssertionError(f"serving {arch}: {launches[kernel]} {kernel} launches, want "
+                                 f"{cfg.n_layers} x ({sched.prefills} + {sched.decode_groups})")
     ttft = [r.t_first - r.t_submit for r in done]
     rec = dict(wall_s=wall, prefills=sched.prefills, decode_groups=sched.decode_groups,
                prompt_tokens=int(lengths.sum()), new_tokens=SERVE_REQUESTS * SERVE_NEW,
                tok_s=SERVE_REQUESTS * SERVE_NEW / wall, ttft_s_max=max(ttft),
-               **{f"{short}_launches": launches[kernel]})
+               **{f"{short}_launches": launches[kernel] for kernel, short in PATH_KERNEL[arch]})
     prefix = line_prefix(arch)
+    shorts = " and ".join(short for _, short in PATH_KERNEL[arch])
     log(f"{prefix}serving scheduler: {SERVE_REQUESTS} requests x {SERVE_NEW} tokens, all "
-        f"finite, {short} launches = {cfg.n_layers} x (prefills + decode groups): "
+        f"finite, {shorts} launches = {cfg.n_layers} x (prefills + decode groups): "
         f"{json.dumps(rec)}")
     rec["burst"] = decode_burst(cfg, model, sched.cache, dev, profile_dir, arch)
     del sched, model
@@ -785,16 +861,21 @@ def serving_phase(dev, profile_dir: str | None, arch: str = "yi-9b") -> dict:
 
 def decode_burst(cfg, model, cache, dev, profile_dir: str | None, arch: str = "yi-9b") -> dict:
     """torch.profiler over 8 decode steps of all 8 slots at position 2,048
-    and over one 2,048-token prefill: the card's busy share of the wall
-    time, and the path kernel's share of the device time.  Both shares
+    (one step before and one after them in the trace) and over one
+    2,048-token prefill: the card's busy share of the wall
+    time, and each path kernel's share of the device time.  Both shares
     count only when the profile holds every kernel launched (T8, see
-    :func:`profiled`); else they are null, "not measured"."""
+    :func:`profiled`); else they are null, "not measured".  A kernel
+    counts for its share when its launch lies in the window (matched by
+    correlation id, ``_by_launch``); for each path kernel the line also
+    logs the kernels whose start lies in the window (``_recorded``), the
+    wrapper's launches in the window (``_launched``) and the kernel names
+    matched (ROADMAP T12)."""
     from repro_torch.kernels import WRAPPERS
     from repro_torch.models import zoo
 
-    kernel, short = PATH_KERNEL[arch]
-    wrapper = WRAPPERS[kernel]
-    before = wrapper.launches
+    kernels = PATH_KERNEL[arch]
+    before = {kernel: WRAPPERS[kernel].launches for kernel, _ in kernels}
     step = zoo.make_serve_step(cfg)
     n = LAUNCH_PROMPT
     tok = torch.zeros(SERVE_SLOTS, 1, dtype=torch.int32, device=dev)
@@ -804,38 +885,57 @@ def decode_burst(cfg, model, cache, dev, profile_dir: str | None, arch: str = "y
     prefill(model, prompt)
     torch.cuda.synchronize()
     out = {}
-    for name, fn in (("decode", lambda: [step(model, cache, tok, n + i) for i in range(8)]),
-                     ("prefill", lambda: prefill(model, prompt))):
-        prof, window, wall, whole = profiled(fn)
+    # the runs around the window: one decode step, or the prefill
+    bursts = (("decode", lambda: [step(model, cache, tok, n + i) for i in range(8)],
+               lambda: step(model, cache, tok, n)),
+              ("prefill", lambda: prefill(model, prompt), lambda: prefill(model, prompt)))
+    for name, fn, edge in bursts:
+        per_call = []  # the wrapper launches of each window; the last try's counts
+
+        def counted(fn=fn):
+            at = {kernel: WRAPPERS[kernel].launches for kernel, _ in kernels}
+            fn()
+            per_call.append({k: WRAPPERS[k].launches - at[k] for k in at})
+
+        prof, window, wall, whole = profiled(counted, edge=edge)
         busy = device_us(window)
-        mine = [e.device_time_total for e in window
-                if e.device_type == DeviceType.CUDA and f"{short}_fwd" in e.name]
-        out[name] = {
-            "wall_ms": wall * 1e3, f"{short}_recorded": len(mine), "whole_profile": whole,
-            "device_busy_pct": 100 * busy / 1e3 / (wall * 1e3) if whole else None,
-            f"{short}_share_pct": 100 * sum(mine) / busy if whole else None,
-        }
+        launch_ids = {e.id for e in window
+                      if e.device_type == DeviceType.CPU and e.name in LAUNCH_APIS}
+        rec = {"wall_ms": wall * 1e3, "whole_profile": whole,
+               "device_busy_pct": 100 * busy / 1e3 / (wall * 1e3) if whole else None}
+        for kernel, short in kernels:
+            mine = [e for e in window
+                    if e.device_type == DeviceType.CUDA and f"{short}_fwd" in e.name]
+            by_launch = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+                         and f"{short}_fwd" in e.name and e.id in launch_ids]
+            rec[f"{short}_recorded"] = len(mine)
+            rec[f"{short}_by_launch"] = len(by_launch)
+            rec[f"{short}_launched"] = per_call[-1][kernel]
+            rec[f"{short}_names"] = sorted({e.name for e in mine})
+            rec[f"{short}_share_pct"] = (
+                100 * sum(e.device_time_total for e in by_launch) / busy if whole else None)
+        out[name] = rec
         what = f"8 steps of B={SERVE_SLOTS} at T={n}" if name == "decode" else f"B=1 S={n}"
         prefix = line_prefix(arch)
-        log(f"{prefix}profile {name} ({what}): {json.dumps(out[name])}")
+        log(f"{prefix}profile {name} ({what}): {json.dumps(rec)}")
         if profile_dir:
-            stem = "lm" if arch == "yi-9b" else "rwkv"
+            stem = PROFILE_STEM[arch]
             write_profile(prof, wall, Path(profile_dir) / f"{stem}_{name}_profile.txt",
                           f"{arch} {name} burst", busy)
-    wrapper.launches = before  # profiled launches are not main-path launches
+    for kernel, count in before.items():  # profiled launches are not main-path launches
+        WRAPPERS[kernel].launches = count
     return out
 
 
 def launch_serve_phase(dev, arch: str = "yi-9b") -> dict:
     """repro_torch.launch.serve at full ``arch``: local, then remote-embed
     over 2 embedding servers, same seed; the streams must be bit-identical
-    and the arch's kernel launched once per layer per forward."""
+    and each of the arch's kernels launched once per layer per forward."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import launch_counts, reset_launches
     from repro_torch.launch.serve import serve
 
     n_layers = get_config(arch).n_layers
-    kernel, _ = PATH_KERNEL[arch]
     argv = ["--arch", arch, "--no-smoke", "--batch", str(LAUNCH_BATCH), "--prompt-len",
             str(LAUNCH_PROMPT), "--gen", str(SERVE_NEW), "--seed", "0", "--device", str(dev)]
     prefix = line_prefix(arch)
@@ -849,7 +949,7 @@ def launch_serve_phase(dev, arch: str = "yi-9b") -> dict:
         rec["wall_s"], rec["launches"] = time.perf_counter() - t, launches
         runs[name] = (rec, toks)
         log(f"{prefix}launch.serve {name}: {json.dumps(rec)}")
-        if launches[kernel] != n_layers * (1 + SERVE_NEW):
+        if any(launches[k] != n_layers * (1 + SERVE_NEW) for k, _ in PATH_KERNEL[arch]):
             raise AssertionError(f"{prefix}launch.serve {name}: {launches} launches")
         torch.cuda.empty_cache()
     if not np.array_equal(runs["local"][1], runs["remote"][1]):
@@ -864,7 +964,9 @@ def launch_serve_phase(dev, arch: str = "yi-9b") -> dict:
 def time_flash(dev) -> dict:
     """Device time per call at yi's prefill (B=1, S=T=2,048) and decode
     (B=8, S=1, T=2,048 on views of 4,096-slot caches, 8 cache sets so the
-    268 MB of K/V exceeds the 50 MB L2) shapes, bf16: the kernel's from
+    268 MB of K/V exceeds the 50 MB L2) shapes, and at hymba's windowed
+    prefill (B=1, S=T=3,072) and decode (B=8, T=4,096, 8 whole caches)
+    with its 2,048 window (SDPA given the window as a boolean mask), bf16: the kernel's from
     CUDA events around calls queued behind a sleep (:func:`event_ms`), beside the plain version's and
     scaled_dot_product_attention's (a yardstick the port never calls) timed
     the same way, and the bound: the larger of the FLOPs over the bf16 dense
@@ -901,6 +1003,39 @@ def time_flash(dev) -> dict:
         out[name] = rec
         log(f"timing flash_attention {name} B={b} S={s} T={t} H={h} K={kh} d={d} bf16: "
             f"{json.dumps(rec)}")
+    h, kh, d = HYMBA_HEADS
+    w = HYMBA_WINDOW
+    for name, (b, s, t) in HYMBA_FLASH_TIMING.items():
+        sets = [_flash_case(dev, g, b, s, t, h, kh, d, torch.bfloat16, None if s > 1 else t)
+                for _ in range(1 if s > 1 else 8)]
+        lib_sets = [tuple(x.transpose(1, 2).contiguous() for x in qkv) for qkv in sets]
+        # the pairs and keys this window leaves visible: query i sees
+        # min(i + T - S + 1, w) keys; the K/V rows any query sees are read once
+        pairs = sum(min(i + t - s + 1, w) for i in range(s))
+        keys = t if s > 1 else min(t, w)
+        flops = 4 * b * h * d * pairs
+        moved = 2 * (2 * b * s * h * d + 2 * b * keys * kh * d)  # bf16 q, o, k, v
+        bounds = {"operations": flops / BF16_FLOPS * 1e3, "bytes": moved / HBM_BYTES_PER_S * 1e3}
+        bound_by = max(bounds, key=bounds.get)
+        pos = torch.arange(t, device=dev)
+        qpos = pos[t - s :, None]
+        mask = (pos[None, :] <= qpos) & (qpos - pos[None, :] < w)  # (S, T), True = visible
+        reps = 20 if s > 1 else 200
+        rec = {
+            "ms": event_ms(lambda q, k, v: flash_attention(q, k, v, window=w), sets, reps),
+            "plain_ms": event_ms(lambda q, k, v: flash_attention_ref(q, k, v, window=w),
+                                 sets, 20),
+            "library_ms": event_ms(
+                lambda q, k, v: sdpa(q, k, v, attn_mask=mask, enable_gqa=True), lib_sets, 20),
+            "bound_ms": bounds[bound_by],
+            "bound_by": bound_by,
+            "flops": flops,
+            "bytes": moved,
+            "call_ms": call_ms(lambda q, k, v: flash_attention(q, k, v, window=w), sets, reps),
+        }
+        out[name] = rec
+        log(f"timing flash_attention {name} B={b} S={s} T={t} H={h} K={kh} d={d} window {w} "
+            f"bf16: {json.dumps(rec)}")
     flash_attention.launches = before  # timing launches are not main-path launches
     return out
 
@@ -1020,6 +1155,123 @@ def time_wkv6(dev) -> dict:
     return out
 
 
+def _ssm_case(dev, g, b, t, d, n, dtype, state=False, dt_range=None):
+    """x, b, c ~ N(0, 0.25) in ``dtype``; dt = softplus(N(0, 1) - 4.6) + 1e-4
+    (Mamba's domain, the JAX sweep's) or uniform in ``dt_range``, in
+    ``dtype``; a = -exp(N(0, 0.09)) in f32; an N(0, 0.25) f32 state when
+    ``state``, else None (zeros)."""
+    x = 0.5 * torch.randn(b, t, d, generator=g, device=dev)
+    if dt_range is None:
+        dt = torch.nn.functional.softplus(torch.randn(b, t, d, generator=g, device=dev) - 4.6)
+        dt = dt + 1e-4
+    else:
+        lo, hi = dt_range
+        dt = lo + (hi - lo) * torch.rand(b, t, d, generator=g, device=dev)
+    a = -torch.exp(0.3 * torch.randn(d, n, generator=g, device=dev))
+    bb, cc = (0.5 * torch.randn(b, t, n, generator=g, device=dev) for _ in range(2))
+    h0 = 0.5 * torch.randn(b, d, n, generator=g, device=dev) if state else None
+    return x.to(dtype), dt.to(dtype), a, bb.to(dtype), cc.to(dtype), h0
+
+
+def ssm_scan_kernel_phase(dev) -> dict:
+    """ssm_scan on the card against its plain version: hymba's prefill
+    (B = 1, T = 2,048, D = 1,600, N = 16) and decode (B = 8, T = 1 from a
+    state) shapes in bf16 (the model's type; a f32) and f32, T = 777 from a
+    state, the three shapes of the JAX sweep in f32 and bf16, and dt of 2-3
+    per step at a ~ -1 (a 32-step decay sum of about -80, past the Pallas
+    form's -60 clamp) over T = 2,048.  Outputs within SSM_ATOL of the
+    largest (bf16 also SSM_BF16_RTOL of each value), states within
+    SSM_ATOL of the largest."""
+    from repro_torch.kernels.ssm_scan import ssm_scan, ssm_scan_ref
+
+    g = torch.Generator(dev).manual_seed(7)
+    bf16, f32 = torch.bfloat16, torch.float32
+    d, n = SSM_D, SSM_N
+    cases = []
+    for dtype in (bf16, f32):
+        cases += [
+            ("prefill B=1 T=2048", (1, 2048, d, n, dtype), {}),
+            ("decode B=8 T=1", (8, 1, d, n, dtype), dict(state=True)),
+            ("ragged B=2 T=777", (2, 777, d, n, dtype), dict(state=True)),
+        ]
+    cases.append(("past the clamp B=1 T=2048 dt 2-3", (1, 2048, d, n, f32),
+                  dict(dt_range=(2.0, 3.0))))
+    for b, t, dd, nn in SSM_SWEEP:
+        cases += [(f"sweep {(b, t, dd, nn)}", (b, t, dd, nn, dt), {}) for dt in (f32, bf16)]
+    worst = {f32: 0.0, bf16: 0.0, "state": 0.0}
+    before = ssm_scan.launches
+    for label, shape, kw in cases:
+        dtype = shape[4]
+        args = _ssm_case(dev, g, *shape, **kw)
+        (y, h), (want, want_h) = ssm_scan(*args), ssm_scan_ref(*args)
+        torch.cuda.synchronize()
+        scale = max(1.0, want.float().abs().max().item())
+        rtol = SSM_BF16_RTOL if dtype == bf16 else 0.0
+        err = (y.float() - want.float()).abs().max().item()
+        h_scale = max(1.0, want_h.abs().max().item())
+        h_err = (h - want_h).abs().max().item()
+        line = (f"kernel ssm_scan {label} D={shape[2]} N={shape[3]} {str(dtype)[6:]}: "
+                f"max_abs_err={err} (within {SSM_ATOL} x {scale} + {rtol} |y|), "
+                f"state max_abs_err={h_err} (within {SSM_ATOL} x {h_scale}), "
+                f"plain |y| max {want.float().abs().max().item()}")
+        if not (torch.allclose(y.float(), want.float(), atol=SSM_ATOL * scale, rtol=rtol)
+                and h_err <= SSM_ATOL * h_scale and y.dtype == want.dtype):
+            raise AssertionError(f"ssm_scan differs from plain: {line}")
+        worst[dtype] = max(worst[dtype], err)
+        worst["state"] = max(worst["state"], h_err)
+        log(line)
+    ssm_scan.launches = before  # checking launches are not main-path launches
+    log(f"kernel ssm_scan: worst f32 {worst[f32]}, bf16 {worst[bf16]}, state {worst['state']}")
+    return {"max_abs_err": max(worst.values())}
+
+
+def time_ssm_scan(dev) -> dict:
+    """Device time per call at hymba's prefill (B = 1, T = 2,048, D = 1,600,
+    N = 16; four input sets, 52 MB, beyond the 50 MB L2) and decode (B = 8,
+    T = 1 from a state; 64 state sets, 52 MB) shapes in bf16 (a and the
+    state f32): the kernel's from CUDA events around calls queued behind a
+    sleep (:func:`event_ms`).  The plain version's decode the same way; its
+    prefill launches ~8 kernels a step (16,000 a call), more than the launch
+    queue holds behind a sleep, so it is timed by CUDA events around
+    back-to-back calls (:func:`call_ms`): its host issue time counts.  The
+    bound: the larger of the operations (per state entry and step: dt a,
+    the exponential, the drive's product with b, the decay-and-add (2),
+    the product with c and the sum, 7; 1 per channel and step for dt x)
+    over the f32 peak, and the bytes (x, dt, b, c, a and the state in read
+    once; y and the state out written once) over the HBM rate.  No PyTorch
+    call computes the selective scan: library_ms is null."""
+    from repro_torch.kernels.ssm_scan import ssm_scan, ssm_scan_ref
+
+    g = torch.Generator(dev).manual_seed(8)
+    before = ssm_scan.launches
+    out = {}
+    d, n = SSM_D, SSM_N
+    for name, (b, t, n_sets, state) in {"prefill": (1, 2048, 4, False),
+                                        "decode": (8, 1, 64, True)}.items():
+        sets = [_ssm_case(dev, g, b, t, d, n, torch.bfloat16, state=state)
+                for _ in range(n_sets)]
+        flops = b * t * d * (7 * n + 1)
+        moved = b * t * (3 * d + 2 * n) * 2 + d * n * 4 + b * d * n * 4 * (1 + state)
+        bounds = {"operations": flops / F32_FLOPS * 1e3, "bytes": moved / HBM_BYTES_PER_S * 1e3}
+        bound_by = max(bounds, key=bounds.get)
+        rec = {
+            "ms": event_ms(ssm_scan, sets, 20 if t > 1 else 200),
+            "plain_ms": call_ms(ssm_scan_ref, sets, 2) if t > 1 else event_ms(ssm_scan_ref, sets, 20),
+            "plain_timed_by": "call_ms" if t > 1 else "event_ms",
+            "library_ms": None,  # no PyTorch call computes the selective scan
+            "bound_ms": bounds[bound_by],
+            "bound_by": bound_by,
+            "flops": flops,
+            "bytes": moved,
+            "call_ms": call_ms(ssm_scan, sets, 20 if t > 1 else 200),
+        }
+        out[name] = rec
+        log(f"timing ssm_scan {name} B={b} T={t} D={d} N={n} bf16 (a, state f32): "
+            f"{json.dumps(rec)}")
+    ssm_scan.launches = before  # timing launches are not main-path launches
+    return out
+
+
 def profile_burst(svc, reqs, out: Path) -> None:
     """torch.profiler over one batched burst; its tables go to ``out``."""
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1059,7 +1311,11 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     card = gpu_line()
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
-    t = time.perf_counter()
+    t = t_start = time.perf_counter()
+
+    def elapsed(done: str) -> None:  # the run's time budget, phase by phase
+        log(f"elapsed after {done}: {time.perf_counter() - t_start:.1f} s")
+
     libs = build.build_all()
     log(f"built {sorted(libs)} in {time.perf_counter() - t:.1f} s")
     for name, text in build.build_logs.items():
@@ -1071,24 +1327,36 @@ def main() -> int:
     rng = np.random.default_rng(0)
     checked = kernel_phase(dev, rng)
     service = service_phase(dev, N_REQUESTS, args.profile)
+    elapsed("the Gather phases")
     app, starts, oracle = dapc_setup(dev)
     tables = chase_tables(dev, app)
     chase_checked = chase_kernel_phase(dev, rng, tables)
     dapc = dapc_phase(app, starts, oracle, args.profile)
+    elapsed("the DAPC phases")
     timing = time_kernel(dev, rng)
     chase_timing = time_chase(dev, rng, tables)
     del app, tables
     torch.cuda.empty_cache()
+    elapsed("the embed_lookup and chase_shard timings")
     flash_checked = flash_kernel_phase(dev)
     flash_timing = time_flash(dev)
+    elapsed("the flash kernel phase and timings")
     parity_phase(dev)
     serving = serving_phase(dev, args.profile)
     launch_serve_phase(dev)
+    elapsed("the yi-9b phases")
     wkv_checked = wkv6_kernel_phase(dev)
     wkv_timing = time_wkv6(dev)
     parity_phase(dev, "rwkv6-1.6b")
     rwkv_serving = serving_phase(dev, args.profile, "rwkv6-1.6b")
     launch_serve_phase(dev, "rwkv6-1.6b")
+    elapsed("the rwkv6-1.6b phases")
+    ssm_checked = ssm_scan_kernel_phase(dev)
+    ssm_timing = time_ssm_scan(dev)
+    parity_phase(dev, "hymba-1.5b")
+    hymba_serving = serving_phase(dev, args.profile, "hymba-1.5b")
+    launch_serve_phase(dev, "hymba-1.5b")
+    elapsed("the hymba-1.5b phases")
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [{
         "name": "embed_lookup",
@@ -1112,11 +1380,14 @@ def main() -> int:
         "source": "src/repro_torch/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:90",
         "launches": serving["launches"]["flash_attention"],
+        "launches_hymba": hymba_serving["launches"]["flash_attention"],
         "max_abs_err": flash_checked["max_abs_err"],
         "max_abs_err_f32_probs": flash_checked["max_abs_err_f32_probs"],
         **{k: flash_timing["prefill"][k] for k in keys},
         "shape": "prefill B=1 S=T=2048 H=32 K=4 d=128 bf16",
         "decode": {k: flash_timing["decode"][k] for k in keys},
+        "hymba_prefill": {k: flash_timing["hymba_prefill"][k] for k in keys},
+        "hymba_decode": {k: flash_timing["hymba_decode"][k] for k in keys},
     }, {
         "name": "wkv6",
         "route": "cuda",
@@ -1127,6 +1398,16 @@ def main() -> int:
         **{k: wkv_timing["prefill"][k] for k in keys},
         "shape": "prefill B=1 T=2048 H=32 M=64 bf16 (w f32)",
         "decode": {k: wkv_timing["decode"][k] for k in keys},
+    }, {
+        "name": "ssm_scan",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/ssm_scan.cu",
+        "replaces": "src/repro/kernels/ssm_scan/kernel.py:70",
+        "launches": hymba_serving["launches"]["ssm_scan"],
+        "max_abs_err": ssm_checked["max_abs_err"],
+        **{k: ssm_timing["prefill"][k] for k in keys},
+        "shape": "prefill B=1 T=2048 D=1600 N=16 bf16 (a f32)",
+        "decode": {k: ssm_timing["decode"][k] for k in keys},
     }]
     print(json.dumps({"kernels": kernels}))
     print(card)

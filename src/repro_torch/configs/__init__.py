@@ -14,7 +14,7 @@ from importlib import import_module
 from repro_torch.models.common import ModelConfig
 
 #: the archs the port runs, by id (the JAX registry's ids)
-_MODULES = {"yi-9b": "yi_9b", "rwkv6-1.6b": "rwkv6_1_6b"}
+_MODULES = {"yi-9b": "yi_9b", "rwkv6-1.6b": "rwkv6_1_6b", "hymba-1.5b": "hymba_1_5b"}
 ARCH_IDS: tuple[str, ...] = tuple(_MODULES)
 
 

@@ -9,6 +9,11 @@
 // set to -2**30, products, softmax and the accumulator in f32, the final
 // row sum clamped at 1e-20, and the output cast to the input type.
 //
+// It adds a sliding window, which the Pallas kernel lacks (the JAX model
+// computes it in its jnp attend): with window > 0 (causal only), key j is
+// visible to query i only if also i + T - S - j < window
+// (q_pos - k_pos < window).
+//
 // Unlike the Pallas kernel it takes any S and T (decode has T = pos + 1,
 // which no tile size divides), masking the ragged last key tile, and it
 // reads q (B, S, H, d) and k, v (B, T, K, d) in the model's layout through
@@ -32,8 +37,12 @@
 // shared-memory reads (rows padded by four words); the online softmax
 // updates the row's max, sum and accumulator in registers; and the
 // probabilities go through shared memory, over the K tile, for the P V
-// product.  Shared memory is 99 KB at BM = 64, d = 128: two blocks per SM.  Key tiles wholly above the block's last
-// visible key are never loaded.  BM is 64, or 16 when the block holds at
+// product.  Shared memory is 99 KB at BM = 64, d = 128: two blocks per SM.
+// Key tiles wholly above the block's last visible key, or wholly below its
+// first row's first visible key (a window), are never loaded.  A later row
+// of the block may find a loaded tile wholly outside its window: its
+// probabilities there come out as exp(NEG - NEG) = 1, and the first tile
+// that holds one of its visible keys scales them by exp(NEG - m) = 0.  BM is 64, or 16 when the block holds at
 // most 16 rows (decode: S = 1 and G rows per block, so for yi's G = 8 half
 // of the 16 rows are idle and only B K blocks run, each walking every key
 // tile in turn).  Every row must start on a 16-byte boundary.
@@ -130,7 +139,7 @@ template <typename T, int D, int BM>
 __global__ void __launch_bounds__(THREADS, 2)
     flash_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
               T* __restrict__ o, int S, int T_len, int H, int KH, Strides qs, Strides ks,
-              Strides vs, float scale, float softcap, int causal) {
+              Strides vs, float scale, float softcap, int causal, int window) {
   constexpr int RM = BM / 16;  // rows per thread
   constexpr int CN = BN / 16;  // score columns per thread
   constexpr int CD = D / 16;   // output columns per thread (contiguous)
@@ -160,7 +169,8 @@ __global__ void __launch_bounds__(THREADS, 2)
     qt.store(Qs, LDQ);
   }
 
-  // The last key each of this thread's rows may see (keys past T included).
+  // The last key each of this thread's rows may see (keys past T included);
+  // with a window, the first is lim - window + 1 (causal: lim = s + off).
   int lim[RM];
   float m[RM], l[RM], acc[RM][CD];
 #pragma unroll
@@ -173,11 +183,13 @@ __global__ void __launch_bounds__(THREADS, 2)
 #pragma unroll
     for (int c = 0; c < CD; ++c) acc[i][c] = 0.f;
   }
-  // Keys past the block's last visible key are never loaded.
+  // Keys past the block's last visible key, and tiles below its first
+  // row's first visible key, are never loaded.
   const long long s_last = min((long long)S - 1, (r0 + BM - 1) / G);
   const int n_keys = causal ? (int)min((long long)T_len, s_last + off + 1) : T_len;
+  const int key0 = window > 0 ? (int)max(0LL, r0 / G + off - window + 1) : 0;
 
-  for (int t0 = 0; t0 < n_keys; t0 += BN) {
+  for (int t0 = key0 / BN * BN; t0 < n_keys; t0 += BN) {
     __syncthreads();  // the last tile's readers are done
     {
       Tile<T, BN, D> kt, vt;
@@ -228,7 +240,8 @@ __global__ void __launch_bounds__(THREADS, 2)
       for (int j = 0; j < CN; ++j) {
         float x = sc[i][j] * scale;
         if (softcap > 0.f) x = tanhf(x / softcap) * softcap;
-        if (t0 + tx + 16 * j > lim[i]) x = NEG;
+        const int key = t0 + tx + 16 * j;
+        if (key > lim[i] || (window > 0 && lim[i] - key >= window)) x = NEG;
         sc[i][j] = x;
         mx = fmaxf(mx, x);
       }
@@ -301,7 +314,7 @@ __global__ void __launch_bounds__(THREADS, 2)
 template <typename T, int D, int BM>
 int launch(const void* q, const void* k, const void* v, void* o, int B, int S, int T_len, int H,
            int KH, Strides qs, Strides ks, Strides vs, float scale, float softcap, int causal,
-           cudaStream_t stream) {
+           int window, cudaStream_t stream) {
   constexpr int smem = smem_floats<D, BM>() * (int)sizeof(float);
   static bool ready = false;  // one attribute call per instance (above 48 KB needs it)
   if (!ready) {
@@ -314,35 +327,35 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int S, i
   const dim3 grid((unsigned)((rows + BM - 1) / BM), (unsigned)(B * KH));
   flash_fwd<T, D, BM><<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), S, T_len, H, KH, qs, ks, vs, scale, softcap, causal);
+      static_cast<T*>(o), S, T_len, H, KH, qs, ks, vs, scale, softcap, causal, window);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T, int D>
 int launch_rows(const void* q, const void* k, const void* v, void* o, int B, int S, int T_len,
                 int H, int KH, Strides qs, Strides ks, Strides vs, float scale, float softcap,
-                int causal, cudaStream_t stream) {
+                int causal, int window, cudaStream_t stream) {
   if ((long long)S * (H / KH) <= 16)
     return launch<T, D, 16>(q, k, v, o, B, S, T_len, H, KH, qs, ks, vs, scale, softcap, causal,
-                            stream);
+                            window, stream);
   return launch<T, D, 64>(q, k, v, o, B, S, T_len, H, KH, qs, ks, vs, scale, softcap, causal,
-                          stream);
+                          window, stream);
 }
 
 template <typename T>
 int launch_dim(const void* q, const void* k, const void* v, void* o, int B, int S, int T_len,
                int H, int KH, int D, Strides qs, Strides ks, Strides vs, float scale,
-               float softcap, int causal, cudaStream_t stream) {
+               float softcap, int causal, int window, cudaStream_t stream) {
   switch (D) {
     case 32:
       return launch_rows<T, 32>(q, k, v, o, B, S, T_len, H, KH, qs, ks, vs, scale, softcap,
-                                causal, stream);
+                                causal, window, stream);
     case 64:
       return launch_rows<T, 64>(q, k, v, o, B, S, T_len, H, KH, qs, ks, vs, scale, softcap,
-                                causal, stream);
+                                causal, window, stream);
     case 128:
       return launch_rows<T, 128>(q, k, v, o, B, S, T_len, H, KH, qs, ks, vs, scale, softcap,
-                                 causal, stream);
+                                 causal, window, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -351,24 +364,26 @@ int launch_dim(const void* q, const void* k, const void* v, void* o, int B, int 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  Strides are in elements; softcap <= 0
-// means none.  Returns the launch's cudaError_t (0 on success).
+// means none; window <= 0 means global.  Returns the launch's cudaError_t
+// (0 on success).
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v, void* o,
                                       int dtype, int B, int S, int T_len, int H, int KH, int D,
                                       long long q_sb, long long q_ss, long long q_sh,
                                       long long k_sb, long long k_st, long long k_sh,
                                       long long v_sb, long long v_st, long long v_sh,
-                                      float scale, float softcap, int causal, void* stream) {
+                                      float scale, float softcap, int causal, int window,
+                                      void* stream) {
   if (B <= 0 || S <= 0 || T_len <= 0 || KH <= 0 || H % KH != 0 || B * KH > 65535 ||
-      (causal && T_len < S))
+      (causal && T_len < S) || (window > 0 && !causal))
     return static_cast<int>(cudaErrorInvalidValue);
   const Strides qs{q_sb, q_ss, q_sh}, ks{k_sb, k_st, k_sh}, vs{v_sb, v_st, v_sh};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return launch_dim<float>(q, k, v, o, B, S, T_len, H, KH, D, qs, ks, vs, scale, softcap,
-                             causal, s);
+                             causal, window, s);
   if (dtype == 1)
     return launch_dim<__nv_bfloat16>(q, k, v, o, B, S, T_len, H, KH, D, qs, ks, vs, scale,
-                                     softcap, causal, s);
+                                     softcap, causal, window, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

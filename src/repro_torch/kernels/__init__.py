@@ -20,11 +20,15 @@ performs before it loads a slice that names one.
   wkv6/          the RWKV-6 time-mix recurrence, step by step (every WKV
                  call of the rwkv serving path); replaces the Pallas chunked
                  ``_wkv6_kernel`` of ``repro.kernels.wkv6``
+  ssm_scan/      the diagonal selective scan of Mamba, step by step (every
+                 SSM call of the hymba serving path); replaces the Pallas
+                 chunked ``_ssm_kernel`` of ``repro.kernels.ssm_scan``
 """
 
 from .chase import kernel as _chase_kernel
 from .embed_lookup import kernel as _embed_lookup_kernel
 from .flash_attention import kernel as _flash_attention_kernel
+from .ssm_scan import kernel as _ssm_scan_kernel
 from .wkv6 import kernel as _wkv6_kernel
 
 #: every kernel wrapper, by kernel name (each carries a ``launches`` count)
@@ -33,6 +37,7 @@ WRAPPERS = {
     "chase_shard": _chase_kernel.chase_shard,
     "flash_attention": _flash_attention_kernel.flash_attention,
     "wkv6": _wkv6_kernel.wkv6,
+    "ssm_scan": _ssm_scan_kernel.ssm_scan,
 }
 
 

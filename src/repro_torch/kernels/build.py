@@ -22,7 +22,7 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = {
     "embed_lookup": "embed_lookup.cu", "chase": "chase.cu",
-    "flash_attention": "flash_attention.cu", "wkv6": "wkv6.cu",
+    "flash_attention": "flash_attention.cu", "wkv6": "wkv6.cu", "ssm_scan": "ssm_scan.cu",
 }
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

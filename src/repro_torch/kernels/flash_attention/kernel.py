@@ -3,10 +3,12 @@
 Replaces the Pallas TPU kernel ``src/repro/kernels/flash_attention/
 kernel.py`` (``_flash_kernel`` / ``flash_attention``, the ``pallas_call``
 at line 116): blockwise online-softmax GQA attention with end-aligned
-causal masking and an optional tanh softcap.  The CUDA kernel computes the
-same function for any S and T, in the model's ``(B, S, H, d)`` /
-``(B, T, K, d)`` layout read through strides, so the decode path hands it a
-view of the KV cache's valid prefix without a copy.
+causal masking and an optional tanh softcap.  It adds a per-call sliding
+window (the JAX model computes the window in its jnp ``attend``; the
+Pallas kernel has none), so hymba's local layers run it too.  The CUDA
+kernel computes the same function for any S and T, in the model's
+``(B, S, H, d)`` / ``(B, T, K, d)`` layout read through strides, so the
+decode path hands it a view of the KV cache's valid prefix without a copy.
 
 Bound: operations at prefill (4 B H d S T / 2 under the causal mask), the
 bytes of the K/V prefix at decode.  The first version runs on the f32 CUDA
@@ -38,14 +40,14 @@ def _library() -> ctypes.CDLL:
     fn = lib.flash_attention_launch
     if fn.restype is not ctypes.c_int or not fn.argtypes:
         p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-        fn.argtypes = [p, p, p, p, i, i, i, i, i, i, i, *[ll] * 9, f, f, i, p]
+        fn.argtypes = [p, p, p, p, i, i, i, i, i, i, i, *[ll] * 9, f, f, i, i, p]
         fn.restype = ctypes.c_int
         lib.flash_attention_error_string.argtypes = [ctypes.c_int]
         lib.flash_attention_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool) -> None:
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool, window: int) -> None:
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(
             f"flash_attention takes q (B, S, H, d) and k, v (B, T, K, d), got "
@@ -64,6 +66,10 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool) -> N
             f"causal flash_attention needs T >= S (got S={s}, T={k.shape[1]}): "
             "the first S - T queries would see no key"
         )
+    if isinstance(window, bool) or not isinstance(window, int) or window < 0:
+        raise ValueError(f"flash_attention window must be an int >= 0 (0: global), got {window!r}")
+    if window and not causal:
+        raise ValueError("flash_attention takes a window with causal masking only")
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(
             f"flash_attention takes f32 or bf16 of one dtype, got {q.dtype}, {k.dtype}, {v.dtype}"
@@ -80,13 +86,16 @@ def flash_attention(
     causal: bool = True,
     softcap: float | None = None,
     scale: float | None = None,
+    window: int = 0,
 ) -> torch.Tensor:
     """Attention of q over k, v; query head h reads KV head ``h // (H/K)``.
-    With ``causal``, query i sees key j iff ``j <= i + T - S``.  Returns a
-    contiguous ``(B, S, H, d)`` tensor in q's dtype."""
-    _check(q, k, v, causal)
+    With ``causal``, query i sees key j iff ``j <= i + T - S``; with a
+    ``window`` > 0 (causal only) also iff ``i + T - S - j < window``.
+    Returns a contiguous ``(B, S, H, d)`` tensor in q's dtype."""
+    _check(q, k, v, causal, window)
     if q.device.type == "cpu":
-        return flash_attention_ref(q, k, v, causal=causal, softcap=softcap, scale=scale)
+        return flash_attention_ref(q, k, v, causal=causal, softcap=softcap, scale=scale,
+                                   window=window)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention has no kernel for device {q.device}")
     b, s, h, d = q.shape
@@ -114,7 +123,7 @@ def flash_attention(
             q.stride(0), q.stride(1), q.stride(2),
             k.stride(0), k.stride(1), k.stride(2),
             v.stride(0), v.stride(1), v.stride(2),
-            scale, float(softcap or 0.0), int(causal), stream,
+            scale, float(softcap or 0.0), int(causal), window, stream,
         )
     flash_attention.launches += 1
     if err:

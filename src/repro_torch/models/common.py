@@ -27,9 +27,9 @@ def pad_vocab(v: int) -> int:
 @dataclass(frozen=True)
 class ModelConfig:
     """One architecture; the fields of ``repro.models.common.ModelConfig``,
-    with ``dtype`` a ``torch.dtype``.  The port runs the dense and rwkv
-    families (``repro_torch.models.zoo.LM`` refuses what it does not run
-    yet)."""
+    with ``dtype`` a ``torch.dtype``.  The port runs the dense, rwkv and
+    hybrid families (``repro_torch.models.zoo.LM`` refuses what it does not
+    run yet)."""
 
     name: str = "tiny"
     family: str = "dense"  # dense | moe | rwkv | hybrid | encdec
@@ -102,10 +102,11 @@ class ModelConfig:
 # ------------------------------------------------------------------ factory
 class ParamFactory:
     """Makes the parameters leaf by leaf: truncated normal in [-2, 2] times
-    ``1/sqrt(fan_in)`` (or ``scale``), or zeros, as the JAX factory does
-    for the dense family's leaves.  Each normal leaf draws from its own
-    generator on ``device``, seeded from a host stream keyed by ``seed``, so a leaf never
-    exists in f32 on the host when the weights live on the card.  With
+    ``1/sqrt(fan_in)`` (or ``scale``), zeros, ones, or the constant
+    ``scale`` (``const``), as the JAX factory does.  Each normal leaf draws
+    from its own generator on ``device``, seeded from a host stream keyed by
+    ``seed``, so a leaf never exists in f32 on the host when the weights
+    live on the card.  With
     ``fill=False`` the leaves are left uninitialised (weights copied in)."""
 
     def __init__(self, seed: int, dtype: torch.dtype, device: torch.device, fill: bool = True):
@@ -121,13 +122,19 @@ class ParamFactory:
     def new(
         self, shape: tuple[int, ...], init: str = "normal", scale: float | None = None
     ) -> nn.Parameter:
-        if init not in ("normal", "zeros"):
+        if init not in ("normal", "zeros", "ones", "const"):
             raise ValueError(f"ParamFactory has no init {init!r}")
+        if init == "const" and scale is None:
+            raise ValueError("ParamFactory: init 'const' fills with scale, which is None")
         arr = torch.empty(shape, dtype=self.dtype, device=self.device)
         if not self.fill:
             pass
         elif init == "zeros":
             arr.zero_()
+        elif init == "ones":
+            arr.fill_(1.0)
+        elif init == "const":
+            arr.fill_(scale)
         else:  # truncated-normal fan-in scaling, drawn in f32
             if scale is None:
                 fan_in = shape[-2] if len(shape) >= 2 else shape[-1]

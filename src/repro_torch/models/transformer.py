@@ -1,16 +1,18 @@
-"""The decoder stack: dense blocks (GQA attention + SwiGLU MLP) and RWKV6
-blocks.
+"""The decoder stack: dense blocks (GQA attention + SwiGLU MLP), RWKV6
+blocks and hybrid blocks (parallel GQA attention + SSM heads, then the
+MLP).
 
-The counterpart of the dense and rwkv families of
+The counterpart of the dense, rwkv and hybrid families of
 ``repro.models.transformer``.  The JAX package stacks layers on a leading
 axis and scans them; the port holds one block module per layer and loops
 over them.  The same ``run_blocks`` serves a full sequence (no cache),
 prefill (cache written from offset 0) and decode (cache written at the
-offset).  A dense block's attention is one launch of the
-``flash_attention`` kernel on the card, over the cache's valid prefix; an
-RWKV block's WKV is one launch of the ``wkv6`` kernel, from the layer's
-state.  The MoE, hybrid and encoder-decoder families wait for their
-slices (ROADMAP.md section 1).
+offset).  Attention is one launch of the ``flash_attention`` kernel on the
+card, over the cache's valid prefix, with the layer's sliding window (0 on
+global layers); an RWKV block's WKV is one launch of the ``wkv6`` kernel
+and a hybrid block's scan one of ``ssm_scan``, each from the layer's
+state.  The MoE and encoder-decoder families wait for their slices
+(ROADMAP.md section 1).
 """
 
 from __future__ import annotations
@@ -23,22 +25,17 @@ from ..kernels.flash_attention import flash_attention
 from .attention import qkv_proj, update_kv_cache
 from .common import ModelConfig, ParamFactory, mlp, rms_norm, rope
 from .rwkv import RWKVBlock, rwkv_block
+from .ssm import SSMHead, ssm_head
 
 
 def require_ported(cfg: ModelConfig) -> None:
     """Refuse what the port's stack does not run yet, naming its slice."""
-    if cfg.family not in ("dense", "rwkv") or cfg.is_encdec:
+    if cfg.family not in ("dense", "rwkv", "hybrid") or cfg.is_encdec:
         raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family is not ported yet "
-            "(ROADMAP.md section 1: hymba is the next slice)"
+            f"{cfg.name}: the {cfg.family} family is not ported yet (ROADMAP.md section 1)"
         )
     if cfg.frontend is not None:
         raise NotImplementedError(f"{cfg.name}: modality frontends are not ported yet (ROADMAP.md)")
-    if layer_windows(cfg).any():
-        raise NotImplementedError(
-            f"{cfg.name}: windowed attention is not ported yet; the flash kernel has no "
-            "window (ROADMAP.md, the hymba slice)"
-        )
 
 
 # ----------------------------------------------------------------- params
@@ -77,6 +74,17 @@ class DenseBlock(nn.Module):
         add_block_params(self, f, cfg)
 
 
+class HybridBlock(DenseBlock):
+    """A dense block's leaves plus the SSM head (``blocks.ssm.*``) and the
+    two per-channel mixing gains ``beta_attn`` and ``beta_ssm``."""
+
+    def __init__(self, cfg: ModelConfig, f: ParamFactory) -> None:
+        super().__init__(cfg, f)
+        self.ssm = SSMHead(cfg, f)
+        self.beta_attn = f.new((cfg.d_model,), "ones")
+        self.beta_ssm = f.new((cfg.d_model,), "ones")
+
+
 # ------------------------------------------------------------- sublayers
 def attn_sublayer(
     x: torch.Tensor,
@@ -87,6 +95,7 @@ def attn_sublayer(
     cache: tuple[torch.Tensor, torch.Tensor] | None,  # (B, T, K, hd) each, written in place
     offset: int,
     rows: torch.Tensor | None = None,  # batch rows whose cache is written
+    window: int = 0,  # 0: global attention
 ) -> torch.Tensor:
     q, k, v = qkv_proj(
         x, p.wq, p.wk, p.wv, getattr(p, "bq", None), getattr(p, "bk", None),
@@ -102,38 +111,57 @@ def attn_sublayer(
         if offset != 0 or k_cache.dtype != k.dtype:
             # the cache's valid prefix, a strided view: end-aligned causal
             # masking over it is the JAX mask k_pos <= q_pos, k_pos < offset+S
+            # (and the window's q_pos - k_pos < window)
             k = k_cache[:, : offset + s].to(q.dtype)
             v = v_cache[:, : offset + s].to(q.dtype)
         # else prefill from offset 0: the fresh K/V are that prefix
-    out = flash_attention(q, k, v, causal=True, softcap=cfg.attn_softcap)
+    out = flash_attention(q, k, v, causal=True, softcap=cfg.attn_softcap, window=window)
     return out.reshape(*x.shape[:2], -1) @ p.wo
+
+
+def _write_state(
+    cache: dict[str, torch.Tensor], new: dict[str, torch.Tensor], rows: torch.Tensor | None
+) -> None:
+    """Replace the state leaves of ``cache`` by ``new``, only batch ``rows``
+    of them when given."""
+    for name, leaf in new.items():
+        if rows is None:
+            cache[name].copy_(leaf)
+        else:
+            cache[name][rows] = leaf[rows].to(cache[name].dtype)
 
 
 def block_apply(
     x: torch.Tensor,
-    p: DenseBlock | RWKVBlock,
+    p: DenseBlock | RWKVBlock | HybridBlock,
     cfg: ModelConfig,
     *,
     pos: torch.Tensor,
-    cache: tuple[torch.Tensor, torch.Tensor] | dict[str, torch.Tensor] | None,
+    cache: dict[str, torch.Tensor] | None,
     offset: int,
     rows: torch.Tensor | None = None,
+    window: int = 0,
 ) -> torch.Tensor:
     """One decoder block; the cache (if any) is updated in place, only
     batch ``rows`` of it when given.  A dense block's cache is its layer's
-    (K, V); an RWKV block's is its layer's ``tm_shift``, ``cm_shift`` and
-    ``wkv`` state, which the block reads and replaces."""
+    ``k`` and ``v``; an RWKV block's its layer's ``tm_shift``, ``cm_shift``
+    and ``wkv`` state, which the block reads and replaces; a hybrid
+    block's ``k`` and ``v`` and the SSM head's ``conv`` and ``h`` state."""
     if cfg.family == "rwkv":
         x, new = rwkv_block(x, p, cfg, cache)
         if cache is not None:
-            for name, leaf in cache.items():
-                if rows is None:
-                    leaf.copy_(new[name])
-                else:
-                    leaf[rows] = new[name][rows].to(leaf.dtype)
+            _write_state(cache, new, rows)
         return x
     h = rms_norm(x, p.ln1, cfg.norm_eps)
-    x = x + attn_sublayer(h, p, cfg, pos=pos, cache=cache, offset=offset, rows=rows)
+    kv = None if cache is None else (cache["k"], cache["v"])
+    att = attn_sublayer(h, p, cfg, pos=pos, cache=kv, offset=offset, rows=rows, window=window)
+    if cfg.family == "hybrid":
+        state = None if cache is None else {"conv": cache["conv"], "h": cache["h"]}
+        out, new = ssm_head(h, p.ssm, cfg, state)
+        att = 0.5 * (att * p.beta_attn + out * p.beta_ssm)
+        if cache is not None:
+            _write_state(cache, new, rows)
+    x = x + att
     h = rms_norm(x, p.ln2, cfg.norm_eps)
     return x + mlp(h, p.wi, getattr(p, "wg", None), p.wo2, cfg.act)
 
@@ -160,12 +188,9 @@ def run_blocks(
     offset: int = 0,
     rows: torch.Tensor | None = None,
 ) -> torch.Tensor:
+    windows = layer_windows(cfg)
     for layer, p in enumerate(blocks):
-        if caches is None:
-            cache = None
-        elif cfg.family == "rwkv":
-            cache = {name: leaf[layer] for name, leaf in caches.items()}
-        else:
-            cache = (caches["k"][layer], caches["v"][layer])
-        x = block_apply(x, p, cfg, pos=pos, cache=cache, offset=offset, rows=rows)
+        cache = None if caches is None else {name: leaf[layer] for name, leaf in caches.items()}
+        x = block_apply(x, p, cfg, pos=pos, cache=cache, offset=offset, rows=rows,
+                        window=int(windows[layer]))
     return x

@@ -1,13 +1,14 @@
 """Model zoo: build the weights, forward, and the prefill/serve steps.
 
-The counterpart of ``repro.models.zoo`` for the dense and rwkv families:
+The counterpart of ``repro.models.zoo`` for the dense, rwkv and hybrid
+families:
 
 * ``build_params(cfg, seed, device=...)``   -> ``LM`` (weights on the device)
 * ``from_jax_params(cfg, flat, device=...)`` -> ``LM`` holding the JAX
   package's flat weights (``"blocks.wq"`` stacked ``(L, D, q_dim)`` and so on)
 * ``make_batch(cfg, shape, seed)``          -> random token batch (numpy seed)
 * ``init_kv_cache(cfg, batch, t_max)``      -> dense ``{"k", "v"}``, ``(L, B, T, K, hd)``;
-  rwkv ``{"tm_shift", "cm_shift", "wkv"}``
+  rwkv ``{"tm_shift", "cm_shift", "wkv"}``; hybrid ``{"k", "v", "conv", "h"}``
 * ``make_prefill_step(cfg)``                -> (model, batch) -> (logits, cache)
 * ``make_serve_step(cfg)``                  -> (model, cache, tok, pos) -> (logits, cache)
 
@@ -30,7 +31,8 @@ from ..core.bitcode import resolve_device
 from .common import ModelConfig, ParamFactory, rms_norm, softcap
 from .embedding import embed_plain, lm_head
 from .rwkv import RWKVBlock
-from .transformer import DenseBlock, require_ported, run_blocks
+from .ssm import CONV_K
+from .transformer import DenseBlock, HybridBlock, require_ported, run_blocks
 
 
 # ------------------------------------------------------------------- shapes
@@ -46,15 +48,15 @@ class ShapeSpec:
 # ------------------------------------------------------------------- params
 class LM(nn.Module):
     """A decoder LM's weights; parameter names follow the JAX flat dict
-    (``embed.tok``, ``blocks.<layer>.wq`` or ``blocks.<layer>.tm.wr``,
-    ``final_ln``, ``head.w``)."""
+    (``embed.tok``, ``blocks.<layer>.wq``, ``blocks.<layer>.tm.wr`` or
+    ``blocks.<layer>.ssm.w_in``, ``final_ln``, ``head.w``)."""
 
     def __init__(self, cfg: ModelConfig, f: ParamFactory) -> None:
         super().__init__()
         require_ported(cfg)
         self.embed = nn.Module()
         self.embed.tok = f.new((cfg.vocab_padded, cfg.d_model), scale=0.02)
-        block = RWKVBlock if cfg.family == "rwkv" else DenseBlock
+        block = {"rwkv": RWKVBlock, "hybrid": HybridBlock}.get(cfg.family, DenseBlock)
         self.blocks = nn.ModuleList(block(cfg, f) for _ in range(cfg.n_layers))
         self.final_ln = f.new((cfg.d_model,), "zeros")
         if not cfg.tie_embeddings:
@@ -156,7 +158,9 @@ def init_kv_cache(
     """The dense family's cache: ``k`` and ``v`` of ``(L, B, T, K, hd)``.
     The rwkv family's state, whatever ``t_max``: ``tm_shift`` and
     ``cm_shift`` of ``(L, B, 1, D)`` in ``dtype`` and ``wkv`` of
-    ``(L, B, H, M, M)`` in f32."""
+    ``(L, B, H, M, M)`` in f32.  The hybrid family's: ``k`` and ``v``, the
+    SSM head's ``conv`` of ``(L, B, K-1, D)`` in ``dtype`` and ``h`` of
+    ``(L, B, D, N)`` in f32."""
     require_ported(cfg)
     dev = resolve_device(device)
     if cfg.family == "rwkv":
@@ -167,10 +171,15 @@ def init_kv_cache(
             "wkv": torch.zeros((L, batch, D // m, m, m), dtype=torch.float32, device=dev),
         }
     shape = (cfg.n_layers, batch, t_max, cfg.n_kv_heads, cfg.head_dim)
-    return {
+    cache = {
         "k": torch.zeros(shape, dtype=dtype, device=dev),
         "v": torch.zeros(shape, dtype=dtype, device=dev),
     }
+    if cfg.family == "hybrid":
+        L, D = cfg.n_layers, cfg.d_model
+        cache["conv"] = torch.zeros((L, batch, CONV_K - 1, D), dtype=dtype, device=dev)
+        cache["h"] = torch.zeros((L, batch, D, cfg.ssm_state), dtype=torch.float32, device=dev)
+    return cache
 
 
 def make_batch(
@@ -188,8 +197,8 @@ def make_batch(
 
 # -------------------------------------------------------------------- steps
 def make_prefill_step(cfg: ModelConfig) -> Callable:
-    """Fill a prompt-length cache (the rwkv state) from the prompt; logits
-    for the last token."""
+    """Fill a prompt-length cache (the recurrent state) from the prompt;
+    logits for the last token."""
 
     def prefill_step(model: LM, batch: dict):
         b, s = batch["tokens"].shape
@@ -211,8 +220,8 @@ def make_serve_step(cfg: ModelConfig) -> Callable:
     :class:`repro_torch.runtime.tenancy.RemoteEmbedClient`), it takes them
     instead of looking the tokens up (the serving-tier mode).  ``rows``
     (keyword) limits the cache write to those batch rows (every state leaf
-    of an rwkv cache), for a scheduler that decodes one position group at
-    a time."""
+    of an rwkv or hybrid cache too), for a scheduler that decodes one
+    position group at a time."""
 
     def serve_step(
         model: LM, cache: Any, tokens: torch.Tensor, pos: int,

@@ -1,6 +1,6 @@
 """The hand-written kernels on the card, against their plain versions, the
-batched Chaser slice's one launch per group, and the LM's one flash
-attention launch per layer.
+batched Chaser slice's one launch per group, and the LMs' one launch per
+layer of each path kernel (flash attention, wkv6, ssm_scan).
 
 Marked ``cuda``: skipped on a host without a Hopper card.  On the card:
 ``PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py``.
@@ -16,6 +16,7 @@ from repro_torch.core.bitcode import deserialize_and_jit
 from repro_torch.kernels.chase import chase_shard, chase_shard_op, chase_shard_ref
 from repro_torch.kernels.embed_lookup import embed_lookup, embed_lookup_op, embed_lookup_ref
 from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref
+from repro_torch.kernels.ssm_scan import ssm_scan, ssm_scan_ref
 from repro_torch.kernels.wkv6 import wkv6, wkv6_ref
 
 pytestmark = pytest.mark.cuda
@@ -290,3 +291,127 @@ def test_wkv6_kernel_refuses_what_it_does_not_take(card, case):
     with pytest.raises(ValueError):
         wkv6(r, k, v, w, u)
     assert wkv6.launches == before
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", [
+    # (b, s, t, t_max, h, kh, d, window)
+    ("prefill_3000_w2048", 1, 3000, 3000, 3000, 25, 5, 64, 2048),
+    ("decode_2049_w2048", 8, 1, 2049, 4096, 25, 5, 64, 2048),
+    ("decode_4096_w2048", 8, 1, 4096, 4096, 25, 5, 64, 2048),
+    ("prefill_300_w100_d32", 2, 300, 300, 300, 4, 2, 32, 100),
+    ("chunk_7_at_200_w16", 2, 7, 207, 256, 4, 1, 64, 16),
+    ("window_1", 1, 70, 70, 70, 2, 2, 128, 1),
+], ids=lambda c: c[0] if isinstance(c, tuple) else None)
+def test_flash_window_matches_plain(card, case, dtype):
+    """hymba's head layout (25 query heads over 5 KV heads, d 64) with its
+    2,048-token window at prefill past the window and at decode on cache
+    views past it, and other windows, head dims and chunk shapes."""
+    _, b, s, t, t_max, h, kh, d, window = case
+    q, kc, vc = _flash_inputs(card, [(b, s, h, d), (b, t_max, kh, d), (b, t_max, kh, d)],
+                              dtype, t + window)
+    k, v = kc[:, :t], vc[:, :t]
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, window=window)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    want = flash_attention_ref(q, k.contiguous(), v.contiguous(), window=window)
+    tol = FLASH_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    if t >= window + 64:  # a tile or more outside the window: the answer moved
+        glob = flash_attention_ref(q, k.contiguous(), v.contiguous())
+        assert (glob - want).float().abs().max() > 4 * (got - want).float().abs().max()
+
+
+# The kernel and the plain version both run the recurrence in f32, with the
+# step's product and sum fused or not and each y's N products summed in
+# other orders.  So f32 agrees within SSM_ATOL of the largest output (or 1);
+# bf16 outputs may also round to the other neighbour (2**-7 of the value);
+# the state is f32 in both.
+SSM_ATOL = 2e-5
+SSM_RTOL = {torch.float32: 0.0, torch.bfloat16: 2.0**-7}
+
+
+def _ssm_inputs(card, b, t, d, n, dtype, seed, state=False, dt_range=None):
+    """x, b, c ~ N(0, 0.25); dt = softplus(N(0, 1) - 4.6) + 1e-4 (Mamba's
+    domain, the JAX sweep's) or uniform in ``dt_range``; a = -exp(N(0, 0.09))
+    in f32; an N(0, 0.25) f32 state when ``state``."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((b, t, d)) * 0.5
+    if dt_range is None:
+        dt = np.log1p(np.exp(rng.standard_normal((b, t, d)) - 4.6)) + 1e-4
+    else:
+        dt = rng.uniform(*dt_range, (b, t, d))
+    a = -np.exp(rng.standard_normal((d, n)) * 0.3)
+    bb, cc = (rng.standard_normal((b, t, n)) * 0.5 for _ in range(2))
+    h0 = rng.standard_normal((b, d, n)) * 0.5 if state else None
+    on = lambda v, dt_: torch.from_numpy(np.asarray(v, np.float32)).to(dt_).to(card)
+    return ([on(x, dtype), on(dt, dtype), on(a, torch.float32), on(bb, dtype), on(cc, dtype)]
+            + [None if h0 is None else on(h0, torch.float32)])
+
+
+@pytest.mark.parametrize("case", [
+    # (b, t, d, n, dtype, state in, dt range)
+    ("prefill", 1, 2048, 1600, 16, torch.bfloat16, False, None),
+    ("prefill_f32", 1, 512, 1600, 16, torch.float32, False, None),
+    ("decode", 8, 1, 1600, 16, torch.bfloat16, True, None),
+    ("decode_f32", 8, 1, 1600, 16, torch.float32, True, None),
+    ("ragged_777", 2, 777, 100, 16, torch.float32, True, None),
+    ("smoke_n8", 2, 37, 64, 8, torch.bfloat16, True, None),
+    ("sweep_n8_f32", 1, 64, 128, 8, torch.float32, False, None),
+    ("past_the_clamp", 1, 256, 64, 16, torch.float32, False, (2.0, 3.0)),
+], ids=lambda c: c[0])
+def test_ssm_scan_kernel_matches_plain(card, case):
+    _, b, t, d, n, dtype, state, dt_range = case
+    args = _ssm_inputs(card, b, t, d, n, dtype, t + d, state, dt_range)
+    before = ssm_scan.launches
+    y, h = ssm_scan(*args)
+    torch.cuda.synchronize()
+    assert ssm_scan.launches == before + 1
+    y_want, h_want = ssm_scan_ref(*args)
+    assert y.dtype == y_want.dtype == dtype and h.dtype == torch.float32
+    for got, want, rtol in ((y, y_want, SSM_RTOL[dtype]), (h, h_want, 0.0)):
+        scale = max(1.0, want.float().abs().max().item())
+        torch.testing.assert_close(got.float(), want.float(), atol=SSM_ATOL * scale, rtol=rtol)
+
+
+@pytest.mark.parametrize("case", ["state_size", "strided"])
+def test_ssm_scan_kernel_refuses_what_it_does_not_take(card, case):
+    """A state size with no instance, and operands that are not contiguous."""
+    x, dt, a, b, c, _ = _ssm_inputs(card, 1, 8, 32, 12 if case == "state_size" else 16,
+                                    torch.float32, 0)
+    if case == "strided":
+        x = torch.cat([x, x], dim=1)[:, ::2]
+    before = ssm_scan.launches
+    with pytest.raises(ValueError):
+        ssm_scan(x, dt, a, b, c)
+    assert ssm_scan.launches == before
+
+
+def test_hymba_launches_one_kernel_each_per_layer(card):
+    """hymba smoke on the card: a prefill and each decode step launch
+    flash_attention and ssm_scan once per layer, decode crossing the
+    16-token window; a step limited to one row leaves the other row's
+    K/V, conv and SSM state as they were."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import zoo
+
+    cfg = get_config("hymba-1.5b", smoke=True)
+    model = zoo.build_params(cfg, 0, device=card)
+    tokens = torch.randint(0, cfg.vocab, (2, 14), device=card, dtype=torch.int32)
+    cache = zoo.init_kv_cache(cfg, 2, 24, dtype=cfg.dtype, device=card)
+    f0, s0 = flash_attention.launches, ssm_scan.launches
+    logits, _, _ = zoo.forward(cfg, model, {"tokens": tokens}, caches=cache, offset=0)
+    assert (flash_attention.launches - f0, ssm_scan.launches - s0) == (2, 2)
+    step = zoo.make_serve_step(cfg)
+    tok = torch.argmax(logits[:, -1], -1)[:, None].to(torch.int32)
+    for pos in range(14, 22):
+        logits, cache = step(model, cache, tok, pos)
+        tok = torch.argmax(logits, -1)[:, None].to(torch.int32)
+    kept = {name: leaf[:, 0].clone() for name, leaf in cache.items()}
+    step(model, cache, tok, 22, rows=torch.tensor([1], device=card))
+    torch.cuda.synchronize()
+    assert flash_attention.launches - f0 == ssm_scan.launches - s0 == 10 * cfg.n_layers
+    assert torch.isfinite(logits.float()).all()
+    for name, leaf in cache.items():
+        assert torch.equal(leaf[:, 0], kept[name]), name

@@ -45,7 +45,8 @@ def test_importing_the_port_loads_no_jax():
 
 def test_importing_the_lm_loads_no_jax():
     code = (
-        "import sys, repro_torch.configs, repro_torch.models, repro_torch.launch.serve, "
+        "import sys, repro_torch.configs, repro_torch.models, repro_torch.models.ssm, "
+        "repro_torch.launch.serve, "
         "repro_torch.runtime.serving, repro_torch.runtime.tenancy; "
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]; "
         "print(bad); sys.exit(1 if bad else 0)"

@@ -57,20 +57,18 @@ def test_yi_config_equals_jax(smoke):
     assert mine.dtype == torch.bfloat16 and theirs.dtype == jnp.bfloat16
     assert mine.vocab_padded == theirs.vocab_padded == (65_536 if not smoke else 2048)
     assert (mine.qkv_dim, mine.kv_dim) == (theirs.qkv_dim, theirs.kv_dim)
-    assert list_archs() == ("yi-9b", "rwkv6-1.6b")
+    assert list_archs() == ("yi-9b", "rwkv6-1.6b", "hymba-1.5b")
 
 
-@pytest.mark.parametrize("arch", [a for a in JAX_ARCH_IDS if a not in ("yi-9b", "rwkv6-1.6b")]
-                         + ["nope"])
+@pytest.mark.parametrize("arch", [a for a in JAX_ARCH_IDS
+                                  if a not in ("yi-9b", "rwkv6-1.6b", "hymba-1.5b")] + ["nope"])
 def test_unported_arch_raises_naming_roadmap(arch):
     with pytest.raises(KeyError, match="ROADMAP"):
         get_config(arch)
 
 
 @pytest.mark.parametrize("change", [
-    dict(family="moe", n_experts=4, topk=2), dict(family="hybrid"),
-    dict(enc_layers=2), dict(window=16), dict(window=16, global_every=2),
-    dict(frontend="patch"),
+    dict(family="moe", n_experts=4, topk=2), dict(enc_layers=2), dict(frontend="patch"),
 ])
 def test_unported_families_raise(change):
     cfg = get_config("yi-9b", smoke=True).replace(**change)
@@ -78,6 +76,21 @@ def test_unported_families_raise(change):
         zoo.build_params(cfg, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         zoo.init_kv_cache(cfg, 1, 8, device="cpu")
+
+
+@pytest.mark.parametrize("change", [dict(window=16), dict(window=16, global_every=2)],
+                         ids=["all_local", "every_2nd_global"])
+def test_windowed_dense_matches_jax(change):
+    """A dense stack with sliding-window layers (the flash kernel's window)
+    over a 40-token prompt, where the 16-token window bites."""
+    jcfg = jax_get_config("yi-9b", smoke=True).replace(dtype=jnp.float32, **change)
+    cfg = get_config("yi-9b", smoke=True).replace(dtype=torch.float32, **change)
+    jp, _ = jzoo.build_params(jcfg, 2)
+    model = zoo.from_jax_params(cfg, {k: np.asarray(v, np.float32) for k, v in jp.items()}, "cpu")
+    toks = _tokens(5, (2, 40), cfg.vocab)
+    want, _, _ = jzoo.forward(jcfg, jp, {"tokens": jnp.asarray(toks)})
+    got, _, _ = zoo.forward(cfg, model, {"tokens": torch.from_numpy(toks)})
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4)
 
 
 # -------------------------------------------------------------- layers
