@@ -34,11 +34,14 @@ a checkout, on a host with one Hopper card (sm_90) and the CUDA toolkit.
    that computes the same function where there is one, and the bound from
    bytes moved; logs the back-to-back wall time per call too.
 7. Flash kernel phase: ``flash_attention`` against its plain version at
-   yi-9b's prefill (S = T = 1,000 and 2,048) and decode (B = 8, S = 1 on
-   cache views of T = 1, 777, 4,096) shapes and at the five shapes of the
-   JAX kernel sweep, in f32 and bf16, within 2e-5 / 2e-2; each bf16 call
-   also against the plain version on f32 copies of its inputs, within
-   atol 1e-4 and rtol 1e-2 (bf16 output rounding).
+   yi-9b's prefill (S = T = 300, 1,000 and 2,048, and S = 256 over a
+   1,024-token prefix of a 2,048-slot cache) and decode (B = 8, S = 1 on
+   cache views of T = 1, 129, 777, 4,096) shapes and at the five shapes of
+   the JAX kernel sweep, in f32 and bf16, within 2e-5 / 2e-2; each bf16
+   call also against the plain version on f32 copies of its inputs, within
+   atol 1e-4 and rtol 1e-2.  Each line names the route the call took: bf16
+   prefill on the tensor cores (``wgmma``), bf16 decode split over keys
+   (``split``), f32 on the CUDA-core kernel (``simt``).
 8. Parity phase: a 2-layer yi-9b at full width in f32, one set of weights
    from seed 0, 128 prompt tokens and 8 teacher-forced decode steps on the
    card (kernel) and on the CPU (plain version): logits within 1e-3, equal
@@ -47,15 +50,18 @@ a checkout, on a host with one Hopper card (sm_90) and the CUDA toolkit.
    random weights drawn on the card) behind ``ServeScheduler(slots=8,
    t_max=4096)``: 16 requests with prompts of 256-3,072 tokens, 32 new
    tokens each, every logit finite, ``flash_attention`` launched 16 x
-   (prefills + decode groups) times; then a profiled decode burst and
-   prefill (busy share, the kernel's share).
+   (prefills + decode groups) times, 16 x prefills on the ``wgmma`` route
+   and 16 x decode groups on the ``split`` route; then a profiled decode
+   burst and prefill (busy share, the kernel's share).
 10. ``repro_torch.launch.serve --no-smoke --batch 4 --prompt-len 2048
    --gen 32`` at full yi-9b (48 layers), local and with ``--remote-embed
    --embed-servers 2``: the two token streams bit-identical,
    ``embed_lookup`` launched in the remote run.
 11. Times ``flash_attention`` at the prefill (S = T = 2,048) and decode
    (B = 8, T = 2,048) shapes beside its plain version,
-   ``scaled_dot_product_attention`` and its bound (operations or bytes).
+   ``scaled_dot_product_attention`` and its bound (operations or bytes),
+   and logs each tensor-core and split instance's registers and spills
+   from the build's ptxas report.
 12. wkv6 kernel phase: ``wkv6`` against its plain version at rwkv6-1.6b's
    prefill (B = 1, T = 2,048, H = 32, M = 64) and decode (B = 8, T = 1
    from a state) shapes, the three shapes of the JAX wkv6 sweep in f32 and
@@ -89,7 +95,8 @@ a checkout, on a host with one Hopper card (sm_90) and the CUDA toolkit.
    2,064-token prompt, so the 2,048 window bites at prefill and decode.
 20. The serving phase on full hymba-1.5b (32 layers, bf16): the same 16
    requests, ``flash_attention`` and ``ssm_scan`` each launched 32 x
-   (prefills + decode groups) times, and its profiled decode burst and
+   (prefills + decode groups) times (flash on the ``wgmma`` and ``split``
+   routes as for yi), and its profiled decode burst and
    prefill with both kernels' shares.  Each burst line also logs, per
    kernel, the kernels recorded in the window, those matched to a launch
    in it by correlation id, the wrapper's launches in it and the names
@@ -109,6 +116,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import subprocess
 import sys
 import time
@@ -138,11 +146,14 @@ SWEEP = [
 ]
 FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}  # the JAX sweep's tolerances
 # A bf16 call also against the plain version run on f32 copies of the same
-# inputs (f32 probabilities, as the kernel keeps them): the two then differ
-# by the kernel's bf16 output rounding, at most 2**-8 of a value (rtol), and
-# f32 summation order, ~1e-6 (atol).  At T = 4,096 the outputs are ~0.026
-# (sqrt(e / T)), which 2e-2 does not resolve; a key tile skipped moves them
-# by ~3e-3.
+# inputs (f32 probabilities): the two then differ by the kernel's bf16
+# output rounding, at most 2**-8 of a value (rtol), and by its bf16
+# probabilities (both bf16 routes round P to bf16 before the P V product,
+# as the Pallas kernel does; the f32 route keeps P in f32): each weight off
+# by up to 2**-9 of itself, ~2**-9 / sqrt(T) of an output, ~1e-5 at
+# T = 4,096, with f32 summation order ~1e-6 (atol).  At T = 4,096 the
+# outputs are ~0.026 (sqrt(e / T)), which 2e-2 does not resolve; a key tile
+# skipped moves them by ~3e-3.
 FLASH_F32P_ATOL, FLASH_F32P_RTOL = 1e-4, 1e-2
 # f32 card vs CPU over 2 full-width layers: |logit| is O(1) and the two
 # sides sum 4,096- and 11,008-long f32 products in different orders
@@ -669,24 +680,30 @@ def _flash_case(dev, g, b, s, t, h, kh, d, dtype, t_max=None):
 
 def flash_kernel_phase(dev) -> dict:
     """flash_attention on the card against its plain version: yi's prefill
-    (S = T = 1,000 and 2,048) and decode (B = 8, S = 1 on cache views of
-    T = 1, 777 and 4,096 of a 4,096-slot cache) shapes, the five shapes of
+    (S = T = 300, 1,000 and 2,048; S = 256 on a 1,024-token view of a
+    2,048-slot cache) and decode (B = 8, S = 1 on cache views of T = 1,
+    129, 777 and 4,096 of a 4,096-slot cache: ragged splits) shapes, the five shapes of
     the JAX kernel sweep (heads-first tensors transposed into the model
     layout: strided inputs) and hymba's (25/5 heads of 64) with its 2,048
     window at prefill S = T = 3,000 and decode T = 2,049 and 4,096, and
     global at decode T = 4,096, each in f32 and bf16.  Every call within
     FLASH_TOL of the plain version in its own dtype; every bf16 call also
-    within FLASH_F32P_* of the plain version on f32 copies of its inputs."""
-    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref
+    within FLASH_F32P_* of the plain version on f32 copies of its inputs.
+    Each call must raise its route's launch count (``flash_route``) by one."""
+    from repro_torch.kernels.flash_attention import (
+        flash_attention, flash_attention_ref, flash_route,
+    )
 
     g = torch.Generator(dev).manual_seed(3)
     bf16, f32 = torch.bfloat16, torch.float32
     cases = []
     for dtype in (f32, bf16):
         cases += [(f"prefill S=T={n}", (1, n, n, 32, 4, 128, dtype), dict(causal=True))
-                  for n in (1000, 2048)]
+                  for n in (300, 1000, 2048)]
+        cases.append(("prefill S=256 T=1024 of a 2048-slot cache",
+                      (1, 256, 1024, 32, 4, 128, dtype, 2048), dict(causal=True)))
         cases += [(f"decode B=8 T={t}", (8, 1, t, 32, 4, 128, dtype, 4096), dict(causal=True))
-                  for t in (1, 777, 4096)]
+                  for t in (1, 129, 777, 4096)]
     for b, h, kh, s, t, d, _, _, causal, cap in SWEEP:
         for dtype in (f32, bf16):
             cases.append((f"sweep {(b, h, kh, s, t, d)} causal={causal} softcap={cap}",
@@ -702,7 +719,7 @@ def flash_kernel_phase(dev) -> dict:
              dict(causal=True)),
         ]
     worst = {f32: 0.0, bf16: 0.0, "f32_probs": 0.0}
-    before = flash_attention.launches
+    before = flash_attention.launches, dict(flash_attention.route_launches)
     for label, shape, kw in cases:
         if label.startswith("sweep"):
             b, h, kh, s, t, d, dtype = shape
@@ -712,12 +729,16 @@ def flash_kernel_phase(dev) -> dict:
         else:
             dtype = shape[6]
             q, k, v = _flash_case(dev, g, *shape)
+        route = flash_route(dtype, q.shape[1], q.shape[2], k.shape[2])
+        at = flash_attention.route_launches[route]
         got = flash_attention(q, k, v, **kw).float()
+        if flash_attention.route_launches[route] != at + 1:
+            raise AssertionError(f"flash_attention {label}: no launch on the {route} route")
         want = flash_attention_ref(q, k, v, **kw).float()
         torch.cuda.synchronize()
         err = (got - want).abs().max().item()
         tol = FLASH_TOL[dtype]
-        line = (f"kernel flash_attention {label} {str(dtype)[6:]}: max_abs_err={err} "
+        line = (f"kernel flash_attention {label} {str(dtype)[6:]} ({route}): max_abs_err={err} "
                 f"(within {tol}), plain |out| max {want.abs().max().item()} rms "
                 f"{want.square().mean().sqrt().item()}")
         if not torch.allclose(got, want, atol=tol, rtol=tol):
@@ -732,7 +753,8 @@ def flash_kernel_phase(dev) -> dict:
                 raise AssertionError(f"flash_attention differs from plain: {line}")
             worst["f32_probs"] = max(worst["f32_probs"], err)
         log(line)
-    flash_attention.launches = before  # checking launches are not main-path launches
+    # checking launches are not main-path launches
+    flash_attention.launches, flash_attention.route_launches = before
     return {"max_abs_err": max(worst[f32], worst[bf16]), "max_abs_err_f32_probs":
             worst["f32_probs"]}
 
@@ -808,7 +830,7 @@ def serving_phase(dev, profile_dir: str | None, arch: str = "yi-9b") -> dict:
     (PATH_KERNEL) must launch once per layer per prefill and per decode
     group."""
     from repro_torch.configs import get_config
-    from repro_torch.kernels import launch_counts, reset_launches
+    from repro_torch.kernels import WRAPPERS, launch_counts, reset_launches
     from repro_torch.models import zoo
     from repro_torch.runtime import ServeScheduler
 
@@ -842,11 +864,20 @@ def serving_phase(dev, profile_dir: str | None, arch: str = "yi-9b") -> dict:
         if launches[kernel] != want:
             raise AssertionError(f"serving {arch}: {launches[kernel]} {kernel} launches, want "
                                  f"{cfg.n_layers} x ({sched.prefills} + {sched.decode_groups})")
+    routes = {}
+    if ("flash_attention", "flash") in PATH_KERNEL[arch]:  # prefill wgmma, decode split
+        routes = dict(WRAPPERS["flash_attention"].route_launches)
+        if routes != {"wgmma": cfg.n_layers * sched.prefills,
+                      "split": cfg.n_layers * sched.decode_groups, "simt": 0}:
+            raise AssertionError(f"serving {arch}: flash routes {routes}, want wgmma "
+                                 f"{cfg.n_layers} x {sched.prefills} and split "
+                                 f"{cfg.n_layers} x {sched.decode_groups}")
     ttft = [r.t_first - r.t_submit for r in done]
     rec = dict(wall_s=wall, prefills=sched.prefills, decode_groups=sched.decode_groups,
                prompt_tokens=int(lengths.sum()), new_tokens=SERVE_REQUESTS * SERVE_NEW,
                tok_s=SERVE_REQUESTS * SERVE_NEW / wall, ttft_s_max=max(ttft),
-               **{f"{short}_launches": launches[kernel] for kernel, short in PATH_KERNEL[arch]})
+               **{f"{short}_launches": launches[kernel] for kernel, short in PATH_KERNEL[arch]},
+               **({"flash_routes": routes} if routes else {}))
     prefix = line_prefix(arch)
     shorts = " and ".join(short for _, short in PATH_KERNEL[arch])
     log(f"{prefix}serving scheduler: {SERVE_REQUESTS} requests x {SERVE_NEW} tokens, all "
@@ -856,6 +887,7 @@ def serving_phase(dev, profile_dir: str | None, arch: str = "yi-9b") -> dict:
     del sched, model
     torch.cuda.empty_cache()
     rec["launches"] = launches
+    rec["flash_routes"] = routes
     return rec
 
 
@@ -870,7 +902,10 @@ def decode_burst(cfg, model, cache, dev, profile_dir: str | None, arch: str = "y
     correlation id, ``_by_launch``); for each path kernel the line also
     logs the kernels whose start lies in the window (``_recorded``), the
     wrapper's launches in the window (``_launched``) and the kernel names
-    matched (ROADMAP T12)."""
+    matched (ROADMAP T12).  Every wrapper launch records one device kernel
+    on each route: ``flash_fwd_wgmma`` for the prefill, ``flash_fwd_split``
+    for a decode step (its chunks' partials merge inside the same kernel),
+    ``flash_fwd`` for f32; ``wkv6_fwd`` and ``ssm_scan_fwd`` one each."""
     from repro_torch.kernels import WRAPPERS
     from repro_torch.models import zoo
 
@@ -971,12 +1006,18 @@ def time_flash(dev) -> dict:
     scaled_dot_product_attention's (a yardstick the port never calls) timed
     the same way, and the bound: the larger of the FLOPs over the bf16 dense
     tensor-core peak and the bytes (q, k, v read once, out written once)
-    over the HBM rate."""
-    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref
+    over the HBM rate.  Each record names the route; the ptxas report of
+    each tensor-core and split instance (registers, spills) is logged when
+    this process built the library."""
+    from repro_torch.kernels.flash_attention import (
+        flash_attention, flash_attention_ref, flash_route,
+    )
 
+    for inst in flash_instances():
+        log(f"ptxas flash_attention instance {json.dumps(inst)}")
     sdpa = torch.nn.functional.scaled_dot_product_attention
     g = torch.Generator(dev).manual_seed(4)
-    before = flash_attention.launches
+    before = flash_attention.launches, dict(flash_attention.route_launches)
     out = {}
     h, kh, d = 32, 4, 128
     for name, (b, s, t) in FLASH_TIMING.items():
@@ -999,6 +1040,7 @@ def time_flash(dev) -> dict:
             "flops": flops,
             "bytes": moved,
             "call_ms": call_ms(flash_attention, sets, reps),
+            "route": flash_route(torch.bfloat16, s, h, kh),
         }
         out[name] = rec
         log(f"timing flash_attention {name} B={b} S={s} T={t} H={h} K={kh} d={d} bf16: "
@@ -1032,11 +1074,34 @@ def time_flash(dev) -> dict:
             "flops": flops,
             "bytes": moved,
             "call_ms": call_ms(lambda q, k, v: flash_attention(q, k, v, window=w), sets, reps),
+            "route": flash_route(torch.bfloat16, s, h, kh),
         }
         out[name] = rec
         log(f"timing flash_attention {name} B={b} S={s} T={t} H={h} K={kh} d={d} window {w} "
             f"bf16: {json.dumps(rec)}")
-    flash_attention.launches = before  # timing launches are not main-path launches
+    # timing launches are not main-path launches
+    flash_attention.launches, flash_attention.route_launches = before
+    return out
+
+
+def flash_instances() -> list[dict]:
+    """ptxas's report of each ``flash_fwd_wgmma`` and ``flash_fwd_split``
+    instance (head dim, registers, spilled bytes, static shared memory), from
+    the build log of this process; empty when the library was built before."""
+    from repro_torch.kernels import build
+
+    out = []
+    for block in build.build_logs.get("flash_attention", "").split("Compiling entry function")[1:]:
+        name = re.search(r"(flash_fwd_(?:wgmma|split))I(.*?)EEv", block)
+        used = re.search(r"Used (\d+) registers", block)
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", block)
+        if not (name and used and spill):
+            continue
+        smem = re.search(r"(\d+) bytes smem", block)
+        out.append({"kernel": name.group(1), "d": int(re.findall(r"Li(\d+)E", name.group(2))[0]),
+                    "registers": int(used.group(1)), "spill_stores": int(spill.group(1)),
+                    "spill_loads": int(spill.group(2)),
+                    "static_smem": int(smem.group(1)) if smem else 0})
     return out
 
 
@@ -1381,10 +1446,12 @@ def main() -> int:
         "replaces": "src/repro/kernels/flash_attention/kernel.py:90",
         "launches": serving["launches"]["flash_attention"],
         "launches_hymba": hymba_serving["launches"]["flash_attention"],
+        "launches_by_route": serving["flash_routes"],
+        "launches_by_route_hymba": hymba_serving["flash_routes"],
         "max_abs_err": flash_checked["max_abs_err"],
         "max_abs_err_f32_probs": flash_checked["max_abs_err_f32_probs"],
         **{k: flash_timing["prefill"][k] for k in keys},
-        "shape": "prefill B=1 S=T=2048 H=32 K=4 d=128 bf16",
+        "shape": "prefill B=1 S=T=2048 H=32 K=4 d=128 bf16 (wgmma; decodes: split)",
         "decode": {k: flash_timing["decode"][k] for k in keys},
         "hymba_prefill": {k: flash_timing["hymba_prefill"][k] for k in keys},
         "hymba_decode": {k: flash_timing["hymba_decode"][k] for k in keys},

@@ -48,6 +48,8 @@ def launch_counts() -> dict[str, int]:
 def reset_launches() -> None:
     for fn in WRAPPERS.values():
         fn.launches = 0
+        if hasattr(fn, "route_launches"):  # flash_attention's count by route
+            fn.route_launches = dict.fromkeys(fn.route_launches, 0)
 
 
 __all__ = ["WRAPPERS", "launch_counts", "reset_launches"]

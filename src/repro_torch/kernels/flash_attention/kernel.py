@@ -6,22 +6,33 @@ at line 116): blockwise online-softmax GQA attention with end-aligned
 causal masking and an optional tanh softcap.  It adds a per-call sliding
 window (the JAX model computes the window in its jnp ``attend``; the
 Pallas kernel has none), so hymba's local layers run it too.  The CUDA
-kernel computes the same function for any S and T, in the model's
+kernels compute the same function for any S and T, in the model's
 ``(B, S, H, d)`` / ``(B, T, K, d)`` layout read through strides, so the
-decode path hands it a view of the KV cache's valid prefix without a copy.
+decode path hands them a view of the KV cache's valid prefix without a
+copy.
 
-Bound: operations at prefill (4 B H d S T / 2 under the causal mask), the
-bytes of the K/V prefix at decode.  The first version runs on the f32 CUDA
-cores (see the source's note); its times are in ``PERF.md``.
+Three routes (:func:`flash_route`; the source's note has their designs):
+
+- ``"wgmma"``: bf16 with more than :data:`SPLIT_ROWS` rows (query, head of
+  the group) per (batch, KV head), i.e. prefill: both products on the
+  tensor cores, K/V by TMA.  Bound by operations.
+- ``"split"``: bf16 with at most :data:`SPLIT_ROWS` rows, i.e. decode: the
+  visible keys of each (batch, KV head) cut into chunks
+  (:func:`split_plan`), one block per chunk, partials merged in the same
+  launch.  Bound by the bytes of the visible K/V.
+- ``"simt"``: f32, on the f32 CUDA cores, so f32 agrees with the plain
+  version to rounding.
 
 :func:`flash_attention` is the wrapper: a tensor on the CPU takes the plain
-version (:mod:`.ref`); a CUDA tensor launches the kernel (and counts the
-launch in ``flash_attention.launches``) or raises.
+version (:mod:`.ref`); a CUDA tensor launches one route's kernel (counted
+in ``flash_attention.launches`` and, by route, in
+``flash_attention.route_launches``) or raises.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
@@ -29,19 +40,80 @@ import torch
 from ..build import load
 from .ref import flash_attention_ref
 
-#: head dims the kernel is instantiated for (yi's 128, the sweep's 64, the
-#: smoke config's 32)
+#: head dims the kernels are instantiated for (yi's 128, the sweep's 64,
+#: the smoke config's 32)
 HEAD_DIMS = (32, 64, 128)
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPES = (torch.float32, torch.bfloat16)
+ROUTES = ("wgmma", "split", "simt")
+#: a bf16 call with at most this many rows per (batch, KV head) is split
+#: over keys (the split kernel's row limit)
+SPLIT_ROWS = 16
+#: the split plan: chunks of at least this many keys, at most this many
+#: chunks, and about this many blocks per SM in flight at head dim 64
+#: (half as many at 128: a block's bytes and its share of the merge grow
+#: with d; on the card, 2 and 4 blocks beat 4 and 8 at d = 128, 4 beat 2
+#: and 8 at d = 64, PERF.md)
+SPLIT_MIN_KEYS, SPLIT_MAX, SPLIT_BLOCKS_PER_SM = 128, 64, 4
+H100_SMS = 132
+
+
+def flash_route(dtype: torch.dtype, s: int, h: int, kh: int) -> str:
+    """The route a CUDA call of this dtype and shape takes."""
+    if dtype != torch.bfloat16:
+        return "simt"
+    return "split" if s * (h // kh) <= SPLIT_ROWS else "wgmma"
+
+
+@functools.lru_cache(maxsize=1024)
+def split_plan(b: int, s: int, t: int, h: int, kh: int, d: int, window: int = 0,
+               causal: bool = True, sms: int = H100_SMS) -> tuple[int, int, int]:
+    """``(key0, chunk, n)``: split ``j`` of ``n`` covers keys ``[key0 + j
+    chunk, min(key0 + (j + 1) chunk, t))``, the same for every (batch, KV
+    head).  Together the splits cover exactly the keys some query sees
+    (``[t - s - window + 1, t)`` under a window, else ``[0, t)``), each
+    split holds at least one of them, and each chunk at least
+    :data:`SPLIT_MIN_KEYS` keys where there are that many; there are enough
+    for about :data:`SPLIT_BLOCKS_PER_SM` x 64 / ``d`` blocks per SM, at
+    most :data:`SPLIT_MAX`.  ``h`` does not move the plan: the G rows of a
+    KV head share a block."""
+    key0 = max(0, t - s - window + 1) if causal and window > 0 else 0
+    keys = t - key0
+    want = -(-SPLIT_BLOCKS_PER_SM * 64 * sms // (d * b * kh))
+    n = max(1, min(want, SPLIT_MAX, keys // SPLIT_MIN_KEYS))
+    chunk = -(-keys // n)
+    chunk = -(-chunk // 32) * 32  # whole 32-key tiles
+    return key0, chunk, -(-keys // chunk)
+
+
+_tickets: dict[torch.device, torch.Tensor] = {}
+
+
+def _ticket_buffer(device: torch.device, n: int) -> torch.Tensor:
+    """The split route's per-(batch, KV head) tickets: zeroed once here and
+    left zero by every launch (the merging block resets its ticket), so
+    calls queued on one stream share it."""
+    buf = _tickets.get(device)
+    if buf is None or buf.numel() < n:
+        buf = _tickets[device] = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+    return buf
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _library() -> ctypes.CDLL:
     lib = load("flash_attention")
-    fn = lib.flash_attention_launch
-    if fn.restype is not ctypes.c_int or not fn.argtypes:
+    if not lib.flash_attention_launch.argtypes:
         p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-        fn.argtypes = [p, p, p, p, i, i, i, i, i, i, i, *[ll] * 9, f, f, i, i, p]
-        fn.restype = ctypes.c_int
+        for fn in (lib.flash_attention_launch, lib.flash_attention_wgmma_launch):
+            fn.argtypes = [p, p, p, p, i, i, i, i, i, i, *[ll] * 9, f, f, i, i, p]
+        lib.flash_attention_split_launch.argtypes = [p, p, p, p, i, i, i, i, i, i, *[ll] * 9,
+                                                     f, f, i, i, i, i, i, p, p, p, p]
+        for fn in (lib.flash_attention_launch, lib.flash_attention_wgmma_launch,
+                   lib.flash_attention_split_launch):
+            fn.restype = ctypes.c_int
         lib.flash_attention_error_string.argtypes = [ctypes.c_int]
         lib.flash_attention_error_string.restype = ctypes.c_char_p
     return lib
@@ -78,6 +150,15 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool, wind
         raise ValueError("flash_attention operands must lie on one device")
 
 
+def _strides(x: torch.Tensor) -> list[int]:
+    """The (batch, row, head) strides in elements; a dim of size 1 gets its
+    contiguous stride (any stride of it is never stepped, but the TMA
+    descriptors want 16-byte multiples)."""
+    _, n, heads, d = x.shape
+    packed = (n * heads * d, heads * d, d)
+    return [st if size > 1 else pk for st, size, pk in zip(x.stride()[:3], x.shape[:3], packed)]
+
+
 def flash_attention(
     q: torch.Tensor,  # (B, S, H, d)
     k: torch.Tensor,  # (B, T, K, d)
@@ -103,7 +184,7 @@ def flash_attention(
     if d not in HEAD_DIMS:
         raise ValueError(f"flash_attention kernel takes head dims {HEAD_DIMS}, got {d}")
     for x in (q, k, v):
-        vec = 16 // x.element_size()  # the kernel reads rows in 16-byte words
+        vec = 16 // x.element_size()  # the kernels read rows in 16-byte words
         steps = [st for st, n in zip(x.stride()[:3], x.shape[:3]) if n > 1]
         if x.stride(3) != 1 or x.data_ptr() % 16 or any(st % vec for st in steps):
             raise ValueError(
@@ -114,22 +195,36 @@ def flash_attention(
         raise ValueError(f"flash_attention softcap must be positive, got {softcap}")
     scale = 1.0 / math.sqrt(d) if scale is None else float(scale)
     out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
+    route = flash_route(q.dtype, s, h, kh)
     lib = _library()
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
+    shape = (b, s, t, h, kh, d, *_strides(q), *_strides(k), *_strides(v),
+             scale, float(softcap or 0.0), int(causal), window)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.flash_attention_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), _DTYPES[q.dtype],
-            b, s, t, h, kh, d,
-            q.stride(0), q.stride(1), q.stride(2),
-            k.stride(0), k.stride(1), k.stride(2),
-            v.stride(0), v.stride(1), v.stride(2),
-            scale, float(softcap or 0.0), int(causal), window, stream,
-        )
+        if route == "simt":
+            err = lib.flash_attention_launch(*args, *shape, stream)
+        elif route == "wgmma":
+            err = lib.flash_attention_wgmma_launch(*args, *shape, stream)
+        else:
+            key0, chunk, n = split_plan(b, s, t, h, kh, d, window, causal,
+                                        _sm_count(q.device.index))
+            part = ml = tickets = None
+            if n > 1:  # scratch: each chunk's (acc, then m and l) per row, f32
+                acc = b * kh * n * SPLIT_ROWS * d
+                scratch = torch.empty(acc + b * kh * n * SPLIT_ROWS * 2, dtype=torch.float32,
+                                      device=q.device)
+                part, ml = scratch.data_ptr(), scratch[acc:].data_ptr()
+                tickets = _ticket_buffer(q.device, b * kh).data_ptr()
+            err = lib.flash_attention_split_launch(*args, *shape, key0, chunk, n, part, ml,
+                                                   tickets, stream)
     flash_attention.launches += 1
+    flash_attention.route_launches[route] += 1
     if err:
         msg = lib.flash_attention_error_string(err).decode()
-        raise RuntimeError(f"flash_attention launch failed: {msg} ({err})")
+        raise RuntimeError(f"flash_attention {route} launch failed: {msg} ({err})")
     return out
 
 
 flash_attention.launches = 0
+flash_attention.route_launches = dict.fromkeys(ROUTES, 0)

@@ -15,7 +15,7 @@ from repro_torch.core import make_chain, make_chaser
 from repro_torch.core.bitcode import deserialize_and_jit
 from repro_torch.kernels.chase import chase_shard, chase_shard_op, chase_shard_ref
 from repro_torch.kernels.embed_lookup import embed_lookup, embed_lookup_op, embed_lookup_ref
-from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref
+from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref, flash_route
 from repro_torch.kernels.ssm_scan import ssm_scan, ssm_scan_ref
 from repro_torch.kernels.wkv6 import wkv6, wkv6_ref
 
@@ -192,6 +192,51 @@ def test_lm_launches_one_flash_kernel_per_layer(card):
     torch.cuda.synchronize()
     assert flash_attention.launches == before + 5 * cfg.n_layers
     assert torch.isfinite(logits.float()).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", [
+    # (name, b, s, t, t_max, h, kh, d, causal, softcap, window)
+    ("decode_yi_T1", 8, 1, 1, 4096, 32, 4, 128, True, None, 0),
+    ("decode_yi_T129", 8, 1, 129, 4096, 32, 4, 128, True, None, 0),
+    ("decode_yi_T777", 8, 1, 777, 4096, 32, 4, 128, True, None, 0),
+    ("decode_yi_T4096", 8, 1, 4096, 4096, 32, 4, 128, True, None, 0),
+    ("decode_hymba_T2049_w2048", 8, 1, 2049, 4096, 25, 5, 64, True, None, 2048),
+    ("decode_hymba_T4096_w2048", 8, 1, 4096, 4096, 25, 5, 64, True, None, 2048),
+    ("decode_2q_T777_w300_d32", 2, 2, 777, 1024, 16, 2, 32, True, 30.0, 300),
+    ("prefill_yi_S300", 1, 300, 300, 300, 32, 4, 128, True, None, 0),
+    ("prefill_yi_S256_T1024", 1, 256, 1024, 2048, 32, 4, 128, True, None, 0),
+    ("prefill_d32_cap50", 1, 128, 128, 128, 8, 8, 32, True, 50.0, 0),
+    ("prefill_d64_cap30", 1, 128, 256, 256, 6, 2, 64, True, 30.0, 0),
+    ("prefill_noncausal_S256_T512", 2, 256, 512, 512, 4, 1, 32, False, None, 0),
+    ("prefill_hymba_S1000_w300", 1, 1000, 1000, 1000, 25, 5, 64, True, None, 300),
+], ids=lambda c: c[0] if isinstance(c, tuple) else None)
+def test_flash_routes_match_plain(card, case, dtype):
+    """Each route against the plain version: bf16 decode (at most 16 rows per
+    KV head) split over keys at ragged T, through a window and on cache
+    views; bf16 prefill on the tensor cores at a prompt no tile divides, on
+    top of a cache (S < T), at d 32/64 with softcaps and without the causal
+    mask; f32 on the CUDA-core kernel.  The route's own launch count shows
+    which kernel ran."""
+    _, b, s, t, t_max, h, kh, d, causal, cap, window = case
+    q, kc, vc = _flash_inputs(card, [(b, s, h, d), (b, t_max, kh, d), (b, t_max, kh, d)],
+                              dtype, t + s)
+    k, v = kc[:, :t], vc[:, :t]
+    kw = dict(causal=causal, softcap=cap, window=window)
+    route = flash_route(dtype, s, h, kh)
+    assert route == ("simt" if dtype == torch.float32 else "split" if s * h // kh <= 16
+                     else "wgmma")
+    before = flash_attention.launches, flash_attention.route_launches[route]
+    got = flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert (flash_attention.launches, flash_attention.route_launches[route]) == (
+        before[0] + 1, before[1] + 1)
+    want = flash_attention_ref(q, k.contiguous(), v.contiguous(), **kw)
+    tol = FLASH_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    again = flash_attention(q, k, v, **kw)  # the split route's tickets were left zero
+    torch.cuda.synchronize()
+    assert torch.equal(again, got)
 
 
 # The kernel and the plain version both run the recurrence in f32 and sum

@@ -5,6 +5,8 @@ both packages as the same numbers (bf16 inputs are the f32 draws rounded
 to nearest even by both).  The CUDA kernel itself is held against this
 plain version on the card (tests/test_torch_cuda.py, chip_smoke.py)."""
 
+import math
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -14,7 +16,11 @@ from repro.kernels.flash_attention.kernel import flash_attention as jax_flash
 from repro.kernels.flash_attention.ref import flash_attention_ref as jax_flash_ref
 from repro.models.attention import attend as jax_attend
 from repro_torch.kernels import WRAPPERS, build
-from repro_torch.kernels.flash_attention import HEAD_DIMS, flash_attention, flash_attention_ref
+from repro_torch.kernels.flash_attention import (
+    HEAD_DIMS, ROUTES, flash_attention, flash_attention_ref, flash_route, split_plan,
+)
+from repro_torch.kernels.flash_attention.kernel import SPLIT_MAX, SPLIT_MIN_KEYS, SPLIT_ROWS
+from repro_torch.kernels.flash_attention.ref import NEG
 
 DTYPES = {"f32": (jnp.float32, torch.float32), "bf16": (jnp.bfloat16, torch.bfloat16)}
 # the JAX sweep's tolerances (tests/test_kernels.py): f32 agrees to rounding;
@@ -110,9 +116,9 @@ def test_cache_view_matches_masked_attend(s, offset, dtype):
 
 def test_cpu_wrapper_takes_the_plain_version_and_counts_nothing():
     q, k, v = (torch.from_numpy(a) for a in _draw(0, (1, 3, 4, 32), (1, 5, 2, 32), (1, 5, 2, 32)))
-    before = flash_attention.launches
+    before = flash_attention.launches, dict(flash_attention.route_launches)
     got = flash_attention(q, k, v, softcap=20.0, scale=0.3)
-    assert flash_attention.launches == before
+    assert (flash_attention.launches, flash_attention.route_launches) == before
     assert torch.equal(got, flash_attention_ref(q, k, v, softcap=20.0, scale=0.3))
     assert WRAPPERS["flash_attention"] is flash_attention
     assert build.SOURCES["flash_attention"] == "flash_attention.cu"
@@ -136,3 +142,101 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(case):
     err = TypeError if case in ("dtype", "int") else ValueError
     with pytest.raises(err):
         flash_attention(*args)
+
+
+def _visible(s, t, window, causal=True):
+    """(S, T) bool: query i sees key j (the plain version's mask)."""
+    mask = torch.ones(s, t, dtype=torch.bool)
+    if causal:
+        mask = mask.tril(t - s)
+    if window:
+        mask = mask.triu(t - s - window + 1)
+    return mask
+
+
+@pytest.mark.parametrize("t", [1, 127, 128, 129, 777, 2048, 4096])
+@pytest.mark.parametrize("window", [0, 2048])
+@pytest.mark.parametrize("g", [1, 5, 8])
+def test_split_plan_covers_each_visible_key_once(t, window, g):
+    """The decode route's plan: its chunks cover every key some query sees
+    exactly once and no other key, no chunk is empty of visible keys, each
+    chunk holds at least SPLIT_MIN_KEYS keys where there are that many, and
+    a large B K, or a wide head, needs no more chunks than a small one."""
+    for b, kh, d in ((8, 4, 128), (8, 5, 64), (1, 1, 32)):
+        for s in sorted({1, min(t, SPLIT_ROWS // g)}):
+            key0, chunk, n = split_plan(b, s, t, g * kh, kh, d, window)
+            seen = _visible(s, t, window).any(0)
+            count = torch.zeros(t, dtype=torch.int64)
+            for j in range(n):
+                lo, hi = key0 + j * chunk, min(key0 + (j + 1) * chunk, t)
+                assert lo < hi and seen[lo:hi].any(), (b, kh, s, j)
+                count[lo:hi] += 1
+            assert torch.equal(count, seen.long())
+            assert 1 <= n <= SPLIT_MAX
+            assert chunk >= min(SPLIT_MIN_KEYS, int(seen.sum()))
+    n_yi, n_64, n_small = (split_plan(b, 1, t, 8 * kh, kh, d, window)[2]
+                           for b, kh, d in ((8, 4, 128), (8, 4, 64), (1, 1, 64)))
+    assert n_yi <= n_64 <= n_small
+
+
+@pytest.mark.parametrize("dtype,s,h,kh,want", [
+    (torch.bfloat16, 1, 32, 4, "split"),     # yi decode: 8 rows
+    (torch.bfloat16, 1, 25, 5, "split"),     # hymba decode: 5 rows
+    (torch.bfloat16, 2, 32, 4, "split"),     # 16 rows, the limit
+    (torch.bfloat16, 3, 32, 4, "wgmma"),     # 24 rows
+    (torch.bfloat16, 16, 4, 4, "split"),     # MHA, 16 queries
+    (torch.bfloat16, 17, 4, 4, "wgmma"),
+    (torch.bfloat16, 2048, 32, 4, "wgmma"),  # yi prefill
+    (torch.float32, 1, 32, 4, "simt"),       # f32 keeps the CUDA-core kernel
+    (torch.float32, 2048, 32, 4, "simt"),
+])
+def test_route_choice(dtype, s, h, kh, want):
+    assert flash_route(dtype, s, h, kh) == want
+    assert want in ROUTES
+
+
+def _split_and_merge(q, k, v, chunks, causal=True, window=0):
+    """The split route's algorithm in torch ops, f32: per chunk of keys the
+    partial (m, l, acc) with masked logits -2**30 (a row with no visible key
+    in the chunk gets m = -2**30 and probabilities 1), merged by the
+    log-sum-exp rule with weights exp(m_i - max m)."""
+    b, s, h, d = q.shape
+    t, kh = k.shape[1], k.shape[2]
+    g = h // kh
+    logits = torch.einsum("bskgd,btkd->bkgst", q.reshape(b, s, kh, g, d), k) / math.sqrt(d)
+    logits = logits.masked_fill(~_visible(s, t, window, causal), NEG)
+    parts = []
+    for lo, hi in chunks:
+        x = logits[..., lo:hi]
+        m = x.amax(-1, keepdim=True)
+        p = torch.exp(x - m)
+        acc = torch.einsum("bkgst,btkd->bkgsd", p, v[:, lo:hi])
+        parts.append((m, p.sum(-1, keepdim=True), acc))
+    mg = torch.stack([m for m, _, _ in parts]).amax(0)
+    total = sum(torch.exp(m - mg) * li for m, li, _ in parts)
+    acc = sum(torch.exp(m - mg) * a for m, _, a in parts)
+    out = acc / total.clamp_min(1e-20)  # (b, kh, g, s, d)
+    return out.permute(0, 3, 1, 2, 4).reshape(b, s, h, d)
+
+
+@pytest.mark.parametrize("b,s,t,h,kh,d,window", [
+    (8, 1, 2049, 25, 5, 64, 2048),   # hymba decode, one key past the window
+    (8, 1, 4096, 25, 5, 64, 2048),   # hymba decode, far past it
+    (8, 1, 2048, 32, 4, 32, 0),      # yi's decode layout at d 32
+    (2, 2, 777, 16, 2, 32, 300),     # two queries, ragged T, a narrow window
+    (1, 1, 129, 8, 1, 32, 0),        # one chunk
+])
+def test_split_and_merge_equals_plain(b, s, t, h, kh, d, window):
+    """Partials over the plan's chunks merge to the plain version within
+    1e-6 in f32, also with an extra chunk wholly outside the window (its
+    rows see no key: weight exp(-2**30 - m) = 0)."""
+    q, k, v = (torch.from_numpy(a) for a in _draw(t + s, (b, s, h, d), (b, t, kh, d),
+                                                    (b, t, kh, d)))
+    key0, chunk, n = split_plan(b, s, t, h, kh, d, window)
+    chunks = [(key0 + j * chunk, min(key0 + (j + 1) * chunk, t)) for j in range(n)]
+    want = flash_attention_ref(q, k, v, window=window)
+    torch.testing.assert_close(_split_and_merge(q, k, v, chunks, window=window), want,
+                               atol=1e-6, rtol=0)
+    if key0 > 0:
+        got = _split_and_merge(q, k, v, [(0, key0)] + chunks, window=window)
+        torch.testing.assert_close(got, want, atol=1e-6, rtol=0)
