@@ -33,6 +33,8 @@ a checkout, on a host with one Hopper card (sm_90) and the CUDA toolkit.
    the plain versions, which wait for the card inside a call) beside the plain version, the PyTorch call
    that computes the same function where there is one, and the bound from
    bytes moved; logs the back-to-back wall time per call too.
+   ``embed_lookup`` and ``index_select`` are timed in turns, 10 times each,
+   with each one's median and spread.
 7. Flash kernel phase: ``flash_attention`` against its plain version at
    yi-9b's prefill (S = T = 300, 1,000 and 2,048, and S = 256 over a
    1,024-token prefix of a 2,048-slot cache) and decode (B = 8, S = 1 on
@@ -62,45 +64,58 @@ a checkout, on a host with one Hopper card (sm_90) and the CUDA toolkit.
    ``scaled_dot_product_attention`` and its bound (operations or bytes),
    and logs each tensor-core and split instance's registers and spills
    from the build's ptxas report.
-12. wkv6 kernel phase: ``wkv6`` against its plain version at rwkv6-1.6b's
-   prefill (B = 1, T = 2,048, H = 32, M = 64) and decode (B = 8, T = 1
-   from a state) shapes, the three shapes of the JAX wkv6 sweep in f32 and
-   bf16, a constant log-decay of -1 and -1.5 per step over T = 2,048 and
-   T = 777 from a state: outputs within 2e-5 of the largest (bf16 also
-   2**-7 of each value), states within 2e-5 of the largest.
-13. Times ``wkv6`` at the prefill and decode shapes beside its plain
-   version and its bound (no PyTorch call computes WKV6).
+12. wkv6 kernel phase: ``wkv6`` against its plain version on both routes
+   (``step``: one kernel walks T; ``split``: T cut into chunks run in
+   parallel, their states carried) at rwkv6-1.6b's prefill (B = 1, T =
+   2,048, H = 32, M = 64) and decode (B = 8, T = 1 from a state) shapes,
+   launch.serve's B = 4, T = 2,048, the three shapes of the JAX wkv6
+   sweep in f32 and bf16, a constant log-decay of -1 and -1.5 per step
+   over T = 2,048 and over T = 777 from a state across chunk boundaries,
+   T = 777 from a state on both routes and in chunks of 16, T a step
+   either side of a chunk, and each chunk length the grid times: outputs
+   within 2e-5 of the largest (bf16 also 2**-7 of each value), states
+   within 2e-5 of the largest; each call counted on its route.
+13. Times ``wkv6`` at the prefill (both routes in turns) and decode shapes
+   beside its plain version and its bound (no PyTorch call computes WKV6),
+   then the route grid: both routes and the split at chunks of 16-256
+   over B 1 and 4 and T 128-3,072.
 14. The parity phase again on a 2-layer rwkv6-1.6b at full width (d_model
    2,048, 32 WKV heads, d_ff 7,168, vocab 65,536).
 15. The serving phase on rwkv6-1.6b at full width and 12 of its 24 layers
    (bf16): the same 16 requests, ``wkv6`` launched 12 x (prefills + decode
-   groups) times, and its profiled decode burst and prefill.
+   groups) times, 12 x prefills on the ``split`` route and 12 x decode
+   groups on ``step``, and its profiled decode burst and prefill (the
+   split's three device kernels a launch, each kernel's time by name).
 16. ``launch.serve`` at full rwkv6-1.6b, local and remote-embed: streams
-   bit-identical, ``wkv6`` launched 24 x (1 + 32) times in each.
-17. ssm_scan kernel phase: ``ssm_scan`` against its plain version at
-   hymba-1.5b's prefill (B = 1, T = 2,048, D = 1,600, N = 16) and decode
-   (B = 8, T = 1 from a state) shapes and T = 777 from a state, in bf16
-   and f32; the three shapes of the JAX ssm_scan sweep in f32 and bf16;
-   decays whose 32-step sum passes -60 over T = 2,048: outputs within
-   2e-5 of the largest (bf16 also 2**-7 of each value), states within 2e-5
-   of the largest.  The flash phase (7) also holds hymba's windowed
-   shapes (25/5 heads of 64, window 2,048: prefill S = T = 3,000, decode
-   T = 2,049 and 4,096, and a global decode case), and the flash timing
-   (11) adds hymba's windowed prefill (S = T = 3,072) and decode (B = 8,
-   T = 4,096).
-18. Times ``ssm_scan`` at the prefill and decode shapes beside its plain
-   version and its bound (no PyTorch call computes the selective scan).
+   bit-identical, ``wkv6`` launched 24 x (1 + 32) times in each, the
+   prefill's on ``split`` and the steps' on ``step``.
+17. ssm_scan kernel phase: ``ssm_scan`` against its plain version on both
+   routes at hymba-1.5b's prefill (B = 1, T = 2,048, D = 1,600, N = 16) and
+   decode (B = 8, T = 1 from a state) shapes, T = 777 from a state and T a
+   step either side of a chunk, in bf16 and f32; launch.serve's B = 4, T =
+   2,048; N = 8 in chunks of 16; the three shapes of the JAX ssm_scan sweep
+   in f32 and bf16; decays whose 32-step sum passes -60 over T = 2,048 and
+   over T = 777 from a state across chunk boundaries; each chunk length the
+   grid times: outputs within 2e-5 of the largest (bf16 also 2**-7 of each
+   value), states within 2e-5 of the largest; each call counted on its
+   route. The flash phase (7) also holds hymba's windowed shapes (25/5
+   heads of 64, window 2,048: prefill S = T = 3,000, decode T = 2,049 and
+   4,096, and a global decode case), and the flash timing (11) adds hymba's
+   windowed prefill (S = T = 3,072) and decode (B = 8, T = 4,096).
+18. Times ``ssm_scan`` at the prefill (both routes in turns) and decode
+   shapes beside its plain version and its bound (no PyTorch call computes
+   the selective scan), then its route grid as for ``wkv6``.
 19. The parity phase on a 2-layer hymba-1.5b at full width (d_model 1,600,
    25/5 heads, d_ff 5,504, vocab 32,001; both layers windowed) with a
    2,064-token prompt, so the 2,048 window bites at prefill and decode.
 20. The serving phase on full hymba-1.5b (32 layers, bf16): the same 16
    requests, ``flash_attention`` and ``ssm_scan`` each launched 32 x
    (prefills + decode groups) times (flash on the ``wgmma`` and ``split``
-   routes as for yi), and its profiled decode burst and
-   prefill with both kernels' shares.  Each burst line also logs, per
-   kernel, the kernels recorded in the window, those matched to a launch
-   in it by correlation id, the wrapper's launches in it and the names
-   matched (ROADMAP T12).
+   routes as for yi, ``ssm_scan`` on ``split`` and ``step``), and its
+   profiled decode burst and prefill with both kernels' shares. Each burst
+   line also logs, per kernel, the kernels recorded in the window, those
+   matched to a launch in it by correlation id, the wrapper's launches in
+   it and the names matched (ROADMAP T12).
 21. ``launch.serve`` at full hymba-1.5b, local and remote-embed: streams
    bit-identical, each kernel launched 32 x (1 + 32) times in each.
 
@@ -182,6 +197,9 @@ PATH_KERNEL = {
     "hymba-1.5b": (("flash_attention", "flash"), ("ssm_scan", "ssm_scan")),
 }
 PROFILE_STEM = {"yi-9b": "lm", "rwkv6-1.6b": "rwkv", "hymba-1.5b": "hymba"}
+# each path kernel's route at prefill and at decode on the serving path
+PATH_ROUTES = {"flash_attention": ("wgmma", "split"), "wkv6": ("split", "step"),
+               "ssm_scan": ("split", "step")}
 F32_FLOPS = 67e12  # H100 SXM f32 peak outside the tensor cores, NVIDIA data sheet
 # wkv6 against its plain version: both run the recurrence in f32 and sum
 # each output's 64 products in other orders, and the state's rounding
@@ -204,6 +222,14 @@ SSM_ATOL, SSM_BF16_RTOL = 2e-5, 2.0**-7
 SSM_SWEEP = [(2, 128, 64, 16), (1, 64, 128, 8), (2, 96, 32, 16)]
 # hymba-1.5b's SSM at the path's shapes: D = 1,600 channels of N = 16 states
 SSM_D, SSM_N = 1600, 16
+# device kernels one wrapper call records, by kernel and route (else 1): the
+# recurrences' split route runs the local pass, the carry and the output pass
+DEVICE_KERNELS = {"wkv6": {"split": 3}, "ssm_scan": {"split": 3}}
+# the recurrences' route grid: both routes, the split at each chunk length,
+# over these batch rows and steps (the scheduler's B = 1 prefills of 256-3,072
+# tokens, launch.serve's B = 4 of 2,048, and T either side of the threshold)
+SPLIT_CHUNKS = (16, 32, 64, 128, 256)
+SPLIT_GRID_B, SPLIT_GRID_T = (1, 4), (128, 192, 256, 384, 512, 1024, 2048, 3072)
 
 
 def log(*args) -> None:
@@ -330,6 +356,19 @@ def call_ms(fn, arg_sets, reps: int = 200) -> float:
     return start.elapsed_time(end) / reps
 
 
+def ab_ms(fns: dict, arg_sets, reps: int, rounds: int) -> dict[str, dict]:
+    """Device ms per call of each of ``fns`` (:func:`event_ms`), timed in
+    turns in one process: each round runs them in order and then in
+    reverse (A B B A), so drift over the run falls on all alike.  Returns
+    each one's median, spread (min, max) and every time."""
+    times = {name: [] for name in fns}
+    for _ in range(rounds):
+        for name in [*fns, *reversed(fns)]:
+            times[name].append(event_ms(fns[name], arg_sets, reps))
+    return {name: {"median": float(np.median(ts)), "min": min(ts), "max": max(ts), "ms": ts}
+            for name, ts in times.items()}
+
+
 def edge_ids(rng, n: int, lo: int, v_loc: int, dev) -> torch.Tensor:
     """Mostly in-shard ids, plus ids below and above the shard and -1 pads."""
     ids = rng.integers(lo, lo + v_loc, n)
@@ -388,13 +427,24 @@ def time_kernel(dev, rng) -> dict:
     moved = n * 4 + n_in * row + n * row  # ids read, in-shard rows read, rows written
     before = embed_lookup.launches
     library = lambda t, i: torch.index_select(t, 0, i)  # yardstick, unused by the port
+    # the kernel and index_select in turns, 10 alternations of each
+    kernel_ab = lambda i: embed_lookup(*args[i])
+    library_ab = lambda i: library(*lib_args[i])
+    ab = ab_ms({"embed_lookup": kernel_ab, "index_select": library_ab},
+               [(i,) for i in range(len(args))], 100, 5)
     out = {
-        "ms": event_ms(embed_lookup, args),
+        "ms": ab["embed_lookup"]["median"],
         "plain_ms": device_ms(embed_lookup_ref, args),  # waits for a host-to-card copy
-        "library_ms": event_ms(library, lib_args),
+        "library_ms": ab["index_select"]["median"],
         "bound_ms": moved / HBM_BYTES_PER_S * 1e3,
         "bound_by": "bytes",
     }
+    ratio = out["ms"] / out["library_ms"]
+    apart = (ab["embed_lookup"]["min"] > ab["index_select"]["max"]
+             or ab["embed_lookup"]["max"] < ab["index_select"]["min"])
+    log(f"timing embed_lookup against index_select, 10 alternations each in turns: "
+        f"kernel/index_select median ratio {ratio}, spreads "
+        f"{'apart' if apart else 'overlap'}: {json.dumps(ab)}")
     calls = {
         "kernel": call_ms(embed_lookup, args),
         "plain": call_ms(embed_lookup_ref, args),
@@ -864,20 +914,23 @@ def serving_phase(dev, profile_dir: str | None, arch: str = "yi-9b") -> dict:
         if launches[kernel] != want:
             raise AssertionError(f"serving {arch}: {launches[kernel]} {kernel} launches, want "
                                  f"{cfg.n_layers} x ({sched.prefills} + {sched.decode_groups})")
-    routes = {}
-    if ("flash_attention", "flash") in PATH_KERNEL[arch]:  # prefill wgmma, decode split
-        routes = dict(WRAPPERS["flash_attention"].route_launches)
-        if routes != {"wgmma": cfg.n_layers * sched.prefills,
-                      "split": cfg.n_layers * sched.decode_groups, "simt": 0}:
-            raise AssertionError(f"serving {arch}: flash routes {routes}, want wgmma "
-                                 f"{cfg.n_layers} x {sched.prefills} and split "
+    # each kernel's prefills on one route and its decode groups on another
+    routes = {kernel: dict(WRAPPERS[kernel].route_launches) for kernel, _ in PATH_KERNEL[arch]}
+    for kernel, _ in PATH_KERNEL[arch]:
+        pre, dec = PATH_ROUTES[kernel]
+        want_routes = dict.fromkeys(routes[kernel], 0)
+        want_routes[pre] += cfg.n_layers * sched.prefills
+        want_routes[dec] += cfg.n_layers * sched.decode_groups
+        if routes[kernel] != want_routes:
+            raise AssertionError(f"serving {arch}: {kernel} routes {routes[kernel]}, want {pre} "
+                                 f"{cfg.n_layers} x {sched.prefills} and {dec} "
                                  f"{cfg.n_layers} x {sched.decode_groups}")
     ttft = [r.t_first - r.t_submit for r in done]
     rec = dict(wall_s=wall, prefills=sched.prefills, decode_groups=sched.decode_groups,
                prompt_tokens=int(lengths.sum()), new_tokens=SERVE_REQUESTS * SERVE_NEW,
                tok_s=SERVE_REQUESTS * SERVE_NEW / wall, ttft_s_max=max(ttft),
                **{f"{short}_launches": launches[kernel] for kernel, short in PATH_KERNEL[arch]},
-               **({"flash_routes": routes} if routes else {}))
+               **{f"{short}_routes": routes[kernel] for kernel, short in PATH_KERNEL[arch]})
     prefix = line_prefix(arch)
     shorts = " and ".join(short for _, short in PATH_KERNEL[arch])
     log(f"{prefix}serving scheduler: {SERVE_REQUESTS} requests x {SERVE_NEW} tokens, all "
@@ -887,7 +940,7 @@ def serving_phase(dev, profile_dir: str | None, arch: str = "yi-9b") -> dict:
     del sched, model
     torch.cuda.empty_cache()
     rec["launches"] = launches
-    rec["flash_routes"] = routes
+    rec["routes"] = routes
     return rec
 
 
@@ -902,15 +955,21 @@ def decode_burst(cfg, model, cache, dev, profile_dir: str | None, arch: str = "y
     correlation id, ``_by_launch``); for each path kernel the line also
     logs the kernels whose start lies in the window (``_recorded``), the
     wrapper's launches in the window (``_launched``) and the kernel names
-    matched (ROADMAP T12).  Every wrapper launch records one device kernel
-    on each route: ``flash_fwd_wgmma`` for the prefill, ``flash_fwd_split``
-    for a decode step (its chunks' partials merge inside the same kernel),
-    ``flash_fwd`` for f32; ``wkv6_fwd`` and ``ssm_scan_fwd`` one each."""
+    matched (ROADMAP T12).  A wrapper launch records one device kernel on
+    each route (``flash_fwd_wgmma`` for the prefill, ``flash_fwd_split``
+    for a decode step, its chunks' partials merged inside the same kernel,
+    ``flash_fwd`` for f32; ``wkv6_fwd`` and ``ssm_scan_fwd`` on their step
+    routes), except the recurrences' split route, which records three
+    (DEVICE_KERNELS: the local pass, ``*_fwd_carry`` and the output pass):
+    so in a whole window the kernels matched to a launch must number k x
+    the launches on each route, summed.  Each kernel's device time is also
+    logged by name."""
     from repro_torch.kernels import WRAPPERS
     from repro_torch.models import zoo
 
     kernels = PATH_KERNEL[arch]
-    before = {kernel: WRAPPERS[kernel].launches for kernel, _ in kernels}
+    before = {kernel: (WRAPPERS[kernel].launches, dict(WRAPPERS[kernel].route_launches))
+              for kernel, _ in kernels}
     step = zoo.make_serve_step(cfg)
     n = LAUNCH_PROMPT
     tok = torch.zeros(SERVE_SLOTS, 1, dtype=torch.int32, device=dev)
@@ -928,9 +987,10 @@ def decode_burst(cfg, model, cache, dev, profile_dir: str | None, arch: str = "y
         per_call = []  # the wrapper launches of each window; the last try's counts
 
         def counted(fn=fn):
-            at = {kernel: WRAPPERS[kernel].launches for kernel, _ in kernels}
+            at = {kernel: dict(WRAPPERS[kernel].route_launches) for kernel, _ in kernels}
             fn()
-            per_call.append({k: WRAPPERS[k].launches - at[k] for k in at})
+            per_call.append({k: {r: n - at[k][r] for r, n in WRAPPERS[k].route_launches.items()}
+                             for k in at})
 
         prof, window, wall, whole = profiled(counted, edge=edge)
         busy = device_us(window)
@@ -943,12 +1003,25 @@ def decode_burst(cfg, model, cache, dev, profile_dir: str | None, arch: str = "y
                     if e.device_type == DeviceType.CUDA and f"{short}_fwd" in e.name]
             by_launch = [e for e in prof.events() if e.device_type == DeviceType.CUDA
                          and f"{short}_fwd" in e.name and e.id in launch_ids]
+            by_route = {r: n for r, n in per_call[-1][kernel].items() if n}
+            expect = sum(n * DEVICE_KERNELS.get(kernel, {}).get(r, 1)
+                         for r, n in by_route.items())
             rec[f"{short}_recorded"] = len(mine)
             rec[f"{short}_by_launch"] = len(by_launch)
-            rec[f"{short}_launched"] = per_call[-1][kernel]
+            rec[f"{short}_launched"] = sum(by_route.values())
+            rec[f"{short}_launched_by_route"] = by_route
+            rec[f"{short}_kernels_expected"] = expect
             rec[f"{short}_names"] = sorted({e.name for e in mine})
+            per_name = {}
+            for e in by_launch:
+                per_name[e.name] = per_name.get(e.name, 0.0) + e.device_time_total
+            rec[f"{short}_us_by_name"] = per_name
             rec[f"{short}_share_pct"] = (
                 100 * sum(e.device_time_total for e in by_launch) / busy if whole else None)
+            if whole and len(by_launch) != expect:
+                raise AssertionError(
+                    f"{arch} profile {name}: {len(by_launch)} {short} kernels matched to a "
+                    f"launch in a whole window, want {expect} for the launches {by_route}")
         out[name] = rec
         what = f"8 steps of B={SERVE_SLOTS} at T={n}" if name == "decode" else f"B=1 S={n}"
         prefix = line_prefix(arch)
@@ -957,8 +1030,8 @@ def decode_burst(cfg, model, cache, dev, profile_dir: str | None, arch: str = "y
             stem = PROFILE_STEM[arch]
             write_profile(prof, wall, Path(profile_dir) / f"{stem}_{name}_profile.txt",
                           f"{arch} {name} burst", busy)
-    for kernel, count in before.items():  # profiled launches are not main-path launches
-        WRAPPERS[kernel].launches = count
+    for kernel, (count, routes) in before.items():  # profiled launches are not main-path
+        WRAPPERS[kernel].launches, WRAPPERS[kernel].route_launches = count, routes
     return out
 
 
@@ -967,7 +1040,7 @@ def launch_serve_phase(dev, arch: str = "yi-9b") -> dict:
     over 2 embedding servers, same seed; the streams must be bit-identical
     and each of the arch's kernels launched once per layer per forward."""
     from repro_torch.configs import get_config
-    from repro_torch.kernels import launch_counts, reset_launches
+    from repro_torch.kernels import WRAPPERS, launch_counts, reset_launches
     from repro_torch.launch.serve import serve
 
     n_layers = get_config(arch).n_layers
@@ -982,10 +1055,16 @@ def launch_serve_phase(dev, arch: str = "yi-9b") -> dict:
         torch.cuda.synchronize()
         launches = launch_counts()
         rec["wall_s"], rec["launches"] = time.perf_counter() - t, launches
+        rec["routes"] = {k: dict(WRAPPERS[k].route_launches) for k, _ in PATH_KERNEL[arch]}
         runs[name] = (rec, toks)
         log(f"{prefix}launch.serve {name}: {json.dumps(rec)}")
         if any(launches[k] != n_layers * (1 + SERVE_NEW) for k, _ in PATH_KERNEL[arch]):
             raise AssertionError(f"{prefix}launch.serve {name}: {launches} launches")
+        for kernel, _ in PATH_KERNEL[arch]:  # the prefill on one route, each step on another
+            pre, dec = PATH_ROUTES[kernel]
+            routes = rec["routes"][kernel]
+            if (routes[pre], routes[dec]) != (n_layers, n_layers * SERVE_NEW):
+                raise AssertionError(f"{prefix}launch.serve {name}: {kernel} routes {routes}")
         torch.cuda.empty_cache()
     if not np.array_equal(runs["local"][1], runs["remote"][1]):
         raise AssertionError(f"{prefix}launch.serve: remote-embed stream differs from the local one")
@@ -1105,6 +1184,29 @@ def flash_instances() -> list[dict]:
     return out
 
 
+def split_grid(name: str, fn, draw, route_of, chunk_of) -> dict:
+    """A recurrence kernel's routes over SPLIT_GRID_B x SPLIT_GRID_T from a
+    state: the step route and the split at each chunk of SPLIT_CHUNKS up to
+    T, in turns (:func:`ab_ms`, 2 rounds, two input sets): the A/B behind
+    the wrapper's route threshold and chunk rule.  Each record names the
+    fastest, the route and chunk the wrapper takes, and its time."""
+    grid = {}
+    for b in SPLIT_GRID_B:
+        for t in SPLIT_GRID_T:
+            sets = [draw(b, t) for _ in range(2)]
+            fns = {"step": lambda *a: fn(*a, route="step")}
+            fns |= {f"L{c}": (lambda *a, c=c: fn(*a, route="split", chunk=c))
+                    for c in SPLIT_CHUNKS if c <= t}
+            med = {k: v["median"] for k, v in ab_ms(fns, sets, 10, 2).items()}
+            route, chunk = route_of(t), chunk_of(b, t)
+            taken = med["step"] if route == "step" else med[f"L{chunk}"]
+            rec = {"route": route, "chunk": chunk, "taken_ms": taken,
+                   "fastest": min(med, key=med.get), "ms": med}
+            grid[f"B={b} T={t}"] = rec
+            log(f"timing {name} grid B={b} T={t}: {json.dumps(rec)}")
+    return grid
+
+
 def _wkv_case(dev, g, b, t, h, m, dtype, w_dtype, lam=None, state=False):
     """r, k, v ~ N(0, 0.25) in ``dtype``; decays from the JAX sweep's domain
     (log w = -exp(x), x ~ N(-1, 1) clipped to [-6, 1]) or a constant
@@ -1123,44 +1225,69 @@ def _wkv_case(dev, g, b, t, h, m, dtype, w_dtype, lam=None, state=False):
 
 def wkv6_kernel_phase(dev) -> dict:
     """wkv6 on the card against its plain version: rwkv6's prefill (B = 1,
-    T = 2,048) and decode (B = 8, T = 1 from a state) shapes with r, k, v, u
-    in bf16 and w in f32 (the model's types) and in f32; the three shapes
-    of the JAX sweep in f32 and bf16 (w in the inputs' type); a constant
-    log-decay of -1 and -1.5 per step over T = 2,048, where the reference's
-    chunk-64 form passes its clamp; and T = 777 from a state.  Outputs
-    within WKV_ATOL of the largest (f32; bf16 also WKV_BF16_RTOL), states
-    within WKV_ATOL."""
-    from repro_torch.kernels.wkv6 import wkv6, wkv6_ref
+    T = 2,048) on both routes and decode (B = 8, T = 1 from a state)
+    shapes with r, k, v, u in bf16 and w in f32 (the model's types) and in
+    f32; launch.serve's prefill (B = 4, T = 2,048); the three shapes of the
+    JAX sweep in f32 and bf16 (w in the inputs' type); a constant log-decay
+    of -1 and -1.5 per step over T = 2,048, where the reference's chunk-64
+    form passes its clamp, and over T = 777 from a state across the split's
+    chunk boundaries; T = 777 from a state on both routes and in chunks of
+    16; T a step either side of the split's chunk; the split at each chunk
+    length its timing compares.  Outputs within WKV_ATOL of the largest
+    (f32; bf16 also WKV_BF16_RTOL), states within WKV_ATOL.  Each call must
+    raise its route's launch count by one."""
+    from repro_torch.kernels.wkv6 import wkv6, wkv6_ref, wkv6_route, split_chunk
 
     torch.backends.cuda.matmul.allow_tf32 = False  # the plain version's einsum in f32
     g = torch.Generator(dev).manual_seed(5)
     bf16, f32 = torch.bfloat16, torch.float32
     h, m = WKV_H, WKV_M
+    L = 64  # a chunk length for the cases either side of it
+    # (label, shape, draw, route (None: by shape), chunk (None: split_chunk))
     cases = [
-        ("prefill B=1 T=2048", (1, 2048, h, m, bf16, f32), {}),
-        ("prefill B=1 T=2048", (1, 2048, h, m, f32, f32), {}),
-        ("decode B=8 T=1", (8, 1, h, m, bf16, f32), dict(state=True)),
-        ("decode B=8 T=1", (8, 1, h, m, f32, f32), dict(state=True)),
-        ("log-decay -1 B=1 T=2048", (1, 2048, h, m, f32, f32), dict(lam=-1.0)),
-        ("log-decay -1.5 B=1 T=2048", (1, 2048, h, m, f32, f32), dict(lam=-1.5)),
-        ("ragged B=2 T=777", (2, 777, h, m, f32, f32), dict(state=True)),
-        ("ragged B=2 T=777", (2, 777, h, m, bf16, f32), dict(state=True)),
+        ("prefill B=1 T=2048", (1, 2048, h, m, bf16, f32), {}, None, None),
+        ("prefill B=1 T=2048", (1, 2048, h, m, bf16, f32), {}, "step", L),
+        ("prefill B=1 T=2048", (1, 2048, h, m, f32, f32), {}, None, None),
+        ("prefill B=1 T=2048", (1, 2048, h, m, f32, f32), {}, "step", L),
+        ("launch.serve prefill B=4 T=2048", (4, 2048, h, m, bf16, f32), {}, None, None),
+        ("decode B=8 T=1", (8, 1, h, m, bf16, f32), dict(state=True), None, None),
+        ("decode B=8 T=1", (8, 1, h, m, f32, f32), dict(state=True), None, None),
+        ("log-decay -1 B=1 T=2048", (1, 2048, h, m, f32, f32), dict(lam=-1.0), None, None),
+        ("log-decay -1.5 B=1 T=2048", (1, 2048, h, m, f32, f32), dict(lam=-1.5), None, None),
+        ("log-decay -1 B=1 T=777", (1, 777, h, m, f32, f32), dict(lam=-1.0, state=True),
+         "split", L),
+        ("log-decay -1.5 B=1 T=777", (1, 777, h, m, f32, f32), dict(lam=-1.5, state=True),
+         "split", L),
+        ("ragged B=2 T=777", (2, 777, h, m, f32, f32), dict(state=True), None, None),
+        ("ragged B=2 T=777", (2, 777, h, m, f32, f32), dict(state=True), "step", L),
+        ("ragged B=2 T=777", (2, 777, h, m, bf16, f32), dict(state=True), None, None),
+        ("ragged B=2 T=777 chunk 16", (2, 777, h, m, bf16, f32), dict(state=True), "split", 16),
+        (f"T=L-1={L - 1}", (2, L - 1, h, m, f32, f32), dict(state=True), "split", L),
+        (f"T=L+1={L + 1}", (2, L + 1, h, m, bf16, f32), dict(state=True), "split", L),
     ]
+    cases += [(f"prefill B=1 T=2048 chunk {c}", (1, 2048, h, m, bf16, f32), {}, "split", c)
+              for c in SPLIT_CHUNKS if c != split_chunk(1, 2048)]
     for b, t, hh, mm in WKV_SWEEP:
-        cases += [(f"sweep {(b, t, hh, mm)}", (b, t, hh, mm, dt, dt), {}) for dt in (f32, bf16)]
+        cases += [(f"sweep {(b, t, hh, mm)}", (b, t, hh, mm, dt, dt), {}, None, None)
+                  for dt in (f32, bf16)]
     worst = {f32: 0.0, bf16: 0.0, "state": 0.0}
-    before = wkv6.launches
-    for label, shape, kw in cases:
+    before = wkv6.launches, dict(wkv6.route_launches)
+    for label, shape, kw, route, chunk in cases:
         dtype = shape[4]
         args = _wkv_case(dev, g, *shape, **kw)
-        (out, state), (want, want_state) = wkv6(*args), wkv6_ref(*args)
+        took = route or wkv6_route(shape[1])
+        at = wkv6.route_launches[took]
+        out, state = wkv6(*args, route=route, chunk=chunk)
+        if wkv6.route_launches[took] != at + 1:
+            raise AssertionError(f"wkv6 {label}: no launch on the {took} route")
+        want, want_state = wkv6_ref(*args)
         torch.cuda.synchronize()
         scale = max(1.0, want.float().abs().max().item())
         rtol = WKV_BF16_RTOL if dtype == bf16 else 0.0
         err = (out.float() - want.float()).abs().max().item()
         s_scale = max(1.0, want_state.abs().max().item())
         s_err = (state - want_state).abs().max().item()
-        line = (f"kernel wkv6 {label} {str(dtype)[6:]} (w {str(shape[5])[6:]}): "
+        line = (f"kernel wkv6 {label} {str(dtype)[6:]} (w {str(shape[5])[6:]}) ({took}): "
                 f"max_abs_err={err} (within {WKV_ATOL} x {scale} + {rtol} |out|), "
                 f"state max_abs_err={s_err} (within {WKV_ATOL} x {s_scale}), "
                 f"plain |out| max {want.float().abs().max().item()}")
@@ -1170,7 +1297,7 @@ def wkv6_kernel_phase(dev) -> dict:
         worst[dtype] = max(worst[dtype], err)
         worst["state"] = max(worst["state"], s_err)
         log(line)
-    wkv6.launches = before  # checking launches are not main-path launches
+    wkv6.launches, wkv6.route_launches = before  # checking launches are not main-path launches
     log(f"kernel wkv6: worst f32 {worst[f32]}, bf16 {worst[bf16]}, state {worst['state']}")
     return {"max_abs_err": max(worst.values())}
 
@@ -1180,7 +1307,9 @@ def time_wkv6(dev) -> dict:
     M = 64; two input sets, 84 MB, beyond the 50 MB L2) and decode (B = 8,
     T = 1 from a state; 16 state sets, 67 MB) shapes, r, k, v, u in bf16
     and w in f32: the kernel's from CUDA events around calls queued behind
-    a sleep (:func:`event_ms`).  The plain version's decode the same way;
+    a sleep (:func:`event_ms`), the prefill on both routes in turns (A B B
+    A, 5 rounds, :func:`ab_ms`), decode on its step route.  The plain
+    version's decode the same way;
     its prefill launches ~10 kernels a step (20,000 a call), more than the
     launch queue holds behind a sleep, so it is timed by CUDA events around
     back-to-back calls (:func:`call_ms`): its host issue time counts.  The
@@ -1188,23 +1317,38 @@ def time_wkv6(dev) -> dict:
     product, 2, and the decay-and-add, 3; 4 M per step for the bonus) over
     the f32 peak, and the bytes (r, k, v, w, u, the state in read once; out
     and the state out written once) over the HBM rate.  No PyTorch call
-    computes the WKV6 recurrence: library_ms is null."""
-    from repro_torch.kernels.wkv6 import wkv6, wkv6_ref
+    computes the WKV6 recurrence: library_ms is null.  Then the route grid
+    (:func:`split_grid`)."""
+    from repro_torch.kernels.wkv6 import wkv6, wkv6_ref, wkv6_route, split_chunk
 
     g = torch.Generator(dev).manual_seed(6)
-    before = wkv6.launches
+    before = wkv6.launches, dict(wkv6.route_launches)
     out = {}
     h, m = WKV_H, WKV_M
+
+    def draw(b, t, n_sets, state):
+        return [_wkv_case(dev, g, b, t, h, m, torch.bfloat16, torch.float32, state=state)
+                for _ in range(n_sets)]
+
+    def routes(**kw):
+        return {r: (lambda *a, r=r: wkv6(*a, route=r, **kw)) for r in ("step", "split")}
+
     for name, (b, t, n_sets, state) in {"prefill": (1, 2048, 2, False),
                                         "decode": (8, 1, 16, True)}.items():
-        sets = [_wkv_case(dev, g, b, t, h, m, torch.bfloat16, torch.float32, state=state)
-                for _ in range(n_sets)]
+        sets = draw(b, t, n_sets, state)
         flops = b * t * h * (5 * m * m + 4 * m)
         moved = b * t * h * m * (3 * 2 + 4 + 2) + h * m * 2 + b * h * m * m * 4 * (1 + state)
         bounds = {"operations": flops / F32_FLOPS * 1e3, "bytes": moved / HBM_BYTES_PER_S * 1e3}
         bound_by = max(bounds, key=bounds.get)
-        rec = {
-            "ms": event_ms(wkv6, sets, 20 if t > 1 else 200),
+        route = wkv6_route(t)
+        rec = {"route": route}
+        if t > 1:
+            ab = ab_ms(routes(), sets, 20, 5)
+            rec.update(ms=ab[route]["median"], step_ms=ab["step"]["median"],
+                       split_ms=ab["split"]["median"], routes_ab=ab)
+        else:
+            rec["ms"] = event_ms(wkv6, sets, 200)
+        rec.update({
             "plain_ms": call_ms(wkv6_ref, sets, 2) if t > 1 else event_ms(wkv6_ref, sets, 20),
             "plain_timed_by": "call_ms" if t > 1 else "event_ms",
             "library_ms": None,  # no PyTorch call computes the WKV6 recurrence
@@ -1213,10 +1357,12 @@ def time_wkv6(dev) -> dict:
             "flops": flops,
             "bytes": moved,
             "call_ms": call_ms(wkv6, sets, 20 if t > 1 else 200),
-        }
+        })
         out[name] = rec
         log(f"timing wkv6 {name} B={b} T={t} H={h} M={m} bf16 (w f32): {json.dumps(rec)}")
-    wkv6.launches = before  # timing launches are not main-path launches
+    out["grid"] = split_grid("wkv6", wkv6, lambda b, t: draw(b, t, 1, True)[0], wkv6_route,
+                             split_chunk)
+    wkv6.launches, wkv6.route_launches = before  # timing launches are not main-path launches
     return out
 
 
@@ -1240,42 +1386,66 @@ def _ssm_case(dev, g, b, t, d, n, dtype, state=False, dt_range=None):
 
 def ssm_scan_kernel_phase(dev) -> dict:
     """ssm_scan on the card against its plain version: hymba's prefill
-    (B = 1, T = 2,048, D = 1,600, N = 16) and decode (B = 8, T = 1 from a
-    state) shapes in bf16 (the model's type; a f32) and f32, T = 777 from a
-    state, the three shapes of the JAX sweep in f32 and bf16, and dt of 2-3
-    per step at a ~ -1 (a 32-step decay sum of about -80, past the Pallas
-    form's -60 clamp) over T = 2,048.  Outputs within SSM_ATOL of the
-    largest (bf16 also SSM_BF16_RTOL of each value), states within
-    SSM_ATOL of the largest."""
-    from repro_torch.kernels.ssm_scan import ssm_scan, ssm_scan_ref
+    (B = 1, T = 2,048, D = 1,600, N = 16) on both routes and decode (B = 8,
+    T = 1 from a state) shapes in bf16 (the model's type; a f32) and f32,
+    launch.serve's prefill (B = 4, T = 2,048), T = 777 from a state on both
+    routes and at N = 8 in chunks of 16, T a step either side of the
+    split's chunk, the three shapes of the JAX sweep in f32 and bf16, dt of
+    2-3 per step at a ~ -1 (a 32-step decay sum of about -80, past the
+    Pallas form's -60 clamp) over T = 2,048 and over T = 777 from a state
+    across the split's chunk boundaries, and the split at each chunk length
+    its timing compares.  Outputs within SSM_ATOL of the largest (bf16 also
+    SSM_BF16_RTOL of each value), states within SSM_ATOL of the largest.
+    Each call must raise its route's launch count by one."""
+    from repro_torch.kernels.ssm_scan import ssm_scan, ssm_scan_ref, ssm_scan_route, split_chunk
 
     g = torch.Generator(dev).manual_seed(7)
     bf16, f32 = torch.bfloat16, torch.float32
     d, n = SSM_D, SSM_N
+    L = 64  # a chunk length for the cases either side of it
+    # (label, shape, draw, route (None: by shape), chunk (None: split_chunk))
     cases = []
     for dtype in (bf16, f32):
         cases += [
-            ("prefill B=1 T=2048", (1, 2048, d, n, dtype), {}),
-            ("decode B=8 T=1", (8, 1, d, n, dtype), dict(state=True)),
-            ("ragged B=2 T=777", (2, 777, d, n, dtype), dict(state=True)),
+            ("prefill B=1 T=2048", (1, 2048, d, n, dtype), {}, None, None),
+            ("prefill B=1 T=2048", (1, 2048, d, n, dtype), {}, "step", L),
+            ("decode B=8 T=1", (8, 1, d, n, dtype), dict(state=True), None, None),
+            ("ragged B=2 T=777", (2, 777, d, n, dtype), dict(state=True), None, None),
+            ("ragged B=2 T=777", (2, 777, d, n, dtype), dict(state=True), "step", L),
+            (f"T=L-1={L - 1}", (2, L - 1, d, n, dtype), dict(state=True), "split", L),
+            (f"T=L+1={L + 1}", (2, L + 1, d, n, dtype), dict(state=True), "split", L),
         ]
-    cases.append(("past the clamp B=1 T=2048 dt 2-3", (1, 2048, d, n, f32),
-                  dict(dt_range=(2.0, 3.0))))
+    cases += [
+        ("launch.serve prefill B=4 T=2048", (4, 2048, d, n, bf16), {}, None, None),
+        ("ragged B=2 T=777 N=8 chunk 16", (2, 777, d, 8, bf16), dict(state=True), "split", 16),
+        ("past the clamp B=1 T=2048 dt 2-3", (1, 2048, d, n, f32), dict(dt_range=(2.0, 3.0)),
+         None, None),
+        ("past the clamp B=1 T=777 dt 2-3", (1, 777, d, n, f32),
+         dict(dt_range=(2.0, 3.0), state=True), "split", L),
+    ]
+    cases += [(f"prefill B=1 T=2048 chunk {c}", (1, 2048, d, n, bf16), {}, "split", c)
+              for c in SPLIT_CHUNKS if c != split_chunk(1, 2048)]
     for b, t, dd, nn in SSM_SWEEP:
-        cases += [(f"sweep {(b, t, dd, nn)}", (b, t, dd, nn, dt), {}) for dt in (f32, bf16)]
+        cases += [(f"sweep {(b, t, dd, nn)}", (b, t, dd, nn, dt), {}, None, None)
+                  for dt in (f32, bf16)]
     worst = {f32: 0.0, bf16: 0.0, "state": 0.0}
-    before = ssm_scan.launches
-    for label, shape, kw in cases:
+    before = ssm_scan.launches, dict(ssm_scan.route_launches)
+    for label, shape, kw, route, chunk in cases:
         dtype = shape[4]
         args = _ssm_case(dev, g, *shape, **kw)
-        (y, h), (want, want_h) = ssm_scan(*args), ssm_scan_ref(*args)
+        took = route or ssm_scan_route(shape[1])
+        at = ssm_scan.route_launches[took]
+        y, h = ssm_scan(*args, route=route, chunk=chunk)
+        if ssm_scan.route_launches[took] != at + 1:
+            raise AssertionError(f"ssm_scan {label}: no launch on the {took} route")
+        want, want_h = ssm_scan_ref(*args)
         torch.cuda.synchronize()
         scale = max(1.0, want.float().abs().max().item())
         rtol = SSM_BF16_RTOL if dtype == bf16 else 0.0
         err = (y.float() - want.float()).abs().max().item()
         h_scale = max(1.0, want_h.abs().max().item())
         h_err = (h - want_h).abs().max().item()
-        line = (f"kernel ssm_scan {label} D={shape[2]} N={shape[3]} {str(dtype)[6:]}: "
+        line = (f"kernel ssm_scan {label} D={shape[2]} N={shape[3]} {str(dtype)[6:]} ({took}): "
                 f"max_abs_err={err} (within {SSM_ATOL} x {scale} + {rtol} |y|), "
                 f"state max_abs_err={h_err} (within {SSM_ATOL} x {h_scale}), "
                 f"plain |y| max {want.float().abs().max().item()}")
@@ -1285,7 +1455,8 @@ def ssm_scan_kernel_phase(dev) -> dict:
         worst[dtype] = max(worst[dtype], err)
         worst["state"] = max(worst["state"], h_err)
         log(line)
-    ssm_scan.launches = before  # checking launches are not main-path launches
+    # checking launches are not main-path launches
+    ssm_scan.launches, ssm_scan.route_launches = before
     log(f"kernel ssm_scan: worst f32 {worst[f32]}, bf16 {worst[bf16]}, state {worst['state']}")
     return {"max_abs_err": max(worst.values())}
 
@@ -1295,7 +1466,9 @@ def time_ssm_scan(dev) -> dict:
     N = 16; four input sets, 52 MB, beyond the 50 MB L2) and decode (B = 8,
     T = 1 from a state; 64 state sets, 52 MB) shapes in bf16 (a and the
     state f32): the kernel's from CUDA events around calls queued behind a
-    sleep (:func:`event_ms`).  The plain version's decode the same way; its
+    sleep (:func:`event_ms`), the prefill on both routes in turns (A B B A,
+    5 rounds, :func:`ab_ms`), decode on its step route.  The plain
+    version's decode the same way; its
     prefill launches ~8 kernels a step (16,000 a call), more than the launch
     queue holds behind a sleep, so it is timed by CUDA events around
     back-to-back calls (:func:`call_ms`): its host issue time counts.  The
@@ -1304,24 +1477,40 @@ def time_ssm_scan(dev) -> dict:
     the product with c and the sum, 7; 1 per channel and step for dt x)
     over the f32 peak, and the bytes (x, dt, b, c, a and the state in read
     once; y and the state out written once) over the HBM rate.  No PyTorch
-    call computes the selective scan: library_ms is null."""
-    from repro_torch.kernels.ssm_scan import ssm_scan, ssm_scan_ref
+    call computes the selective scan: library_ms is null.  Then the route
+    grid (:func:`split_grid`)."""
+    from repro_torch.kernels.ssm_scan import ssm_scan, ssm_scan_ref, ssm_scan_route, split_chunk
 
     g = torch.Generator(dev).manual_seed(8)
-    before = ssm_scan.launches
+    before = ssm_scan.launches, dict(ssm_scan.route_launches)
     out = {}
     d, n = SSM_D, SSM_N
+
+    def draw(b, t, n_sets, state):
+        return [_ssm_case(dev, g, b, t, d, n, torch.bfloat16, state=state)
+                for _ in range(n_sets)]
+
+    def routes(**kw):
+        return {r: (lambda *a, r=r: ssm_scan(*a, route=r, **kw)) for r in ("step", "split")}
+
     for name, (b, t, n_sets, state) in {"prefill": (1, 2048, 4, False),
                                         "decode": (8, 1, 64, True)}.items():
-        sets = [_ssm_case(dev, g, b, t, d, n, torch.bfloat16, state=state)
-                for _ in range(n_sets)]
+        sets = draw(b, t, n_sets, state)
         flops = b * t * d * (7 * n + 1)
         moved = b * t * (3 * d + 2 * n) * 2 + d * n * 4 + b * d * n * 4 * (1 + state)
         bounds = {"operations": flops / F32_FLOPS * 1e3, "bytes": moved / HBM_BYTES_PER_S * 1e3}
         bound_by = max(bounds, key=bounds.get)
-        rec = {
-            "ms": event_ms(ssm_scan, sets, 20 if t > 1 else 200),
-            "plain_ms": call_ms(ssm_scan_ref, sets, 2) if t > 1 else event_ms(ssm_scan_ref, sets, 20),
+        route = ssm_scan_route(t)
+        rec = {"route": route}
+        if t > 1:
+            ab = ab_ms(routes(), sets, 20, 5)
+            rec.update(ms=ab[route]["median"], step_ms=ab["step"]["median"],
+                       split_ms=ab["split"]["median"], routes_ab=ab)
+        else:
+            rec["ms"] = event_ms(ssm_scan, sets, 200)
+        rec.update({
+            "plain_ms": (call_ms(ssm_scan_ref, sets, 2) if t > 1
+                         else event_ms(ssm_scan_ref, sets, 20)),
             "plain_timed_by": "call_ms" if t > 1 else "event_ms",
             "library_ms": None,  # no PyTorch call computes the selective scan
             "bound_ms": bounds[bound_by],
@@ -1329,11 +1518,14 @@ def time_ssm_scan(dev) -> dict:
             "flops": flops,
             "bytes": moved,
             "call_ms": call_ms(ssm_scan, sets, 20 if t > 1 else 200),
-        }
+        })
         out[name] = rec
         log(f"timing ssm_scan {name} B={b} T={t} D={d} N={n} bf16 (a, state f32): "
             f"{json.dumps(rec)}")
-    ssm_scan.launches = before  # timing launches are not main-path launches
+    out["grid"] = split_grid("ssm_scan", ssm_scan, lambda b, t: draw(b, t, 1, True)[0],
+                             ssm_scan_route, split_chunk)
+    # timing launches are not main-path launches
+    ssm_scan.launches, ssm_scan.route_launches = before
     return out
 
 
@@ -1446,8 +1638,8 @@ def main() -> int:
         "replaces": "src/repro/kernels/flash_attention/kernel.py:90",
         "launches": serving["launches"]["flash_attention"],
         "launches_hymba": hymba_serving["launches"]["flash_attention"],
-        "launches_by_route": serving["flash_routes"],
-        "launches_by_route_hymba": hymba_serving["flash_routes"],
+        "launches_by_route": serving["routes"]["flash_attention"],
+        "launches_by_route_hymba": hymba_serving["routes"]["flash_attention"],
         "max_abs_err": flash_checked["max_abs_err"],
         "max_abs_err_f32_probs": flash_checked["max_abs_err_f32_probs"],
         **{k: flash_timing["prefill"][k] for k in keys},
@@ -1461,9 +1653,11 @@ def main() -> int:
         "source": "src/repro_torch/csrc/wkv6.cu",
         "replaces": "src/repro/kernels/wkv6/kernel.py:91",
         "launches": rwkv_serving["launches"]["wkv6"],
+        "launches_by_route": rwkv_serving["routes"]["wkv6"],
         "max_abs_err": wkv_checked["max_abs_err"],
         **{k: wkv_timing["prefill"][k] for k in keys},
-        "shape": "prefill B=1 T=2048 H=32 M=64 bf16 (w f32)",
+        "shape": "prefill B=1 T=2048 H=32 M=64 bf16 (w f32) (split; decodes: step)",
+        "step_ms": wkv_timing["prefill"]["step_ms"],
         "decode": {k: wkv_timing["decode"][k] for k in keys},
     }, {
         "name": "ssm_scan",
@@ -1471,9 +1665,11 @@ def main() -> int:
         "source": "src/repro_torch/csrc/ssm_scan.cu",
         "replaces": "src/repro/kernels/ssm_scan/kernel.py:70",
         "launches": hymba_serving["launches"]["ssm_scan"],
+        "launches_by_route": hymba_serving["routes"]["ssm_scan"],
         "max_abs_err": ssm_checked["max_abs_err"],
         **{k: ssm_timing["prefill"][k] for k in keys},
-        "shape": "prefill B=1 T=2048 D=1600 N=16 bf16 (a f32)",
+        "shape": "prefill B=1 T=2048 D=1600 N=16 bf16 (a f32) (split; decodes: step)",
+        "step_ms": ssm_timing["prefill"]["step_ms"],
         "decode": {k: ssm_timing["decode"][k] for k in keys},
     }]
     print(json.dumps({"kernels": kernels}))

@@ -17,12 +17,14 @@ performs before it loads a slice that names one.
   flash_attention/  blockwise online-softmax GQA attention (every attention
                  call of the LM serving path); replaces the Pallas
                  ``_flash_kernel`` of ``repro.kernels.flash_attention``
-  wkv6/          the RWKV-6 time-mix recurrence, step by step (every WKV
-                 call of the rwkv serving path); replaces the Pallas chunked
-                 ``_wkv6_kernel`` of ``repro.kernels.wkv6``
-  ssm_scan/      the diagonal selective scan of Mamba, step by step (every
-                 SSM call of the hymba serving path); replaces the Pallas
-                 chunked ``_ssm_kernel`` of ``repro.kernels.ssm_scan``
+  wkv6/          the RWKV-6 time-mix recurrence, step by step or split over
+                 time with a carried state (every WKV call of the rwkv
+                 serving path); replaces the Pallas chunked ``_wkv6_kernel``
+                 of ``repro.kernels.wkv6``
+  ssm_scan/      the diagonal selective scan of Mamba, step by step or split
+                 over time with a carried state (every SSM call of the hymba
+                 serving path); replaces the Pallas chunked ``_ssm_kernel``
+                 of ``repro.kernels.ssm_scan``
 """
 
 from .chase import kernel as _chase_kernel
@@ -48,7 +50,7 @@ def launch_counts() -> dict[str, int]:
 def reset_launches() -> None:
     for fn in WRAPPERS.values():
         fn.launches = 0
-        if hasattr(fn, "route_launches"):  # flash_attention's count by route
+        if hasattr(fn, "route_launches"):  # the count by route (flash, wkv6, ssm_scan)
             fn.route_launches = dict.fromkeys(fn.route_launches, 0)
 
 

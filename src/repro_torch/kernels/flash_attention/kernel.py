@@ -85,16 +85,19 @@ def split_plan(b: int, s: int, t: int, h: int, kh: int, d: int, window: int = 0,
     return key0, chunk, -(-keys // chunk)
 
 
-_tickets: dict[torch.device, torch.Tensor] = {}
+_tickets: dict[tuple[torch.device, int], torch.Tensor] = {}
 
 
-def _ticket_buffer(device: torch.device, n: int) -> torch.Tensor:
-    """The split route's per-(batch, KV head) tickets: zeroed once here and
-    left zero by every launch (the merging block resets its ticket), so
-    calls queued on one stream share it."""
-    buf = _tickets.get(device)
+def _ticket_buffer(device: torch.device, stream: int, n: int) -> torch.Tensor:
+    """The split route's per-(batch, KV head) tickets for calls on
+    ``stream`` (its CUDA handle): zeroed once here and left zero by every
+    launch (the merging block resets its ticket), so calls queued on one
+    stream share a buffer, and calls on two streams, which may run at once,
+    never do."""
+    key = (device, stream)
+    buf = _tickets.get(key)
     if buf is None or buf.numel() < n:
-        buf = _tickets[device] = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+        buf = _tickets[key] = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
     return buf
 
 
@@ -215,7 +218,7 @@ def flash_attention(
                 scratch = torch.empty(acc + b * kh * n * SPLIT_ROWS * 2, dtype=torch.float32,
                                       device=q.device)
                 part, ml = scratch.data_ptr(), scratch[acc:].data_ptr()
-                tickets = _ticket_buffer(q.device, b * kh).data_ptr()
+                tickets = _ticket_buffer(q.device, stream, b * kh).data_ptr()
             err = lib.flash_attention_split_launch(*args, *shape, key0, chunk, n, part, ml,
                                                    tickets, stream)
     flash_attention.launches += 1

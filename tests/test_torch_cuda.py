@@ -16,8 +16,8 @@ from repro_torch.core.bitcode import deserialize_and_jit
 from repro_torch.kernels.chase import chase_shard, chase_shard_op, chase_shard_ref
 from repro_torch.kernels.embed_lookup import embed_lookup, embed_lookup_op, embed_lookup_ref
 from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref, flash_route
-from repro_torch.kernels.ssm_scan import ssm_scan, ssm_scan_ref
-from repro_torch.kernels.wkv6 import wkv6, wkv6_ref
+from repro_torch.kernels.ssm_scan import ssm_scan, ssm_scan_ref, ssm_scan_route
+from repro_torch.kernels.wkv6 import wkv6, wkv6_ref, wkv6_route
 
 pytestmark = pytest.mark.cuda
 
@@ -239,6 +239,30 @@ def test_flash_routes_match_plain(card, case, dtype):
     assert torch.equal(again, got)
 
 
+def test_flash_split_decodes_on_two_streams(card):
+    """yi's decode shape (B = 8, T = 2,048 of a 4,096-slot cache) on the
+    split route from two streams at once, over and over: each stream's
+    output equals its single-stream result, so the streams' partials never
+    merge through a shared ticket."""
+    sets = [_flash_inputs(card, [(8, 1, 32, 128), (8, 4096, 4, 128), (8, 4096, 4, 128)],
+                          torch.bfloat16, seed) for seed in (11, 12)]
+    sets = [(q, kc[:, :2048], vc[:, :2048]) for q, kc, vc in sets]
+    assert flash_route(torch.bfloat16, 1, 32, 4) == "split"
+    alone = [flash_attention(*qkv) for qkv in sets]
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream(card) for _ in sets]
+    for st in streams:
+        st.wait_stream(torch.cuda.current_stream(card))
+    outs = [[], []]
+    for _ in range(50):
+        for i, (st, qkv) in enumerate(zip(streams, sets)):
+            with torch.cuda.stream(st):
+                outs[i].append(flash_attention(*qkv))
+    torch.cuda.synchronize()
+    for want, got in zip(alone, outs):
+        assert all(torch.equal(o, want) for o in got)
+
+
 # The kernel and the plain version both run the recurrence in f32 and sum
 # each output's M products in other orders; the state's rounding carries
 # over the steps where the decay is weak.  So f32 agrees within WKV_ATOL of
@@ -275,26 +299,62 @@ def _wkv_close(got, want):
 
 
 @pytest.mark.parametrize("case", [
-    # (b, t, h, m, dtype, w dtype, log-decay, state in)
-    ("prefill", 1, 2048, 32, 64, torch.bfloat16, torch.float32, None, False),
-    ("prefill_f32", 1, 512, 32, 64, torch.float32, torch.float32, None, False),
-    ("decode", 8, 1, 32, 64, torch.bfloat16, torch.float32, None, True),
-    ("decode_f32", 8, 1, 32, 64, torch.float32, torch.float32, None, True),
-    ("decay_-1", 1, 256, 2, 64, torch.float32, torch.float32, -1.0, False),
-    ("decay_-1.5", 1, 256, 2, 64, torch.float32, torch.float32, -1.5, False),
-    ("ragged_777", 2, 777, 4, 64, torch.float32, torch.float32, None, True),
-    ("ragged_37_bf16_w", 2, 37, 4, 64, torch.bfloat16, torch.bfloat16, None, True),
-    ("sweep_m128", 2, 64, 1, 128, torch.bfloat16, torch.bfloat16, None, False),
-    ("m32", 2, 64, 2, 32, torch.float32, torch.float32, None, True),
+    # (b, t, h, m, dtype, w dtype, log-decay, state in, route (None: by shape), chunk)
+    ("prefill", 1, 2048, 32, 64, torch.bfloat16, torch.float32, None, False, None, None),
+    ("prefill_step", 1, 2048, 32, 64, torch.bfloat16, torch.float32, None, False, "step", 64),
+    ("prefill_f32", 1, 512, 32, 64, torch.float32, torch.float32, None, False, None, None),
+    ("serve_B4", 4, 2048, 32, 64, torch.bfloat16, torch.float32, None, False, None, None),
+    ("decode", 8, 1, 32, 64, torch.bfloat16, torch.float32, None, True, None, None),
+    ("decode_f32", 8, 1, 32, 64, torch.float32, torch.float32, None, True, None, None),
+    ("decay_-1", 1, 256, 2, 64, torch.float32, torch.float32, -1.0, False, None, None),
+    ("decay_-1.5", 1, 256, 2, 64, torch.float32, torch.float32, -1.5, False, None, None),
+    ("split_decay_-1_777", 1, 777, 2, 64, torch.float32, torch.float32, -1.0, True, "split", 64),
+    ("split_decay_-1.5_777", 1, 777, 2, 64, torch.float32, torch.float32, -1.5, True, "split",
+     64),
+    ("ragged_777", 2, 777, 4, 64, torch.float32, torch.float32, None, True, None, None),
+    ("ragged_777_step", 2, 777, 4, 64, torch.float32, torch.float32, None, True, "step", 64),
+    ("ragged_777_chunk16", 2, 777, 4, 64, torch.bfloat16, torch.float32, None, True, "split",
+     16),
+    ("split_L-1", 2, 63, 4, 64, torch.float32, torch.float32, None, True, "split", 64),
+    ("split_L+1", 2, 65, 4, 64, torch.bfloat16, torch.float32, None, True, "split", 64),
+    ("ragged_37_bf16_w", 2, 37, 4, 64, torch.bfloat16, torch.bfloat16, None, True, None, None),
+    ("sweep_m128", 2, 64, 1, 128, torch.bfloat16, torch.bfloat16, None, False, None, None),
+    ("split_m128", 2, 300, 1, 128, torch.bfloat16, torch.bfloat16, None, True, "split", 64),
+    ("m32", 2, 64, 2, 32, torch.float32, torch.float32, None, True, None, None),
+    ("split_m32", 2, 300, 2, 32, torch.float32, torch.float32, None, True, "split", 64),
 ], ids=lambda c: c[0])
 def test_wkv6_kernel_matches_plain(card, case):
-    _, b, t, h, m, dtype, w_dtype, lam, state = case
+    """Both routes against the plain version: the step route at decode and
+    on request, the split route at the path's prefill, launch.serve's B=4,
+    a chunk length either side of T, ragged T from a state, strong decay
+    across chunk boundaries and each head size.  The route's own count
+    shows which ran."""
+    _, b, t, h, m, dtype, w_dtype, lam, state, route, chunk = case
     args = _wkv_inputs(card, b, t, h, m, dtype, w_dtype, t + m, lam, state)
-    before = wkv6.launches
-    got = wkv6(*args)
+    took = route or wkv6_route(t)
+    before = wkv6.launches, wkv6.route_launches[took]
+    got = wkv6(*args, route=route, chunk=chunk)
     torch.cuda.synchronize()
-    assert wkv6.launches == before + 1
+    assert (wkv6.launches, wkv6.route_launches[took]) == (before[0] + 1, before[1] + 1)
     _wkv_close(got, wkv6_ref(*args))
+
+
+@pytest.mark.parametrize("kernel", ["wkv6", "ssm_scan"])
+def test_recurrence_routes_by_shape(card, kernel):
+    """Decode (T = 1) takes the step route and the path's prefill (T =
+    2,048) the split route, each counted once on its route."""
+    fn, route_of = (wkv6, wkv6_route) if kernel == "wkv6" else (ssm_scan, ssm_scan_route)
+    assert (route_of(1), route_of(2048)) == ("step", "split")
+    for t, route in ((1, "step"), (2048, "split")):
+        if kernel == "wkv6":
+            args = _wkv_inputs(card, 1, t, 32, 64, torch.bfloat16, torch.float32, t, state=True)
+        else:
+            args = _ssm_inputs(card, 1, t, 1600, 16, torch.bfloat16, t, state=True)
+        before = fn.launches, dict(fn.route_launches)
+        fn(*args)
+        torch.cuda.synchronize()
+        want = dict(before[1], **{route: before[1][route] + 1})
+        assert (fn.launches, fn.route_launches) == (before[0] + 1, want)
 
 
 def test_rwkv_launches_one_wkv6_kernel_per_layer(card):
@@ -396,23 +456,35 @@ def _ssm_inputs(card, b, t, d, n, dtype, seed, state=False, dt_range=None):
 
 
 @pytest.mark.parametrize("case", [
-    # (b, t, d, n, dtype, state in, dt range)
-    ("prefill", 1, 2048, 1600, 16, torch.bfloat16, False, None),
-    ("prefill_f32", 1, 512, 1600, 16, torch.float32, False, None),
-    ("decode", 8, 1, 1600, 16, torch.bfloat16, True, None),
-    ("decode_f32", 8, 1, 1600, 16, torch.float32, True, None),
-    ("ragged_777", 2, 777, 100, 16, torch.float32, True, None),
-    ("smoke_n8", 2, 37, 64, 8, torch.bfloat16, True, None),
-    ("sweep_n8_f32", 1, 64, 128, 8, torch.float32, False, None),
-    ("past_the_clamp", 1, 256, 64, 16, torch.float32, False, (2.0, 3.0)),
+    # (b, t, d, n, dtype, state in, dt range, route (None: by shape), chunk)
+    ("prefill", 1, 2048, 1600, 16, torch.bfloat16, False, None, None, None),
+    ("prefill_step", 1, 2048, 1600, 16, torch.bfloat16, False, None, "step", 64),
+    ("prefill_f32", 1, 512, 1600, 16, torch.float32, False, None, None, None),
+    ("serve_B4", 4, 2048, 1600, 16, torch.bfloat16, False, None, None, None),
+    ("decode", 8, 1, 1600, 16, torch.bfloat16, True, None, None, None),
+    ("decode_f32", 8, 1, 1600, 16, torch.float32, True, None, None, None),
+    ("ragged_777", 2, 777, 100, 16, torch.float32, True, None, None, None),
+    ("ragged_777_step", 2, 777, 100, 16, torch.float32, True, None, "step", 64),
+    ("ragged_777_n8_chunk16", 2, 777, 100, 8, torch.bfloat16, True, None, "split", 16),
+    ("split_L-1", 2, 63, 1600, 16, torch.float32, True, None, "split", 64),
+    ("split_L+1", 2, 65, 1600, 16, torch.bfloat16, True, None, "split", 64),
+    ("smoke_n8", 2, 37, 64, 8, torch.bfloat16, True, None, None, None),
+    ("sweep_n8_f32", 1, 64, 128, 8, torch.float32, False, None, None, None),
+    ("past_the_clamp", 1, 256, 64, 16, torch.float32, False, (2.0, 3.0), None, None),
+    ("split_past_the_clamp_777", 1, 777, 64, 16, torch.float32, True, (2.0, 3.0), "split", 64),
 ], ids=lambda c: c[0])
 def test_ssm_scan_kernel_matches_plain(card, case):
-    _, b, t, d, n, dtype, state, dt_range = case
+    """Both routes against the plain version: the step route at decode and
+    on request, the split route at the path's prefill, launch.serve's B=4,
+    a chunk length either side of T, ragged T and D from a state, N = 8,
+    and decays past the reference's clamp across chunk boundaries."""
+    _, b, t, d, n, dtype, state, dt_range, route, chunk = case
     args = _ssm_inputs(card, b, t, d, n, dtype, t + d, state, dt_range)
-    before = ssm_scan.launches
-    y, h = ssm_scan(*args)
+    took = route or ssm_scan_route(t)
+    before = ssm_scan.launches, ssm_scan.route_launches[took]
+    y, h = ssm_scan(*args, route=route, chunk=chunk)
     torch.cuda.synchronize()
-    assert ssm_scan.launches == before + 1
+    assert (ssm_scan.launches, ssm_scan.route_launches[took]) == (before[0] + 1, before[1] + 1)
     y_want, h_want = ssm_scan_ref(*args)
     assert y.dtype == y_want.dtype == dtype and h.dtype == torch.float32
     for got, want, rtol in ((y, y_want, SSM_RTOL[dtype]), (h, h_want, 0.0)):

@@ -13,7 +13,9 @@ to the other bf16 neighbour (rtol 2**-7).  Against the Pallas chunked
 form, the JAX sweep's own 1e-4 (f32) and 5e-2 (bf16).  The SSM head in
 f32 agrees to 1e-5 of its largest output; in bf16 it is held to the
 reference's own bf16 accuracy (ROADMAP T11: rms distance to the f32
-result), since two bf16 renderings round the same sums at other points."""
+result), since two bf16 renderings round the same sums at other points.
+The split route's arithmetic in plain ops (``ssm_scan_split_ref``) is held
+to 1e-5 / rtol 2**-7 against the sequential oracles."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -27,7 +29,10 @@ from repro.models.attention import attend as jax_attend
 from repro.models.common import ModelConfig as JaxModelConfig
 from repro_torch.kernels import WRAPPERS, build
 from repro_torch.kernels.flash_attention import flash_attention
-from repro_torch.kernels.ssm_scan import STATE_DIMS, ssm_scan, ssm_scan_ref
+from repro_torch.kernels.ssm_scan import (
+    ROUTES, SPLIT_MIN_T, STATE_DIMS, split_chunk, ssm_scan, ssm_scan_ref, ssm_scan_route,
+    ssm_scan_split_ref,
+)
 from repro_torch.models import ssm
 from repro_torch.models.common import ModelConfig, ParamFactory
 
@@ -143,6 +148,66 @@ def test_plain_is_exact_past_the_clamp():
     jnp_clamped, _ = jssm.selective_scan_chunked(*jargs, chunk=32)
     for off in (clamped, jnp_clamped):
         assert np.abs(np.asarray(off) - np.asarray(want)).max() > 1.0
+
+
+# The split route's arithmetic against the sequential oracles: T shorter
+# than a chunk, a step either side of it, ragged T in chunks of 64 and 16,
+# B = 2, a state carried in, bf16, N = 8, and dt of 2-3 per step, where the
+# reference's chunk-32 forms are off by whole units.
+# (name, b, t, d, n, chunk, state in, dt range, dtype)
+SPLIT_CASES = [
+    ("T_below_L", 1, 40, 24, 16, 64, True, None, "f32"),
+    ("T_L-1", 1, 63, 24, 16, 64, True, None, "f32"),
+    ("T_L+1", 1, 65, 24, 16, 64, True, None, "f32"),
+    ("T777", 1, 777, 24, 16, 64, True, None, "f32"),
+    ("T777_chunk16_n8", 1, 777, 24, 8, 16, True, None, "f32"),
+    ("B2_zero_state", 2, 200, 20, 16, 64, False, None, "f32"),
+    ("B2_bf16", 2, 130, 20, 16, 64, True, None, "bf16"),
+    ("dt_2-3", 1, 320, 16, 16, 64, False, (2.0, 3.0), "f32"),
+    ("dt_2-3_state", 2, 777, 16, 16, 64, True, (2.0, 3.0), "f32"),
+]
+
+
+@pytest.mark.parametrize("oracle", ["kernel_ref", "model_scan"])
+@pytest.mark.parametrize("case", SPLIT_CASES, ids=lambda c: c[0])
+def test_split_ref_matches_jax_sequential(case, oracle):
+    _, b, t, d, n, chunk, state, dt_range, dtype = case
+    x, dt, a, bb, cc, h0 = _draw(t + d + chunk, b, t, d, n, state, dt_range)
+    (jx, jdt, jb, jc), (tx, tdt, tb, tc) = _both([x, dt, bb, cc], dtype)
+    jh0 = None if h0 is None else jnp.asarray(h0)
+    th0 = None if h0 is None else torch.from_numpy(h0)
+    jfn = jax_ssm_ref if oracle == "kernel_ref" else jssm.selective_scan
+    want, h_want = jfn(jx, jdt, jnp.asarray(a), jb, jc, jh0)
+    got, h_got = ssm_scan_split_ref(tx, tdt, torch.from_numpy(a), tb, tc, th0, chunk=chunk)
+    assert got.dtype == tx.dtype and h_got.dtype == torch.float32
+    _close(got, want, EXACT[dtype])
+    _close(h_got, h_want, EXACT["f32"])
+    if dt_range is not None and h0 is None:  # where the reference's chunked form is off
+        jargs = [jnp.asarray(v) for v in (x, dt, a, bb, cc)]
+        clamped, _ = jssm.selective_scan_chunked(*jargs, chunk=32)
+        assert np.abs(np.asarray(clamped) - np.asarray(want)).max() > 1.0
+
+
+def test_route_takes_split_from_the_threshold():
+    assert ROUTES == ("step", "split")
+    assert [ssm_scan_route(t) for t in (1, SPLIT_MIN_T - 1, SPLIT_MIN_T, 2048)] == [
+        "step", "step", "split", "split"]
+    chunks = {(b, t): split_chunk(b, t) for b in (1, 2, 4, 8) for t in (1, 256, 777, 2048, 4096)}
+    assert all(c & (c - 1) == 0 and 32 <= c <= 128 for c in chunks.values())
+    assert chunks[(1, 2048)] == 64 and chunks[(4, 2048)] == 128  # the card's fastest
+
+
+def test_cpu_wrapper_takes_the_plain_version_on_any_route():
+    x, dt, a, bb, cc, h0 = (torch.from_numpy(v) for v in _draw(4, 1, 300, 8, 8, state=True))
+    want = ssm_scan_ref(x, dt, a, bb, cc, h0)
+    before = ssm_scan.launches, dict(ssm_scan.route_launches)
+    for route in (None, "step", "split"):
+        got = ssm_scan(x, dt, a, bb, cc, h0, route=route, chunk=16)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert (ssm_scan.launches, ssm_scan.route_launches) == before
+    for bad in (dict(route="scan"), dict(chunk=0), dict(chunk=2.0)):
+        with pytest.raises(ValueError):
+            ssm_scan(x, dt, a, bb, cc, h0, **bad)
 
 
 def test_cpu_wrapper_takes_the_plain_version_and_counts_nothing():

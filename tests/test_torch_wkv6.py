@@ -9,7 +9,9 @@ chip_smoke.py).
 Tolerances: against the sequential oracles, f32 agrees to 1e-5 (the same
 f32 recurrence, products summed in another order); bf16 outputs may round
 to the other bf16 neighbour (rtol 2**-7).  Against the Pallas chunked form,
-the JAX sweep's own 5e-3 (f32) and 5e-2 (bf16)."""
+the JAX sweep's own 5e-3 (f32) and 5e-2 (bf16).  The split route's
+arithmetic in plain ops (``wkv6_split_ref``) is held to the same 1e-5 / rtol
+2**-7 against the sequential oracles."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -21,7 +23,9 @@ from repro.kernels.wkv6.ref import wkv6_ref as jax_wkv6_ref
 from repro.models.rwkv import wkv6_chunked as jnp_wkv6_chunked
 from repro.models.rwkv import wkv6_scan
 from repro_torch.kernels import WRAPPERS, build
-from repro_torch.kernels.wkv6 import HEAD_DIMS, wkv6, wkv6_ref
+from repro_torch.kernels.wkv6 import (
+    HEAD_DIMS, ROUTES, SPLIT_MIN_T, split_chunk, wkv6, wkv6_ref, wkv6_route, wkv6_split_ref,
+)
 
 DTYPES = {"f32": (jnp.float32, torch.float32), "bf16": (jnp.bfloat16, torch.bfloat16)}
 EXACT = {"f32": dict(atol=1e-5, rtol=1e-5), "bf16": dict(atol=1e-5, rtol=2.0**-7)}
@@ -144,3 +148,61 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(case):
     err = TypeError if case in ("int", "mixed") else ValueError
     with pytest.raises(err):
         wkv6(*args)
+
+
+# The split route's arithmetic against the sequential oracles: T shorter
+# than a chunk, a step either side of it, ragged T in chunks of 64 and 16,
+# B = 2, a state carried in, bf16, and the log-decays of -1 and -1.5 where
+# the reference's chunk-64 form is off by whole units.
+# (name, b, t, h, m, chunk, log-decay, state in, dtype)
+SPLIT_CASES = [
+    ("T_below_L", 1, 40, 2, 32, 64, None, True, "f32"),
+    ("T_L-1", 1, 63, 2, 32, 64, None, True, "f32"),
+    ("T_L+1", 1, 65, 2, 32, 64, None, True, "f32"),
+    ("T777", 1, 777, 2, 32, 64, None, True, "f32"),
+    ("T777_chunk16", 1, 777, 2, 32, 16, None, True, "f32"),
+    ("B2_zero_state", 2, 200, 2, 32, 64, None, False, "f32"),
+    ("B2_bf16", 2, 130, 2, 32, 64, None, True, "bf16"),
+    ("decay_-1", 1, 320, 2, 64, 64, -1.0, False, "f32"),
+    ("decay_-1.5", 1, 320, 2, 64, 64, -1.5, False, "f32"),
+]
+
+
+@pytest.mark.parametrize("oracle", ["kernel_ref", "model_scan"])
+@pytest.mark.parametrize("case", SPLIT_CASES, ids=lambda c: c[0])
+def test_split_ref_matches_jax_sequential(case, oracle):
+    _, b, t, h, m, chunk, lam, state, dtype = case
+    r, k, v, w, u, s = _draw(t + m + chunk, b, t, h, m, lam=lam, state=state)
+    (jr, jk, jv), (tr, tk, tv) = _both([r, k, v], dtype)
+    rest = [w, u] + ([s] if state else [])
+    jfn = jax_wkv6_ref if oracle == "kernel_ref" else wkv6_scan
+    want, s_want = jfn(jr, jk, jv, *(jnp.asarray(a) for a in rest))
+    got, s_got = wkv6_split_ref(tr, tk, tv, *(torch.from_numpy(a) for a in rest), chunk=chunk)
+    assert got.dtype == tr.dtype and s_got.dtype == torch.float32
+    _close(got, want, EXACT[dtype])
+    _close(s_got, s_want, EXACT["f32"])
+    if lam is not None:  # where the reference's chunked form is off by whole units
+        clamped, _ = jnp_wkv6_chunked(*(jnp.asarray(a) for a in (r, k, v, w, u)), chunk=64)
+        assert np.abs(np.asarray(clamped) - np.asarray(want)).max() > 1.0
+
+
+def test_route_takes_split_from_the_threshold():
+    assert ROUTES == ("step", "split")
+    assert [wkv6_route(t) for t in (1, SPLIT_MIN_T - 1, SPLIT_MIN_T, 2048)] == [
+        "step", "step", "split", "split"]
+    chunks = {(b, t): split_chunk(b, t) for b in (1, 2, 4, 8) for t in (1, 256, 777, 2048, 4096)}
+    assert all(c & (c - 1) == 0 and 16 <= c <= 128 for c in chunks.values())
+    assert chunks[(1, 2048)] == 128 and chunks[(1, 256)] == 16  # the card's fastest
+
+
+def test_cpu_wrapper_takes_the_plain_version_on_any_route():
+    args = [torch.from_numpy(a) for a in _draw(3, 1, 300, 2, 32, state=True)]
+    want = wkv6_ref(*args)
+    before = wkv6.launches, dict(wkv6.route_launches)
+    for route in (None, "step", "split"):
+        got = wkv6(*args, route=route, chunk=16)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert (wkv6.launches, wkv6.route_launches) == before
+    for bad in (dict(route="scan"), dict(chunk=0), dict(chunk=True)):
+        with pytest.raises(ValueError):
+            wkv6(*args, **bad)
