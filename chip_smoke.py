@@ -9,7 +9,10 @@ a checkout, on a host with one Hopper card (sm_90) and the CUDA toolkit.
    bit-exact, in f32, bf16 and i32 (the f32 rows' bit patterns, which the
    service's Gatherer looks up), at the service's shapes (K = 16 ids of one
    message, bucket x K ids of a batched dispatch, into one 524,288 x 128
-   shard) and a large one.
+   shard), 1, 31, 33 and 65,536 ids, on both ``embed_lookup`` routes
+   (``bulk``, ``warp``), each line naming its route; rows of 6
+   bytes, which must take ``warp``; and launch.serve's remote-embedding rows
+   (each LM's d_model in f32) at 8 and 1,024 ids.
 4. Service phase: ``EmbedShardService`` on an 8-server ``Cluster`` on the
    card, 4,194,304 x 128 f32 table (256 MiB per shard resident on the card;
    DLRM-DCNv2's embedding width, rows cut from its 40M-row tables), 1,024
@@ -27,14 +30,27 @@ a checkout, on a host with one Hopper card (sm_90) and the CUDA toolkit.
    ``chase_shard`` launches equal to the servers' Chaser dispatches (0 in
    ``am`` and ``gbpc``).  Before the arms, ``chase_shard`` is held against
    its plain version on one shard of that chain and on a cycle local to
-   the shard, at 1, 8, 256 and 65,536 chases.
-6. Times ``embed_lookup`` and ``chase_shard`` on the card (device time per
-   call: CUDA events around calls queued behind a sleep; torch.profiler for
-   the plain versions, which wait for the card inside a call) beside the plain version, the PyTorch call
-   that computes the same function where there is one, and the bound from
-   bytes moved; logs the back-to-back wall time per call too.
-   ``embed_lookup`` and ``index_select`` are timed in turns, 10 times each,
-   with each one's median and spread.
+   the shard, at 1, 8, 33, 256 and 65,536 chases, on both routes
+   (``thread``, ``spread``).  The service and DAPC lines log the launches
+   by route and the batched arms' mean ids and chases a launch.
+6. Timing: the launch floor and the hop latency L (chase_shard's latency
+   probe: one thread's dependent loads, 0 and 1,024 hops, __ldg and
+   ld.global.cg in turns; L on the shard-sized cycle, from HBM and from L2);
+   then ``embed_lookup`` at N = 16, the batched arm's mean N and 1,024 of
+   512-byte rows and at launch.serve's remote embedding (N = 8 of each
+   LM's d_model f32 rows), and ``chase_shard`` at B = 1, the batched arm's
+   mean B and 256 on the chain and 256 on the cycle,
+   each route in turns (A B B A, 5 rounds, median and spread;
+   ``index_select`` in the same turns), with device ms per call (CUDA
+   events around calls queued behind a sleep; torch.profiler for the plain
+   versions, which wait for the card inside a call), back-to-back call ms,
+   the bytes bound and the reachable bound (floor + the larger of bytes
+   and the dependent loads' latency); and the host side of a per-message
+   call against ``index_select``'s (call ms of each wrapper and of its
+   custom op as a traced slice calls it, in turns, and a CPU trace of 200
+   calls of each).
+   After the LM phases, the launch-weighted gap of both kernels by shape,
+   against both bounds.
 7. Flash kernel phase: ``flash_attention`` against its plain version at
    yi-9b's prefill (S = T = 300, 1,000 and 2,048, and S = 256 over a
    1,024-token prefix of a 2,048-slot cache) and decode (B = 8, S = 1 on
@@ -150,7 +166,14 @@ BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak, NVIDIA data sheet
 SHARD_ROWS, DIM, N_SERVERS, N_KEYS, MAX_SLOTS = 524_288, 128, 8, 16, 64
 N_REQUESTS = 1024
 DAPC_ENTRIES, DAPC_CHASES, DAPC_DEPTH = 1 << 27, 256, 64
-CHASE_SIZES = (1, 8, 256, 65_536)
+CHASE_SIZES = (1, 8, 33, 256, 65_536)
+# embed_lookup's checked id counts: a message, either side of a bulk block,
+# two batched buckets and a large call
+EMBED_SIZES = {"one": 1, "message": N_KEYS, "block-1": 31, "block+1": 33,
+               "bucket8": 8 * N_KEYS, "bucket64": MAX_SLOTS * N_KEYS, "large": 65_536}
+PROBE_HOPS = 1024  # the latency probe's long chain
+REMOTE_KEYS = 8  # RemoteEmbedClient's ids a request (launch.serve --remote-embed)
+HBM_CYCLE = 1 << 28  # entries of the probe's cycle that L2 cannot hold (1 GiB)
 # the JAX flash sweep's shapes (tests/test_kernels.py): b, h, kh, s, t, d, bq, bk, causal, cap
 SWEEP = [
     (2, 4, 2, 256, 256, 64, 128, 128, True, None),
@@ -377,85 +400,205 @@ def edge_ids(rng, n: int, lo: int, v_loc: int, dev) -> torch.Tensor:
     above = (pick >= 0.05) & (pick < 0.10)
     ids[above] = rng.integers(lo + v_loc, lo + 2 * v_loc, int(above.sum()))
     ids[pick >= 0.97] = -1
-    ids[:4] = [-1, lo - 1, lo + v_loc, lo]  # the boundaries, always
+    edges = [-1, lo - 1, lo + v_loc, lo][:n]  # the boundaries, always
+    ids[:len(edges)] = edges
     return torch.from_numpy(ids.astype(np.int32)).to(dev)
 
 
 def kernel_phase(dev, rng) -> dict:
-    """embed_lookup on the card against its plain version, bit-exact."""
-    from repro_torch.kernels.embed_lookup import embed_lookup, embed_lookup_ref
+    """embed_lookup on the card against its plain version, bit-exact, on
+    each route that takes the rows; a 6-byte row must take ``warp``."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.embed_lookup import embed_lookup, embed_lookup_ref, embed_route
+    from repro_torch.kernels.embed_lookup.kernel import ROUTES
 
     lo = 3 * SHARD_ROWS
     lo_t = torch.tensor([lo], dtype=torch.int32, device=dev)
     worst = 0.0
-    shapes = {"message": N_KEYS, "bucket8": 8 * N_KEYS, "bucket64": MAX_SLOTS * N_KEYS,
-              "large": 65_536}
+
+    def check(table, ids, route, what, lo_t=lo_t):
+        nonlocal worst
+        before = embed_lookup.route_launches[route]
+        got = embed_lookup(table, ids, lo_t, route=route)
+        want = embed_lookup_ref(table, ids, lo_t)
+        torch.cuda.synchronize()
+        if embed_lookup.route_launches[route] != before + 1:
+            raise AssertionError(f"embed_lookup {what}: not counted on {route}")
+        if not torch.equal(got.view(torch.int16), want.view(torch.int16)):
+            raise AssertionError(f"embed_lookup differs from plain ({what}, {route})")
+        err = (got.float() - want.float()).abs().max().item()
+        worst = max(worst, err)
+        log(f"kernel embed_lookup {what} ({route}): bit-exact, max_abs_err={err}")
+
     f32 = torch.randn(SHARD_ROWS, DIM, generator=torch.Generator(dev).manual_seed(1),
                       device=dev)
     for dtype in (torch.float32, torch.bfloat16, torch.int32):
         table = f32.view(torch.int32) if dtype == torch.int32 else f32.to(dtype)
-        for label, n in shapes.items():
+        for label, n in EMBED_SIZES.items():
             ids = edge_ids(rng, n, lo, SHARD_ROWS, dev)
-            got = embed_lookup(table, ids, lo_t)
-            want = embed_lookup_ref(table, ids, lo_t)
-            torch.cuda.synchronize()
-            if not torch.equal(got.view(torch.int16), want.view(torch.int16)):
-                raise AssertionError(f"embed_lookup differs from plain ({dtype}, {label})")
-            err = (got.float() - want.float()).abs().max().item()
-            worst = max(worst, err)
-            log(f"kernel embed_lookup {str(dtype)[6:]} {label} n={n}: bit-exact, max_abs_err={err}")
+            for route in ROUTES:
+                check(table, ids, route, f"{str(dtype)[6:]} {label} n={n}")
     del table, f32
+    # a 6-byte row (bf16, D = 3): only the warp route takes it
+    narrow = torch.randn(SHARD_ROWS, 3, device=dev).to(torch.bfloat16)
+    if embed_route(N_KEYS, 6, narrow.data_ptr() % 16 == 0) != "warp":
+        raise AssertionError("a 6-byte row must take the warp route")
+    check(narrow, edge_ids(rng, 1024, lo, SHARD_ROWS, dev), "warp", "bf16 6-byte rows n=1024")
+    del narrow
+    # launch.serve's remote embedding: each LM's d_model f32 rows
+    wide_lo = 3 * 8192
+    wide_lo_t = torch.tensor([wide_lo], dtype=torch.int32, device=dev)
+    for arch in PATH_KERNEL:
+        dim = get_config(arch).d_model
+        wide = torch.randn(8192, dim, device=dev)
+        for n in (REMOTE_KEYS, 1024):
+            ids = edge_ids(rng, n, wide_lo, 8192, dev)
+            for route in ROUTES:
+                check(wide, ids, route, f"float32 remote {arch} rows of {4 * dim} B n={n}",
+                      wide_lo_t)
+        del wide
     torch.cuda.empty_cache()
     return {"max_abs_err": worst}
 
 
-def time_kernel(dev, rng) -> dict:
-    """Times at the batched service's shape: bucket x K = 64 x 16 ids into
-    one f32 shard, 128 distinct id sets so the rows are cold in L2."""
-    from repro_torch.kernels.embed_lookup import embed_lookup, embed_lookup_ref
+def reachable_bound(floor_ms: float, bytes_ms: float, chains, least_ms: float, what: str):
+    """The least time a launch can take: the launch floor plus the larger
+    of the bytes' time and the dependent loads' latency.  ``chains`` are
+    counts of that latency in ms, the truest first; a count whose bound
+    lies above ``least_ms`` (a time some design measured) is wrong, and is
+    logged and passed over for the next.  Returns ``(bound_ms, count)``."""
+    for label, chain_ms in chains:
+        bound = floor_ms + max(bytes_ms, chain_ms)
+        if bound <= least_ms:
+            return bound, label
+        log(f"bound {what}: {label} gives {bound} ms, above a measured {least_ms} ms: "
+            f"wrong, not used")
+    raise AssertionError(f"bound {what}: the launch floor {floor_ms} ms alone lies above "
+                         f"a measured {least_ms} ms")
 
-    lo = 3 * SHARD_ROWS
-    lo_t = torch.tensor([lo], dtype=torch.int32, device=dev)
-    table = torch.randn(SHARD_ROWS, DIM, device=dev)
-    n = MAX_SLOTS * N_KEYS
-    sets = [edge_ids(rng, n, lo, SHARD_ROWS, dev) for _ in range(128)]
-    args = [(table, ids, lo_t) for ids in sets]
-    inside = [(ids.long() - lo >= 0) & (ids.long() - lo < SHARD_ROWS) for ids in sets]
-    lib_args = [(table, (ids.long() - lo)[m].contiguous()) for ids, m in zip(sets, inside)]
-    row = DIM * table.element_size()
-    n_in = sum(int(m.sum()) for m in inside) / len(sets)
-    moved = n * 4 + n_in * row + n * row  # ids read, in-shard rows read, rows written
-    before = embed_lookup.launches
+
+def time_floor(dev, rng, tables) -> dict:
+    """The launch floor and one load's latency, from chase_shard's latency
+    probe: one thread's dependent loads through a cycle, each call from a
+    fresh random start (so no call finds its chain in L2 from an earlier
+    one), __ldg and ld.global.cg in turns.  t(0 hops) is the floor; (t(1,024)
+    - t(0)) / 1,024 the latency of a load: on the 2**24-entry cycle (the
+    DAPC shard's size; L, which the bounds use), on a 2**28-entry cycle
+    made on the card (1 GiB, 20x the L2: nearly every load from HBM) and on
+    a 2**20-entry one (4 MiB, L2-resident)."""
+    from repro_torch.core import make_chain
+    from repro_torch.kernels.chase.kernel import latency_probe
+
+    shard = tables["cycle"][0]
+    n_big = HBM_CYCLE
+    perm = torch.randperm(n_big, device=dev, generator=torch.Generator(dev).manual_seed(3))
+    big = torch.empty(n_big, dtype=torch.int32, device=dev)
+    big[perm] = perm.roll(-1).to(torch.int32)
+    del perm
+    small = torch.from_numpy(make_chain(1 << 20, seed=2)).to(dev)
+    out = {}
+    for label, table, hops, reps in (("t0", shard, 0, 100), ("shard", shard, PROBE_HOPS, 10),
+                                     ("hbm", big, PROBE_HOPS, 10),
+                                     ("l2", small, PROBE_HOPS, 10)):
+        starts = iter(rng.integers(0, table.shape[0], 200 * (reps + 4)).tolist())
+        out[label] = ab_ms({
+            "ldg": lambda t=table, h=hops, it=starts: latency_probe(t, next(it), h, False),
+            "cg": lambda t=table, h=hops, it=starts: latency_probe(t, next(it), h, True),
+        }, [()], reps, 5)
+    floor = min(out["t0"][k]["median"] for k in ("ldg", "cg"))
+    levels = ("shard", "hbm", "l2")
+    lat = {lvl: {k: (out[lvl][k]["median"] - out["t0"][k]["median"]) / PROBE_HOPS * 1e3
+                 for k in ("ldg", "cg")} for lvl in levels}
+    apart = {lvl: out[lvl]["ldg"]["min"] > out[lvl]["cg"]["max"]
+             or out[lvl]["cg"]["min"] > out[lvl]["ldg"]["max"] for lvl in levels}
+    res = {
+        "floor_ms": floor,
+        "latency_us": lat,  # by table and load flavour
+        "flavours_apart": apart,  # the two flavours' spreads do not touch
+        "hop_us": min(lat["shard"].values()),  # L: the faster flavour on the shard's cycle
+        "hbm_us": min(lat["hbm"].values()),
+        "l2_us": min(lat["l2"].values()),
+        "faster": {lvl: min(lat[lvl], key=lat[lvl].get) for lvl in levels},
+    }
+    log(f"timing launch floor and hop latency ({PROBE_HOPS} hops from fresh starts, __ldg "
+        f"and ld.global.cg in turns, 5 rounds A B B A): floor {floor} ms, L {res['hop_us']} "
+        f"us on the 2**24 cycle, {res['hbm_us']} us on 1 GiB, {res['l2_us']} us from L2; "
+        f"{json.dumps(res)}; probe times {json.dumps(out)}")
+    del big, small
+    torch.cuda.empty_cache()
+    return res
+
+
+def launch_gap(shapes: dict, launches: dict, key: str) -> float:
+    """Seconds over the bound ``key`` of the path's launches: launches x
+    (time - bound), summed over the shapes they come in."""
+    return sum(n * (shapes[s]["ms"] - shapes[s][key]) / 1e3 for s, n in launches.items())
+
+
+def time_kernel(dev, rng, floor: dict, mean_n: float) -> dict:
+    """Times at the shapes the path's launches come in: the Gather
+    service's N = 16 ids (a message), its batched arm's mean N and N =
+    1,024 (the largest bucket), into one f32 shard of 512-byte rows; and
+    launch.serve's remote embedding, N = 8 ids (RemoteEmbedClient's
+    n_keys) of each LM's d_model f32 rows.  Each table holds 256 MiB and
+    each shape has 128 distinct id sets, so the rows are cold in L2.  Each
+    route and index_select (on the in-shard ids only: its yardstick) in
+    turns."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.embed_lookup import embed_lookup, embed_lookup_ref, embed_route
+    from repro_torch.kernels.embed_lookup.kernel import ROUTES
+
     library = lambda t, i: torch.index_select(t, 0, i)  # yardstick, unused by the port
-    # the kernel and index_select in turns, 10 alternations of each
-    kernel_ab = lambda i: embed_lookup(*args[i])
-    library_ab = lambda i: library(*lib_args[i])
-    ab = ab_ms({"embed_lookup": kernel_ab, "index_select": library_ab},
-               [(i,) for i in range(len(args))], 100, 5)
-    out = {
-        "ms": ab["embed_lookup"]["median"],
-        "plain_ms": device_ms(embed_lookup_ref, args),  # waits for a host-to-card copy
-        "library_ms": ab["index_select"]["median"],
-        "bound_ms": moved / HBM_BYTES_PER_S * 1e3,
-        "bound_by": "bytes",
-    }
-    ratio = out["ms"] / out["library_ms"]
-    apart = (ab["embed_lookup"]["min"] > ab["index_select"]["max"]
-             or ab["embed_lookup"]["max"] < ab["index_select"]["min"])
-    log(f"timing embed_lookup against index_select, 10 alternations each in turns: "
-        f"kernel/index_select median ratio {ratio}, spreads "
-        f"{'apart' if apart else 'overlap'}: {json.dumps(ab)}")
-    calls = {
-        "kernel": call_ms(embed_lookup, args),
-        "plain": call_ms(embed_lookup_ref, args),
-        "library": call_ms(library, lib_args),
-    }
-    embed_lookup.launches = before  # timing launches are not main-path launches
-    log(f"timing embed_lookup n={n} f32, {moved:.0f} B moved: device ms per call "
-        f"kernel {out['ms']}, plain {out['plain_ms']}, index_select yardstick "
-        f"{out['library_ms']}, bound {out['bound_ms']}; back-to-back wall ms per "
-        f"call {json.dumps(calls)}")
-    return out
+    saved = embed_lookup.launches, dict(embed_lookup.route_launches), embed_lookup.items
+    timed = [("message", N_KEYS, DIM), ("mean", max(1, round(mean_n)), DIM),
+             ("bucket64", MAX_SLOTS * N_KEYS, DIM)]
+    timed += [(f"remote {arch}", REMOTE_KEYS, get_config(arch).d_model) for arch in PATH_KERNEL]
+    shapes, table = {}, None
+    for label, n, dim in timed:
+        rows_n = SHARD_ROWS * DIM // dim  # 256 MiB of f32 rows
+        lo = 3 * rows_n
+        if table is None or table.shape[1] != dim:
+            del table
+            table = torch.randn(rows_n, dim, device=dev)
+        lo_t = torch.tensor([lo], dtype=torch.int32, device=dev)
+        row = dim * table.element_size()
+        sets = [edge_ids(rng, n, lo, rows_n, dev) for _ in range(128)]
+        args = [(table, ids, lo_t) for ids in sets]
+        inside = [(ids.long() - lo >= 0) & (ids.long() - lo < rows_n) for ids in sets]
+        lib_args = [(table, (ids.long() - lo)[m].contiguous()) for ids, m in zip(sets, inside)]
+        n_in = sum(int(m.sum()) for m in inside) / len(sets)
+        moved = n * 4 + n_in * row + n * row  # ids read, in-shard rows read, rows written
+        fns = {r: (lambda i, r=r: embed_lookup(*args[i], route=r)) for r in ROUTES}
+        fns["index_select"] = lambda i: library(*lib_args[i])
+        ab = ab_ms(fns, [(i,) for i in range(len(args))], 100, 5)
+        route = embed_route(n, row, True)
+        bytes_ms = moved / HBM_BYTES_PER_S * 1e3
+        hop, l2 = floor["hop_us"] / 1e3, floor["l2_us"] / 1e3
+        least = min(v["median"] for v in ab.values())
+        reach, count = reachable_bound(floor["floor_ms"], bytes_ms, (
+            ("id and row at L", 2 * hop), ("id from L2, row at L", l2 + hop),
+            ("id and row from L2", 2 * l2), ("no load latency", 0.0)), least,
+            f"embed_lookup {label} n={n}")
+        calls = {r: call_ms(lambda *a, r=r: embed_lookup(*a, route=r), args) for r in ROUTES}
+        calls["path"] = call_ms(embed_lookup, args)  # the wrapper on its default route
+        calls["index_select"] = call_ms(library, lib_args)
+        shapes[label] = {
+            "n": n, "row_bytes": row, "route": route, "ms": ab[route]["median"],
+            "route_ms": {r: ab[r]["median"] for r in ROUTES},
+            "plain_ms": device_ms(embed_lookup_ref, args),  # waits for a host-to-card copy
+            "library_ms": ab["index_select"]["median"],
+            "bound_ms": bytes_ms, "bound_by": "bytes",
+            "reachable_bound_ms": reach, "reachable_count": count,
+            "call_ms": calls[route], "calls_ms": calls,
+            "half_of_reachable": reach >= 0.5 * ab[route]["median"],
+        }
+        log(f"timing embed_lookup {label} n={n} f32 rows of {row} B ({route}), {moved:.0f} B "
+            f"moved: {json.dumps(shapes[label])}; in turns (A B B A, 5 rounds): "
+            f"{json.dumps(ab)}")
+    del table
+    torch.cuda.empty_cache()
+    embed_lookup.launches, embed_lookup.route_launches, embed_lookup.items = saved
+    return shapes
 
 
 def service_phase(dev, n_requests: int, profile_dir: str | None) -> dict:
@@ -483,10 +626,13 @@ def service_phase(dev, n_requests: int, profile_dir: str | None) -> dict:
         "batched": dict(batching=True),
         "zerocopy": dict(batching=True, dataplane=DataPlaneConfig(zerocopy=True)),
     }
+    from repro_torch.kernels.embed_lookup import embed_lookup
+
     reset_launches()  # the main path's launches are counted from here
     per_arm = {}
     for name, kw in arms.items():
         launches0, inv0 = launch_counts()["embed_lookup"], server_invokes()
+        items0 = embed_lookup.items
         t = time.perf_counter()
         rep = svc.gather(reqs, **kw)
         torch.cuda.synchronize()
@@ -502,7 +648,8 @@ def service_phase(dev, n_requests: int, profile_dir: str | None) -> dict:
             )
         per_arm[name] = dict(
             wall_s=wall, invokes=rep.invokes, server_dispatches=dispatches,
-            kernel_launches=launches, puts=rep.puts, coalesced_frames=rep.coalesced_frames,
+            kernel_launches=launches, ids_per_launch=(embed_lookup.items - items0) / launches,
+            puts=rep.puts, coalesced_frames=rep.coalesced_frames,
             region_puts=rep.region_puts, rounds=rep.rounds, modeled_us=rep.modeled_us,
         )
         log(f"arm {name}: oracle-identical, {json.dumps(per_arm[name])}")
@@ -518,11 +665,14 @@ def service_phase(dev, n_requests: int, profile_dir: str | None) -> dict:
         triple = pe.target_cache.lookup("gatherer").extras["triple"]
         if triple != "cuda-sm90":
             raise AssertionError(f"{pe.name} installed the {triple} slice")
+    routes = dict(embed_lookup.route_launches)
+    mean_n = per_arm["batched"]["ids_per_launch"]
     log(f"installed gatherer slice: cuda-sm90 on all {N_SERVERS} servers; "
-        f"main-path launches {launches}")
+        f"main-path launches {launches}, embed_lookup by route {routes}; batched arm's "
+        f"mean N {mean_n} ids a launch")
     if profile_dir:
         profile_burst(svc, reqs[:256], Path(profile_dir))
-    return {"launches": launches, "arms": per_arm}
+    return {"launches": launches, "routes": routes, "arms": per_arm, "mean_n": mean_n}
 
 
 def chase_inputs(rng, table, lo: int, b: int, max_depth: int, dev):
@@ -537,8 +687,9 @@ def chase_inputs(rng, table, lo: int, b: int, max_depth: int, dev):
     frontier[high] = rng.integers(lo + n_loc, lo + 2 * n_loc, int(high.sum()))
     depth = rng.integers(1, max_depth + 1, b)
     depth[pick >= 0.97] = 0
-    if b >= 8:  # the shard's edges, always (a lone chase stays a real chase)
-        frontier[:3], depth[:3] = [lo - 1, lo + n_loc, lo], [7, 7, 0]
+    if b >= 8:  # the shard's edges and an id far below it, always (a lone
+        # chase stays a real chase)
+        frontier[:4], depth[:4] = [lo - 1, lo + n_loc, lo, -(2**31)], [7, 7, 0, 7]
     else:
         frontier[:], depth[:] = rng.integers(lo, lo + n_loc, b), max_depth
     as_dev = lambda a: torch.from_numpy(a.astype(np.int32)).to(dev)
@@ -560,25 +711,32 @@ def chase_tables(dev, app) -> dict:
 
 
 def chase_kernel_phase(dev, rng, tables) -> dict:
-    """chase_shard on the card against its plain version, bit-exact."""
+    """chase_shard on the card against its plain version, bit-exact, on
+    both routes."""
     from repro_torch.kernels.chase import chase_shard, chase_shard_ref
+    from repro_torch.kernels.chase.kernel import ROUTES
 
     worst = 0.0
     for kind, (table, lo, max_depth) in tables.items():
         lo_t = torch.tensor([lo], dtype=torch.int32, device=dev)
         for b in CHASE_SIZES:
             frontier, depth = chase_inputs(rng, table, lo, b, max_depth, dev)
-            f, d = chase_shard(table, frontier, depth, lo_t)
             f_want, d_want = chase_shard_ref(table, frontier, depth, lo_t)
-            torch.cuda.synchronize()
-            if not (torch.equal(f, f_want) and torch.equal(d, d_want)):
-                raise AssertionError(f"chase_shard differs from plain ({kind}, B={b})")
-            err = max((f.long() - f_want.long()).abs().max().item(),
-                      (d.long() - d_want.long()).abs().max().item())
-            worst = max(worst, float(err))
-            hops = (depth - d).long()
-            log(f"kernel chase_shard {kind} B={b}: bit-exact, max_abs_err={err}, hops "
-                f"mean {hops.float().mean().item()} max {hops.max().item()}")
+            hops = (depth - d_want).long()
+            for route in ROUTES:
+                before = chase_shard.route_launches[route]
+                f, d = chase_shard(table, frontier, depth, lo_t, route=route)
+                torch.cuda.synchronize()
+                if chase_shard.route_launches[route] != before + 1:
+                    raise AssertionError(f"chase_shard {kind} B={b}: not counted on {route}")
+                if not (torch.equal(f, f_want) and torch.equal(d, d_want)):
+                    raise AssertionError(
+                        f"chase_shard differs from plain ({kind}, B={b}, {route})")
+                err = max((f.long() - f_want.long()).abs().max().item(),
+                          (d.long() - d_want.long()).abs().max().item())
+                worst = max(worst, float(err))
+                log(f"kernel chase_shard {kind} B={b} ({route}): bit-exact, max_abs_err={err}, "
+                    f"hops mean {hops.float().mean().item()} max {hops.max().item()}")
     return {"max_abs_err": worst}
 
 
@@ -630,10 +788,13 @@ def dapc_phase(app, starts, oracle, profile_dir: str | None) -> dict:
     def server_invokes() -> int:
         return sum(pe.stats.invokes for pe in cluster.servers)
 
+    from repro_torch.kernels.chase import chase_shard
+
     reset_launches()  # the DAPC path's launches are counted from here
     per_arm = {}
     for name, arm in arms.items():
         launches0, inv0 = launch_counts()["chase_shard"], server_invokes()
+        items0 = chase_shard.items
         poll0 = dict(poll_s)
         t = time.perf_counter()
         rep = arm()
@@ -654,7 +815,9 @@ def dapc_phase(app, starts, oracle, profile_dir: str | None) -> dict:
             )
         per_arm[name] = dict(
             wall_s=wall, invokes=rep.invokes, server_dispatches=dispatches,
-            kernel_launches=launches, puts=rep.puts, gets=rep.gets,
+            kernel_launches=launches,
+            chases_per_launch=(chase_shard.items - items0) / launches if launches else None,
+            puts=rep.puts, gets=rep.gets,
             coalesced_frames=rep.coalesced_frames, region_puts=rep.region_puts,
             rounds=rep.rounds, modeled_us=rep.modeled_us,
             server_poll_s=poll_s["servers"] - poll0["servers"],
@@ -666,8 +829,11 @@ def dapc_phase(app, starts, oracle, profile_dir: str | None) -> dict:
         exe = pe.target_cache.lookup("chaser")
         if exe is None or exe.extras["triple"] != "cuda-sm90":
             raise AssertionError(f"{pe.name} did not install the cuda-sm90 chaser slice")
+    routes = dict(chase_shard.route_launches)
+    mean_b = per_arm["bitcode_batched"]["chases_per_launch"]
     log(f"installed chaser slice: cuda-sm90 on all {N_SERVERS} servers; "
-        f"DAPC launches {launches}")
+        f"DAPC launches {launches}, chase_shard by route {routes}; batched arm's mean B "
+        f"{mean_b} chases a launch")
     if profile_dir:
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t = time.perf_counter()
@@ -676,22 +842,28 @@ def dapc_phase(app, starts, oracle, profile_dir: str | None) -> dict:
             wall = time.perf_counter() - t
         write_profile(prof, wall, Path(profile_dir) / "dapc_profile.txt",
                       f"dapc batched arm, {DAPC_CHASES} chases")
-    return {"launches": launches, "arms": per_arm}
+    return {"launches": launches, "routes": routes, "arms": per_arm, "mean_b": mean_b}
 
 
-def time_chase(dev, rng, tables) -> dict:
-    """Times at the batched bucket shape: 256 chases of depth 64 into one
-    2**24-entry shard of the DAPC chain (128 distinct frontier sets, so the
-    shard is read from HBM), and the same on a cycle local to the shard,
-    where every chase takes all 64 hops.  The bound counts 16 B per chase
-    (frontier and depth read and written) plus 4 B per hop taken."""
-    from repro_torch.kernels.chase import chase_shard, chase_shard_ref
+def time_chase(dev, rng, tables, floor: dict, mean_b: float) -> dict:
+    """Times at the shapes the DAPC path's launches come in: B = 1 chase (a
+    message), the batched arm's mean B and B = 256, depth 64, into one
+    2**24-entry shard of the DAPC chain (most chases leave after about one
+    hop), and B = 256 on a cycle local to the shard (every chase takes its
+    64 hops); 128 distinct frontier sets a shape, so the shard is read from
+    HBM.  Both routes in turns.  The bytes bound counts 16 B per chase
+    (frontier and depth read and written) plus 4 B per hop taken; the
+    reachable one the mean over the sets of a launch's longest chase, in
+    loads of the probe's latency."""
+    from repro_torch.kernels.chase import chase_route, chase_shard, chase_shard_ref
+    from repro_torch.kernels.chase.kernel import ROUTES
 
-    before = chase_shard.launches
-    out = {}
-    for kind, (table, lo, _) in tables.items():
+    saved = chase_shard.launches, dict(chase_shard.route_launches), chase_shard.items
+    shapes = {}
+    for label, kind, b in (("message", "chain", 1), ("mean", "chain", max(1, round(mean_b))),
+                           ("bucket", "chain", DAPC_CHASES), ("cycle", "cycle", DAPC_CHASES)):
+        table, lo, _ = tables[kind]
         lo_t = torch.tensor([lo], dtype=torch.int32, device=dev)
-        b = DAPC_CHASES
         depth = torch.full((b,), DAPC_DEPTH, dtype=torch.int32, device=dev)
         sets = [
             torch.from_numpy(rng.integers(lo, lo + table.shape[0], b).astype(np.int32)).to(dev)
@@ -699,21 +871,104 @@ def time_chase(dev, rng, tables) -> dict:
         ]
         args = [(table, f, depth, lo_t) for f in sets]
         hops = torch.stack([depth - chase_shard_ref(*a)[1] for a in args]).long()
+        longest = hops.max(dim=1).values.float().mean().item()
         moved = 16 * b + 4 * hops.sum().item() / len(sets)
-        out[kind] = {
-            "ms": event_ms(chase_shard, args),
+        fns = {r: (lambda *a, r=r: chase_shard(*a, route=r)) for r in ROUTES}
+        ab = ab_ms(fns, args, 100, 5)
+        route = chase_route(b)
+        bytes_ms = moved / HBM_BYTES_PER_S * 1e3
+        least = min(v["median"] for v in ab.values())
+        reach, count = reachable_bound(floor["floor_ms"], bytes_ms, (
+            ("longest chase at L", longest * floor["hop_us"] / 1e3),
+            ("longest chase from L2", longest * floor["l2_us"] / 1e3),
+            ("no load latency", 0.0)), least, f"chase_shard {label} B={b}")
+        calls = {r: call_ms(fns[r], args) for r in ROUTES}
+        calls["path"] = call_ms(chase_shard, args)  # the wrapper on its default route
+        calls["plain"] = call_ms(chase_shard_ref, args)
+        shapes[label] = {
+            "b": b, "table": kind, "route": route, "ms": ab[route]["median"],
+            "route_ms": {r: ab[r]["median"] for r in ROUTES},
             "plain_ms": device_ms(chase_shard_ref, args),  # waits for the card each hop
-            "bound_ms": moved / HBM_BYTES_PER_S * 1e3,
-            "bound_by": "bytes",
             "library_ms": None,  # no single PyTorch call chases to exit
-            "hops_mean": hops.float().mean().item(),
-            "hops_max": hops.max().item(),
-            "call_ms": call_ms(chase_shard, args),
-            "plain_call_ms": call_ms(chase_shard_ref, args),
+            "bound_ms": bytes_ms, "bound_by": "bytes",
+            "reachable_bound_ms": reach, "reachable_count": count,
+            "hops_mean": hops.float().mean().item(), "hops_max": hops.max().item(),
+            "longest_mean": longest,
+            "call_ms": calls[route], "calls_ms": calls,
+            "half_of_reachable": reach >= 0.5 * ab[route]["median"],
         }
-        log(f"timing chase_shard {kind} B={b} depth {DAPC_DEPTH}, {moved:.0f} B moved: "
-            f"{json.dumps(out[kind])}")
-    chase_shard.launches = before  # timing launches are not main-path launches
+        log(f"timing chase_shard {label} {kind} B={b} depth {DAPC_DEPTH} ({route}), "
+            f"{moved:.0f} B moved: {json.dumps(shapes[label])}; in turns (A B B A, 5 "
+            f"rounds): {json.dumps(ab)}")
+    chase_shard.launches, chase_shard.route_launches, chase_shard.items = saved
+    return shapes
+
+
+def time_host_launch(dev, rng, tables, embed: dict, chase: dict) -> dict:
+    """The host side of a launch-sized call at the per-message shapes (N =
+    16 ids, B = 1 chase): back-to-back call_ms of each wrapper, of its
+    custom op as a traced slice's graph node calls it
+    (``torch.ops.repro_torch.*.default``: the dispatcher, the op's Python
+    body, then the wrapper) and of index_select at N = 16, in turns (A..E
+    E..A, 5 rounds); and a torch.profiler CPU trace of 200 calls of each
+    (the ops' host time by name; the rest of a call is Python)."""
+    from repro_torch.kernels.chase import chase_shard
+    from repro_torch.kernels.embed_lookup import embed_lookup
+
+    lo = 3 * SHARD_ROWS
+    lo_t = torch.tensor([lo], dtype=torch.int32, device=dev)
+    rows = torch.randn(SHARD_ROWS, DIM, device=dev)
+    ids = edge_ids(rng, N_KEYS, lo, SHARD_ROWS, dev)
+    loc = (ids.long() - lo).clamp(0, SHARD_ROWS - 1)
+    table, c_lo, _ = tables["chain"]
+    c_lo_t = torch.tensor([c_lo], dtype=torch.int32, device=dev)
+    frontier = torch.tensor([c_lo + 5], dtype=torch.int32, device=dev)
+    depth = torch.tensor([DAPC_DEPTH], dtype=torch.int32, device=dev)
+    saved = {fn: (fn.launches, dict(fn.route_launches), fn.items)
+             for fn in (embed_lookup, chase_shard)}
+    embed_op = torch.ops.repro_torch.embed_lookup.default
+    chase_op = torch.ops.repro_torch.chase_shard.default
+    calls = {
+        "embed_lookup": lambda: embed_lookup(rows, ids, lo_t),
+        "embed_lookup_op": lambda: embed_op(rows, ids, lo_t),
+        "chase_shard": lambda: chase_shard(table, frontier, depth, c_lo_t),
+        "chase_shard_op": lambda: chase_op(table, frontier, depth, c_lo_t),
+        "index_select": lambda: torch.index_select(rows, 0, loc),
+    }
+    turns = {name: [] for name in calls}
+    for _ in range(5):
+        for name in [*calls, *reversed(calls)]:
+            turns[name].append(call_ms(calls[name], [()]))
+    med = {name: float(np.median(ts)) for name, ts in turns.items()}
+    yardstick = embed["message"]["calls_ms"]["index_select"]
+    out = {
+        "ratio_to_index_select": {  # the timing phase's call_ms, the wrappers alone
+            "embed_lookup": embed["message"]["call_ms"] / yardstick,
+            "chase_shard": chase["message"]["call_ms"] / yardstick,
+        },
+        "call_ms_in_turns": {name: {"median": med[name], "min": min(ts), "max": max(ts)}
+                             for name, ts in turns.items()},
+        "ratio_in_turns": {name: med[name] / med["index_select"] for name in calls
+                           if name != "index_select"},
+    }
+    for name, fn in calls.items():
+        for _ in range(20):
+            fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            t = time.perf_counter()
+            for _ in range(200):
+                fn()
+            wall = time.perf_counter() - t
+        torch.cuda.synchronize()
+        ops = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)[:6]
+        out[name] = {"traced_wall_us_per_call": wall / 200 * 1e6, "self_cpu_us_per_call": {
+            e.key: e.self_cpu_time_total / 200 for e in ops}}
+    for fn, (n, routes, items) in saved.items():
+        fn.launches, fn.route_launches, fn.items = n, routes, items
+    log(f"timing host launch, per-message shapes (call_ms of the wrappers, their custom ops "
+        f"and index_select at N=16 in turns, and a CPU trace of 200 calls each): "
+        f"{json.dumps(out)}")
     return out
 
 
@@ -1055,7 +1310,8 @@ def launch_serve_phase(dev, arch: str = "yi-9b") -> dict:
         torch.cuda.synchronize()
         launches = launch_counts()
         rec["wall_s"], rec["launches"] = time.perf_counter() - t, launches
-        rec["routes"] = {k: dict(WRAPPERS[k].route_launches) for k, _ in PATH_KERNEL[arch]}
+        rec["routes"] = {k: dict(WRAPPERS[k].route_launches)
+                         for k in (*(k for k, _ in PATH_KERNEL[arch]), "embed_lookup")}
         runs[name] = (rec, toks)
         log(f"{prefix}launch.serve {name}: {json.dumps(rec)}")
         if any(launches[k] != n_layers * (1 + SERVE_NEW) for k, _ in PATH_KERNEL[arch]):
@@ -1590,8 +1846,10 @@ def main() -> int:
     chase_checked = chase_kernel_phase(dev, rng, tables)
     dapc = dapc_phase(app, starts, oracle, args.profile)
     elapsed("the DAPC phases")
-    timing = time_kernel(dev, rng)
-    chase_timing = time_chase(dev, rng, tables)
+    floor = time_floor(dev, rng, tables)
+    timing = time_kernel(dev, rng, floor, service["mean_n"])
+    chase_timing = time_chase(dev, rng, tables, floor, dapc["mean_b"])
+    host_launch = time_host_launch(dev, rng, tables, timing, chase_timing)
     del app, tables
     torch.cuda.empty_cache()
     elapsed("the embed_lookup and chase_shard timings")
@@ -1600,37 +1858,78 @@ def main() -> int:
     elapsed("the flash kernel phase and timings")
     parity_phase(dev)
     serving = serving_phase(dev, args.profile)
-    launch_serve_phase(dev)
+    served = {"yi-9b": launch_serve_phase(dev)}
     elapsed("the yi-9b phases")
     wkv_checked = wkv6_kernel_phase(dev)
     wkv_timing = time_wkv6(dev)
     parity_phase(dev, "rwkv6-1.6b")
     rwkv_serving = serving_phase(dev, args.profile, "rwkv6-1.6b")
-    launch_serve_phase(dev, "rwkv6-1.6b")
+    served["rwkv6-1.6b"] = launch_serve_phase(dev, "rwkv6-1.6b")
     elapsed("the rwkv6-1.6b phases")
     ssm_checked = ssm_scan_kernel_phase(dev)
     ssm_timing = time_ssm_scan(dev)
     parity_phase(dev, "hymba-1.5b")
     hymba_serving = serving_phase(dev, args.profile, "hymba-1.5b")
-    launch_serve_phase(dev, "hymba-1.5b")
+    served["hymba-1.5b"] = launch_serve_phase(dev, "hymba-1.5b")
     elapsed("the hymba-1.5b phases")
+    # the path's launches by the shape they come in: per-message dispatches
+    # at N = 16 ids and B = 1 chase, batched ones at their arm's mean, and
+    # launch.serve's remote embedding at N = 8 of each LM's rows
+    g_arms, d_arms = service["arms"], dapc["arms"]
+    embed_by_shape = {"message": g_arms["per_message"]["kernel_launches"],
+                      "mean": sum(g_arms[a]["kernel_launches"] for a in ("batched", "zerocopy")),
+                      **{f"remote {arch}": runs["remote"]["launches"]["embed_lookup"]
+                         for arch, runs in served.items()}}
+    chase_by_shape = {"message": d_arms["bitcode_per_message"]["kernel_launches"],
+                      "mean": sum(d_arms[a]["kernel_launches"] for a in (
+                          "bitcode_batched", "bitcode_zerocopy", "binary_batched"))}
+    gaps = {name: {"launches_by_shape": by_shape,
+                   "reachable_s": launch_gap(shapes, by_shape, "reachable_bound_ms"),
+                   "bytes_s": launch_gap(shapes, by_shape, "bound_ms")}
+            for name, shapes, by_shape in (("embed_lookup", timing, embed_by_shape),
+                                           ("chase_shard", chase_timing, chase_by_shape))}
+    log(f"timing launch-weighted gap, launches x (time - bound) by shape: {json.dumps(gaps)}")
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    shape_keys = (*keys, "route", "call_ms", "reachable_bound_ms", "route_ms")
     kernels = [{
         "name": "embed_lookup",
         "route": "cuda",
         "source": "src/repro_torch/csrc/embed_lookup.cu",
         "replaces": "src/repro/kernels/embed_lookup/kernel.py:50",
         "launches": service["launches"]["embed_lookup"],
+        "launches_by_route": service["routes"],
+        "launches_remote_embed": {arch: runs["remote"]["launches"]["embed_lookup"]
+                                  for arch, runs in served.items()},
+        "launches_by_route_remote_embed": {arch: runs["remote"]["routes"]["embed_lookup"]
+                                           for arch, runs in served.items()},
         "max_abs_err": checked["max_abs_err"],
-        **{k: timing[k] for k in keys},
+        **{k: timing["message"][k] for k in keys},
+        "shape": f"message N={N_KEYS} f32 rows of {DIM} ({timing['message']['route']})",
+        "shapes": {label: {"n": v["n"], **{k: v[k] for k in shape_keys}}
+                   for label, v in timing.items()},
+        "launch_floor_ms": floor["floor_ms"],
+        "hop_latency_us": floor["hop_us"],
+        "gap_s": gaps["embed_lookup"],
+        "call_ratio_to_index_select": host_launch["ratio_to_index_select"]["embed_lookup"],
+        "op_call_ratio_to_index_select": host_launch["ratio_in_turns"]["embed_lookup_op"],
     }, {
         "name": "chase_shard",
         "route": "cuda",
         "source": "src/repro_torch/csrc/chase.cu",
         "replaces": "src/repro/kernels/chase/kernel.py:70",
         "launches": dapc["launches"]["chase_shard"],
+        "launches_by_route": dapc["routes"],
         "max_abs_err": chase_checked["max_abs_err"],
-        **{k: chase_timing["chain"][k] for k in keys},
+        **{k: chase_timing["message"][k] for k in keys},
+        "shape": (f"message B=1 depth {DAPC_DEPTH} on the chain "
+                  f"({chase_timing['message']['route']})"),
+        "shapes": {label: {"b": v["b"], "table": v["table"], **{k: v[k] for k in shape_keys}}
+                   for label, v in chase_timing.items()},
+        "launch_floor_ms": floor["floor_ms"],
+        "hop_latency_us": floor["hop_us"],
+        "gap_s": gaps["chase_shard"],
+        "call_ratio_to_index_select": host_launch["ratio_to_index_select"]["chase_shard"],
+        "op_call_ratio_to_index_select": host_launch["ratio_in_turns"]["chase_shard_op"],
     }, {
         "name": "flash_attention",
         "route": "cuda",

@@ -9,11 +9,12 @@ Importing this package registers every custom op — the link step a target
 performs before it loads a slice that names one.
 
   embed_lookup/  partial row lookup of one vocab shard (the Gatherer's
-                 ``cuda-sm90`` resolver); replaces the Pallas one-hot MXU
-                 matmul of ``repro.kernels.embed_lookup``
+                 ``cuda-sm90`` resolver), by bulk copies or a warp per id;
+                 replaces the Pallas one-hot MXU matmul of
+                 ``repro.kernels.embed_lookup``
   chase/         run-to-exit shard-local pointer chase (the Chaser's local
-                 loop in every slice); replaces the Pallas VMEM block sweep
-                 of ``repro.kernels.chase``
+                 loop in every slice), one thread a chase; replaces the
+                 Pallas VMEM block sweep of ``repro.kernels.chase``
   flash_attention/  blockwise online-softmax GQA attention (every attention
                  call of the LM serving path); replaces the Pallas
                  ``_flash_kernel`` of ``repro.kernels.flash_attention``
@@ -50,8 +51,9 @@ def launch_counts() -> dict[str, int]:
 def reset_launches() -> None:
     for fn in WRAPPERS.values():
         fn.launches = 0
-        if hasattr(fn, "route_launches"):  # the count by route (flash, wkv6, ssm_scan)
-            fn.route_launches = dict.fromkeys(fn.route_launches, 0)
+        fn.route_launches = dict.fromkeys(fn.route_launches, 0)
+        if hasattr(fn, "items"):  # ids or chases handed to the card (embed_lookup, chase)
+            fn.items = 0
 
 
 __all__ = ["WRAPPERS", "launch_counts", "reset_launches"]

@@ -18,6 +18,8 @@ import subprocess
 import threading
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = {
@@ -33,6 +35,7 @@ NVCC_FLAGS = (
 build_logs: dict[str, str] = {}
 _libs: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
+_raw_stream = None  # device index -> its current stream's handle
 
 
 def nvcc() -> str:
@@ -88,3 +91,18 @@ def load(name: str) -> ctypes.CDLL:
             path = build_all([name])[name]
             lib = _libs[name] = ctypes.CDLL(str(path))
         return lib
+
+
+def launch_on(device: torch.device, fn, *args) -> int:
+    """``fn(*args, stream)``, a bound C launch, on ``device``'s current
+    stream: the stream is read once, and the device is entered only when it
+    is not the current one."""
+    global _raw_stream
+    if _raw_stream is None:
+        _raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None) or (
+            lambda index: torch.cuda.current_stream(index).cuda_stream)
+    index = device.index
+    if index == torch._C._cuda_getDevice():
+        return fn(*args, _raw_stream(index))
+    with torch.cuda.device(index):
+        return fn(*args, _raw_stream(index))

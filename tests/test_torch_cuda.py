@@ -13,8 +13,11 @@ import torch
 
 from repro_torch.core import make_chain, make_chaser
 from repro_torch.core.bitcode import deserialize_and_jit
+from repro_torch.kernels import build
 from repro_torch.kernels.chase import chase_shard, chase_shard_op, chase_shard_ref
+from repro_torch.kernels.chase import kernel as chase_kernel
 from repro_torch.kernels.embed_lookup import embed_lookup, embed_lookup_op, embed_lookup_ref
+from repro_torch.kernels.embed_lookup import kernel as embed_kernel
 from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref, flash_route
 from repro_torch.kernels.ssm_scan import ssm_scan, ssm_scan_ref, ssm_scan_route
 from repro_torch.kernels.wkv6 import wkv6, wkv6_ref, wkv6_route
@@ -127,6 +130,140 @@ def test_batched_chaser_slice_is_one_launch(card):
     assert chase_shard.launches == before + 1
     want = torch.stack([fn(p, shard, meta) for p in pays])
     assert torch.equal(got, want)
+
+
+EMBED_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16, "i32": torch.int32}
+
+
+def _edge_embed_inputs(card, n, dtype, seed, v_loc=4096, d=128):
+    """Ids in and around the shard, with -1, lo - 1, lo + V_loc and lo."""
+    rng = np.random.default_rng(seed)
+    f32 = torch.from_numpy(rng.standard_normal((v_loc, d), dtype=np.float32))
+    tab = f32.view(torch.int32) if dtype == torch.int32 else f32.to(dtype)
+    lo = 2 * v_loc
+    ids = rng.integers(-1, 4 * v_loc, n)
+    ids[:4] = [-1, lo - 1, lo + v_loc, lo][:n]
+    ids = torch.from_numpy(ids.astype(np.int32))
+    return tab.to(card), ids.to(card), torch.tensor([lo], dtype=torch.int32, device=card)
+
+
+@pytest.mark.parametrize("route", embed_kernel.ROUTES)
+@pytest.mark.parametrize("n", [1, 16, 31, 33, 1024, 65_536])
+@pytest.mark.parametrize("dtype", list(EMBED_DTYPES))
+def test_embed_routes_match_plain(card, dtype, n, route):
+    tab, ids, lo = _edge_embed_inputs(card, n, EMBED_DTYPES[dtype], n)
+    before = dict(embed_lookup.route_launches)
+    got = embed_lookup(tab, ids, lo, route=route)
+    torch.cuda.synchronize()
+    assert embed_lookup.route_launches[route] == before[route] + 1
+    want = embed_lookup_ref(tab, ids, lo)
+    assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+
+
+@pytest.mark.parametrize("route", embed_kernel.ROUTES)
+@pytest.mark.parametrize("n", [8, 1024])
+@pytest.mark.parametrize("d", [1600, 2048, 4096])
+def test_embed_wide_rows_match_plain(card, d, n, route):
+    """The remote embedding's rows: each LM's d_model in f32 (6.4-16 KB),
+    on each route and on the one the wrapper picks."""
+    tab, ids, lo = _edge_embed_inputs(card, n, torch.float32, d + n, v_loc=2048, d=d)
+    got = embed_lookup(tab, ids, lo, route=route)
+    auto = embed_lookup(tab, ids, lo)
+    torch.cuda.synchronize()
+    assert torch.equal(auto, got)
+    assert torch.equal(got.view(torch.int32), embed_lookup_ref(tab, ids, lo).view(torch.int32))
+
+
+def test_embed_narrow_rows_take_warp(card):
+    """Rows of 6 bytes (bf16, D = 3) take the warp route; the bulk route
+    refuses them."""
+    tab, ids, lo = _edge_embed_inputs(card, 1000, torch.bfloat16, 6, d=3)
+    before = embed_lookup.route_launches["warp"]
+    got = embed_lookup(tab, ids, lo)
+    torch.cuda.synchronize()
+    assert embed_lookup.route_launches["warp"] == before + 1
+    assert torch.equal(got.view(torch.int16), embed_lookup_ref(tab, ids, lo).view(torch.int16))
+    with pytest.raises(ValueError, match="bulk"):
+        embed_lookup(tab, ids, lo, route="bulk")
+
+
+@pytest.mark.parametrize("rows_per_block, blocks, what", [
+    (32, 2, "a grid that fits"), (32, 1, "too few blocks"), (32, 3, "a block with no id"),
+    (33, 2, "more rows than lanes"), (4, 10, "a tile over 48 KB"),
+])
+def test_embed_bulk_entry_refuses_grids_it_cannot_take(card, rows_per_block, blocks, what):
+    """The bulk C entry launches only a grid that gives every id one block
+    and every block an id, at most 32 rows a block in at most 48 KB; it
+    returns cudaErrorInvalidValue (1) for the rest and writes nothing."""
+    n, d = 40, 4096 if "tile" in what else 128
+    tab, ids, lo = _edge_embed_inputs(card, n, torch.float32, 11, d=d)
+    out = torch.full((n, d), 7.0, device=card)
+    launch = embed_kernel._launch or embed_kernel._bind()
+    err = build.launch_on(card, launch, tab.data_ptr(), ids.data_ptr(), lo.data_ptr(),
+                          out.data_ptr(), n, tab.shape[0], d * 4, 1, blocks, rows_per_block)
+    torch.cuda.synchronize()
+    if what == "a grid that fits":
+        assert err == 0 and torch.equal(out, embed_lookup_ref(tab, ids, lo))
+    else:
+        assert err == 1, what
+        assert bool((out == 7.0).all())
+
+
+@pytest.mark.parametrize("route", embed_kernel.ROUTES)
+def test_embed_vmap_rule_is_one_launch_on_each_route(card, route, monkeypatch):
+    monkeypatch.setattr(embed_kernel, "embed_route", lambda n, row_bytes, aligned: route)
+    tab, ids, lo = _edge_embed_inputs(card, 64 * 16, torch.int32, 7)
+    before = dict(embed_lookup.route_launches)
+    got = torch.vmap(embed_lookup_op, in_dims=(None, 0, None))(tab, ids.reshape(64, 16), lo)
+    torch.cuda.synchronize()
+    assert embed_lookup.route_launches[route] == before[route] + 1
+    assert sum(embed_lookup.route_launches.values()) == sum(before.values()) + 1
+    assert torch.equal(got.reshape(-1, 128), embed_lookup_ref(tab, ids, lo))
+
+
+@pytest.mark.parametrize("route", ["thread", "spread"])
+@pytest.mark.parametrize("b", [1, 8, 33, 256, 65_536])
+@pytest.mark.parametrize("kind", ["chain", "cycle"])
+def test_chase_routes_match_plain(card, kind, b, route):
+    """Both routes, with depth 0 and a frontier far below lo among the
+    chases (B >= 8)."""
+    table, frontier, depth, lo = _chase_inputs(card, b, 1 << 16, kind, b + 1)
+    if b >= 8:
+        frontier[3], depth[3] = -(2**31), 5
+    before = chase_shard.route_launches[route]
+    f, d = chase_shard(table, frontier, depth, lo, route=route)
+    torch.cuda.synchronize()
+    assert chase_shard.route_launches[route] == before + 1
+    f_want, d_want = chase_shard_ref(table, frontier, depth, lo)
+    assert torch.equal(f, f_want) and torch.equal(d, d_want)
+
+
+@pytest.mark.parametrize("route", ["thread", "spread"])
+def test_chase_vmap_rule_is_one_launch_on_each_route(card, route, monkeypatch):
+    monkeypatch.setattr(chase_kernel, "chase_route", lambda b: route)
+    table, frontier, depth, lo = _chase_inputs(card, 256, 4096, "chain", 9)
+    before = dict(chase_shard.route_launches)
+    f, d = torch.vmap(chase_shard_op, in_dims=(None, 0, 0, None))(
+        table, frontier.reshape(256, 1), depth.reshape(256, 1), lo
+    )
+    torch.cuda.synchronize()
+    assert chase_shard.route_launches[route] == before[route] + 1
+    assert sum(chase_shard.route_launches.values()) == sum(before.values()) + 1
+    f_want, d_want = chase_shard_ref(table, frontier, depth, lo)
+    assert torch.equal(f.reshape(-1), f_want) and torch.equal(d.reshape(-1), d_want)
+
+
+@pytest.mark.parametrize("cg", [False, True])
+def test_latency_probe_follows_the_cycle(card, cg):
+    """The probe is a measuring tool, but its chain must be the real one:
+    ``hops`` loads from ``start`` land where the plain walk lands."""
+    cycle = make_chain(4096, seed=3)
+    table = torch.from_numpy(cycle).to(card)
+    want = 17
+    for _ in range(1000):
+        want = int(cycle[want])
+    assert chase_kernel.latency_probe(table, 17, 0, cg).item() == 17
+    assert chase_kernel.latency_probe(table, 17, 1000, cg).item() == want
 
 
 # tolerances of the JAX kernel sweep: f32 to rounding, bf16 to the oracle's
