@@ -1,4 +1,4 @@
-"""Drive the PyTorch port's Gather service, DAPC, yi-9b, rwkv6-1.6b and hymba-1.5b serving once on an NVIDIA card.
+"""Drive the PyTorch port's Gather service, DAPC, Filter pushdown, tree collectives, yi-9b, rwkv6-1.6b and hymba-1.5b serving once on an NVIDIA card.
 
 Usage: ``python3 chip_smoke.py [--profile DIR]`` from the root of
 a checkout, on a host with one Hopper card (sm_90) and the CUDA toolkit.
@@ -33,7 +33,32 @@ a checkout, on a host with one Hopper card (sm_90) and the CUDA toolkit.
    the shard, at 1, 8, 33, 256 and 65,536 chases, on both routes
    (``thread``, ``spread``).  The service and DAPC lines log the launches
    by route and the batched arms' mean ids and chases a launch.
-6. Timing: the launch floor and the hop latency L (chase_shard's latency
+6. Filter phase: ``FilterShardService`` on an 8-server ``Cluster`` on the
+   card (``hetero_wire``) over the service phase's table, windows of 24
+   rows (``BENCH_placement.json``'s), 256 windows (seed 1) at selectivities
+   0.05, 0.25 and 0.75, each through pushdown per-message, batched and
+   zero-copy (``DataPlaneConfig.zero_copy()``), ``filter_pull`` (no card)
+   and ``placement="auto"``: every arm bit-identical to ``oracle_filter``,
+   ``embed_lookup`` launched once per server Filter dispatch (0 for pull),
+   the pushdown/pull payload-byte ratio rising with selectivity, and the
+   optimizer's choice, ``pushdown_us`` and ``pull_us`` logged beside the
+   winner scored from the run (``benchmarks/placement.py``'s arithmetic)
+   and whether the two agree.  ``kernel embed_lookup ... filter`` lines in
+   the kernel phase (3) hold the Filter's N = 24 and a 64-slot bucket of
+   it on both routes.
+7. Propagation phase: a 16-server ``Cluster`` on the card with
+   ``BENCH_propagate.json``'s config (``thor_bf2``, binomial, k = 2, ttl
+   16): ``xrdma_flat_push``, cold and warm ``xrdma_bcast`` of the TSI, each
+   server's counter equal to its invokes, and client sends, publishes, hop
+   frames and header and payload bytes equal to that JSON's; the warm arm
+   moves no code; then a gossiper that publishes itself 16 hops around the
+   17-PE ring, its visits and sums equal to numpy's.
+8. Reduce phase: ``xrdma_reduce`` over the same 17 PEs of one 25 MiB i32
+   vector each (6,553,600 values from seed 0 in [-2**20, 2**20), PyTorch
+   DDP's default bucket), per-message and batched (the batched run folds
+   arrived partials in one dispatch of the code cache's propagate fold):
+   the result equal to the numpy sum, 16 FORWARDs.
+9. Timing: the launch floor and the hop latency L (chase_shard's latency
    probe: one thread's dependent loads, 0 and 1,024 hops, __ldg and
    ld.global.cg in turns; L on the shard-sized cycle, from HBM and from L2);
    then ``embed_lookup`` at N = 16, the batched arm's mean N and 1,024 of
@@ -51,7 +76,7 @@ a checkout, on a host with one Hopper card (sm_90) and the CUDA toolkit.
    calls of each).
    After the LM phases, the launch-weighted gap of both kernels by shape,
    against both bounds.
-7. Flash kernel phase: ``flash_attention`` against its plain version at
+10. Flash kernel phase: ``flash_attention`` against its plain version at
    yi-9b's prefill (S = T = 300, 1,000 and 2,048, and S = 256 over a
    1,024-token prefix of a 2,048-slot cache) and decode (B = 8, S = 1 on
    cache views of T = 1, 129, 777, 4,096) shapes and at the five shapes of
@@ -60,27 +85,27 @@ a checkout, on a host with one Hopper card (sm_90) and the CUDA toolkit.
    atol 1e-4 and rtol 1e-2.  Each line names the route the call took: bf16
    prefill on the tensor cores (``wgmma``), bf16 decode split over keys
    (``split``), f32 on the CUDA-core kernel (``simt``).
-8. Parity phase: a 2-layer yi-9b at full width in f32, one set of weights
+11. Parity phase: a 2-layer yi-9b at full width in f32, one set of weights
    from seed 0, 128 prompt tokens and 8 teacher-forced decode steps on the
    card (kernel) and on the CPU (plain version): logits within 1e-3, equal
    greedy tokens.
-9. Serving phase: yi-9b at full width and 16 of its 48 layers (bf16,
+12. Serving phase: yi-9b at full width and 16 of its 48 layers (bf16,
    random weights drawn on the card) behind ``ServeScheduler(slots=8,
    t_max=4096)``: 16 requests with prompts of 256-3,072 tokens, 32 new
    tokens each, every logit finite, ``flash_attention`` launched 16 x
    (prefills + decode groups) times, 16 x prefills on the ``wgmma`` route
    and 16 x decode groups on the ``split`` route; then a profiled decode
    burst and prefill (busy share, the kernel's share).
-10. ``repro_torch.launch.serve --no-smoke --batch 4 --prompt-len 2048
+13. ``repro_torch.launch.serve --no-smoke --batch 4 --prompt-len 2048
    --gen 32`` at full yi-9b (48 layers), local and with ``--remote-embed
    --embed-servers 2``: the two token streams bit-identical,
    ``embed_lookup`` launched in the remote run.
-11. Times ``flash_attention`` at the prefill (S = T = 2,048) and decode
+14. Times ``flash_attention`` at the prefill (S = T = 2,048) and decode
    (B = 8, T = 2,048) shapes beside its plain version,
    ``scaled_dot_product_attention`` and its bound (operations or bytes),
    and logs each tensor-core and split instance's registers and spills
    from the build's ptxas report.
-12. wkv6 kernel phase: ``wkv6`` against its plain version on both routes
+15. wkv6 kernel phase: ``wkv6`` against its plain version on both routes
    (``step``: one kernel walks T; ``split``: T cut into chunks run in
    parallel, their states carried) at rwkv6-1.6b's prefill (B = 1, T =
    2,048, H = 32, M = 64) and decode (B = 8, T = 1 from a state) shapes,
@@ -91,21 +116,21 @@ a checkout, on a host with one Hopper card (sm_90) and the CUDA toolkit.
    either side of a chunk, and each chunk length the grid times: outputs
    within 2e-5 of the largest (bf16 also 2**-7 of each value), states
    within 2e-5 of the largest; each call counted on its route.
-13. Times ``wkv6`` at the prefill (both routes in turns) and decode shapes
+16. Times ``wkv6`` at the prefill (both routes in turns) and decode shapes
    beside its plain version and its bound (no PyTorch call computes WKV6),
    then the route grid: both routes and the split at chunks of 16-256
    over B 1 and 4 and T 128-3,072.
-14. The parity phase again on a 2-layer rwkv6-1.6b at full width (d_model
+17. The parity phase again on a 2-layer rwkv6-1.6b at full width (d_model
    2,048, 32 WKV heads, d_ff 7,168, vocab 65,536).
-15. The serving phase on rwkv6-1.6b at full width and 12 of its 24 layers
+18. The serving phase on rwkv6-1.6b at full width and 12 of its 24 layers
    (bf16): the same 16 requests, ``wkv6`` launched 12 x (prefills + decode
    groups) times, 12 x prefills on the ``split`` route and 12 x decode
    groups on ``step``, and its profiled decode burst and prefill (the
    split's three device kernels a launch, each kernel's time by name).
-16. ``launch.serve`` at full rwkv6-1.6b, local and remote-embed: streams
+19. ``launch.serve`` at full rwkv6-1.6b, local and remote-embed: streams
    bit-identical, ``wkv6`` launched 24 x (1 + 32) times in each, the
    prefill's on ``split`` and the steps' on ``step``.
-17. ssm_scan kernel phase: ``ssm_scan`` against its plain version on both
+20. ssm_scan kernel phase: ``ssm_scan`` against its plain version on both
    routes at hymba-1.5b's prefill (B = 1, T = 2,048, D = 1,600, N = 16) and
    decode (B = 8, T = 1 from a state) shapes, T = 777 from a state and T a
    step either side of a chunk, in bf16 and f32; launch.serve's B = 4, T =
@@ -114,17 +139,17 @@ a checkout, on a host with one Hopper card (sm_90) and the CUDA toolkit.
    over T = 777 from a state across chunk boundaries; each chunk length the
    grid times: outputs within 2e-5 of the largest (bf16 also 2**-7 of each
    value), states within 2e-5 of the largest; each call counted on its
-   route. The flash phase (7) also holds hymba's windowed shapes (25/5
+   route. The flash phase (10) also holds hymba's windowed shapes (25/5
    heads of 64, window 2,048: prefill S = T = 3,000, decode T = 2,049 and
-   4,096, and a global decode case), and the flash timing (11) adds hymba's
+   4,096, and a global decode case), and the flash timing (14) adds hymba's
    windowed prefill (S = T = 3,072) and decode (B = 8, T = 4,096).
-18. Times ``ssm_scan`` at the prefill (both routes in turns) and decode
+21. Times ``ssm_scan`` at the prefill (both routes in turns) and decode
    shapes beside its plain version and its bound (no PyTorch call computes
    the selective scan), then its route grid as for ``wkv6``.
-19. The parity phase on a 2-layer hymba-1.5b at full width (d_model 1,600,
+22. The parity phase on a 2-layer hymba-1.5b at full width (d_model 1,600,
    25/5 heads, d_ff 5,504, vocab 32,001; both layers windowed) with a
    2,064-token prompt, so the 2,048 window bites at prefill and decode.
-20. The serving phase on full hymba-1.5b (32 layers, bf16): the same 16
+23. The serving phase on full hymba-1.5b (32 layers, bf16): the same 16
    requests, ``flash_attention`` and ``ssm_scan`` each launched 32 x
    (prefills + decode groups) times (flash on the ``wgmma`` and ``split``
    routes as for yi, ``ssm_scan`` on ``split`` and ``step``), and its
@@ -132,7 +157,7 @@ a checkout, on a host with one Hopper card (sm_90) and the CUDA toolkit.
    line also logs, per kernel, the kernels recorded in the window, those
    matched to a launch in it by correlation id, the wrapper's launches in
    it and the names matched (ROADMAP T12).
-21. ``launch.serve`` at full hymba-1.5b, local and remote-embed: streams
+24. ``launch.serve`` at full hymba-1.5b, local and remote-embed: streams
    bit-identical, each kernel launched 32 x (1 + 32) times in each.
 
 Prints one JSON line of kernel results, then the nvidia-smi line, then
@@ -165,12 +190,18 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3, NVIDIA data sheet
 BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak, NVIDIA data sheet
 SHARD_ROWS, DIM, N_SERVERS, N_KEYS, MAX_SLOTS = 524_288, 128, 8, 16, 64
 N_REQUESTS = 1024
+# the Filter phase: BENCH_placement.json's window and selectivities over the
+# service phase's table
+FILTER_WINDOW, FILTER_REQUESTS, FILTER_SELECTIVITIES = 24, 256, (0.05, 0.25, 0.75)
+GOSSIP_HOPS = 16  # the gossiper's hops around the propagation phase's ring
+REDUCE_WIDTH = 6_553_600  # i32 a PE: 25 MiB, PyTorch DDP's default bucket_cap_mb
 DAPC_ENTRIES, DAPC_CHASES, DAPC_DEPTH = 1 << 27, 256, 64
 CHASE_SIZES = (1, 8, 33, 256, 65_536)
 # embed_lookup's checked id counts: a message, either side of a bulk block,
 # two batched buckets and a large call
 EMBED_SIZES = {"one": 1, "message": N_KEYS, "block-1": 31, "block+1": 33,
-               "bucket8": 8 * N_KEYS, "bucket64": MAX_SLOTS * N_KEYS, "large": 65_536}
+               "bucket8": 8 * N_KEYS, "bucket64": MAX_SLOTS * N_KEYS, "large": 65_536,
+               "filter": FILTER_WINDOW, "filter_bucket64": MAX_SLOTS * FILTER_WINDOW}
 PROBE_HOPS = 1024  # the latency probe's long chain
 REMOTE_KEYS = 8  # RemoteEmbedClient's ids a request (launch.serve --remote-embed)
 HBM_CYCLE = 1 << 28  # entries of the probe's cycle that L2 cannot hold (1 GiB)
@@ -672,7 +703,256 @@ def service_phase(dev, n_requests: int, profile_dir: str | None) -> dict:
         f"mean N {mean_n} ids a launch")
     if profile_dir:
         profile_burst(svc, reqs[:256], Path(profile_dir))
-    return {"launches": launches, "routes": routes, "arms": per_arm, "mean_n": mean_n}
+    return {"launches": launches, "routes": routes, "arms": per_arm, "mean_n": mean_n,
+            "table": table}
+
+
+def placement_scored(rep, arm: str, caps: dict, n: int, operand_bytes: int) -> float:
+    """A copy of ``benchmarks/placement.py``'s ``_scored``: an arm's modeled
+    wire time plus the per-message overheads and the scan the fabric does
+    not meter.  n request PUTs by the client and n ragged RETURN PUTs by the
+    servers (pushdown), n range GETs (pull)."""
+    client, server = caps["client"], caps["server0"]
+    if arm == "pushdown":
+        return (
+            rep.modeled_us
+            + n * (client.o_us + server.o_us)
+            + n * operand_bytes / server.scan_Bus
+        )
+    return rep.modeled_us + n * operand_bytes / client.scan_Bus
+
+
+def filter_phase(dev, table: np.ndarray) -> dict:
+    """FilterShardService over the service phase's table on an 8-server
+    cluster on the card: every arm bit-identical to ``oracle_filter``,
+    ``embed_lookup`` launched once per server Filter dispatch, and the
+    placement optimizer's choice beside the winner scored from the run."""
+    from repro_torch.core import Cluster, DataPlaneConfig
+    from repro_torch.kernels import launch_counts, reset_launches
+    from repro_torch.kernels.embed_lookup import embed_lookup
+    from repro_torch.runtime import FilterShardService
+    from repro_torch.sharding import PlacementOptimizer
+
+    vocab = SHARD_ROWS * N_SERVERS
+    t0 = time.perf_counter()
+    cluster = Cluster(n_servers=N_SERVERS, wire="thor_xeon", hetero_wire=True, device=dev)
+    svc = FilterShardService(cluster, vocab=vocab, dim=DIM, window=FILTER_WINDOW,
+                             max_slots=MAX_SLOTS, table=table)
+    opt = PlacementOptimizer(cluster)
+    caps = cluster.capabilities()
+    los = svc.windows(FILTER_REQUESTS, seed=1)
+    n, operand = len(los), FILTER_WINDOW * DIM * 4
+    # first contact ships the code (benchmarks/placement.py warms with its
+    # first 8 windows); one window a server keeps code out of every arm
+    svc.filter([s * svc.rows_per_shard for s in range(N_SERVERS)], 0.0, placement="pushdown")
+    log(f"filter: {N_SERVERS} servers on {dev}, table {vocab}x{DIM} f32, window "
+        f"{FILTER_WINDOW}, {n} windows, set-up {time.perf_counter() - t0:.2f} s, filter "
+        f"archive {cluster.toolchain.lookup('filter').fat.nbytes} B, capabilities "
+        f"client {caps['client'].isa}/{caps['client'].wire}/{caps['client'].mem_bw_class}, "
+        f"servers {caps['server0'].isa}/{caps['server0'].wire}/{caps['server0'].mem_bw_class}")
+
+    def server_invokes() -> int:
+        return sum(pe.stats.invokes for pe in cluster.servers)
+
+    arms = {
+        "per_message": dict(placement="pushdown"),
+        "batched": dict(placement="pushdown", batching=True),
+        "zerocopy": dict(placement="pushdown", batching=True,
+                         dataplane=DataPlaneConfig.zero_copy()),
+        "pull": dict(placement="pull"),
+        "auto": dict(placement="auto", batching=True),
+    }
+    t_phase = time.perf_counter()
+    reset_launches()  # the Filter path's launches are counted from here
+    inv_phase = server_invokes()
+    cells, ratios = [], []
+    for sel in FILTER_SELECTIVITIES:
+        thresh = svc.thresh_for_selectivity(sel)
+        want = svc.oracle_filter(los, thresh)
+        per_arm, reps = {}, {}
+        for name, kw in arms.items():
+            launches0, inv0 = launch_counts()["embed_lookup"], server_invokes()
+            t = time.perf_counter()
+            rep = reps[name] = svc.filter(los, thresh, **kw)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+            for i, (got, w) in enumerate(zip(rep.results, want)):
+                if not np.array_equal(got.view(np.int32), w.view(np.int32)):
+                    raise AssertionError(f"filter {sel} {name}: window {i} differs from the oracle")
+            launches = launch_counts()["embed_lookup"] - launches0
+            dispatches = server_invokes() - inv0
+            pushed = rep.gets == 0
+            if launches != dispatches or pushed != (launches > 0):
+                raise AssertionError(f"filter {sel} {name}: {launches} kernel launches for "
+                                     f"{dispatches} server dispatches, {rep.gets} GETs")
+            per_arm[name] = dict(
+                wall_s=wall, server_dispatches=dispatches, kernel_launches=launches,
+                puts=rep.puts, gets=rep.gets, region_puts=rep.region_puts,
+                wire_bytes_by_kind=rep.wire_bytes_by_kind, modeled_us=rep.modeled_us,
+            )
+        push, pull = reps["per_message"], reps["pull"]
+        if push.puts != 2 * n:
+            raise AssertionError(f"filter {sel}: {push.puts} PUTs for {n} windows")
+        # benchmarks/placement.py's payload bytes: the frames' fixed bytes off
+        payload_push = (push.put_bytes - n * (72 + len(svc.op_name))
+                        - n * (72 + len(svc.return_name)))
+        ratio = payload_push / pull.get_bytes
+        scored = {arm: placement_scored(rep, arm, caps, n, operand)
+                  for arm, rep in (("pushdown", push), ("pull", pull))}
+        winner = "pushdown" if scored["pushdown"] < scored["pull"] else "pull"
+        decision = svc.plan_with(opt, los)
+        auto_route = "pull" if per_arm["auto"]["gets"] else "pushdown"
+        if auto_route != decision.choice:
+            raise AssertionError(f"filter {sel}: auto took {auto_route}, the plan "
+                                 f"{decision.choice}")
+        cell = dict(selectivity=sel, thresh=float(thresh), arms=per_arm,
+                    payload_bytes_pushdown=int(payload_push),
+                    payload_bytes_pull=int(pull.get_bytes), payload_ratio=ratio,
+                    scored_us=scored, scored_winner=winner,
+                    optimizer=dict(choice=decision.choice, pushdown_us=decision.pushdown_us,
+                                   pull_us=decision.pull_us),
+                    optimizer_agrees=decision.choice == winner)
+        for name, arm in per_arm.items():
+            log(f"filter sel={sel} arm {name}: oracle-identical, {json.dumps(arm)}")
+        log(f"filter sel={sel}: payload ratio pushdown/pull {ratio} ({payload_push} / "
+            f"{pull.get_bytes} B); optimizer {json.dumps(cell['optimizer'])}; scored "
+            f"{json.dumps(scored)} -> {winner}; agree {cell['optimizer_agrees']}")
+        cells.append(cell)
+        ratios.append(ratio)
+    if ratios != sorted(ratios) or len(set(ratios)) != len(ratios):
+        raise AssertionError(f"filter payload ratios do not rise with selectivity: {ratios}")
+    launches = launch_counts()["embed_lookup"]
+    dispatches = server_invokes() - inv_phase
+    if launches == 0 or launches != dispatches:
+        raise AssertionError(f"filter: {launches} embed_lookup launches for {dispatches} "
+                             f"server Filter dispatches")
+    for pe in cluster.servers:
+        triple = pe.target_cache.lookup("filter").extras["triple"]
+        if triple != "cuda-sm90":
+            raise AssertionError(f"{pe.name} installed the {triple} filter slice")
+    routes = dict(embed_lookup.route_launches)
+    wall = time.perf_counter() - t_phase
+    log(f"filter phase: {launches} embed_lookup launches = {dispatches} server Filter "
+        f"dispatches, by route {routes}; optimizer agrees with the scored winner in "
+        f"{sum(c['optimizer_agrees'] for c in cells)} of {len(cells)} cells; wall_s={wall}")
+    return {"launches": launches, "routes": routes, "cells": cells, "wall_s": wall}
+
+
+def propagation_phase(dev):
+    """BENCH_propagate.json's multicast on a 16-server cluster on the card:
+    flat push, cold tree and warm tree of the TSI, every counter and the
+    header and payload bytes equal to that JSON's; then a gossiper that
+    publishes itself around the ring.  Returns the tree arm's cluster."""
+    from repro_torch.core import Cluster, PropagationConfig, make_gossiper, make_tsi
+    from repro_torch.sharding import xrdma_bcast, xrdma_flat_push
+
+    ref = json.loads((ROOT / "BENCH_propagate.json").read_text())
+    c = ref["config"]
+    cfg = PropagationConfig(topology=c["topology"], k=c["k"], ttl=c["ttl"])
+    t_phase = time.perf_counter()
+    tsi, value = make_tsi(), 7
+    payload = np.array([value], np.int32)
+
+    def fresh():
+        cl = Cluster(n_servers=c["n_servers"], wire=c["profile"], device=dev)
+        for pe in cl.servers:
+            pe.register_region("counter", np.zeros(1, np.int32))
+        cl.toolchain.publish(tsi)
+        return cl
+
+    def check(name, cl, rep, times):
+        for pe in cl.servers:
+            got, invokes = int(pe.region("counter")[0]), pe.stats.invokes
+            if got != value * invokes or invokes != times:
+                raise AssertionError(f"propagation {name}: {pe.name} counter {got} "
+                                     f"after {invokes} invokes")
+        want = ref[name]
+        got = dict(client_sends=rep.client_sends, client_code_sends=rep.client_code_sends,
+                   publishes=rep.publishes, hop_frames=rep.hop_frames, covered=rep.covered,
+                   n_targets=rep.n_targets,
+                   header=rep.wire_bytes_by_kind.get("header", 0),
+                   payload=rep.wire_bytes_by_kind.get("payload", 0))
+        for key, v in got.items():
+            w = want["wire_bytes_by_kind"][key] if key in ("header", "payload") else want[key]
+            if v != w:
+                raise AssertionError(f"propagation {name}: {key} {v}, BENCH_propagate.json {w}")
+        logged = dict(got, code=rep.wire_bytes_by_kind.get("code", 0),
+                      modeled_completion_us=rep.modeled_completion_us, rounds=rep.rounds)
+        log(f"propagation arm {name}: counters and BENCH_propagate.json's counts equal, "
+            f"{json.dumps(logged)}")
+        return got
+
+    cl_flat = fresh()
+    flat = check("flat", cl_flat, xrdma_flat_push(cl_flat, "tsi", payload), 1)
+    del cl_flat
+    cl = fresh()
+    tree = check("tree", cl, xrdma_bcast(cl, "tsi", payload, config=cfg), 1)
+    rep = xrdma_bcast(cl, "tsi", payload, config=cfg)
+    warm = check("warm", cl, rep, 2)
+    if rep.wire_bytes_by_kind.get("code", 0) != 0:
+        raise AssertionError("propagation warm: code bytes moved")
+    # the gossiper: one send, then the code publishes itself hop by hop
+    peers = cl.pes()
+    for i, pe in enumerate(peers):
+        pe.register_region("gossip_log", np.zeros(2, np.int32))
+        pe.register_cap("gossip_meta", np.array([i, len(peers)], np.int32))
+    cl.toolchain.publish(make_gossiper())
+    publishes0 = sum(pe.stats.publishes for pe in peers)
+    gossip_value = 5
+    cl.client.send_ifunc("server0", "gossiper", np.array([GOSSIP_HOPS, gossip_value], np.int32))
+    cl.drain()
+    want = np.zeros((len(peers), 2), np.int64)
+    for hop in range(GOSSIP_HOPS + 1):  # arrivals at 0, 1, ... around the ring
+        want[hop % len(peers)] += (1, gossip_value)
+    got = np.array([pe.region("gossip_log") for pe in peers], np.int64)
+    if not np.array_equal(got, want):
+        raise AssertionError(f"gossiper logs {got.tolist()}, numpy {want.tolist()}")
+    publishes = sum(pe.stats.publishes for pe in peers) - publishes0
+    if publishes != GOSSIP_HOPS:
+        raise AssertionError(f"gossiper: {publishes} self-publishes for {GOSSIP_HOPS} hops")
+    wall = time.perf_counter() - t_phase
+    log(f"propagation gossiper: {GOSSIP_HOPS} hops around {len(peers)} PEs, visits and "
+        f"sums equal numpy, {publishes} self-publishes; propagation phase wall_s={wall}")
+    return cl, {"flat": flat, "tree": tree, "warm": warm, "wall_s": wall}
+
+
+def reduce_phase(cl) -> dict:
+    """``xrdma_reduce`` of one 25 MiB i32 vector a PE (PyTorch DDP's default
+    bucket) over the propagation phase's 17 PEs, per-message and batched
+    (the batched run folds arrived partials in one dispatch): the result
+    equal to the numpy sum, 16 upward FORWARDs."""
+    from repro_torch.core import PropagationConfig
+    from repro_torch.sharding import xrdma_reduce
+
+    ref = json.loads((ROOT / "BENCH_propagate.json").read_text())["config"]
+    cfg = PropagationConfig(topology=ref["topology"], k=ref["k"], ttl=ref["ttl"])
+    n = cl.n_servers + 1
+    t = time.perf_counter()
+    vals = np.random.default_rng(0).integers(-2**20, 2**20, (n, REDUCE_WIDTH), dtype=np.int32)
+    want = vals.sum(axis=0, dtype=np.int32)
+    log(f"reduce: {n} PEs, {REDUCE_WIDTH} i32 a PE ({REDUCE_WIDTH * 4 / 2**20} MiB), "
+        f"values from seed 0, set-up {time.perf_counter() - t:.2f} s")
+    out = {}
+    for name, batching in (("per_message", False), ("batched", True)):
+        cl.set_batching(batching)
+        folds0 = sum(pe.stats.batched_invokes for pe in cl.pes())
+        t = time.perf_counter()
+        rep = xrdma_reduce(cl, vals, config=cfg)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        if not np.array_equal(rep.result, want):
+            raise AssertionError(f"reduce {name}: result differs from the numpy sum")
+        if rep.forwards != n - 1:
+            raise AssertionError(f"reduce {name}: {rep.forwards} FORWARDs, want {n - 1}")
+        folds = sum(pe.stats.batched_invokes for pe in cl.pes()) - folds0
+        if batching and folds == 0:
+            raise AssertionError("reduce batched: no batched propagate fold ran")
+        out[name] = dict(wall_s=wall, forwards=rep.forwards, batched_folds=folds,
+                         rounds=rep.rounds, puts=rep.puts, modeled_us=rep.modeled_us,
+                         wire_bytes_by_kind=rep.wire_bytes_by_kind)
+        log(f"reduce arm {name}: equal to the numpy sum, {json.dumps(out[name])}")
+    cl.set_batching(False)
+    return out
 
 
 def chase_inputs(rng, table, lo: int, b: int, max_depth: int, dev):
@@ -1846,6 +2126,13 @@ def main() -> int:
     chase_checked = chase_kernel_phase(dev, rng, tables)
     dapc = dapc_phase(app, starts, oracle, args.profile)
     elapsed("the DAPC phases")
+    filtered = filter_phase(dev, service.pop("table"))
+    elapsed("the Filter phase")
+    prop_cluster, propagated = propagation_phase(dev)
+    reduced = reduce_phase(prop_cluster)
+    del prop_cluster
+    torch.cuda.empty_cache()
+    elapsed("the propagation and reduce phases")
     floor = time_floor(dev, rng, tables)
     timing = time_kernel(dev, rng, floor, service["mean_n"])
     chase_timing = time_chase(dev, rng, tables, floor, dapc["mean_b"])
@@ -1898,6 +2185,8 @@ def main() -> int:
         "replaces": "src/repro/kernels/embed_lookup/kernel.py:50",
         "launches": service["launches"]["embed_lookup"],
         "launches_by_route": service["routes"],
+        "launches_filter": filtered["launches"],
+        "launches_by_route_filter": filtered["routes"],
         "launches_remote_embed": {arch: runs["remote"]["launches"]["embed_lookup"]
                                   for arch, runs in served.items()},
         "launches_by_route_remote_embed": {arch: runs["remote"]["routes"]["embed_lookup"]

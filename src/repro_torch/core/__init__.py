@@ -16,7 +16,7 @@ Public API re-exports.  Layering:
   verify     — safe code injection: install-time verifier + runtime
                resource sandbox (capability stamps, quotas, quarantine)
   xrdma      — Chaser / ReturnResult / TSI / Spawner / Gatherer /
-               GatherReturn
+               GatherReturn / Filter / FilterReturn / Reducer / Gossiper
   cluster    — in-process cluster + deterministic scheduler
   pointer_chase — the DAPC miniapp (bitcode / binary / AM) + GBPC baseline
 """
@@ -63,7 +63,15 @@ from .pe import (
     WireLayer,
 )
 from .pointer_chase import ChaseReport, PointerChaseApp, chase_ref, make_chain
-from .propagate import PropagationConfig
+from .propagate import (
+    PropagationConfig,
+    subtree_sizes,
+    tree_children,
+    tree_children_map,
+    tree_completion_us,
+    tree_depth,
+    tree_parent,
+)
 from .reliability import ReliabilityConfig
 from .transport import (
     MEM_BW_BUS,
@@ -80,8 +88,12 @@ from .transport import (
 from .verify import CapabilityStamp, SandboxConfig, SandboxViolation, Verifier
 from .xrdma import (
     make_chaser,
+    make_filter,
+    make_filter_return,
     make_gather_return,
     make_gatherer,
+    make_gossiper,
+    make_reducer,
     make_return_result,
     make_spawner,
     make_tsi,
@@ -99,7 +111,10 @@ __all__ = [
     "TRIPLE_WIRE", "TargetCodeCache", "Toolchain", "Verifier", "WIRE_PROFILES",
     "PointerChaseApp", "WireLayer", "WireModel", "chase_ref", "coalesce",
     "delivery_complete", "local_triple", "make_chain", "make_chaser",
-    "make_gather_return", "make_gatherer", "make_return_result", "make_spawner",
+    "make_filter", "make_filter_return", "make_gather_return", "make_gatherer",
+    "make_gossiper", "make_reducer", "make_return_result", "make_spawner",
     "make_tsi", "pack_hop", "peek_header", "platform_of", "resolve_device",
-    "split_hop", "split_payloads", "unpack", "unpack_hop",
+    "split_hop", "split_payloads", "subtree_sizes", "tree_children",
+    "tree_children_map", "tree_completion_us", "tree_depth", "tree_parent",
+    "unpack", "unpack_hop",
 ]

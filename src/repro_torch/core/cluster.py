@@ -25,7 +25,7 @@ from .dataplane import DataPlaneConfig
 from .pe import PE, Toolchain
 from .propagate import PropagationConfig
 from .reliability import ReliabilityConfig
-from .transport import Fabric, WireModel
+from .transport import Capability, Fabric, WireModel
 from .verify import SandboxConfig
 
 
@@ -38,6 +38,7 @@ class Cluster:
         client_triple: str | None = None,
         toolchain: Toolchain | None = None,
         device: "torch.device | str | None" = None,
+        hetero_wire: bool = False,
     ) -> None:
         # triples default to the device's own: on the card every PE takes
         # the cuda-sm90 slice; on the host the servers play the DPUs
@@ -49,6 +50,11 @@ class Cluster:
         if client_triple is None:
             client_triple = "cpu-host" if on_host else local_triple(self.device)
         self.fabric = Fabric(wire)
+        # hetero_wire=True prices every fabric op with the *initiator's*
+        # advertised capability profile (mixed thor_xeon + thor_bf2
+        # accounting); default off keeps single-profile accounting
+        # bit-identical to prior runs.
+        self.fabric.hetero = hetero_wire
         self.toolchain = toolchain or Toolchain()
         self.n_servers = n_servers
         names = [f"server{i}" for i in range(n_servers)] + ["client"]
@@ -63,10 +69,39 @@ class Cluster:
             "client", self.fabric, triple=client_triple, toolchain=self.toolchain,
             peers=names, device=self.device,
         )
+        # placement optimizers watching this cluster (register_placement):
+        # restart_server tells them to drop cached plans routed to the
+        # restarted PE.  Cluster-level default placement policy
+        # (set_placement).
+        self._placements: list = []
+        self.placement_policy: str | None = None
 
     @property
     def client_index(self) -> int:
         return self.n_servers
+
+    # ------------------------------------------------------------ placement
+    def capabilities(self) -> "dict[str, Capability]":
+        """Advertised platform/capability vector per live PE."""
+        return dict(self.fabric.capabilities)
+
+    def register_placement(self, optimizer) -> None:
+        """Attach a placement optimizer whose cached plans must be
+        invalidated when a PE restarts (idempotent)."""
+        if optimizer not in self._placements:
+            self._placements.append(optimizer)
+
+    def placement(self):
+        """The most recently registered placement optimizer, or ``None``."""
+        return self._placements[-1] if self._placements else None
+
+    def set_placement(self, policy: "str | None") -> None:
+        """Cluster-wide default placement policy consumed by services when
+        a call doesn't pin one: ``"pushdown"``, ``"pull"``, ``"auto"``
+        (consult a placement optimizer), or ``None`` (service default)."""
+        if policy is not None and policy not in ("pushdown", "pull", "auto"):
+            raise ValueError(f"unknown placement policy {policy!r}")
+        self.placement_policy = policy
 
     def load_reference_state(self, state: "dict[str, dict]") -> None:
         """Install another cluster's PE state here, so both compute on the
@@ -310,4 +345,9 @@ class Cluster:
             # its fresh seq stream restarts at 1 — stale windows would
             # swallow both)
             peer.forget_peer_state(name)
+        # the fresh PE re-advertised its capability vector under a new
+        # epoch (PE.__init__); any placement plan priced against the dead
+        # incarnation is garbage — drop it so the next plan() re-prices
+        for optimizer in self._placements:
+            optimizer.invalidate_peer(name)
         return pe

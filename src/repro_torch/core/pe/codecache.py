@@ -6,7 +6,7 @@ archive -> load the ExportedProgram onto the PE's device -> digest cache,
 with the name registry deciding whether a truncated (digest-only) frame is
 acceptable and the digest deciding whether a name's code is *current*.
 The batched renderings — ``torch.vmap`` for value ABIs, a masked loop for
-the update ABI — are cached per (digest, power-of-two bucket) in
+the update and propagate ABIs — are cached per (digest, power-of-two bucket) in
 the same :class:`repro_torch.core.cache.TargetCodeCache`.
 """
 
@@ -20,7 +20,7 @@ import torch
 from ..bitcode import FatBitcode, in_avals_of, load_program, resolve_device
 from ..cache import CachedExecutable, TargetCodeCache
 from ..frame import Frame, FrameKind, ProtocolError
-from .exec import region_arg_pos
+from .exec import A_NOP, region_arg_pos
 
 
 class ISAMismatch(RuntimeError):
@@ -221,16 +221,17 @@ class CodeCacheLayer:
         a custom op with a vmap rule launches its kernel once for the whole
         block.  ``update`` code folds the valid payloads into the region in
         order — the masked fold of the JAX runtime, written as a loop:
-        padded rows are skipped, so they never touch the region.  The
-        batched ``propagate`` fold comes with the propagation slice.
+        padded rows are skipped, so they never touch the region.
+        ``propagate`` code folds the same way and also collects one action
+        row per payload: a valid row's own actions (so the row that
+        completes a fold emits the action, as sequential invokes would),
+        ``A_NOP`` rows for padding, which neither fold nor act.
         """
         hit = self.cache.lookup_batched(exe.digest, bucket)
         if hit is not None:
             return hit
         call = exe.fn
         abi = exe.extras.get("abi", "pure")
-        if abi == "propagate":
-            raise NotImplementedError("batched propagate-ABI fold is not ported yet")
         if abi == "update":
             rpos = region_arg_pos(exe)
 
@@ -241,6 +242,25 @@ class CodeCacheLayer:
                         dep_args.insert(rpos, region)
                         region = call(p, *dep_args)
                 return region
+        elif abi == "propagate":
+            rpos = region_arg_pos(exe)
+
+            def batched(pays, valid, region, *extra):
+                rows, nop = [], None
+                for p, v in zip(pays, valid.tolist()):
+                    if v:
+                        dep_args = list(extra)
+                        dep_args.insert(rpos, region)
+                        region, acts = call(p, *dep_args)
+                        rows.append(acts)
+                    else:
+                        # padding follows the valid rows (a block holds at
+                        # least one), so a NOP row takes their shape
+                        if nop is None:
+                            nop = torch.zeros_like(rows[0])
+                            nop[..., 0] = A_NOP
+                        rows.append(nop)
+                return region, torch.stack(rows)
         else:
             n_deps = len(exe.in_avals) - 1
             batched = torch.vmap(call, in_dims=(0, *([None] * n_deps)))

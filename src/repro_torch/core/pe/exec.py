@@ -30,7 +30,8 @@ against):
   actions)``: one entry both folds into its linked region (like
   ``update``) *and* emits action rows (like ``xrdma``) — what a tree
   reduction needs: the row whose fold completes the subtree emits the
-  upward FORWARD.  Its batched fold is not ported yet.
+  upward FORWARD.  Under the batched runtime the payloads fold in order
+  in one dispatch, each valid row keeping its own actions.
 
   An xrdma entry may instead return an ``(R, W)`` i32 *matrix* of action
   rows; the runtime applies the rows in order.  ``W`` only has to satisfy
@@ -226,14 +227,22 @@ class ExecLayer:
         self.stats.invokes += 1
         self.stats.batched_invokes += 1
         self.stats.invoked_payloads += n
-        if abi == "update":
+        if abi in ("update", "propagate"):
             region = dep_named(exe, "region")
-            assert region is not None, "update ABI requires a region dep"
+            assert region is not None, f"{abi} ABI requires a region dep"
             valid = np.arange(bucket) < n
             rpos = region_arg_pos(exe)
             extra = [a for i, a in enumerate(args) if i != rpos]
-            out = fn(block, valid, args[rpos], *extra)
+            out, acts = fn(block, valid, args[rpos], *extra), None
+            if abi == "propagate":
+                out, acts = out
             self.rt.write_region(region, self._host(out), out)
+            if acts is not None:
+                # padded rows came back as NOPs; applying the real rows in
+                # payload order keeps the sequential semantics (the row
+                # that completes a fold emits the action)
+                for per_payload in self._host(acts)[:n]:
+                    self.apply_actions(exe, per_payload)
         elif abi == "xrdma":
             actions = self._host(fn(block, *args))[:n]
             for per_payload in actions:

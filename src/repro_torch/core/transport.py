@@ -92,6 +92,9 @@ TRIPLE_WIRE: dict[str, str] = {
     "cpu-a64fx": "ookami",
     "cpu-bf2": "thor_bf2",
     "tpu-v5e": "thor_xeon",
+    # the port's card PEs: an H100 host's NIC is the Xeon's ConnectX, so it
+    # pays the host's per-message costs (a modeled class, not a measurement)
+    "cuda-sm90": "thor_xeon",
 }
 
 #: Memory-bandwidth class per triple — the DPU's weak Arm cores stream a
@@ -101,6 +104,7 @@ MEM_BW_CLASS: dict[str, str] = {
     "cpu-a64fx": "hbm",
     "cpu-bf2": "ddr-dpu",
     "tpu-v5e": "hbm",
+    "cuda-sm90": "hbm",
 }
 
 #: Effective single-core streaming scan rate per class, bytes/us.  Modeled,
@@ -117,8 +121,8 @@ MEM_BW_BUS: dict[str, float] = {
 class Capability:
     """A PE's advertised platform/capability vector.
 
-    Registered in the :class:`Fabric` when the PE connects, for the
-    placement layer (``sharding/placement.py``, not ported yet): the wire
+    Registered in the :class:`Fabric` when the PE connects and consumed by
+    the placement layer (:mod:`repro_torch.sharding.placement`): the wire
     coefficients are the PE's *own* calibrated profile (what its HCA pays
     to initiate a message), ``mem_bw_class`` prices operand scans executed
     next to the data.  ``epoch`` is the advertisement generation — bumped
@@ -413,9 +417,13 @@ class Fabric:
         self.stats = TrafficStats()
         # advertised platform/capability vectors (PE.__init__ advertises on
         # connect; kill/revive drop the entry until the restarted PE
-        # re-advertises)
+        # re-advertises).  ``hetero=True`` makes the fabric price each
+        # operation with the *initiator's* advertised wire profile — off by
+        # default so existing single-profile accounting stays bit-identical.
         self.capabilities: dict[str, Capability] = {}
+        self._cap_models: dict[str, WireModel] = {}
         self._cap_epoch = 0
+        self.hetero = False
         # framed payloads in flight per (src, dst): bumped on put (by the
         # frame's packed payload count — credits are payload-denominated so
         # a coalesced burst is accounted at its true size), released as the
@@ -481,10 +489,19 @@ class Fabric:
             self._cap_epoch += 1
             cap = replace(cap, epoch=self._cap_epoch)
             self.capabilities[name] = cap
+            self._cap_models[name] = cap.model()
         return cap
 
     def capability(self, name: str) -> Capability | None:
         return self.capabilities.get(name)
+
+    def _model_for(self, src: str) -> WireModel:
+        """Wire model pricing an operation initiated by ``src``: the
+        initiator's advertised profile under ``hetero``, else the single
+        fabric-wide profile (legacy accounting, bit-identical)."""
+        if not self.hetero:
+            return self.wire
+        return self._cap_models.get(src, self.wire)
 
     # credit accounting ------------------------------------------------------
     def credit_outstanding(self, src: str, dst: str) -> int:
@@ -593,7 +610,7 @@ class Fabric:
         """
         ep = self._target(dst)
         n = len(wire_bytes)
-        model = self.wire
+        model = self._model_for(src)
         t = model.latency_us(n)
         with self._lock:
             self.stats.puts += 1
@@ -685,7 +702,7 @@ class Fabric:
         nbytes = sum(len(w.data) for w in writes) + 4 * sum(
             1 for w in writes if w.doorbell is not None
         )
-        model = self.wire
+        model = self._model_for(src)
         t = model.latency_us(nbytes) + (len(writes) - 1) * model.o_us
         with self._lock:
             self.stats.region_puts += 1
@@ -738,7 +755,7 @@ class Fabric:
         """
         ep = self._target(dst)
         data = ep.read_region(region, offset, nbytes)
-        model = self.wire
+        model = self._model_for(src)
         t = 2 * model.alpha_us + nbytes / model.beta_Bus
         with self._lock:
             self.stats.gets += 1
@@ -757,15 +774,18 @@ class Fabric:
         ep.alive = False
         ep.inbox.clear()
         self.capabilities.pop(name, None)
+        self._cap_models.pop(name, None)
         self._clear_credits(name)
 
     def revive(self, name: str) -> Endpoint:
         """Restarted process: fresh endpoint state (all caches/regions gone).
 
         The capability vector does NOT survive: the revived process must
-        re-advertise (PE.__init__ does) before the fabric lists it again."""
+        re-advertise (PE.__init__ does) before hetero pricing or placement
+        sees it again."""
         ep = Endpoint(name)
         self.endpoints[name] = ep
         self.capabilities.pop(name, None)
+        self._cap_models.pop(name, None)
         self._clear_credits(name)
         return ep

@@ -17,8 +17,12 @@ PUT per (destination, tick) carrying every key-frame, one dispatch per
 one masked-fold dispatch folding every partial RETURN into the queue
 region.
 
-The predicate-pushdown sibling (``FilterShardService``) and cost-model
-placement (``placement="auto"``) are not ported yet.
+:class:`FilterShardService` is the predicate-pushdown sibling on the same
+substrate: a Filter ifunc scans a shard-aligned window next to its shard
+and RETURNs only the survivors.  Both services route a burst by
+``placement=``: pushdown, pull (the GET baseline), or ``"auto"`` — the
+cost model of :mod:`repro_torch.sharding.placement` over the PEs'
+advertised capability vectors.
 """
 
 from __future__ import annotations
@@ -37,7 +41,12 @@ from repro_torch.core import (
     PropagationConfig,
 )
 from repro_torch.core.transport import WireReportMixin
-from repro_torch.core.xrdma import make_gather_return, make_gatherer
+from repro_torch.core.xrdma import (
+    make_filter,
+    make_filter_return,
+    make_gather_return,
+    make_gatherer,
+)
 
 
 def ragged_batches(
@@ -178,23 +187,56 @@ class EmbedShardService:
         return self._pad(req.keys)
 
     # -------------------------------------------------------- placement layer
-    def _resolve_placement(self, placement) -> str:
+    def plan_with(self, optimizer, workload) -> "object":
+        """Price this service's pushdown against its pull baseline through
+        a :class:`~repro_torch.sharding.placement.PlacementOptimizer` (duck-
+        typed — anything with a compatible ``plan``).  The gather pull side
+        is one GET round trip *per row*."""
+        n = max(len(workload), 1)
+        rows = sum(len(b) for b in workload) / n
+        kb = max(int(round(rows)), 1)
+        return optimizer.plan(
+            requester=self.cluster.client.name,
+            executor=self.cluster.servers[0].name,
+            operand_bytes=kb * self.dim * 4,
+            result_bytes=kb * self.dim * 4,
+            selectivity=1.0,
+            request_payload_bytes=(3 + self.n_keys) * 4,
+            op_name=self.op_name,
+            return_name=self.return_name,
+            return_header_bytes=3 * 4,
+            n_requests=n,
+            pull_messages=kb,
+        )
+
+    def _resolve_placement(self, placement, workload) -> str:
         """Resolve a placement directive to ``"pushdown"`` or ``"pull"``.
 
-        ``"auto"`` (or an optimizer instance) needs the cost-model placement
-        layer, which the port does not have yet (ROADMAP, port queue:
-        analysis and placement)."""
-        if not isinstance(placement, str) or placement == "auto":
-            raise NotImplementedError(
-                "cost-model placement (placement='auto' or an optimizer) needs "
-                "sharding/placement.py, not ported yet (ROADMAP, port queue: "
-                "analysis and placement)"
-            )
-        if placement not in ("pushdown", "pull"):
+        Precedence: explicit argument > the cluster's policy
+        (``Cluster.set_placement``) > pushdown.  ``"auto"`` (or passing an
+        optimizer instance) consults the cost model against the advertised
+        capability vectors."""
+        choice = placement if placement is not None else self.cluster.placement_policy
+        if choice is None:
+            return "pushdown"
+        if not isinstance(choice, str):
+            return self.plan_with(choice, workload).choice
+        if choice == "auto":
+            return self.plan_with(self._auto_optimizer(), workload).choice
+        if choice not in ("pushdown", "pull"):
             raise ValueError(
-                f"placement must be 'pushdown', 'pull' or 'auto', got {placement!r}"
+                f"placement must be 'pushdown', 'pull', 'auto', or an "
+                f"optimizer, got {choice!r}"
             )
-        return placement
+        return choice
+
+    def _auto_optimizer(self):
+        opt = self.cluster.placement()
+        if opt is not None:
+            return opt
+        from repro_torch.sharding.placement import PlacementOptimizer
+
+        return PlacementOptimizer(self.cluster)
 
     # ------------------------------------------------------------------- API
     def submit(
@@ -453,7 +495,7 @@ class EmbedShardService:
         batching: bool = False,
         dataplane: DataPlaneConfig | None = None,
         propagation: PropagationConfig | None = None,
-        placement: object = "pushdown",
+        placement: object | None = None,
     ) -> GatherReport:
         """Submit a burst of requests, run to completion, report results in
         submission order plus wire/dispatch accounting for this run only.
@@ -462,8 +504,10 @@ class EmbedShardService:
         or rendezvous descriptor + GET.  ``propagation`` pre-distributes the
         Gatherer down a spanning tree instead of letting each first contact
         push the code flat.  ``placement`` routes the burst: ``"pushdown"``
-        (the X-RDMA path) or ``"pull"`` (the per-row GET baseline)."""
-        if self._resolve_placement(placement) == "pull":
+        (the X-RDMA path), ``"pull"`` (the per-row GET baseline),
+        ``"auto"``/a :class:`~repro_torch.sharding.placement.PlacementOptimizer`
+        (cost-model choice); ``None`` defers to the cluster's policy."""
+        if self._resolve_placement(placement, key_batches) == "pull":
             return self.gather_get(key_batches)
         self.cluster.fabric.stats.reset()
         invokes0 = self._invokes()
@@ -512,3 +556,166 @@ class EmbedShardService:
     def oracle(self, key_batches: list[np.ndarray]) -> list[np.ndarray]:
         """Numpy take-based oracle for any gather implementation."""
         return [self.table[np.asarray(k, np.int32)] for k in key_batches]
+
+
+class FilterShardService(EmbedShardService):
+    """Predicate pushdown over the embedding-shard substrate.
+
+    A request names a contiguous shard-aligned window ``[lo, lo+W)`` and a
+    float32 threshold; the Filter ifunc evaluates ``rows[:, 0] > thresh``
+    *next to the shard* and RETURNs only the survivors (a ragged payload —
+    wire bytes scale with selectivity, the whole point of pushdown).  The
+    result contract matches the oracle ``where(pred, window, 0)``: each
+    surviving row lands at its original window position, dropped positions
+    read zero.  On the card the servers' ``cuda-sm90`` slice resolves each
+    window through the ``embed_lookup`` kernel.
+
+    The pull baseline (:meth:`filter_pull`) fetches the window with one
+    range GET and filters client-side — cheaper than pushdown exactly when
+    the cost model says so (high selectivity, or an executor with a fat
+    per-message overhead), which is what :meth:`filter`'s ``placement=``
+    machinery decides.
+    """
+
+    op_name = "filter"
+    return_name = "filter_return"
+
+    def __init__(
+        self,
+        cluster: Cluster,
+        vocab: int,
+        dim: int,
+        window: int = 16,
+        max_slots: int = 64,
+        seed: int = 0,
+        table: np.ndarray | None = None,
+        strict_recovery: bool = False,
+    ) -> None:
+        super().__init__(
+            cluster, vocab, dim, n_keys=window, max_slots=max_slots,
+            seed=seed, table=table, strict_recovery=strict_recovery,
+        )
+        self._thresh_bits = 0
+        self._selectivity_hint = 1.0
+
+    def _publish_ops(self) -> None:
+        self.cluster.toolchain.publish(
+            make_filter(
+                self.rows_per_shard, self.cluster.n_servers, self.n_keys, self.dim
+            )
+        )
+        self.cluster.toolchain.publish(
+            make_filter_return(self.max_slots, self.n_keys, self.dim)
+        )
+
+    def _request_body(self, req: GatherRequest) -> np.ndarray:
+        # [lo, thresh_bits]; PE.submit prepends [requester, slot, epoch]
+        return np.array([int(req.keys[0]), self._thresh_bits], np.int32)
+
+    def plan_with(self, optimizer, workload):
+        w, d = self.n_keys, self.dim
+        return optimizer.plan(
+            requester=self.cluster.client.name,
+            executor=self.cluster.servers[0].name,
+            operand_bytes=w * d * 4,
+            result_bytes=w * d * 4,
+            selectivity=self._selectivity_hint,
+            request_payload_bytes=5 * 4,  # [requester, slot, epoch, lo, thresh]
+            op_name=self.op_name,
+            return_name=self.return_name,
+            return_header_bytes=(3 + w) * 4,  # [slot, epoch, evalmask] + spos
+            n_requests=max(len(workload), 1),
+            pull_messages=1,  # a window is one contiguous range GET
+        )
+
+    # -------------------------------------------------------------- workloads
+    def windows(self, n_requests: int, seed: int = 0) -> np.ndarray:
+        """``n_requests`` uniform-random shard-aligned window starts."""
+        rng = np.random.default_rng(seed)
+        w, rp = self.n_keys, self.rows_per_shard
+        srv = rng.integers(0, self.cluster.n_servers, n_requests)
+        off = rng.integers(0, rp - w + 1, n_requests)
+        return (srv * rp + off).astype(np.int64)
+
+    def thresh_for_selectivity(self, selectivity: float) -> np.float32:
+        """The column-0 threshold whose pass rate is ``selectivity``."""
+        q = np.quantile(self.table[:, 0].astype(np.float64), 1.0 - selectivity)
+        return np.float32(q)
+
+    def selectivity_of(self, thresh) -> float:
+        return float(np.mean(self.table[:, 0] > np.float32(thresh)))
+
+    def _window_keys(self, lo: int) -> np.ndarray:
+        lo, w = int(lo), self.n_keys
+        if not (0 <= lo and lo + w <= self.vocab):
+            raise ValueError(f"window [{lo}, {lo + w}) outside the table")
+        if self.owner(lo) != self.owner(lo + w - 1):
+            raise ValueError(f"window [{lo}, {lo + w}) crosses a shard boundary")
+        return np.arange(lo, lo + w, dtype=np.int32)
+
+    # ------------------------------------------------------------ entrypoints
+    def filter(
+        self,
+        los,
+        thresh,
+        batching: bool = False,
+        dataplane: DataPlaneConfig | None = None,
+        propagation: PropagationConfig | None = None,
+        placement: object | None = None,
+        selectivity: float | None = None,
+    ) -> GatherReport:
+        """Filter a burst of windows; one request per ``lo``.
+
+        ``selectivity`` is the cost model's survivor-fraction estimate;
+        by default it is computed exactly from the service's own table
+        (deterministic, and what a real system's statistics catalog
+        provides).  Placement resolution is as in :meth:`gather`."""
+        thresh = np.float32(thresh)
+        if selectivity is None:
+            selectivity = self.selectivity_of(thresh)
+        self._selectivity_hint = float(selectivity)
+        if self._resolve_placement(placement, los) == "pull":
+            return self.filter_pull(los, thresh)
+        self._thresh_bits = int(
+            np.frombuffer(np.float32(thresh).tobytes(), np.int32)[0]
+        )
+        batches = [self._window_keys(lo) for lo in los]
+        return super().gather(
+            batches, batching=batching, dataplane=dataplane,
+            propagation=propagation, placement="pushdown",
+        )
+
+    def filter_pull(self, los, thresh) -> GatherReport:
+        """Move-data-to-compute baseline: one range GET per window, the
+        client evaluates the predicate after the whole operand crossed."""
+        self.cluster.fabric.stats.reset()
+        invokes0 = self._invokes()
+        fabric, client = self.cluster.fabric, self.cluster.client
+        w, d = self.n_keys, self.dim
+        thresh = np.float32(thresh)
+        results = []
+        for lo in los:
+            self._window_keys(lo)  # validate alignment like the pushdown path
+            srv = self.owner(lo)
+            off = (int(lo) - srv * self.rows_per_shard) * d * 4
+            data = fabric.get(
+                client.name, f"server{srv}", "embed_shard", off, w * d * 4
+            )
+            window = np.frombuffer(data, np.float32).reshape(w, d)
+            results.append(
+                np.where((window[:, 0] > thresh)[:, None], window, 0.0).astype(
+                    np.float32
+                )
+            )
+        return self._report(results, rounds=0, invokes0=invokes0)
+
+    def oracle_filter(self, los, thresh) -> list[np.ndarray]:
+        """Numpy oracle: ``where(col0 > thresh, window, 0)`` per window."""
+        thresh = np.float32(thresh)
+        out = []
+        for lo in los:
+            win = self.table[int(lo) : int(lo) + self.n_keys]
+            out.append(
+                np.where((win[:, 0] > thresh)[:, None], win, 0.0).astype(np.float32)
+            )
+        return out

@@ -1,6 +1,7 @@
 """The hand-written kernels on the card, against their plain versions, the
-batched Chaser slice's one launch per group, and the LMs' one launch per
-layer of each path kernel (flash attention, wkv6, ssm_scan).
+batched Chaser and Filter slices' one launch per group, the Filter
+service's one launch per dispatch, and the LMs' one launch per layer of
+each path kernel (flash attention, wkv6, ssm_scan).
 
 Marked ``cuda``: skipped on a host without a Hopper card.  On the card:
 ``PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py``.
@@ -11,7 +12,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import make_chain, make_chaser
+from repro_torch.core import Cluster, make_chain, make_chaser, make_filter
 from repro_torch.core.bitcode import deserialize_and_jit
 from repro_torch.kernels import build
 from repro_torch.kernels.chase import chase_shard, chase_shard_op, chase_shard_ref
@@ -130,6 +131,54 @@ def test_batched_chaser_slice_is_one_launch(card):
     assert chase_shard.launches == before + 1
     want = torch.stack([fn(p, shard, meta) for p in pays])
     assert torch.equal(got, want)
+
+
+def test_filter_slice_is_one_launch_per_dispatch(card):
+    """The Filter's reloaded cuda-sm90 slice resolves its window through
+    embed_lookup: one launch a call, one for a vmapped group, the same
+    action rows as the slice's plain version on the host."""
+    rows_per, n_servers, window, dim = 4096, 8, 24, 128
+    rng = np.random.default_rng(3)
+    shard = rng.standard_normal((rows_per, dim), dtype=np.float32)
+    meta = np.array([2, rows_per, n_servers], np.int32)
+    lo = 2 * rows_per + rng.integers(0, rows_per - window + 1, 16)
+    thresh = rng.standard_normal(16).astype(np.float32).view(np.int32)
+    pays = np.stack([np.full(16, n_servers), np.arange(16), np.ones(16), lo, thresh],
+                    axis=1).astype(np.int32)
+    blob = make_filter(rows_per, n_servers, window, dim).fat.slices["cuda-sm90"]
+    fn, _ = deserialize_and_jit(blob, card)
+    host_fn, _ = deserialize_and_jit(blob, "cpu")
+    d_shard, d_meta = torch.from_numpy(shard).to(card), torch.from_numpy(meta).to(card)
+    d_pays = torch.from_numpy(pays).to(card)
+    before = embed_lookup.launches
+    one = [fn(p, d_shard, d_meta) for p in d_pays]
+    torch.cuda.synchronize()
+    assert embed_lookup.launches == before + 16
+    got = torch.vmap(fn, in_dims=(0, None, None))(d_pays, d_shard, d_meta)
+    torch.cuda.synchronize()
+    assert embed_lookup.launches == before + 17
+    assert torch.equal(got, torch.stack(one))
+    want = torch.stack([host_fn(torch.from_numpy(p), torch.from_numpy(shard),
+                                torch.from_numpy(meta)) for p in pays])
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("batching", [False, True], ids=["permsg", "batched"])
+def test_filter_service_launches_once_per_dispatch(card, batching):
+    from repro_torch.runtime import FilterShardService
+
+    cl = Cluster(4, wire="thor_xeon", device=card)
+    svc = FilterShardService(cl, vocab=4 * 1024, dim=16, window=24, max_slots=16)
+    los = svc.windows(40, seed=2)
+    thresh = svc.thresh_for_selectivity(0.25)
+    invokes0 = sum(pe.stats.invokes for pe in cl.servers)
+    before = embed_lookup.launches
+    rep = svc.filter(los, thresh, batching=batching, placement="pushdown")
+    torch.cuda.synchronize()
+    dispatches = sum(pe.stats.invokes for pe in cl.servers) - invokes0
+    assert embed_lookup.launches - before == dispatches > 0
+    for got, want in zip(rep.results, svc.oracle_filter(los, thresh)):
+        assert np.array_equal(got.view(np.int32), want.view(np.int32))
 
 
 EMBED_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16, "i32": torch.int32}

@@ -129,8 +129,11 @@ def test_wire_tables_equal():
         return {k: dataclasses.asdict(v) for k, v in m.WIRE_PROFILES.items()}
 
     assert profiles(torch_transport) == profiles(jax_transport)
-    assert torch_transport.TRIPLE_WIRE == jax_transport.TRIPLE_WIRE
-    assert torch_transport.MEM_BW_CLASS == jax_transport.MEM_BW_CLASS
+    # the reference's rows, plus the port's card PEs: an H100 host's NIC
+    # (thor_xeon) in front of HBM, as the reference's tpu-v5e row has it
+    card = {"cuda-sm90": "thor_xeon"}
+    assert torch_transport.TRIPLE_WIRE == {**jax_transport.TRIPLE_WIRE, **card}
+    assert torch_transport.MEM_BW_CLASS == {**jax_transport.MEM_BW_CLASS, "cuda-sm90": "hbm"}
     assert torch_transport.MEM_BW_BUS == jax_transport.MEM_BW_BUS
 
 

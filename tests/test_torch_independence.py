@@ -34,7 +34,8 @@ def test_no_jax_or_reference_imports(path):
 
 def test_importing_the_port_loads_no_jax():
     code = (
-        "import sys, repro_torch.core, repro_torch.runtime, repro_torch.kernels; "
+        "import sys, repro_torch.core, repro_torch.runtime, repro_torch.kernels, "
+        "repro_torch.sharding; "
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]; "
         "print(bad); sys.exit(1 if bad else 0)"
     )
@@ -101,3 +102,25 @@ def test_triple_must_run_on_its_device():
     assert [pe.triple for pe in cl.pes()] == ["cuda-sm90", "cuda-sm90", "cpu-host"]
     assert cl.restart_server(1).triple == "cuda-sm90"
     assert PE("solo", Fabric(), device="cpu").triple == "cpu-host"
+
+
+@pytest.mark.parametrize("entry", ["filter_service", "placement", "xrdma_bcast",
+                                   "xrdma_reduce"])
+def test_slice_9_entry_points_without_a_card_raise(monkeypatch, entry):
+    """The Filter service, the placement optimizer and the tree collectives
+    reach the card through their cluster: without one, and without
+    ``device="cpu"``, each raises before any work."""
+    import numpy as np
+
+    from repro_torch.runtime import FilterShardService
+    from repro_torch.sharding import PlacementOptimizer, xrdma_bcast, xrdma_reduce
+
+    calls = {
+        "filter_service": lambda: FilterShardService(Cluster(2), vocab=64, dim=4, window=4),
+        "placement": lambda: PlacementOptimizer(Cluster(2, hetero_wire=True)),
+        "xrdma_bcast": lambda: xrdma_bcast(Cluster(2), "tsi"),
+        "xrdma_reduce": lambda: xrdma_reduce(Cluster(2), np.zeros((3, 2), np.int32)),
+    }
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        calls[entry]()
