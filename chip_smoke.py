@@ -1,4 +1,4 @@
-"""Drive the PyTorch port's Gather service, DAPC, Filter pushdown, tree collectives, yi-9b, rwkv6-1.6b and hymba-1.5b serving once on an NVIDIA card.
+"""Drive the PyTorch port's Gather service, DAPC, Filter pushdown, tree collectives, control layers, yi-9b, rwkv6-1.6b and hymba-1.5b serving once on an NVIDIA card.
 
 Usage: ``python3 chip_smoke.py [--profile DIR]`` from the root of
 a checkout, on a host with one Hopper card (sm_90) and the CUDA toolkit.
@@ -58,12 +58,40 @@ a checkout, on a host with one Hopper card (sm_90) and the CUDA toolkit.
    DDP's default bucket), per-message and batched (the batched run folds
    arrived partials in one dispatch of the code cache's propagate fold):
    the result equal to the numpy sum, 16 FORWARDs.
-9. Timing: the launch floor and the hop latency L (chase_shard's latency
+9. Control-layer phases, each with the launch counts set to 0 before it:
+   (a) tenancy: ``BENCH_tenancy.json``'s config (8 ``thor_bf2`` servers, a
+   hot tenant at 8 requests a tick and 3 background tenants at 1, 40
+   ticks, 64 rows a shard of 16 f32; hot slot quota 2, queue limit 10,
+   credit budget 1; ``poll_budget`` 32, ``credit_window`` 8, 32 slots)
+   through ``TenantRouter`` in the solo, shared and qos arms of
+   ``benchmarks/tenancy.py``, on the card and on the CPU: equal
+   ``report()`` dicts, logged beside that JSON's; then the same arms over
+   the Gather table.  Every served request bit-identical to the table,
+   shed ones never served, ``embed_lookup`` launched once per server
+   dispatch; the p95 ratios, shed total and the hot tenant's credit stalls
+   logged.  (b) loss: DAPC as in 5 at ``BENCH_reliability.json``'s loss
+   rates (1%, 5%) and reliability config, per-message and batched, then
+   the Gather service at 5% loss in its three planes (128 requests,
+   per-message) and the Filter at 5% loss (256 windows at selectivity 0.25,
+   pushdown per-message): oracle-identical, launches equal to server
+   dispatches, retransmits and goodput logged.  (c) sandbox: the Gather service and
+   the Filter under ``SandboxConfig.on()`` on all-``cuda-sm90`` PEs:
+   oracle-identical, no refusal, cold verifies equal installs, a warm pass
+   verifies nothing; then a torch-authored ``action_bomb`` refused and
+   quarantined on every PE, the next batch still oracle-identical.  (d)
+   autotune: a warm per-message DAPC run captured with ``capture``, saved
+   and loaded back (``build/chip_smoke/``), ``replay_stats`` equal to the
+   live counters; ``autotune`` for ``thor_xeon``, the profile installed by
+   ``set_flow(profile=path)``, the run repeated oracle-identical; the
+   replay's estimate logged beside the live ``modeled_us``.
+10. Timing: the launch floor and the hop latency L (chase_shard's latency
    probe: one thread's dependent loads, 0 and 1,024 hops, __ldg and
    ld.global.cg in turns; L on the shard-sized cycle, from HBM and from L2);
    then ``embed_lookup`` at N = 16, the batched arm's mean N and 1,024 of
    512-byte rows and at launch.serve's remote embedding (N = 8 of each
-   LM's d_model f32 rows), and ``chase_shard`` at B = 1, the batched arm's
+   LM's d_model f32 rows) and at the Filter's shapes (one window of N = 24
+   contiguous i32 rows, and its batched arms' windows a launch), and
+   ``chase_shard`` at B = 1, the batched arm's
    mean B and 256 on the chain and 256 on the cycle,
    each route in turns (A B B A, 5 rounds, median and spread;
    ``index_select`` in the same turns), with device ms per call (CUDA
@@ -76,7 +104,7 @@ a checkout, on a host with one Hopper card (sm_90) and the CUDA toolkit.
    calls of each).
    After the LM phases, the launch-weighted gap of both kernels by shape,
    against both bounds.
-10. Flash kernel phase: ``flash_attention`` against its plain version at
+11. Flash kernel phase: ``flash_attention`` against its plain version at
    yi-9b's prefill (S = T = 300, 1,000 and 2,048, and S = 256 over a
    1,024-token prefix of a 2,048-slot cache) and decode (B = 8, S = 1 on
    cache views of T = 1, 129, 777, 4,096) shapes and at the five shapes of
@@ -85,27 +113,27 @@ a checkout, on a host with one Hopper card (sm_90) and the CUDA toolkit.
    atol 1e-4 and rtol 1e-2.  Each line names the route the call took: bf16
    prefill on the tensor cores (``wgmma``), bf16 decode split over keys
    (``split``), f32 on the CUDA-core kernel (``simt``).
-11. Parity phase: a 2-layer yi-9b at full width in f32, one set of weights
+12. Parity phase: a 2-layer yi-9b at full width in f32, one set of weights
    from seed 0, 128 prompt tokens and 8 teacher-forced decode steps on the
    card (kernel) and on the CPU (plain version): logits within 1e-3, equal
    greedy tokens.
-12. Serving phase: yi-9b at full width and 16 of its 48 layers (bf16,
+13. Serving phase: yi-9b at full width and 16 of its 48 layers (bf16,
    random weights drawn on the card) behind ``ServeScheduler(slots=8,
    t_max=4096)``: 16 requests with prompts of 256-3,072 tokens, 32 new
    tokens each, every logit finite, ``flash_attention`` launched 16 x
    (prefills + decode groups) times, 16 x prefills on the ``wgmma`` route
    and 16 x decode groups on the ``split`` route; then a profiled decode
    burst and prefill (busy share, the kernel's share).
-13. ``repro_torch.launch.serve --no-smoke --batch 4 --prompt-len 2048
+14. ``repro_torch.launch.serve --no-smoke --batch 4 --prompt-len 2048
    --gen 32`` at full yi-9b (48 layers), local and with ``--remote-embed
    --embed-servers 2``: the two token streams bit-identical,
    ``embed_lookup`` launched in the remote run.
-14. Times ``flash_attention`` at the prefill (S = T = 2,048) and decode
+15. Times ``flash_attention`` at the prefill (S = T = 2,048) and decode
    (B = 8, T = 2,048) shapes beside its plain version,
    ``scaled_dot_product_attention`` and its bound (operations or bytes),
    and logs each tensor-core and split instance's registers and spills
    from the build's ptxas report.
-15. wkv6 kernel phase: ``wkv6`` against its plain version on both routes
+16. wkv6 kernel phase: ``wkv6`` against its plain version on both routes
    (``step``: one kernel walks T; ``split``: T cut into chunks run in
    parallel, their states carried) at rwkv6-1.6b's prefill (B = 1, T =
    2,048, H = 32, M = 64) and decode (B = 8, T = 1 from a state) shapes,
@@ -116,21 +144,21 @@ a checkout, on a host with one Hopper card (sm_90) and the CUDA toolkit.
    either side of a chunk, and each chunk length the grid times: outputs
    within 2e-5 of the largest (bf16 also 2**-7 of each value), states
    within 2e-5 of the largest; each call counted on its route.
-16. Times ``wkv6`` at the prefill (both routes in turns) and decode shapes
+17. Times ``wkv6`` at the prefill (both routes in turns) and decode shapes
    beside its plain version and its bound (no PyTorch call computes WKV6),
    then the route grid: both routes and the split at chunks of 16-256
    over B 1 and 4 and T 128-3,072.
-17. The parity phase again on a 2-layer rwkv6-1.6b at full width (d_model
+18. The parity phase again on a 2-layer rwkv6-1.6b at full width (d_model
    2,048, 32 WKV heads, d_ff 7,168, vocab 65,536).
-18. The serving phase on rwkv6-1.6b at full width and 12 of its 24 layers
+19. The serving phase on rwkv6-1.6b at full width and 12 of its 24 layers
    (bf16): the same 16 requests, ``wkv6`` launched 12 x (prefills + decode
    groups) times, 12 x prefills on the ``split`` route and 12 x decode
    groups on ``step``, and its profiled decode burst and prefill (the
    split's three device kernels a launch, each kernel's time by name).
-19. ``launch.serve`` at full rwkv6-1.6b, local and remote-embed: streams
+20. ``launch.serve`` at full rwkv6-1.6b, local and remote-embed: streams
    bit-identical, ``wkv6`` launched 24 x (1 + 32) times in each, the
    prefill's on ``split`` and the steps' on ``step``.
-20. ssm_scan kernel phase: ``ssm_scan`` against its plain version on both
+21. ssm_scan kernel phase: ``ssm_scan`` against its plain version on both
    routes at hymba-1.5b's prefill (B = 1, T = 2,048, D = 1,600, N = 16) and
    decode (B = 8, T = 1 from a state) shapes, T = 777 from a state and T a
    step either side of a chunk, in bf16 and f32; launch.serve's B = 4, T =
@@ -139,17 +167,17 @@ a checkout, on a host with one Hopper card (sm_90) and the CUDA toolkit.
    over T = 777 from a state across chunk boundaries; each chunk length the
    grid times: outputs within 2e-5 of the largest (bf16 also 2**-7 of each
    value), states within 2e-5 of the largest; each call counted on its
-   route. The flash phase (10) also holds hymba's windowed shapes (25/5
+   route. The flash phase (11) also holds hymba's windowed shapes (25/5
    heads of 64, window 2,048: prefill S = T = 3,000, decode T = 2,049 and
-   4,096, and a global decode case), and the flash timing (14) adds hymba's
+   4,096, and a global decode case), and the flash timing (15) adds hymba's
    windowed prefill (S = T = 3,072) and decode (B = 8, T = 4,096).
-21. Times ``ssm_scan`` at the prefill (both routes in turns) and decode
+22. Times ``ssm_scan`` at the prefill (both routes in turns) and decode
    shapes beside its plain version and its bound (no PyTorch call computes
    the selective scan), then its route grid as for ``wkv6``.
-22. The parity phase on a 2-layer hymba-1.5b at full width (d_model 1,600,
+23. The parity phase on a 2-layer hymba-1.5b at full width (d_model 1,600,
    25/5 heads, d_ff 5,504, vocab 32,001; both layers windowed) with a
    2,064-token prompt, so the 2,048 window bites at prefill and decode.
-23. The serving phase on full hymba-1.5b (32 layers, bf16): the same 16
+24. The serving phase on full hymba-1.5b (32 layers, bf16): the same 16
    requests, ``flash_attention`` and ``ssm_scan`` each launched 32 x
    (prefills + decode groups) times (flash on the ``wgmma`` and ``split``
    routes as for yi, ``ssm_scan`` on ``split`` and ``step``), and its
@@ -157,7 +185,7 @@ a checkout, on a host with one Hopper card (sm_90) and the CUDA toolkit.
    line also logs, per kernel, the kernels recorded in the window, those
    matched to a launch in it by correlation id, the wrapper's launches in
    it and the names matched (ROADMAP T12).
-24. ``launch.serve`` at full hymba-1.5b, local and remote-embed: streams
+25. ``launch.serve`` at full hymba-1.5b, local and remote-embed: streams
    bit-identical, each kernel launched 32 x (1 + 32) times in each.
 
 Prints one JSON line of kernel results, then the nvidia-smi line, then
@@ -284,6 +312,11 @@ DEVICE_KERNELS = {"wkv6": {"split": 3}, "ssm_scan": {"split": 3}}
 # tokens, launch.serve's B = 4 of 2,048, and T either side of the threshold)
 SPLIT_CHUNKS = (16, 32, 64, 128, 256)
 SPLIT_GRID_B, SPLIT_GRID_T = (1, 4), (128, 192, 256, 384, 512, 1024, 2048, 3072)
+# the control-layer phases: benchmarks/tenancy.py's table (64 rows a shard of
+# 16 f32) and request size (up to 8 keys); the sandboxed Gather's and
+# Filter's requests; the loss model's seed
+TENANCY_ROWS, TENANCY_DIM, TENANCY_N_KEYS = 64, 16, 8
+SANDBOX_REQUESTS, LOSS_SEED = 256, 1
 
 
 def log(*args) -> None:
@@ -566,12 +599,22 @@ def launch_gap(shapes: dict, launches: dict, key: str) -> float:
     return sum(n * (shapes[s]["ms"] - shapes[s][key]) / 1e3 for s, n in launches.items())
 
 
-def time_kernel(dev, rng, floor: dict, mean_n: float) -> dict:
+def window_ids(rng, windows: int, lo: int, v_loc: int, dev) -> torch.Tensor:
+    """The Filter's ids: ``windows`` shard-aligned windows of
+    ``FILTER_WINDOW`` contiguous rows, at random in the shard."""
+    starts = lo + rng.integers(0, v_loc // FILTER_WINDOW, windows) * FILTER_WINDOW
+    ids = (starts[:, None] + np.arange(FILTER_WINDOW)).reshape(-1)
+    return torch.from_numpy(ids.astype(np.int32)).to(dev)
+
+
+def time_kernel(dev, rng, floor: dict, mean_n: float, filter_mean_n: float) -> dict:
     """Times at the shapes the path's launches come in: the Gather
     service's N = 16 ids (a message), its batched arm's mean N and N =
     1,024 (the largest bucket), into one f32 shard of 512-byte rows; and
     launch.serve's remote embedding, N = 8 ids (RemoteEmbedClient's
-    n_keys) of each LM's d_model f32 rows.  Each table holds 256 MiB and
+    n_keys) of each LM's d_model f32 rows; and the Filter's, one window of
+    N = 24 contiguous rows a dispatch and its batched arms' windows a
+    launch, as the rows' i32 bit patterns.  Each table holds 256 MiB and
     each shape has 128 distinct id sets, so the rows are cold in L2.  Each
     route and index_select (on the in-shard ids only: its yardstick) in
     turns."""
@@ -581,11 +624,16 @@ def time_kernel(dev, rng, floor: dict, mean_n: float) -> dict:
 
     library = lambda t, i: torch.index_select(t, 0, i)  # yardstick, unused by the port
     saved = embed_lookup.launches, dict(embed_lookup.route_launches), embed_lookup.items
-    timed = [("message", N_KEYS, DIM), ("mean", max(1, round(mean_n)), DIM),
-             ("bucket64", MAX_SLOTS * N_KEYS, DIM)]
-    timed += [(f"remote {arch}", REMOTE_KEYS, get_config(arch).d_model) for arch in PATH_KERNEL]
+    # (label, ids, row width, Filter windows a launch or 0 for random ids)
+    timed = [("message", N_KEYS, DIM, 0), ("mean", max(1, round(mean_n)), DIM, 0),
+             ("bucket64", MAX_SLOTS * N_KEYS, DIM, 0)]
+    timed += [(f"remote {arch}", REMOTE_KEYS, get_config(arch).d_model, 0)
+              for arch in PATH_KERNEL]
+    batch = max(1, round(filter_mean_n / FILTER_WINDOW))
+    timed += [("filter", FILTER_WINDOW, DIM, 1),
+              ("filter_batched", batch * FILTER_WINDOW, DIM, batch)]
     shapes, table = {}, None
-    for label, n, dim in timed:
+    for label, n, dim, windows in timed:
         rows_n = SHARD_ROWS * DIM // dim  # 256 MiB of f32 rows
         lo = 3 * rows_n
         if table is None or table.shape[1] != dim:
@@ -593,10 +641,15 @@ def time_kernel(dev, rng, floor: dict, mean_n: float) -> dict:
             table = torch.randn(rows_n, dim, device=dev)
         lo_t = torch.tensor([lo], dtype=torch.int32, device=dev)
         row = dim * table.element_size()
-        sets = [edge_ids(rng, n, lo, rows_n, dev) for _ in range(128)]
-        args = [(table, ids, lo_t) for ids in sets]
+        if windows:  # the Filter resolves its window as the rows' bit patterns
+            sets = [window_ids(rng, windows, lo, rows_n, dev) for _ in range(128)]
+            args = [(table.view(torch.int32), ids, lo_t) for ids in sets]
+        else:
+            sets = [edge_ids(rng, n, lo, rows_n, dev) for _ in range(128)]
+            args = [(table, ids, lo_t) for ids in sets]
         inside = [(ids.long() - lo >= 0) & (ids.long() - lo < rows_n) for ids in sets]
-        lib_args = [(table, (ids.long() - lo)[m].contiguous()) for ids, m in zip(sets, inside)]
+        lib_args = [(a[0], (ids.long() - lo)[m].contiguous())
+                    for a, ids, m in zip(args, sets, inside)]
         n_in = sum(int(m.sum()) for m in inside) / len(sets)
         moved = n * 4 + n_in * row + n * row  # ids read, in-shard rows read, rows written
         fns = {r: (lambda i, r=r: embed_lookup(*args[i], route=r)) for r in ROUTES}
@@ -623,7 +676,8 @@ def time_kernel(dev, rng, floor: dict, mean_n: float) -> dict:
             "call_ms": calls[route], "calls_ms": calls,
             "half_of_reachable": reach >= 0.5 * ab[route]["median"],
         }
-        log(f"timing embed_lookup {label} n={n} f32 rows of {row} B ({route}), {moved:.0f} B "
+        kind = f"{windows} window(s) of i32" if windows else "f32"
+        log(f"timing embed_lookup {label} n={n} {kind} rows of {row} B ({route}), {moved:.0f} B "
             f"moved: {json.dumps(shapes[label])}; in turns (A B B A, 5 rounds): "
             f"{json.dumps(ab)}")
     del table
@@ -772,6 +826,7 @@ def filter_phase(dev, table: np.ndarray) -> dict:
         per_arm, reps = {}, {}
         for name, kw in arms.items():
             launches0, inv0 = launch_counts()["embed_lookup"], server_invokes()
+            items0 = embed_lookup.items
             t = time.perf_counter()
             rep = reps[name] = svc.filter(los, thresh, **kw)
             torch.cuda.synchronize()
@@ -787,6 +842,7 @@ def filter_phase(dev, table: np.ndarray) -> dict:
                                      f"{dispatches} server dispatches, {rep.gets} GETs")
             per_arm[name] = dict(
                 wall_s=wall, server_dispatches=dispatches, kernel_launches=launches,
+                ids_per_launch=(embed_lookup.items - items0) / launches if launches else None,
                 puts=rep.puts, gets=rep.gets, region_puts=rep.region_puts,
                 wire_bytes_by_kind=rep.wire_bytes_by_kind, modeled_us=rep.modeled_us,
             )
@@ -835,7 +891,12 @@ def filter_phase(dev, table: np.ndarray) -> dict:
     log(f"filter phase: {launches} embed_lookup launches = {dispatches} server Filter "
         f"dispatches, by route {routes}; optimizer agrees with the scored winner in "
         f"{sum(c['optimizer_agrees'] for c in cells)} of {len(cells)} cells; wall_s={wall}")
-    return {"launches": launches, "routes": routes, "cells": cells, "wall_s": wall}
+    batched = [c["arms"][a] for c in cells for a in ("batched", "zerocopy", "auto")
+               if c["arms"][a]["kernel_launches"]]
+    mean_n = (sum(a["ids_per_launch"] * a["kernel_launches"] for a in batched)
+              / sum(a["kernel_launches"] for a in batched))
+    return {"launches": launches, "routes": routes, "cells": cells, "wall_s": wall,
+            "mean_n": mean_n}
 
 
 def propagation_phase(dev):
@@ -2065,6 +2126,497 @@ def time_ssm_scan(dev) -> dict:
     return out
 
 
+# ------------------------------------------------------------------ slice 10
+def make_schedule(tenants, vocab: int, n_keys: int, duration: int, seed: int) -> list:
+    """A copy of ``benchmarks/tenancy.py``'s ``make_schedule``: ``rate``
+    uniform key batches a tenant a tick, drawn up front so that every arm
+    replays the same offered load (a solo arm replays its tenant's part)."""
+    rng = np.random.default_rng(seed)
+    plan = []
+    for _ in range(duration):
+        tick_plan = []
+        for name, rate in tenants:
+            for _ in range(rate):
+                n = int(rng.integers(1, n_keys + 1))
+                tick_plan.append((name, rng.integers(0, vocab, n).astype(np.int32)))
+        plan.append(tick_plan)
+    return plan
+
+
+def tenancy_arm(dev, classes, plan, cfg: dict, table: np.ndarray | None, n_keys: int) -> dict:
+    """One arm of ``benchmarks/tenancy.py`` on the port: replay ``plan``
+    through a ``TenantRouter`` over a fresh cluster, every accepted request
+    bit-identical to the table's rows and shed ones never served; on the
+    card ``embed_lookup`` launched once per server Gatherer dispatch."""
+    from repro_torch.core import Cluster
+    from repro_torch.kernels import launch_counts
+    from repro_torch.runtime import EmbedShardService, TenantRouter
+
+    n_servers = cfg["n_servers"]
+    vocab = TENANCY_ROWS * n_servers if table is None else table.shape[0]
+    dim = TENANCY_DIM if table is None else table.shape[1]
+    cl = Cluster(n_servers=n_servers, wire=cfg["profile"], device=dev)
+    svc = EmbedShardService(cl, vocab=vocab, dim=dim, n_keys=n_keys,
+                            max_slots=cfg["max_slots"], seed=0, table=table)
+    names = {c.name for c in classes}
+    server_invokes = lambda: sum(pe.stats.invokes for pe in cl.servers)
+    launches0, inv0 = launch_counts()["embed_lookup"], server_invokes()
+    t = time.perf_counter()
+    svc.gather([b for tick in plan[:2] for name, b in tick if name in names]
+               or [np.arange(1, n_keys + 1, dtype=np.int32)], batching=True)
+    cl.set_batching(True)
+    svc.batching = True
+    cl.set_flow(lanes=True, credit_window=cfg["credit_window"], poll_budget=cfg["poll_budget"])
+    router = TenantRouter(svc, classes)
+    expected, done = {}, []
+    for tick_plan in plan:
+        for tenant, keys in tick_plan:
+            if tenant in names:
+                rid = router.submit(tenant, keys)
+                if rid is not None:
+                    expected[rid] = svc.table[keys]
+        done += router.tick()
+    ticks = len(plan)
+    while svc.queue or svc.active:
+        done += router.tick()
+        ticks += 1
+        if ticks > 200_000:
+            raise AssertionError("tenancy arm did not drain in 200,000 ticks")
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    served = [r for r in done if r.rid in expected]
+    rids = [r.rid for r in served]
+    for req in served:
+        if req.degraded or not np.array_equal(req.rows.view(np.int32),
+                                              expected[req.rid].view(np.int32)):
+            raise AssertionError(f"tenancy: rid {req.rid} differs from the table's rows")
+    if any(r.rid not in expected for r in done):
+        raise AssertionError("tenancy: a request served that the router did not accept")
+    attempts = sum(1 for tp in plan for name, _ in tp if name in names)
+    shed = sum(st.shed for st in router.stats.values())
+    if len(expected) + shed != attempts:
+        raise AssertionError(f"tenancy: {len(expected)} accepted + {shed} shed != {attempts}")
+    launches = launch_counts()["embed_lookup"] - launches0
+    dispatches = server_invokes() - inv0
+    if dev.type == "cuda" and (launches == 0 or launches != dispatches):
+        raise AssertionError(f"tenancy: {launches} embed_lookup launches for {dispatches} "
+                             f"server dispatches")
+    return {
+        "tenants": router.report(),
+        "drain_ticks": ticks,
+        "shed_total": shed,
+        "shed_exactly_once": len(rids) == len(set(rids)) == len(expected),
+        "credit_stalls": cl.fabric.stats.credit_stalls,
+        "tenant_stalls": dict(cl.fabric.stats.tenant_stalls),
+        "wall_s": wall, "server_dispatches": dispatches, "kernel_launches": launches,
+    }
+
+
+def tenancy_ab(dev, tenants, plan, cfg: dict, table: np.ndarray | None = None,
+               n_keys: int = 8) -> dict:
+    """``benchmarks/tenancy.py``'s A/B on the port: each tenant alone, all
+    of them sharing one cluster with no QoS, and all of them under the QoS
+    classes (the hot tenant's slot quota, queue limit and credit budget; the
+    background tenants on the express lane); the same ratios."""
+    from repro_torch.runtime import TenantClass
+
+    bg = [name for name, _ in tenants if name != "hot"]
+    qos = [TenantClass("hot", slot_quota=cfg["hot_slot_quota"],
+                       queue_limit=cfg["hot_queue_limit"],
+                       credit_budget=cfg["hot_credit_budget"])]
+    qos += [TenantClass(name, express=True) for name in bg]
+    arm = lambda classes: tenancy_arm(dev, classes, plan, cfg, table, n_keys)
+    solo = {name: arm([TenantClass(name)]) for name, _ in tenants}
+    shared = arm([TenantClass(name) for name, _ in tenants])
+    q = arm(qos)
+    p95 = lambda a, n: max(a["tenants"][n]["p95_ticks"], 1.0)
+    return {
+        "solo": solo, "shared": shared, "qos": q,
+        "bg_p95_ratio": round(max(p95(q, n) / p95(solo[n], n) for n in bg), 2),
+        "bg_p95_ratio_unprotected": round(max(p95(shared, n) / p95(solo[n], n) for n in bg), 2),
+        "hot_p95_ratio": round(p95(q, "hot") / p95(solo["hot"], "hot"), 2),
+        "shed_total": q["shed_total"],
+        "hot_credit_stalls": q["tenant_stalls"].get("hot", 0),
+        "launches": sum(a["kernel_launches"] for a in (*solo.values(), shared, q)),
+    }
+
+
+REPORT_KEYS = ("tenants", "drain_ticks", "shed_total", "shed_exactly_once",
+                "credit_stalls", "tenant_stalls")
+
+
+def tenancy_reports(ab: dict) -> dict:
+    """The device-free part of an A/B: every arm's reports and counts."""
+    arms = {f"solo {n}": a for n, a in ab["solo"].items()}
+    arms |= {"shared": ab["shared"], "qos": ab["qos"]}
+    return {name: {k: a[k] for k in REPORT_KEYS} for name, a in arms.items()}
+
+
+def tenancy_phase(dev, table: np.ndarray) -> dict:
+    """``BENCH_tenancy.json``'s config on the card and on the CPU in this
+    process, equal reports; then the same tenant mix over the Gather
+    phase's table on the card."""
+    from repro_torch.kernels import launch_counts, reset_launches
+
+    ref = json.loads((ROOT / "BENCH_tenancy.json").read_text())
+    cfg = ref["config"]
+    reset_launches()  # the tenant-routed Gather's launches are counted from here
+    tenants = [("hot", cfg["hot_rate"])] + [(f"bg{i}", cfg["bg_rate"]) for i in range(cfg["n_bg"])]
+    plan = make_schedule(tenants, TENANCY_ROWS * cfg["n_servers"], TENANCY_N_KEYS,
+                         cfg["duration"], 1)
+    t = time.perf_counter()
+    card = tenancy_ab(dev, tenants, plan, cfg, n_keys=TENANCY_N_KEYS)
+    wall_card = time.perf_counter() - t
+    t = time.perf_counter()
+    host = tenancy_ab(torch.device("cpu"), tenants, plan, cfg, n_keys=TENANCY_N_KEYS)
+    wall_host = time.perf_counter() - t
+    if tenancy_reports(card) != tenancy_reports(host):
+        raise AssertionError(f"tenancy: card reports {json.dumps(tenancy_reports(card))} "
+                             f"differ from the CPU's {json.dumps(tenancy_reports(host))}")
+    bench = {f"solo {n}": a for n, a in ref["solo"].items()} | {
+        "shared": ref["shared"], "qos": ref["qos"]}
+    bench = {name: {k: a[k] for k in REPORT_KEYS} for name, a in bench.items()}
+    heads = ("bg_p95_ratio", "bg_p95_ratio_unprotected", "hot_p95_ratio", "shed_total",
+             "hot_credit_stalls")
+    log(f"tenancy BENCH_tenancy.json config: card and CPU reports equal; wall_s card "
+        f"{wall_card}, CPU {wall_host}; {card['launches']} embed_lookup launches = server "
+        f"dispatches; "
+        f"reports equal to BENCH_tenancy.json's: {tenancy_reports(card) == bench}; "
+        f"{json.dumps({k: card[k] for k in heads})} (BENCH_tenancy.json "
+        f"{json.dumps({k: ref[k] for k in heads})}); qos arm {json.dumps(card['qos']['tenants'])}")
+    vocab = table.shape[0]
+    big_plan = make_schedule(tenants, vocab, TENANCY_N_KEYS, cfg["duration"], 1)
+    t = time.perf_counter()
+    big = tenancy_ab(dev, tenants, big_plan, cfg, table=table, n_keys=TENANCY_N_KEYS)
+    wall = time.perf_counter() - t
+    arms = {name: {k: a[k] for k in ("tenants", "wall_s", "server_dispatches",
+                                     "kernel_launches", "tenant_stalls")}
+            for name, a in (("shared", big["shared"]), ("qos", big["qos"]))}
+    log(f"tenancy over the Gather table ({vocab}x{table.shape[1]} f32, {cfg['n_servers']} "
+        f"servers): every served request bit-identical, shed ones unserved; "
+        f"{json.dumps({k: big[k] for k in heads})}; {big['launches']} embed_lookup launches "
+        f"= server dispatches; phase wall_s {wall}; {json.dumps(arms)}")
+    launches = launch_counts()["embed_lookup"]
+    if launches != card["launches"] + big["launches"]:
+        raise AssertionError(f"tenancy: {launches} embed_lookup launches in the phase, "
+                             f"{card['launches'] + big['launches']} in its arms")
+    return {"launches": launches, "bench": card, "table": big}
+
+
+def server_work(cl) -> tuple[int, int]:
+    """Server dispatches and retransmits so far, summed over the PEs."""
+    return (sum(pe.stats.invokes for pe in cl.servers),
+            sum(pe.stats.retransmits for pe in cl.pes()))
+
+
+def loss_phase(dev, app, starts, oracle, table: np.ndarray, lossless: dict) -> dict:
+    """DAPC at ``BENCH_dapc.json``'s traffic on the 2**27 chain at
+    ``BENCH_reliability.json``'s loss rates and reliability config,
+    per-message and batched, then the Gather service at 5% loss in its three
+    planes and the Filter at 5% loss: every run equal to the oracle, and each
+    kernel launched once per server dispatch (a duplicate dropped at the seq
+    gate launches nothing)."""
+    from repro_torch.core import Cluster, DataPlaneConfig, ReliabilityConfig
+    from repro_torch.kernels import launch_counts, reset_launches
+    from repro_torch.runtime import EmbedShardService, FilterShardService, ragged_batches
+
+    reset_launches()  # the lossy DAPC and Gather launches are counted from here
+    rel = json.loads((ROOT / "BENCH_reliability.json").read_text())["config"]
+    cfg = ReliabilityConfig.on(**{k: v for k, v in rel["reliability"].items() if k != "enabled"})
+    cl = app.cluster
+    cl.set_reliability(cfg)
+    out, chase_dispatches = {}, 0
+    for rate in rel["loss_rates"]:
+        for name, batching in (("per_message", False), ("batched", True)):
+            cl.fabric.set_loss(rate, seed=LOSS_SEED)
+            (inv0, retx0), launches0 = server_work(cl), launch_counts()["chase_shard"]
+            t = time.perf_counter()
+            rep = app.dapc(starts, DAPC_DEPTH, batching=batching)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+            if not np.array_equal(rep.results, oracle):
+                raise AssertionError(f"dapc loss {rate} {name}: results differ from the oracle")
+            (inv, retx), launches = server_work(cl), launch_counts()["chase_shard"] - launches0
+            if launches == 0 or launches != inv - inv0:
+                raise AssertionError(f"dapc loss {rate} {name}: {launches} chase_shard "
+                                     f"launches for {inv - inv0} server dispatches")
+            lost = cl.fabric.stats.frames_lost
+            if lost == 0 or retx == retx0:
+                raise AssertionError(f"dapc loss {rate} {name}: {lost} frames lost, "
+                                     f"{retx - retx0} retransmits")
+            clean = lossless[f"bitcode_{name}"]
+            arm = dict(wall_s=wall, server_dispatches=inv - inv0, kernel_launches=launches,
+                       frames_lost=lost, retransmits=retx - retx0, rounds=rep.rounds,
+                       goodput_chases_per_round=DAPC_CHASES / rep.rounds,
+                       lossless_rounds=clean["rounds"], lossless_wall_s=clean["wall_s"],
+                       puts=rep.puts, modeled_us=rep.modeled_us)
+            out[f"dapc {rate} {name}"] = arm
+            chase_dispatches += inv - inv0
+            log(f"loss dapc {rate} {name}: oracle-identical, {json.dumps(arm)}")
+    cl.fabric.set_loss(0.0)
+    cl.set_reliability(None)
+    vocab = table.shape[0]
+    gcl = Cluster(n_servers=N_SERVERS, wire="thor_xeon", device=dev)
+    svc = EmbedShardService(gcl, vocab=vocab, dim=DIM, n_keys=N_KEYS, max_slots=MAX_SLOTS,
+                            table=table)
+    reqs = ragged_batches(vocab, rel["offered"], N_KEYS, seed=3)
+    want = svc.oracle(reqs)
+    svc.gather([np.array([s * svc.rows_per_shard], np.int32) for s in range(N_SERVERS)])
+    gcl.set_reliability(cfg)
+    gcl.fabric.set_loss(0.05, seed=LOSS_SEED)
+    planes = {"framed": None, "zerocopy": DataPlaneConfig.zero_copy(eager_max=0),
+              "rendezvous": DataPlaneConfig.rendezvous(rndv_min=1)}
+    for plane, dataplane in planes.items():
+        (inv0, retx0), launches0 = server_work(gcl), launch_counts()["embed_lookup"]
+        t = time.perf_counter()
+        # per-message: a batched zero-copy burst under loss returns zeros in
+        # both packages (ROADMAP T14)
+        rep = svc.gather(reqs, dataplane=dataplane)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        for i, (got, w) in enumerate(zip(rep.results, want)):
+            if not np.array_equal(got.view(np.int32), w.view(np.int32)):
+                raise AssertionError(f"gather loss {plane}: request {i} differs from the oracle")
+        (inv, retx), launches = server_work(gcl), launch_counts()["embed_lookup"] - launches0
+        if launches == 0 or launches != inv - inv0:
+            raise AssertionError(f"gather loss {plane}: {launches} embed_lookup launches for "
+                                 f"{inv - inv0} server dispatches")
+        arm = dict(wall_s=wall, server_dispatches=inv - inv0, kernel_launches=launches,
+                   frames_lost=gcl.fabric.stats.frames_lost,
+                   region_writes_lost=gcl.fabric.stats.region_writes_lost,
+                   retransmits=retx - retx0, rounds=rep.rounds,
+                   goodput_requests_per_round=len(reqs) / rep.rounds, puts=rep.puts)
+        out[f"gather 0.05 {plane}"] = arm
+        log(f"loss gather 0.05 {plane}: oracle-identical, {json.dumps(arm)}")
+    embed_dispatches = sum(pe.stats.invokes for pe in gcl.servers)
+    del svc, gcl
+    fcl = Cluster(n_servers=N_SERVERS, wire="thor_xeon", hetero_wire=True, device=dev)
+    fsvc = FilterShardService(fcl, vocab=vocab, dim=DIM, window=FILTER_WINDOW,
+                              max_slots=MAX_SLOTS, table=table)
+    fsvc.filter([s * fsvc.rows_per_shard for s in range(N_SERVERS)], 0.0, placement="pushdown")
+    fcl.set_reliability(cfg)
+    fcl.fabric.set_loss(0.05, seed=LOSS_SEED)
+    los = fsvc.windows(FILTER_REQUESTS, seed=1)
+    thresh = fsvc.thresh_for_selectivity(0.25)
+    (inv0, retx0), launches0 = server_work(fcl), launch_counts()["embed_lookup"]
+    t = time.perf_counter()
+    rep = fsvc.filter(los, thresh, placement="pushdown")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    for i, (got, w) in enumerate(zip(rep.results, fsvc.oracle_filter(los, thresh))):
+        if not np.array_equal(got.view(np.int32), w.view(np.int32)):
+            raise AssertionError(f"filter loss: window {i} differs from the oracle")
+    (inv, retx), launches = server_work(fcl), launch_counts()["embed_lookup"] - launches0
+    if launches == 0 or launches != inv - inv0 or fcl.fabric.stats.frames_lost == 0:
+        raise AssertionError(f"filter loss: {launches} embed_lookup launches for {inv - inv0} "
+                             f"server dispatches, {fcl.fabric.stats.frames_lost} frames lost")
+    arm = dict(wall_s=wall, server_dispatches=inv - inv0, kernel_launches=launches,
+               frames_lost=fcl.fabric.stats.frames_lost, retransmits=retx - retx0,
+               rounds=rep.rounds, goodput_windows_per_round=len(los) / rep.rounds,
+               puts=rep.puts)
+    out["filter 0.05 pushdown"] = arm
+    log(f"loss filter 0.05 pushdown sel=0.25: oracle-identical, {json.dumps(arm)}")
+    launches = launch_counts()
+    want_counts = {"chase_shard": chase_dispatches,
+                   "embed_lookup": embed_dispatches + sum(pe.stats.invokes for pe in fcl.servers)}
+    if {k: launches[k] for k in want_counts} != want_counts:
+        raise AssertionError(f"loss: launches {launches} in the phase for server dispatches "
+                             f"{want_counts}")
+    return {"arms": out, "launches": launches}
+
+
+def action_bomb():
+    """A hostile ifunc authored for the port: it emits an ``A_RETURN`` row
+    without declaring a ``returns:`` dep, an action its capability stamp can
+    never hold (``tests/test_sandbox.py``'s fixture, in torch ops)."""
+    from repro_torch.core import A_RETURN, ACTION_WIDTH, IFunc, ShapeDtypeStruct
+
+    def entry(payload):
+        z = payload[0] * 0
+        return torch.stack([z + A_RETURN, z, z + 1, payload[0]] + [z] * (ACTION_WIDTH - 4))
+
+    return IFunc.build(name="action_bomb", fn=entry,
+                       payload_aval=ShapeDtypeStruct((1,), torch.int32), abi="xrdma")
+
+
+def sandbox_phase(dev, table: np.ndarray) -> dict:
+    """The Gather service and the Filter under ``SandboxConfig.on()`` on
+    all-``cuda-sm90`` PEs: oracle-identical, no refusal, one cold verify a
+    PE install, a warm pass all stamp hits; then a torch-authored
+    ``action_bomb`` refused and quarantined cluster-wide while the next
+    healthy batch still completes."""
+    from repro_torch.core import Cluster, SandboxConfig, SandboxViolation
+    from repro_torch.kernels import launch_counts, reset_launches
+    from repro_torch.runtime import EmbedShardService, FilterShardService, ragged_batches
+
+    reset_launches()  # the sandboxed Gather and Filter launches are counted from here
+    vocab = table.shape[0]
+    verifies = lambda cl: sum(pe.verifier.verifies for pe in cl.pes())
+    installs = lambda cl: sum(pe.stats.ifunc_installs for pe in cl.pes())
+    hits = lambda cl: sum(pe.verifier.stamp_hits for pe in cl.pes())
+
+    def run(name, cl, fn, want) -> dict:
+        """One oracle-checked pass that refuses nothing new and launches
+        ``embed_lookup`` once per server dispatch, on all-cuda-sm90 PEs."""
+        launches0 = launch_counts()["embed_lookup"]
+        inv0, refused = sum(pe.stats.invokes for pe in cl.servers), cl.refusals()
+        t = time.perf_counter()
+        rep = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        for i, (got, w) in enumerate(zip(rep.results, want)):
+            if not np.array_equal(got.view(np.int32), w.view(np.int32)):
+                raise AssertionError(f"sandbox {name}: request {i} differs from the oracle")
+        if cl.refusals() != refused:
+            raise AssertionError(f"sandbox {name}: refusals {cl.refusals()}, before {refused}")
+        launches = launch_counts()["embed_lookup"] - launches0
+        dispatches = sum(pe.stats.invokes for pe in cl.servers) - inv0
+        if launches == 0 or launches != dispatches:
+            raise AssertionError(f"sandbox {name}: {launches} embed_lookup launches for "
+                                 f"{dispatches} server dispatches")
+        if any(pe.triple != "cuda-sm90" for pe in cl.pes()):
+            raise AssertionError(f"sandbox {name}: a PE is not cuda-sm90")
+        arm = dict(server_dispatches=dispatches, kernel_launches=launches,
+                   verifies=verifies(cl), installs=installs(cl), stamp_hits=hits(cl),
+                   wall_s=wall)
+        log(f"sandbox {name}: oracle-identical, no refusal, {json.dumps(arm)}")
+        return arm
+
+    out = {}
+    cl = Cluster(n_servers=N_SERVERS, wire="thor_xeon", device=dev)
+    svc = EmbedShardService(cl, vocab=vocab, dim=DIM, n_keys=N_KEYS, max_slots=MAX_SLOTS,
+                            table=table)
+    cl.set_sandbox(SandboxConfig.on())
+    reqs = ragged_batches(vocab, SANDBOX_REQUESTS, N_KEYS, seed=4)
+    want = svc.oracle(reqs)
+    gather = lambda: svc.gather(reqs, batching=True)
+    out["gather cold"] = cold = run("gather cold", cl, gather, want)
+    if cold["verifies"] != cold["installs"] or cold["verifies"] == 0:
+        raise AssertionError(f"sandbox gather: {cold['verifies']} cold verifies for "
+                             f"{cold['installs']} installs")
+    out["gather warm"] = warm = run("gather warm", cl, gather, want)
+    if warm["verifies"] != cold["verifies"] or warm["stamp_hits"] <= cold["stamp_hits"]:
+        raise AssertionError(f"sandbox gather warm: {warm['verifies'] - cold['verifies']} "
+                             f"verifies, {warm['stamp_hits'] - cold['stamp_hits']} stamp hits")
+    bomb = action_bomb()
+    cl.toolchain.publish(bomb)
+    hexd = bomb.digest.hex()
+    cl.client.send_ifunc("server0", "action_bomb", np.array([3], np.int32))
+    launches0 = launch_counts()["embed_lookup"]
+    try:
+        cl.drain()
+    except SandboxViolation as e:
+        refused = str(e)
+    else:
+        raise AssertionError("sandbox: the action_bomb was not refused")
+    if launch_counts()["embed_lookup"] != launches0:
+        raise AssertionError("sandbox: the action_bomb launched a kernel")
+    roll = cl.refusals()
+    if roll.get("verify_action") != 1 or any(hexd not in pe.verifier.quarantined
+                                             for pe in cl.pes()):
+        raise AssertionError(f"sandbox: action_bomb refusals {roll}, not quarantined everywhere")
+    if any(pe.target_cache.has_name("action_bomb") for pe in cl.pes()):
+        raise AssertionError("sandbox: the action_bomb is still installed")
+    healthy = reqs[:64]
+    out["gather after the bomb"] = run("gather after the bomb", cl, lambda: svc.gather(
+        healthy, batching=True), svc.oracle(healthy))
+    log(f"sandbox action_bomb: refused ({refused}), quarantined on all {len(cl.pes())} PEs, "
+        f"refusals {roll}; the next {len(healthy)} requests oracle-identical")
+    del svc, cl
+    fcl = Cluster(n_servers=N_SERVERS, wire="thor_xeon", hetero_wire=True, device=dev)
+    fsvc = FilterShardService(fcl, vocab=vocab, dim=DIM, window=FILTER_WINDOW,
+                              max_slots=MAX_SLOTS, table=table)
+    fcl.set_sandbox(SandboxConfig.on())
+    los = fsvc.windows(SANDBOX_REQUESTS, seed=1)
+    thresh = fsvc.thresh_for_selectivity(0.25)
+    fwant = fsvc.oracle_filter(los, thresh)
+    for name, batching in (("filter cold", False), ("filter warm", True)):
+        out[name] = run(name, fcl, lambda b=batching: fsvc.filter(
+            los, thresh, batching=b, placement="pushdown"), fwant)
+    if out["filter cold"]["verifies"] != out["filter cold"]["installs"]:
+        raise AssertionError(f"sandbox filter: {out['filter cold']['verifies']} cold verifies "
+                             f"for {out['filter cold']['installs']} installs")
+    if out["filter warm"]["verifies"] != out["filter cold"]["verifies"]:
+        raise AssertionError("sandbox filter warm: a warm pass verified code")
+    launches = launch_counts()["embed_lookup"]
+    if launches != sum(a["kernel_launches"] for a in out.values()):
+        raise AssertionError(f"sandbox: {launches} embed_lookup launches in the phase, "
+                             f"{sum(a['kernel_launches'] for a in out.values())} in its arms")
+    return {"arms": out, "launches": launches}
+
+
+def autotune_phase(app, starts, oracle) -> dict:
+    """A warm per-message DAPC run captured on the card, saved and loaded
+    back, its replay equal to the live counters; ``autotune`` for
+    ``thor_xeon`` on it, the profile installed through ``set_flow(profile=
+    path)`` and the run repeated, equal to the oracle."""
+    from repro_torch.analysis import (
+        ReplayModel, autotune, capture, load_trace, pe_stats_subset, replay_stats, save_trace,
+    )
+    from repro_torch.kernels import launch_counts, reset_launches
+
+    reset_launches()  # the captured and tuned DAPC launches are counted from here
+    cl = app.cluster
+    out_dir = ROOT / "build" / "chip_smoke"
+    out_dir.mkdir(parents=True, exist_ok=True)
+
+    def run(name, **kw):
+        inv0, launches0 = server_work(cl)[0], launch_counts()["chase_shard"]
+        t = time.perf_counter()
+        rep = app.dapc(starts, DAPC_DEPTH, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        if not np.array_equal(rep.results, oracle):
+            raise AssertionError(f"autotune {name}: results differ from the oracle")
+        launches = launch_counts()["chase_shard"] - launches0
+        if launches == 0 or launches != server_work(cl)[0] - inv0:
+            raise AssertionError(f"autotune {name}: {launches} chase_shard launches for "
+                                 f"{server_work(cl)[0] - inv0} server dispatches")
+        return rep, wall, launches
+
+    before = {pe.name: pe_stats_subset(pe.stats) for pe in cl.pes()}
+    with capture(cl, meta={"workload": "dapc", "chases": DAPC_CHASES, "depth": DAPC_DEPTH}) as rec:
+        rep, wall, launches = run("captured")
+    path = out_dir / "dapc_trace.jsonl"
+    t = time.perf_counter()
+    save_trace(rec, str(path))
+    trace = load_trace(str(path))
+    io_s = time.perf_counter() - t
+    traffic, pes = replay_stats(trace)
+    if traffic.as_dict() != cl.fabric.stats.as_dict():
+        raise AssertionError("autotune: replay_stats differs from the live TrafficStats")
+    for pe in cl.pes():
+        after = pe_stats_subset(pe.stats)
+        delta = {k: after[k] - before[pe.name][k] for k in after}
+        if pes.get(pe.name, dict.fromkeys(delta, 0)) != delta:
+            raise AssertionError(f"autotune: replayed {pe.name} {pes.get(pe.name)} != live {delta}")
+    t = time.perf_counter()
+    report = autotune(trace, wire="thor_xeon", seed=0)
+    tune_s = time.perf_counter() - t
+    prof = report.profile
+    prof_path = out_dir / "dapc_flow_profile.json"
+    prof.save(str(prof_path))
+    cl.set_flow(profile=str(prof_path))
+    tuned, tuned_wall, tuned_launches = run("tuned", batching=prof.batching,
+                                            dataplane=prof.dataplane())
+    estimate = ReplayModel(trace).cost(prof)
+    res = dict(events=len(trace), trace_bytes=path.stat().st_size, save_load_s=io_s,
+               captured_wall_s=wall, captured_launches=launches,
+               captured_modeled_us=rep.modeled_us, replay_default_us=report.default_us,
+               tune_s=tune_s, evaluations=report.evaluations, profile=prof.as_dict(),
+               tuned_wall_s=tuned_wall, tuned_launches=tuned_launches,
+               tuned_modeled_us=tuned.modeled_us, replay_tuned_us=estimate,
+               improvement_pct=report.improvement_pct)
+    log(f"autotune dapc: replay_stats equals the live counters ({len(trace)} events); tuned "
+        f"run oracle-identical; replay {estimate} us beside live {tuned.modeled_us} us "
+        f"(default: replay {report.default_us} beside live {rep.modeled_us}); {json.dumps(res)}")
+    if launch_counts()["chase_shard"] != launches + tuned_launches:
+        raise AssertionError(f"autotune: {launch_counts()['chase_shard']} chase_shard "
+                             f"launches in the phase, {launches + tuned_launches} in its runs")
+    return {"launches": launches + tuned_launches, **res}
+
+
 def profile_burst(svc, reqs, out: Path) -> None:
     """torch.profiler over one batched burst; its tables go to ``out``."""
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -2126,15 +2678,26 @@ def main() -> int:
     chase_checked = chase_kernel_phase(dev, rng, tables)
     dapc = dapc_phase(app, starts, oracle, args.profile)
     elapsed("the DAPC phases")
-    filtered = filter_phase(dev, service.pop("table"))
+    table = service.pop("table")
+    filtered = filter_phase(dev, table)
     elapsed("the Filter phase")
     prop_cluster, propagated = propagation_phase(dev)
     reduced = reduce_phase(prop_cluster)
     del prop_cluster
     torch.cuda.empty_cache()
     elapsed("the propagation and reduce phases")
+    tenancy = tenancy_phase(dev, table)
+    elapsed("the tenancy phase")
+    lossy = loss_phase(dev, app, starts, oracle, table, dapc["arms"])
+    elapsed("the loss phase")
+    sandboxed = sandbox_phase(dev, table)
+    elapsed("the sandbox phase")
+    tuned = autotune_phase(app, starts, oracle)
+    del table
+    torch.cuda.empty_cache()
+    elapsed("the tenancy, loss, sandbox and autotune phases")
     floor = time_floor(dev, rng, tables)
-    timing = time_kernel(dev, rng, floor, service["mean_n"])
+    timing = time_kernel(dev, rng, floor, service["mean_n"], filtered["mean_n"])
     chase_timing = time_chase(dev, rng, tables, floor, dapc["mean_b"])
     host_launch = time_host_launch(dev, rng, tables, timing, chase_timing)
     del app, tables
@@ -2166,7 +2729,12 @@ def main() -> int:
     embed_by_shape = {"message": g_arms["per_message"]["kernel_launches"],
                       "mean": sum(g_arms[a]["kernel_launches"] for a in ("batched", "zerocopy")),
                       **{f"remote {arch}": runs["remote"]["launches"]["embed_lookup"]
-                         for arch, runs in served.items()}}
+                         for arch, runs in served.items()},
+                      "filter": sum(c["arms"]["per_message"]["kernel_launches"]
+                                    for c in filtered["cells"]),
+                      "filter_batched": sum(c["arms"][a]["kernel_launches"]
+                                            for c in filtered["cells"]
+                                            for a in ("batched", "zerocopy", "auto"))}
     chase_by_shape = {"message": d_arms["bitcode_per_message"]["kernel_launches"],
                       "mean": sum(d_arms[a]["kernel_launches"] for a in (
                           "bitcode_batched", "bitcode_zerocopy", "binary_batched"))}
@@ -2191,6 +2759,9 @@ def main() -> int:
                                   for arch, runs in served.items()},
         "launches_by_route_remote_embed": {arch: runs["remote"]["routes"]["embed_lookup"]
                                            for arch, runs in served.items()},
+        "launches_tenancy": tenancy["launches"],
+        "launches_loss": lossy["launches"]["embed_lookup"],
+        "launches_sandbox": sandboxed["launches"],
         "max_abs_err": checked["max_abs_err"],
         **{k: timing["message"][k] for k in keys},
         "shape": f"message N={N_KEYS} f32 rows of {DIM} ({timing['message']['route']})",
@@ -2208,6 +2779,8 @@ def main() -> int:
         "replaces": "src/repro/kernels/chase/kernel.py:70",
         "launches": dapc["launches"]["chase_shard"],
         "launches_by_route": dapc["routes"],
+        "launches_loss": lossy["launches"]["chase_shard"],
+        "launches_autotune": tuned["launches"],
         "max_abs_err": chase_checked["max_abs_err"],
         **{k: chase_timing["message"][k] for k in keys},
         "shape": (f"message B=1 depth {DAPC_DEPTH} on the chain "

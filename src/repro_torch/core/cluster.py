@@ -15,6 +15,7 @@ quietly running the port on the CPU.
 
 from __future__ import annotations
 
+import json
 from typing import Callable
 
 import numpy as np
@@ -71,8 +72,8 @@ class Cluster:
         )
         # placement optimizers watching this cluster (register_placement):
         # restart_server tells them to drop cached plans routed to the
-        # restarted PE.  Cluster-level default placement policy
-        # (set_placement).
+        # restarted PE.  Cluster-level default placement policy, settable
+        # via tuned FlowProfiles (set_flow).
         self._placements: list = []
         self.placement_policy: str | None = None
 
@@ -138,6 +139,81 @@ class Cluster:
         cfg = config or PropagationConfig()
         for pe in self.pes():
             pe.propagation = cfg
+
+    def set_flow(
+        self,
+        lanes: bool | None = None,
+        credit_window: int | None = None,
+        poll_budget: int | None = ...,  # type: ignore[assignment]
+        profile: "str | dict | None" = None,
+    ) -> None:
+        """Install progress-engine/flow-control knobs on every PE: control-
+        before-data ``lanes``, the per-peer ``credit_window`` (payloads;
+        0 disables), and the per-poll ``poll_budget`` (payloads; ``None``
+        drains everything; pass it explicitly to change it — the default
+        leaves it alone).
+
+        ``profile`` loads a whole tuned knob set at once — a mapping (or a
+        path to a JSON file) in the ``FlowProfile.as_dict()`` shape emitted
+        by :mod:`repro_torch.analysis.autotune` — applying batching, the
+        data plane, the propagation tree, the flow knobs above, tenant
+        budgets and the placement policy in one shot.  Explicit keyword
+        arguments win over the profile's values.  The profile travels as
+        plain JSON so the core never imports the analysis layer.
+        """
+        if profile is not None:
+            if isinstance(profile, str):
+                with open(profile) as fp:
+                    profile = json.load(fp)
+            if "batching" in profile:
+                self.set_batching(bool(profile["batching"]))
+            if {"eager_max", "rndv_min", "zerocopy"} & profile.keys():
+                self.set_dataplane(
+                    DataPlaneConfig(
+                        eager_max=int(profile.get("eager_max", 256)),
+                        rndv_min=int(profile.get("rndv_min", 1 << 62)),
+                        zerocopy=bool(profile.get("zerocopy", False)),
+                    )
+                )
+            k_code = profile.get("k_code")
+            if k_code is not None:
+                self.set_propagation(
+                    PropagationConfig()
+                    if int(k_code) == 0
+                    else PropagationConfig(topology="kary", k=int(k_code))
+                )
+            if lanes is None and "lanes" in profile:
+                lanes = bool(profile["lanes"])
+            if credit_window is None and "credit_window" in profile:
+                credit_window = int(profile["credit_window"])
+            if poll_budget is ... and "poll_budget" in profile:
+                pb = profile["poll_budget"]
+                poll_budget = None if pb is None else int(pb)
+            if profile.get("tenant_budgets"):
+                self.set_tenant_budgets(dict(profile["tenant_budgets"]))
+            if "placement" in profile:
+                self.set_placement(profile["placement"])
+        for pe in self.pes():
+            if lanes is not None:
+                pe.lanes = lanes
+            if credit_window is not None:
+                pe.credit_window = credit_window
+            if poll_budget is not ...:
+                pe.poll_budget = poll_budget
+
+    def set_tenant_budgets(self, budgets: "dict[str, int] | str | None") -> None:
+        """Install one per-tenant outgoing-credit budget map on every PE's
+        wire layer (tenant -> payloads in flight; 0/absent = unbudgeted);
+        ``None`` clears all budgets — the untenanted runtime.  A string is
+        a path to a JSON file holding the map (or a tuned profile dict
+        with a ``tenant_budgets`` key)."""
+        if isinstance(budgets, str):
+            with open(budgets) as fp:
+                loaded = json.load(fp)
+            budgets = loaded.get("tenant_budgets", loaded) or {}
+        budgets = dict(budgets or {})
+        for pe in self.pes():
+            pe.wire.tenant_budgets = dict(budgets)
 
     def set_reliability(self, config: ReliabilityConfig | None) -> None:
         """Install one reliability policy (seq/ack tracking, retransmit

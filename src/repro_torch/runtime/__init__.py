@@ -1,5 +1,6 @@
 """Serving runtimes over the port's X-RDMA substrate: the embedding-shard
-service and its predicate-pushdown sibling, and the LM's continuous-batching scheduler with its remote
+service and its predicate-pushdown sibling, the multi-tenant router over
+it, and the LM's continuous-batching scheduler with its remote
 embedding client."""
 
 from .embed_service import (
@@ -10,9 +11,9 @@ from .embed_service import (
     ragged_batches,
 )
 from .serving import Request, ServeScheduler
-from .tenancy import RemoteEmbedClient
+from .tenancy import RemoteEmbedClient, TenantClass, TenantRouter, TenantStats
 
 __all__ = [
     "EmbedShardService", "FilterShardService", "GatherReport", "GatherRequest", "RemoteEmbedClient", "Request",
-    "ServeScheduler", "ragged_batches",
+    "ServeScheduler", "TenantClass", "TenantRouter", "TenantStats", "ragged_batches",
 ]

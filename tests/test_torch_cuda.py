@@ -718,3 +718,101 @@ def test_hymba_launches_one_kernel_each_per_layer(card):
     assert torch.isfinite(logits.float()).all()
     for name, leaf in cache.items():
         assert torch.equal(leaf[:, 0], kept[name]), name
+
+
+# ------------------------------------------------------- the control layers
+def test_tenant_router_rows_bit_exact_on_the_card(card):
+    """A ``TenantRouter`` over the Gather service on the card: a throttled
+    hot tenant and an express background tenant, every served request
+    bit-exact, shed ones never served, one launch per server dispatch."""
+    from repro_torch.runtime import EmbedShardService, TenantClass, TenantRouter
+
+    cl = Cluster(4, wire="thor_bf2", device=card)
+    svc = EmbedShardService(cl, vocab=4 * 256, dim=32, n_keys=8, max_slots=16)
+    invokes0 = sum(pe.stats.invokes for pe in cl.servers)
+    before = embed_lookup.launches
+    cl.set_batching(True)
+    svc.batching = True
+    cl.set_flow(lanes=True, credit_window=8, poll_budget=16)
+    router = TenantRouter(svc, [
+        TenantClass("hot", slot_quota=2, queue_limit=6, credit_budget=1),
+        TenantClass("bg", express=True),
+    ])
+    rng = np.random.default_rng(3)
+    expected, done = {}, []
+    for tick in range(12):
+        for tenant, rate in (("hot", 4), ("bg", 1)):
+            for _ in range(rate):
+                keys = rng.integers(0, svc.vocab, rng.integers(1, 9)).astype(np.int32)
+                rid = router.submit(tenant, keys)
+                if rid is not None:
+                    expected[rid] = svc.table[keys]
+        done += router.tick()
+    while svc.queue or svc.active:
+        done += router.tick()
+    torch.cuda.synchronize()
+    assert sorted(r.rid for r in done) == sorted(expected)
+    for req in done:
+        assert not req.degraded
+        assert np.array_equal(req.rows.view(np.int32), expected[req.rid].view(np.int32))
+    assert router.stats["hot"].shed > 0 and router.stats["bg"].shed == 0
+    dispatches = sum(pe.stats.invokes for pe in cl.servers) - invokes0
+    assert embed_lookup.launches - before == dispatches > 0
+
+
+def test_dapc_under_loss_on_the_card(card):
+    """DAPC at 5% loss with reliability on: oracle-identical, and one
+    ``chase_shard`` launch per server dispatch (a duplicate dropped at the
+    seq gate launches nothing)."""
+    from repro_torch.core import PointerChaseApp, ReliabilityConfig, chase_ref
+
+    cl = Cluster(4, wire="thor_xeon", device=card)
+    app = PointerChaseApp(cl, n_entries=1 << 14, max_slots=32, seed=0)
+    cl.set_reliability(ReliabilityConfig.on())
+    cl.fabric.set_loss(0.05, seed=1)
+    starts = np.random.default_rng(2).integers(0, 1 << 14, 32).astype(np.int32)
+    want = np.array([chase_ref(app.table, s, 16) for s in starts], np.int32)
+    for batching in (False, True):
+        invokes0 = sum(pe.stats.invokes for pe in cl.servers)
+        before = chase_shard.launches
+        rep = app.dapc(starts, 16, batching=batching)
+        torch.cuda.synchronize()
+        assert np.array_equal(rep.results, want)
+        assert cl.fabric.stats.frames_lost > 0
+        dispatches = sum(pe.stats.invokes for pe in cl.servers) - invokes0
+        assert chase_shard.launches - before == dispatches > 0
+    assert sum(pe.stats.retransmits for pe in cl.pes()) > 0
+
+
+def test_sandbox_refuses_and_quarantines_a_card_slice(card):
+    """A hostile ifunc with a ``cuda-sm90`` slice (an A_RETURN row without a
+    ``returns:`` dep) is refused on a card PE and quarantined on every PE;
+    the Gather beside it still serves bit-exact rows, no launch for the
+    refused code."""
+    from repro_torch.core import (
+        A_RETURN, ACTION_WIDTH, IFunc, SandboxConfig, SandboxViolation, ShapeDtypeStruct,
+    )
+    from repro_torch.runtime import EmbedShardService
+
+    def entry(payload):
+        z = payload[0] * 0
+        return torch.stack([z + A_RETURN, z, z + 1, payload[0]] + [z] * (ACTION_WIDTH - 4))
+
+    bomb = IFunc.build(name="action_bomb", fn=entry, abi="xrdma", targets=("cuda-sm90",),
+                       payload_aval=ShapeDtypeStruct((1,), torch.int32))
+    cl = Cluster(2, wire="thor_xeon", device=card)
+    svc = EmbedShardService(cl, vocab=512, dim=16, n_keys=4, max_slots=8)
+    cl.set_sandbox(SandboxConfig.on())
+    keys = [np.array([3, 300, 7], np.int32), np.array([511], np.int32)]
+    svc.gather(keys)
+    cl.toolchain.publish(bomb)
+    cl.client.send_ifunc("server0", "action_bomb", np.array([3], np.int32))
+    before = embed_lookup.launches
+    with pytest.raises(SandboxViolation, match="A_RETURN"):
+        cl.servers[0].poll()
+    assert embed_lookup.launches == before
+    assert cl.refusals() == {"verify_action": 1}
+    assert all(bomb.digest.hex() in pe.verifier.quarantined for pe in cl.pes())
+    rep = svc.gather(keys)
+    for got, want in zip(rep.results, svc.oracle(keys)):
+        assert np.array_equal(got.view(np.int32), want.view(np.int32))

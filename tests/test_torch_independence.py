@@ -35,7 +35,7 @@ def test_no_jax_or_reference_imports(path):
 def test_importing_the_port_loads_no_jax():
     code = (
         "import sys, repro_torch.core, repro_torch.runtime, repro_torch.kernels, "
-        "repro_torch.sharding; "
+        "repro_torch.sharding, repro_torch.analysis; "
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]; "
         "print(bad); sys.exit(1 if bad else 0)"
     )
@@ -120,6 +120,28 @@ def test_slice_9_entry_points_without_a_card_raise(monkeypatch, entry):
         "placement": lambda: PlacementOptimizer(Cluster(2, hetero_wire=True)),
         "xrdma_bcast": lambda: xrdma_bcast(Cluster(2), "tsi"),
         "xrdma_reduce": lambda: xrdma_reduce(Cluster(2), np.zeros((3, 2), np.int32)),
+    }
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        calls[entry]()
+
+
+@pytest.mark.parametrize("entry", ["tenant_router", "remote_embed"])
+def test_slice_10_entry_points_without_a_card_raise(monkeypatch, entry):
+    """The tenant router reaches the card through its service's cluster:
+    without a card, and without ``device="cpu"``, it raises before any
+    work, as the remote embedding client does."""
+    import numpy as np
+
+    from repro_torch.runtime import (
+        EmbedShardService, RemoteEmbedClient, TenantClass, TenantRouter,
+    )
+
+    calls = {
+        "tenant_router": lambda: TenantRouter(
+            EmbedShardService(Cluster(2), vocab=32, dim=4, n_keys=4), [TenantClass("t")]
+        ),
+        "remote_embed": lambda: RemoteEmbedClient(np.zeros((8, 4), np.float32)),
     }
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
