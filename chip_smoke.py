@@ -1,4 +1,4 @@
-"""Drive the PyTorch port's Gather service, DAPC, Filter pushdown, tree collectives, control layers, yi-9b, rwkv6-1.6b and hymba-1.5b serving once on an NVIDIA card.
+"""Drive the PyTorch port's Gather service, DAPC, Filter pushdown, tree collectives, control layers, compiled SPMD rendering, yi-9b, rwkv6-1.6b and hymba-1.5b serving once on an NVIDIA card.
 
 Usage: ``python3 chip_smoke.py [--profile DIR]`` from the root of
 a checkout, on a host with one Hopper card (sm_90) and the CUDA toolkit.
@@ -84,6 +84,38 @@ a checkout, on a host with one Hopper card (sm_90) and the CUDA toolkit.
    live counters; ``autotune`` for ``thor_xeon``, the profile installed by
    ``set_flow(profile=path)``, the run repeated oracle-identical; the
    replay's estimate logged beside the live ``modeled_us``.
+9a. Compiled SPMD phase (``repro_torch.sharding``, ``attend_sp``): 4
+   gloo ranks (``torch.multiprocessing``), all on the one card, each
+   holding its shards there; gloo stages every collective through the
+   host, so the walls are host numbers.  On a (1, 4) ("data", "model")
+   mesh: ``dapc_shard_map`` (64 rounds, each one ``chase_shard`` launch of
+   depth 1 and a psum of 256 int32) and ``gbpc_reference`` (the shards
+   all-gathered, then 64 ``index_select`` hops) over the DAPC phase's
+   chain (128 MiB a shard), both equal to the oracle, with 64 launches and
+   64 x 256 x 4 collective bytes a rank (gbpc's bytes and the ratio
+   logged); ``gather_shard_map`` over the service phase's table (512 MiB a
+   shard), 1,024 requests x 16 keys, bit-identical to ``gather_ref``, one
+   ``embed_lookup`` launch a rank.  On a (2, 2) mesh: ``embed_c2d`` and
+   ``embed_gather`` on yi-9b's vocab table (64,000 x 4,096 bf16, seed 0)
+   with launch.serve's ids (B = 4, S = 2,048), bit-identical to
+   ``embed_plain``, c2d one ``bulk`` launch a rank; ``attend_sp`` over
+   both axes at hymba's width (25/5 heads of 64, bf16, B = 1, S = 3,072,
+   768 queries a rank), global and window 2,048, every rank bit-identical
+   to one ``flash_attention`` call on the whole sequence and, like that
+   call, within the flash phase's bounds (11) of the plain version, one
+   ``wgmma`` launch a rank a layer; ``compressed_psum_with_feedback``
+   and ``hierarchical_psum`` of one 25 MiB f32 bucket a rank: q, error
+   and result equal to numpy's f32 arithmetic, the hierarchical sum
+   within 3 f32 roundings of the f64 sum, the relative error and the
+   int32 payload bytes against f32's logged.  Then one NCCL rank runs
+   DAPC, GBPC and the Gather at the same sizes, oracle-identical.  The
+   chain and the table reach the ranks as ``.npy`` files under
+   ``build/chip_smoke/spmd`` (removed after); every rank counts its
+   launches by route and its collective bytes from 0 for each arm.  The
+   timings (10, 15) add the phase's kernel shapes: ``chase_shard`` at B
+   = 256, depth 1, on a 2**25-entry shard; ``embed_lookup`` at N = 16,384
+   of 512-byte rows and N = 4,096 of 8 KB bf16 rows; ``flash_attention``
+   at S = 768 over T = 768-3,072, global and windowed.
 10. Timing: the launch floor and the hop latency L (chase_shard's latency
    probe: one thread's dependent loads, 0 and 1,024 hops, __ldg and
    ld.global.cg in turns; L on the shard-sized cycle, from HBM and from L2);
@@ -94,7 +126,8 @@ a checkout, on a host with one Hopper card (sm_90) and the CUDA toolkit.
    ``chase_shard`` at B = 1, the batched arm's
    mean B and 256 on the chain and 256 on the cycle,
    each route in turns (A B B A, 5 rounds, median and spread;
-   ``index_select`` in the same turns), with device ms per call (CUDA
+   ``index_select`` in the same turns, the reachable bound held against
+   the routes' times alone), with device ms per call (CUDA
    events around calls queued behind a sleep; torch.profiler for the plain
    versions, which wait for the card inside a call), back-to-back call ms,
    the bytes bound and the reachable bound (floor + the larger of bytes
@@ -129,7 +162,7 @@ a checkout, on a host with one Hopper card (sm_90) and the CUDA toolkit.
    --embed-servers 2``: the two token streams bit-identical,
    ``embed_lookup`` launched in the remote run.
 15. Times ``flash_attention`` at the prefill (S = T = 2,048) and decode
-   (B = 8, T = 2,048) shapes beside its plain version,
+   (B = 8, T = 2,048) shapes, and at hymba's and attend_sp's, beside its plain version,
    ``scaled_dot_product_attention`` and its bound (operations or bytes),
    and logs each tensor-core and split instance's registers and spills
    from the build's ptxas report.
@@ -199,11 +232,14 @@ hymba-1.5b) to ``DIR``.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import re
+import shutil
 import subprocess
 import sys
 import time
+from datetime import timedelta
 from pathlib import Path
 
 import numpy as np
@@ -317,6 +353,12 @@ SPLIT_GRID_B, SPLIT_GRID_T = (1, 4), (128, 192, 256, 384, 512, 1024, 2048, 3072)
 # Filter's requests; the loss model's seed
 TENANCY_ROWS, TENANCY_DIM, TENANCY_N_KEYS = 64, 16, 8
 SANDBOX_REQUESTS, LOSS_SEED = 256, 1
+# the compiled SPMD phase: 4 gloo ranks sharing the card, yi-9b's vocab
+# table, hymba's longest prompt (768 queries a rank); a dead rank fails the
+# others after SPMD_TIMEOUT
+SPMD_RANKS, YI_VOCAB, YI_DIM, SPMD_SEQ = 4, 64_000, 4_096, 3_072
+SPMD_TIMEOUT = timedelta(seconds=300)
+SPMD_DIR = ROOT / "build" / "chip_smoke" / "spmd"
 
 
 def log(*args) -> None:
@@ -614,36 +656,50 @@ def time_kernel(dev, rng, floor: dict, mean_n: float, filter_mean_n: float) -> d
     launch.serve's remote embedding, N = 8 ids (RemoteEmbedClient's
     n_keys) of each LM's d_model f32 rows; and the Filter's, one window of
     N = 24 contiguous rows a dispatch and its batched arms' windows a
-    launch, as the rows' i32 bit patterns.  Each table holds 256 MiB and
-    each shape has 128 distinct id sets, so the rows are cold in L2.  Each
-    route and index_select (on the in-shard ids only: its yardstick) in
-    turns."""
+    launch, as the rows' i32 bit patterns.  Each table holds 256 MiB.  And
+    the compiled SPMD phase's: N = 16,384 ids of the Gather into one rank's
+    1,048,576-row f32 shard (512 MiB), and N = 4,096 of embed_c2d into a
+    32,000-row shard of yi-9b's bf16 vocab (8 KB rows), the ids uniform over
+    every shard's rows, as the ranks' are.  Each shape has 128 distinct id
+    sets, so the rows are cold in L2.  Each route and index_select (on the
+    in-shard ids only: its yardstick, which writes fewer rows, so the
+    reachable bound is held against the routes' times alone) in turns."""
     from repro_torch.configs import get_config
     from repro_torch.kernels.embed_lookup import embed_lookup, embed_lookup_ref, embed_route
     from repro_torch.kernels.embed_lookup.kernel import ROUTES
 
     library = lambda t, i: torch.index_select(t, 0, i)  # yardstick, unused by the port
     saved = embed_lookup.launches, dict(embed_lookup.route_launches), embed_lookup.items
-    # (label, ids, row width, Filter windows a launch or 0 for random ids)
-    timed = [("message", N_KEYS, DIM, 0), ("mean", max(1, round(mean_n)), DIM, 0),
-             ("bucket64", MAX_SLOTS * N_KEYS, DIM, 0)]
-    timed += [(f"remote {arch}", REMOTE_KEYS, get_config(arch).d_model, 0)
+    # (label, ids, row width, Filter windows a launch or 0 for random ids,
+    # and for an SPMD rank's launch: its table's dtype and rows and the
+    # number of shards its ids spread over)
+    timed = [("message", N_KEYS, DIM, 0, None), ("mean", max(1, round(mean_n)), DIM, 0, None),
+             ("bucket64", MAX_SLOTS * N_KEYS, DIM, 0, None)]
+    timed += [(f"remote {arch}", REMOTE_KEYS, get_config(arch).d_model, 0, None)
               for arch in PATH_KERNEL]
     batch = max(1, round(filter_mean_n / FILTER_WINDOW))
-    timed += [("filter", FILTER_WINDOW, DIM, 1),
-              ("filter_batched", batch * FILTER_WINDOW, DIM, batch)]
+    timed += [("filter", FILTER_WINDOW, DIM, 1, None),
+              ("filter_batched", batch * FILTER_WINDOW, DIM, batch, None)]
+    timed += [("spmd gather", N_REQUESTS * N_KEYS, DIM, 0,
+               (torch.float32, SHARD_ROWS * N_SERVERS // SPMD_RANKS, SPMD_RANKS)),
+              ("spmd embed_c2d", LAUNCH_BATCH // 2 * LAUNCH_PROMPT, YI_DIM, 0,
+               (torch.bfloat16, YI_VOCAB // 2, 2))]
     shapes, table = {}, None
-    for label, n, dim, windows in timed:
-        rows_n = SHARD_ROWS * DIM // dim  # 256 MiB of f32 rows
-        lo = 3 * rows_n
-        if table is None or table.shape[1] != dim:
+    for label, n, dim, windows, spmd in timed:
+        dtype, rows_n, shards = spmd or (torch.float32, SHARD_ROWS * DIM // dim, 0)  # 256 MiB
+        lo = rows_n if shards else 3 * rows_n  # an SPMD table is rank 1's shard
+        if table is None or table.shape != (rows_n, dim) or table.dtype != dtype:
             del table
-            table = torch.randn(rows_n, dim, device=dev)
+            table = torch.randn(rows_n, dim, device=dev).to(dtype)
         lo_t = torch.tensor([lo], dtype=torch.int32, device=dev)
         row = dim * table.element_size()
         if windows:  # the Filter resolves its window as the rows' bit patterns
             sets = [window_ids(rng, windows, lo, rows_n, dev) for _ in range(128)]
             args = [(table.view(torch.int32), ids, lo_t) for ids in sets]
+        elif shards:  # an SPMD rank's ids: uniform over every shard's rows
+            sets = [torch.from_numpy(rng.integers(0, shards * rows_n, n).astype(np.int32)).to(dev)
+                    for _ in range(128)]
+            args = [(table, ids, lo_t) for ids in sets]
         else:
             sets = [edge_ids(rng, n, lo, rows_n, dev) for _ in range(128)]
             args = [(table, ids, lo_t) for ids in sets]
@@ -658,7 +714,7 @@ def time_kernel(dev, rng, floor: dict, mean_n: float, filter_mean_n: float) -> d
         route = embed_route(n, row, True)
         bytes_ms = moved / HBM_BYTES_PER_S * 1e3
         hop, l2 = floor["hop_us"] / 1e3, floor["l2_us"] / 1e3
-        least = min(v["median"] for v in ab.values())
+        least = min(ab[r]["median"] for r in ROUTES)
         reach, count = reachable_bound(floor["floor_ms"], bytes_ms, (
             ("id and row at L", 2 * hop), ("id from L2, row at L", l2 + hop),
             ("id and row from L2", 2 * l2), ("no load latency", 0.0)), least,
@@ -676,7 +732,7 @@ def time_kernel(dev, rng, floor: dict, mean_n: float, filter_mean_n: float) -> d
             "call_ms": calls[route], "calls_ms": calls,
             "half_of_reachable": reach >= 0.5 * ab[route]["median"],
         }
-        kind = f"{windows} window(s) of i32" if windows else "f32"
+        kind = f"{windows} window(s) of i32" if windows else str(dtype)[6:]
         log(f"timing embed_lookup {label} n={n} {kind} rows of {row} B ({route}), {moved:.0f} B "
             f"moved: {json.dumps(shapes[label])}; in turns (A B B A, 5 rounds): "
             f"{json.dumps(ab)}")
@@ -1186,13 +1242,15 @@ def dapc_phase(app, starts, oracle, profile_dir: str | None) -> dict:
     return {"launches": launches, "routes": routes, "arms": per_arm, "mean_b": mean_b}
 
 
-def time_chase(dev, rng, tables, floor: dict, mean_b: float) -> dict:
+def time_chase(dev, rng, tables, floor: dict, mean_b: float, chain: np.ndarray) -> dict:
     """Times at the shapes the DAPC path's launches come in: B = 1 chase (a
     message), the batched arm's mean B and B = 256, depth 64, into one
     2**24-entry shard of the DAPC chain (most chases leave after about one
     hop), and B = 256 on a cycle local to the shard (every chase takes its
-    64 hops); 128 distinct frontier sets a shape, so the shard is read from
-    HBM.  Both routes in turns.  The bytes bound counts 16 B per chase
+    64 hops); and the compiled SPMD phase's round, B = 256 at depth 1 on one
+    rank's 2**25-entry shard of ``chain`` with frontiers over the whole
+    chain (a quarter in the shard); 128 distinct frontier sets a shape, so
+    the shard is read from HBM.  Both routes in turns.  The bytes bound counts 16 B per chase
     (frontier and depth read and written) plus 4 B per hop taken; the
     reachable one the mean over the sets of a launch's longest chase, in
     loads of the probe's latency."""
@@ -1200,16 +1258,20 @@ def time_chase(dev, rng, tables, floor: dict, mean_b: float) -> dict:
     from repro_torch.kernels.chase.kernel import ROUTES
 
     saved = chase_shard.launches, dict(chase_shard.route_launches), chase_shard.items
+    n_loc = DAPC_ENTRIES // SPMD_RANKS
+    kinds = {**tables, "spmd": (torch.from_numpy(chain[n_loc : 2 * n_loc]).to(dev), n_loc, 1)}
     shapes = {}
-    for label, kind, b in (("message", "chain", 1), ("mean", "chain", max(1, round(mean_b))),
-                           ("bucket", "chain", DAPC_CHASES), ("cycle", "cycle", DAPC_CHASES)):
-        table, lo, _ = tables[kind]
+    for label, kind, b, hops_to in (
+            ("message", "chain", 1, DAPC_DEPTH),
+            ("mean", "chain", max(1, round(mean_b)), DAPC_DEPTH),
+            ("bucket", "chain", DAPC_CHASES, DAPC_DEPTH),
+            ("cycle", "cycle", DAPC_CHASES, DAPC_DEPTH), ("spmd", "spmd", DAPC_CHASES, 1)):
+        table, lo, _ = kinds[kind]
         lo_t = torch.tensor([lo], dtype=torch.int32, device=dev)
-        depth = torch.full((b,), DAPC_DEPTH, dtype=torch.int32, device=dev)
-        sets = [
-            torch.from_numpy(rng.integers(lo, lo + table.shape[0], b).astype(np.int32)).to(dev)
-            for _ in range(128)
-        ]
+        depth = torch.full((b,), hops_to, dtype=torch.int32, device=dev)
+        f_lo, f_hi = (0, DAPC_ENTRIES) if kind == "spmd" else (lo, lo + table.shape[0])
+        sets = [torch.from_numpy(rng.integers(f_lo, f_hi, b).astype(np.int32)).to(dev)
+                for _ in range(128)]
         args = [(table, f, depth, lo_t) for f in sets]
         hops = torch.stack([depth - chase_shard_ref(*a)[1] for a in args]).long()
         longest = hops.max(dim=1).values.float().mean().item()
@@ -1227,7 +1289,7 @@ def time_chase(dev, rng, tables, floor: dict, mean_b: float) -> dict:
         calls["path"] = call_ms(chase_shard, args)  # the wrapper on its default route
         calls["plain"] = call_ms(chase_shard_ref, args)
         shapes[label] = {
-            "b": b, "table": kind, "route": route, "ms": ab[route]["median"],
+            "b": b, "depth": hops_to, "table": kind, "route": route, "ms": ab[route]["median"],
             "route_ms": {r: ab[r]["median"] for r in ROUTES},
             "plain_ms": device_ms(chase_shard_ref, args),  # waits for the card each hop
             "library_ms": None,  # no single PyTorch call chases to exit
@@ -1238,9 +1300,10 @@ def time_chase(dev, rng, tables, floor: dict, mean_b: float) -> dict:
             "call_ms": calls[route], "calls_ms": calls,
             "half_of_reachable": reach >= 0.5 * ab[route]["median"],
         }
-        log(f"timing chase_shard {label} {kind} B={b} depth {DAPC_DEPTH} ({route}), "
+        log(f"timing chase_shard {label} {kind} B={b} depth {hops_to} ({route}), "
             f"{moved:.0f} B moved: {json.dumps(shapes[label])}; in turns (A B B A, 5 "
             f"rounds): {json.dumps(ab)}")
+    del kinds
     chase_shard.launches, chase_shard.route_launches, chase_shard.items = saved
     return shapes
 
@@ -1324,6 +1387,30 @@ def _flash_case(dev, g, b, s, t, h, kh, d, dtype, t_max=None):
     return q, kc[:, :t], vc[:, :t]
 
 
+def flash_within(what: str, dtype, got, want, want32=None) -> tuple[str, float, float]:
+    """flash_attention's ``got`` within FLASH_TOL[dtype] of the plain
+    version's ``want`` (on inputs of ``dtype``) and, for bf16, within
+    FLASH_F32P_* of ``want32`` (the plain version on f32 copies); raises
+    where not.  Returns the log line and both errors (the second 0.0 where
+    there is no ``want32``)."""
+    got, want = got.float(), want.float()
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    tol = FLASH_TOL[dtype]
+    line = (f"{what}: max_abs_err={err} (within {tol}), plain |out| max "
+            f"{want.abs().max().item()} rms {want.square().mean().sqrt().item()}")
+    if not torch.allclose(got, want, atol=tol, rtol=tol):
+        raise AssertionError(f"flash_attention differs from plain: {line}")
+    err32 = 0.0
+    if want32 is not None:
+        err32 = (got - want32).abs().max().item()
+        line += (f"; against f32 probabilities max_abs_err={err32} (within atol "
+                 f"{FLASH_F32P_ATOL}, rtol {FLASH_F32P_RTOL})")
+        if not torch.allclose(got, want32, atol=FLASH_F32P_ATOL, rtol=FLASH_F32P_RTOL):
+            raise AssertionError(f"flash_attention differs from plain: {line}")
+    return line, err, err32
+
+
 def flash_kernel_phase(dev) -> dict:
     """flash_attention on the card against its plain version: yi's prefill
     (S = T = 300, 1,000 and 2,048; S = 256 on a 1,024-token view of a
@@ -1377,27 +1464,16 @@ def flash_kernel_phase(dev) -> dict:
             q, k, v = _flash_case(dev, g, *shape)
         route = flash_route(dtype, q.shape[1], q.shape[2], k.shape[2])
         at = flash_attention.route_launches[route]
-        got = flash_attention(q, k, v, **kw).float()
+        got = flash_attention(q, k, v, **kw)
         if flash_attention.route_launches[route] != at + 1:
             raise AssertionError(f"flash_attention {label}: no launch on the {route} route")
-        want = flash_attention_ref(q, k, v, **kw).float()
-        torch.cuda.synchronize()
-        err = (got - want).abs().max().item()
-        tol = FLASH_TOL[dtype]
-        line = (f"kernel flash_attention {label} {str(dtype)[6:]} ({route}): max_abs_err={err} "
-                f"(within {tol}), plain |out| max {want.abs().max().item()} rms "
-                f"{want.square().mean().sqrt().item()}")
-        if not torch.allclose(got, want, atol=tol, rtol=tol):
-            raise AssertionError(f"flash_attention differs from plain: {line}")
+        want = flash_attention_ref(q, k, v, **kw)
+        want32 = flash_attention_ref(q.float(), k.float(), v.float(), **kw) if dtype == bf16 \
+            else None
+        line, err, err32 = flash_within(
+            f"kernel flash_attention {label} {str(dtype)[6:]} ({route})", dtype, got, want, want32)
         worst[dtype] = max(worst[dtype], err)
-        if dtype == bf16:
-            want = flash_attention_ref(q.float(), k.float(), v.float(), **kw)
-            err = (got - want).abs().max().item()
-            line += (f"; against f32 probabilities max_abs_err={err} (within atol "
-                     f"{FLASH_F32P_ATOL}, rtol {FLASH_F32P_RTOL})")
-            if not torch.allclose(got, want, atol=FLASH_F32P_ATOL, rtol=FLASH_F32P_RTOL):
-                raise AssertionError(f"flash_attention differs from plain: {line}")
-            worst["f32_probs"] = max(worst["f32_probs"], err)
+        worst["f32_probs"] = max(worst["f32_probs"], err32)
         log(line)
     # checking launches are not main-path launches
     flash_attention.launches, flash_attention.route_launches = before
@@ -1677,7 +1753,9 @@ def time_flash(dev) -> dict:
     (B=8, S=1, T=2,048 on views of 4,096-slot caches, 8 cache sets so the
     268 MB of K/V exceeds the 50 MB L2) shapes, and at hymba's windowed
     prefill (B=1, S=T=3,072) and decode (B=8, T=4,096, 8 whole caches)
-    with its 2,048 window (SDPA given the window as a boolean mask), bf16: the kernel's from
+    with its 2,048 window, and attend_sp's S = 768 queries a rank over T =
+    768, 1,536, 2,304 and 3,072 keys at hymba's heads, global and windowed
+    (SDPA given the window as a boolean mask), bf16: the kernel's from
     CUDA events around calls queued behind a sleep (:func:`event_ms`), beside the plain version's and
     scaled_dot_product_attention's (a yardstick the port never calls) timed
     the same way, and the bound: the larger of the FLOPs over the bf16 dense
@@ -1722,22 +1800,26 @@ def time_flash(dev) -> dict:
         log(f"timing flash_attention {name} B={b} S={s} T={t} H={h} K={kh} d={d} bf16: "
             f"{json.dumps(rec)}")
     h, kh, d = HYMBA_HEADS
-    w = HYMBA_WINDOW
-    for name, (b, s, t) in HYMBA_FLASH_TIMING.items():
+    s_loc = SPMD_SEQ // SPMD_RANKS  # attend_sp's rank r: its queries over (r + 1) x s_loc keys
+    hymba = [(name, b, s, t, HYMBA_WINDOW) for name, (b, s, t) in HYMBA_FLASH_TIMING.items()]
+    hymba += [(f"spmd T={t}" + (f" window {w}" if w else ""), 1, s_loc, t, w)
+              for t in range(s_loc, SPMD_SEQ + 1, s_loc) for w in (0, HYMBA_WINDOW)]
+    for name, b, s, t, w in hymba:
         sets = [_flash_case(dev, g, b, s, t, h, kh, d, torch.bfloat16, None if s > 1 else t)
                 for _ in range(1 if s > 1 else 8)]
         lib_sets = [tuple(x.transpose(1, 2).contiguous() for x in qkv) for qkv in sets]
         # the pairs and keys this window leaves visible: query i sees
         # min(i + T - S + 1, w) keys; the K/V rows any query sees are read once
-        pairs = sum(min(i + t - s + 1, w) for i in range(s))
-        keys = t if s > 1 else min(t, w)
+        win = w or t  # a global layer: every earlier key
+        pairs = sum(min(i + t - s + 1, win) for i in range(s))
+        keys = t - max(0, t - s - win + 1)
         flops = 4 * b * h * d * pairs
         moved = 2 * (2 * b * s * h * d + 2 * b * keys * kh * d)  # bf16 q, o, k, v
         bounds = {"operations": flops / BF16_FLOPS * 1e3, "bytes": moved / HBM_BYTES_PER_S * 1e3}
         bound_by = max(bounds, key=bounds.get)
         pos = torch.arange(t, device=dev)
         qpos = pos[t - s :, None]
-        mask = (pos[None, :] <= qpos) & (qpos - pos[None, :] < w)  # (S, T), True = visible
+        mask = (pos[None, :] <= qpos) & (qpos - pos[None, :] < win)  # (S, T), True = visible
         reps = 20 if s > 1 else 200
         rec = {
             "ms": event_ms(lambda q, k, v: flash_attention(q, k, v, window=w), sets, reps),
@@ -2617,6 +2699,320 @@ def autotune_phase(app, starts, oracle) -> dict:
     return {"launches": launches + tuned_launches, **res}
 
 
+def digest(t: torch.Tensor) -> str:
+    """sha256 of a tensor's bytes (bf16 through its int16 bits)."""
+    if t.dtype == torch.bfloat16:
+        t = t.view(torch.int16)
+    return hashlib.sha256(t.contiguous().cpu().numpy().tobytes()).hexdigest()
+
+
+def spmd_starts() -> np.ndarray:
+    """``dapc_setup``'s starts: the DAPC phase's 256 chases."""
+    return np.random.default_rng(1).integers(0, DAPC_ENTRIES, DAPC_CHASES).astype(np.int32)
+
+
+def gather_keys() -> np.ndarray:
+    """The Gather service's 1,024 requests at its 16 keys each."""
+    keys = np.random.default_rng(1).integers(0, SHARD_ROWS * N_SERVERS, N_REQUESTS * N_KEYS)
+    return keys.astype(np.int32)
+
+
+def yi_vocab(dev) -> tuple[torch.Tensor, torch.Tensor]:
+    """yi-9b's vocab table (f32 drawn from seed 0, then rounded to bf16: the
+    same bits in every process) and launch.serve's (B, S) ids."""
+    ids = np.random.default_rng(2).integers(0, YI_VOCAB, (LAUNCH_BATCH, LAUNCH_PROMPT))
+    table = torch.randn(YI_VOCAB, YI_DIM, generator=torch.Generator(dev).manual_seed(0),
+                        device=dev)
+    return table.to(torch.bfloat16), torch.from_numpy(ids.astype(np.int32)).to(dev)
+
+
+def hymba_qkv(dev) -> tuple[torch.Tensor, ...]:
+    """q, k, v at hymba-1.5b's width (25/5 heads of 64), B = 1, S = 3,072,
+    bf16, from seed 5."""
+    h, kh, d = HYMBA_HEADS
+    g = torch.Generator(dev).manual_seed(5)
+    return tuple(torch.randn(1, SPMD_SEQ, n, d, generator=g, device=dev).to(torch.bfloat16)
+                 for n in (h, kh, kh))
+
+
+def grad_bucket(dev, rank: int) -> torch.Tensor:
+    """Rank ``rank``'s f32 gradient bucket of REDUCE_WIDTH values."""
+    g = torch.Generator(dev).manual_seed(100 + rank)
+    return torch.randn(REDUCE_WIDTH, generator=g, device=dev)
+
+
+def npy_shard(path: Path, mesh) -> torch.Tensor:
+    """This rank's rows of the array saved at ``path`` over ``"model"``, read
+    from a memory map, on the mesh's device."""
+    rows = np.load(path, mmap_mode="r")
+    n = rows.shape[0] // mesh.axis_size("model")
+    i = mesh.axis_index("model")
+    return torch.from_numpy(np.array(rows[i * n : (i + 1) * n])).to(mesh.device)
+
+
+def spmd_rank(rank: int, world: int, backend: str, store: str, out_dir: str) -> None:
+    """One rank of the compiled SPMD phase, on ``cuda:0`` beside the others.
+    Four gloo ranks run every arm: DAPC and GBPC, the Gather on a (1, 4)
+    ("data", "model") mesh; the c2d and gather embeddings, attend_sp and the
+    gradient psums on a (2, 2) one.  One NCCL rank runs DAPC and the
+    Gather.  Each arm starts from launch counts and collective bytes of 0;
+    its results (digests where the parent holds the oracle), launches by
+    route, bytes and wall go to ``out_dir``."""
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels import WRAPPERS, launch_counts, reset_launches
+    from repro_torch.models import attend_sp, embed_c2d, embed_gather
+    from repro_torch.sharding import (
+        compressed_psum_with_feedback, dapc_shard_map, gather_shard_map, gbpc_reference,
+        hierarchical_psum, init_mesh, shard_rows,
+    )
+
+    mesh = init_mesh((1, world), ("data", "model"), backend=backend, rank=rank,
+                     init_method=f"file://{store}", timeout=SPMD_TIMEOUT)
+    dev = mesh.device
+    res = {"device": str(dev), "arms": {}}
+    mesh.psum(torch.zeros(1, device=dev), "model")  # NCCL makes its communicator here
+
+    def arm(name, m, fn):
+        reset_launches()
+        m.reset_counters()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        res["arms"][name] = {
+            "wall_s": time.perf_counter() - t, "bytes": dict(m.bytes_by_kind),
+            "launches": launch_counts(),
+            "routes": {k: {r: n for r, n in w.route_launches.items() if n}
+                       for k, w in WRAPPERS.items() if any(w.route_launches.values())},
+        }
+        return out
+
+    shard = npy_shard(Path(out_dir) / "chain.npy", mesh)
+    starts = torch.from_numpy(spmd_starts()).to(dev)
+    for name, fn in (("dapc", dapc_shard_map), ("gbpc", gbpc_reference)):
+        res[name] = arm(name, mesh, lambda: fn(shard, starts, DAPC_DEPTH, mesh)).cpu().numpy()
+    del shard
+    shard = npy_shard(Path(out_dir) / "gather_table.npy", mesh)
+    keys = torch.from_numpy(gather_keys()).to(dev)
+    res["gather"] = digest(arm("gather", mesh, lambda: gather_shard_map(shard, keys, mesh)))
+    del shard
+    torch.cuda.empty_cache()
+    if world > 1:
+        m22 = init_mesh((2, world // 2), ("data", "model"), backend=backend, rank=rank,
+                        init_method=f"file://{store}", timeout=SPMD_TIMEOUT)
+        vocab, ids = yi_vocab(dev)
+        vocab = shard_rows(vocab, m22, "model").clone()
+        ids = shard_rows(ids, m22, "data")
+        torch.cuda.empty_cache()
+        for name, fn in (("embed_c2d", embed_c2d), ("embed_gather", embed_gather)):
+            res[name] = digest(arm(name, m22, lambda: fn(vocab, ids, m22)))
+        del vocab
+        both = ("data", "model")
+        q, k, v = (shard_rows(x, m22, both, dim=1).contiguous() for x in hymba_qkv(dev))
+        pos = torch.arange(SPMD_SEQ)  # attend_sp reads the positions on the host
+        for name, window in (("attend_sp", None), ("attend_sp_window", HYMBA_WINDOW)):
+            res[name] = arm(name, m22, lambda: attend_sp(
+                q, k, v, q_pos=pos, k_pos=pos, mesh=m22, axis=both, window=window)).cpu()
+        grad = grad_bucket(dev, rank)
+        sent = []
+        psum = m22.psum
+        m22.psum = lambda x, axis: (sent.append(x), psum(x, axis))[1]  # the int32 payload is q
+        out, err = arm("compressed_psum", m22, lambda: compressed_psum_with_feedback(
+            grad, torch.zeros_like(grad), both, m22))
+        m22.psum = psum
+        res["compressed_psum"] = {"q": digest(sent[0]), "out": digest(out), "err": digest(err)}
+        out = arm("hierarchical_psum", m22, lambda: hierarchical_psum(grad, both, m22))
+        res["hierarchical_psum"] = digest(out)
+        if rank == 0:
+            res["hierarchical_psum_rank0"] = out.cpu().numpy()
+    torch.save(res, Path(out_dir) / f"{backend}_rank{rank}.pt")
+    mesh.close()
+
+
+def spmd_run(world: int, backend: str) -> list[dict]:
+    """``world`` ranks of :func:`spmd_rank` (``torch.multiprocessing``,
+    joined; a rank that raises fails the run), each with a fresh store."""
+    store = SPMD_DIR / f"{backend}_store"
+    store.unlink(missing_ok=True)
+    torch.multiprocessing.spawn(spmd_rank, args=(world, backend, str(store), str(SPMD_DIR)),
+                                nprocs=world, join=True)
+    return [torch.load(SPMD_DIR / f"{backend}_rank{r}.pt", weights_only=False)
+            for r in range(world)]
+
+
+def expect_launches(run: dict, what: str, want: dict) -> None:
+    """``want``: {kernel: {route: launches}}; every other count 0."""
+    got = {k: dict(v) for k, v in run["routes"].items()}
+    if got != want or sum(run["launches"].values()) != sum(
+            n for routes in want.values() for n in routes.values()):
+        raise AssertionError(f"spmd {what}: launches {run['launches']} by route {got}, "
+                             f"want {want}")
+
+
+def spmd_phase(dev, table: np.ndarray, chain: np.ndarray, oracle: np.ndarray) -> dict:
+    """The compiled SPMD rendering on the card: 4 gloo ranks sharing it,
+    then one NCCL rank (:func:`spmd_rank`), over the DAPC phase's ``chain``
+    and the service phase's ``table`` (handed over as ``.npy`` files under
+    ``build/chip_smoke/spmd``, removed after); every result checked here
+    against the oracles and the one-process versions.  Gloo stages every
+    collective through the host, so the walls are host numbers."""
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref
+    from repro_torch.models import embed_plain
+    from repro_torch.sharding import gather_ref
+
+    keys = gather_keys()
+    gather_want = digest(torch.from_numpy(gather_ref(table, keys)))
+    shutil.rmtree(SPMD_DIR, ignore_errors=True)
+    SPMD_DIR.mkdir(parents=True)
+    t0 = time.perf_counter()
+    np.save(SPMD_DIR / "chain.npy", chain)
+    np.save(SPMD_DIR / "gather_table.npy", table)
+    out = {"save_s": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    ranks = spmd_run(SPMD_RANKS, "gloo")
+    out["gloo_s"] = time.perf_counter() - t0
+    n_loc = DAPC_ENTRIES // SPMD_RANKS
+    walls = {name: max(r["arms"][name]["wall_s"] for r in ranks) for name in ranks[0]["arms"]}
+    for r, res in enumerate(ranks):
+        arms = res["arms"]
+        for name in ("dapc", "gbpc"):
+            if not np.array_equal(res[name], oracle):
+                raise AssertionError(f"spmd gloo rank {r} {name}: results differ from the oracle")
+        expect_launches(arms["dapc"], f"rank {r} dapc", {"chase_shard": {"spread": DAPC_DEPTH}})
+        expect_launches(arms["gbpc"], f"rank {r} gbpc", {})
+        want = {"dapc": {"psum": DAPC_DEPTH * DAPC_CHASES * 4, "pmax": 0, "all_gather": 0},
+                "gbpc": {"psum": 0, "pmax": 0, "all_gather": n_loc * 4},
+                "gather": {"psum": len(keys) * DIM * 4, "pmax": 0, "all_gather": 0}}
+        for name, b in want.items():
+            if arms[name]["bytes"] != b:
+                raise AssertionError(f"spmd gloo rank {r} {name}: bytes {arms[name]['bytes']}, "
+                                     f"want {b}")
+        if res["gather"] != gather_want:
+            raise AssertionError(f"spmd gloo rank {r} gather: rows differ from gather_ref")
+        expect_launches(arms["gather"], f"rank {r} gather", {"embed_lookup": {"warp": 1}})
+    dapc_b = ranks[0]["arms"]["dapc"]["bytes"]["psum"]
+    gbpc_b = ranks[0]["arms"]["gbpc"]["bytes"]["all_gather"]
+    log(f"spmd gloo x{SPMD_RANKS} dapc_shard_map and gbpc_reference: oracle-identical on every "
+        f"rank; chase_shard {DAPC_DEPTH} launches a rank (spread, B={DAPC_CHASES} depth 1); "
+        f"collective bytes a rank dapc {dapc_b} (= {DAPC_DEPTH} x {DAPC_CHASES} x 4), gbpc "
+        f"{gbpc_b}, gbpc/dapc {gbpc_b / dapc_b}; wall s (host) dapc {walls['dapc']}, gbpc "
+        f"{walls['gbpc']}")
+    log(f"spmd gloo x{SPMD_RANKS} gather_shard_map: bit-identical to gather_ref on every rank, "
+        f"{len(keys)} keys, one embed_lookup launch a rank (warp); bytes a rank "
+        f"{ranks[0]['arms']['gather']['bytes']['psum']}; wall s (host) {walls['gather']}")
+    # (c) the (2, 2) mesh: embeddings against embed_plain in this process
+    vocab, ids = yi_vocab(dev)
+    plain = embed_plain(vocab, ids)
+    half = LAUNCH_BATCH // 2
+    embed_want = [digest(plain[i * half : (i + 1) * half]) for i in range(2)]
+    del vocab, plain
+    for r, res in enumerate(ranks):
+        for name in ("embed_c2d", "embed_gather"):
+            if res[name] != embed_want[r // 2]:
+                raise AssertionError(f"spmd gloo rank {r} {name}: rows differ from embed_plain")
+        expect_launches(res["arms"]["embed_c2d"], f"rank {r} embed_c2d",
+                        {"embed_lookup": {"bulk": 1}})
+        expect_launches(res["arms"]["embed_gather"], f"rank {r} embed_gather", {})
+    log(f"spmd gloo (2, 2) embed_c2d and embed_gather: yi-9b vocab {YI_VOCAB}x{YI_DIM} bf16, "
+        f"ids ({LAUNCH_BATCH}, {LAUNCH_PROMPT}), bit-identical to embed_plain on every rank; "
+        f"embed_c2d one embed_lookup launch a rank (bulk, N={half * LAUNCH_PROMPT} of "
+        f"{YI_DIM * 2} B rows); bytes a rank c2d "
+        f"{ranks[0]['arms']['embed_c2d']['bytes']}, gather "
+        f"{ranks[0]['arms']['embed_gather']['bytes']}; wall s (host) c2d {walls['embed_c2d']}, "
+        f"gather {walls['embed_gather']}")
+    # attend_sp: the one-rank call and every rank's slice within the flash
+    # phase's bounds of the plain version, and each rank's slice bit for bit
+    # the one-rank call's (the same tiles of keys in the same order)
+    q, k, v = hymba_qkv(dev)
+    s_loc = SPMD_SEQ // SPMD_RANKS
+    saved = flash_attention.launches, dict(flash_attention.route_launches)
+    attn = {}
+    for name, window in (("attend_sp", 0), ("attend_sp_window", HYMBA_WINDOW)):
+        full = flash_attention(q, k, v, window=window)
+        plain = flash_attention_ref(q, k, v, window=window)
+        plain32 = flash_attention_ref(q.float(), k.float(), v.float(), window=window)
+        _, err, err32 = flash_within(f"spmd {name} one rank S=T={SPMD_SEQ}", torch.bfloat16,
+                                     full, plain, plain32)
+        errs = {"one_rank": err, "one_rank_f32_probs": err32, "ranks": [], "ranks_f32_probs": []}
+        for r, res in enumerate(ranks):
+            rows = slice(r * s_loc, (r + 1) * s_loc)
+            got = res[name].to(dev)
+            _, err, err32 = flash_within(f"spmd {name} rank {r}", torch.bfloat16, got,
+                                         plain[:, rows], plain32[:, rows])
+            errs["ranks"].append(err)
+            errs["ranks_f32_probs"].append(err32)
+            if not torch.equal(got, full[:, rows]):
+                raise AssertionError(f"spmd {name} rank {r}: not bit-identical to the one-rank "
+                                     f"flash call")
+            expect_launches(res["arms"][name], f"rank {r} {name}",
+                            {"flash_attention": {"wgmma": 1}})
+        attn[name] = {"max_abs_err": errs, "wall_s": walls[name],
+                      "bytes": ranks[0]["arms"][name]["bytes"]["all_gather"]}
+        del full, plain, plain32
+    flash_attention.launches, flash_attention.route_launches = saved  # checks, not the path
+    log(f"spmd gloo (2, 2) attend_sp over (data, model): hymba width (25/5 heads of 64) bf16, "
+        f"B=1 S={SPMD_SEQ}, {s_loc} queries a rank, rank r passing (r + 1) x {s_loc} keys; "
+        f"every rank bit-identical to flash_attention on the whole sequence, and both within "
+        f"{FLASH_TOL[torch.bfloat16]} of the plain version (atol {FLASH_F32P_ATOL}, rtol "
+        f"{FLASH_F32P_RTOL} of it on f32 copies), one wgmma launch a rank a layer: "
+        f"{json.dumps(attn)}")
+    # (d) the gradient bucket: numpy's f32 arithmetic on every rank's bucket
+    grads = np.stack([grad_bucket(dev, r).cpu().numpy() for r in range(SPMD_RANKS)])
+    g = grads + np.zeros_like(grads)  # grad + err, err 0 at the first step
+    scale = np.maximum(np.abs(g).max(), np.float32(1e-12)) / np.float32(127.0)
+    q8 = np.clip(np.round(g / scale), -127, 127).astype(np.int8)
+    # the residual rounded once (XLA fuses it into a multiply-add under jit)
+    err = (g.astype(np.float64) - q8.astype(np.float64) * np.float64(scale)).astype(np.float32)
+    red = q8.astype(np.int32).sum(0).astype(np.float32) * scale
+    exact = grads.astype(np.float64).sum(0)
+    for r, res in enumerate(ranks):
+        want = {"q": digest(torch.from_numpy(q8[r].astype(np.int32))),
+                "out": digest(torch.from_numpy(red)), "err": digest(torch.from_numpy(err[r]))}
+        if res["compressed_psum"] != want:
+            raise AssertionError(f"spmd rank {r} compressed_psum: {res['compressed_psum']} "
+                                 f"differs from numpy's {want}")
+        if res["hierarchical_psum"] != ranks[0]["hierarchical_psum"]:
+            raise AssertionError(f"spmd rank {r} hierarchical_psum differs from rank 0's")
+        expect_launches(res["arms"]["compressed_psum"], f"rank {r} compressed_psum", {})
+    hier = ranks[0]["hierarchical_psum_rank0"].astype(np.float64)
+    hier_err = np.abs(hier - exact).max()
+    bound = 3 * 2.0**-24 * np.abs(grads).astype(np.float64).sum(0)
+    if not (np.abs(hier - exact) <= bound).all():
+        raise AssertionError(f"spmd hierarchical_psum: {hier_err} from the f64 sum")
+    cp_bytes = ranks[0]["arms"]["compressed_psum"]["bytes"]
+    psums = {
+        "compressed_rel_err": float(np.abs(red - exact).max() / np.abs(exact).max()),
+        "hierarchical_max_abs_err": float(hier_err),
+        "compressed_bytes": cp_bytes, "f32_psum_bytes": REDUCE_WIDTH * 4,
+        "compressed_over_f32": sum(cp_bytes.values()) / (REDUCE_WIDTH * 4),
+        "hierarchical_bytes": ranks[0]["arms"]["hierarchical_psum"]["bytes"],
+        "wall_s": {"compressed": walls["compressed_psum"],
+                   "hierarchical": walls["hierarchical_psum"]},
+    }
+    log(f"spmd gloo (2, 2) compressed_psum_with_feedback and hierarchical_psum over (data, "
+        f"model), one {REDUCE_WIDTH * 4 // 2**20} MiB f32 bucket a rank: q, error and result "
+        f"equal to numpy's f32 arithmetic on every rank, hierarchical within 3 f32 roundings "
+        f"of the f64 sum; {json.dumps(psums)}")
+    out.update(arms=walls, attn=attn, psums=psums, dapc_bytes=dapc_b, gbpc_bytes=gbpc_b)
+    out["launches"] = [{k: res["arms"][k]["launches"] for k in res["arms"]} for res in ranks]
+    # (e) one NCCL rank: the NCCL code path at (a)'s and (b)'s sizes
+    t1 = time.perf_counter()
+    (nccl,) = spmd_run(1, "nccl")
+    out["nccl_s"] = time.perf_counter() - t1
+    if not np.array_equal(nccl["dapc"], oracle) or not np.array_equal(nccl["gbpc"], oracle):
+        raise AssertionError("spmd nccl: chase results differ from the oracle")
+    if nccl["gather"] != gather_want:
+        raise AssertionError("spmd nccl gather: rows differ from gather_ref")
+    expect_launches(nccl["arms"]["dapc"], "nccl dapc", {"chase_shard": {"spread": DAPC_DEPTH}})
+    expect_launches(nccl["arms"]["gather"], "nccl gather", {"embed_lookup": {"warp": 1}})
+    out["nccl"] = {k: {"wall_s": a["wall_s"], "bytes": a["bytes"], "launches": a["launches"]}
+                   for k, a in nccl["arms"].items()}
+    shutil.rmtree(SPMD_DIR)
+    log(f"spmd nccl x1 dapc_shard_map, gbpc_reference and gather_shard_map: oracle-identical, "
+        f"{DAPC_DEPTH} chase_shard and 1 embed_lookup launches; {json.dumps(out['nccl'])}")
+    return out
+
+
 def profile_burst(svc, reqs, out: Path) -> None:
     """torch.profiler over one batched burst; its tables go to ``out``."""
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -2693,12 +3089,14 @@ def main() -> int:
     sandboxed = sandbox_phase(dev, table)
     elapsed("the sandbox phase")
     tuned = autotune_phase(app, starts, oracle)
+    elapsed("the tenancy, loss, sandbox and autotune phases")
+    spmd = spmd_phase(dev, table, app.table, oracle)
     del table
     torch.cuda.empty_cache()
-    elapsed("the tenancy, loss, sandbox and autotune phases")
+    elapsed("the compiled SPMD phase (host walls: gloo stages through the host)")
     floor = time_floor(dev, rng, tables)
     timing = time_kernel(dev, rng, floor, service["mean_n"], filtered["mean_n"])
-    chase_timing = time_chase(dev, rng, tables, floor, dapc["mean_b"])
+    chase_timing = time_chase(dev, rng, tables, floor, dapc["mean_b"], app.table)
     host_launch = time_host_launch(dev, rng, tables, timing, chase_timing)
     del app, tables
     torch.cuda.empty_cache()
@@ -2723,9 +3121,12 @@ def main() -> int:
     served["hymba-1.5b"] = launch_serve_phase(dev, "hymba-1.5b")
     elapsed("the hymba-1.5b phases")
     # the path's launches by the shape they come in: per-message dispatches
-    # at N = 16 ids and B = 1 chase, batched ones at their arm's mean, and
-    # launch.serve's remote embedding at N = 8 of each LM's rows
+    # at N = 16 ids and B = 1 chase, batched ones at their arm's mean,
+    # launch.serve's remote embedding at N = 8 of each LM's rows, and the
+    # compiled SPMD phase's ranks (four gloo, one NCCL)
     g_arms, d_arms = service["arms"], dapc["arms"]
+    spmd_ranks = [*spmd["launches"], {k: a["launches"] for k, a in spmd["nccl"].items()}]
+    spmd_by = lambda arm, kernel: sum(r[arm][kernel] for r in spmd_ranks if arm in r)
     embed_by_shape = {"message": g_arms["per_message"]["kernel_launches"],
                       "mean": sum(g_arms[a]["kernel_launches"] for a in ("batched", "zerocopy")),
                       **{f"remote {arch}": runs["remote"]["launches"]["embed_lookup"]
@@ -2734,10 +3135,13 @@ def main() -> int:
                                     for c in filtered["cells"]),
                       "filter_batched": sum(c["arms"][a]["kernel_launches"]
                                             for c in filtered["cells"]
-                                            for a in ("batched", "zerocopy", "auto"))}
+                                            for a in ("batched", "zerocopy", "auto")),
+                      "spmd gather": spmd_by("gather", "embed_lookup"),
+                      "spmd embed_c2d": spmd_by("embed_c2d", "embed_lookup")}
     chase_by_shape = {"message": d_arms["bitcode_per_message"]["kernel_launches"],
                       "mean": sum(d_arms[a]["kernel_launches"] for a in (
-                          "bitcode_batched", "bitcode_zerocopy", "binary_batched"))}
+                          "bitcode_batched", "bitcode_zerocopy", "binary_batched")),
+                      "spmd": spmd_by("dapc", "chase_shard")}
     gaps = {name: {"launches_by_shape": by_shape,
                    "reachable_s": launch_gap(shapes, by_shape, "reachable_bound_ms"),
                    "bytes_s": launch_gap(shapes, by_shape, "bound_ms")}
@@ -2762,6 +3166,8 @@ def main() -> int:
         "launches_tenancy": tenancy["launches"],
         "launches_loss": lossy["launches"]["embed_lookup"],
         "launches_sandbox": sandboxed["launches"],
+        "launches_spmd": {arm: [r[arm]["embed_lookup"] for r in spmd["launches"]]
+                          for arm in ("gather", "embed_c2d")},
         "max_abs_err": checked["max_abs_err"],
         **{k: timing["message"][k] for k in keys},
         "shape": f"message N={N_KEYS} f32 rows of {DIM} ({timing['message']['route']})",
@@ -2781,11 +3187,13 @@ def main() -> int:
         "launches_by_route": dapc["routes"],
         "launches_loss": lossy["launches"]["chase_shard"],
         "launches_autotune": tuned["launches"],
+        "launches_spmd": [r["dapc"]["chase_shard"] for r in spmd["launches"]],
         "max_abs_err": chase_checked["max_abs_err"],
         **{k: chase_timing["message"][k] for k in keys},
         "shape": (f"message B=1 depth {DAPC_DEPTH} on the chain "
                   f"({chase_timing['message']['route']})"),
-        "shapes": {label: {"b": v["b"], "table": v["table"], **{k: v[k] for k in shape_keys}}
+        "shapes": {label: {"b": v["b"], "depth": v["depth"], "table": v["table"],
+                           **{k: v[k] for k in shape_keys}}
                    for label, v in chase_timing.items()},
         "launch_floor_ms": floor["floor_ms"],
         "hop_latency_us": floor["hop_us"],
@@ -2801,6 +3209,8 @@ def main() -> int:
         "launches_hymba": hymba_serving["launches"]["flash_attention"],
         "launches_by_route": serving["routes"]["flash_attention"],
         "launches_by_route_hymba": hymba_serving["routes"]["flash_attention"],
+        "launches_spmd": [r["attend_sp"]["flash_attention"] + r["attend_sp_window"][
+            "flash_attention"] for r in spmd["launches"]],
         "max_abs_err": flash_checked["max_abs_err"],
         "max_abs_err_f32_probs": flash_checked["max_abs_err_f32_probs"],
         **{k: flash_timing["prefill"][k] for k in keys},
@@ -2808,6 +3218,8 @@ def main() -> int:
         "decode": {k: flash_timing["decode"][k] for k in keys},
         "hymba_prefill": {k: flash_timing["hymba_prefill"][k] for k in keys},
         "hymba_decode": {k: flash_timing["hymba_decode"][k] for k in keys},
+        "shapes_spmd": {k.removeprefix("spmd "): {k2: v[k2] for k2 in (*keys, "route", "call_ms")}
+                        for k, v in flash_timing.items() if k.startswith("spmd")},
     }, {
         "name": "wkv6",
         "route": "cuda",

@@ -11,8 +11,16 @@ runtime where code really travels, paper Sec. I).
   under the batched runtime), and the folded partial forwards up only when
   the subtree is complete.
 
-The compiled-mesh gradient helpers of the JAX package (hierarchical and
-int8 error-feedback reductions) come with the compiled SPMD rendering.
+Compiled-mesh side (over a :class:`~repro_torch.sharding.mesh.Mesh`, the
+gradient reductions of the JAX package's launch layer):
+
+* :func:`hierarchical_psum` — two-level gradient reduction for multi-pod
+  meshes: reduce fully inside the pod first, then once across pods.
+* :func:`compressed_psum_with_feedback` — int8 error-feedback compression:
+  agree one scale over the axis (a scalar pmax), quantize to int8, sum the
+  int8 values as int32 (the reference accumulates in int32, so the
+  all-reduce carries 4 B a value, as f32 does), dequantize, and carry each
+  rank's rounding residual into the next step.
 """
 
 from __future__ import annotations
@@ -21,6 +29,7 @@ from dataclasses import dataclass, field
 from functools import lru_cache
 
 import numpy as np
+import torch
 
 from ..core import Cluster, IFunc, PropagationConfig
 from ..core.frame import Frame, hop_nbytes
@@ -32,6 +41,78 @@ from ..core.propagate import (
 )
 from ..core.transport import WireReportMixin
 from ..core.xrdma import make_reducer
+from .mesh import Axes, Mesh
+
+
+# ======================================================================
+# Compiled-mesh gradient reductions
+# ======================================================================
+def _tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_tree_map(fn, v) for v in tree)
+    return fn(tree)
+
+
+def hierarchical_psum(tree, axes: tuple[str, ...], mesh: Mesh):
+    """psum every tensor of ``tree`` innermost-first: ``("pod", "data")``
+    reduces over data, then over pod."""
+
+    def red(x: torch.Tensor) -> torch.Tensor:
+        for ax in reversed(axes):
+            x = mesh.psum(x, ax)
+        return x
+
+    return _tree_map(red, tree)
+
+
+def _quantize(g: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    # torch.round, like jnp.round, rounds half to even
+    return torch.clamp(torch.round(g / scale), -127, 127).to(torch.int8)
+
+
+def quantize_int8(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric per-tensor int8 quantization. Returns (q, scale)."""
+    x = x.float()
+    scale = torch.clamp_min(x.abs().max(), 1e-12) / 127.0
+    return _quantize(x, scale), scale
+
+
+def dequantize_int8(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    return q.float() * scale
+
+
+def compressed_psum_with_feedback(
+    grad: torch.Tensor, err: torch.Tensor, axis: Axes, mesh: Mesh
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """One tensor's compressed all-reduce over ``axis`` with error feedback.
+
+    Returns (reduced_grad_f32, new_error).  The scale is agreed over the
+    axis first (a scalar pmax), so every rank's int8 units mean the same
+    thing and the int32-accumulated sum dequantizes exactly; each rank
+    carries its own rounding residual forward.  The f32 operations run in
+    the JAX package's order, so both give the same bits; under ``jit``
+    XLA fuses the residual ``g - q * scale`` into one multiply-add, rounded
+    once, which the port computes exactly in f64 (``q * scale`` takes 32
+    bits and ``g`` lies within ``scale / 2`` of it) and rounds once."""
+    g = grad.float() + err
+    amax = mesh.pmax(g.abs().max(), axis)
+    scale = torch.clamp_min(amax, 1e-12) / 127.0
+    q = _quantize(g, scale)
+    new_err = (g.double() - q.double() * scale.double()).float()
+    acc = mesh.psum(q.to(torch.int32), axis)
+    return acc.float() * scale, new_err
+
+
+def init_error_feedback(params: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+    return {k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+            for k, p in params.items()}
+
+
+# ======================================================================
+# X-RDMA multi-hop collectives (the runtime where code really travels)
+# ======================================================================
 
 
 @dataclass

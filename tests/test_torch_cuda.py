@@ -816,3 +816,83 @@ def test_sandbox_refuses_and_quarantines_a_card_slice(card):
     rep = svc.gather(keys)
     for got, want in zip(rep.results, svc.oracle(keys)):
         assert np.array_equal(got.view(np.int32), want.view(np.int32))
+
+
+SPMD_N, SPMD_CHASES, SPMD_DEPTH, SPMD_V, SPMD_D, SPMD_KEYS = 1 << 16, 256, 33, 4096, 128, 512
+
+
+def _spmd_rank(rank: int, store: str, out_dir: str) -> None:
+    """One of two gloo ranks sharing the card: dapc_shard_map and
+    gather_shard_map on its shards, with its launches by route."""
+    from datetime import timedelta
+    from pathlib import Path
+
+    from repro_torch.kernels import launch_counts, reset_launches
+    from repro_torch.sharding import dapc_shard_map, gather_shard_map, init_mesh, shard_rows
+
+    mesh = init_mesh((2,), ("model",), backend="gloo", rank=rank, init_method=f"file://{store}",
+                     timeout=timedelta(seconds=120))
+    dev = mesh.device
+    rng = np.random.default_rng(6)
+    chain = torch.from_numpy(make_chain(SPMD_N, seed=5)).to(dev)
+    starts = torch.from_numpy(rng.integers(0, SPMD_N, SPMD_CHASES).astype(np.int32)).to(dev)
+    tab = torch.from_numpy(rng.standard_normal((SPMD_V, SPMD_D), dtype=np.float32)).to(dev)
+    keys = torch.from_numpy(rng.integers(0, SPMD_V, SPMD_KEYS).astype(np.int32)).to(dev)
+    res = {}
+    for name, fn in (
+        ("dapc", lambda: dapc_shard_map(shard_rows(chain, mesh), starts, SPMD_DEPTH, mesh)),
+        ("gather", lambda: gather_shard_map(shard_rows(tab, mesh), keys, mesh)),
+    ):
+        reset_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        res[name] = out.cpu().numpy()
+        res[name + "_launches"] = launch_counts()
+        res[name + "_routes"] = {"chase_shard": dict(chase_shard.route_launches),
+                                 "embed_lookup": dict(embed_lookup.route_launches)}
+        res[name + "_device"] = str(out.device)
+    mesh.close()
+    torch.save(res, Path(out_dir) / f"rank{rank}.pt")
+
+
+@pytest.fixture(scope="module")
+def spmd_on_card(tmp_path_factory):
+    """Two gloo ranks on the one card (``torch.multiprocessing``), the
+    kernels built here first so the ranks do not each run nvcc."""
+    if not torch.cuda.is_available() or torch.cuda.get_device_capability(0) != (9, 0):
+        pytest.skip("needs a Hopper card (sm_90)")
+    build.build_all(["chase", "embed_lookup"])
+    tmp = tmp_path_factory.mktemp("spmd_card")
+    torch.multiprocessing.spawn(_spmd_rank, args=(str(tmp / "store"), str(tmp)), nprocs=2,
+                                join=True)
+    return [torch.load(tmp / f"rank{r}.pt", weights_only=False) for r in range(2)]
+
+
+def test_dapc_shard_map_on_two_gloo_ranks(spmd_on_card):
+    """Oracle-identical on both ranks; one chase_shard launch a round
+    (``spread``: 256 chases), nothing else launched."""
+    rng = np.random.default_rng(6)
+    table = make_chain(SPMD_N, seed=5)
+    f = rng.integers(0, SPMD_N, SPMD_CHASES).astype(np.int32)
+    for _ in range(SPMD_DEPTH):
+        f = table[f]
+    for res in spmd_on_card:
+        assert res["dapc_device"].startswith("cuda")
+        assert np.array_equal(res["dapc"], f)
+        assert res["dapc_launches"] == {**dict.fromkeys(res["dapc_launches"], 0),
+                                        "chase_shard": SPMD_DEPTH}
+        assert res["dapc_routes"]["chase_shard"]["spread"] == SPMD_DEPTH
+
+
+def test_gather_shard_map_on_two_gloo_ranks(spmd_on_card):
+    """Bit-identical to the numpy take on both ranks; one embed_lookup
+    launch a rank (``warp``: 512-byte rows)."""
+    rng = np.random.default_rng(6)
+    rng.integers(0, SPMD_N, SPMD_CHASES)  # the starts, drawn first
+    tab = rng.standard_normal((SPMD_V, SPMD_D), dtype=np.float32)
+    keys = rng.integers(0, SPMD_V, SPMD_KEYS)
+    for res in spmd_on_card:
+        assert np.array_equal(res["gather"], tab[keys])
+        assert res["gather_launches"] == {**dict.fromkeys(res["gather_launches"], 0),
+                                          "embed_lookup": 1}
+        assert res["gather_routes"]["embed_lookup"]["warp"] == 1
