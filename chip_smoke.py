@@ -1,4 +1,4 @@
-"""Drive the PyTorch port's Gather service, DAPC, Filter pushdown, tree collectives, control layers, compiled SPMD rendering, yi-9b, rwkv6-1.6b and hymba-1.5b serving once on an NVIDIA card.
+"""Drive the PyTorch port's Gather service, DAPC, Filter pushdown, tree collectives, control layers, compiled SPMD rendering, yi-9b, rwkv6-1.6b and hymba-1.5b serving, and yi-9b training once on an NVIDIA card.
 
 Usage: ``python3 chip_smoke.py [--profile DIR]`` from the root of
 a checkout, on a host with one Hopper card (sm_90) and the CUDA toolkit.
@@ -220,6 +220,28 @@ a checkout, on a host with one Hopper card (sm_90) and the CUDA toolkit.
    it and the names matched (ROADMAP T12).
 25. ``launch.serve`` at full hymba-1.5b, local and remote-embed: streams
    bit-identical, each kernel launched 32 x (1 + 32) times in each.
+26. Flash backward kernel phase: dQ, dK and dV of ``flash_attention_bwd``
+   (three device kernels: the row pass, dK/dV, dQ) against its plain version
+   on the same inputs, bf16 also against the plain version on f32 copies,
+   and the plain version against ``torch.autograd`` of the plain forward,
+   at the JAX flash sweep's shapes, yi's train shape (B = 2, S = T = 4,096,
+   bf16), hymba's windowed shape, a softcap, S < T and rows that see no
+   key, in f32 and bf16; then its time at yi's train shape beside its
+   bound, the plain version, the forward kernel and SDPA's backward.
+27. Train parity phase: a 2-layer yi-9b at full width in f32, one set of
+   weights: the loss and every gradient on the card against the CPU, and
+   after one AdamW step every weight, m and v.
+28. Train phase: ``TrainDriver``'s step function and AdamW on yi-9b at full
+   width, 8 of its 48 layers, bf16, remat, 4 sequences of 4,096 tokens a
+   step in 2 microbatches, 6 steps over ``TokenPipeline`` batches: finite
+   losses, weights that move, 32 flash forward and 16 backward launches a
+   step and no plain version on the card; each step's seconds, tokens/s,
+   peak memory and device seconds by stage, the last step profiled.
+29. Driver phase: ``python -m repro_torch.launch.train --arch yi-9b
+   --smoke --steps 12 --ckpt-every 5`` in subprocesses, clean and with
+   ``--fail-at-step 8`` (one restart to step 5, the clean run's losses),
+   the step-5 checkpoint restored with its sha256s, and a resume of the
+   clean run to 17 steps that runs 5.
 
 Prints one JSON line of kernel results, then the nvidia-smi line, then
 ``{"ok": true, "device": {...}}`` last.  Any failure exits non-zero with
@@ -234,6 +256,7 @@ from __future__ import annotations
 import argparse
 import hashlib
 import json
+import os
 import re
 import shutil
 import subprocess
@@ -359,6 +382,30 @@ SANDBOX_REQUESTS, LOSS_SEED = 256, 1
 SPMD_RANKS, YI_VOCAB, YI_DIM, SPMD_SEQ = 4, 64_000, 4_096, 3_072
 SPMD_TIMEOUT = timedelta(seconds=300)
 SPMD_DIR = ROOT / "build" / "chip_smoke" / "spmd"
+# the training phases (26-29).  The flash backward kernel and its plain
+# version both compute in f32 from the same inputs and round once at the
+# end: in f32 they differ by the order of their sums, each gradient a sum of
+# up to T (dV, dK) or T (dQ) products of O(1) terms, ~1e-6 of the largest
+# gradient; BWD_TOL of the largest |gradient| leaves room.  A bf16 gradient
+# may round to the other neighbour of the same f32 value: one bf16 step,
+# 2**-7 of the value (BWD_BF16_RTOL); against the plain version on f32
+# copies of the inputs (no final rounding) half a step, 2**-8.
+BWD_TOL, BWD_BF16_RTOL, BWD_F32C_RTOL = 2e-5, 2**-7, 2**-8
+YI_TRAIN = (2, 4096, 4096, 32, 4, 128)  # b, s, t, h, kh, d: train_4k's sequence, microbatch 2
+# the train parity phase: a 2-layer yi-9b at full width in f32, card vs
+# CPU.  The gradients are f32 on both sides, summed in other orders (4,096-
+# and 11,008-long products, 128 positions, two layers forward and back,
+# ~2.5e-5 of a leaf's largest gradient at f32's 6e-8 a rounding); each leaf
+# within TRAIN_GRAD_RTOL of its largest |gradient|, the loss within
+# PARITY_ATOL as the logits of phase 12.  After one AdamW step the moments
+# and weights within what that gradient bound moves them (train_step_bound)
+TRAIN_PARITY_SEQ, TRAIN_PARITY_BATCH, TRAIN_GRAD_RTOL, TRAIN_LR = 128, 1, 1e-4, 1e-3
+# the train phase: yi-9b at full width and 8 of its 48 layers, bf16, remat,
+# train_4k's 4,096 tokens, 4 sequences a step in 2 microbatches
+TRAIN_LAYERS, TRAIN_SEQ, TRAIN_BATCH, TRAIN_MICROBATCH, TRAIN_STEPS = 8, 4096, 4, 2, 6
+TRAIN_DIR = ROOT / "build" / "chip_smoke" / "train"
+# the driver phase: launch.train on yi smoke, 12 steps, a checkpoint every 5
+DRIVER_STEPS, DRIVER_CKPT_EVERY, DRIVER_FAIL_AT, DRIVER_RESUME_TO = 12, 5, 8, 17
 
 
 def log(*args) -> None:
@@ -3013,6 +3060,479 @@ def spmd_phase(dev, table: np.ndarray, chain: np.ndarray, oracle: np.ndarray) ->
     return out
 
 
+# ---------------------------------------------------------------- training
+def _bwd_within(what: str, dtype, got, want, want32=None) -> tuple[str, float]:
+    """Each of ``got`` (dq, dk, dv) within BWD_TOL of the largest |want|
+    (bf16: plus BWD_BF16_RTOL of each value) and, for bf16, within BWD_TOL
+    plus BWD_F32C_RTOL of ``want32`` (the plain version on f32 copies);
+    raises where not.  Returns the log line and the largest error."""
+    torch.cuda.synchronize()
+    parts, worst = [], 0.0
+    for name, g, w, w32 in zip(("dq", "dk", "dv"), got, want, want32 or (None,) * 3):
+        g, w = g.float(), w.float()
+        top = w.abs().max().item()
+        err = (g - w).abs().max().item()
+        rtol = BWD_BF16_RTOL if dtype == torch.bfloat16 else 0.0
+        ok = bool(((g - w).abs() <= BWD_TOL * top + rtol * w.abs()).all())
+        part = f"{name} err {err} (|max| {top})"
+        if w32 is not None:
+            err32 = (g - w32).abs().max().item()
+            ok &= bool(((g - w32).abs() <= BWD_TOL * top + BWD_F32C_RTOL * w32.abs()).all())
+            part += f" f32-copies err {err32}"
+        if not ok or not torch.isfinite(g).all():
+            raise AssertionError(f"flash_attention_bwd differs from plain: {what}: {part}")
+        parts.append(part)
+        worst = max(worst, err)
+    return f"{what}: " + "; ".join(parts), worst
+
+
+def flash_bwd_kernel_phase(dev) -> dict:
+    """The flash backward kernel on the card against its plain version on
+    the same inputs (``flash_attention_bwd_ref``), and that against
+    ``torch.autograd`` of the plain forward on f32 copies: the JAX flash
+    sweep's shapes, yi's train shape (B = 2, S = T = 4,096, 32/4 heads of
+    128, bf16), hymba's windowed shape (25/5 heads of 64, S = T = 3,072,
+    window 2,048), a softcap, S < T with a window, and rows that see no key
+    (S = 300 > T = 200: their dQ must be 0, not NaN), in f32 and bf16 (yi's
+    in bf16).  Autograd spreads a keyless row over all keys (module note of
+    tests/test_torch_flash_bwd.py): its dO is 0 in that comparison.  Each
+    call must count one launch; checking launches are not main-path
+    launches."""
+    from repro_torch.kernels import WRAPPERS
+    from repro_torch.kernels.flash_attention import (
+        flash_attention, flash_attention_bwd, flash_attention_bwd_ref, flash_attention_ref,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # full f32 products in the plain versions
+    g = torch.Generator(dev).manual_seed(5)
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = [(f"sweep {(b, h, kh, s, t, d)} causal={causal} softcap={cap}",
+              (b, s, t, h, kh, d), dict(causal=causal, softcap=cap), (f32, bf16))
+             for b, h, kh, s, t, d, _, _, causal, cap in SWEEP]
+    cases += [
+        ("yi train B=2 S=T=4096", YI_TRAIN, {}, (bf16,)),
+        ("hymba S=T=3072 window 2048", (1, 3072, 3072, *HYMBA_HEADS), dict(window=HYMBA_WINDOW),
+         (f32, bf16)),
+        ("softcap 30 S=T=1000", (1, 1000, 1000, 8, 2, 64), dict(softcap=30.0), (f32, bf16)),
+        ("S=256 T=1024 window 300", (2, 256, 1024, 8, 4, 128), dict(window=300), (f32, bf16)),
+        ("keyless rows S=300 T=200", (1, 300, 200, 4, 2, 32), {}, (f32, bf16)),
+    ]
+    before = {k: (WRAPPERS[k].launches, dict(WRAPPERS[k].route_launches))
+              for k in ("flash_attention", "flash_attention_bwd")}
+    worst = 0.0
+    t0 = time.perf_counter()
+    for label, (b, s, t, h, kh, d), kw, dtypes in cases:
+        keyless = max(0, s - t) if kw.get("causal", True) else 0
+        for dtype in dtypes:
+            q, k, v, dout = (torch.randn(shape, generator=g, device=dev).to(dtype) for shape in (
+                (b, s, h, d), (b, t, kh, d), (b, t, kh, d), (b, s, h, d)))
+            out = (flash_attention_ref(q, k, v, **kw) if keyless else
+                   flash_attention(q, k, v, **kw)).contiguous()
+            at = flash_attention_bwd.launches
+            got = flash_attention_bwd(q, k, v, out, dout, **kw)
+            if flash_attention_bwd.launches != at + 1:
+                raise AssertionError(f"flash_attention_bwd {label}: no launch")
+            want = flash_attention_bwd_ref(q, k, v, out, dout, **kw)
+            want32 = None
+            if dtype == bf16:
+                want32 = flash_attention_bwd_ref(q.float(), k.float(), v.float(), out.float(),
+                                                 dout.float(), **kw)
+            what = f"kernel flash_attention_bwd {label} {str(dtype)[6:]}"
+            line, err = _bwd_within(what, dtype, got, want, want32)
+            worst = max(worst, err)
+            if keyless and bool(got[0][:, :keyless].abs().max() != 0):
+                raise AssertionError(f"{what}: a row that sees no key has a nonzero dQ")
+            del want, want32
+            # the plain backward against autograd of the plain forward, f32 copies
+            x32 = [x.float().requires_grad_() for x in (q, k, v)]
+            do32 = dout.float()
+            do32[:, :keyless] = 0.0
+            o32 = flash_attention_ref(*x32, **kw)
+            auto = torch.autograd.grad(o32, x32, do32)
+            plain = flash_attention_bwd_ref(*(x.detach() for x in x32), o32.detach(), do32, **kw)
+            errs = []
+            for name, a, p in zip(("dq", "dk", "dv"), auto, plain):
+                e = (a - p).abs().max().item()
+                if e > BWD_TOL * a.abs().max().item():
+                    raise AssertionError(f"{what}: the plain backward's {name} differs from "
+                                         f"autograd of the plain forward by {e}")
+                errs.append(e)
+            log(f"{line}; plain vs autograd (f32 copies) errs {errs}")
+            del q, k, v, dout, out, got, x32, do32, o32, auto, plain
+            torch.cuda.empty_cache()
+    for k, (count, routes) in before.items():
+        WRAPPERS[k].launches, WRAPPERS[k].route_launches = count, routes
+    log(f"flash backward kernel phase: {time.perf_counter() - t0:.1f} s")
+    return {"max_abs_err": worst}
+
+
+def time_flash_bwd(dev) -> dict:
+    """The backward kernel at yi's train shape (B = 2, S = T = 4,096, 32/4
+    heads of 128, causal, bf16), from CUDA events around calls queued behind
+    a sleep (:func:`event_ms`), beside the plain backward, the forward
+    kernel at the same shape, and SDPA's backward (forward plus backward of
+    ``scaled_dot_product_attention`` less its forward, in its (B, H, S, d)
+    layout: a yardstick the port never calls).  The bound: the operations,
+    2.5 x the forward's 4 B H d per visible pair plus the row pass's Q K^T
+    (2 B H d a pair), over the bf16 dense tensor-core peak, against the
+    bytes (q, out, dO read and dq written, k, v read and dk, dv written)
+    over the HBM rate."""
+    from repro_torch.kernels import WRAPPERS
+    from repro_torch.kernels.flash_attention import (
+        flash_attention, flash_attention_bwd, flash_attention_bwd_ref,
+    )
+
+    before = {k: (WRAPPERS[k].launches, dict(WRAPPERS[k].route_launches))
+              for k in ("flash_attention", "flash_attention_bwd")}
+    b, s, t, h, kh, d = YI_TRAIN
+    g = torch.Generator(dev).manual_seed(6)
+    q, k, v, dout = (torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+                     for shape in ((b, s, h, d), (b, t, kh, d), (b, t, kh, d), (b, s, h, d)))
+    out = flash_attention(q, k, v)
+    sets = [(q, k, v, out, dout)]
+    pairs = s * (s + 1) // 2
+    flops = (2.5 * 4 + 2) * b * h * d * pairs
+    moved = 2 * (4 * b * s * h * d + 4 * b * t * kh * d)
+    bounds = {"operations": flops / BF16_FLOPS * 1e3, "bytes": moved / HBM_BYTES_PER_S * 1e3}
+    bound_by = max(bounds, key=bounds.get)
+    lq, lk, lv, ldo = (x.transpose(1, 2).contiguous() for x in (q, k, v, dout))
+    lq, lk, lv = (x.requires_grad_() for x in (lq, lk, lv))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    def sdpa_fwd():
+        return sdpa(lq, lk, lv, is_causal=True, enable_gqa=True)
+
+    def sdpa_fwd_bwd():
+        return torch.autograd.grad(sdpa_fwd(), (lq, lk, lv), ldo)
+
+    rec = {
+        "ms": event_ms(flash_attention_bwd, sets, 5),
+        "plain_ms": event_ms(flash_attention_bwd_ref, sets, 2),
+        "forward_ms": event_ms(lambda q, k, v, o, do: flash_attention(q, k, v), sets, 20),
+        "bound_ms": bounds[bound_by],
+        "bound_by": bound_by,
+        "flops": flops,
+        "bytes": moved,
+        "route": "simt",
+    }
+    fb = event_ms(lambda *a: sdpa_fwd_bwd(), sets, 10)
+    fw = event_ms(lambda *a: sdpa_fwd(), sets, 10)
+    rec["library_ms"] = fb - fw
+    rec["library_fwd_bwd_ms"], rec["library_fwd_ms"] = fb, fw
+    for k2, (count, routes) in before.items():
+        WRAPPERS[k2].launches, WRAPPERS[k2].route_launches = count, routes
+    log(f"timing flash_attention_bwd train B={b} S=T={s} H={h} K={kh} d={d} bf16: "
+        f"{json.dumps(rec)}")
+    del q, k, v, dout, out, sets, lq, lk, lv, ldo
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _grads(cfg, model, batch) -> tuple[float, dict]:
+    """The loss and every gradient leaf (JAX names, on the host) of one
+    forward and backward."""
+    from repro_torch.models import zoo
+
+    params = zoo.model_params(model)
+    for p in params.values():
+        p.requires_grad_(True)
+    loss, _ = zoo.loss_fn(cfg, model, batch)
+    grads = torch.autograd.grad(loss, list(params.values()))
+    for p in params.values():
+        p.requires_grad_(False)
+    named = zoo.to_jax_params(cfg, dict(zip(params, grads)))
+    return loss.item(), {k: x.cpu() for k, x in named.items()}
+
+
+def train_step_bound(g: torch.Tensor, dg: float, scale: float, lr: float, eps: float = 1e-8):
+    """How far a gradient error of ``dg`` moves each element's m, v and
+    weight after the first AdamW step (b1 0.9, b2 0.95, scale the clip
+    factor): m = 0.1 g', v = 0.05 g'^2 with g' = scale g, and the update
+    g' / (|g'| + eps), whose slope eps / (|g'| + eps)^2 lets a gradient
+    within dg of 0 move the weight by up to lr."""
+    gp = (scale * g).abs()
+    return (0.1 * scale * dg, 0.05 * (2 * gp + scale * dg) * scale * dg,
+            lr * scale * dg * eps / (gp + eps) ** 2)
+
+
+def train_parity_phase(dev) -> dict:
+    """A 2-layer yi-9b at full width in f32, one set of weights drawn on the
+    card from seed 0 and copied to the host, one train_4k-kind batch of
+    TRAIN_PARITY_SEQ tokens: the loss and every gradient leaf on the card
+    (flash forward and backward kernels) against the CPU (plain versions),
+    then one AdamW step of ``make_train_step`` on each side: every weight,
+    m and v within :func:`train_step_bound` of the gradient bound."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import zoo
+    from repro_torch.models.common import ParamFactory
+    from repro_torch.optim import AdamW
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t = time.perf_counter()
+    cfg = get_config("yi-9b").replace(n_layers=2, dtype=torch.float32)
+    card_model = zoo.build_params(cfg, 0, device=dev)
+    host_model = zoo.LM(cfg, ParamFactory(0, torch.float32, torch.device("cpu"), fill=False))
+    host_model.load_state_dict(card_model.state_dict())
+    batch = zoo.make_batch(cfg, zoo.ShapeSpec("t", TRAIN_PARITY_SEQ, TRAIN_PARITY_BATCH,
+                                              "train"), 0, device="cpu")
+    card_loss, card_g = _grads(cfg, card_model, {k: x.to(dev) for k, x in batch.items()})
+    host_loss, host_g = _grads(cfg, host_model, batch)
+    rec = {"loss_card": card_loss, "loss_cpu": host_loss, "grad_rel_err": {}}
+    if not abs(card_loss - host_loss) <= PARITY_ATOL:
+        raise AssertionError(f"train parity: loss {card_loss} on the card, {host_loss} on the CPU")
+    for name, hg in host_g.items():
+        rel = (card_g[name] - hg).abs().max().item() / max(hg.abs().max().item(), 1e-30)
+        rec["grad_rel_err"][name] = rel
+        if not rel <= TRAIN_GRAD_RTOL:
+            raise AssertionError(f"train parity: gradient {name} off by {rel} of its largest")
+    opts = AdamW(lr=TRAIN_LR), AdamW(lr=TRAIN_LR)
+    states = [{"params": m, "opt": o.init(zoo.model_params(m)), "step": 0}
+              for m, o in zip((card_model, host_model), opts)]
+    _, card_m = zoo.make_train_step(cfg, opts[0])(states[0], {k: x.to(dev) for k, x in
+                                                             batch.items()})
+    _, host_m = zoo.make_train_step(cfg, opts[1])(states[1], batch)
+    scale = min(1.0, 1.0 / float(host_m["grad_norm"]))
+    trees = [(zoo.to_jax_params(cfg, st["params"]), zoo.to_jax_params(cfg, st["opt"].m),
+              zoo.to_jax_params(cfg, st["opt"].v)) for st in states]
+    worst = {"params": 0.0, "m": 0.0, "v": 0.0}
+    for name, hg in host_g.items():
+        bounds = train_step_bound(hg, TRAIN_GRAD_RTOL * hg.abs().max().item(), scale, TRAIN_LR)
+        for i, what in enumerate(("params", "m", "v")):
+            card, host = trees[0][i][name].cpu(), trees[1][i][name]
+            lim = {"m": bounds[0], "v": bounds[1], "params": bounds[2]}[what]
+            # and f32's own rounding: 1e-6 of a value; a weight's update is
+            # lr times an O(1) quotient, good to ~1e-6 of lr, which a weight
+            # that the step brings near 0 does not scale down
+            lim = lim + 1e-6 * host.abs() + (TRAIN_LR * 1e-6 if what == "params" else 1e-12)
+            bad = ((card - host).abs() > lim).flatten().nonzero()[:, 0]
+            worst[what] = max(worst[what], (card - host).abs().max().item())
+            if len(bad):
+                at = bad[:6]
+                show = {"g_cpu": hg.flatten()[at], "g_card": card_g[name].flatten()[at],
+                        **{f"{w}_{side}": trees[j][i2][name].cpu().flatten()[at]
+                           for j, side in enumerate(("card", "cpu"))
+                           for i2, w in enumerate(("params", "m", "v"))}}
+                log(f"train parity: {len(bad)} elements of {what} {name} past the bound; "
+                    f"first: {({k: v.tolist() for k, v in show.items()})}, scale {scale}")
+                raise AssertionError(f"train parity: {len(bad)} elements of {what} {name} "
+                                     "past the bound the gradient tolerance allows")
+    rec["max_abs_err_after_step"] = worst
+    rec["seconds"] = time.perf_counter() - t
+    log(f"train parity: 2-layer yi-9b full width f32, B={TRAIN_PARITY_BATCH} "
+        f"S={TRAIN_PARITY_SEQ}, card vs CPU: {json.dumps(rec)}")
+    del card_model, host_model, states, trees
+    torch.cuda.empty_cache()
+    return rec
+
+
+def train_phase(dev, profile_dir: str | None) -> dict:
+    """TrainDriver's step function and AdamW on yi-9b at full width and
+    TRAIN_LAYERS of its 48 layers (bf16, remat on), TRAIN_STEPS steps of
+    TRAIN_BATCH sequences of TRAIN_SEQ tokens from TokenPipeline in
+    TRAIN_MICROBATCH microbatches.  Launch counts from 0 just before the
+    steps: a step launches the flash forward layers x microbatches x 2
+    (forward and remat recompute) and its backward layers x microbatches;
+    no plain version may run on the card.  Each step logs its seconds,
+    tokens/s, peak memory and the device seconds of forward, loss, backward
+    (with the loss's and the blocks' recompute) and optimizer from CUDA
+    events at the step's stage marks; the last step runs under
+    torch.profiler for the device's busy share."""
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, TokenPipeline
+    from repro_torch.kernels.flash_attention import kernel as flash_kernel
+    from repro_torch.models import zoo
+    from repro_torch.optim import AdamW, cosine_schedule
+    from repro_torch.runtime import TrainDriver
+
+    cfg = get_config("yi-9b").replace(n_layers=TRAIN_LAYERS, microbatch=TRAIN_MICROBATCH)
+    data = DataConfig(seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH, vocab=cfg.vocab)
+    # launch.train's default schedule: peak 3e-4 after 20 warm-up steps of 100
+    driver = TrainDriver(cfg, TRAIN_DIR / "full", data=data, device=dev,
+                         opt=AdamW(lr=cosine_schedule(3e-4, 20, 100)))
+    t = time.perf_counter()
+    state = driver.init_state()
+    pipe = TokenPipeline(data)
+    n_params = zoo.param_count(state["params"])
+    probe = {name: state["params"].get_parameter(name).detach().float().sum().item()
+             for name in ("embed.tok", "blocks.0.wq", f"blocks.{TRAIN_LAYERS - 1}.wo2")}
+    events: list = []
+
+    def mark(stage: str) -> None:
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        events.append((stage, ev))
+
+    step_fn = zoo.make_train_step(cfg, driver.opt, mark=mark)
+    plain_on_card = {"flash_attention_ref": 0, "flash_attention_bwd_ref": 0}
+    originals = {name: getattr(flash_kernel, name) for name in plain_on_card}
+
+    def counting(name):
+        def call(q, *args, **kw):
+            if q.device.type == "cuda":
+                plain_on_card[name] += 1
+            return originals[name](q, *args, **kw)
+        return call
+
+    for name in plain_on_card:
+        setattr(flash_kernel, name, counting(name))
+    log(f"train phase: yi-9b {TRAIN_LAYERS} of 48 layers, {n_params} weights in bf16, set up "
+        f"in {time.perf_counter() - t:.1f} s")
+    steps, losses = [], []
+    kernels.reset_launches()
+    try:
+        for step in range(TRAIN_STEPS):
+            batch = pipe.batch_at(step)
+            at = kernels.launch_counts()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            events.clear()
+            mark("start")
+            t0 = time.perf_counter()
+            profiled_step = step == TRAIN_STEPS - 1
+            if profiled_step:
+                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                    state, metrics = step_fn(state, batch)
+                    torch.cuda.synchronize()
+            else:
+                state, metrics = step_fn(state, batch)
+                torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            loss = float(metrics["loss"])
+            if not np.isfinite(loss):
+                raise AssertionError(f"train phase: loss {loss} at step {step}")
+            losses.append(loss)
+            stage_s: dict[str, float] = {}
+            for (_, a), (stage, b) in zip(events, events[1:]):
+                stage_s[stage] = stage_s.get(stage, 0.0) + a.elapsed_time(b) / 1e3
+            now = kernels.launch_counts()
+            rec = {"step": step, "loss": loss, "seconds": wall,
+                   "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / wall,
+                   "max_memory_allocated_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+                   "stage_device_s": stage_s,
+                   "grad_norm": float(metrics["grad_norm"]), "lr": float(metrics["lr"]),
+                   "launches": {k: now[k] - at[k] for k in ("flash_attention",
+                                                            "flash_attention_bwd")}}
+            if profiled_step:
+                evs = prof.events()
+                kernels_seen = sum(1 for e in evs if e.device_type == DeviceType.CUDA)
+                launched = sum(1 for e in evs if e.device_type == DeviceType.CPU
+                               and e.name in LAUNCH_APIS)
+                busy = device_us(evs)
+                rec["profiled"] = True
+                rec["device_busy_pct"] = (100 * busy / 1e6 / wall
+                                          if kernels_seen >= launched > 0 else None)
+                by_name: dict[str, float] = {}
+                for e in evs:
+                    if e.device_type == DeviceType.CUDA:
+                        by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time_total / 1e6
+                kinds = {"flash_fwd": ("flash_fwd",), "flash_bwd": ("flash_bwd",),
+                         "matmul": ("gemm", "nvjet", "xmma", "cutlass")}
+                rec["kernel_device_s"] = {kind: sum(t for n, t in by_name.items() if any(
+                    w in n.lower() for w in words)) for kind, words in kinds.items()}
+                rec["kernel_device_s"]["all"] = busy / 1e6
+                rec["top_kernels_s"] = dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:8])
+                if profile_dir:
+                    write_profile(prof, wall, Path(profile_dir) / "train_profile.txt",
+                                  "yi-9b train step", busy)
+            want = {"flash_attention": TRAIN_LAYERS * TRAIN_MICROBATCH * 2,
+                    "flash_attention_bwd": TRAIN_LAYERS * TRAIN_MICROBATCH}
+            if rec["launches"] != want:
+                raise AssertionError(f"train phase step {step}: launches {rec['launches']}, "
+                                     f"want {want}")
+            steps.append(rec)
+            log(f"train step: {json.dumps(rec)}")
+    finally:
+        for name, fn in originals.items():
+            setattr(flash_kernel, name, fn)
+    launches = kernels.launch_counts()
+    if any(plain_on_card.values()):
+        raise AssertionError(f"train phase: plain versions ran on the card {plain_on_card}")
+    moved = {name: state["params"].get_parameter(name).detach().float().sum().item() != v
+             for name, v in probe.items()}
+    if not all(moved.values()):
+        raise AssertionError(f"train phase: weights did not move {moved}")
+    unprofiled = [r["seconds"] for r in steps[1:-1]]
+    rec = {"steps": TRAIN_STEPS, "losses": losses, "launches": launches,
+           "plain_on_card": plain_on_card, "weights_moved": moved,
+           "median_step_s": float(np.median(unprofiled)),
+           "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / float(np.median(unprofiled)),
+           "seconds": time.perf_counter() - t}
+    log(f"train phase: {json.dumps(rec)}")
+    del state, driver, step_fn
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _launch_train(*args: str) -> dict:
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch", "yi-9b", "--smoke",
+           "--ckpt-every", str(DRIVER_CKPT_EVERY), *args]
+    out = subprocess.run(cmd, capture_output=True, text=True, timeout=600, cwd=ROOT,
+                         env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    if out.returncode != 0:
+        raise AssertionError(f"{' '.join(cmd)} failed:\n{out.stderr[-4000:]}")
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+def driver_phase(dev) -> dict:
+    """``python -m repro_torch.launch.train --arch yi-9b --smoke`` in
+    subprocesses on the card: 12 steps with a checkpoint every 5, clean and
+    with a host lost at step 8 (``--fail-at-step``), which must report one
+    restart to step 5 and end on the clean run's loss within 1e-3 relative
+    (the embedding's backward sums rows with atomics on the card, so the two
+    processes' bf16 states are not bit-identical); the step-5 checkpoint
+    restores (sha256 verified) into a train state that saves back to the
+    same bytes; and a third process resumes the clean run from its step-12
+    checkpoint to 17 steps and runs exactly 5."""
+    from repro_torch.checkpoint import restore_state, snapshot
+    from repro_torch.configs import get_config
+    from repro_torch.runtime import TrainDriver
+
+    t = time.perf_counter()
+    shutil.rmtree(TRAIN_DIR / "driver", ignore_errors=True)
+    base = TRAIN_DIR / "driver"
+    steps = ("--steps", str(DRIVER_STEPS))
+    clean = _launch_train(*steps, "--ckpt-dir", str(base / "clean"))
+    faulty = _launch_train(*steps, "--ckpt-dir", str(base / "faulty"),
+                           "--fail-at-step", str(DRIVER_FAIL_AT))
+    resumed = _launch_train("--steps", str(DRIVER_RESUME_TO), "--ckpt-dir", str(base / "clean"))
+    log(f"driver clean: {json.dumps(clean)}")
+    log(f"driver fail at {DRIVER_FAIL_AT}: {json.dumps(faulty)}")
+    log(f"driver resumed to {DRIVER_RESUME_TO}: {json.dumps(resumed)}")
+    if not (faulty["restarts"] == 1 and faulty["restored_steps"] == [DRIVER_CKPT_EVERY]
+            and faulty["steps"] == DRIVER_STEPS + DRIVER_FAIL_AT - DRIVER_CKPT_EVERY):
+        raise AssertionError(f"driver: the faulty run reports {faulty}")
+    if faulty["first_loss"] != clean["first_loss"] or not (
+            abs(faulty["last_loss"] - clean["last_loss"]) <= 1e-3 * abs(clean["last_loss"])):
+        raise AssertionError(f"driver: replayed losses differ: {faulty} vs {clean}")
+    if resumed["steps"] != DRIVER_RESUME_TO - DRIVER_STEPS or resumed["restored_steps"]:
+        raise AssertionError(f"driver: the resumed run reports {resumed}")
+    cfg = get_config("yi-9b", smoke=True)
+    path = base / "faulty" / cfg.name
+    drv = TrainDriver(cfg, path, device=dev)
+    state = drv.init_state()
+    tree, step = restore_state(path, drv.tree(state), step=DRIVER_CKPT_EVERY)  # sha256 checked
+    state = drv.load_tree(state, tree)
+    manifest = json.loads((path / f"step_{step:09d}" / "MANIFEST.json").read_text())["leaves"]
+    saved = snapshot(drv.tree(state))  # the restored state, as a save would write it
+    same = set(saved) == set(manifest) and all(
+        hashlib.sha256(arr.tobytes()).hexdigest() == manifest[name]["sha256"]
+        and dtype == manifest[name]["dtype"] for name, (arr, dtype) in saved.items())
+    if step != DRIVER_CKPT_EVERY or not same or state["step"] != DRIVER_CKPT_EVERY:
+        raise AssertionError("driver: the step-5 state does not restore to its checkpoint")
+    rec = {"clean": clean, "faulty": faulty, "resumed": resumed,
+           "restored_step_equals_checkpoint": same, "seconds": time.perf_counter() - t}
+    log(f"driver phase: restarts {faulty['restarts']} restored {faulty['restored_steps']}, "
+        f"last loss {faulty['last_loss']} vs clean {clean['last_loss']}, step-5 state equals "
+        f"its checkpoint (sha256 verified), resumed {resumed['steps']} steps; "
+        f"{rec['seconds']:.1f} s")
+    del drv, state, tree
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return rec
+
+
 def profile_burst(svc, reqs, out: Path) -> None:
     """torch.profiler over one batched burst; its tables go to ``out``."""
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -3120,6 +3640,15 @@ def main() -> int:
     hymba_serving = serving_phase(dev, args.profile, "hymba-1.5b")
     served["hymba-1.5b"] = launch_serve_phase(dev, "hymba-1.5b")
     elapsed("the hymba-1.5b phases")
+    bwd_checked = flash_bwd_kernel_phase(dev)
+    bwd_timing = time_flash_bwd(dev)
+    elapsed("the flash backward kernel phase and timing")
+    train_parity_phase(dev)
+    elapsed("the train parity phase")
+    trained = train_phase(dev, args.profile)
+    elapsed("the train phase")
+    driver_phase(dev)
+    elapsed("the driver phase")
     # the path's launches by the shape they come in: per-message dispatches
     # at N = 16 ids and B = 1 chase, batched ones at their arm's mean,
     # launch.serve's remote embedding at N = 8 of each LM's rows, and the
@@ -3244,6 +3773,18 @@ def main() -> int:
         "shape": "prefill B=1 T=2048 D=1600 N=16 bf16 (a f32) (split; decodes: step)",
         "step_ms": ssm_timing["prefill"]["step_ms"],
         "decode": {k: ssm_timing["decode"][k] for k in keys},
+    }, {
+        "name": "flash_attention_bwd",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
+        "replaces": "no Pallas kernel: the JAX package differentiates its einsum attend "
+                    "(src/repro/models/attention.py:46) with XLA",
+        "launches": trained["launches"]["flash_attention_bwd"],
+        "launches_flash_attention_forward_in_training": trained["launches"]["flash_attention"],
+        "max_abs_err": bwd_checked["max_abs_err"],
+        **{k: bwd_timing[k] for k in keys},
+        "forward_ms": bwd_timing["forward_ms"],
+        "shape": "train B=2 S=T=4096 H=32 K=4 d=128 bf16 causal (rows, dK/dV and dQ passes)",
     }]
     print(json.dumps({"kernels": kernels}))
     print(card)

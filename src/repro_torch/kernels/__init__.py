@@ -16,8 +16,11 @@ performs before it loads a slice that names one.
                  loop in every slice), one thread a chase; replaces the
                  Pallas VMEM block sweep of ``repro.kernels.chase``
   flash_attention/  blockwise online-softmax GQA attention (every attention
-                 call of the LM serving path); replaces the Pallas
-                 ``_flash_kernel`` of ``repro.kernels.flash_attention``
+                 call of the LM serving and training paths); replaces the
+                 Pallas ``_flash_kernel`` of ``repro.kernels.flash_attention``;
+                 and its backward (``flash_attention_bwd``, every attention
+                 gradient of the train step), which replaces no Pallas
+                 kernel: the JAX package differentiates ``attend`` with XLA
   wkv6/          the RWKV-6 time-mix recurrence, step by step or split over
                  time with a carried state (every WKV call of the rwkv
                  serving path); replaces the Pallas chunked ``_wkv6_kernel``
@@ -39,6 +42,7 @@ WRAPPERS = {
     "embed_lookup": _embed_lookup_kernel.embed_lookup,
     "chase_shard": _chase_kernel.chase_shard,
     "flash_attention": _flash_attention_kernel.flash_attention,
+    "flash_attention_bwd": _flash_attention_kernel.flash_attention_bwd,
     "wkv6": _wkv6_kernel.wkv6,
     "ssm_scan": _ssm_scan_kernel.ssm_scan,
 }

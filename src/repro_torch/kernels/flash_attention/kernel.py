@@ -26,7 +26,13 @@ Three routes (:func:`flash_route`; the source's note has their designs):
 :func:`flash_attention` is the wrapper: a tensor on the CPU takes the plain
 version (:mod:`.ref`); a CUDA tensor launches one route's kernel (counted
 in ``flash_attention.launches`` and, by route, in
-``flash_attention.route_launches``) or raises.
+``flash_attention.route_launches``) or raises.  With grad mode on and an
+input that requires grad, the call goes through an autograd ``Function``
+whose forward is that same route and whose backward is
+:func:`flash_attention_bwd`, the wrapper of ``csrc/flash_attention_bwd.cu``
+(three device kernels a launch: the row pass, dK/dV and dQ, on the f32
+CUDA cores; counted in ``flash_attention_bwd.launches``).  With grad off
+the serving path is unchanged: the same launches and nothing saved.
 """
 
 from __future__ import annotations
@@ -38,13 +44,15 @@ import math
 import torch
 
 from ..build import load
-from .ref import flash_attention_ref
+from .ref import flash_attention_bwd_ref, flash_attention_ref
 
 #: head dims the kernels are instantiated for (yi's 128, the sweep's 64,
 #: the smoke config's 32)
 HEAD_DIMS = (32, 64, 128)
 _DTYPES = (torch.float32, torch.bfloat16)
 ROUTES = ("wgmma", "split", "simt")
+#: the backward's one route: three passes on the f32 CUDA cores
+BWD_ROUTES = ("simt",)
 #: a bf16 call with at most this many rows per (batch, KV head) is split
 #: over keys (the split kernel's row limit)
 SPLIT_ROWS = 16
@@ -122,7 +130,8 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
-def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool, window: int) -> None:
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool, window: int,
+           keyless_rows: bool = False) -> None:
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(
             f"flash_attention takes q (B, S, H, d) and k, v (B, T, K, d), got "
@@ -136,7 +145,7 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool, wind
         )
     if s == 0 or k.shape[1] == 0:
         raise ValueError("flash_attention needs at least one query and one key")
-    if causal and k.shape[1] < s:
+    if causal and k.shape[1] < s and not keyless_rows:
         raise ValueError(
             f"causal flash_attention needs T >= S (got S={s}, T={k.shape[1]}): "
             "the first S - T queries would see no key"
@@ -177,6 +186,12 @@ def flash_attention(
     ``window`` > 0 (causal only) also iff ``i + T - S - j < window``.
     Returns a contiguous ``(B, S, H, d)`` tensor in q's dtype."""
     _check(q, k, v, causal, window)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return _FlashAttention.apply(q, k, v, causal, softcap, scale, window)
+    return _forward(q, k, v, causal, softcap, scale, window)
+
+
+def _forward(q, k, v, causal, softcap, scale, window) -> torch.Tensor:
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal, softcap=softcap, scale=scale,
                                    window=window)
@@ -231,3 +246,93 @@ def flash_attention(
 
 flash_attention.launches = 0
 flash_attention.route_launches = dict.fromkeys(ROUTES, 0)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The forward route's kernel, and :func:`flash_attention_bwd` for the
+    gradient; saves q, k, v and the output."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, softcap, scale, window):
+        out = _forward(q, k, v, causal, softcap, scale, window)
+        ctx.save_for_backward(q, k, v, out)
+        ctx.opts = dict(causal=causal, softcap=softcap, scale=scale, window=window)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out = (x.contiguous() for x in ctx.saved_tensors)
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, dout.contiguous(), **ctx.opts)
+        return dq, dk, dv, None, None, None, None
+
+
+def _bwd_library() -> ctypes.CDLL:
+    lib = load("flash_attention_bwd")
+    if not lib.flash_attention_bwd_launch.argtypes:
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.flash_attention_bwd_launch.argtypes = [*[p] * 10, *[i] * 7, f, f, i, i, p]
+        lib.flash_attention_bwd_launch.restype = ctypes.c_int
+        lib.flash_attention_bwd_error_string.argtypes = [ctypes.c_int]
+        lib.flash_attention_bwd_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def flash_attention_bwd(
+    q: torch.Tensor,  # (B, S, H, d)
+    k: torch.Tensor,  # (B, T, K, d)
+    v: torch.Tensor,  # (B, T, K, d)
+    out: torch.Tensor,  # (B, S, H, d): the forward's output
+    dout: torch.Tensor,  # (B, S, H, d)
+    *,
+    causal: bool = True,
+    softcap: float | None = None,
+    scale: float | None = None,
+    window: int = 0,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(dq, dk, dv)`` of :func:`flash_attention` at ``dout``, in the
+    inputs' types: the plain version (``flash_attention_bwd_ref``) for a CPU
+    tensor, the kernel's three passes for a CUDA one (all five operands
+    contiguous, of one type) or a raise.  Unlike the forward it takes
+    causal calls with S > T: a row that sees no key gets no gradient."""
+    _check(q, k, v, causal, window, keyless_rows=True)
+    if out.shape != q.shape or dout.shape != q.shape:
+        raise ValueError(f"flash_attention_bwd: out {tuple(out.shape)} and dout "
+                         f"{tuple(dout.shape)} must have q's shape {tuple(q.shape)}")
+    if q.device.type == "cpu":
+        return flash_attention_bwd_ref(q, k, v, out, dout, causal=causal, softcap=softcap,
+                                       scale=scale, window=window)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_bwd has no kernel for device {q.device}")
+    b, s, h, d = q.shape
+    t, kh = k.shape[1], k.shape[2]
+    if d not in HEAD_DIMS:
+        raise ValueError(f"flash_attention_bwd kernel takes head dims {HEAD_DIMS}, got {d}")
+    ops = (q, k, v, out, dout)
+    if any(x.dtype != q.dtype or x.device != q.device for x in ops):
+        raise TypeError("flash_attention_bwd operands must share one dtype and device")
+    if not all(x.is_contiguous() and x.data_ptr() % 16 == 0 for x in ops):
+        raise ValueError("flash_attention_bwd kernel needs contiguous operands on 16-byte "
+                         "boundaries")
+    if softcap is not None and not softcap > 0:
+        raise ValueError(f"flash_attention_bwd softcap must be positive, got {softcap}")
+    scale = 1.0 / math.sqrt(d) if scale is None else float(scale)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    scratch = torch.empty(2 * b * h * s, dtype=torch.float32, device=q.device)  # lse, delta
+    lib = _bwd_library()
+    ptrs = [x.data_ptr() for x in (*ops, dq, dk, dv)]
+    ptrs += [scratch.data_ptr(), scratch[b * h * s:].data_ptr()]
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.flash_attention_bwd_launch(
+            *ptrs, b, s, t, h, kh, d, int(q.dtype == torch.bfloat16), scale,
+            float(softcap or 0.0), int(causal), window, stream)
+    flash_attention_bwd.launches += 1
+    flash_attention_bwd.route_launches["simt"] += 1
+    if err:
+        msg = lib.flash_attention_bwd_error_string(err).decode()
+        raise RuntimeError(f"flash_attention_bwd launch failed: {msg} ({err})")
+    return dq, dk, dv
+
+
+flash_attention_bwd.launches = 0
+flash_attention_bwd.route_launches = dict.fromkeys(BWD_ROUTES, 0)

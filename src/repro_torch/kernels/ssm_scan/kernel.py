@@ -134,6 +134,11 @@ def ssm_scan(
         return ssm_scan_ref(x, dt, a, b, c, h0)
     if x.device.type != "cuda":
         raise ValueError(f"ssm_scan has no kernel for device {x.device}")
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (x, dt, a, b, c, h0)):
+        raise NotImplementedError(
+            "ssm_scan has no backward kernel yet: hymba training on the card waits for it "
+            "(ROADMAP.md section 1, item 5); the kernel's output would carry no gradient")
     bsz, t, d = x.shape
     n = a.shape[1]
     if n not in STATE_DIMS:

@@ -126,6 +126,11 @@ def wkv6(
         return wkv6_ref(r, k, v, w, u, state)
     if r.device.type != "cuda":
         raise ValueError(f"wkv6 has no kernel for device {r.device}")
+    if torch.is_grad_enabled() and any(
+            x is not None and x.requires_grad for x in (r, k, v, w, u, state)):
+        raise NotImplementedError(
+            "wkv6 has no backward kernel yet: rwkv6 training on the card waits for it "
+            "(ROADMAP.md section 1, item 5); the kernel's output would carry no gradient")
     b, t, h, m = r.shape
     if m not in HEAD_DIMS:
         raise ValueError(f"wkv6 kernel takes head sizes {HEAD_DIMS}, got {m}")

@@ -1,27 +1,34 @@
 """The LM framework of the port: configs' models, the dense decoder stack
-and its steps, and the sequence-parallel attention and vocab-sharded
+and its serving and train steps, and the sequence-parallel attention and vocab-sharded
 embeddings of the compiled SPMD rendering (the counterpart of
 ``repro.models``)."""
 
 from .attention import attend_sp
-from .common import ModelConfig, ParamFactory, pad_vocab
+from .common import ModelConfig, ParamFactory, cross_entropy, pad_vocab
 from .embedding import embed_auto, embed_c2d, embed_gather, embed_plain, embed_tokens
 from .zoo import (
     LM,
+    LOSS_CHUNK,
     ShapeSpec,
     build_params,
     forward,
     from_jax_params,
     init_kv_cache,
+    loss_fn,
     make_batch,
+    make_eval_step,
     make_prefill_step,
     make_serve_step,
+    make_steps,
+    make_train_step,
     param_count,
+    to_jax_params,
 )
 
 __all__ = [
-    "LM", "ModelConfig", "ParamFactory", "ShapeSpec", "attend_sp", "build_params",
-    "embed_auto", "embed_c2d", "embed_gather", "embed_plain", "embed_tokens", "forward",
-    "from_jax_params", "init_kv_cache", "make_batch", "make_prefill_step", "make_serve_step",
-    "pad_vocab", "param_count",
+    "LM", "LOSS_CHUNK", "ModelConfig", "ParamFactory", "ShapeSpec", "attend_sp",
+    "build_params", "cross_entropy", "embed_auto", "embed_c2d", "embed_gather", "embed_plain",
+    "embed_tokens", "forward", "from_jax_params", "init_kv_cache", "loss_fn", "make_batch",
+    "make_eval_step", "make_prefill_step", "make_serve_step", "make_steps", "make_train_step",
+    "pad_vocab", "param_count", "to_jax_params",
 ]

@@ -65,10 +65,11 @@ class ModelConfig:
     # numerics / training
     dtype: Any = torch.bfloat16
     embed_mult: float = 1.0  # gemma multiplies embeddings by sqrt(d_model)
-    # Kept so the configs equal the JAX package's field for field; the port
-    # reads none of them: it does not train (remat, microbatch), has no
-    # mesh (c2d_embedding), and its flash kernel tiles queries itself
-    # (attn_chunk, the JAX einsum attention's q-chunk).
+    # remat and microbatch shape the train step (run_blocks, make_train_step).
+    # Kept so the configs equal the JAX package's field for field, and read
+    # nowhere in the port: c2d_embedding (no mesh through the forward yet)
+    # and attn_chunk (the JAX einsum attention's q-chunk; the flash kernel
+    # tiles queries itself).
     remat: bool = True
     c2d_embedding: bool = True
     attn_chunk: int = 0
@@ -189,3 +190,22 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor
     o1 = x1 * cos - x2 * sin
     o2 = x2 * cos + x1 * sin
     return torch.stack([o1, o2], dim=-1).reshape(x.shape).to(x.dtype)
+
+
+# --------------------------------------------------------------------- loss
+def cross_entropy(
+    logits: torch.Tensor, labels: torch.Tensor, vocab: int, mask: torch.Tensor | None = None
+) -> torch.Tensor:
+    """Mean NLL over valid positions (f32); padded-vocab slots are masked to
+    -1e9 (the LM head produces garbage logits there)."""
+    v = logits.shape[-1]
+    if v > vocab:
+        pad = torch.arange(v, device=logits.device) >= vocab
+        logits = logits.masked_fill(pad, -1e9)
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    nll = lse - gold
+    if mask is not None:
+        return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    return torch.mean(nll)

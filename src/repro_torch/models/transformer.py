@@ -12,7 +12,10 @@ card, over the cache's valid prefix, with the layer's sliding window (0 on
 global layers); an RWKV block's WKV is one launch of the ``wkv6`` kernel
 and a hybrid block's scan one of ``ssm_scan``, each from the layer's
 state.  The MoE and encoder-decoder families wait for their slices
-(ROADMAP.md section 1).
+(ROADMAP.md section 1).  A forward that trains (grad on, weights that
+require grad, no cache) with ``cfg.remat`` checkpoints each block, as the
+JAX package wraps its scan body in ``jax.checkpoint``: a block keeps only
+its input and runs again in the backward.
 """
 
 from __future__ import annotations
@@ -20,6 +23,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 from torch import nn
+
+from torch.utils.checkpoint import checkpoint
 
 from ..kernels.flash_attention import flash_attention
 from .attention import qkv_proj, update_kv_cache
@@ -189,7 +194,13 @@ def run_blocks(
     rows: torch.Tensor | None = None,
 ) -> torch.Tensor:
     windows = layer_windows(cfg)
+    remat = cfg.remat and caches is None and torch.is_grad_enabled() and (
+        x.requires_grad or any(w.requires_grad for w in blocks.parameters()))
     for layer, p in enumerate(blocks):
+        if remat:
+            x = checkpoint(block_apply, x, p, cfg, pos=pos, cache=None, offset=offset,
+                           window=int(windows[layer]), use_reentrant=False)
+            continue
         cache = None if caches is None else {name: leaf[layer] for name, leaf in caches.items()}
         x = block_apply(x, p, cfg, pos=pos, cache=cache, offset=offset, rows=rows,
                         window=int(windows[layer]))

@@ -6,14 +6,26 @@ families:
 * ``build_params(cfg, seed, device=...)``   -> ``LM`` (weights on the device)
 * ``from_jax_params(cfg, flat, device=...)`` -> ``LM`` holding the JAX
   package's flat weights (``"blocks.wq"`` stacked ``(L, D, q_dim)`` and so on)
-* ``make_batch(cfg, shape, seed)``          -> random token batch (numpy seed)
+* ``to_jax_params(cfg, named)``             -> the JAX flat dict of an ``LM`` (or of a
+  dict keyed by its parameter names, such as AdamW's moments): the inverse of
+  ``from_jax_params``
+* ``make_batch(cfg, shape, seed)``          -> random token batch (numpy seed); a
+  ``train`` shape adds ``labels`` and ``mask``
 * ``init_kv_cache(cfg, batch, t_max)``      -> dense ``{"k", "v"}``, ``(L, B, T, K, hd)``;
   rwkv ``{"tm_shift", "cm_shift", "wkv"}``; hybrid ``{"k", "v", "conv", "h"}``
 * ``make_prefill_step(cfg)``                -> (model, batch) -> (logits, cache)
 * ``make_serve_step(cfg)``                  -> (model, cache, tok, pos) -> (logits, cache)
+* ``loss_fn(cfg, model, batch)``            -> (loss, {"nll", "aux"}), the head and
+  softmax cross-entropy in ``LOSS_CHUNK``-position chunks
+* ``make_train_step(cfg, opt)``             -> (state, batch) -> (state, metrics);
+  ``state = {"params": LM, "opt": OptState, "step": int}``, updated in place
+* ``make_eval_step(cfg)``, ``make_steps(cfg, opt)``
 
 PyTorch runs eagerly, so the steps are plain functions (the JAX package
-jits them).  Caches are written in place and returned for symmetry.
+jits them).  Caches, weights and moments are written in place and returned
+for symmetry.  The weights are made with ``requires_grad=False``: the train
+step turns grad on for the weights it trains, and the serving steps never
+record a graph.
 Every entry point that makes tensors takes ``device``: ``None`` means the
 card, and raises without one.
 """
@@ -26,9 +38,10 @@ from typing import Any, Callable
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..core.bitcode import resolve_device
-from .common import ModelConfig, ParamFactory, rms_norm, softcap
+from .common import ModelConfig, ParamFactory, cross_entropy, rms_norm, softcap
 from .embedding import embed_plain, lm_head
 from .rwkv import RWKVBlock
 from .ssm import CONV_K
@@ -83,7 +96,7 @@ def from_jax_params(
     ``blocks.*`` leaves are sliced along their leading layer axis."""
     dev = resolve_device(device)
     model = LM(cfg, ParamFactory(0, cfg.dtype, dev, fill=False))
-    want = dict(model.named_parameters())
+    want = model_params(model)
     seen = set()
     for key, arr in flat.items():
         arr = torch.tensor(np.asarray(arr))
@@ -107,6 +120,64 @@ def from_jax_params(
     if missing:
         raise KeyError(f"from_jax_params: no JAX leaf for {missing}")
     return model
+
+
+def model_params(model: LM) -> dict[str, torch.Tensor]:
+    """The model's parameters by name (``blocks.<layer>.<leaf>``)."""
+    return dict(model.named_parameters())
+
+
+def from_jax_names(cfg: ModelConfig, flat: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+    """A JAX flat dict under the port's names: each stacked ``blocks.<leaf>``
+    ``(L, ...)`` becomes ``blocks.<layer>.<leaf>`` views, one a layer."""
+    out = {}
+    for key, arr in flat.items():
+        if key.startswith("blocks."):
+            leaf = key[len("blocks."):]
+            if arr.shape[0] != cfg.n_layers:
+                raise ValueError(f"{key} stacks {arr.shape[0]} layers, want {cfg.n_layers}")
+            out.update({f"blocks.{layer}.{leaf}": arr[layer] for layer in range(cfg.n_layers)})
+        else:
+            out[key] = arr
+    return out
+
+
+def to_jax_params(
+    cfg: ModelConfig, named: "LM | dict[str, torch.Tensor]"
+) -> dict[str, torch.Tensor]:
+    """The JAX package's flat dict of ``named`` (an ``LM``, or a dict under
+    its parameter names such as AdamW's moments): ``blocks.<layer>.<leaf>``
+    stacked along a leading layer axis as ``blocks.<leaf>`` (a new tensor),
+    every other leaf as it is.  The inverse of :func:`from_jax_params`."""
+    if isinstance(named, nn.Module):
+        named = model_params(named)
+    out, stacks = {}, {}
+    for name, t in named.items():
+        if name.startswith("blocks."):
+            _, layer, leaf = name.split(".", 2)
+            stacks.setdefault(f"blocks.{leaf}", {})[int(layer)] = t
+        else:
+            out[name] = t
+    for key, parts in stacks.items():
+        out[key] = torch.stack([parts[layer] for layer in range(cfg.n_layers)]).detach()
+    return out
+
+
+@torch.no_grad()
+def load_named(
+    dst: dict[str, torch.Tensor], src: dict[str, torch.Tensor], what: str = "load_named"
+) -> None:
+    """Copy every tensor of ``src`` into the one of ``dst`` under its name;
+    the names and shapes must match one to one."""
+    extra, missing = sorted(set(src) - set(dst)), sorted(set(dst) - set(src))
+    if extra:
+        raise KeyError(f"{what}: {extra} have no counterpart in the port")
+    if missing:
+        raise KeyError(f"{what}: no leaf for {missing}")
+    for name, t in src.items():
+        if tuple(t.shape) != tuple(dst[name].shape):
+            raise ValueError(f"{what}: {name} is {tuple(t.shape)}, want {tuple(dst[name].shape)}")
+        dst[name].copy_(t)
 
 
 def param_count(model: nn.Module) -> int:
@@ -186,13 +257,19 @@ def make_batch(
     cfg: ModelConfig, shape: ShapeSpec, seed: int = 0,
     device: "torch.device | str | None" = None,
 ) -> dict[str, torch.Tensor]:
-    """Random prompt tokens of a prefill shape, from the numpy seed the JAX
-    package uses (so both packages see the same tokens)."""
-    if shape.kind != "prefill":
-        raise NotImplementedError(f"make_batch: {shape.kind} batches are not ported yet")
+    """Random tokens of a prefill or train shape (a train shape adds random
+    ``labels`` and a ``mask`` of ones), from the numpy draws the JAX package
+    makes (so both packages see the same batch)."""
+    if shape.kind not in ("prefill", "train"):
+        raise ValueError(f"make_batch makes prefill and train batches, not {shape.kind!r}")
+    dev = resolve_device(device)
     rng = np.random.default_rng(seed)
-    tokens = rng.integers(0, cfg.vocab, (shape.global_batch, shape.seq_len)).astype(np.int32)
-    return {"tokens": torch.from_numpy(tokens).to(resolve_device(device))}
+    b, s = shape.global_batch, shape.seq_len
+    batch = {"tokens": rng.integers(0, cfg.vocab, (b, s)).astype(np.int32)}
+    if shape.kind == "train":  # the port's families have no frontend positions to mask
+        batch["labels"] = rng.integers(0, cfg.vocab, (b, s)).astype(np.int32)
+        batch["mask"] = np.ones((b, s), np.float32)
+    return {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
 
 
 # -------------------------------------------------------------------- steps
@@ -234,3 +311,156 @@ def make_serve_step(cfg: ModelConfig) -> Callable:
         return logits[:, -1, :], cache
 
     return serve_step
+
+
+# ------------------------------------------------------------- train steps
+AUX_LOSS_WEIGHT = 0.01  # the JAX package's weight of the MoE router loss
+LOSS_CHUNK = 512  # S-chunked softmax-xent: the (B, S, V) f32 logits never exist whole
+
+
+def _chunk_nll(
+    cfg: ModelConfig, model: LM, h: torch.Tensor, labels: torch.Tensor, mask: torch.Tensor
+) -> torch.Tensor:
+    """Summed masked NLL of one chunk of positions."""
+    logits = _head(cfg, model, h)
+    v = logits.shape[-1]
+    if v > cfg.vocab:
+        logits = logits.masked_fill(torch.arange(v, device=h.device) >= cfg.vocab, -1e9)
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    return torch.sum((lse - gold) * mask)
+
+
+def _chunked_xent(
+    cfg: ModelConfig, model: LM, h: torch.Tensor, labels: torch.Tensor,
+    mask: torch.Tensor | None,
+) -> torch.Tensor:
+    """Head matmul + cross-entropy over chunks of ``LOSS_CHUNK`` positions
+    of the final hidden state: each chunk's logits exist only inside a
+    checkpointed call (recomputed in the backward), as in the JAX package's
+    remat'd scan.  A sequence that ``LOSS_CHUNK`` does not cut into two or
+    more chunks takes the whole head at once."""
+    b, s, _ = h.shape
+    c = LOSS_CHUNK
+    if s % c or s <= c:
+        return cross_entropy(_head(cfg, model, h), labels, cfg.vocab, mask)
+    if mask is None:
+        mask = torch.ones((b, s), dtype=torch.float32, device=h.device)
+    nll = torch.zeros((), dtype=torch.float32, device=h.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=h.device)
+    for i in range(s // c):
+        part = (h[:, i * c : (i + 1) * c], labels[:, i * c : (i + 1) * c],
+                mask[:, i * c : (i + 1) * c])
+        if torch.is_grad_enabled():
+            nll = nll + checkpoint(_chunk_nll, cfg, model, *part, use_reentrant=False)
+        else:
+            nll = nll + _chunk_nll(cfg, model, *part)
+        cnt = cnt + torch.sum(part[2])
+    return nll / torch.clamp(cnt, min=1.0)
+
+
+def loss_fn(
+    cfg: ModelConfig, model: LM, batch: dict, mark: Callable[[str], None] | None = None
+) -> tuple[torch.Tensor, dict]:
+    """``(loss, {"nll", "aux"})``: the masked next-token NLL (the port's
+    families have no auxiliary loss: ``aux`` is 0).  ``mark``, when given,
+    is called with ``"forward"`` and ``"loss"`` as each is queued."""
+    h, _, aux = forward(cfg, model, batch, return_hidden=True)
+    if mark:
+        mark("forward")
+    nll = _chunked_xent(cfg, model, h, batch["labels"], batch.get("mask"))
+    loss = nll + AUX_LOSS_WEIGHT * aux
+    if mark:
+        mark("loss")
+    return loss, {"nll": nll, "aux": torch.as_tensor(aux, dtype=torch.float32)}
+
+
+def _on(batch: dict, device: torch.device) -> dict[str, torch.Tensor]:
+    return {k: (v if isinstance(v, torch.Tensor) else torch.tensor(np.asarray(v))).to(device)
+            for k, v in batch.items()}
+
+
+def make_train_step(cfg: ModelConfig, opt, mark: Callable[[str], None] | None = None
+                    ) -> Callable:
+    """``(state, batch) -> (state, metrics)``; ``state = {"params": LM,
+    "opt": OptState, "step": int}``, updated in place; ``batch`` holds
+    ``tokens``, ``labels`` and ``mask`` (numpy or tensors; moved to the
+    model's device).
+
+    ``cfg.microbatch > 1`` (dividing the batch) splits the batch into that
+    many contiguous slices and accumulates their gradients in f32, then
+    averages them, as the JAX package's scan does: peak activation memory
+    divides by the microbatch count.  Grad is turned on for the weights only
+    inside the step.  ``mark``, when given, is called with ``"forward"``,
+    ``"loss"`` and ``"backward"`` as each stage of each microbatch is
+    queued, and with ``"optimizer"`` after the update (a timer's hook)."""
+    mark = mark or (lambda stage: None)
+
+    def grad_once(model: LM, params: dict, batch: dict):
+        with torch.enable_grad():
+            loss, parts = loss_fn(cfg, model, batch, mark)
+            grads = torch.autograd.grad(loss, list(params.values()), allow_unused=True,
+                                        materialize_grads=True)
+            mark("backward")
+        return loss.detach(), {k: v.detach() for k, v in parts.items()}, dict(zip(params, grads))
+
+    def train_step(state: dict, batch: dict):
+        model = state["params"]
+        params = model_params(model)
+        batch = _on(batch, model.device)
+        mb = max(int(cfg.microbatch), 1)
+        b = batch["tokens"].shape[0]
+        for p in params.values():
+            p.requires_grad_(True)
+        try:
+            if mb > 1 and b % mb == 0:
+                n = b // mb
+                grads = {k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+                         for k, p in params.items()}
+                losses, parts = [], []
+                for i in range(mb):
+                    loss, part, g = grad_once(
+                        model, params, {k: v[i * n : (i + 1) * n] for k, v in batch.items()})
+                    for k, acc in grads.items():
+                        acc.add_(g[k].float())
+                    del g
+                    losses.append(loss)
+                    parts.append(part)
+                for acc in grads.values():
+                    acc.div_(mb)
+                loss = torch.stack(losses).mean()
+                parts = {k: torch.stack([p[k] for p in parts]).mean() for k in parts[0]}
+            else:
+                loss, parts, grads = grad_once(model, params, batch)
+        finally:
+            for p in params.values():
+                p.requires_grad_(False)
+        _, _, om = opt.update(grads, state["opt"], params)
+        mark("optimizer")
+        del grads
+        state["step"] += 1
+        return state, {"loss": loss, **parts, **om, "step": state["step"]}
+
+    return train_step
+
+
+def make_eval_step(cfg: ModelConfig) -> Callable:
+    @torch.no_grad()
+    def eval_step(model: LM, batch: dict):
+        loss, parts = loss_fn(cfg, model, _on(batch, model.device))
+        return {"loss": loss, **parts}
+
+    return eval_step
+
+
+def make_steps(cfg: ModelConfig, opt=None) -> dict[str, Callable]:
+    from ..optim import AdamW
+
+    opt = opt or AdamW()
+    return {
+        "train": make_train_step(cfg, opt),
+        "eval": make_eval_step(cfg),
+        "prefill": make_prefill_step(cfg),
+        "serve": make_serve_step(cfg),
+    }

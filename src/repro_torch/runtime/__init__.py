@@ -1,8 +1,10 @@
 """Serving runtimes over the port's X-RDMA substrate: the embedding-shard
 service and its predicate-pushdown sibling, the multi-tenant router over
 it, and the LM's continuous-batching scheduler with its remote
-embedding client."""
+embedding client; and the LM's fault-tolerant training driver with its
+health monitors."""
 
+from .driver import TrainDriver, TrainReport
 from .embed_service import (
     EmbedShardService,
     FilterShardService,
@@ -10,6 +12,7 @@ from .embed_service import (
     GatherRequest,
     ragged_batches,
 )
+from .monitor import HeartbeatMonitor, StepTimer, StragglerPolicy
 from .serving import Request, ServeScheduler
 from .tenancy import RemoteEmbedClient, TenantClass, TenantRouter, TenantStats
 

@@ -896,3 +896,82 @@ def test_gather_shard_map_on_two_gloo_ranks(spmd_on_card):
         assert res["gather_launches"] == {**dict.fromkeys(res["gather_launches"], 0),
                                           "embed_lookup": 1}
         assert res["gather_routes"]["embed_lookup"]["warp"] == 1
+
+
+# ------------------------------------------------------- the train step
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", [
+    # (name, b, s, t, h, kh, d, kwargs)
+    ("gqa_S300_d128", 1, 300, 300, 32, 4, 128, {}),
+    ("window_softcap_S_lt_T_d64", 2, 77, 333, 6, 2, 64, {"window": 50, "softcap": 30.0}),
+], ids=lambda c: c[0] if isinstance(c, tuple) else None)
+def test_flash_bwd_kernel_matches_plain(card, case, dtype):
+    """dQ, dK and dV from the backward kernel against its plain version on
+    the same inputs: f32 within 2e-5 (f32 products summed in other orders);
+    bf16 within one bf16 rounding of the value (both compute in f32 and
+    round once at the end) plus 1e-3."""
+    from repro_torch.kernels.flash_attention import flash_attention_bwd, flash_attention_bwd_ref
+
+    _, b, s, t, h, kh, d, kw = case
+    q, k, v, dout = _flash_inputs(card, [(b, s, h, d), (b, t, kh, d), (b, t, kh, d),
+                                         (b, s, h, d)], dtype, 11)
+    out = flash_attention(q, k, v, **kw)
+    before = flash_attention_bwd.launches
+    got = flash_attention_bwd(q, k, v, out, dout, **kw)
+    torch.cuda.synchronize()
+    assert flash_attention_bwd.launches == before + 1
+    want = flash_attention_bwd_ref(q, k, v, out, dout, **kw)
+    tol = dict(atol=2e-5, rtol=2e-5) if dtype == torch.float32 else dict(atol=1e-3, rtol=2**-7)
+    for g, w in zip(got, want):
+        assert g.dtype == dtype
+        torch.testing.assert_close(g.float(), w.float(), **tol)
+
+
+def test_train_step_launches_the_backward_kernel(card):
+    """One train step of yi smoke (bf16) with remat and 2 microbatches on
+    the card: the flash forward runs twice a layer a microbatch (forward and
+    recompute), the backward kernel once; the loss is finite and the
+    weights move."""
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention_bwd
+    from repro_torch.models import zoo
+    from repro_torch.optim import AdamW
+
+    cfg = get_config("yi-9b", smoke=True).replace(remat=True, microbatch=2)
+    model = zoo.build_params(cfg, 0, device=card)
+    before = model.blocks[0].wq.detach().clone()
+    opt = AdamW(lr=1e-3)
+    state = {"params": model, "opt": opt.init(zoo.model_params(model)), "step": 0}
+    batch = zoo.make_batch(cfg, zoo.ShapeSpec("t", 128, 4, "train"), 0, device=card)
+    kernels.reset_launches()
+    state, metrics = zoo.make_train_step(cfg, opt)(state, batch)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    assert counts["flash_attention_bwd"] == cfg.n_layers * 2
+    assert counts["flash_attention"] == cfg.n_layers * 2 * 2
+    assert torch.isfinite(metrics["loss"]) and state["step"] == 1
+    assert not torch.equal(model.blocks[0].wq, before)
+    assert not any(p.requires_grad for p in model.parameters())
+
+
+@pytest.mark.parametrize("kernel", ["wkv6", "ssm_scan"])
+def test_recurrences_raise_under_grad_on_the_card(card, kernel):
+    """Without a backward kernel, the recurrences refuse to run on the card
+    under grad rather than hand back an output with no gradient."""
+    g = torch.Generator(card).manual_seed(0)
+    if kernel == "wkv6":
+        r, k, v = (torch.randn(1, 8, 2, 64, generator=g, device=card) for _ in range(3))
+        w = torch.rand(1, 8, 2, 64, generator=g, device=card) * 0.5 + 0.4
+        u = torch.randn(2, 64, generator=g, device=card)
+        call = lambda: wkv6(r.requires_grad_(), k, v, w, u)
+    else:
+        x = torch.randn(1, 8, 64, generator=g, device=card)
+        dt = torch.rand(1, 8, 64, generator=g, device=card) + 0.1
+        a = -torch.rand(64, 16, generator=g, device=card) - 0.5
+        b, c = (torch.randn(1, 8, 16, generator=g, device=card) for _ in range(2))
+        call = lambda: ssm_scan(x.requires_grad_(), dt, a, b, c)
+    with pytest.raises(NotImplementedError, match="backward kernel"):
+        call()
+    with torch.no_grad():
+        call()  # serving: no grad, the kernel runs

@@ -146,3 +146,32 @@ def test_slice_10_entry_points_without_a_card_raise(monkeypatch, entry):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[entry]()
+
+
+def test_importing_the_training_path_loads_no_jax():
+    code = (
+        "import sys, repro_torch.optim, repro_torch.data, repro_torch.checkpoint, "
+        "repro_torch.runtime.driver, repro_torch.runtime.monitor, repro_torch.launch.train; "
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]; "
+        "print(bad); sys.exit(1 if bad else 0)"
+    )
+    env = {"PYTHONPATH": str(REPO / "src"), "PATH": "/usr/bin:/bin"}
+    out = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True, text=True)
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
+@pytest.mark.parametrize("entry", ["train_driver", "launch_train"])
+def test_training_entry_points_without_a_card_raise(monkeypatch, tmp_path, entry):
+    """The train driver and its launcher run on the card unless the caller
+    names the CPU: without one they raise before any work."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import train
+    from repro_torch.runtime import TrainDriver
+
+    calls = {
+        "train_driver": lambda: TrainDriver(get_config("yi-9b", smoke=True), tmp_path),
+        "launch_train": lambda: train(["--arch", "yi-9b", "--ckpt-dir", str(tmp_path)]),
+    }
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        calls[entry]()
