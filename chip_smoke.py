@@ -221,13 +221,19 @@ a checkout, on a host with one Hopper card (sm_90) and the CUDA toolkit.
 25. ``launch.serve`` at full hymba-1.5b, local and remote-embed: streams
    bit-identical, each kernel launched 32 x (1 + 32) times in each.
 26. Flash backward kernel phase: dQ, dK and dV of ``flash_attention_bwd``
-   (three device kernels: the row pass, dK/dV, dQ) against its plain version
-   on the same inputs, bf16 also against the plain version on f32 copies,
-   and the plain version against ``torch.autograd`` of the plain forward,
-   at the JAX flash sweep's shapes, yi's train shape (B = 2, S = T = 4,096,
-   bf16), hymba's windowed shape, a softcap, S < T and rows that see no
-   key, in f32 and bf16; then its time at yi's train shape beside its
-   bound, the plain version, the forward kernel and SDPA's backward.
+   against its plain version on the same inputs, on the ``wgmma`` route
+   (bf16: dK/dV and dQ on the tensor cores, P and dS rounded to bf16 in
+   both) and the ``simt`` route (f32, and bf16 asked for by name: all in
+   f32, so its plain version runs on f32 copies); bf16 ``wgmma`` also on
+   f32 copies, within twice the plain bf16 version's own error there plus
+   the f32-copies bound; and the plain version against ``torch.autograd``
+   of the plain forward, at the JAX flash sweep's shapes, yi's train shape
+   (B = 2, S = T = 4,096, bf16), hymba's windowed shape, a softcap, S < T
+   and rows that see no key (dQ exactly 0), in f32 and bf16; then its time
+   at yi's train shape, given the forward's lse, on both routes in turns,
+   beside the function's bound (10 B H d a visible pair), the design's
+   floor (14 B H d), the plain version, the forward kernel writing lse and
+   SDPA's backward.
 27. Train parity phase: a 2-layer yi-9b at full width in f32, one set of
    weights: the loss and every gradient on the card against the CPU, and
    after one AdamW step every weight, m and v.
@@ -235,8 +241,11 @@ a checkout, on a host with one Hopper card (sm_90) and the CUDA toolkit.
    width, 8 of its 48 layers, bf16, remat, 4 sequences of 4,096 tokens a
    step in 2 microbatches, 6 steps over ``TokenPipeline`` batches: finite
    losses, weights that move, 32 flash forward and 16 backward launches a
-   step and no plain version on the card; each step's seconds, tokens/s,
-   peak memory and device seconds by stage, the last step profiled.
+   step, all 16 on ``wgmma``, and no plain version on the card; first,
+   step 0's gradients on one microbatch through ``wgmma`` and through
+   ``simt`` (global norm within 1%, each leaf's error logged); each step's
+   seconds, tokens/s, peak memory and device seconds by stage, the last
+   step profiled.
 29. Driver phase: ``python -m repro_torch.launch.train --arch yi-9b
    --smoke --steps 12 --ckpt-every 5`` in subprocesses, clean and with
    ``--fail-at-step 8`` (one restart to step 5, the clean run's losses),
@@ -389,7 +398,13 @@ SPMD_DIR = ROOT / "build" / "chip_smoke" / "spmd"
 # gradient; BWD_TOL of the largest |gradient| leaves room.  A bf16 gradient
 # may round to the other neighbour of the same f32 value: one bf16 step,
 # 2**-7 of the value (BWD_BF16_RTOL); against the plain version on f32
-# copies of the inputs (no final rounding) half a step, 2**-8.
+# copies of the inputs (no final rounding) half a step, 2**-8.  The wgmma
+# route and its plain version also round P and dS to bf16, each from f32
+# values summed in its own order: a row may move by one bf16 step of its
+# largest rounded term (flash_attention_bwd_step_ref; tests/
+# test_torch_flash_bwd.py shows a re-summed rendering needing it), and on
+# f32 copies the route may err by up to twice the plain bf16 version's own
+# error there.
 BWD_TOL, BWD_BF16_RTOL, BWD_F32C_RTOL = 2e-5, 2**-7, 2**-8
 YI_TRAIN = (2, 4096, 4096, 32, 4, 128)  # b, s, t, h, kh, d: train_4k's sequence, microbatch 2
 # the train parity phase: a 2-layer yi-9b at full width in f32, card vs
@@ -403,6 +418,9 @@ TRAIN_PARITY_SEQ, TRAIN_PARITY_BATCH, TRAIN_GRAD_RTOL, TRAIN_LR = 128, 1, 1e-4, 
 # the train phase: yi-9b at full width and 8 of its 48 layers, bf16, remat,
 # train_4k's 4,096 tokens, 4 sequences a step in 2 microbatches
 TRAIN_LAYERS, TRAIN_SEQ, TRAIN_BATCH, TRAIN_MICROBATCH, TRAIN_STEPS = 8, 4096, 4, 2, 6
+# step 0's gradients through the backward's two routes: bf16 P and dS
+# (wgmma) against f32 ones (simt) move the global norm by far less than 1%
+TRAIN_ROUTE_RTOL = 0.01
 TRAIN_DIR = ROOT / "build" / "chip_smoke" / "train"
 # the driver phase: launch.train on yi smoke, 12 steps, a checkpoint every 5
 DRIVER_STEPS, DRIVER_CKPT_EVERY, DRIVER_FAIL_AT, DRIVER_RESUME_TO = 12, 5, 8, 17
@@ -3061,24 +3079,35 @@ def spmd_phase(dev, table: np.ndarray, chain: np.ndarray, oracle: np.ndarray) ->
 
 
 # ---------------------------------------------------------------- training
-def _bwd_within(what: str, dtype, got, want, want32=None) -> tuple[str, float]:
+def _bwd_within(what: str, dtype, got, want, want32=None, own32=None,
+                steps=None) -> tuple[str, float]:
     """Each of ``got`` (dq, dk, dv) within BWD_TOL of the largest |want|
-    (bf16: plus BWD_BF16_RTOL of each value) and, for bf16, within BWD_TOL
-    plus BWD_F32C_RTOL of ``want32`` (the plain version on f32 copies);
-    raises where not.  Returns the log line and the largest error."""
+    (bf16: plus BWD_BF16_RTOL of each value, plus ``steps`` where given:
+    one bf16 step of each row's largest term rounded to bf16, for the route
+    that rounds P and dS, ``flash_attention_bwd_step_ref``) and, for bf16,
+    within BWD_TOL plus BWD_F32C_RTOL of ``want32`` (the plain version on
+    f32 copies), plus twice ``own32`` where given: the largest error of the
+    plain bf16 version, which rounds P and dS where the kernel does, against
+    those copies.  Raises where not.  Returns the log line and the largest
+    error."""
     torch.cuda.synchronize()
     parts, worst = [], 0.0
-    for name, g, w, w32 in zip(("dq", "dk", "dv"), got, want, want32 or (None,) * 3):
+    for name, g, w, w32, o32, step in zip(("dq", "dk", "dv"), got, want,
+                                          want32 or (None,) * 3, own32 or (0.0,) * 3,
+                                          steps or (0.0,) * 3):
         g, w = g.float(), w.float()
         top = w.abs().max().item()
         err = (g - w).abs().max().item()
         rtol = BWD_BF16_RTOL if dtype == torch.bfloat16 else 0.0
-        ok = bool(((g - w).abs() <= BWD_TOL * top + rtol * w.abs()).all())
+        ok = bool(((g - w).abs() <= BWD_TOL * top + rtol * w.abs() + step).all())
         part = f"{name} err {err} (|max| {top})"
         if w32 is not None:
             err32 = (g - w32).abs().max().item()
-            ok &= bool(((g - w32).abs() <= BWD_TOL * top + BWD_F32C_RTOL * w32.abs()).all())
+            ok &= bool(((g - w32).abs() <= 2 * o32 + BWD_TOL * top
+                        + BWD_F32C_RTOL * w32.abs()).all())
             part += f" f32-copies err {err32}"
+            if own32 is not None:
+                part += f" (the plain bf16's own {o32})"
         if not ok or not torch.isfinite(g).all():
             raise AssertionError(f"flash_attention_bwd differs from plain: {what}: {part}")
         parts.append(part)
@@ -3094,13 +3123,18 @@ def flash_bwd_kernel_phase(dev) -> dict:
     128, bf16), hymba's windowed shape (25/5 heads of 64, S = T = 3,072,
     window 2,048), a softcap, S < T with a window, and rows that see no key
     (S = 300 > T = 200: their dQ must be 0, not NaN), in f32 and bf16 (yi's
-    in bf16).  Autograd spreads a keyless row over all keys (module note of
-    tests/test_torch_flash_bwd.py): its dO is 0 in that comparison.  Each
-    call must count one launch; checking launches are not main-path
-    launches."""
+    in bf16).  bf16 runs both routes: ``wgmma`` against the plain version on
+    the same inputs (it rounds P and dS where the kernel does) and, on f32
+    copies, within twice that plain version's own error there plus the
+    f32-copies bound; ``simt`` (all f32) against the plain version on f32
+    copies.  f32 runs ``simt``.  Autograd spreads a keyless row over all
+    keys (module note of tests/test_torch_flash_bwd.py): its dO is 0 in that
+    comparison.  Each call must count one launch on its route; checking
+    launches are not main-path launches."""
     from repro_torch.kernels import WRAPPERS
     from repro_torch.kernels.flash_attention import (
-        flash_attention, flash_attention_bwd, flash_attention_bwd_ref, flash_attention_ref,
+        flash_attention, flash_attention_bwd, flash_attention_bwd_ref,
+        flash_attention_bwd_step_ref, flash_attention_ref,
     )
 
     torch.backends.cuda.matmul.allow_tf32 = False  # full f32 products in the plain versions
@@ -3128,21 +3162,30 @@ def flash_bwd_kernel_phase(dev) -> dict:
                 (b, s, h, d), (b, t, kh, d), (b, t, kh, d), (b, s, h, d)))
             out = (flash_attention_ref(q, k, v, **kw) if keyless else
                    flash_attention(q, k, v, **kw)).contiguous()
-            at = flash_attention_bwd.launches
-            got = flash_attention_bwd(q, k, v, out, dout, **kw)
-            if flash_attention_bwd.launches != at + 1:
-                raise AssertionError(f"flash_attention_bwd {label}: no launch")
             want = flash_attention_bwd_ref(q, k, v, out, dout, **kw)
-            want32 = None
+            want32 = own32 = steps = None
             if dtype == bf16:
                 want32 = flash_attention_bwd_ref(q.float(), k.float(), v.float(), out.float(),
                                                  dout.float(), **kw)
-            what = f"kernel flash_attention_bwd {label} {str(dtype)[6:]}"
-            line, err = _bwd_within(what, dtype, got, want, want32)
-            worst = max(worst, err)
-            if keyless and bool(got[0][:, :keyless].abs().max() != 0):
-                raise AssertionError(f"{what}: a row that sees no key has a nonzero dQ")
-            del want, want32
+                own32 = [(w.float() - w32).abs().max().item() for w, w32 in zip(want, want32)]
+                steps = flash_attention_bwd_step_ref(q, k, v, out, dout, **kw)
+            for route in ("wgmma", "simt") if dtype == bf16 else ("simt",):
+                at = flash_attention_bwd.route_launches[route]
+                got = flash_attention_bwd(q, k, v, out, dout, route=route, **kw)
+                if flash_attention_bwd.route_launches[route] != at + 1:
+                    raise AssertionError(f"flash_attention_bwd {label}: no {route} launch")
+                what = f"kernel flash_attention_bwd {label} {str(dtype)[6:]} ({route})"
+                if route == "simt" and dtype == bf16:  # all f32: the plain one on f32 copies
+                    line, err = _bwd_within(what, dtype, got, [w.to(bf16) for w in want32],
+                                            want32)
+                else:
+                    line, err = _bwd_within(what, dtype, got, want, want32, own32, steps)
+                worst = max(worst, err)
+                if keyless and bool(got[0][:, :keyless].abs().max() != 0):
+                    raise AssertionError(f"{what}: a row that sees no key has a nonzero dQ")
+                log(line)
+                del got
+            del want, want32, steps
             # the plain backward against autograd of the plain forward, f32 copies
             x32 = [x.float().requires_grad_() for x in (q, k, v)]
             do32 = dout.float()
@@ -3157,8 +3200,9 @@ def flash_bwd_kernel_phase(dev) -> dict:
                     raise AssertionError(f"{what}: the plain backward's {name} differs from "
                                          f"autograd of the plain forward by {e}")
                 errs.append(e)
-            log(f"{line}; plain vs autograd (f32 copies) errs {errs}")
-            del q, k, v, dout, out, got, x32, do32, o32, auto, plain
+            log(f"kernel flash_attention_bwd {label} {str(dtype)[6:]}: plain vs autograd "
+                f"(f32 copies) errs {errs}")
+            del q, k, v, dout, out, x32, do32, o32, auto, plain
             torch.cuda.empty_cache()
     for k, (count, routes) in before.items():
         WRAPPERS[k].launches, WRAPPERS[k].route_launches = count, routes
@@ -3168,19 +3212,24 @@ def flash_bwd_kernel_phase(dev) -> dict:
 
 def time_flash_bwd(dev) -> dict:
     """The backward kernel at yi's train shape (B = 2, S = T = 4,096, 32/4
-    heads of 128, causal, bf16), from CUDA events around calls queued behind
-    a sleep (:func:`event_ms`), beside the plain backward, the forward
-    kernel at the same shape, and SDPA's backward (forward plus backward of
+    heads of 128, causal, bf16) as the train step calls it (given the
+    forward's lse), from CUDA events around calls queued behind a sleep
+    (:func:`event_ms`): the ``wgmma`` and ``simt`` routes in turns
+    (:func:`ab_ms`), beside the plain backward, the forward kernel writing
+    lse at the same shape, and SDPA's backward (forward plus backward of
     ``scaled_dot_product_attention`` less its forward, in its (B, H, S, d)
-    layout: a yardstick the port never calls).  The bound: the operations,
-    2.5 x the forward's 4 B H d per visible pair plus the row pass's Q K^T
-    (2 B H d a pair), over the bf16 dense tensor-core peak, against the
-    bytes (q, out, dO read and dq written, k, v read and dk, dv written)
-    over the HBM rate."""
+    layout: a yardstick the port never calls), and the route's device
+    kernels one by one (a profiled call).  The bound: the function's
+    operations, 2.5 x the forward's 4 B H d per visible pair (QK^T, dO V^T,
+    dV, dK, dQ: 10 B H d), over the bf16 dense tensor-core peak, against the
+    bytes (q, out, dO read and dq written, k, v read and dk, dv written,
+    lse read) over the HBM rate; beside it the two-kernel design's own
+    floor, its seven products (14 B H d a pair) at that peak."""
     from repro_torch.kernels import WRAPPERS
     from repro_torch.kernels.flash_attention import (
-        flash_attention, flash_attention_bwd, flash_attention_bwd_ref,
+        flash_attention_bwd, flash_attention_bwd_ref,
     )
+    from repro_torch.kernels.flash_attention import kernel as flash_kernel
 
     before = {k: (WRAPPERS[k].launches, dict(WRAPPERS[k].route_launches))
               for k in ("flash_attention", "flash_attention_bwd")}
@@ -3188,11 +3237,12 @@ def time_flash_bwd(dev) -> dict:
     g = torch.Generator(dev).manual_seed(6)
     q, k, v, dout = (torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
                      for shape in ((b, s, h, d), (b, t, kh, d), (b, t, kh, d), (b, s, h, d)))
-    out = flash_attention(q, k, v)
+    out, lse = flash_kernel._forward(q, k, v, True, None, None, 0, save_lse=True)
     sets = [(q, k, v, out, dout)]
     pairs = s * (s + 1) // 2
-    flops = (2.5 * 4 + 2) * b * h * d * pairs
-    moved = 2 * (4 * b * s * h * d + 4 * b * t * kh * d)
+    flops = 2.5 * 4 * b * h * d * pairs
+    design_flops = 14 * b * h * d * pairs
+    moved = 2 * (4 * b * s * h * d + 4 * b * t * kh * d) + 4 * b * h * s
     bounds = {"operations": flops / BF16_FLOPS * 1e3, "bytes": moved / HBM_BYTES_PER_S * 1e3}
     bound_by = max(bounds, key=bounds.get)
     lq, lk, lv, ldo = (x.transpose(1, 2).contiguous() for x in (q, k, v, dout))
@@ -3205,25 +3255,39 @@ def time_flash_bwd(dev) -> dict:
     def sdpa_fwd_bwd():
         return torch.autograd.grad(sdpa_fwd(), (lq, lk, lv), ldo)
 
+    routes = ab_ms({route: (lambda q, k, v, o, do, route=route: flash_attention_bwd(
+        q, k, v, o, do, lse=lse, route=route)) for route in ("wgmma", "simt")}, sets, 5, 2)
     rec = {
-        "ms": event_ms(flash_attention_bwd, sets, 5),
-        "plain_ms": event_ms(flash_attention_bwd_ref, sets, 2),
-        "forward_ms": event_ms(lambda q, k, v, o, do: flash_attention(q, k, v), sets, 20),
+        "ms": routes["wgmma"]["median"],
+        "simt_ms": routes["simt"]["median"],
+        "route_ms": routes,
+        "plain_ms": event_ms(lambda *a: flash_attention_bwd_ref(*a, lse=lse), sets, 2),
+        "forward_ms": event_ms(lambda q, k, v, o, do: flash_kernel._forward(
+            q, k, v, True, None, None, 0, save_lse=True), sets, 20),
         "bound_ms": bounds[bound_by],
         "bound_by": bound_by,
+        "design_floor_ms": design_flops / BF16_FLOPS * 1e3,
         "flops": flops,
+        "design_flops": design_flops,
         "bytes": moved,
-        "route": "simt",
+        "route": "wgmma",
     }
     fb = event_ms(lambda *a: sdpa_fwd_bwd(), sets, 10)
     fw = event_ms(lambda *a: sdpa_fwd(), sets, 10)
     rec["library_ms"] = fb - fw
     rec["library_fwd_bwd_ms"], rec["library_fwd_ms"] = fb, fw
+    # the wgmma route's device kernels, from a whole profile of one call
+    _, window, _, whole = profiled(lambda: flash_attention_bwd(q, k, v, out, dout, lse=lse),
+                                  tries=5)
+    name = lambda e: (re.search(r"flash_bwd_\w+", e.name) or re.search(".{0,40}", e.name))[0]
+    rec["kernels_ms"] = ({name(e): e.device_time_total / 1e3 for e in window
+                          if e.device_type == DeviceType.CUDA and e.name != WINDOW}
+                         if whole else None)
     for k2, (count, routes) in before.items():
         WRAPPERS[k2].launches, WRAPPERS[k2].route_launches = count, routes
     log(f"timing flash_attention_bwd train B={b} S=T={s} H={h} K={kh} d={d} bf16: "
         f"{json.dumps(rec)}")
-    del q, k, v, dout, out, sets, lq, lk, lv, ldo
+    del q, k, v, dout, out, lse, sets, lq, lk, lv, ldo
     torch.cuda.empty_cache()
     return rec
 
@@ -3326,6 +3390,50 @@ def train_parity_phase(dev) -> dict:
     return rec
 
 
+def route_gradients(cfg, model, batch) -> dict:
+    """Every weight's gradient of one forward and backward of ``batch``,
+    once with the flash backward on its ``wgmma`` route (the train step's)
+    and once on ``simt`` (``bwd_route`` forced): the relative error of the
+    global gradient norm, which must be within TRAIN_ROUTE_RTOL, and of each
+    leaf (``|g_wgmma - g_simt| / |g_simt|``, 2-norms), with each route's
+    launches."""
+    from repro_torch.kernels.flash_attention import kernel as flash_kernel
+    from repro_torch.models import zoo
+
+    params = zoo.model_params(model)
+    grads, routes = {}, {}
+    for route in ("wgmma", "simt"):
+        before = dict(flash_kernel.flash_attention_bwd.route_launches)
+        original = flash_kernel.bwd_route
+        flash_kernel.bwd_route = lambda dtype, route=route: route
+        try:
+            for p in params.values():
+                p.requires_grad_(True)
+            loss, _ = zoo.loss_fn(cfg, model, batch)
+            grads[route] = torch.autograd.grad(loss, list(params.values()))
+        finally:
+            flash_kernel.bwd_route = original
+            for p in params.values():
+                p.requires_grad_(False)
+        routes[route] = {k: n - before[k] for k, n in
+                         flash_kernel.flash_attention_bwd.route_launches.items()}
+        if routes[route][route] != TRAIN_LAYERS or sum(routes[route].values()) != TRAIN_LAYERS:
+            raise AssertionError(f"route gradients: {route} launches {routes[route]}")
+    norm = lambda gs: torch.sqrt(sum(g.float().pow(2).sum() for g in gs)).item()
+    gw, gs = norm(grads["wgmma"]), norm(grads["simt"])
+    leaves = {name: (torch.linalg.vector_norm((a.float() - b.float())) /
+                     torch.linalg.vector_norm(b.float()).clamp_min(1e-30)).item()
+              for name, a, b in zip(params, grads["wgmma"], grads["simt"])}
+    rec = {"norm_wgmma": gw, "norm_simt": gs, "norm_rel_err": abs(gw - gs) / gs,
+           "leaf_rel_err": leaves, "launches": routes}
+    log(f"train phase step 0 gradients, wgmma vs simt: {json.dumps(rec)}")
+    if not rec["norm_rel_err"] <= TRAIN_ROUTE_RTOL:
+        raise AssertionError(f"route gradients: global norm {gw} through wgmma, {gs} through simt")
+    del grads
+    torch.cuda.empty_cache()
+    return rec
+
+
 def train_phase(dev, profile_dir: str | None) -> dict:
     """TrainDriver's step function and AdamW on yi-9b at full width and
     TRAIN_LAYERS of its 48 layers (bf16, remat on), TRAIN_STEPS steps of
@@ -3333,11 +3441,16 @@ def train_phase(dev, profile_dir: str | None) -> dict:
     TRAIN_MICROBATCH microbatches.  Launch counts from 0 just before the
     steps: a step launches the flash forward layers x microbatches x 2
     (forward and remat recompute) and its backward layers x microbatches;
-    no plain version may run on the card.  Each step logs its seconds,
-    tokens/s, peak memory and the device seconds of forward, loss, backward
-    (with the loss's and the blocks' recompute) and optimizer from CUDA
-    events at the step's stage marks; the last step runs under
-    torch.profiler for the device's busy share."""
+    no plain version may run on the card; every backward launch takes the
+    ``wgmma`` route.  Before the steps, on step 0's first microbatch and the
+    initial weights, the gradients through ``wgmma`` against those through
+    ``simt`` (the Function's route forced): the global gradient norm within
+    TRAIN_ROUTE_RTOL, each leaf's relative error logged
+    (:func:`route_gradients`).  Each step logs its seconds, tokens/s, peak
+    memory and the device seconds of forward, loss, backward (with the
+    loss's and the blocks' recompute) and optimizer from CUDA events at the
+    step's stage marks; the last step runs under torch.profiler for the
+    device's busy share."""
     from repro_torch import kernels
     from repro_torch.configs import get_config
     from repro_torch.data import DataConfig, TokenPipeline
@@ -3365,7 +3478,11 @@ def train_phase(dev, profile_dir: str | None) -> dict:
         events.append((stage, ev))
 
     step_fn = zoo.make_train_step(cfg, driver.opt, mark=mark)
-    plain_on_card = {"flash_attention_ref": 0, "flash_attention_bwd_ref": 0}
+    first = pipe.batch_at(0)
+    routed = route_gradients(cfg, state["params"], {k: torch.as_tensor(np.asarray(x[
+        :TRAIN_BATCH // TRAIN_MICROBATCH])).to(dev) for k, x in first.items()})
+    plain_on_card = {"flash_attention_ref": 0, "flash_attention_bwd_ref": 0,
+                     "flash_attention_lse_ref": 0}
     originals = {name: getattr(flash_kernel, name) for name in plain_on_card}
 
     def counting(name):
@@ -3381,10 +3498,12 @@ def train_phase(dev, profile_dir: str | None) -> dict:
         f"in {time.perf_counter() - t:.1f} s")
     steps, losses = [], []
     kernels.reset_launches()
+    bwd = kernels.WRAPPERS["flash_attention_bwd"]
     try:
         for step in range(TRAIN_STEPS):
             batch = pipe.batch_at(step)
             at = kernels.launch_counts()
+            at_routes = dict(bwd.route_launches)
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats(dev)
             events.clear()
@@ -3413,7 +3532,8 @@ def train_phase(dev, profile_dir: str | None) -> dict:
                    "stage_device_s": stage_s,
                    "grad_norm": float(metrics["grad_norm"]), "lr": float(metrics["lr"]),
                    "launches": {k: now[k] - at[k] for k in ("flash_attention",
-                                                            "flash_attention_bwd")}}
+                                                            "flash_attention_bwd")},
+                   "bwd_routes": {k: n - at_routes[k] for k, n in bwd.route_launches.items()}}
             if profiled_step:
                 evs = prof.events()
                 kernels_seen = sum(1 for e in evs if e.device_type == DeviceType.CUDA)
@@ -3438,9 +3558,11 @@ def train_phase(dev, profile_dir: str | None) -> dict:
                                   "yi-9b train step", busy)
             want = {"flash_attention": TRAIN_LAYERS * TRAIN_MICROBATCH * 2,
                     "flash_attention_bwd": TRAIN_LAYERS * TRAIN_MICROBATCH}
-            if rec["launches"] != want:
+            want_routes = {"simt": 0, "wgmma": TRAIN_LAYERS * TRAIN_MICROBATCH}
+            if rec["launches"] != want or rec["bwd_routes"] != want_routes:
                 raise AssertionError(f"train phase step {step}: launches {rec['launches']}, "
-                                     f"want {want}")
+                                     f"backward routes {rec['bwd_routes']}, want {want} and "
+                                     f"{want_routes}")
             steps.append(rec)
             log(f"train step: {json.dumps(rec)}")
     finally:
@@ -3455,6 +3577,7 @@ def train_phase(dev, profile_dir: str | None) -> dict:
         raise AssertionError(f"train phase: weights did not move {moved}")
     unprofiled = [r["seconds"] for r in steps[1:-1]]
     rec = {"steps": TRAIN_STEPS, "losses": losses, "launches": launches,
+           "bwd_routes": dict(bwd.route_launches), "route_gradients": routed,
            "plain_on_card": plain_on_card, "weights_moved": moved,
            "median_step_s": float(np.median(unprofiled)),
            "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / float(np.median(unprofiled)),
@@ -3780,11 +3903,18 @@ def main() -> int:
         "replaces": "no Pallas kernel: the JAX package differentiates its einsum attend "
                     "(src/repro/models/attention.py:46) with XLA",
         "launches": trained["launches"]["flash_attention_bwd"],
+        "launches_by_route": trained["bwd_routes"],
+        "routes_by_dtype": {"bfloat16": "wgmma", "float32": "simt"},
         "launches_flash_attention_forward_in_training": trained["launches"]["flash_attention"],
         "max_abs_err": bwd_checked["max_abs_err"],
         **{k: bwd_timing[k] for k in keys},
+        "simt_ms": bwd_timing["simt_ms"],
+        "design_floor_ms": bwd_timing["design_floor_ms"],
+        "kernels_ms": bwd_timing["kernels_ms"],
         "forward_ms": bwd_timing["forward_ms"],
-        "shape": "train B=2 S=T=4096 H=32 K=4 d=128 bf16 causal (rows, dK/dV and dQ passes)",
+        "step0_grad_norm_rel_err_wgmma_vs_simt": trained["route_gradients"]["norm_rel_err"],
+        "shape": "train B=2 S=T=4096 H=32 K=4 d=128 bf16 causal, given the forward's lse "
+                 "(wgmma: delta pass, dK/dV and dQ)",
     }]
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -79,6 +79,15 @@
 //    (routes A and B keep the same convention).  BM is 64, or 16 when the
 //    block holds at most 16 rows.
 //
+// Every route takes a nullable f32 pointer lse, laid out (B, H, S).  When it
+// is not null (the training path's forward, whose backward needs it), each
+// route writes every (query, head) row's log-sum-exp m + log(max(l, 1e-20))
+// from the same f32 row max m and row sum l that normalise the output
+// (route A keeps m in log2 units and converts; route B's split calls write
+// it where the partials merge), so the backward never recomputes Q K^T for
+// it.  A null pointer leaves the instructions that write the output as
+// they were: the serving path's outputs are the same bytes.
+//
 // Every row must start on a 16-byte boundary.
 //
 // Each bf16 instance, from ptxas (nvcc 12.9, -O3, sm_90a; chip_smoke.py
@@ -94,10 +103,7 @@
 //   flash_fwd_split<64>     64         30,464 B     7
 //   flash_fwd_split<32>     56         18,176 B     9
 
-#include <cuda.h>  // CUtensorMap and its enums; the encoder comes from the runtime
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "hopper.cuh"
 
 namespace {
 
@@ -162,9 +168,9 @@ __host__ __device__ constexpr int smem_floats() {
 template <int D, int BM>
 __global__ void __launch_bounds__(THREADS, 2)
     flash_fwd(const float* __restrict__ q, const float* __restrict__ k,
-              const float* __restrict__ v, float* __restrict__ o, int S, int T_len, int H,
-              int KH, Strides qs, Strides ks, Strides vs, float scale, float softcap,
-              int causal, int window) {
+              const float* __restrict__ v, float* __restrict__ o, float* __restrict__ lse,
+              int S, int T_len, int H, int KH, Strides qs, Strides ks, Strides vs, float scale,
+              float softcap, int causal, int window) {
   constexpr int RM = BM / 16;  // rows per thread
   constexpr int CN = BN / 16;  // score columns per thread
   constexpr int CD = D / 16;   // output columns per thread (contiguous)
@@ -333,13 +339,14 @@ __global__ void __launch_bounds__(THREADS, 2)
     float* orow = o + ((long long)b * S + s) * ((long long)H * D) + h * D + CD * tx;
 #pragma unroll
     for (int c = 0; c < CD; ++c) orow[c] = acc[i][c] / den;
+    if (lse != nullptr && tx == 0) lse[((long long)b * H + h) * S + s] = m[i] + logf(den);
   }
 }
 
 template <int D, int BM>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int S, int T_len, int H,
-           int KH, Strides qs, Strides ks, Strides vs, float scale, float softcap, int causal,
-           int window, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o, float* lse, int B, int S,
+           int T_len, int H, int KH, Strides qs, Strides ks, Strides vs, float scale,
+           float softcap, int causal, int window, cudaStream_t stream) {
   constexpr int smem = smem_floats<D, BM>() * (int)sizeof(float);
   static bool ready = false;  // one attribute call per instance (above 48 KB needs it)
   if (!ready) {
@@ -352,34 +359,34 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int S, i
   const dim3 grid((unsigned)((rows + BM - 1) / BM), (unsigned)(B * KH));
   flash_fwd<D, BM><<<grid, THREADS, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(o), S, T_len, H, KH, qs, ks, vs, scale, softcap, causal, window);
+      static_cast<float*>(o), lse, S, T_len, H, KH, qs, ks, vs, scale, softcap, causal, window);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int D>
-int launch_rows(const void* q, const void* k, const void* v, void* o, int B, int S, int T_len,
-                int H, int KH, Strides qs, Strides ks, Strides vs, float scale, float softcap,
-                int causal, int window, cudaStream_t stream) {
+int launch_rows(const void* q, const void* k, const void* v, void* o, float* lse, int B, int S,
+                int T_len, int H, int KH, Strides qs, Strides ks, Strides vs, float scale,
+                float softcap, int causal, int window, cudaStream_t stream) {
   if ((long long)S * (H / KH) <= 16)
-    return launch<D, 16>(q, k, v, o, B, S, T_len, H, KH, qs, ks, vs, scale, softcap, causal,
-                            window, stream);
-  return launch<D, 64>(q, k, v, o, B, S, T_len, H, KH, qs, ks, vs, scale, softcap, causal,
-                          window, stream);
+    return launch<D, 16>(q, k, v, o, lse, B, S, T_len, H, KH, qs, ks, vs, scale, softcap,
+                         causal, window, stream);
+  return launch<D, 64>(q, k, v, o, lse, B, S, T_len, H, KH, qs, ks, vs, scale, softcap, causal,
+                       window, stream);
 }
 
-int launch_dim(const void* q, const void* k, const void* v, void* o, int B, int S, int T_len,
-               int H, int KH, int D, Strides qs, Strides ks, Strides vs, float scale,
+int launch_dim(const void* q, const void* k, const void* v, void* o, float* lse, int B, int S,
+               int T_len, int H, int KH, int D, Strides qs, Strides ks, Strides vs, float scale,
                float softcap, int causal, int window, cudaStream_t stream) {
   switch (D) {
     case 32:
-      return launch_rows<32>(q, k, v, o, B, S, T_len, H, KH, qs, ks, vs, scale, softcap,
-                                causal, window, stream);
+      return launch_rows<32>(q, k, v, o, lse, B, S, T_len, H, KH, qs, ks, vs, scale, softcap,
+                             causal, window, stream);
     case 64:
-      return launch_rows<64>(q, k, v, o, B, S, T_len, H, KH, qs, ks, vs, scale, softcap,
-                                causal, window, stream);
+      return launch_rows<64>(q, k, v, o, lse, B, S, T_len, H, KH, qs, ks, vs, scale, softcap,
+                             causal, window, stream);
     case 128:
-      return launch_rows<128>(q, k, v, o, B, S, T_len, H, KH, qs, ks, vs, scale, softcap,
-                                 causal, window, stream);
+      return launch_rows<128>(q, k, v, o, lse, B, S, T_len, H, KH, qs, ks, vs, scale, softcap,
+                              causal, window, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -390,101 +397,6 @@ int launch_dim(const void* q, const void* k, const void* v, void* o, int B, int 
 // ------------------------------------------------ helpers of routes A and B
 namespace {
 
-constexpr float LOG2E = 1.4426950408889634f;
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
-// Spin until the phase of parity `parity` of the barrier has completed; a
-// wait of seconds (a copy that never lands) traps instead of hanging.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
-  uint32_t done = 0;
-  for (long long spins = 0;; ++spins) {
-    if (spins == (1LL << 26)) __trap();
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (done) return;
-  }
-}
-
-// A box of a 4-D tensor map into shared memory; completion on `bar`.
-__device__ __forceinline__ void tma_load_4d(const CUtensorMap* map, uint32_t dst, uint32_t bar,
-                                            int c0, int c1, int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
-      : "memory");
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool in) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
-               "r"(in ? 16 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait0() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-// Keep the compiler from moving reads or writes of these registers across
-// a wgmma fence or wait.
-template <int N>
-__device__ __forceinline__ void pin(float* r) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-template <int N>
-__device__ __forceinline__ void pin(uint32_t* r) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
-}
-
-// A wgmma shared-memory descriptor: start address, leading and stride byte
-// offsets (16-byte units), swizzle layout (1: 128 B, 2: 64 B).
-__device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t lbo, uint32_t sbo,
-                                              uint64_t layout) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
-         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (layout << 62);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
 // Probabilities (a, b) as two bf16 pairs whose sum keeps ~16 of their bits:
 // hi = bf16(x), lo = bf16(x - hi).  P V runs once with each, so P's bf16
 // rounding (2**-9 of a weight, which a short prefix does not average away)
@@ -493,126 +405,6 @@ __device__ __forceinline__ void split_bf16(float a, float b, uint32_t& hi, uint3
   const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
   hi = *reinterpret_cast<const uint32_t*>(&h);
   lo = pack_bf16(a - __low2float(h), b - __high2float(h));
-}
-
-// d (64 x 64, f32) += a (64 x 16) b (16 x 64): both bf16 in shared memory, K-major;
-// acc = 0 overwrites d
-__device__ __forceinline__ void wgmma_ss_n64(float* d, uint64_t a, uint64_t b, int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "l"(a), "l"(b), "r"(acc));
-}
-
-// d (64 x 128, f32) += a (64 x 16) b (16 x 128): both bf16 in shared memory, K-major;
-// acc = 0 overwrites d
-__device__ __forceinline__ void wgmma_ss_n128(float* d, uint64_t a, uint64_t b, int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
-      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
-      "%60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
-        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(a), "l"(b), "r"(acc));
-}
-
-// d (64 x 32, f32) += a (64 x 16, bf16 pairs in registers) b (16 x 32, bf16 in
-// shared memory, MN-major: read transposed)
-__device__ __forceinline__ void wgmma_rs_n32(float* d, const uint32_t* a, uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-      "%12, %13, %14, %15"
-      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
-// d (64 x 64, f32) += a (64 x 16, bf16 pairs in registers) b (16 x 64, bf16 in
-// shared memory, MN-major: read transposed)
-__device__ __forceinline__ void wgmma_rs_n64(float* d, const uint32_t* a, uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
-// d (64 x 128, f32) += a (64 x 16, bf16 pairs in registers) b (16 x 128, bf16 in
-// shared memory, MN-major: read transposed)
-__device__ __forceinline__ void wgmma_rs_n128(float* d, const uint32_t* a, uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
-      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
-      "%60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
-        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
-template <int N>
-__device__ __forceinline__ void wgmma_ss(float* d, uint64_t a, uint64_t b, int acc) {
-  if constexpr (N == 64) wgmma_ss_n64(d, a, b, acc);
-  else wgmma_ss_n128(d, a, b, acc);
-}
-
-template <int N>
-__device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a, uint64_t b) {
-  if constexpr (N == 32) wgmma_rs_n32(d, a, b);
-  else if constexpr (N == 64) wgmma_rs_n64(d, a, b);
-  else wgmma_rs_n128(d, a, b);
 }
 
 }  // namespace
@@ -643,6 +435,7 @@ struct Params {
   int S, T, H, KH, n_qtiles;
   float scale, softcap;
   int causal, window;
+  float* lse;  // (B, H, S) or null
 };
 
 template <int D>
@@ -828,55 +621,18 @@ __global__ void __launch_bounds__(THREADS, 1)
     for (int j = 0; j < D / 8; ++j)
       *reinterpret_cast<uint32_t*>(orow + 8 * j) =
           pack_bf16(oacc[4 * j + 2 * r] * inv, oacc[4 * j + 2 * r + 1] * inv);
+    if (p.lse != nullptr && col == 0)  // m is in log2 units
+      p.lse[((long long)b * p.H + h) * p.S + s] = (m[r] + log2f(fmaxf(l[r], 1e-20f))) * LN2;
   }
-}
-
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the driver, through the runtime (no -lcuda).
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found) ==
-            cudaSuccess &&
-        found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(ptr);
-  }
-  return fn;
-}
-
-// The 4-D map (d, rows, heads, batch) of a bf16 view with element strides
-// (row, head, batch); boxes of SW bytes x box_rows, swizzled, zero-filled
-// past the edges.
-bool tensor_map(CUtensorMap* map, const void* base, int d, int rows, int heads, int batch,
-                long long s_row, long long s_head, long long s_batch, int box_rows, int sw) {
-  const EncodeTiled encode = encoder();
-  if (encode == nullptr) return false;
-  const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)rows, (cuuint64_t)heads,
-                              (cuuint64_t)batch};
-  const cuuint64_t strides[3] = {(cuuint64_t)s_row * 2, (cuuint64_t)s_head * 2,
-                                 (cuuint64_t)s_batch * 2};
-  const cuuint32_t box[4] = {(cuuint32_t)(sw / 2), (cuuint32_t)box_rows, 1, 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides,
-                box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                sw == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 constexpr int ERR_NO_ENCODER = -1;  // returned as launch codes; see flash_attention_error_string
 constexpr int ERR_TENSOR_MAP = -2;
 
 template <int D>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int S, int T_len, int H,
-           int KH, Strides qs, Strides ks, Strides vs, float scale, float softcap, int causal,
-           int window, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o, float* lse, int B, int S,
+           int T_len, int H, int KH, Strides qs, Strides ks, Strides vs, float scale,
+           float softcap, int causal, int window, cudaStream_t stream) {
   using C = Cfg<D>;
   static bool ready = false;
   if (!ready) {
@@ -892,7 +648,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int S, i
       !tensor_map(&vm, v, D, T_len, KH, B, vs.s, vs.h, vs.b, C::BN, C::SW))
     return ERR_TENSOR_MAP;
   const int n_qtiles = (S + NWG * ROWS - 1) / (NWG * ROWS);
-  const Params p{S, T_len, H, KH, n_qtiles, scale, softcap, causal, window};
+  const Params p{S, T_len, H, KH, n_qtiles, scale, softcap, causal, window, lse};
   flash_fwd_wgmma<D><<<dim3(H, n_qtiles, B), THREADS, C::SMEM, stream>>>(
       qm, km, vm, static_cast<__nv_bfloat16*>(o), p);
   return static_cast<int>(cudaGetLastError());
@@ -915,6 +671,7 @@ struct Params {
   float scale, softcap;
   int causal, window;
   int key0, chunk, n_splits;
+  float* lse;  // (B, H, S) or null
 };
 
 // The K/V ring [STAGES][K, V][BK][D + 8] and P's two parts [2][ROWS][BK + 8],
@@ -1134,6 +891,9 @@ __global__ void __launch_bounds__(THREADS)
       for (int n = 0; n < NT; ++n)
         *reinterpret_cast<uint32_t*>(orow + 8 * n) =
             pack_bf16(oacc[n][2 * r] * inv, oacc[n][2 * r + 1] * inv);
+      if (p.lse != nullptr && col == 0)
+        p.lse[((long long)b * p.H + kh * G + row % G) * p.S + row / G] =
+            m[r] + logf(fmaxf(lsum[r], 1e-20f));
     }
     return;
   }
@@ -1181,6 +941,9 @@ __global__ void __launch_bounds__(THREADS)
 #pragma unroll
     for (int w = 16; w > 0; w >>= 1) lg += __shfl_xor_sync(0xffffffffu, lg, w);
     if (lane == 0) red[row] = 1.f / fmaxf(lg, 1e-20f);  // red is spent too
+    if (lane == 0 && p.lse != nullptr)
+      p.lse[((long long)b * p.H + kh * G + row % G) * p.S + row / G] =
+          mg + logf(fmaxf(lg, 1e-20f));
   }
   __syncthreads();
   // thread tid sums column tid % D of rows tid / D + e THREADS / D
@@ -1239,7 +1002,8 @@ bool shape_ok(int B, int S, int T_len, int H, int KH, int causal, int window) {
 }  // namespace
 
 // Route C, f32 only.  Strides are in elements; softcap <= 0 means none;
-// window <= 0 means global.  Returns the launch's cudaError_t (0 on
+// window <= 0 means global; lse, when not null, receives each row's
+// log-sum-exp, f32 (B, H, S).  Returns the launch's cudaError_t (0 on
 // success).
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v, void* o,
                                       int B, int S, int T_len, int H, int KH, int D,
@@ -1247,12 +1011,12 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
                                       long long k_sb, long long k_st, long long k_sh,
                                       long long v_sb, long long v_st, long long v_sh,
                                       float scale, float softcap, int causal, int window,
-                                      void* stream) {
+                                      void* lse, void* stream) {
   if (!shape_ok(B, S, T_len, H, KH, causal, window) || B * KH > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   const Strides qs{q_sb, q_ss, q_sh}, ks{k_sb, k_st, k_sh}, vs{v_sb, v_st, v_sh};
-  return launch_dim(q, k, v, o, B, S, T_len, H, KH, D, qs, ks, vs, scale, softcap, causal,
-                           window, static_cast<cudaStream_t>(stream));
+  return launch_dim(q, k, v, o, static_cast<float*>(lse), B, S, T_len, H, KH, D, qs, ks, vs,
+                    scale, softcap, causal, window, static_cast<cudaStream_t>(stream));
 }
 
 // Route A, bf16 only; the arguments as for route C.
@@ -1262,21 +1026,22 @@ extern "C" int flash_attention_wgmma_launch(const void* q, const void* k, const 
                                             long long k_sb, long long k_st, long long k_sh,
                                             long long v_sb, long long v_st, long long v_sh,
                                             float scale, float softcap, int causal, int window,
-                                            void* stream) {
+                                            void* lse, void* stream) {
   if (!shape_ok(B, S, T_len, H, KH, causal, window) || B > 65535 || H > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   const Strides qs{q_sb, q_ss, q_sh}, ks{k_sb, k_st, k_sh}, vs{v_sb, v_st, v_sh};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* ls = static_cast<float*>(lse);
   switch (D) {
     case 32:
-      return wg::launch<32>(q, k, v, o, B, S, T_len, H, KH, qs, ks, vs, scale, softcap, causal,
-                            window, s);
+      return wg::launch<32>(q, k, v, o, ls, B, S, T_len, H, KH, qs, ks, vs, scale, softcap,
+                            causal, window, s);
     case 64:
-      return wg::launch<64>(q, k, v, o, B, S, T_len, H, KH, qs, ks, vs, scale, softcap, causal,
-                            window, s);
+      return wg::launch<64>(q, k, v, o, ls, B, S, T_len, H, KH, qs, ks, vs, scale, softcap,
+                            causal, window, s);
     case 128:
-      return wg::launch<128>(q, k, v, o, B, S, T_len, H, KH, qs, ks, vs, scale, softcap, causal,
-                             window, s);
+      return wg::launch<128>(q, k, v, o, ls, B, S, T_len, H, KH, qs, ks, vs, scale, softcap,
+                             causal, window, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -1293,7 +1058,7 @@ extern "C" int flash_attention_split_launch(const void* q, const void* k, const 
                                             long long v_sb, long long v_st, long long v_sh,
                                             float scale, float softcap, int causal, int window,
                                             int key0, int chunk, int n_splits, void* part,
-                                            void* ml, void* tickets, void* stream) {
+                                            void* ml, void* tickets, void* lse, void* stream) {
   if (!shape_ok(B, S, T_len, H, KH, causal, window) || S * (H / KH) > split::ROWS ||
       B * KH > 65535 || n_splits < 1 || n_splits > split::MAX_SPLITS || chunk < 1 ||
       key0 < 0 || key0 + (long long)(n_splits - 1) * chunk >= T_len ||
@@ -1301,7 +1066,7 @@ extern "C" int flash_attention_split_launch(const void* q, const void* k, const 
     return static_cast<int>(cudaErrorInvalidValue);
   const split::Params p{S, T_len, H, KH, {q_sb, q_ss, q_sh}, {k_sb, k_st, k_sh},
                         {v_sb, v_st, v_sh}, scale, softcap, causal, window, key0, chunk,
-                        n_splits};
+                        n_splits, static_cast<float*>(lse)};
   float* pt = static_cast<float*>(part);
   float* mlp = static_cast<float*>(ml);
   int* tk = static_cast<int*>(tickets);

@@ -3,8 +3,8 @@
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` for Hopper (``sm_90a``) into
 a shared library with a plain C interface, loaded with :mod:`ctypes`.  The
 libraries go to ``build/kernels/`` at the repository root (git-ignored),
-named by a hash of their source so an edited kernel never loads a stale
-build.  Nothing compiles at import: the first launch builds what it needs,
+named by a hash of their source and the shared headers (``csrc/*.cuh``)
+so an edited kernel never loads a stale build.  Nothing compiles at import: the first launch builds what it needs,
 and :func:`build_all` starts one ``nvcc`` per source in parallel.
 """
 
@@ -52,7 +52,8 @@ def nvcc() -> str:
 
 def library_path(name: str) -> Path:
     src = CSRC / SOURCES[name]
-    tag = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    tag = hashlib.sha256(src.read_bytes() + headers + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{tag[:16]}.so"
 
 

@@ -28,11 +28,22 @@ version (:mod:`.ref`); a CUDA tensor launches one route's kernel (counted
 in ``flash_attention.launches`` and, by route, in
 ``flash_attention.route_launches``) or raises.  With grad mode on and an
 input that requires grad, the call goes through an autograd ``Function``
-whose forward is that same route and whose backward is
+whose forward is that same route, writing each row's log-sum-exp beside the
+output (f32 ``(B, H, S)``, saved for the backward), and whose backward is
 :func:`flash_attention_bwd`, the wrapper of ``csrc/flash_attention_bwd.cu``
-(three device kernels a launch: the row pass, dK/dV and dQ, on the f32
-CUDA cores; counted in ``flash_attention_bwd.launches``).  With grad off
-the serving path is unchanged: the same launches and nothing saved.
+(counted in ``flash_attention_bwd.launches`` and, by route, in
+``flash_attention_bwd.route_launches``).  Its routes (:func:`bwd_route`):
+
+- ``"wgmma"``: bf16.  A delta pass (``rowsum(dO * O)``, given the forward's
+  lse), then dK/dV and dQ, each product on the tensor cores (bf16 operands,
+  f32 accumulators; P and dS rounded to bf16 before the products that take
+  them).  Bound by operations.
+- ``"simt"``: f32, and bf16 when ``route="simt"`` is asked for: the same
+  passes on the f32 CUDA cores, all in f32.
+
+Without an lse (a direct call) each route recomputes it in a row pass.
+With grad off the serving path is unchanged: the same launches, no lse
+written and nothing saved.
 """
 
 from __future__ import annotations
@@ -44,15 +55,15 @@ import math
 import torch
 
 from ..build import load
-from .ref import flash_attention_bwd_ref, flash_attention_ref
+from .ref import flash_attention_bwd_ref, flash_attention_lse_ref, flash_attention_ref
 
 #: head dims the kernels are instantiated for (yi's 128, the sweep's 64,
 #: the smoke config's 32)
 HEAD_DIMS = (32, 64, 128)
 _DTYPES = (torch.float32, torch.bfloat16)
 ROUTES = ("wgmma", "split", "simt")
-#: the backward's one route: three passes on the f32 CUDA cores
-BWD_ROUTES = ("simt",)
+#: the backward's routes: the f32 CUDA cores, and the tensor cores for bf16
+BWD_ROUTES = ("simt", "wgmma")
 #: a bf16 call with at most this many rows per (batch, KV head) is split
 #: over keys (the split kernel's row limit)
 SPLIT_ROWS = 16
@@ -70,6 +81,12 @@ def flash_route(dtype: torch.dtype, s: int, h: int, kh: int) -> str:
     if dtype != torch.bfloat16:
         return "simt"
     return "split" if s * (h // kh) <= SPLIT_ROWS else "wgmma"
+
+
+def bwd_route(dtype: torch.dtype) -> str:
+    """The backward's route for a CUDA call of this dtype: f32 stays on the
+    f32 CUDA cores, as the forward's f32 route does."""
+    return "wgmma" if dtype == torch.bfloat16 else "simt"
 
 
 @functools.lru_cache(maxsize=1024)
@@ -119,9 +136,9 @@ def _library() -> ctypes.CDLL:
     if not lib.flash_attention_launch.argtypes:
         p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
         for fn in (lib.flash_attention_launch, lib.flash_attention_wgmma_launch):
-            fn.argtypes = [p, p, p, p, i, i, i, i, i, i, *[ll] * 9, f, f, i, i, p]
+            fn.argtypes = [p, p, p, p, i, i, i, i, i, i, *[ll] * 9, f, f, i, i, p, p]
         lib.flash_attention_split_launch.argtypes = [p, p, p, p, i, i, i, i, i, i, *[ll] * 9,
-                                                     f, f, i, i, i, i, i, p, p, p, p]
+                                                     f, f, i, i, i, i, i, p, p, p, p, p]
         for fn in (lib.flash_attention_launch, lib.flash_attention_wgmma_launch,
                    lib.flash_attention_split_launch):
             fn.restype = ctypes.c_int
@@ -188,13 +205,17 @@ def flash_attention(
     _check(q, k, v, causal, window)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
         return _FlashAttention.apply(q, k, v, causal, softcap, scale, window)
-    return _forward(q, k, v, causal, softcap, scale, window)
+    return _forward(q, k, v, causal, softcap, scale, window)[0]
 
 
-def _forward(q, k, v, causal, softcap, scale, window) -> torch.Tensor:
+def _forward(q, k, v, causal, softcap, scale, window,
+             save_lse: bool = False) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """The output and, with ``save_lse``, each row's log-sum-exp (f32
+    ``(B, H, S)``), else None."""
     if q.device.type == "cpu":
-        return flash_attention_ref(q, k, v, causal=causal, softcap=softcap, scale=scale,
-                                   window=window)
+        opts = dict(causal=causal, softcap=softcap, scale=scale, window=window)
+        return (flash_attention_ref(q, k, v, **opts),
+                flash_attention_lse_ref(q, k, **opts) if save_lse else None)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention has no kernel for device {q.device}")
     b, s, h, d = q.shape
@@ -213,6 +234,8 @@ def _forward(q, k, v, causal, softcap, scale, window) -> torch.Tensor:
         raise ValueError(f"flash_attention softcap must be positive, got {softcap}")
     scale = 1.0 / math.sqrt(d) if scale is None else float(scale)
     out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device) if save_lse else None
+    lse_ptr = lse.data_ptr() if save_lse else None
     route = flash_route(q.dtype, s, h, kh)
     lib = _library()
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
@@ -221,9 +244,9 @@ def _forward(q, k, v, causal, softcap, scale, window) -> torch.Tensor:
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         if route == "simt":
-            err = lib.flash_attention_launch(*args, *shape, stream)
+            err = lib.flash_attention_launch(*args, *shape, lse_ptr, stream)
         elif route == "wgmma":
-            err = lib.flash_attention_wgmma_launch(*args, *shape, stream)
+            err = lib.flash_attention_wgmma_launch(*args, *shape, lse_ptr, stream)
         else:
             key0, chunk, n = split_plan(b, s, t, h, kh, d, window, causal,
                                         _sm_count(q.device.index))
@@ -235,13 +258,13 @@ def _forward(q, k, v, causal, softcap, scale, window) -> torch.Tensor:
                 part, ml = scratch.data_ptr(), scratch[acc:].data_ptr()
                 tickets = _ticket_buffer(q.device, stream, b * kh).data_ptr()
             err = lib.flash_attention_split_launch(*args, *shape, key0, chunk, n, part, ml,
-                                                   tickets, stream)
+                                                   tickets, lse_ptr, stream)
     flash_attention.launches += 1
     flash_attention.route_launches[route] += 1
     if err:
         msg = lib.flash_attention_error_string(err).decode()
         raise RuntimeError(f"flash_attention {route} launch failed: {msg} ({err})")
-    return out
+    return out, lse
 
 
 flash_attention.launches = 0
@@ -249,20 +272,21 @@ flash_attention.route_launches = dict.fromkeys(ROUTES, 0)
 
 
 class _FlashAttention(torch.autograd.Function):
-    """The forward route's kernel, and :func:`flash_attention_bwd` for the
-    gradient; saves q, k, v and the output."""
+    """The forward route's kernel, writing each row's log-sum-exp, and
+    :func:`flash_attention_bwd` given it for the gradient; saves q, k, v, the
+    output and the log-sum-exp."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, softcap, scale, window):
-        out = _forward(q, k, v, causal, softcap, scale, window)
-        ctx.save_for_backward(q, k, v, out)
+        out, lse = _forward(q, k, v, causal, softcap, scale, window, save_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
         ctx.opts = dict(causal=causal, softcap=softcap, scale=scale, window=window)
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        q, k, v, out = (x.contiguous() for x in ctx.saved_tensors)
-        dq, dk, dv = flash_attention_bwd(q, k, v, out, dout.contiguous(), **ctx.opts)
+        q, k, v, out, lse = (x.contiguous() for x in ctx.saved_tensors)
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, dout.contiguous(), lse=lse, **ctx.opts)
         return dq, dk, dv, None, None, None, None
 
 
@@ -270,7 +294,7 @@ def _bwd_library() -> ctypes.CDLL:
     lib = load("flash_attention_bwd")
     if not lib.flash_attention_bwd_launch.argtypes:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.flash_attention_bwd_launch.argtypes = [*[p] * 10, *[i] * 7, f, f, i, i, p]
+        lib.flash_attention_bwd_launch.argtypes = [*[p] * 10, *[i] * 7, f, f, i, i, i, i, p]
         lib.flash_attention_bwd_launch.restype = ctypes.c_int
         lib.flash_attention_bwd_error_string.argtypes = [ctypes.c_int]
         lib.flash_attention_bwd_error_string.restype = ctypes.c_char_p
@@ -288,22 +312,34 @@ def flash_attention_bwd(
     softcap: float | None = None,
     scale: float | None = None,
     window: int = 0,
+    lse: torch.Tensor | None = None,
+    route: str | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """``(dq, dk, dv)`` of :func:`flash_attention` at ``dout``, in the
     inputs' types: the plain version (``flash_attention_bwd_ref``) for a CPU
-    tensor, the kernel's three passes for a CUDA one (all five operands
-    contiguous, of one type) or a raise.  Unlike the forward it takes
+    tensor, the kernel for a CUDA one (all five operands contiguous, of one
+    type; ``route`` by default :func:`bwd_route`) or a raise.  ``lse``, the
+    forward's f32 ``(B, H, S)`` log-sum-exp (contiguous, on q's device),
+    spares the kernel recomputing Q K^T for it.  Unlike the forward it takes
     causal calls with S > T: a row that sees no key gets no gradient."""
     _check(q, k, v, causal, window, keyless_rows=True)
+    b, s, h, d = q.shape
     if out.shape != q.shape or dout.shape != q.shape:
         raise ValueError(f"flash_attention_bwd: out {tuple(out.shape)} and dout "
                          f"{tuple(dout.shape)} must have q's shape {tuple(q.shape)}")
+    if route is not None and route not in BWD_ROUTES:
+        raise ValueError(f"flash_attention_bwd route must be one of {BWD_ROUTES}, got {route!r}")
+    if lse is not None and (lse.shape != (b, h, s) or lse.dtype != torch.float32
+                            or lse.device != q.device or not lse.is_contiguous()):
+        raise ValueError(f"flash_attention_bwd lse must be contiguous f32 {(b, h, s)} on "
+                         f"{q.device}, got {lse.dtype} {tuple(lse.shape)} on {lse.device}")
+    if lse is not None and lse.data_ptr() % 16:
+        raise ValueError("flash_attention_bwd lse must start on a 16-byte boundary")
     if q.device.type == "cpu":
         return flash_attention_bwd_ref(q, k, v, out, dout, causal=causal, softcap=softcap,
-                                       scale=scale, window=window)
+                                       scale=scale, window=window, lse=lse)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_bwd has no kernel for device {q.device}")
-    b, s, h, d = q.shape
     t, kh = k.shape[1], k.shape[2]
     if d not in HEAD_DIMS:
         raise ValueError(f"flash_attention_bwd kernel takes head dims {HEAD_DIMS}, got {d}")
@@ -315,22 +351,30 @@ def flash_attention_bwd(
                          "boundaries")
     if softcap is not None and not softcap > 0:
         raise ValueError(f"flash_attention_bwd softcap must be positive, got {softcap}")
+    route = route or bwd_route(q.dtype)
+    if route == "wgmma" and q.dtype != torch.bfloat16:
+        raise ValueError("flash_attention_bwd wgmma route takes bf16 only")
     scale = 1.0 / math.sqrt(d) if scale is None else float(scale)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    scratch = torch.empty(2 * b * h * s, dtype=torch.float32, device=q.device)  # lse, delta
+    # f32 (B, H, S) scratch, each on its own allocation's aligned start (the
+    # wgmma route reads them by TMA): delta, and lse when the forward gave none
+    delta = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    have_lse = lse is not None
+    if not have_lse:
+        lse = torch.empty_like(delta)
     lib = _bwd_library()
-    ptrs = [x.data_ptr() for x in (*ops, dq, dk, dv)]
-    ptrs += [scratch.data_ptr(), scratch[b * h * s:].data_ptr()]
+    ptrs = [x.data_ptr() for x in (*ops, dq, dk, dv, lse, delta)]
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.flash_attention_bwd_launch(
             *ptrs, b, s, t, h, kh, d, int(q.dtype == torch.bfloat16), scale,
-            float(softcap or 0.0), int(causal), window, stream)
+            float(softcap or 0.0), int(causal), window, BWD_ROUTES.index(route),
+            int(have_lse), stream)
     flash_attention_bwd.launches += 1
-    flash_attention_bwd.route_launches["simt"] += 1
+    flash_attention_bwd.route_launches[route] += 1
     if err:
         msg = lib.flash_attention_bwd_error_string(err).decode()
-        raise RuntimeError(f"flash_attention_bwd launch failed: {msg} ({err})")
+        raise RuntimeError(f"flash_attention_bwd {route} launch failed: {msg} ({err})")
     return dq, dk, dv
 
 

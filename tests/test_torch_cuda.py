@@ -899,39 +899,133 @@ def test_gather_shard_map_on_two_gloo_ranks(spmd_on_card):
 
 
 # ------------------------------------------------------- the train step
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-@pytest.mark.parametrize("case", [
+BWD_TOL = {torch.float32: dict(atol=2e-5, rtol=2e-5), torch.bfloat16: dict(atol=1e-3, rtol=2**-7)}
+BWD_CASES = [
     # (name, b, s, t, h, kh, d, kwargs)
     ("gqa_S300_d128", 1, 300, 300, 32, 4, 128, {}),
     ("window_softcap_S_lt_T_d64", 2, 77, 333, 6, 2, 64, {"window": 50, "softcap": 30.0}),
-], ids=lambda c: c[0] if isinstance(c, tuple) else None)
-def test_flash_bwd_kernel_matches_plain(card, case, dtype):
-    """dQ, dK and dV from the backward kernel against its plain version on
-    the same inputs: f32 within 2e-5 (f32 products summed in other orders);
-    bf16 within one bf16 rounding of the value (both compute in f32 and
-    round once at the end) plus 1e-3."""
-    from repro_torch.kernels.flash_attention import flash_attention_bwd, flash_attention_bwd_ref
+    ("non_causal_d32", 1, 200, 130, 4, 1, 32, {"causal": False}),
+    ("keyless_rows_d32", 1, 150, 100, 4, 2, 32, {}),  # rows of queries 0-49 see no key
+]
 
+
+def _bwd_case(card, case, dtype, seed=11):
     _, b, s, t, h, kh, d, kw = case
     q, k, v, dout = _flash_inputs(card, [(b, s, h, d), (b, t, kh, d), (b, t, kh, d),
-                                         (b, s, h, d)], dtype, 11)
-    out = flash_attention(q, k, v, **kw)
-    before = flash_attention_bwd.launches
-    got = flash_attention_bwd(q, k, v, out, dout, **kw)
+                                         (b, s, h, d)], dtype, seed)
+    keyless = max(0, s - t) if kw.get("causal", True) else 0
+    out = (flash_attention_ref if keyless else flash_attention)(q, k, v, **kw).contiguous()
+    return q, k, v, out, dout, kw, keyless
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", BWD_CASES, ids=lambda c: c[0] if isinstance(c, tuple) else None)
+def test_flash_bwd_kernel_matches_plain(card, case, dtype):
+    """dQ, dK and dV from the backward kernel against its plain version on
+    the same inputs, on each route the dtype takes: bf16 on ``wgmma`` by
+    default (the plain version rounds P and dS to bf16 where the kernel
+    does) and on ``simt`` by name (all f32: its plain version is the plain
+    one on f32 copies, rounded at the end), f32 on ``simt``.  f32 within
+    2e-5 (f32 products summed in other orders); bf16 within one bf16
+    rounding of the value plus 1e-3.  A row that sees no key gets a dQ of
+    exactly 0; each call counts one launch on its route.  ``wgmma`` rounds
+    P and dS to bf16 from f32 values summed in another order than the plain
+    version's, so a row may also move by one bf16 step of its largest
+    rounded term (``flash_attention_bwd_step_ref``)."""
+    from repro_torch.kernels.flash_attention import (
+        bwd_route, flash_attention_bwd, flash_attention_bwd_ref, flash_attention_bwd_step_ref,
+    )
+
+    q, k, v, out, dout, kw, keyless = _bwd_case(card, case, dtype)
+    routes = [bwd_route(dtype)] + (["simt"] if dtype == torch.bfloat16 else [])
+    assert routes[0] == ("wgmma" if dtype == torch.bfloat16 else "simt")
+    for route in routes:
+        before = dict(flash_attention_bwd.route_launches)
+        got = flash_attention_bwd(q, k, v, out, dout, route=None if route == routes[0] else route,
+                                  **kw)
+        torch.cuda.synchronize()
+        assert flash_attention_bwd.route_launches == {**before, route: before[route] + 1}
+        if route == "simt" and dtype == torch.bfloat16:
+            want = [x.to(dtype) for x in flash_attention_bwd_ref(
+                q.float(), k.float(), v.float(), out.float(), dout.float(), **kw)]
+            steps = (0.0,) * 3
+        else:
+            want = flash_attention_bwd_ref(q, k, v, out, dout, **kw)
+            steps = flash_attention_bwd_step_ref(q, k, v, out, dout, **kw)
+        tol = BWD_TOL[dtype]
+        for g, w, step in zip(got, want, steps):
+            assert g.dtype == dtype
+            g, w = g.float(), w.float()
+            err = (g - w).abs() - (tol["atol"] + tol["rtol"] * w.abs() + step)
+            assert torch.isfinite(g).all() and err.max() <= 0, (route, err.max().item())
+        assert torch.equal(got[0][:, :keyless], torch.zeros_like(got[0][:, :keyless]))
+
+
+@pytest.mark.parametrize("route", ["wgmma", "simt"])
+def test_flash_bwd_is_deterministic(card, route):
+    """No atomics: the same inputs give bit-identical gradients, call after
+    call (a restored training run replays its steps)."""
+    from repro_torch.kernels.flash_attention import flash_attention_bwd
+
+    q, k, v, out, dout, kw, _ = _bwd_case(card, BWD_CASES[1], torch.bfloat16, seed=14)
+    first = flash_attention_bwd(q, k, v, out, dout, route=route, **kw)
+    for _ in range(3):
+        again = flash_attention_bwd(q, k, v, out, dout, route=route, **kw)
+        assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+@pytest.mark.parametrize("case", [
+    # (route, dtype, b, s, t, h, kh, d, kwargs)
+    ("wgmma", torch.bfloat16, 1, 300, 300, 32, 4, 128, {}),
+    ("wgmma", torch.bfloat16, 2, 77, 333, 6, 2, 64, {"window": 50, "softcap": 30.0}),
+    ("split", torch.bfloat16, 2, 1, 1000, 32, 4, 128, {}),  # split over keys, merged
+    ("split", torch.bfloat16, 1, 2, 40, 8, 4, 32, {}),  # one chunk
+    ("simt", torch.float32, 1, 300, 300, 32, 4, 128, {}),
+    ("simt", torch.float32, 1, 40, 100, 6, 2, 64, {"window": 20, "softcap": 5.0}),
+], ids=lambda c: f"{c[0]}_S{c[3]}_T{c[4]}_d{c[7]}")
+def test_flash_forward_lse(card, case):
+    """Each forward route's log-sum-exp against the plain one on the same
+    inputs (atol 1e-4), and the output with and without an lse pointer
+    bit-identical, with the same route counts."""
+    from repro_torch.kernels.flash_attention import flash_attention_lse_ref
+    from repro_torch.kernels.flash_attention import kernel as flash_kernel
+
+    route, dtype, b, s, t, h, kh, d, kw = case
+    q, k, v = _flash_inputs(card, [(b, s, h, d), (b, t, kh, d), (b, t, kh, d)], dtype, 12)
+    opts = (kw.get("causal", True), kw.get("softcap"), None, kw.get("window", 0))
+    before = dict(flash_attention.route_launches)
+    plain_out, none = flash_kernel._forward(q, k, v, *opts)
+    out, lse = flash_kernel._forward(q, k, v, *opts, save_lse=True)
     torch.cuda.synchronize()
-    assert flash_attention_bwd.launches == before + 1
-    want = flash_attention_bwd_ref(q, k, v, out, dout, **kw)
-    tol = dict(atol=2e-5, rtol=2e-5) if dtype == torch.float32 else dict(atol=1e-3, rtol=2**-7)
+    assert none is None and lse.shape == (b, h, s) and lse.dtype == torch.float32
+    assert flash_attention.route_launches == {**before, route: before[route] + 2}
+    assert torch.equal(out, plain_out)
+    torch.testing.assert_close(lse, flash_attention_lse_ref(q, k, **kw), atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", BWD_CASES[:3], ids=lambda c: c[0] if isinstance(c, tuple) else None)
+def test_flash_bwd_given_lse_matches_the_row_pass(card, case, dtype):
+    """The backward given the forward's lse (the delta pass alone) against
+    the one whose row pass recomputes it, within the backward's bounds."""
+    from repro_torch.kernels.flash_attention import flash_attention_bwd
+    from repro_torch.kernels.flash_attention import kernel as flash_kernel
+
+    q, k, v, _, dout, kw, _ = _bwd_case(card, case, dtype, seed=13)
+    out, lse = flash_kernel._forward(q, k, v, kw.get("causal", True), kw.get("softcap"), None,
+                                     kw.get("window", 0), save_lse=True)
+    got = flash_attention_bwd(q, k, v, out, dout, lse=lse, **kw)
+    want = flash_attention_bwd(q, k, v, out, dout, **kw)
+    torch.cuda.synchronize()
     for g, w in zip(got, want):
-        assert g.dtype == dtype
-        torch.testing.assert_close(g.float(), w.float(), **tol)
+        torch.testing.assert_close(g.float(), w.float(), **BWD_TOL[dtype])
 
 
 def test_train_step_launches_the_backward_kernel(card):
     """One train step of yi smoke (bf16) with remat and 2 microbatches on
     the card: the flash forward runs twice a layer a microbatch (forward and
-    recompute), the backward kernel once; the loss is finite and the
-    weights move."""
+    recompute), the backward kernel once, on its ``wgmma`` route; the loss
+    is finite and the weights move."""
     from repro_torch import kernels
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import flash_attention_bwd
@@ -949,6 +1043,7 @@ def test_train_step_launches_the_backward_kernel(card):
     torch.cuda.synchronize()
     counts = kernels.launch_counts()
     assert counts["flash_attention_bwd"] == cfg.n_layers * 2
+    assert flash_attention_bwd.route_launches == {"simt": 0, "wgmma": cfg.n_layers * 2}
     assert counts["flash_attention"] == cfg.n_layers * 2 * 2
     assert torch.isfinite(metrics["loss"]) and state["step"] == 1
     assert not torch.equal(model.blocks[0].wq, before)

@@ -11,7 +11,16 @@ gets no gradient in the port: its dQ is 0 and it adds nothing to dK and
 dV.  The plain forward's masked softmax spreads such a row evenly over all
 T keys, so autograd and JAX give it a dV share; they are compared with the
 row's dO set to 0, and the port's gradients are checked not to move when it
-is not."""
+is not.
+
+The plain log-sum-exp that the forward writes for the backward is held to
+``jax.nn.logsumexp`` of ``attend``'s masked f32 logits, and the bf16 plain
+backward, with its rounding points (P and dS to bf16), to the reference's
+own bf16 accuracy: its rms distance to ``jax.vjp`` on f32 copies at most
+twice that of ``jax.vjp`` of ``attend`` in bf16 (as ROADMAP T11 holds
+rwkv6's bf16 logits)."""
+
+import math
 
 import jax
 import jax.numpy as jnp
@@ -19,11 +28,14 @@ import numpy as np
 import pytest
 import torch
 
-from repro.models.attention import attend
+from repro.models.attention import NEG, attend
+from repro.models.common import softcap as jax_softcap
 from repro_torch import kernels
 from repro_torch.kernels.flash_attention import (
-    flash_attention, flash_attention_bwd, flash_attention_bwd_ref, flash_attention_ref,
+    BWD_ROUTES, flash_attention, flash_attention_bwd, flash_attention_bwd_ref,
+    flash_attention_bwd_step_ref, flash_attention_lse_ref, flash_attention_ref,
 )
+from repro_torch.kernels.flash_attention.ref import visible
 
 ATOL = 1e-5
 
@@ -71,18 +83,22 @@ def test_bwd_ref_matches_autograd_of_the_plain_forward(case):
     _close([x.numpy() for x in got], [x.numpy() for x in want], case)
 
 
+def _attend(case):
+    """JAX ``attend`` at the case's positions and options."""
+    _, s, t, _, _, _, kw = CASES[case]
+
+    def f(q, k, v):
+        return attend(q, k, v, q_pos=jnp.arange(s) + (t - s), k_pos=jnp.arange(t),
+                      causal=kw.get("causal", True), window=kw.get("window"),
+                      cap=kw.get("softcap"))
+    return f
+
+
 @pytest.mark.parametrize("case", list(CASES))
 def test_bwd_ref_matches_jax_vjp_of_attend(case):
     q, k, v, dout, keyless, kw = _inputs(case, seed=1)
     dout[:, :keyless] = 0.0
-    s, t = q.shape[1], k.shape[1]
-    causal = kw.get("causal", True)
-
-    def f(q, k, v):
-        return attend(q, k, v, q_pos=jnp.arange(s) + (t - s), k_pos=jnp.arange(t),
-                      causal=causal, window=kw.get("window"), cap=kw.get("softcap"))
-
-    out, vjp = jax.vjp(f, jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    out, vjp = jax.vjp(_attend(case), jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
     want = vjp(jnp.asarray(dout))
     got = flash_attention_bwd_ref(*_t(q, k, v), torch.tensor(np.asarray(out)),
                                   torch.tensor(dout), **kw)
@@ -159,8 +175,136 @@ def test_bf16_gradients_keep_the_input_type():
 
 def test_backward_wrapper_is_counted_with_the_others():
     assert kernels.WRAPPERS["flash_attention_bwd"] is flash_attention_bwd
+    assert BWD_ROUTES == ("simt", "wgmma")
     flash_attention_bwd.launches = 3
-    flash_attention_bwd.route_launches["simt"] = 3
+    flash_attention_bwd.route_launches["simt"] = 1
+    flash_attention_bwd.route_launches["wgmma"] = 2
     kernels.reset_launches()
     assert kernels.launch_counts()["flash_attention_bwd"] == 0
-    assert flash_attention_bwd.route_launches == {"simt": 0}
+    assert flash_attention_bwd.route_launches == {"simt": 0, "wgmma": 0}
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_plain_lse_matches_jax_logsumexp_of_the_masked_logits(case):
+    """flash_attention_lse_ref against jax.nn.logsumexp of attend's masked
+    f32 logits (its own einsum, softcap and mask), atol 1e-5.  attend masks
+    with -2**30, so a row that sees no key has -2**30 + log T there; the
+    plain lse gives it -inf (its P is 0 on every key either way)."""
+    q, k, v, _, keyless, kw = _inputs(case, seed=5)
+    b, s, t, h, kh, d, _ = CASES[case]
+    causal = kw.get("causal", True)
+    qp, kp = jnp.arange(s) + (t - s), jnp.arange(t)
+    logits = jnp.einsum("bskgd,btkd->bkgst", jnp.asarray(q).reshape(b, s, kh, h // kh, d),
+                        jnp.asarray(k), preferred_element_type=jnp.float32)
+    logits = jax_softcap(logits * (1.0 / math.sqrt(d)), kw.get("softcap"))
+    mask = jnp.ones((s, t), bool)
+    if causal:
+        mask &= kp[None, :] <= qp[:, None]
+    if kw.get("window"):
+        mask &= qp[:, None] - kp[None, :] < kw["window"]
+    want = np.asarray(jax.nn.logsumexp(jnp.where(mask, logits, NEG), axis=-1)).reshape(b, h, s)
+    got = flash_attention_lse_ref(*_t(q, k), **kw).numpy()
+    assert got.shape == (b, h, s) and got.dtype == np.float32
+    np.testing.assert_allclose(got[..., keyless:], want[..., keyless:], atol=1e-5, rtol=1e-5)
+    assert np.all(got[..., :keyless] == -np.inf)
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_bwd_ref_given_lse_matches_the_recomputed_one(case):
+    """The plain backward given the plain lse equals the one that recomputes
+    it (f32, atol 1e-5); through the autograd Function on the CPU, which
+    saves that lse, it is the bit-identical gradient."""
+    q, k, v, dout, _, kw = _inputs(case, seed=6)
+    out = flash_attention_ref(*_t(q, k, v), **kw)
+    lse = flash_attention_lse_ref(*_t(q, k), **kw)
+    got = flash_attention_bwd_ref(*_t(q, k, v), out, torch.tensor(dout), lse=lse, **kw)
+    want = flash_attention_bwd_ref(*_t(q, k, v), out, torch.tensor(dout), **kw)
+    _close([x.numpy() for x in got], [x.numpy() for x in want], case)
+    wrapped = flash_attention_bwd(*_t(q, k, v), out, torch.tensor(dout), lse=lse, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(wrapped, got))
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_bf16_bwd_ref_at_the_references_own_bf16_accuracy(case):
+    """The bf16 plain backward (P and dS rounded to bf16, the kernel's
+    points), after the plain bf16 forward, against jax.vjp of attend in
+    bf16: the rms distance of each of dq, dk, dv to jax.vjp on f32 copies is
+    at most twice JAX's own.  Elementwise bounds do not hold between two
+    bf16 renderings that round at other points (ROADMAP T11)."""
+    q, k, v, dout, keyless, kw = _inputs(case, seed=7)
+    dout[:, :keyless] = 0.0
+    bf = lambda a: np.asarray(jnp.asarray(a, jnp.bfloat16).astype(jnp.float32))
+    q, k, v, dout = (bf(x) for x in (q, k, v, dout))  # both sides see the same bf16 values
+    f = _attend(case)
+    _, vjp32 = jax.vjp(f, *(jnp.asarray(x) for x in (q, k, v)))
+    exact = [np.asarray(x) for x in vjp32(jnp.asarray(dout))]
+    _, vjp16 = jax.vjp(f, *(jnp.asarray(x, jnp.bfloat16) for x in (q, k, v)))
+    ref = [np.asarray(x.astype(jnp.float32)) for x in vjp16(jnp.asarray(dout, jnp.bfloat16))]
+    tq, tk, tv, tdo = (torch.tensor(x).bfloat16() for x in (q, k, v, dout))
+    out = flash_attention_ref(tq, tk, tv, **kw)
+    got = [x.float().numpy() for x in flash_attention_bwd_ref(tq, tk, tv, out, tdo, **kw)]
+    rms = lambda a, b: float(np.sqrt(np.mean((a - b) ** 2)))
+    for name, g, r, e in zip(("dq", "dk", "dv"), got, ref, exact):
+        assert rms(g, e) <= 2 * rms(r, e), (name, rms(g, e), rms(r, e))
+
+
+def _resummed_bf16_bwd(q, k, v, out, dout, causal=True, softcap=None, window=0):
+    """A bf16 backward with the plain version's rounding points (P to bf16
+    before dV, dS before dQ and dK) whose Q K^T and dO V^T are f32 sums taken
+    in another order: k-steps of 16 of the head dim added one after another,
+    as the kernel's wgmma k-steps are."""
+    b, s, h, d = q.shape
+    t, kh = k.shape[1], k.shape[2]
+    g = h // kh
+    scale = 1.0 / math.sqrt(d)
+    qd = q.reshape(b, s, kh, g, d).float()
+    do = dout.reshape(b, s, kh, g, d).float()
+
+    def stepped(a, w):
+        return sum(torch.einsum("bskgd,btkd->bkgst", a[..., i:i + 16], w[..., i:i + 16])
+                   for i in range(0, d, 16))
+
+    x = stepped(qd, k.float()) * scale
+    th = torch.tanh(x / softcap) if softcap else None
+    c = th * softcap if softcap else x
+    mask = visible(s, t, causal, window, q.device)
+    lse = torch.logsumexp(c.masked_fill(~mask, -math.inf), -1, keepdim=True)
+    p = torch.where(mask, torch.exp(c - lse), 0.0)
+    delta = (do * out.reshape(b, s, kh, g, d).float()).sum(-1).permute(0, 2, 3, 1)[..., None]
+    dp = stepped(do, v.float())
+    ds = p * (dp - delta) * ((1.0 - th * th) if softcap else 1.0)
+    p, ds = p.bfloat16().float(), ds.bfloat16().float()
+    dv = torch.einsum("bkgst,bskgd->btkd", p, do)
+    dq = torch.einsum("bkgst,btkd->bskgd", ds, k.float()) * scale
+    dk = torch.einsum("bkgst,bskgd->btkd", ds, qd) * scale
+    return dq.reshape(b, s, h, d).bfloat16(), dk.bfloat16(), dv.bfloat16()
+
+
+@pytest.mark.parametrize("case", [*CASES, "long"])
+def test_step_room_covers_a_rendering_summed_in_another_order(case):
+    """The bound the card checks hold the ``wgmma`` route to, against the
+    plain bf16 version on the same inputs: 1e-3 + 2**-7 of each value, plus
+    ``flash_attention_bwd_step_ref``'s one bf16 step of each row's largest
+    rounded term.  A rendering that rounds P and dS at the same points from
+    f32 sums taken in another order (``_resummed_bf16_bwd``) stays inside
+    it, though it rounds some P and dS to the neighbouring bf16 value; f32
+    inputs get no room."""
+    if case == "long":  # yi's heads at S = T = 300: some rows pass 2**-7 of their value
+        q, k, v, dout = (torch.randn(shape, generator=torch.Generator().manual_seed(11))
+                         for shape in ((1, 300, 32, 128), (1, 300, 4, 128), (1, 300, 4, 128),
+                                       (1, 300, 32, 128)))
+        keyless, kw = 0, {}
+    else:
+        q, k, v, dout, keyless, kw = (torch.tensor(x) if isinstance(x, np.ndarray) else x
+                                      for x in _inputs(case, seed=8))
+    dout[:, :keyless] = 0.0
+    q, k, v, dout = (x.bfloat16() for x in (q, k, v, dout))
+    out = flash_attention_ref(q, k, v, **kw)
+    want = flash_attention_bwd_ref(q, k, v, out, dout, **kw)
+    got = _resummed_bf16_bwd(q, k, v, out, dout, **kw)
+    steps = flash_attention_bwd_step_ref(q, k, v, out, dout, **kw)
+    for name, g, w, step in zip(("dq", "dk", "dv"), got, want, steps):
+        g, w = g.float(), w.float()
+        assert bool(((g - w).abs() <= 1e-3 + 2**-7 * w.abs() + step).all()), name
+    zero = flash_attention_bwd_step_ref(*(x.float() for x in (q, k, v, out, dout)), **kw)
+    assert all(bool((z == 0).all()) for z in zero)
