@@ -320,6 +320,9 @@ FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}  # the JAX sweep's toler
 # outputs are ~0.026 (sqrt(e / T)), which 2e-2 does not resolve; a key tile
 # skipped moves them by ~3e-3.
 FLASH_F32P_ATOL, FLASH_F32P_RTOL = 1e-4, 1e-2
+# each row's log-sum-exp that the forward writes for the backward, against
+# the plain one: f32 sums of O(1) terms in other orders, |lse| ~ 10, ~1e-6
+FLASH_LSE_ATOL = 1e-4
 # f32 card vs CPU over 2 full-width layers: |logit| is O(1) and the two
 # sides sum 4,096- and 11,008-long f32 products in different orders
 PARITY_ATOL, PARITY_PROMPT, PARITY_STEPS = 1e-3, 128, 8
@@ -1487,10 +1490,14 @@ def flash_kernel_phase(dev) -> dict:
     global at decode T = 4,096, each in f32 and bf16.  Every call within
     FLASH_TOL of the plain version in its own dtype; every bf16 call also
     within FLASH_F32P_* of the plain version on f32 copies of its inputs.
-    Each call must raise its route's launch count (``flash_route``) by one."""
+    Each call must raise its route's launch count (``flash_route``) by one.
+    Each call is made again writing each row's log-sum-exp, as the train
+    step's forward does: the output bit-identical, the lse within
+    FLASH_LSE_ATOL of the plain one (``flash_attention_lse_ref``)."""
     from repro_torch.kernels.flash_attention import (
-        flash_attention, flash_attention_ref, flash_route,
+        flash_attention, flash_attention_lse_ref, flash_attention_ref, flash_route,
     )
+    from repro_torch.kernels.flash_attention import kernel as flash_kernel
 
     g = torch.Generator(dev).manual_seed(3)
     bf16, f32 = torch.bfloat16, torch.float32
@@ -1516,7 +1523,7 @@ def flash_kernel_phase(dev) -> dict:
             ("hymba decode B=8 T=4096 global", (8, 1, 4096, h, kh, d, dtype, 4096),
              dict(causal=True)),
         ]
-    worst = {f32: 0.0, bf16: 0.0, "f32_probs": 0.0}
+    worst = {f32: 0.0, bf16: 0.0, "f32_probs": 0.0, "lse": 0.0}
     before = flash_attention.launches, dict(flash_attention.route_launches)
     for label, shape, kw in cases:
         if label.startswith("sweep"):
@@ -1539,11 +1546,23 @@ def flash_kernel_phase(dev) -> dict:
             f"kernel flash_attention {label} {str(dtype)[6:]} ({route})", dtype, got, want, want32)
         worst[dtype] = max(worst[dtype], err)
         worst["f32_probs"] = max(worst["f32_probs"], err32)
-        log(line)
+        at = flash_attention.route_launches[route]
+        again, lse = flash_kernel._forward(q, k, v, kw["causal"], kw.get("softcap"), None,
+                                           kw.get("window", 0), save_lse=True)
+        if flash_attention.route_launches[route] != at + 1 or not torch.equal(again, got):
+            raise AssertionError(f"flash_attention {label} {dtype}: writing lse changed the "
+                                 f"{route} route's launch or output")
+        lse_err = (lse - flash_attention_lse_ref(q, k, **kw)).abs().max().item()
+        if not lse_err <= FLASH_LSE_ATOL:
+            raise AssertionError(f"flash_attention {label} {dtype} ({route}): lse off the "
+                                 f"plain one by {lse_err}")
+        worst["lse"] = max(worst["lse"], lse_err)
+        log(f"{line}; with lse: output bit-identical, lse max_abs_err={lse_err} "
+            f"(within {FLASH_LSE_ATOL})")
     # checking launches are not main-path launches
     flash_attention.launches, flash_attention.route_launches = before
     return {"max_abs_err": max(worst[f32], worst[bf16]), "max_abs_err_f32_probs":
-            worst["f32_probs"]}
+            worst["f32_probs"], "max_abs_err_lse": worst["lse"]}
 
 
 def parity_phase(dev, arch: str = "yi-9b") -> dict:
@@ -3080,7 +3099,7 @@ def spmd_phase(dev, table: np.ndarray, chain: np.ndarray, oracle: np.ndarray) ->
 
 # ---------------------------------------------------------------- training
 def _bwd_within(what: str, dtype, got, want, want32=None, own32=None,
-                steps=None) -> tuple[str, float]:
+                steps=None) -> tuple[str, float, float]:
     """Each of ``got`` (dq, dk, dv) within BWD_TOL of the largest |want|
     (bf16: plus BWD_BF16_RTOL of each value, plus ``steps`` where given:
     one bf16 step of each row's largest term rounded to bf16, for the route
@@ -3088,10 +3107,10 @@ def _bwd_within(what: str, dtype, got, want, want32=None, own32=None,
     within BWD_TOL plus BWD_F32C_RTOL of ``want32`` (the plain version on
     f32 copies), plus twice ``own32`` where given: the largest error of the
     plain bf16 version, which rounds P and dS where the kernel does, against
-    those copies.  Raises where not.  Returns the log line and the largest
-    error."""
+    those copies.  Raises where not.  Returns the log line, the largest
+    error and the largest share of its bound that an element's error uses."""
     torch.cuda.synchronize()
-    parts, worst = [], 0.0
+    parts, worst, use = [], 0.0, 0.0
     for name, g, w, w32, o32, step in zip(("dq", "dk", "dv"), got, want,
                                           want32 or (None,) * 3, own32 or (0.0,) * 3,
                                           steps or (0.0,) * 3):
@@ -3099,20 +3118,24 @@ def _bwd_within(what: str, dtype, got, want, want32=None, own32=None,
         top = w.abs().max().item()
         err = (g - w).abs().max().item()
         rtol = BWD_BF16_RTOL if dtype == torch.bfloat16 else 0.0
-        ok = bool(((g - w).abs() <= BWD_TOL * top + rtol * w.abs() + step).all())
-        part = f"{name} err {err} (|max| {top})"
+        bound = BWD_TOL * top + rtol * w.abs() + step
+        ok = bool(((g - w).abs() <= bound).all())
+        share = ((g - w).abs() / bound).max().item()
+        part = f"{name} err {err} (|max| {top}, {share} of its bound)"
         if w32 is not None:
             err32 = (g - w32).abs().max().item()
-            ok &= bool(((g - w32).abs() <= 2 * o32 + BWD_TOL * top
-                        + BWD_F32C_RTOL * w32.abs()).all())
-            part += f" f32-copies err {err32}"
+            bound32 = 2 * o32 + BWD_TOL * top + BWD_F32C_RTOL * w32.abs()
+            ok &= bool(((g - w32).abs() <= bound32).all())
+            share32 = ((g - w32).abs() / bound32).max().item()
+            part += f" f32-copies err {err32} ({share32} of its bound)"
             if own32 is not None:
                 part += f" (the plain bf16's own {o32})"
+            share = max(share, share32)
         if not ok or not torch.isfinite(g).all():
             raise AssertionError(f"flash_attention_bwd differs from plain: {what}: {part}")
         parts.append(part)
-        worst = max(worst, err)
-    return f"{what}: " + "; ".join(parts), worst
+        worst, use = max(worst, err), max(use, share)
+    return f"{what}: " + "; ".join(parts), worst, use
 
 
 def flash_bwd_kernel_phase(dev) -> dict:
@@ -3123,23 +3146,32 @@ def flash_bwd_kernel_phase(dev) -> dict:
     128, bf16), hymba's windowed shape (25/5 heads of 64, S = T = 3,072,
     window 2,048), a softcap, S < T with a window, and rows that see no key
     (S = 300 > T = 200: their dQ must be 0, not NaN), in f32 and bf16 (yi's
-    in bf16).  bf16 runs both routes: ``wgmma`` against the plain version on
-    the same inputs (it rounds P and dS where the kernel does) and, on f32
-    copies, within twice that plain version's own error there plus the
-    f32-copies bound; ``simt`` (all f32) against the plain version on f32
-    copies.  f32 runs ``simt``.  Autograd spreads a keyless row over all
-    keys (module note of tests/test_torch_flash_bwd.py): its dO is 0 in that
-    comparison.  Each call must count one launch on its route; checking
-    launches are not main-path launches."""
+    in bf16).  Where every row sees a key the forward kernel writes each
+    row's log-sum-exp, as the train step's does: within FLASH_LSE_ATOL of
+    ``flash_attention_lse_ref``, and the backward is checked given it (the
+    train step's call: a delta pass, no Q K^T for the rows) against the
+    plain version given the same lse, then without it (the row pass) against
+    the plain version that recomputes it; keyless rows run without.  bf16
+    runs both routes: ``wgmma`` against the plain version on the same inputs
+    (it rounds P and dS where the kernel does) and, on f32 copies, within
+    twice that plain version's own error there plus the f32-copies bound;
+    ``simt`` (all f32) against the plain version on f32 copies.  f32 runs
+    ``simt``.  Autograd spreads a keyless row over all keys (module note of
+    tests/test_torch_flash_bwd.py): its dO is 0 in that comparison.  Each
+    call must count one launch on its route, the call without ``route``
+    (bf16 on ``wgmma``, f32 on ``simt``) as well; checking launches are not
+    main-path launches."""
     from repro_torch.kernels import WRAPPERS
     from repro_torch.kernels.flash_attention import (
-        flash_attention, flash_attention_bwd, flash_attention_bwd_ref,
-        flash_attention_bwd_step_ref, flash_attention_ref,
+        BWD_ROUTES, flash_attention_bwd, flash_attention_bwd_ref, flash_attention_bwd_step_ref,
+        flash_attention_lse_ref, flash_attention_ref,
     )
+    from repro_torch.kernels.flash_attention import kernel as flash_kernel
 
     torch.backends.cuda.matmul.allow_tf32 = False  # full f32 products in the plain versions
     g = torch.Generator(dev).manual_seed(5)
     bf16, f32 = torch.bfloat16, torch.float32
+    default = {bf16: "wgmma", f32: "simt"}
     cases = [(f"sweep {(b, h, kh, s, t, d)} causal={causal} softcap={cap}",
               (b, s, t, h, kh, d), dict(causal=causal, softcap=cap), (f32, bf16))
              for b, h, kh, s, t, d, _, _, causal, cap in SWEEP]
@@ -3153,39 +3185,60 @@ def flash_bwd_kernel_phase(dev) -> dict:
     ]
     before = {k: (WRAPPERS[k].launches, dict(WRAPPERS[k].route_launches))
               for k in ("flash_attention", "flash_attention_bwd")}
-    worst = 0.0
+    worst, worst_lse, use, taken = 0.0, 0.0, 0.0, {}
     t0 = time.perf_counter()
     for label, (b, s, t, h, kh, d), kw, dtypes in cases:
         keyless = max(0, s - t) if kw.get("causal", True) else 0
+        opts = {"causal": True, "softcap": None, "window": 0, **kw}
         for dtype in dtypes:
             q, k, v, dout = (torch.randn(shape, generator=g, device=dev).to(dtype) for shape in (
                 (b, s, h, d), (b, t, kh, d), (b, t, kh, d), (b, s, h, d)))
-            out = (flash_attention_ref(q, k, v, **kw) if keyless else
-                   flash_attention(q, k, v, **kw)).contiguous()
-            want = flash_attention_bwd_ref(q, k, v, out, dout, **kw)
-            want32 = own32 = steps = None
+            if keyless:
+                out, lse = flash_attention_ref(q, k, v, **kw).contiguous(), None
+            else:
+                out, lse = flash_kernel._forward(q, k, v, opts["causal"], opts["softcap"], None,
+                                                 opts["window"], save_lse=True)
+                lse_err = (lse - flash_attention_lse_ref(q, k, **kw)).abs().max().item()
+                if not lse_err <= FLASH_LSE_ATOL:
+                    raise AssertionError(f"flash_attention {label} {dtype}: lse off the plain "
+                                         f"one by {lse_err}")
+                worst_lse = max(worst_lse, lse_err)
+                log(f"kernel flash_attention {label} {str(dtype)[6:]}: lse max_abs_err "
+                    f"{lse_err} (within {FLASH_LSE_ATOL})")
+            want32 = None
             if dtype == bf16:
                 want32 = flash_attention_bwd_ref(q.float(), k.float(), v.float(), out.float(),
                                                  dout.float(), **kw)
-                own32 = [(w.float() - w32).abs().max().item() for w, w32 in zip(want, want32)]
-                steps = flash_attention_bwd_step_ref(q, k, v, out, dout, **kw)
-            for route in ("wgmma", "simt") if dtype == bf16 else ("simt",):
-                at = flash_attention_bwd.route_launches[route]
-                got = flash_attention_bwd(q, k, v, out, dout, route=route, **kw)
-                if flash_attention_bwd.route_launches[route] != at + 1:
-                    raise AssertionError(f"flash_attention_bwd {label}: no {route} launch")
-                what = f"kernel flash_attention_bwd {label} {str(dtype)[6:]} ({route})"
-                if route == "simt" and dtype == bf16:  # all f32: the plain one on f32 copies
-                    line, err = _bwd_within(what, dtype, got, [w.to(bf16) for w in want32],
-                                            want32)
-                else:
-                    line, err = _bwd_within(what, dtype, got, want, want32, own32, steps)
-                worst = max(worst, err)
-                if keyless and bool(got[0][:, :keyless].abs().max() != 0):
-                    raise AssertionError(f"{what}: a row that sees no key has a nonzero dQ")
-                log(line)
-                del got
-            del want, want32, steps
+            for given in ((lse, None) if lse is not None else (None,)):
+                want = flash_attention_bwd_ref(q, k, v, out, dout, lse=given, **kw)
+                own32 = steps = None
+                if dtype == bf16:
+                    own32 = [(w.float() - w32).abs().max().item() for w, w32 in zip(want, want32)]
+                    steps = flash_attention_bwd_step_ref(q, k, v, out, dout, lse=given, **kw)
+                for route in ("wgmma", "simt") if dtype == bf16 else ("simt",):
+                    asked = None if route == default[dtype] else route
+                    at = dict(flash_attention_bwd.route_launches)
+                    got = flash_attention_bwd(q, k, v, out, dout, lse=given, route=asked, **kw)
+                    moved = {r: flash_attention_bwd.route_launches[r] - at[r] for r in BWD_ROUTES}
+                    if moved != {r: int(r == route) for r in BWD_ROUTES}:
+                        raise AssertionError(f"flash_attention_bwd {label} route={asked}: "
+                                             f"launches {moved}, want one on {route}")
+                    if asked is None:
+                        taken[str(dtype)[6:]] = route
+                    what = (f"kernel flash_attention_bwd {label} {str(dtype)[6:]} ({route}, "
+                            f"{'the forward' if given is not None else 'no'} lse)")
+                    if route == "simt" and dtype == bf16:  # all f32: the plain one on f32 copies
+                        line, err, u = _bwd_within(what, dtype, got, [w.to(bf16) for w in want32],
+                                                   want32)
+                    else:
+                        line, err, u = _bwd_within(what, dtype, got, want, want32, own32, steps)
+                    worst, use = max(worst, err), max(use, u)
+                    if keyless and bool(got[0][:, :keyless].abs().max() != 0):
+                        raise AssertionError(f"{what}: a row that sees no key has a nonzero dQ")
+                    log(line)
+                    del got
+                del want, steps
+            del want32
             # the plain backward against autograd of the plain forward, f32 copies
             x32 = [x.float().requires_grad_() for x in (q, k, v)]
             do32 = dout.float()
@@ -3202,12 +3255,14 @@ def flash_bwd_kernel_phase(dev) -> dict:
                 errs.append(e)
             log(f"kernel flash_attention_bwd {label} {str(dtype)[6:]}: plain vs autograd "
                 f"(f32 copies) errs {errs}")
-            del q, k, v, dout, out, x32, do32, o32, auto, plain
+            del q, k, v, dout, out, lse, x32, do32, o32, auto, plain
             torch.cuda.empty_cache()
     for k, (count, routes) in before.items():
         WRAPPERS[k].launches, WRAPPERS[k].route_launches = count, routes
-    log(f"flash backward kernel phase: {time.perf_counter() - t0:.1f} s")
-    return {"max_abs_err": worst}
+    log(f"flash backward kernel phase: {time.perf_counter() - t0:.1f} s, largest share of a "
+        f"bound used {use}")
+    return {"max_abs_err": worst, "max_abs_err_lse": worst_lse, "bound_share": use,
+            "routes_by_dtype": taken}
 
 
 def time_flash_bwd(dev) -> dict:
@@ -3393,30 +3448,27 @@ def train_parity_phase(dev) -> dict:
 def route_gradients(cfg, model, batch) -> dict:
     """Every weight's gradient of one forward and backward of ``batch``,
     once with the flash backward on its ``wgmma`` route (the train step's)
-    and once on ``simt`` (``bwd_route`` forced): the relative error of the
+    and once on ``simt`` (``bwd_route_forced``): the relative error of the
     global gradient norm, which must be within TRAIN_ROUTE_RTOL, and of each
     leaf (``|g_wgmma - g_simt| / |g_simt|``, 2-norms), with each route's
     launches."""
-    from repro_torch.kernels.flash_attention import kernel as flash_kernel
+    from repro_torch.kernels.flash_attention import bwd_route_forced, flash_attention_bwd
     from repro_torch.models import zoo
 
     params = zoo.model_params(model)
     grads, routes = {}, {}
     for route in ("wgmma", "simt"):
-        before = dict(flash_kernel.flash_attention_bwd.route_launches)
-        original = flash_kernel.bwd_route
-        flash_kernel.bwd_route = lambda dtype, route=route: route
+        before = dict(flash_attention_bwd.route_launches)
         try:
             for p in params.values():
                 p.requires_grad_(True)
-            loss, _ = zoo.loss_fn(cfg, model, batch)
-            grads[route] = torch.autograd.grad(loss, list(params.values()))
+            with bwd_route_forced(route):
+                loss, _ = zoo.loss_fn(cfg, model, batch)
+                grads[route] = torch.autograd.grad(loss, list(params.values()))
         finally:
-            flash_kernel.bwd_route = original
             for p in params.values():
                 p.requires_grad_(False)
-        routes[route] = {k: n - before[k] for k, n in
-                         flash_kernel.flash_attention_bwd.route_launches.items()}
+        routes[route] = {k: n - before[k] for k, n in flash_attention_bwd.route_launches.items()}
         if routes[route][route] != TRAIN_LAYERS or sum(routes[route].values()) != TRAIN_LAYERS:
             raise AssertionError(f"route gradients: {route} launches {routes[route]}")
     norm = lambda gs: torch.sqrt(sum(g.float().pow(2).sum() for g in gs)).item()
@@ -3865,6 +3917,7 @@ def main() -> int:
             "flash_attention"] for r in spmd["launches"]],
         "max_abs_err": flash_checked["max_abs_err"],
         "max_abs_err_f32_probs": flash_checked["max_abs_err_f32_probs"],
+        "max_abs_err_lse": max(flash_checked["max_abs_err_lse"], bwd_checked["max_abs_err_lse"]),
         **{k: flash_timing["prefill"][k] for k in keys},
         "shape": "prefill B=1 S=T=2048 H=32 K=4 d=128 bf16 (wgmma; decodes: split)",
         "decode": {k: flash_timing["decode"][k] for k in keys},
@@ -3904,9 +3957,10 @@ def main() -> int:
                     "(src/repro/models/attention.py:46) with XLA",
         "launches": trained["launches"]["flash_attention_bwd"],
         "launches_by_route": trained["bwd_routes"],
-        "routes_by_dtype": {"bfloat16": "wgmma", "float32": "simt"},
+        "routes_by_dtype": bwd_checked["routes_by_dtype"],
         "launches_flash_attention_forward_in_training": trained["launches"]["flash_attention"],
         "max_abs_err": bwd_checked["max_abs_err"],
+        "bound_share": bwd_checked["bound_share"],
         **{k: bwd_timing[k] for k in keys},
         "simt_ms": bwd_timing["simt_ms"],
         "design_floor_ms": bwd_timing["design_floor_ms"],

@@ -38,7 +38,8 @@ output (f32 ``(B, H, S)``, saved for the backward), and whose backward is
   lse), then dK/dV and dQ, each product on the tensor cores (bf16 operands,
   f32 accumulators; P and dS rounded to bf16 before the products that take
   them).  Bound by operations.
-- ``"simt"``: f32, and bf16 when ``route="simt"`` is asked for: the same
+- ``"simt"``: f32, and bf16 when ``route="simt"`` is asked for (or, for
+  the gradients of a whole model, :func:`bwd_route_forced`): the same
   passes on the f32 CUDA cores, all in f32.
 
 Without an lse (a direct call) each route recomputes it in a row pass.
@@ -48,6 +49,7 @@ written and nothing saved.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import math
@@ -87,6 +89,27 @@ def bwd_route(dtype: torch.dtype) -> str:
     """The backward's route for a CUDA call of this dtype: f32 stays on the
     f32 CUDA cores, as the forward's f32 route does."""
     return "wgmma" if dtype == torch.bfloat16 else "simt"
+
+
+_forced_bwd_route: str | None = None
+
+
+@contextlib.contextmanager
+def bwd_route_forced(route: str):
+    """Inside the block, the gradient of every :func:`flash_attention` call
+    made there takes the backward route ``route`` instead of
+    :func:`bwd_route`'s, so that a model's gradients can be had on each
+    route from the same weights and batch.  The route is read at the
+    forward, so the block holds the backward too wherever a checkpoint
+    recomputes the forward there."""
+    global _forced_bwd_route
+    if route not in BWD_ROUTES:
+        raise ValueError(f"flash_attention_bwd route must be one of {BWD_ROUTES}, got {route!r}")
+    before, _forced_bwd_route = _forced_bwd_route, route
+    try:
+        yield
+    finally:
+        _forced_bwd_route = before
 
 
 @functools.lru_cache(maxsize=1024)
@@ -274,13 +297,15 @@ flash_attention.route_launches = dict.fromkeys(ROUTES, 0)
 class _FlashAttention(torch.autograd.Function):
     """The forward route's kernel, writing each row's log-sum-exp, and
     :func:`flash_attention_bwd` given it for the gradient; saves q, k, v, the
-    output and the log-sum-exp."""
+    output and the log-sum-exp, and the backward route
+    :func:`bwd_route_forced` names, if any."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, softcap, scale, window):
         out, lse = _forward(q, k, v, causal, softcap, scale, window, save_lse=True)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.opts = dict(causal=causal, softcap=softcap, scale=scale, window=window)
+        ctx.opts = dict(causal=causal, softcap=softcap, scale=scale, window=window,
+                        route=_forced_bwd_route)
         return out
 
     @staticmethod

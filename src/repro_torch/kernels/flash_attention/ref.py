@@ -163,8 +163,10 @@ def flash_attention_bwd_step_ref(
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """For bf16 inputs, one bf16 step (2**-7 of itself) of the largest term
     of each row of dq ``(B, S, H, 1)``, dk and dv ``(B, T, K, 1)`` that
-    passes a bf16 rounding point (``|dS| |K| scale``, ``|dS| |Q| scale``,
-    ``|P| |dO|``); zeros for f32 inputs.  The kernel rounds P and dS where
+    passes a bf16 rounding point, over that row's own terms: ``|dS_ij|
+    |K_jd| scale`` for dq's row i, ``|dS_ij| |Q_id| scale`` for dk's row j
+    and ``|P_ij| |dO_id|`` for dv's (i over the G query heads of the KV
+    head too); zeros for f32 inputs.  The kernel rounds P and dS where
     :func:`flash_attention_bwd_ref` does, but from f32 values summed in
     another order: where the two straddle a rounding boundary they round to
     neighbouring bf16 values, and a gradient row moves by that term's step.
@@ -177,7 +179,10 @@ def flash_attention_bwd_step_ref(
     scale = 1.0 / math.sqrt(d) if scale is None else scale
     p, ds, qf, kf, do = _bwd_terms(q, k, v, out, dout, causal, softcap, scale, window, lse)
     step = 2.0**-7
-    dq = step * scale * ds.abs().amax(-1).permute(0, 3, 1, 2).reshape(b, s, h, 1)
-    dk = step * scale * ds.abs().amax((2, 3)).permute(0, 2, 1)[..., None]
-    dv = step * p.abs().amax((2, 3)).permute(0, 2, 1)[..., None]
-    return dq * kf.abs().amax(), dk * qf.abs().amax(), dv * do.abs().amax()
+    # each row's (key's) largest |element| of K, Q and dO, broadcast over (B, K, G, S, T)
+    k_top = kf.abs().amax(-1).permute(0, 2, 1)[:, :, None, None, :]
+    q_top, do_top = (x.abs().amax(-1).permute(0, 2, 3, 1)[..., None] for x in (qf, do))
+    dq = step * scale * (ds.abs() * k_top).amax(-1).permute(0, 3, 1, 2).reshape(b, s, h, 1)
+    dk = step * scale * (ds.abs() * q_top).amax((2, 3)).permute(0, 2, 1)[..., None]
+    dv = step * (p.abs() * do_top).amax((2, 3)).permute(0, 2, 1)[..., None]
+    return dq, dk, dv

@@ -1050,6 +1050,33 @@ def test_train_step_launches_the_backward_kernel(card):
     assert not any(p.requires_grad for p in model.parameters())
 
 
+def test_forced_route_takes_a_whole_backward(card):
+    """Under ``bwd_route_forced("simt")`` every backward launch of a yi
+    smoke (bf16, remat) loss's gradient takes ``simt``, the checkpoint's
+    recomputed forwards included; after the block bf16 is on ``wgmma``
+    again."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import bwd_route_forced, flash_attention_bwd
+    from repro_torch.models import zoo
+
+    cfg = get_config("yi-9b", smoke=True).replace(remat=True)
+    model = zoo.build_params(cfg, 0, device=card)
+    params = list(zoo.model_params(model).values())
+    batch = zoo.make_batch(cfg, zoo.ShapeSpec("t", 128, 2, "train"), 0, device=card)
+    for p in params:
+        p.requires_grad_(True)
+    for forced, want in (("simt", "simt"), (None, "wgmma")):
+        before = dict(flash_attention_bwd.route_launches)
+        if forced:
+            with bwd_route_forced(forced):
+                torch.autograd.grad(zoo.loss_fn(cfg, model, batch)[0], params)
+        else:
+            torch.autograd.grad(zoo.loss_fn(cfg, model, batch)[0], params)
+        torch.cuda.synchronize()
+        assert flash_attention_bwd.route_launches == {**before, want: before[want]
+                                                      + cfg.n_layers}
+
+
 @pytest.mark.parametrize("kernel", ["wkv6", "ssm_scan"])
 def test_recurrences_raise_under_grad_on_the_card(card, kernel):
     """Without a backward kernel, the recurrences refuse to run on the card

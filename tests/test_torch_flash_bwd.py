@@ -32,7 +32,7 @@ from repro.models.attention import NEG, attend
 from repro.models.common import softcap as jax_softcap
 from repro_torch import kernels
 from repro_torch.kernels.flash_attention import (
-    BWD_ROUTES, flash_attention, flash_attention_bwd, flash_attention_bwd_ref,
+    BWD_ROUTES, bwd_route_forced, flash_attention, flash_attention_bwd, flash_attention_bwd_ref,
     flash_attention_bwd_step_ref, flash_attention_lse_ref, flash_attention_ref,
 )
 from repro_torch.kernels.flash_attention.ref import visible
@@ -134,6 +134,35 @@ def test_autograd_function_gives_the_bwd_ref(case):
     assert torch.equal(out.detach(), plain)
     for a, b in zip(got, want):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("route", BWD_ROUTES)
+def test_forced_route_reaches_the_backward(route, monkeypatch):
+    """``bwd_route_forced`` hands its route to the backward of a call made
+    in its block, even one whose backward runs after the block; outside it
+    the backward takes the default (None), and an unknown route raises."""
+    from repro_torch.kernels.flash_attention import kernel as flash_kernel
+
+    asked = []
+    real = flash_kernel.flash_attention_bwd
+
+    def spy(*args, route=None, **kw):
+        asked.append(route)
+        return real(*args, route=route, **kw)
+
+    monkeypatch.setattr(flash_kernel, "flash_attention_bwd", spy)
+    q, k, v, dout, _, kw = _inputs("gqa", seed=4)
+    tq, tk, tv = _t(q, k, v, grad=True)
+    with bwd_route_forced(route):
+        inside = flash_attention(tq, tk, tv, **kw)
+    outside = flash_attention(tq, tk, tv, **kw)
+    torch.autograd.grad(inside, (tq, tk, tv), torch.tensor(dout))
+    torch.autograd.grad(outside, (tq, tk, tv), torch.tensor(dout))
+    assert asked == [route, None]
+    with pytest.raises(ValueError, match="route"):
+        with bwd_route_forced("tensor"):
+            pass
+    assert flash_kernel._forced_bwd_route is None
 
 
 def test_wrapper_takes_keyless_rows_only_in_the_backward():
@@ -287,8 +316,9 @@ def test_step_room_covers_a_rendering_summed_in_another_order(case):
     ``flash_attention_bwd_step_ref``'s one bf16 step of each row's largest
     rounded term.  A rendering that rounds P and dS at the same points from
     f32 sums taken in another order (``_resummed_bf16_bwd``) stays inside
-    it, though it rounds some P and dS to the neighbouring bf16 value; f32
-    inputs get no room."""
+    it, though it rounds some P and dS to the neighbouring bf16 value; at
+    yi's heads it needs the room (some element passes the bound without
+    it); f32 inputs get no room."""
     if case == "long":  # yi's heads at S = T = 300: some rows pass 2**-7 of their value
         q, k, v, dout = (torch.randn(shape, generator=torch.Generator().manual_seed(11))
                          for shape in ((1, 300, 32, 128), (1, 300, 4, 128), (1, 300, 4, 128),
@@ -303,8 +333,12 @@ def test_step_room_covers_a_rendering_summed_in_another_order(case):
     want = flash_attention_bwd_ref(q, k, v, out, dout, **kw)
     got = _resummed_bf16_bwd(q, k, v, out, dout, **kw)
     steps = flash_attention_bwd_step_ref(q, k, v, out, dout, **kw)
+    bare = []
     for name, g, w, step in zip(("dq", "dk", "dv"), got, want, steps):
         g, w = g.float(), w.float()
         assert bool(((g - w).abs() <= 1e-3 + 2**-7 * w.abs() + step).all()), name
+        bare.append(bool(((g - w).abs() > 1e-3 + 2**-7 * w.abs()).any()))
+    if case == "long":
+        assert any(bare), "no element needs the step's room"
     zero = flash_attention_bwd_step_ref(*(x.float() for x in (q, k, v, out, dout)), **kw)
     assert all(bool((z == 0).all()) for z in zero)
