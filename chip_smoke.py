@@ -1,4 +1,4 @@
-"""Drive the PyTorch port's Gather service, DAPC, Filter pushdown, tree collectives, control layers, compiled SPMD rendering, yi-9b, rwkv6-1.6b and hymba-1.5b serving, and yi-9b training once on an NVIDIA card.
+"""Drive the PyTorch port's Gather service, DAPC, Filter pushdown, tree collectives, control layers, compiled SPMD rendering, yi-9b, rwkv6-1.6b and hymba-1.5b serving and training once on an NVIDIA card.
 
 Usage: ``python3 chip_smoke.py [--profile DIR]`` from the root of
 a checkout, on a host with one Hopper card (sm_90) and the CUDA toolkit.
@@ -150,12 +150,12 @@ a checkout, on a host with one Hopper card (sm_90) and the CUDA toolkit.
    from seed 0, 128 prompt tokens and 8 teacher-forced decode steps on the
    card (kernel) and on the CPU (plain version): logits within 1e-3, equal
    greedy tokens.
-13. Serving phase: yi-9b at full width and 16 of its 48 layers (bf16,
+13. Serving phase: yi-9b at full width and 8 of its 48 layers (bf16,
    random weights drawn on the card) behind ``ServeScheduler(slots=8,
    t_max=4096)``: 16 requests with prompts of 256-3,072 tokens, 32 new
-   tokens each, every logit finite, ``flash_attention`` launched 16 x
-   (prefills + decode groups) times, 16 x prefills on the ``wgmma`` route
-   and 16 x decode groups on the ``split`` route; then a profiled decode
+   tokens each, every logit finite, ``flash_attention`` launched 8 x
+   (prefills + decode groups) times, 8 x prefills on the ``wgmma`` route
+   and 8 x decode groups on the ``split`` route; then a profiled decode
    burst and prefill (busy share, the kernel's share).
 14. ``repro_torch.launch.serve --no-smoke --batch 4 --prompt-len 2048
    --gen 32`` at full yi-9b (48 layers), local and with ``--remote-embed
@@ -183,9 +183,9 @@ a checkout, on a host with one Hopper card (sm_90) and the CUDA toolkit.
    over B 1 and 4 and T 128-3,072.
 18. The parity phase again on a 2-layer rwkv6-1.6b at full width (d_model
    2,048, 32 WKV heads, d_ff 7,168, vocab 65,536).
-19. The serving phase on rwkv6-1.6b at full width and 12 of its 24 layers
-   (bf16): the same 16 requests, ``wkv6`` launched 12 x (prefills + decode
-   groups) times, 12 x prefills on the ``split`` route and 12 x decode
+19. The serving phase on rwkv6-1.6b at full width and 6 of its 24 layers
+   (bf16): the same 16 requests, ``wkv6`` launched 6 x (prefills + decode
+   groups) times, 6 x prefills on the ``split`` route and 6 x decode
    groups on ``step``, and its profiled decode burst and prefill (the
    split's three device kernels a launch, each kernel's time by name).
 20. ``launch.serve`` at full rwkv6-1.6b, local and remote-embed: streams
@@ -210,9 +210,9 @@ a checkout, on a host with one Hopper card (sm_90) and the CUDA toolkit.
 23. The parity phase on a 2-layer hymba-1.5b at full width (d_model 1,600,
    25/5 heads, d_ff 5,504, vocab 32,001; both layers windowed) with a
    2,064-token prompt, so the 2,048 window bites at prefill and decode.
-24. The serving phase on full hymba-1.5b (32 layers, bf16): the same 16
-   requests, ``flash_attention`` and ``ssm_scan`` each launched 32 x
-   (prefills + decode groups) times (flash on the ``wgmma`` and ``split``
+24. The serving phase on hymba-1.5b at full width and 8 of its 32 layers
+   (bf16; layer 7 global): the same 16 requests, ``flash_attention`` and
+   ``ssm_scan`` each launched 8 x (prefills + decode groups) times (flash on the ``wgmma`` and ``split``
    routes as for yi, ``ssm_scan`` on ``split`` and ``step``), and its
    profiled decode burst and prefill with both kernels' shares. Each burst
    line also logs, per kernel, the kernels recorded in the window, those
@@ -250,7 +250,32 @@ a checkout, on a host with one Hopper card (sm_90) and the CUDA toolkit.
    --smoke --steps 12 --ckpt-every 5`` in subprocesses, clean and with
    ``--fail-at-step 8`` (one restart to step 5, the clean run's losses),
    the step-5 checkpoint restored with its sha256s, and a resume of the
-   clean run to 17 steps that runs 5.
+   clean run to 17 steps that runs 5; then ``--arch rwkv6-1.6b --smoke`` and
+   ``--arch hymba-1.5b --smoke``, clean and with ``--fail-at-step 8``, each
+   replaying its clean run (the same checks as yi's).
+30. wkv6 backward kernel phase: every gradient of ``wkv6_bwd`` (dr, dk, dv,
+   dw, du, the initial state's) against ``wkv6_bwd_ref`` on the same inputs
+   at rwkv6's train microbatch (B = 2, T = 4,096, H = 32, M = 64) in bf16
+   with f32 w and in f32, at T = 100 (below the forward's split) and at T =
+   777 from a state with a final-state cotangent and decays in [1e-6,
+   0.999]: within 1e-4 of each gradient's largest (bf16 also 2**-7 of each
+   value), two calls bit-identical, one ``split`` launch a call; then its
+   time at the train shape in turns with the forward kernel, beside the
+   plain backward, its five device kernels and its bound.
+31. The same for ``ssm_scan_bwd`` (dx, ddt, da, db, dc, dh0) at hymba's
+   train microbatch (B = 2, T = 4,096, D = 1,600, N = 16), T = 100, and T =
+   777 from a state with dt in 2-3.
+32. Train parity (27) on a 2-layer rwkv6-1.6b and hymba-1.5b at full width
+   in f32: each gradient within 1e-4 of its leaf's largest (rwkv6: plus
+   twice the CPU's own error against an f64 run of the model on the card),
+   the AdamW step within what that moves, both clip factors counted.
+33. The train phase (28) on rwkv6-1.6b (24 layers) and hymba-1.5b (32
+   layers) at full width and depth, bf16, remat, 4 x 4,096 tokens a step in
+   2 microbatches, 4 steps: rwkv 96 ``wkv6`` and 48 ``wkv6_bwd`` launches a
+   step; hymba 128 ``ssm_scan``, 64 ``ssm_scan_bwd``, 128 flash forward and
+   64 flash backward (all ``wgmma``); no plain version on the card; each
+   step's seconds, tokens/s, peak memory and device seconds by stage, and
+   the profiled last step's share of each kernel kind.
 
 Prints one JSON line of kernel results, then the nvidia-smi line, then
 ``{"ok": true, "device": {...}}`` last.  Any failure exits non-zero with
@@ -263,6 +288,7 @@ hymba-1.5b) to ``DIR``.
 from __future__ import annotations
 
 import argparse
+import copy
 import hashlib
 import json
 import os
@@ -332,9 +358,11 @@ PARITY_PROMPT_BY_ARCH = {"hymba-1.5b": 2064}
 SERVE_SLOTS, SERVE_T_MAX, SERVE_REQUESTS, SERVE_NEW = 8, 4096, 16, 32
 SERVE_PROMPT_MIN, SERVE_PROMPT_MAX = 256, 3072
 # the earlier slices' scheduler phases run at a cut depth, so that the whole
-# run stays near half its 1,200 s limit on a slow host; their launch.serve
-# phases still run the full model
-SERVE_LAYERS = {"yi-9b": 16, "rwkv6-1.6b": 12}
+# run stays well inside its 1,200 s limit on a slow host (cut to 8, 6 and 8
+# layers, hymba's global layer 7 kept, when the rwkv6 and hymba training
+# phases came; 16, 12 and 32 before); their launch.serve phases still run
+# the full model
+SERVE_LAYERS = {"yi-9b": 8, "rwkv6-1.6b": 6, "hymba-1.5b": 8}
 LAUNCH_BATCH, LAUNCH_PROMPT = 4, 2048  # launch.serve's batch and prompt length
 # timed shapes (B, S, T) with yi's H=32, K=4, d=128 in bf16
 FLASH_TIMING = {"prefill": (1, 2048, 2048), "decode": (8, 1, 2048)}
@@ -418,6 +446,17 @@ YI_TRAIN = (2, 4096, 4096, 32, 4, 128)  # b, s, t, h, kh, d: train_4k's sequence
 # PARITY_ATOL as the logits of phase 12.  After one AdamW step the moments
 # and weights within what that gradient bound moves them (train_step_bound)
 TRAIN_PARITY_SEQ, TRAIN_PARITY_BATCH, TRAIN_GRAD_RTOL, TRAIN_LR = 128, 1, 1e-4, 1e-3
+# rwkv6's f32 gradients are ill-conditioned at these weights: two f32
+# renderings that sum in other orders differ by up to 8e-4 of a leaf's
+# largest, and against an f64 run the CPU's are 4-6e-4 off (PERF.md §6).
+# Its leaves are bounded by TRAIN_GRAD_RTOL plus twice the CPU's own error
+# against an f64 run on the card (:func:`_f64_grads`), measured in the same
+# run: the kernels may be no further from exact than the CPU is
+TRAIN_F64_ROOM = ("rwkv6-1.6b",)
+# the recurrent archs' AdamW step bound also takes the clip factors of both
+# sides and the update's exact change (a gradient within its bound of 0 may
+# flip an element's step: an element of rwkv6's embedding did)
+TRAIN_STEP_EXACT = ("rwkv6-1.6b", "hymba-1.5b")
 # the train phase: yi-9b at full width and 8 of its 48 layers, bf16, remat,
 # train_4k's 4,096 tokens, 4 sequences a step in 2 microbatches
 TRAIN_LAYERS, TRAIN_SEQ, TRAIN_BATCH, TRAIN_MICROBATCH, TRAIN_STEPS = 8, 4096, 4, 2, 6
@@ -425,6 +464,29 @@ TRAIN_LAYERS, TRAIN_SEQ, TRAIN_BATCH, TRAIN_MICROBATCH, TRAIN_STEPS = 8, 4096, 4
 # (wgmma) against f32 ones (simt) move the global norm by far less than 1%
 TRAIN_ROUTE_RTOL = 0.01
 TRAIN_DIR = ROOT / "build" / "chip_smoke" / "train"
+# the recurrences' backward kernels against their plain versions (phases
+# 30-31): both run the same f32 recurrence forward and back and sum in
+# other orders (a gradient over up to T steps; dv over M key rows, db and
+# dc over D channels, du and da over B T), ~1e-6 of the largest gradient;
+# f32 within REC_BWD_TOL of each tensor's largest |gradient|.  A bf16
+# gradient may also round to the other neighbour of the same f32 value: one
+# bf16 step, REC_BWD_BF16_RTOL of the value
+REC_BWD_TOL, REC_BWD_BF16_RTOL = 1e-4, 2.0**-7
+REC_TRAIN = (2, 4096)  # b, t: rwkv6's and hymba's train microbatch
+# the train phase's layers and steps by arch: yi at 8 of its 48 layers;
+# rwkv6 and hymba at full depth (their weights, gradients and moments, ~25
+# and ~22 GB, fit the card), 4 steps each
+TRAIN_DEPTH = {"yi-9b": (TRAIN_LAYERS, TRAIN_STEPS), "rwkv6-1.6b": (24, 4),
+               "hymba-1.5b": (32, 4)}
+# each arch's path kernels a train step launches, forward and backward
+TRAIN_KERNELS = {"yi-9b": (("flash_attention", "flash_attention_bwd"),),
+                 "rwkv6-1.6b": (("wkv6", "wkv6_bwd"),),
+                 "hymba-1.5b": (("flash_attention", "flash_attention_bwd"),
+                                ("ssm_scan", "ssm_scan_bwd"))}
+# weights that every step must move, by arch (the last layer's filled in)
+TRAIN_PROBES = {"yi-9b": ("embed.tok", "blocks.0.wq", "blocks.{last}.wo2"),
+                "rwkv6-1.6b": ("embed.tok", "blocks.0.tm.wr", "blocks.{last}.cm.wv"),
+                "hymba-1.5b": ("embed.tok", "blocks.0.ssm.w_in", "blocks.{last}.wo2")}
 # the driver phase: launch.train on yi smoke, 12 steps, a checkpoint every 5
 DRIVER_STEPS, DRIVER_CKPT_EVERY, DRIVER_FAIL_AT, DRIVER_RESUME_TO = 12, 5, 8, 17
 
@@ -551,6 +613,19 @@ def call_ms(fn, arg_sets, reps: int = 200) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def once_ms(fn, *args) -> float:
+    """Wall ms of one call that ends in a synchronize (CUDA events around
+    it): for a plain version that issues tens of thousands of launches a
+    call, seconds long, where a warm-up call would double the cost."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    fn(*args)
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end)
 
 
 def ab_ms(fns: dict, arg_sets, reps: int, rounds: int) -> dict[str, dict]:
@@ -1628,9 +1703,9 @@ def _finite(fn):
 
 
 def serving_phase(dev, profile_dir: str | None, arch: str = "yi-9b") -> dict:
-    """``arch`` at full width (yi-9b and rwkv6-1.6b at the depth of
-    SERVE_LAYERS, 16 of 48 and 12 of 24 layers; hymba-1.5b full, 32 layers;
-    bf16, random weights drawn on the card) behind ServeScheduler(slots 8,
+    """``arch`` at full width (at the depth of SERVE_LAYERS: yi-9b 8 of 48,
+    rwkv6-1.6b 6 of 24, hymba-1.5b 8 of 32 layers; bf16, random weights
+    drawn on the card) behind ServeScheduler(slots 8,
     t_max 4,096): 16 requests with prompts of 256-3,072 tokens
     (default_rng(0)), 32 new tokens each.  Each of the arch's kernels
     (PATH_KERNEL) must launch once per layer per prefill and per decode
@@ -3347,9 +3422,195 @@ def time_flash_bwd(dev) -> dict:
     return rec
 
 
-def _grads(cfg, model, batch) -> tuple[float, dict]:
+WKV_BWD_NAMES = ("dr", "dk", "dv", "dw", "du", "dstate0")
+SSM_BWD_NAMES = ("dx", "ddt", "da", "db", "dc", "dh0")
+
+
+def _rec_bwd_within(what: str, names, got, want) -> tuple[float, float]:
+    """Each gradient of ``got`` in its plain version's dtype and shape and
+    within REC_BWD_TOL of the largest |want| of its tensor (bf16: plus
+    REC_BWD_BF16_RTOL of each value); raises where not.  Returns the largest
+    error and the largest share of its bound that an element's error uses."""
+    torch.cuda.synchronize()
+    worst, use, parts = 0.0, 0.0, []
+    for name, g, w in zip(names, got, want):
+        if g.dtype != w.dtype or g.shape != w.shape:
+            raise AssertionError(f"{what}: {name} is {g.dtype} {tuple(g.shape)}, the plain "
+                                 f"version's {w.dtype} {tuple(w.shape)}")
+        g32, w32 = g.float(), w.float()
+        top = w32.abs().max().item()
+        err = (g32 - w32).abs()
+        rtol = REC_BWD_BF16_RTOL if g.dtype == torch.bfloat16 else 0.0
+        bound = REC_BWD_TOL * top + rtol * w32.abs()
+        ok = bool((err <= bound).all())
+        share = (err / bound.clamp_min(1e-30)).max().item()
+        worst, use = max(worst, err.max().item()), max(use, share)
+        parts.append(f"{name} err {err.max().item()} (|max| {top}, {share} of its bound)")
+        if not ok:
+            log(f"{what}: {'; '.join(parts)}")
+            raise AssertionError(f"{what}: {name} off its plain version by {err.max().item()}")
+    log(f"{what}: {'; '.join(parts)}")
+    return worst, use
+
+
+def _rec_bwd_case(what, fn, plain, names, args, launches) -> tuple[float, float]:
+    """``fn(*args)`` twice, bit-identical, one ``launches`` count each, and
+    within its bounds of ``plain(*args)``."""
+    before = launches.launches, launches.route_launches["split"]
+    got = fn(*args)
+    again = fn(*args)
+    torch.cuda.synchronize()
+    if (launches.launches, launches.route_launches["split"]) != (before[0] + 2, before[1] + 2):
+        raise AssertionError(f"{what}: launches {launches.launches} from {before[0]}")
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError(f"{what}: two calls differ")
+    out = _rec_bwd_within(f"kernel {what} (two calls bit-identical)", names, got,
+                          plain(*args))
+    del got, again
+    return out
+
+
+def wkv6_bwd_kernel_phase(dev) -> dict:
+    """``wkv6_bwd`` on the card against ``wkv6_bwd_ref`` on the same inputs:
+    rwkv6's train microbatch (B = 2, T = 4,096, H = 32, M = 64) with r, k, v,
+    u and dout in bf16 and w in f32 (the model's types) and all in f32; B =
+    2, T = 100 (below SPLIT_MIN_T) in bf16; and B = 2, T = 777 in f32 from a
+    given state with a final-state cotangent, decays log-uniform in [1e-6,
+    0.999].  Every gradient within REC_BWD_TOL of its largest (bf16: plus
+    REC_BWD_BF16_RTOL of each value), two calls bit-identical, each call one
+    launch on the ``split`` route."""
+    from repro_torch.kernels.wkv6 import wkv6_bwd, wkv6_bwd_ref
+
+    g = torch.Generator(dev).manual_seed(11)
+    h, m = WKV_H, WKV_M
+    b, t = REC_TRAIN
+    bf16, f32 = torch.bfloat16, torch.float32
+    worst, use = 0.0, 0.0
+    for what, (b_, t_, dtype, state) in {
+        f"wkv6_bwd train B={b} T={t} H={h} M={m} bf16 (w f32)": (b, t, bf16, False),
+        f"wkv6_bwd train B={b} T={t} H={h} M={m} f32": (b, t, f32, False),
+        f"wkv6_bwd B=2 T=100 H={h} M={m} bf16 (w f32, step-route length)": (2, 100, bf16, False),
+        f"wkv6_bwd B=2 T=777 H={h} M={m} f32 from a state, final-state cotangent, "
+        "decays in [1e-6, 0.999]": (2, 777, f32, True),
+    }.items():
+        r, k, v, w, u, s0 = _wkv_case(dev, g, b_, t_, h, m, dtype, f32, state=state)
+        dout = (0.5 * torch.randn(b_, t_, h, m, generator=g, device=dev)).to(dtype)
+        ds = None
+        if state:
+            w = torch.exp(torch.rand(b_, t_, h, m, generator=g, device=dev)
+                          * float(np.log(1e-6 / 0.999)) + float(np.log(0.999)))
+            ds = 0.5 * torch.randn(b_, h, m, m, generator=g, device=dev)
+        e, sh = _rec_bwd_case(what, wkv6_bwd, wkv6_bwd_ref, WKV_BWD_NAMES,
+                              (r, k, v, w, u, s0, dout, ds), wkv6_bwd)
+        worst, use = max(worst, e), max(use, sh)
+        del r, k, v, w, u, s0, dout, ds
+        torch.cuda.empty_cache()
+    return {"max_abs_err": worst, "bound_share": use}
+
+
+def ssm_scan_bwd_kernel_phase(dev) -> dict:
+    """``ssm_scan_bwd`` on the card against ``ssm_scan_bwd_ref`` on the same
+    inputs: hymba's train microbatch (B = 2, T = 4,096, D = 1,600, N = 16)
+    with x, dt, b, c and dy in bf16 and a in f32 (the model's types) and all
+    in f32; B = 2, T = 100 in bf16; and B = 2, T = 777 in f32 from a given
+    state with a final-state cotangent and dt in 2-3 (decays down to ~1e-3).
+    Bounds as for wkv6_bwd."""
+    from repro_torch.kernels.ssm_scan import ssm_scan_bwd, ssm_scan_bwd_ref
+
+    g = torch.Generator(dev).manual_seed(12)
+    d, n = SSM_D, SSM_N
+    b, t = REC_TRAIN
+    bf16, f32 = torch.bfloat16, torch.float32
+    worst, use = 0.0, 0.0
+    for what, (b_, t_, dtype, state) in {
+        f"ssm_scan_bwd train B={b} T={t} D={d} N={n} bf16 (a f32)": (b, t, bf16, False),
+        f"ssm_scan_bwd train B={b} T={t} D={d} N={n} f32": (b, t, f32, False),
+        f"ssm_scan_bwd B=2 T=100 D={d} N={n} bf16 (a f32, step-route length)": (2, 100, bf16,
+                                                                                False),
+        f"ssm_scan_bwd B=2 T=777 D={d} N={n} f32 from a state, final-state cotangent, "
+        "dt in 2-3": (2, 777, f32, True),
+    }.items():
+        x, dt, a, bb, cc, h0 = _ssm_case(dev, g, b_, t_, d, n, dtype, state=state,
+                                         dt_range=(2.0, 3.0) if state else None)
+        dy = (0.5 * torch.randn(b_, t_, d, generator=g, device=dev)).to(dtype)
+        dh = 0.5 * torch.randn(b_, d, n, generator=g, device=dev) if state else None
+        e, sh = _rec_bwd_case(what, ssm_scan_bwd, ssm_scan_bwd_ref, SSM_BWD_NAMES,
+                              (x, dt, a, bb, cc, h0, dy, dh), ssm_scan_bwd)
+        worst, use = max(worst, e), max(use, sh)
+        del x, dt, a, bb, cc, h0, dy, dh
+        torch.cuda.empty_cache()
+    return {"max_abs_err": worst, "bound_share": use}
+
+
+def time_rec_bwd(dev, name: str) -> dict:
+    """A recurrence's backward kernel at its arch's train microbatch (bf16
+    operands, w or a in f32), as the train step calls it, from CUDA events
+    around calls queued behind a sleep: in turns with the forward kernel at
+    the same shape (:func:`ab_ms`), beside the plain backward (~20 kernels a
+    step, 80,000 a call: one call, :func:`once_ms`) and the kernel's five
+    device kernels one by one (a profiled call).  The bound: the larger of the f32 operations (wkv6_bwd
+    14 per state entry and step, forming S and G again, 3 each, and the dr,
+    dk, dv, dw products, 2 each; ssm_scan_bwd 13, one an exponential) over
+    the f32 peak and the bytes (each operand and cotangent read once, each
+    gradient written once) over the HBM rate.  No PyTorch call computes
+    either backward: library_ms is null."""
+    b, t = REC_TRAIN
+    g = torch.Generator(dev).manual_seed(13)
+    if name == "wkv6_bwd":
+        from repro_torch.kernels.wkv6 import wkv6 as fwd, wkv6_bwd as fn, wkv6_bwd_ref as plain
+
+        h, m = WKV_H, WKV_M
+        r, k, v, w, u, _ = _wkv_case(dev, g, b, t, h, m, torch.bfloat16, torch.float32)
+        dout = (0.5 * torch.randn(b, t, h, m, generator=g, device=dev)).to(torch.bfloat16)
+        sets = [(r, k, v, w, u, None, dout)]
+        fwd_args = lambda *a: fwd(*a[:5])
+        n = b * t * h * m
+        flops = 14 * n * m
+        moved = n * (2 * 4 + 4 + 2 * 3 + 4) + 2 * 2 * h * m + 4 * b * h * m * m
+        shape = f"train B={b} T={t} H={h} M={m} bf16 (w f32)"
+    else:
+        from repro_torch.kernels.ssm_scan import (
+            ssm_scan as fwd, ssm_scan_bwd as fn, ssm_scan_bwd_ref as plain,
+        )
+
+        d, n_ = SSM_D, SSM_N
+        x, dt, a, bb, cc, _ = _ssm_case(dev, g, b, t, d, n_, torch.bfloat16)
+        dy = (0.5 * torch.randn(b, t, d, generator=g, device=dev)).to(torch.bfloat16)
+        sets = [(x, dt, a, bb, cc, None, dy)]
+        fwd_args = lambda *a: fwd(*a[:5])
+        n = b * t * d
+        flops = 13 * n * n_
+        moved = n * 2 * 5 + b * t * n_ * 2 * 4 + d * n_ * 4 * 2 + 4 * b * d * n_
+        shape = f"train B={b} T={t} D={d} N={n_} bf16 (a f32)"
+    before = {k2: (w2.launches, dict(w2.route_launches)) for k2, w2 in
+              (("fwd", fwd), ("bwd", fn))}
+    bounds = {"operations": flops / F32_FLOPS * 1e3, "bytes": moved / HBM_BYTES_PER_S * 1e3}
+    bound_by = max(bounds, key=bounds.get)
+    ab = ab_ms({"bwd": fn, "forward": fwd_args}, sets, 3, 3)
+    rec = {"ms": ab["bwd"]["median"], "forward_ms": ab["forward"]["median"], "turns": ab,
+           "plain_ms": once_ms(plain, *sets[0]), "plain_timed_by": "once_ms",
+           "library_ms": None, "bound_ms": bounds[bound_by], "bound_by": bound_by,
+           "flops": flops, "bytes": moved, "route": "split"}
+    _, window, _, whole = profiled(lambda: fn(*sets[0]), tries=5)
+    stem = re.compile(rf"{name}_\w+")
+    kernels_ms: dict[str, float] = {}
+    for e in window:
+        if e.device_type == DeviceType.CUDA and e.name != WINDOW:
+            key = (stem.search(e.name) or re.search(".{0,40}", e.name))[0]
+            kernels_ms[key] = kernels_ms.get(key, 0.0) + e.device_time_total / 1e3
+    rec["kernels_ms"] = kernels_ms if whole else None
+    for key, w2 in (("fwd", fwd), ("bwd", fn)):  # timing launches are not main-path launches
+        w2.launches, w2.route_launches = before[key]
+    log(f"timing {name} {shape}: {json.dumps(rec)}")
+    del sets
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _grads(cfg, model, batch, raw: bool = False) -> tuple:
     """The loss and every gradient leaf (JAX names, on the host) of one
-    forward and backward."""
+    forward and backward; with ``raw`` also the gradients as autograd gave
+    them, by the model's parameter names."""
     from repro_torch.models import zoo
 
     params = zoo.model_params(model)
@@ -3360,27 +3621,77 @@ def _grads(cfg, model, batch) -> tuple[float, dict]:
     for p in params.values():
         p.requires_grad_(False)
     named = zoo.to_jax_params(cfg, dict(zip(params, grads)))
-    return loss.item(), {k: x.cpu() for k, x in named.items()}
+    host = {k: x.cpu() for k, x in named.items()}
+    return (loss.item(), host, dict(zip(params, grads))) if raw else (loss.item(), host)
 
 
-def train_step_bound(g: torch.Tensor, dg: float, scale: float, lr: float, eps: float = 1e-8):
+def train_step_bound(g: torch.Tensor, dg: float, scale: float, lr: float, eps: float = 1e-8,
+                     dscale: float = 0.0, exact: bool = False):
     """How far a gradient error of ``dg`` moves each element's m, v and
     weight after the first AdamW step (b1 0.9, b2 0.95, scale the clip
     factor): m = 0.1 g', v = 0.05 g'^2 with g' = scale g, and the update
     g' / (|g'| + eps), whose slope eps / (|g'| + eps)^2 lets a gradient
-    within dg of 0 move the weight by up to lr."""
+    within dg of 0 move the weight by up to lr.  ``dscale``: how far the
+    other side's clip factor lies from ``scale`` (its global norm moved by
+    the gradients' errors), which moves g' by |g| dscale more.  With
+    ``exact`` the weight's bound is the update's largest change over g'
+    within that error (the update rises with g'), not its slope at g',
+    which understates it where the error reaches across 0."""
     gp = (scale * g).abs()
-    return (0.1 * scale * dg, 0.05 * (2 * gp + scale * dg) * scale * dg,
-            lr * scale * dg * eps / (gp + eps) ** 2)
+    dgp = scale * dg + (g.abs() + dg) * dscale
+    if exact:
+        x = scale * g
+        upd = lambda y: y / (y.abs() + eps)
+        step = torch.maximum(upd(x + dgp) - upd(x), upd(x) - upd(x - dgp))
+        return 0.1 * dgp, 0.05 * (2 * gp + dgp) * dgp, lr * step
+    return 0.1 * dgp, 0.05 * (2 * gp + dgp) * dgp, lr * dgp * eps / (gp + eps) ** 2
 
 
-def train_parity_phase(dev) -> dict:
-    """A 2-layer yi-9b at full width in f32, one set of weights drawn on the
-    card from seed 0 and copied to the host, one train_4k-kind batch of
+def _wkv6_in_dtype(r, k, v, w, u, state=None):
+    """The WKV6 recurrence step by step in r's dtype (f64 for
+    :func:`_f64_grads`), for autograd: wkv6_ref computes in f32."""
+    b, t, h, m = r.shape
+    s = (torch.zeros((b, h, m, m), dtype=r.dtype, device=r.device) if state is None
+         else state.to(r.dtype))
+    w, u = w.to(r.dtype), u.to(r.dtype)
+    outs = []
+    for i in range(t):
+        r_t, k_t, v_t = r[:, i], k[:, i], v[:, i]
+        bonus = (r_t * u * k_t).sum(-1, keepdim=True) * v_t
+        outs.append((r_t[..., :, None] * s).sum(-2) + bonus)
+        s = w[:, i, ..., None] * s + k_t[..., :, None] * v_t[..., None, :]
+    return torch.stack(outs, 1), s
+
+
+def _f64_grads(cfg, model, batch) -> dict:
+    """The gradient leaves (JAX names, on the host) of an f64 copy of an
+    rwkv6 ``model`` on its device, the WKV recurrence in f64 too: the
+    reference that rwkv6's train parity measures the CPU's error against."""
+    from repro_torch.models import rwkv
+
+    m64 = copy.deepcopy(model).double()
+    saved = rwkv.wkv6
+    rwkv.wkv6 = _wkv6_in_dtype
+    try:
+        return _grads(cfg.replace(dtype=torch.float64), m64, batch)[1]
+    finally:
+        rwkv.wkv6 = saved
+        del m64
+
+
+def train_parity_phase(dev, arch: str = "yi-9b") -> dict:
+    """A 2-layer ``arch`` at full width in f32, one set of weights drawn on
+    the card from seed 0 and copied to the host, one train_4k-kind batch of
     TRAIN_PARITY_SEQ tokens: the loss and every gradient leaf on the card
-    (flash forward and backward kernels) against the CPU (plain versions),
-    then one AdamW step of ``make_train_step`` on each side: every weight,
-    m and v within :func:`train_step_bound` of the gradient bound."""
+    (the arch's forward and backward kernels: flash for yi, wkv6 for rwkv6,
+    flash and ssm_scan for hymba) against the CPU (plain versions), then one
+    AdamW step of ``make_train_step`` on each side: every weight, m and v
+    within :func:`train_step_bound` of the gradient bound (the CPU's step is
+    AdamW.update of its gradients, as make_train_step applies them).  For
+    rwkv6 a leaf's gradient bound is TRAIN_GRAD_RTOL of its largest plus
+    twice the CPU's own largest error against an f64 run on the card
+    (TRAIN_F64_ROOM); for rwkv6 and hymba the step's bound takes both clip
+    factors and the update's exact change (TRAIN_STEP_EXACT)."""
     from repro_torch.configs import get_config
     from repro_torch.models import zoo
     from repro_torch.models.common import ParamFactory
@@ -3389,34 +3700,64 @@ def train_parity_phase(dev) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t = time.perf_counter()
-    cfg = get_config("yi-9b").replace(n_layers=2, dtype=torch.float32)
+    cfg = get_config(arch).replace(n_layers=2, dtype=torch.float32)
     card_model = zoo.build_params(cfg, 0, device=dev)
     host_model = zoo.LM(cfg, ParamFactory(0, torch.float32, torch.device("cpu"), fill=False))
     host_model.load_state_dict(card_model.state_dict())
     batch = zoo.make_batch(cfg, zoo.ShapeSpec("t", TRAIN_PARITY_SEQ, TRAIN_PARITY_BATCH,
                                               "train"), 0, device="cpu")
-    card_loss, card_g = _grads(cfg, card_model, {k: x.to(dev) for k, x in batch.items()})
-    host_loss, host_g = _grads(cfg, host_model, batch)
+    card_batch = {k: x.to(dev) for k, x in batch.items()}
+    card_loss, card_g = _grads(cfg, card_model, card_batch)
+    host_loss, host_g, host_raw = _grads(cfg, host_model, batch, raw=True)
     rec = {"loss_card": card_loss, "loss_cpu": host_loss, "grad_rel_err": {}}
     if not abs(card_loss - host_loss) <= PARITY_ATOL:
-        raise AssertionError(f"train parity: loss {card_loss} on the card, {host_loss} on the CPU")
+        raise AssertionError(f"train parity {arch}: loss {card_loss} on the card, {host_loss} "
+                             "on the CPU")
+    room = dict.fromkeys(host_g, 0.0)
+    if arch in TRAIN_F64_ROOM:
+        exact = _f64_grads(cfg, card_model, card_batch)
+        rel = lambda g, name: ((g.double() - exact[name]).abs().max().item()
+                               / max(exact[name].abs().max().item(), 1e-300))
+        rec["cpu_vs_f64_grad_rel_err"] = {name: rel(g, name) for name, g in host_g.items()}
+        rec["card_vs_f64_grad_rel_err"] = {name: rel(g, name) for name, g in card_g.items()}
+        room = {name: 2 * (hg.double() - exact[name]).abs().max().item()
+                for name, hg in host_g.items()}
+        del exact
+    grad_bound = {name: TRAIN_GRAD_RTOL * hg.abs().max().item() + room[name]
+                  for name, hg in host_g.items()}
     for name, hg in host_g.items():
         rel = (card_g[name] - hg).abs().max().item() / max(hg.abs().max().item(), 1e-30)
         rec["grad_rel_err"][name] = rel
-        if not rel <= TRAIN_GRAD_RTOL:
-            raise AssertionError(f"train parity: gradient {name} off by {rel} of its largest")
+    off = {name: rec["grad_rel_err"][name] for name, hg in host_g.items()
+           if not (card_g[name] - hg).abs().max().item() <= grad_bound[name]}
+    if off:
+        log(f"train parity {arch}: gradient relative errors {json.dumps(rec)}")
+        raise AssertionError(f"train parity {arch}: gradients off by more than their bounds "
+                             f"(relative errors): {off}")
     opts = AdamW(lr=TRAIN_LR), AdamW(lr=TRAIN_LR)
     states = [{"params": m, "opt": o.init(zoo.model_params(m)), "step": 0}
               for m, o in zip((card_model, host_model), opts)]
     _, card_m = zoo.make_train_step(cfg, opts[0])(states[0], {k: x.to(dev) for k, x in
                                                              batch.items()})
-    _, host_m = zoo.make_train_step(cfg, opts[1])(states[1], batch)
+    # on the CPU the same step from the gradients just taken: make_train_step
+    # with one microbatch takes them again (the same CPU sums, bit for bit)
+    # and hands them to AdamW.update
+    with torch.no_grad():
+        *_, host_m = opts[1].update(host_raw, states[1]["opt"], zoo.model_params(host_model))
+    del host_raw
     scale = min(1.0, 1.0 / float(host_m["grad_norm"]))
+    # the clip factors differ where the gradients' bound lets the global
+    # norms differ (rwkv6: by ~1.2e-4 of the norm)
+    dscale = (abs(min(1.0, 1.0 / float(card_m["grad_norm"])) - scale)
+              if arch in TRAIN_STEP_EXACT else 0.0)
+    rec["grad_norm_card"], rec["grad_norm_cpu"] = (float(card_m["grad_norm"]),
+                                                   float(host_m["grad_norm"]))
     trees = [(zoo.to_jax_params(cfg, st["params"]), zoo.to_jax_params(cfg, st["opt"].m),
               zoo.to_jax_params(cfg, st["opt"].v)) for st in states]
     worst = {"params": 0.0, "m": 0.0, "v": 0.0}
     for name, hg in host_g.items():
-        bounds = train_step_bound(hg, TRAIN_GRAD_RTOL * hg.abs().max().item(), scale, TRAIN_LR)
+        bounds = train_step_bound(hg, grad_bound[name], scale, TRAIN_LR, dscale=dscale,
+                                  exact=arch in TRAIN_STEP_EXACT)
         for i, what in enumerate(("params", "m", "v")):
             card, host = trees[0][i][name].cpu(), trees[1][i][name]
             lim = {"m": bounds[0], "v": bounds[1], "params": bounds[2]}[what]
@@ -3432,13 +3773,14 @@ def train_parity_phase(dev) -> dict:
                         **{f"{w}_{side}": trees[j][i2][name].cpu().flatten()[at]
                            for j, side in enumerate(("card", "cpu"))
                            for i2, w in enumerate(("params", "m", "v"))}}
-                log(f"train parity: {len(bad)} elements of {what} {name} past the bound; "
-                    f"first: {({k: v.tolist() for k, v in show.items()})}, scale {scale}")
-                raise AssertionError(f"train parity: {len(bad)} elements of {what} {name} "
-                                     "past the bound the gradient tolerance allows")
+                log(f"train parity {arch}: {len(bad)} elements of {what} {name} past the "
+                    f"bound; first: {({k: v.tolist() for k, v in show.items()})}, "
+                    f"scale {scale}")
+                raise AssertionError(f"train parity {arch}: {len(bad)} elements of {what} "
+                                     f"{name} past the bound the gradient tolerance allows")
     rec["max_abs_err_after_step"] = worst
     rec["seconds"] = time.perf_counter() - t
-    log(f"train parity: 2-layer yi-9b full width f32, B={TRAIN_PARITY_BATCH} "
+    log(f"train parity: 2-layer {arch} full width f32, B={TRAIN_PARITY_BATCH} "
         f"S={TRAIN_PARITY_SEQ}, card vs CPU: {json.dumps(rec)}")
     del card_model, host_model, states, trees
     torch.cuda.empty_cache()
@@ -3486,42 +3828,47 @@ def route_gradients(cfg, model, batch) -> dict:
     return rec
 
 
-def train_phase(dev, profile_dir: str | None) -> dict:
-    """TrainDriver's step function and AdamW on yi-9b at full width and
-    TRAIN_LAYERS of its 48 layers (bf16, remat on), TRAIN_STEPS steps of
-    TRAIN_BATCH sequences of TRAIN_SEQ tokens from TokenPipeline in
-    TRAIN_MICROBATCH microbatches.  Launch counts from 0 just before the
-    steps: a step launches the flash forward layers x microbatches x 2
-    (forward and remat recompute) and its backward layers x microbatches;
-    no plain version may run on the card; every backward launch takes the
-    ``wgmma`` route.  Before the steps, on step 0's first microbatch and the
-    initial weights, the gradients through ``wgmma`` against those through
-    ``simt`` (the Function's route forced): the global gradient norm within
+def train_phase(dev, profile_dir: str | None, arch: str = "yi-9b") -> dict:
+    """TrainDriver's step function and AdamW on ``arch`` at full width (yi-9b
+    at TRAIN_LAYERS of its 48 layers; rwkv6-1.6b and hymba-1.5b at full
+    depth: TRAIN_DEPTH), bf16, remat on, TRAIN_BATCH sequences of TRAIN_SEQ
+    tokens a step from TokenPipeline in TRAIN_MICROBATCH microbatches.
+    Launch counts from 0 just before the steps: a step launches each of the
+    arch's forward kernels layers x microbatches x 2 (forward and remat
+    recompute) and each of its backward kernels layers x microbatches
+    (TRAIN_KERNELS), and no other path kernel; no plain version may run on
+    the card; every flash backward launch takes the ``wgmma`` route.  For yi,
+    before the steps, on step 0's first microbatch and the initial weights,
+    the gradients through ``wgmma`` against those through ``simt`` (the
+    Function's route forced): the global gradient norm within
     TRAIN_ROUTE_RTOL, each leaf's relative error logged
     (:func:`route_gradients`).  Each step logs its seconds, tokens/s, peak
     memory and the device seconds of forward, loss, backward (with the
     loss's and the blocks' recompute) and optimizer from CUDA events at the
     step's stage marks; the last step runs under torch.profiler for the
-    device's busy share."""
+    device's busy share and each kernel kind's device seconds and share."""
     from repro_torch import kernels
     from repro_torch.configs import get_config
     from repro_torch.data import DataConfig, TokenPipeline
     from repro_torch.kernels.flash_attention import kernel as flash_kernel
+    from repro_torch.kernels.ssm_scan import kernel as ssm_kernel
+    from repro_torch.kernels.wkv6 import kernel as wkv6_kernel
     from repro_torch.models import zoo
     from repro_torch.optim import AdamW, cosine_schedule
     from repro_torch.runtime import TrainDriver
 
-    cfg = get_config("yi-9b").replace(n_layers=TRAIN_LAYERS, microbatch=TRAIN_MICROBATCH)
+    layers, n_steps = TRAIN_DEPTH[arch]
+    cfg = get_config(arch).replace(n_layers=layers, microbatch=TRAIN_MICROBATCH)
     data = DataConfig(seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH, vocab=cfg.vocab)
     # launch.train's default schedule: peak 3e-4 after 20 warm-up steps of 100
-    driver = TrainDriver(cfg, TRAIN_DIR / "full", data=data, device=dev,
+    driver = TrainDriver(cfg, TRAIN_DIR / arch, data=data, device=dev,
                          opt=AdamW(lr=cosine_schedule(3e-4, 20, 100)))
     t = time.perf_counter()
     state = driver.init_state()
     pipe = TokenPipeline(data)
     n_params = zoo.param_count(state["params"])
     probe = {name: state["params"].get_parameter(name).detach().float().sum().item()
-             for name in ("embed.tok", "blocks.0.wq", f"blocks.{TRAIN_LAYERS - 1}.wo2")}
+             for name in (p.format(last=layers - 1) for p in TRAIN_PROBES[arch])}
     events: list = []
 
     def mark(stage: str) -> None:
@@ -3530,29 +3877,46 @@ def train_phase(dev, profile_dir: str | None) -> dict:
         events.append((stage, ev))
 
     step_fn = zoo.make_train_step(cfg, driver.opt, mark=mark)
-    first = pipe.batch_at(0)
-    routed = route_gradients(cfg, state["params"], {k: torch.as_tensor(np.asarray(x[
-        :TRAIN_BATCH // TRAIN_MICROBATCH])).to(dev) for k, x in first.items()})
-    plain_on_card = {"flash_attention_ref": 0, "flash_attention_bwd_ref": 0,
-                     "flash_attention_lse_ref": 0}
-    originals = {name: getattr(flash_kernel, name) for name in plain_on_card}
+    routed = None
+    if arch == "yi-9b":
+        first = pipe.batch_at(0)
+        routed = route_gradients(cfg, state["params"], {k: torch.as_tensor(np.asarray(x[
+            :TRAIN_BATCH // TRAIN_MICROBATCH])).to(dev) for k, x in first.items()})
+    plain_refs = {flash_kernel: ("flash_attention_ref", "flash_attention_bwd_ref",
+                                 "flash_attention_lse_ref"),
+                  wkv6_kernel: ("wkv6_ref", "wkv6_bwd_ref"),
+                  ssm_kernel: ("ssm_scan_ref", "ssm_scan_bwd_ref")}
+    plain_on_card = {name: 0 for names in plain_refs.values() for name in names}
+    originals = {(mod, name): getattr(mod, name) for mod, names in plain_refs.items()
+                 for name in names}
 
-    def counting(name):
-        def call(q, *args, **kw):
-            if q.device.type == "cuda":
+    def counting(mod, name):
+        def call(x, *args, **kw):
+            if x.device.type == "cuda":
                 plain_on_card[name] += 1
-            return originals[name](q, *args, **kw)
+            return originals[mod, name](x, *args, **kw)
         return call
 
-    for name in plain_on_card:
-        setattr(flash_kernel, name, counting(name))
-    log(f"train phase: yi-9b {TRAIN_LAYERS} of 48 layers, {n_params} weights in bf16, set up "
+    for mod, name in originals:
+        setattr(mod, name, counting(mod, name))
+    log(f"train phase: {arch} {layers} layers, {n_params} weights in bf16, set up "
         f"in {time.perf_counter() - t:.1f} s")
+    path = [k for pair in TRAIN_KERNELS[arch] for k in pair]
+    watched = ("flash_attention", "flash_attention_bwd", "wkv6", "wkv6_bwd", "ssm_scan",
+               "ssm_scan_bwd")
+    per = layers * TRAIN_MICROBATCH
+    want = {k: (2 * per if k in path and not k.endswith("_bwd") else per if k in path else 0)
+            for k in watched}
+    want_routes = {"simt": 0, "wgmma": want["flash_attention_bwd"]}
+    kinds = {"flash_fwd": ("flash_fwd",), "flash_bwd": ("flash_bwd",),
+             "wkv6_fwd": ("wkv6_fwd",), "wkv6_bwd": ("wkv6_bwd",),
+             "ssm_scan_fwd": ("ssm_scan_fwd",), "ssm_scan_bwd": ("ssm_scan_bwd",),
+             "matmul": ("gemm", "nvjet", "xmma", "cutlass")}
     steps, losses = [], []
     kernels.reset_launches()
     bwd = kernels.WRAPPERS["flash_attention_bwd"]
     try:
-        for step in range(TRAIN_STEPS):
+        for step in range(n_steps):
             batch = pipe.batch_at(step)
             at = kernels.launch_counts()
             at_routes = dict(bwd.route_launches)
@@ -3561,7 +3925,7 @@ def train_phase(dev, profile_dir: str | None) -> dict:
             events.clear()
             mark("start")
             t0 = time.perf_counter()
-            profiled_step = step == TRAIN_STEPS - 1
+            profiled_step = step == n_steps - 1
             if profiled_step:
                 with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
                     state, metrics = step_fn(state, batch)
@@ -3572,19 +3936,18 @@ def train_phase(dev, profile_dir: str | None) -> dict:
             wall = time.perf_counter() - t0
             loss = float(metrics["loss"])
             if not np.isfinite(loss):
-                raise AssertionError(f"train phase: loss {loss} at step {step}")
+                raise AssertionError(f"train phase {arch}: loss {loss} at step {step}")
             losses.append(loss)
             stage_s: dict[str, float] = {}
             for (_, a), (stage, b) in zip(events, events[1:]):
                 stage_s[stage] = stage_s.get(stage, 0.0) + a.elapsed_time(b) / 1e3
             now = kernels.launch_counts()
-            rec = {"step": step, "loss": loss, "seconds": wall,
+            rec = {"arch": arch, "step": step, "loss": loss, "seconds": wall,
                    "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / wall,
                    "max_memory_allocated_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
                    "stage_device_s": stage_s,
                    "grad_norm": float(metrics["grad_norm"]), "lr": float(metrics["lr"]),
-                   "launches": {k: now[k] - at[k] for k in ("flash_attention",
-                                                            "flash_attention_bwd")},
+                   "launches": {k: now[k] - at[k] for k in watched},
                    "bwd_routes": {k: n - at_routes[k] for k, n in bwd.route_launches.items()}}
             if profiled_step:
                 evs = prof.events()
@@ -3599,67 +3962,105 @@ def train_phase(dev, profile_dir: str | None) -> dict:
                 for e in evs:
                     if e.device_type == DeviceType.CUDA:
                         by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time_total / 1e6
-                kinds = {"flash_fwd": ("flash_fwd",), "flash_bwd": ("flash_bwd",),
-                         "matmul": ("gemm", "nvjet", "xmma", "cutlass")}
                 rec["kernel_device_s"] = {kind: sum(t for n, t in by_name.items() if any(
                     w in n.lower() for w in words)) for kind, words in kinds.items()}
                 rec["kernel_device_s"]["all"] = busy / 1e6
+                rec["kernel_share_pct"] = {kind: 100 * v * 1e6 / busy for kind, v in
+                                           rec["kernel_device_s"].items() if kind != "all"}
                 rec["top_kernels_s"] = dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:8])
                 if profile_dir:
-                    write_profile(prof, wall, Path(profile_dir) / "train_profile.txt",
-                                  "yi-9b train step", busy)
-            want = {"flash_attention": TRAIN_LAYERS * TRAIN_MICROBATCH * 2,
-                    "flash_attention_bwd": TRAIN_LAYERS * TRAIN_MICROBATCH}
-            want_routes = {"simt": 0, "wgmma": TRAIN_LAYERS * TRAIN_MICROBATCH}
+                    stem = "" if arch == "yi-9b" else f"{PROFILE_STEM[arch]}_"
+                    write_profile(prof, wall, Path(profile_dir) / f"{stem}train_profile.txt",
+                                  f"{arch} train step", busy)
             if rec["launches"] != want or rec["bwd_routes"] != want_routes:
-                raise AssertionError(f"train phase step {step}: launches {rec['launches']}, "
-                                     f"backward routes {rec['bwd_routes']}, want {want} and "
-                                     f"{want_routes}")
+                raise AssertionError(f"train phase {arch} step {step}: launches "
+                                     f"{rec['launches']}, flash backward routes "
+                                     f"{rec['bwd_routes']}, want {want} and {want_routes}")
             steps.append(rec)
             log(f"train step: {json.dumps(rec)}")
     finally:
-        for name, fn in originals.items():
-            setattr(flash_kernel, name, fn)
+        for (mod, name), fn in originals.items():
+            setattr(mod, name, fn)
     launches = kernels.launch_counts()
+    route_launches = {k: dict(kernels.WRAPPERS[k].route_launches) for k in watched}
     if any(plain_on_card.values()):
-        raise AssertionError(f"train phase: plain versions ran on the card {plain_on_card}")
+        raise AssertionError(f"train phase {arch}: plain versions ran on the card "
+                             f"{plain_on_card}")
     moved = {name: state["params"].get_parameter(name).detach().float().sum().item() != v
              for name, v in probe.items()}
     if not all(moved.values()):
-        raise AssertionError(f"train phase: weights did not move {moved}")
+        raise AssertionError(f"train phase {arch}: weights did not move {moved}")
     unprofiled = [r["seconds"] for r in steps[1:-1]]
-    rec = {"steps": TRAIN_STEPS, "losses": losses, "launches": launches,
-           "bwd_routes": dict(bwd.route_launches), "route_gradients": routed,
-           "plain_on_card": plain_on_card, "weights_moved": moved,
+    rec = {"arch": arch, "layers": layers, "steps": n_steps, "losses": losses,
+           "launches": launches, "route_launches": route_launches,
+           "bwd_routes": dict(bwd.route_launches),
+           "route_gradients": routed, "plain_on_card": plain_on_card, "weights_moved": moved,
            "median_step_s": float(np.median(unprofiled)),
            "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / float(np.median(unprofiled)),
-           "seconds": time.perf_counter() - t}
-    log(f"train phase: {json.dumps(rec)}")
+           "peak_memory_gb": max(r["max_memory_allocated_gb"] for r in steps),
+           "profiled_step": steps[-1], "seconds": time.perf_counter() - t}
+    log(f"train phase: {json.dumps({k: v for k, v in rec.items() if k != 'profiled_step'})}")
     del state, driver, step_fn
     torch.cuda.empty_cache()
     return rec
 
 
-def _launch_train(*args: str) -> dict:
-    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch", "yi-9b", "--smoke",
-           "--ckpt-every", str(DRIVER_CKPT_EVERY), *args]
-    out = subprocess.run(cmd, capture_output=True, text=True, timeout=600, cwd=ROOT,
-                         env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
-    if out.returncode != 0:
-        raise AssertionError(f"{' '.join(cmd)} failed:\n{out.stderr[-4000:]}")
-    return json.loads(out.stdout.strip().splitlines()[-1])
+def _launch_trains(runs: dict) -> dict:
+    """Each of ``runs`` (name -> (arch, *launch.train flags)) as a
+    ``launch.train --smoke`` subprocess on the card, all started together;
+    the JSON line each prints last, by name.  Kills any left running."""
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    procs = {}
+    try:
+        for name, (arch, *args) in runs.items():
+            cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch", arch, "--smoke",
+                   "--ckpt-every", str(DRIVER_CKPT_EVERY), *args]
+            procs[name] = cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                stderr=subprocess.PIPE, text=True, cwd=ROOT,
+                                                env=env)
+        out = {}
+        for name, (cmd, proc) in procs.items():
+            stdout, stderr = proc.communicate(timeout=600)
+            if proc.returncode != 0:
+                raise AssertionError(f"{' '.join(cmd)} failed:\n{stderr[-4000:]}")
+            out[name] = json.loads(stdout.strip().splitlines()[-1])
+        return out
+    finally:
+        for _, proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+
+def _launch_train(arch: str, *args: str) -> dict:
+    return _launch_trains({"run": (arch, *args)})["run"]
+
+
+def _replays(arch: str, clean: dict, faulty: dict) -> None:
+    """The run with a host lost at DRIVER_FAIL_AT reports one restart to the
+    step-5 checkpoint and ends on the clean run's loss within 1e-3 relative
+    (the embedding's backward sums rows with atomics on the card, so the two
+    processes' bf16 states are not bit-identical)."""
+    if not (faulty["restarts"] == 1 and faulty["restored_steps"] == [DRIVER_CKPT_EVERY]
+            and faulty["steps"] == DRIVER_STEPS + DRIVER_FAIL_AT - DRIVER_CKPT_EVERY):
+        raise AssertionError(f"driver {arch}: the faulty run reports {faulty}")
+    if faulty["first_loss"] != clean["first_loss"] or not (
+            abs(faulty["last_loss"] - clean["last_loss"]) <= 1e-3 * abs(clean["last_loss"])):
+        raise AssertionError(f"driver {arch}: replayed losses differ: {faulty} vs {clean}")
 
 
 def driver_phase(dev) -> dict:
     """``python -m repro_torch.launch.train --arch yi-9b --smoke`` in
     subprocesses on the card: 12 steps with a checkpoint every 5, clean and
-    with a host lost at step 8 (``--fail-at-step``), which must report one
-    restart to step 5 and end on the clean run's loss within 1e-3 relative
-    (the embedding's backward sums rows with atomics on the card, so the two
-    processes' bf16 states are not bit-identical); the step-5 checkpoint
-    restores (sha256 verified) into a train state that saves back to the
-    same bytes; and a third process resumes the clean run from its step-12
-    checkpoint to 17 steps and runs exactly 5."""
+    with a host lost at step 8 (``--fail-at-step``), which must replay the
+    clean run (:func:`_replays`); the step-5 checkpoint restores (sha256
+    verified) into a train state that saves back to the same bytes; and a
+    third process resumes the clean run from its step-12 checkpoint to 17
+    steps and runs exactly 5.  Then ``--arch rwkv6-1.6b --smoke`` and
+    ``--arch hymba-1.5b --smoke`` (their recurrences' forward and backward
+    kernels), clean and with ``--fail-at-step 8``, each faulty run replaying
+    its clean run.  The six clean and faulty processes run at once; the
+    resume follows them."""
     from repro_torch.checkpoint import restore_state, snapshot
     from repro_torch.configs import get_config
     from repro_torch.runtime import TrainDriver
@@ -3668,19 +4069,20 @@ def driver_phase(dev) -> dict:
     shutil.rmtree(TRAIN_DIR / "driver", ignore_errors=True)
     base = TRAIN_DIR / "driver"
     steps = ("--steps", str(DRIVER_STEPS))
-    clean = _launch_train(*steps, "--ckpt-dir", str(base / "clean"))
-    faulty = _launch_train(*steps, "--ckpt-dir", str(base / "faulty"),
-                           "--fail-at-step", str(DRIVER_FAIL_AT))
-    resumed = _launch_train("--steps", str(DRIVER_RESUME_TO), "--ckpt-dir", str(base / "clean"))
+    archs = ("rwkv6-1.6b", "hymba-1.5b")
+    fault = {"clean": (), "faulty": ("--fail-at-step", str(DRIVER_FAIL_AT))}
+    done = _launch_trains({
+        ("yi-9b", kind): ("yi-9b", *steps, "--ckpt-dir", str(base / kind), *flags)
+        for kind, flags in fault.items()} | {
+        (arch, kind): (arch, *steps, "--ckpt-dir", str(base / arch / kind), *flags)
+        for arch in archs for kind, flags in fault.items()})
+    clean, faulty = done["yi-9b", "clean"], done["yi-9b", "faulty"]
+    resumed = _launch_train("yi-9b", "--steps", str(DRIVER_RESUME_TO), "--ckpt-dir",
+                            str(base / "clean"))
     log(f"driver clean: {json.dumps(clean)}")
     log(f"driver fail at {DRIVER_FAIL_AT}: {json.dumps(faulty)}")
     log(f"driver resumed to {DRIVER_RESUME_TO}: {json.dumps(resumed)}")
-    if not (faulty["restarts"] == 1 and faulty["restored_steps"] == [DRIVER_CKPT_EVERY]
-            and faulty["steps"] == DRIVER_STEPS + DRIVER_FAIL_AT - DRIVER_CKPT_EVERY):
-        raise AssertionError(f"driver: the faulty run reports {faulty}")
-    if faulty["first_loss"] != clean["first_loss"] or not (
-            abs(faulty["last_loss"] - clean["last_loss"]) <= 1e-3 * abs(clean["last_loss"])):
-        raise AssertionError(f"driver: replayed losses differ: {faulty} vs {clean}")
+    _replays("yi-9b", clean, faulty)
     if resumed["steps"] != DRIVER_RESUME_TO - DRIVER_STEPS or resumed["restored_steps"]:
         raise AssertionError(f"driver: the resumed run reports {resumed}")
     cfg = get_config("yi-9b", smoke=True)
@@ -3696,12 +4098,17 @@ def driver_phase(dev) -> dict:
         and dtype == manifest[name]["dtype"] for name, (arr, dtype) in saved.items())
     if step != DRIVER_CKPT_EVERY or not same or state["step"] != DRIVER_CKPT_EVERY:
         raise AssertionError("driver: the step-5 state does not restore to its checkpoint")
+    recurrent = {arch: {kind: done[arch, kind] for kind in fault} for arch in archs}
+    for arch, runs in recurrent.items():
+        log(f"driver {arch}: {json.dumps(runs)}")
+        _replays(arch, runs["clean"], runs["faulty"])
     rec = {"clean": clean, "faulty": faulty, "resumed": resumed,
-           "restored_step_equals_checkpoint": same, "seconds": time.perf_counter() - t}
+           "restored_step_equals_checkpoint": same, "recurrent": recurrent,
+           "seconds": time.perf_counter() - t}
     log(f"driver phase: restarts {faulty['restarts']} restored {faulty['restored_steps']}, "
         f"last loss {faulty['last_loss']} vs clean {clean['last_loss']}, step-5 state equals "
-        f"its checkpoint (sha256 verified), resumed {resumed['steps']} steps; "
-        f"{rec['seconds']:.1f} s")
+        f"its checkpoint (sha256 verified), resumed {resumed['steps']} steps; rwkv6 and hymba "
+        f"restarted runs replay their clean runs; {rec['seconds']:.1f} s")
     del drv, state, tree
     shutil.rmtree(TRAIN_DIR, ignore_errors=True)
     torch.cuda.empty_cache()
@@ -3822,6 +4229,17 @@ def main() -> int:
     elapsed("the train parity phase")
     trained = train_phase(dev, args.profile)
     elapsed("the train phase")
+    wkv_bwd_checked = wkv6_bwd_kernel_phase(dev)
+    wkv_bwd_timing = time_rec_bwd(dev, "wkv6_bwd")
+    ssm_bwd_checked = ssm_scan_bwd_kernel_phase(dev)
+    ssm_bwd_timing = time_rec_bwd(dev, "ssm_scan_bwd")
+    elapsed("the recurrences' backward kernel phases and timings")
+    for arch in ("rwkv6-1.6b", "hymba-1.5b"):
+        train_parity_phase(dev, arch)
+    elapsed("the rwkv6 and hymba train parity phases")
+    rwkv_trained = train_phase(dev, args.profile, "rwkv6-1.6b")
+    hymba_trained = train_phase(dev, args.profile, "hymba-1.5b")
+    elapsed("the rwkv6 and hymba train phases")
     driver_phase(dev)
     elapsed("the driver phase")
     # the path's launches by the shape they come in: per-message dispatches
@@ -3969,7 +4387,33 @@ def main() -> int:
         "step0_grad_norm_rel_err_wgmma_vs_simt": trained["route_gradients"]["norm_rel_err"],
         "shape": "train B=2 S=T=4096 H=32 K=4 d=128 bf16 causal, given the forward's lse "
                  "(wgmma: delta pass, dK/dV and dQ)",
+        "launches_hymba_training": hymba_trained["launches"]["flash_attention_bwd"],
+        "launches_by_route_hymba_training": hymba_trained["bwd_routes"],
     }]
+    for name, stem, checked, timing, run, shape, jax_fn in (
+            ("wkv6_bwd", "wkv6", wkv_bwd_checked, wkv_bwd_timing, rwkv_trained,
+             "train B=2 T=4096 H=32 M=64 bf16 (w f32)", "src/repro/models/rwkv.py:33 wkv6_scan"),
+            ("ssm_scan_bwd", "ssm_scan", ssm_bwd_checked, ssm_bwd_timing, hymba_trained,
+             "train B=2 T=4096 D=1600 N=16 bf16 (a f32)",
+             "src/repro/models/ssm.py:50 selective_scan")):
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": f"src/repro_torch/csrc/{name}.cu",
+            "replaces": f"no Pallas kernel: the JAX package differentiates its jnp scan "
+                        f"({jax_fn}) with XLA",
+            "launches": run["launches"][name],
+            "launches_by_route": run["route_launches"][name],
+            "launches_forward_in_training": run["launches"][stem],
+            "max_abs_err": checked["max_abs_err"],
+            "bound_share": checked["bound_share"],
+            **{k: timing[k] for k in keys},
+            "forward_ms": timing["forward_ms"],
+            "kernels_ms": timing["kernels_ms"],
+            "shape": f"{shape}, as the train step calls it (split: local passes, carries, "
+                     "chunk gradients, sums)",
+            "train_step_share_pct": run["profiled_step"]["kernel_share_pct"][name],
+        })
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

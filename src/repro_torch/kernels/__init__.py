@@ -23,12 +23,16 @@ performs before it loads a slice that names one.
                  kernel: the JAX package differentiates ``attend`` with XLA
   wkv6/          the RWKV-6 time-mix recurrence, step by step or split over
                  time with a carried state (every WKV call of the rwkv
-                 serving path); replaces the Pallas chunked ``_wkv6_kernel``
-                 of ``repro.kernels.wkv6``
+                 serving and training paths); replaces the Pallas chunked
+                 ``_wkv6_kernel`` of ``repro.kernels.wkv6``; and its backward
+                 (``wkv6_bwd``), which replaces no Pallas kernel: the JAX
+                 package differentiates its jnp scan with XLA
   ssm_scan/      the diagonal selective scan of Mamba, step by step or split
                  over time with a carried state (every SSM call of the hymba
-                 serving path); replaces the Pallas chunked ``_ssm_kernel``
-                 of ``repro.kernels.ssm_scan``
+                 serving and training paths); replaces the Pallas chunked
+                 ``_ssm_kernel`` of ``repro.kernels.ssm_scan``; and its
+                 backward (``ssm_scan_bwd``), which replaces no Pallas
+                 kernel: the JAX package differentiates its jnp scan with XLA
 """
 
 from .chase import kernel as _chase_kernel
@@ -44,7 +48,9 @@ WRAPPERS = {
     "flash_attention": _flash_attention_kernel.flash_attention,
     "flash_attention_bwd": _flash_attention_kernel.flash_attention_bwd,
     "wkv6": _wkv6_kernel.wkv6,
+    "wkv6_bwd": _wkv6_kernel.wkv6_bwd,
     "ssm_scan": _ssm_scan_kernel.ssm_scan,
+    "ssm_scan_bwd": _ssm_scan_kernel.ssm_scan_bwd,
 }
 
 

@@ -25,7 +25,8 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = {
     "embed_lookup": "embed_lookup.cu", "chase": "chase.cu",
     "flash_attention": "flash_attention.cu", "flash_attention_bwd": "flash_attention_bwd.cu",
-    "wkv6": "wkv6.cu", "ssm_scan": "ssm_scan.cu",
+    "wkv6": "wkv6.cu", "wkv6_bwd": "wkv6_bwd.cu",
+    "ssm_scan": "ssm_scan.cu", "ssm_scan_bwd": "ssm_scan_bwd.cu",
 }
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

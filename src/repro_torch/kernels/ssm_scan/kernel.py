@@ -26,7 +26,15 @@ A step's latency times T is what limits the step route.  Times are in
 :func:`ssm_scan` is the wrapper: a tensor on the CPU takes the plain
 version (:mod:`.ref`); a CUDA tensor launches one route (counted once in
 ``ssm_scan.launches`` and, by route, in ``ssm_scan.route_launches``) or
-raises.
+raises.  With grad on and an operand that requires it, the call goes
+through an autograd ``Function`` whose forward is that same call and whose
+backward is :func:`ssm_scan_bwd`, the wrapper of ``csrc/ssm_scan_bwd.cu``
+(no Pallas counterpart: the JAX package differentiates its jnp scan with
+XLA): every input's gradient from T cut into chunks of :data:`BWD_CHUNK`
+steps, each chunk's states formed again from a carried state and walked
+back from a carried adjoint (five device kernels, no atomics; counted in
+``ssm_scan_bwd.launches`` and under its one route ``"split"``).  On the
+CPU the same ``Function`` takes the plain backward (``ssm_scan_bwd_ref``).
 """
 
 from __future__ import annotations
@@ -37,7 +45,7 @@ import math
 import torch
 
 from ..build import load
-from .ref import ssm_scan_ref
+from .ref import ssm_scan_bwd_ref, ssm_scan_ref
 
 #: state sizes the kernel is instantiated for (hymba's 16, the smoke
 #: config's and the JAX sweep's 8)
@@ -124,21 +132,25 @@ def ssm_scan(
     """The selective scan from ``h0``: ``(y (B, T, D) in x's dtype, final
     state (B, D, N) f32)``, both new tensors.  On the card it takes
     ``route`` (default :func:`ssm_scan_route`), the split route in chunks of
-    ``chunk`` steps (default :func:`split_chunk`)."""
+    ``chunk`` steps (default :func:`split_chunk`).  With grad on and an
+    operand that requires it, the call goes through :class:`_SSMScan`,
+    whose backward is :func:`ssm_scan_bwd`."""
     _check(x, dt, a, b, c, h0)
     if route is not None and route not in ROUTES:
         raise ValueError(f"ssm_scan route must be one of {ROUTES}, got {route!r}")
     if chunk is not None and (isinstance(chunk, bool) or not isinstance(chunk, int) or chunk < 1):
         raise ValueError(f"ssm_scan chunk must be an int >= 1, got {chunk!r}")
+    if torch.is_grad_enabled() and any(
+            v is not None and v.requires_grad for v in (x, dt, a, b, c, h0)):
+        return _SSMScan.apply(x, dt, a, b, c, h0, route, chunk)
+    return _forward(x, dt, a, b, c, h0, route, chunk)
+
+
+def _forward(x, dt, a, b, c, h0, route, chunk) -> tuple[torch.Tensor, torch.Tensor]:
     if x.device.type == "cpu":
         return ssm_scan_ref(x, dt, a, b, c, h0)
     if x.device.type != "cuda":
         raise ValueError(f"ssm_scan has no kernel for device {x.device}")
-    if torch.is_grad_enabled() and any(
-            t is not None and t.requires_grad for t in (x, dt, a, b, c, h0)):
-        raise NotImplementedError(
-            "ssm_scan has no backward kernel yet: hymba training on the card waits for it "
-            "(ROADMAP.md section 1, item 5); the kernel's output would carry no gradient")
     bsz, t, d = x.shape
     n = a.shape[1]
     if n not in STATE_DIMS:
@@ -173,3 +185,106 @@ def ssm_scan(
 
 ssm_scan.launches = 0
 ssm_scan.route_launches = dict.fromkeys(ROUTES, 0)
+
+
+class _SSMScan(torch.autograd.Function):
+    """The forward's route, and :func:`ssm_scan_bwd` for the gradient.
+    Saves the operands alone, so a checkpointed block that runs the forward
+    again saves the same tensors; the backward forms its own chunk states."""
+
+    @staticmethod
+    def forward(ctx, x, dt, a, b, c, h0, route, chunk):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(x, dt, a, b, c, h0)
+        return _forward(x, dt, a, b, c, h0, route, chunk)
+
+    @staticmethod
+    def backward(ctx, dy, dh):
+        x, dt, a, b, c, h0 = ctx.saved_tensors
+        dy = torch.zeros_like(x) if dy is None else dy.contiguous()
+        grads = ssm_scan_bwd(x, dt, a, b, c, h0, dy, None if dh is None else dh.contiguous())
+        return (*(g if need else None for g, need in zip(grads, ctx.needs_input_grad)),
+                None, None)
+
+
+#: the backward kernel's steps per chunk (a warp keeps a chunk's states of
+#: its 32 channels in shared memory) and channels per block of its
+#: gradient pass (one warp: db and dc are summed over them by shuffles)
+BWD_CHUNK, BWD_CHANNELS = 16, 32
+
+
+def _bwd_library() -> ctypes.CDLL:
+    lib = load("ssm_scan_bwd")
+    if not lib.ssm_scan_bwd_launch.argtypes:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.ssm_scan_bwd_launch.argtypes = [p] * 15 + [i] * 6 + [p]
+        lib.ssm_scan_bwd_launch.restype = ctypes.c_int
+        lib.ssm_scan_bwd_error_string.argtypes = [ctypes.c_int]
+        lib.ssm_scan_bwd_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def ssm_scan_bwd(
+    x: torch.Tensor,  # (B, T, D)
+    dt: torch.Tensor,  # (B, T, D)
+    a: torch.Tensor,  # (D, N) f32
+    b: torch.Tensor,  # (B, T, N)
+    c: torch.Tensor,  # (B, T, N)
+    h0: torch.Tensor | None,  # (B, D, N) f32; zeros when None
+    dy: torch.Tensor,  # (B, T, D) in x's dtype: y's cotangent
+    dh: torch.Tensor | None = None,  # (B, D, N) f32: the final state's
+) -> tuple[torch.Tensor, ...]:
+    """The gradients of :func:`ssm_scan` at ``(dy, dh)``: ``(dx, ddt, da,
+    db, dc, dh0)``, each in its operand's dtype (da and dh0 in f32), all new
+    tensors: the plain version (``ssm_scan_bwd_ref``) for a CPU tensor, the
+    kernel for a CUDA one (counted once in ``ssm_scan_bwd.launches`` and
+    under ``"split"`` in ``ssm_scan_bwd.route_launches``) or a raise."""
+    _check(x, dt, a, b, c, h0)
+    bsz, t, d = x.shape
+    n = a.shape[1]
+    if dy.shape != x.shape or dy.dtype != x.dtype or dy.device != x.device:
+        raise ValueError(f"ssm_scan_bwd: dy is {dy.dtype} {tuple(dy.shape)} on {dy.device}, "
+                         f"want x's {x.dtype} {tuple(x.shape)} on {x.device}")
+    if dh is not None and (tuple(dh.shape) != (bsz, d, n) or dh.dtype != torch.float32
+                           or dh.device != x.device):
+        raise ValueError(f"ssm_scan_bwd: dh is {dh.dtype} {tuple(dh.shape)}, want "
+                         f"{(bsz, d, n)} float32 on {x.device}")
+    if x.device.type == "cpu":
+        return ssm_scan_bwd_ref(x, dt, a, b, c, h0, dy, dh)
+    if x.device.type != "cuda":
+        raise ValueError(f"ssm_scan_bwd has no kernel for device {x.device}")
+    if n not in STATE_DIMS:
+        raise ValueError(f"ssm_scan_bwd kernel takes state sizes {STATE_DIMS}, got {n}")
+    operands = [x, dt, a, b, c, dy] + [v for v in (h0, dh) if v is not None]
+    if any(not v.is_contiguous() for v in operands):
+        raise ValueError("ssm_scan_bwd kernel needs contiguous operands")
+    nc = -(-t // BWD_CHUNK)
+    if bsz * nc > 65535:
+        raise ValueError(f"ssm_scan_bwd kernel takes at most 65,535 chunks of {BWD_CHUNK} "
+                         f"steps, got B = {bsz} rows of {t}")
+    dx, ddt, da, db, dc = (torch.empty_like(v) for v in (x, dt, a, b, c))
+    dh0 = torch.empty((bsz, d, n), dtype=torch.float32, device=x.device)
+    # the chunks' states, adjoints and decay products, da's partial sums by
+    # chunk, and db's and dc's by warp of channels
+    entries = bsz * nc * d * n
+    warps = -(-d // BWD_CHANNELS)
+    scratch = torch.empty(4 * entries + warps * bsz * t * 2 * n, dtype=torch.float32,
+                          device=x.device)
+    lib = _bwd_library()
+    ptrs = [v.data_ptr() if v is not None else None
+            for v in (x, dt, a, b, c, h0, dy, dh, dx, ddt, da, db, dc, dh0, scratch)]
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.ssm_scan_bwd_launch(*ptrs, _DTYPES[x.dtype], bsz, t, d, n, BWD_CHUNK, stream)
+    ssm_scan_bwd.launches += 1
+    ssm_scan_bwd.route_launches["split"] += 1
+    if err:
+        msg = lib.ssm_scan_bwd_error_string(err).decode()
+        raise RuntimeError(f"ssm_scan_bwd launch failed: {msg} ({err})")
+    return dx, ddt, da, db, dc, dh0
+
+
+#: the backward kernel's one route: the forward's split design run back
+BWD_ROUTES = ("split",)
+ssm_scan_bwd.launches = 0
+ssm_scan_bwd.route_launches = dict.fromkeys(BWD_ROUTES, 0)

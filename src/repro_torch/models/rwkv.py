@@ -10,7 +10,10 @@ with the per-channel, per-step decay ``w_t = exp(-exp(w0 + tanh(x_w A) B))``
 (a low-rank data-dependent function of the shifted input).  Every WKV call,
 a prompt of T > 1 tokens or one decode step, is one call of the ``wkv6``
 wrapper (``repro_torch.kernels.wkv6``): one launch of the hand-written
-kernel on the card, the plain recurrence on the CPU.  The JAX model's jnp
+kernel on the card, the plain recurrence on the CPU.  In training the same
+call goes through the wrapper's autograd ``Function``, whose gradient is
+one launch of the hand-written ``wkv6_bwd`` kernel on the card (the plain
+backward on the CPU).  The JAX model's jnp
 ``wkv6_chunked`` (its CPU and dry-run rendering of the chunked kernel) has
 no counterpart: it clamps the within-chunk log-decay (ROADMAP.md section 3)
 and the kernel is exact without it.

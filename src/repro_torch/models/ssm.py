@@ -10,8 +10,11 @@ input-dependent (dt, B, C), a diagonal A and a short causal conv:
 Every scan, a prompt of T > 1 tokens or one decode step, is one call of the
 ``ssm_scan`` wrapper (``repro_torch.kernels.ssm_scan``) from the carried
 state: one launch of the hand-written kernel on the card, the plain
-recurrence on the CPU.  The JAX model's jnp ``selective_scan_chunked`` (its
-training form) has no counterpart: it clamps the within-chunk cumulative
+recurrence on the CPU.  In training the same call goes through the
+wrapper's autograd ``Function``, whose gradient is one launch of the
+hand-written ``ssm_scan_bwd`` kernel on the card (the plain backward on
+the CPU).  The JAX model's jnp ``selective_scan_chunked`` (its training
+form) has no counterpart: it clamps the within-chunk cumulative
 log-decay at -60 (ROADMAP.md section 3) and the kernel is exact without it.
 
 bf16 follows the JAX dtype order: every operation on bf16 tensors rounds

@@ -1077,23 +1077,104 @@ def test_forced_route_takes_a_whole_backward(card):
                                                       + cfg.n_layers}
 
 
-@pytest.mark.parametrize("kernel", ["wkv6", "ssm_scan"])
-def test_recurrences_raise_under_grad_on_the_card(card, kernel):
-    """Without a backward kernel, the recurrences refuse to run on the card
-    under grad rather than hand back an output with no gradient."""
-    g = torch.Generator(card).manual_seed(0)
-    if kernel == "wkv6":
-        r, k, v = (torch.randn(1, 8, 2, 64, generator=g, device=card) for _ in range(3))
-        w = torch.rand(1, 8, 2, 64, generator=g, device=card) * 0.5 + 0.4
-        u = torch.randn(2, 64, generator=g, device=card)
-        call = lambda: wkv6(r.requires_grad_(), k, v, w, u)
-    else:
-        x = torch.randn(1, 8, 64, generator=g, device=card)
-        dt = torch.rand(1, 8, 64, generator=g, device=card) + 0.1
-        a = -torch.rand(64, 16, generator=g, device=card) - 0.5
-        b, c = (torch.randn(1, 8, 16, generator=g, device=card) for _ in range(2))
-        call = lambda: ssm_scan(x.requires_grad_(), dt, a, b, c)
-    with pytest.raises(NotImplementedError, match="backward kernel"):
-        call()
-    with torch.no_grad():
-        call()  # serving: no grad, the kernel runs
+# the recurrences' backward kernels against their plain versions: both run
+# the same f32 recurrence forward and back and sum in other orders, so f32
+# agrees within 1e-4 of each gradient's largest; a bf16 gradient may also
+# round to the other neighbour of the same f32 value (2**-7 of it)
+REC_BWD_TOL = 1e-4
+
+
+def _rec_bwd_close(got, want):
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert g.dtype == w.dtype and g.shape == w.shape, i
+        g, w = g.float(), w.float()
+        rtol = 2.0**-7 if got[0].dtype == torch.bfloat16 else 0.0
+        bound = REC_BWD_TOL * w.abs().max() + rtol * w.abs()
+        assert ((g - w).abs() <= bound).all(), (i, (g - w).abs().max().item())
+
+
+@pytest.mark.parametrize("t", [1, 100, 300], ids=lambda t: f"T{t}")
+@pytest.mark.parametrize("m,dtype", [(32, torch.float32), (64, torch.float32),
+                                     (128, torch.float32), (64, torch.bfloat16)],
+                         ids=["m32", "m64", "m128", "m64_bf16"])
+def test_wkv6_bwd_kernel_matches_plain(card, t, m, dtype):
+    """Every gradient of ``wkv6_bwd`` against ``wkv6_bwd_ref`` on the same
+    inputs (decays from 1e-6 to 0.999, a given state and a final-state
+    cotangent), below and above SPLIT_MIN_T; a second call gives the same
+    bits; one launch a call, on the ``split`` route."""
+    from repro_torch.kernels.wkv6 import wkv6_bwd, wkv6_bwd_ref
+
+    g = torch.Generator(card).manual_seed(t + m)
+    r, k, v, dout = (torch.randn(2, t, 2, m, generator=g, device=card).to(dtype)
+                     for _ in range(4))
+    w = torch.exp(torch.rand(2, t, 2, m, generator=g, device=card) * np.log(1e-6 / 0.999)
+                  + np.log(0.999))
+    u = torch.randn(2, m, generator=g, device=card).to(dtype)
+    s0, ds = (torch.randn(2, 2, m, m, generator=g, device=card) for _ in range(2))
+    before = (wkv6_bwd.launches, wkv6_bwd.route_launches["split"])
+    got = wkv6_bwd(r, k, v, w, u, s0, dout, ds)
+    again = wkv6_bwd(r, k, v, w, u, s0, dout, ds)
+    torch.cuda.synchronize()
+    assert (wkv6_bwd.launches, wkv6_bwd.route_launches["split"]) == (before[0] + 2,
+                                                                     before[1] + 2)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    _rec_bwd_close(got, wkv6_bwd_ref(r, k, v, w, u, s0, dout, ds))
+
+
+@pytest.mark.parametrize("t", [1, 100, 300], ids=lambda t: f"T{t}")
+@pytest.mark.parametrize("d,n,dtype", [(37, 8, torch.float32), (1600, 16, torch.float32),
+                                       (100, 16, torch.bfloat16)],
+                         ids=["d37n8", "hymba", "d100_bf16"])
+def test_ssm_scan_bwd_kernel_matches_plain(card, t, d, n, dtype):
+    """Every gradient of ``ssm_scan_bwd`` against ``ssm_scan_bwd_ref`` on
+    the same inputs (dt in 2-3, so decays down to ~1e-4, a given state and
+    a final-state cotangent), below and above SPLIT_MIN_T; a second call
+    gives the same bits; one launch a call."""
+    from repro_torch.kernels.ssm_scan import ssm_scan_bwd, ssm_scan_bwd_ref
+
+    g = torch.Generator(card).manual_seed(t + d)
+    x, dy = (torch.randn(2, t, d, generator=g, device=card).to(dtype) for _ in range(2))
+    dt = (torch.rand(2, t, d, generator=g, device=card) + 2.0).to(dtype)
+    a = -torch.rand(d, n, generator=g, device=card) * 3.0 - 0.01
+    b, c = (torch.randn(2, t, n, generator=g, device=card).to(dtype) for _ in range(2))
+    h0, dh = (torch.randn(2, d, n, generator=g, device=card) for _ in range(2))
+    before = ssm_scan_bwd.launches
+    got = ssm_scan_bwd(x, dt, a, b, c, h0, dy, dh)
+    again = ssm_scan_bwd(x, dt, a, b, c, h0, dy, dh)
+    torch.cuda.synchronize()
+    assert ssm_scan_bwd.launches == before + 2
+    assert all(torch.equal(p, q) for p, q in zip(got, again))
+    _rec_bwd_close(got, ssm_scan_bwd_ref(x, dt, a, b, c, h0, dy, dh))
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-1.6b", "hymba-1.5b"])
+def test_recurrent_train_step_launches_the_backward_kernels(card, arch):
+    """One bf16 train step of rwkv6 and hymba smoke with remat (each block
+    under torch.utils.checkpoint) and 2 microbatches on the card: the
+    recurrence's forward kernel runs twice a layer a microbatch (forward
+    and recompute) and its backward kernel once; hymba's flash forward and
+    backward likewise; the loss is finite and the weights move."""
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.models import zoo
+    from repro_torch.optim import AdamW
+
+    cfg = get_config(arch, smoke=True).replace(remat=True, microbatch=2)
+    model = zoo.build_params(cfg, 0, device=card)
+    probe = next(p for n, p in model.named_parameters() if n.endswith(("wo", "w_out")))
+    probe0 = probe.detach().clone()
+    opt = AdamW(lr=1e-3)
+    state = {"params": model, "opt": opt.init(zoo.model_params(model)), "step": 0}
+    batch = zoo.make_batch(cfg, zoo.ShapeSpec("t", 300, 4, "train"), 0, device=card)
+    kernels.reset_launches()
+    state, metrics = zoo.make_train_step(cfg, opt)(state, batch)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    rec = "wkv6" if arch == "rwkv6-1.6b" else "ssm_scan"
+    per = cfg.n_layers * 2
+    assert counts[rec] == 2 * per and counts[rec + "_bwd"] == per
+    want_flash = (0, 0) if arch == "rwkv6-1.6b" else (2 * per, per)
+    assert (counts["flash_attention"], counts["flash_attention_bwd"]) == want_flash
+    assert torch.isfinite(metrics["loss"]) and state["step"] == 1
+    assert not torch.equal(probe, probe0)
+    assert not any(p.requires_grad for p in model.parameters())

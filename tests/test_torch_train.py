@@ -45,9 +45,17 @@ JAX_TRAIN_KEYS = {"arch", "steps", "restarts", "restored_steps", "first_loss", "
                   "step_time_s", "wall_s", "tokens_per_s"}
 
 
-def _configs(**change):
-    jcfg = jax_get_config("yi-9b", smoke=True).replace(dtype=jnp.float32, **change)
-    cfg = get_config("yi-9b", smoke=True).replace(dtype=torch.float32, **change)
+#: the ported archs' smoke configs.  The JAX side of rwkv6 and hymba runs its
+#: exact recurrences (``rwkv_chunk=0``, ``ssm_chunk=0``): its chunked jnp
+#: forms clamp the within-chunk log-decay at -60 (ROADMAP.md section 3),
+#: which rwkv6 smoke's init passes within a chunk; the port has no clamp.
+ARCHS = ("yi-9b", "rwkv6-1.6b", "hymba-1.5b")
+
+
+def _configs(arch="yi-9b", **change):
+    jcfg = jax_get_config(arch, smoke=True).replace(dtype=jnp.float32, rwkv_chunk=0,
+                                                    ssm_chunk=0, **change)
+    cfg = get_config(arch, smoke=True).replace(dtype=torch.float32, **change)
     return jcfg, cfg
 
 
@@ -301,16 +309,19 @@ def _adam_carry(lr, g, scale, eps=1e-8):
     return lr * scale * eps / (np.abs(scale * g) + eps) ** 2 * dg
 
 
+@pytest.mark.parametrize("arch", ARCHS)
 @pytest.mark.parametrize("remat", [False, True], ids=["no_remat", "remat"])
 @pytest.mark.parametrize("microbatch", [1, 2])
-def test_train_step_matches_jax(remat, microbatch):
-    """One step of yi smoke in f32 from the same weights, S = 2 x
-    LOSS_CHUNK (the chunked loss runs): the loss, every gradient (from
+def test_train_step_matches_jax(remat, microbatch, arch):
+    """One step of each ported arch's smoke config in f32 from the same
+    weights, S = 2 x LOSS_CHUNK (the chunked loss runs; rwkv6's and hymba's
+    recurrences through their autograd Functions and plain backwards): the
+    loss, every gradient (from
     ``jax.value_and_grad(loss_fn)``, averaged over the microbatches as the
     JAX scan does), and after ``AdamW.update`` every parameter, m and v,
     within atol 1e-5 / rtol 1e-4; a parameter also within what the
     gradient tolerance carries through the Adam step (``_adam_carry``)."""
-    jcfg, cfg = _configs(remat=remat, microbatch=microbatch)
+    jcfg, cfg = _configs(arch, remat=remat, microbatch=microbatch)
     jp, flat, model = _weights(jcfg, cfg)
     spec = ("t", 2 * zoo.LOSS_CHUNK, 2, "train")
     jbatch = jzoo.make_batch(jcfg, jzoo.ShapeSpec(*spec), 3)
@@ -379,8 +390,9 @@ def test_remat_gives_the_same_gradients():
 
 
 def test_recurrent_plain_versions_stay_differentiable():
-    """On the CPU wkv6 and ssm_scan take their plain versions, which
-    autograd differentiates (on the card they raise under grad)."""
+    """On the CPU wkv6 and ssm_scan take their plain versions, forward and
+    back, through their autograd Functions (on the card the same Functions
+    launch the backward kernels)."""
     g = torch.Generator().manual_seed(0)
     r, k, v = (torch.randn(1, 6, 2, 32, generator=g, requires_grad=True) for _ in range(3))
     w = torch.rand(1, 6, 2, 32, generator=g) * 0.5 + 0.4
@@ -412,10 +424,11 @@ def _jax_driver(jcfg, path, **kw):
     return JaxDriver(jcfg, path, data=JaxDataConfig(vocab=jcfg.vocab, **DATA), **kw)
 
 
-def test_driver_losses_match_jax(tmp_path):
+@pytest.mark.parametrize("arch", ARCHS)
+def test_driver_losses_match_jax(tmp_path, arch):
     """Six steps of both drivers from the same weights over the same
     pipeline batches: losses by step within rtol 1e-4."""
-    jcfg, cfg = _configs()
+    jcfg, cfg = _configs(arch)
     _, flat, _ = _weights(jcfg, cfg)
     want = _jax_driver(jcfg, tmp_path / "jax", ckpt_every=100).run(6)
     got = _port_driver(cfg, tmp_path / "port", flat, ckpt_every=100).run(6)
@@ -440,10 +453,11 @@ def test_restart_replays_bit_identical(tmp_path):
     assert resumed.losses == straight.losses[12:]
 
 
-def test_jax_checkpoint_restores_in_the_port(tmp_path):
+@pytest.mark.parametrize("arch", ARCHS)
+def test_jax_checkpoint_restores_in_the_port(tmp_path, arch):
     """The JAX driver's checkpoint after 2 steps restores in the port, whose
     third step's loss equals JAX's third within 1e-5."""
-    jcfg, cfg = _configs()
+    jcfg, cfg = _configs(arch)
     _jax_driver(jcfg, tmp_path / "a", ckpt_every=2).run(2)
     shutil.copytree(tmp_path / "a", tmp_path / "b")
     got = _port_driver(cfg, tmp_path / "a", ckpt_every=100).run(3)
@@ -452,12 +466,13 @@ def test_jax_checkpoint_restores_in_the_port(tmp_path):
     np.testing.assert_allclose(got.losses, want.losses, atol=1e-5, rtol=1e-5)
 
 
-def test_port_checkpoint_restores_in_jax(tmp_path):
+@pytest.mark.parametrize("arch", ARCHS)
+def test_port_checkpoint_restores_in_jax(tmp_path, arch):
     """The port's bf16 checkpoint after 2 steps restores with
     ``repro.checkpoint.restore_state`` into the JAX state's structure, every
     leaf equal to the port's own restore."""
-    jcfg = jax_get_config("yi-9b", smoke=True)
-    cfg = get_config("yi-9b", smoke=True)
+    jcfg = jax_get_config(arch, smoke=True)
+    cfg = get_config(arch, smoke=True)
     drv = _port_driver(cfg, tmp_path, ckpt_every=100)
     drv.run(2)
     like = jax.eval_shape(_jax_driver(jcfg, tmp_path / "unused").init_state)
