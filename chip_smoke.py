@@ -266,9 +266,9 @@ a checkout, on a host with one Hopper card (sm_90) and the CUDA toolkit.
    train microbatch (B = 2, T = 4,096, D = 1,600, N = 16), T = 100, and T =
    777 from a state with dt in 2-3.
 32. Train parity (27) on a 2-layer rwkv6-1.6b and hymba-1.5b at full width
-   in f32: each gradient within 1e-4 of its leaf's largest (rwkv6: plus
-   twice the CPU's own error against an f64 run of the model on the card),
-   the AdamW step within what that moves, both clip factors counted.
+   in f32: each gradient within 1e-4 of its leaf's largest of the CPU's
+   (rwkv6: within 2e-4 of an f64 run of the model on the card, the CPU's
+   own error against it logged), the AdamW step within what that moves.
 33. The train phase (28) on rwkv6-1.6b (24 layers) and hymba-1.5b (32
    layers) at full width and depth, bf16, remat, 4 x 4,096 tokens a step in
    2 microbatches, 4 steps: rwkv 96 ``wkv6`` and 48 ``wkv6_bwd`` launches a
@@ -282,7 +282,10 @@ Prints one JSON line of kernel results, then the nvidia-smi line, then
 no result.  ``--profile DIR`` also writes torch.profiler tables of a short
 batched Gather burst, of the batched DAPC arm and of the yi-9b decode and
 prefill bursts (``lm_*``; ``rwkv_*`` for rwkv6-1.6b, ``hymba_*`` for
-hymba-1.5b) to ``DIR``.
+hymba-1.5b) to ``DIR``.  ``--grad-conditioning N`` runs only a sweep of
+phase 32's rwkv6 reference: for N seeds of weights drawn on the card and
+on the CPU, the CPU's and the kernels' f32 gradients against an f64 run on
+the card.
 """
 
 from __future__ import annotations
@@ -446,17 +449,18 @@ YI_TRAIN = (2, 4096, 4096, 32, 4, 128)  # b, s, t, h, kh, d: train_4k's sequence
 # PARITY_ATOL as the logits of phase 12.  After one AdamW step the moments
 # and weights within what that gradient bound moves them (train_step_bound)
 TRAIN_PARITY_SEQ, TRAIN_PARITY_BATCH, TRAIN_GRAD_RTOL, TRAIN_LR = 128, 1, 1e-4, 1e-3
-# rwkv6's f32 gradients are ill-conditioned at these weights: two f32
-# renderings that sum in other orders differ by up to 8e-4 of a leaf's
-# largest, and against an f64 run the CPU's are 4-6e-4 off (PERF.md §6).
-# Its leaves are bounded by TRAIN_GRAD_RTOL plus twice the CPU's own error
-# against an f64 run on the card (:func:`_f64_grads`), measured in the same
-# run: the kernels may be no further from exact than the CPU is
-TRAIN_F64_ROOM = ("rwkv6-1.6b",)
-# the recurrent archs' AdamW step bound also takes the clip factors of both
-# sides and the update's exact change (a gradient within its bound of 0 may
-# flip an element's step: an element of rwkv6's embedding did)
-TRAIN_STEP_EXACT = ("rwkv6-1.6b", "hymba-1.5b")
+# rwkv6's f32 gradients are not good to TRAIN_GRAD_RTOL at every draw:
+# against an f64 run of the model on the card, six draws of these shapes
+# (seeds 0-2 on each generator) put the CPU's 3.5e-5 to 9.9e-4 of a leaf's
+# largest off and the kernels' 3.9e-5 to 1.7e-3, as the draw conditions
+# them: the card's draws 1.1e-4 to 9.9e-4 (CPU), the CPU's 3.5e-5 to
+# 1.7e-4, overlapping (PERF.md §6).  At this draw the CPU's are 3.7e-4
+# off, the kernels' 1.2e-4 and the plain versions' on the card 2.6e-4
+# (``--grad-conditioning``).  Its gradients are held to that f64
+# run (:func:`_f64_grads`, rounded to f32) within TRAIN_F64_RTOL of a leaf's
+# largest, set between the kernels' and the plain versions' readings; the
+# CPU's error against it is logged
+TRAIN_F64_REF, TRAIN_F64_RTOL = ("rwkv6-1.6b",), 2e-4
 # the train phase: yi-9b at full width and 8 of its 48 layers, bf16, remat,
 # train_4k's 4,096 tokens, 4 sequences a step in 2 microbatches
 TRAIN_LAYERS, TRAIN_SEQ, TRAIN_BATCH, TRAIN_MICROBATCH, TRAIN_STEPS = 8, 4096, 4, 2, 6
@@ -3625,26 +3629,31 @@ def _grads(cfg, model, batch, raw: bool = False) -> tuple:
     return (loss.item(), host, dict(zip(params, grads))) if raw else (loss.item(), host)
 
 
-def train_step_bound(g: torch.Tensor, dg: float, scale: float, lr: float, eps: float = 1e-8,
-                     dscale: float = 0.0, exact: bool = False):
+def train_step_bound(g: torch.Tensor, dg: float, scale: float, dscale: float, lr: float,
+                     eps: float = 1e-8):
     """How far a gradient error of ``dg`` moves each element's m, v and
     weight after the first AdamW step (b1 0.9, b2 0.95, scale the clip
-    factor): m = 0.1 g', v = 0.05 g'^2 with g' = scale g, and the update
-    g' / (|g'| + eps), whose slope eps / (|g'| + eps)^2 lets a gradient
-    within dg of 0 move the weight by up to lr.  ``dscale``: how far the
-    other side's clip factor lies from ``scale`` (its global norm moved by
-    the gradients' errors), which moves g' by |g| dscale more.  With
-    ``exact`` the weight's bound is the update's largest change over g'
-    within that error (the update rises with g'), not its slope at g',
-    which understates it where the error reaches across 0."""
-    gp = (scale * g).abs()
+    factor): m = 0.1 g', v = 0.05 g'^2 with g' = scale g.  ``dscale``: how
+    far the other side's clip factor lies from ``scale`` (its global norm
+    moved by the gradients' errors), which moves g' by |g| dscale more.  The
+    weight's bound is lr times the update g' / (|g'| + eps)'s largest change
+    over g' within that error (the update rises with g', so the ends of
+    that range bound it); its slope at g' understates that change where the
+    error reaches across 0.  The change from b to a = b + error is formed
+    without cancellation (f32 and f64 round the change of an update near 1
+    to 0): eps (a - b) / ((|a| + eps)(|b| + eps)) on one side of 0,
+    |a| / (|a| + eps) + |b| / (|b| + eps) across it; in f64."""
+    g = g.double()
+    x = scale * g
     dgp = scale * dg + (g.abs() + dg) * dscale
-    if exact:
-        x = scale * g
-        upd = lambda y: y / (y.abs() + eps)
-        step = torch.maximum(upd(x + dgp) - upd(x), upd(x) - upd(x - dgp))
-        return 0.1 * dgp, 0.05 * (2 * gp + dgp) * dgp, lr * step
-    return 0.1 * dgp, 0.05 * (2 * gp + dgp) * dgp, lr * dgp * eps / (gp + eps) ** 2
+
+    def change(b):  # from b to a = b + dgp
+        a = b + dgp
+        return torch.where(a * b >= 0, eps * dgp / ((a.abs() + eps) * (b.abs() + eps)),
+                           a.abs() / (a.abs() + eps) + b.abs() / (b.abs() + eps))
+
+    step = torch.maximum(change(x), change(x - dgp))
+    return 0.1 * dgp, 0.05 * (2 * x.abs() + dgp) * dgp, lr * step
 
 
 def _wkv6_in_dtype(r, k, v, w, u, state=None):
@@ -3663,35 +3672,37 @@ def _wkv6_in_dtype(r, k, v, w, u, state=None):
     return torch.stack(outs, 1), s
 
 
-def _f64_grads(cfg, model, batch) -> dict:
-    """The gradient leaves (JAX names, on the host) of an f64 copy of an
-    rwkv6 ``model`` on its device, the WKV recurrence in f64 too: the
-    reference that rwkv6's train parity measures the CPU's error against."""
+def _f64_grads(cfg, model, batch) -> tuple:
+    """The gradient leaves of an f64 copy of an rwkv6 ``model`` on its
+    device, the WKV recurrence in f64 too, rounded to f32 on the host: by
+    JAX names and by the model's parameter names (rwkv6's train parity
+    reference)."""
     from repro_torch.models import rwkv
 
     m64 = copy.deepcopy(model).double()
     saved = rwkv.wkv6
     rwkv.wkv6 = _wkv6_in_dtype
     try:
-        return _grads(cfg.replace(dtype=torch.float64), m64, batch)[1]
+        _, named, raw = _grads(cfg.replace(dtype=torch.float64), m64, batch, raw=True)
     finally:
         rwkv.wkv6 = saved
         del m64
+    return ({k: x.float() for k, x in named.items()},
+            {k: x.float().cpu() for k, x in raw.items()})
 
 
 def train_parity_phase(dev, arch: str = "yi-9b") -> dict:
     """A 2-layer ``arch`` at full width in f32, one set of weights drawn on
     the card from seed 0 and copied to the host, one train_4k-kind batch of
-    TRAIN_PARITY_SEQ tokens: the loss and every gradient leaf on the card
-    (the arch's forward and backward kernels: flash for yi, wkv6 for rwkv6,
-    flash and ssm_scan for hymba) against the CPU (plain versions), then one
-    AdamW step of ``make_train_step`` on each side: every weight, m and v
-    within :func:`train_step_bound` of the gradient bound (the CPU's step is
-    AdamW.update of its gradients, as make_train_step applies them).  For
-    rwkv6 a leaf's gradient bound is TRAIN_GRAD_RTOL of its largest plus
-    twice the CPU's own largest error against an f64 run on the card
-    (TRAIN_F64_ROOM); for rwkv6 and hymba the step's bound takes both clip
-    factors and the update's exact change (TRAIN_STEP_EXACT)."""
+    TRAIN_PARITY_SEQ tokens: the loss on the card (the arch's forward and
+    backward kernels: flash for yi, wkv6 for rwkv6, flash and ssm_scan for
+    hymba) against the CPU's (plain versions); every gradient leaf within
+    TRAIN_GRAD_RTOL of its largest of the CPU's (rwkv6: within
+    TRAIN_F64_RTOL of an f64 run's, TRAIN_F64_REF); then one AdamW step of
+    ``make_train_step`` on the card against AdamW.update of the reference
+    gradients on the host (as make_train_step applies them): every weight,
+    m and v within :func:`train_step_bound` of the gradient bound and the
+    two clip factors."""
     from repro_torch.configs import get_config
     from repro_torch.models import zoo
     from repro_torch.models.common import ParamFactory
@@ -3709,82 +3720,122 @@ def train_parity_phase(dev, arch: str = "yi-9b") -> dict:
     card_batch = {k: x.to(dev) for k, x in batch.items()}
     card_loss, card_g = _grads(cfg, card_model, card_batch)
     host_loss, host_g, host_raw = _grads(cfg, host_model, batch, raw=True)
-    rec = {"loss_card": card_loss, "loss_cpu": host_loss, "grad_rel_err": {}}
+    rec = {"loss_card": card_loss, "loss_cpu": host_loss, "reference": "cpu",
+           "grad_rel_err": {}}
     if not abs(card_loss - host_loss) <= PARITY_ATOL:
         raise AssertionError(f"train parity {arch}: loss {card_loss} on the card, {host_loss} "
                              "on the CPU")
-    room = dict.fromkeys(host_g, 0.0)
-    if arch in TRAIN_F64_ROOM:
-        exact = _f64_grads(cfg, card_model, card_batch)
-        rel = lambda g, name: ((g.double() - exact[name]).abs().max().item()
-                               / max(exact[name].abs().max().item(), 1e-300))
-        rec["cpu_vs_f64_grad_rel_err"] = {name: rel(g, name) for name, g in host_g.items()}
-        rec["card_vs_f64_grad_rel_err"] = {name: rel(g, name) for name, g in card_g.items()}
-        room = {name: 2 * (hg.double() - exact[name]).abs().max().item()
-                for name, hg in host_g.items()}
-        del exact
-    grad_bound = {name: TRAIN_GRAD_RTOL * hg.abs().max().item() + room[name]
-                  for name, hg in host_g.items()}
-    for name, hg in host_g.items():
-        rel = (card_g[name] - hg).abs().max().item() / max(hg.abs().max().item(), 1e-30)
-        rec["grad_rel_err"][name] = rel
-    off = {name: rec["grad_rel_err"][name] for name, hg in host_g.items()
-           if not (card_g[name] - hg).abs().max().item() <= grad_bound[name]}
+    rel = lambda g, ref: (g - ref).abs().max().item() / max(ref.abs().max().item(), 1e-30)
+    ref_g, ref_raw, rtol = host_g, host_raw, TRAIN_GRAD_RTOL
+    if arch in TRAIN_F64_REF:
+        ref_g, ref_raw = _f64_grads(cfg, card_model, card_batch)
+        rtol, rec["reference"] = TRAIN_F64_RTOL, "f64 on the card"
+        rec["cpu_vs_ref_grad_rel_err"] = {name: rel(g, ref_g[name]) for name, g in host_g.items()}
+    del host_raw
+    grad_bound = {name: rtol * g.abs().max().item() for name, g in ref_g.items()}
+    for name, g in ref_g.items():
+        rec["grad_rel_err"][name] = rel(card_g[name], g)
+    off = {name: rec["grad_rel_err"][name] for name, g in ref_g.items()
+           if not (card_g[name] - g).abs().max().item() <= grad_bound[name]}
     if off:
         log(f"train parity {arch}: gradient relative errors {json.dumps(rec)}")
-        raise AssertionError(f"train parity {arch}: gradients off by more than their bounds "
-                             f"(relative errors): {off}")
+        raise AssertionError(f"train parity {arch}: gradients off by more than {rtol} of each "
+                             f"leaf's largest (relative errors): {off}")
     opts = AdamW(lr=TRAIN_LR), AdamW(lr=TRAIN_LR)
     states = [{"params": m, "opt": o.init(zoo.model_params(m)), "step": 0}
               for m, o in zip((card_model, host_model), opts)]
     _, card_m = zoo.make_train_step(cfg, opts[0])(states[0], {k: x.to(dev) for k, x in
                                                              batch.items()})
-    # on the CPU the same step from the gradients just taken: make_train_step
-    # with one microbatch takes them again (the same CPU sums, bit for bit)
-    # and hands them to AdamW.update
+    # on the host the same step from the reference gradients: make_train_step
+    # with one microbatch on the CPU takes the CPU's again (the same sums,
+    # bit for bit) and hands them to AdamW.update
     with torch.no_grad():
-        *_, host_m = opts[1].update(host_raw, states[1]["opt"], zoo.model_params(host_model))
-    del host_raw
+        *_, host_m = opts[1].update(ref_raw, states[1]["opt"], zoo.model_params(host_model))
+    del ref_raw
     scale = min(1.0, 1.0 / float(host_m["grad_norm"]))
     # the clip factors differ where the gradients' bound lets the global
     # norms differ (rwkv6: by ~1.2e-4 of the norm)
-    dscale = (abs(min(1.0, 1.0 / float(card_m["grad_norm"])) - scale)
-              if arch in TRAIN_STEP_EXACT else 0.0)
-    rec["grad_norm_card"], rec["grad_norm_cpu"] = (float(card_m["grad_norm"]),
+    dscale = abs(min(1.0, 1.0 / float(card_m["grad_norm"])) - scale)
+    rec["grad_norm_card"], rec["grad_norm_ref"] = (float(card_m["grad_norm"]),
                                                    float(host_m["grad_norm"]))
     trees = [(zoo.to_jax_params(cfg, st["params"]), zoo.to_jax_params(cfg, st["opt"].m),
               zoo.to_jax_params(cfg, st["opt"].v)) for st in states]
     worst = {"params": 0.0, "m": 0.0, "v": 0.0}
-    for name, hg in host_g.items():
-        bounds = train_step_bound(hg, grad_bound[name], scale, TRAIN_LR, dscale=dscale,
-                                  exact=arch in TRAIN_STEP_EXACT)
+    # the bounds and comparisons on the card (f64 over yi's 0.9 B weights
+    # takes the host ~1 min)
+    for name, g in ref_g.items():
+        g = g.to(dev)
+        bounds = train_step_bound(g, grad_bound[name], scale, dscale, TRAIN_LR)
         for i, what in enumerate(("params", "m", "v")):
-            card, host = trees[0][i][name].cpu(), trees[1][i][name]
+            card, host = trees[0][i][name], trees[1][i][name].to(dev)
             lim = {"m": bounds[0], "v": bounds[1], "params": bounds[2]}[what]
             # and f32's own rounding: 1e-6 of a value; a weight's update is
             # lr times an O(1) quotient, good to ~1e-6 of lr, which a weight
             # that the step brings near 0 does not scale down
             lim = lim + 1e-6 * host.abs() + (TRAIN_LR * 1e-6 if what == "params" else 1e-12)
-            bad = ((card - host).abs() > lim).flatten().nonzero()[:, 0]
+            bad = ((card - host).abs() > lim).flatten().nonzero()[:, 0].cpu()
             worst[what] = max(worst[what], (card - host).abs().max().item())
             if len(bad):
                 at = bad[:6]
-                show = {"g_cpu": hg.flatten()[at], "g_card": card_g[name].flatten()[at],
+                show = {"g_ref": g.cpu().flatten()[at], "g_card": card_g[name].flatten()[at],
                         **{f"{w}_{side}": trees[j][i2][name].cpu().flatten()[at]
-                           for j, side in enumerate(("card", "cpu"))
+                           for j, side in enumerate(("card", "ref"))
                            for i2, w in enumerate(("params", "m", "v"))}}
                 log(f"train parity {arch}: {len(bad)} elements of {what} {name} past the "
                     f"bound; first: {({k: v.tolist() for k, v in show.items()})}, "
                     f"scale {scale}")
                 raise AssertionError(f"train parity {arch}: {len(bad)} elements of {what} "
                                      f"{name} past the bound the gradient tolerance allows")
+        del g, bounds, card, host, lim
     rec["max_abs_err_after_step"] = worst
     rec["seconds"] = time.perf_counter() - t
     log(f"train parity: 2-layer {arch} full width f32, B={TRAIN_PARITY_BATCH} "
-        f"S={TRAIN_PARITY_SEQ}, card vs CPU: {json.dumps(rec)}")
+        f"S={TRAIN_PARITY_SEQ}, card vs {rec['reference']}: {json.dumps(rec)}")
     del card_model, host_model, states, trees
     torch.cuda.empty_cache()
     return rec
+
+
+def grad_conditioning(dev, seeds: int) -> list:
+    """rwkv6's f32 gradients against an f64 run on the card (the
+    TRAIN_F64_REF reference) at draws of the train parity phase's shapes:
+    for seeds 0 to ``seeds`` - 1, weights drawn on the card's generator and
+    on the CPU's; each side's (the CPU's plain versions, the card's
+    kernels) largest error of a leaf relative to the leaf's largest
+    |gradient|, and the leaf."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import zoo
+    from repro_torch.models.common import ParamFactory
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = get_config("rwkv6-1.6b").replace(n_layers=2, dtype=torch.float32)
+    batch = zoo.make_batch(cfg, zoo.ShapeSpec("t", TRAIN_PARITY_SEQ, TRAIN_PARITY_BATCH,
+                                              "train"), 0, device="cpu")
+    card_batch = {k: x.to(dev) for k, x in batch.items()}
+    rel = lambda g, ref: (g - ref).abs().max().item() / max(ref.abs().max().item(), 1e-30)
+    out = []
+    for drawn in ("card", "cpu"):
+        for seed in range(seeds):
+            card_model = zoo.build_params(cfg, seed, device=dev if drawn == "card" else "cpu")
+            card_model = card_model.to(dev)
+            host_model = zoo.LM(cfg, ParamFactory(0, torch.float32, torch.device("cpu"),
+                                                  fill=False))
+            host_model.load_state_dict(card_model.state_dict())
+            sides = {"kernels": _grads(cfg, card_model, card_batch)[1],
+                     "cpu": _grads(cfg, host_model, batch)[1]}
+            ref_g, _ = _f64_grads(cfg, card_model, card_batch)
+            rec = {"drawn": drawn, "seed": seed}
+            for side, grads in sides.items():
+                errs = {name: rel(g, ref_g[name]) for name, g in grads.items()}
+                worst = max(errs, key=errs.get)
+                rec[side] = {"max": errs[worst], "leaf": worst}
+            log(f"grad conditioning: 2-layer rwkv6-1.6b f32 against f64 on the card, "
+                f"B={TRAIN_PARITY_BATCH} S={TRAIN_PARITY_SEQ}: {json.dumps(rec)}")
+            out.append(rec)
+            del card_model, host_model, sides, ref_g
+            torch.cuda.empty_cache()
+    return out
 
 
 def route_gradients(cfg, model, batch) -> dict:
@@ -4144,6 +4195,8 @@ def write_profile(prof, wall: float, path: Path, what: str, busy_us: float | Non
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", metavar="DIR", default=None)
+    ap.add_argument("--grad-conditioning", metavar="SEEDS", type=int, default=None,
+                    help="run only rwkv6's f32-against-f64 gradient sweep over SEEDS draws")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4159,6 +4212,10 @@ def main() -> int:
     def elapsed(done: str) -> None:  # the run's time budget, phase by phase
         log(f"elapsed after {done}: {time.perf_counter() - t_start:.1f} s")
 
+    if args.grad_conditioning is not None:
+        build.build_all(["wkv6", "wkv6_bwd"])
+        grad_conditioning(dev, args.grad_conditioning)
+        return 0
     libs = build.build_all()
     log(f"built {sorted(libs)} in {time.perf_counter() - t:.1f} s")
     for name, text in build.build_logs.items():
