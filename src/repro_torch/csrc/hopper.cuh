@@ -1,8 +1,8 @@
 // Hopper building blocks shared by the attention kernels (sm_90a):
 // mbarriers, TMA tile loads and their tensor maps, cp.async, and wgmma with
-// its shared-memory descriptors.  Included by csrc/flash_attention.cu and
-// csrc/flash_attention_bwd.cu; each is its own library, so everything here
-// has internal linkage.
+// its shared-memory descriptors.  Included by csrc/flash_attention.cu,
+// csrc/flash_attention_bwd.cu and csrc/wkv6_bwd.cu (cp.async); each is its
+// own library, so everything here has internal linkage.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums; the encoder comes from the runtime

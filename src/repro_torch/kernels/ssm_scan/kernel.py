@@ -32,9 +32,15 @@ backward is :func:`ssm_scan_bwd`, the wrapper of ``csrc/ssm_scan_bwd.cu``
 (no Pallas counterpart: the JAX package differentiates its jnp scan with
 XLA): every input's gradient from T cut into chunks of :data:`BWD_CHUNK`
 steps, each chunk's states formed again from a carried state and walked
-back from a carried adjoint (five device kernels, no atomics; counted in
-``ssm_scan_bwd.launches`` and under its one route ``"split"``).  On the
-CPU the same ``Function`` takes the plain backward (``ssm_scan_bwd_ref``).
+back from a carried adjoint, no atomics, on one of two routes:
+``"regs"`` (the default for f32 and bf16: a serial pass for the chunk
+states and adjoints, a chunk pass of 512 threads with a channel's states
+over 4 lanes and the history in registers, db and dc summed over 128
+channels in shared memory; four device kernels) or ``"split"`` (local
+passes, a carry and a chunk pass of one warp a block; five).
+Each call is counted in ``ssm_scan_bwd.launches`` and under its route in
+``ssm_scan_bwd.route_launches``.  On the CPU the same ``Function`` takes
+the plain backward (``ssm_scan_bwd_ref``).
 """
 
 from __future__ import annotations
@@ -207,18 +213,25 @@ class _SSMScan(torch.autograd.Function):
                 None, None)
 
 
-#: the backward kernel's steps per chunk (a warp keeps a chunk's states of
-#: its 32 channels in shared memory) and channels per block of its
-#: gradient pass (one warp: db and dc are summed over them by shuffles)
-BWD_CHUNK, BWD_CHANNELS = 16, 32
+#: the backward kernel's steps per chunk and, on the split route, channels
+#: per block of its gradient pass (one warp: db and dc are summed over them
+#: by shuffles); the regs route's gradient pass takes 128 channels a block
+BWD_CHUNK, BWD_CHANNELS, REGS_CHANNELS = 16, 32, 128
+#: the backward kernel's routes: ``split`` (the forward's split design run
+#: back: local passes, a carry, a warp a block with the chunk's states in
+#: shared memory) and ``regs`` (a serial pass for the chunk states and
+#: adjoints, 512 threads a block with a channel's states over 4 lanes and
+#: the chunk's history in registers); both exact f32 arithmetic
+BWD_ROUTES = ("split", "regs")
 
 
 def _bwd_library() -> ctypes.CDLL:
     lib = load("ssm_scan_bwd")
     if not lib.ssm_scan_bwd_launch.argtypes:
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.ssm_scan_bwd_launch.argtypes = [p] * 15 + [i] * 6 + [p]
-        lib.ssm_scan_bwd_launch.restype = ctypes.c_int
+        for fn in (lib.ssm_scan_bwd_launch, lib.ssm_scan_bwd_regs_launch):
+            fn.argtypes = [p] * 15 + [i] * 6 + [p]
+            fn.restype = ctypes.c_int
         lib.ssm_scan_bwd_error_string.argtypes = [ctypes.c_int]
         lib.ssm_scan_bwd_error_string.restype = ctypes.c_char_p
     return lib
@@ -233,13 +246,19 @@ def ssm_scan_bwd(
     h0: torch.Tensor | None,  # (B, D, N) f32; zeros when None
     dy: torch.Tensor,  # (B, T, D) in x's dtype: y's cotangent
     dh: torch.Tensor | None = None,  # (B, D, N) f32: the final state's
+    *,
+    route: str | None = None,
 ) -> tuple[torch.Tensor, ...]:
     """The gradients of :func:`ssm_scan` at ``(dy, dh)``: ``(dx, ddt, da,
     db, dc, dh0)``, each in its operand's dtype (da and dh0 in f32), all new
     tensors: the plain version (``ssm_scan_bwd_ref``) for a CPU tensor, the
     kernel for a CUDA one (counted once in ``ssm_scan_bwd.launches`` and
-    under ``"split"`` in ``ssm_scan_bwd.route_launches``) or a raise."""
+    under its route in ``ssm_scan_bwd.route_launches``; ``route`` defaults
+    to ``"regs"`` for f32 and bf16 alike) or a raise."""
     _check(x, dt, a, b, c, h0)
+    if route is not None and route not in BWD_ROUTES:
+        raise ValueError(f"ssm_scan_bwd route must be one of {BWD_ROUTES}, got {route!r}")
+    route = route or "regs"
     bsz, t, d = x.shape
     n = a.shape[1]
     if dy.shape != x.shape or dy.dtype != x.dtype or dy.device != x.device:
@@ -264,27 +283,28 @@ def ssm_scan_bwd(
                          f"steps, got B = {bsz} rows of {t}")
     dx, ddt, da, db, dc = (torch.empty_like(v) for v in (x, dt, a, b, c))
     dh0 = torch.empty((bsz, d, n), dtype=torch.float32, device=x.device)
-    # the chunks' states, adjoints and decay products, da's partial sums by
-    # chunk, and db's and dc's by warp of channels
+    # the chunks' states and adjoints (split: and decay products), da's
+    # partial sums by chunk, and db's and dc's by group of channels
     entries = bsz * nc * d * n
-    warps = -(-d // BWD_CHANNELS)
-    scratch = torch.empty(4 * entries + warps * bsz * t * 2 * n, dtype=torch.float32,
-                          device=x.device)
+    if route == "split":
+        size = 4 * entries + -(-d // BWD_CHANNELS) * bsz * t * 2 * n
+    else:
+        size = 3 * entries + -(-d // REGS_CHANNELS) * bsz * t * 2 * n
+    scratch = torch.empty(size, dtype=torch.float32, device=x.device)
     lib = _bwd_library()
+    fn = lib.ssm_scan_bwd_launch if route == "split" else lib.ssm_scan_bwd_regs_launch
     ptrs = [v.data_ptr() if v is not None else None
             for v in (x, dt, a, b, c, h0, dy, dh, dx, ddt, da, db, dc, dh0, scratch)]
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.ssm_scan_bwd_launch(*ptrs, _DTYPES[x.dtype], bsz, t, d, n, BWD_CHUNK, stream)
+        err = fn(*ptrs, _DTYPES[x.dtype], bsz, t, d, n, BWD_CHUNK, stream)
     ssm_scan_bwd.launches += 1
-    ssm_scan_bwd.route_launches["split"] += 1
+    ssm_scan_bwd.route_launches[route] += 1
     if err:
         msg = lib.ssm_scan_bwd_error_string(err).decode()
-        raise RuntimeError(f"ssm_scan_bwd launch failed: {msg} ({err})")
+        raise RuntimeError(f"ssm_scan_bwd {route} launch failed: {msg} ({err})")
     return dx, ddt, da, db, dc, dh0
 
 
-#: the backward kernel's one route: the forward's split design run back
-BWD_ROUTES = ("split",)
 ssm_scan_bwd.launches = 0
 ssm_scan_bwd.route_launches = dict.fromkeys(BWD_ROUTES, 0)

@@ -29,9 +29,21 @@ is :func:`wkv6_bwd`, the wrapper of ``csrc/wkv6_bwd.cu`` (no Pallas
 counterpart: the JAX package differentiates its jnp scan with XLA): every
 input's gradient from T cut into chunks of :func:`bwd_chunk` steps, each
 chunk's states formed again from a carried state and walked back from a
-carried adjoint (five device kernels, no atomics; counted in
-``wkv6_bwd.launches`` and under its one route ``"split"``).  On the CPU the
-same ``Function`` takes the plain backward (``wkv6_bwd_ref``).
+carried adjoint, no atomics, on one of two routes (:func:`bwd_route`):
+
+- ``"mma"`` (bf16 r, k, v and dout, the train path's): chunks of 16 steps;
+  a serial pass carries the chunk states and adjoints with each chunk's
+  contribution one tensor-core product, then each chunk's products with
+  them (``dout S^T``, ``v G^T``, ``(k Bw) G``, ``v dout^T``) run on the
+  tensor cores, f32 operands cut into three bf16 parts, and its steps as
+  pairwise sums with forward decay products (``wkv6_bwd_mma_ref`` is the
+  algebra in plain ops).  Three device kernels.
+- ``"split"`` (every dtype; f32 by default): local passes, a carry and a
+  per-chunk walk on the CUDA cores.  Five device kernels.
+
+Each call is counted in ``wkv6_bwd.launches`` and under its route in
+``wkv6_bwd.route_launches``.  On the CPU the same ``Function`` takes the
+plain backward (``wkv6_bwd_ref``).
 """
 
 from __future__ import annotations
@@ -204,16 +216,34 @@ class _WKV6(torch.autograd.Function):
                 None, None)
 
 
-def bwd_chunk(m: int) -> int:
-    """The backward kernel's steps per chunk at head size ``m``: each thread
-    keeps a chunk's states of its 4 entries in registers, and a block's
-    column sums of a chunk in shared memory (16 steps; 8 at M = 128)."""
+#: the backward kernel's routes: ``split`` (every dtype; the forward's split
+#: design run back, the state's arithmetic on the CUDA cores) and ``mma``
+#: (bf16 r, k, v and dout: the chunk products with the carried state and
+#: adjoint on the tensor cores, the steps within a chunk as pairwise sums)
+BWD_ROUTES = ("split", "mma")
+#: the mma route's steps per chunk: one 16-row tensor-core tile
+MMA_CHUNK = 16
+
+
+def bwd_route(dtype: torch.dtype) -> str:
+    """The backward route a CUDA call with r, k, v and dout in ``dtype``
+    takes by default: ``mma`` for bf16, ``split`` for f32."""
+    return "mma" if dtype == torch.bfloat16 else "split"
+
+
+def bwd_chunk(m: int, route: str = "split") -> int:
+    """The backward kernel's steps per chunk at head size ``m``: on the
+    split route each thread keeps a chunk's states of its 4 entries in
+    registers, and a block's column sums of a chunk in shared memory (16
+    steps; 8 at M = 128); the mma route's chunk is one 16-row tile."""
+    if route == "mma":
+        return MMA_CHUNK
     return 16 if m <= 64 else 8
 
 
 def bwd_row_blocks(m: int) -> int:
-    """Blocks over a head's key rows in the backward kernel: a block of 256
-    threads holds 1,024 state entries, 4 a thread."""
+    """Blocks over a head's key rows in the split route's backward kernel:
+    a block of 256 threads holds 1,024 state entries, 4 a thread."""
     return max(m * m // 1024, 1)
 
 
@@ -221,8 +251,9 @@ def _bwd_library() -> ctypes.CDLL:
     lib = load("wkv6_bwd")
     if not lib.wkv6_bwd_launch.argtypes:
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.wkv6_bwd_launch.argtypes = [p] * 15 + [i] * 8 + [p]
-        lib.wkv6_bwd_launch.restype = ctypes.c_int
+        for fn in (lib.wkv6_bwd_launch, lib.wkv6_bwd_mma_launch):
+            fn.argtypes = [p] * 15 + [i] * 8 + [p]
+            fn.restype = ctypes.c_int
         lib.wkv6_bwd_error_string.argtypes = [ctypes.c_int]
         lib.wkv6_bwd_error_string.restype = ctypes.c_char_p
     return lib
@@ -237,13 +268,22 @@ def wkv6_bwd(
     state: torch.Tensor | None,  # (B, H, M, M) f32; zeros when None
     dout: torch.Tensor,  # (B, T, H, M) in r's dtype: the output's cotangent
     dstate: torch.Tensor | None = None,  # (B, H, M, M) f32: the final state's
+    *,
+    route: str | None = None,
 ) -> tuple[torch.Tensor, ...]:
     """The gradients of :func:`wkv6` at ``(dout, dstate)``: ``(dr, dk, dv,
     dw, du, dstate0)``, each in its operand's dtype (dstate0 in f32), all new
     tensors: the plain version (``wkv6_bwd_ref``) for a CPU tensor, the
     kernel for a CUDA one (counted once in ``wkv6_bwd.launches`` and under
-    ``"split"`` in ``wkv6_bwd.route_launches``) or a raise."""
+    its route in ``wkv6_bwd.route_launches``) or a raise.  On the card it
+    takes ``route`` (default :func:`bwd_route` of r's dtype); the mma route
+    takes bf16 r alone."""
     _check(r, k, v, w, u, state)
+    if route is not None and route not in BWD_ROUTES:
+        raise ValueError(f"wkv6_bwd route must be one of {BWD_ROUTES}, got {route!r}")
+    route = route or bwd_route(r.dtype)
+    if route == "mma" and r.dtype != torch.bfloat16:
+        raise ValueError(f"wkv6_bwd route 'mma' takes bf16 r, k, v and dout, got {r.dtype}")
     b, t, h, m = r.shape
     if dout.shape != r.shape or dout.dtype != r.dtype or dout.device != r.device:
         raise ValueError(f"wkv6_bwd: dout is {dout.dtype} {tuple(dout.shape)} on {dout.device}, "
@@ -260,34 +300,36 @@ def wkv6_bwd(
         raise ValueError(f"wkv6_bwd kernel takes head sizes {HEAD_DIMS}, got {m}")
     operands = [r, k, v, w, u, dout] + [x for x in (state, dstate) if x is not None]
     _kernel_operands("wkv6_bwd", operands)
-    chunk = bwd_chunk(m)
+    chunk = bwd_chunk(m, route)
     nc = -(-t // chunk)
-    if b * nc > 65535:
+    if route == "split" and b * nc > 65535:
         raise ValueError(f"wkv6_bwd kernel takes at most 65,535 chunks of {chunk} steps, "
                          f"got B = {b} rows of {t}")
     dr, dk, dv, dw, du = (torch.empty_like(x) for x in (r, k, v, w, u))
     ds0 = torch.empty((b, h, m, m), dtype=torch.float32, device=r.device)
-    # the chunks' states and adjoints, their decay products, du's partial
-    # sums by chunk and dv's by block of key rows
     states = b * nc * h * m * m
-    scratch = torch.empty(2 * states + 2 * b * nc * h * m + bwd_row_blocks(m) * b * t * h * m,
-                          dtype=torch.float32, device=r.device)
+    if route == "split":
+        # the chunks' states and adjoints, their decay products, du's partial
+        # sums by chunk and dv's by block of key rows
+        size = 2 * states + 2 * b * nc * h * m + bwd_row_blocks(m) * b * t * h * m
+    else:  # the chunks' states and adjoints, du's partial sums by chunk
+        size = 2 * states + b * nc * h * m
+    scratch = torch.empty(size, dtype=torch.float32, device=r.device)
     lib = _bwd_library()
+    fn = lib.wkv6_bwd_launch if route == "split" else lib.wkv6_bwd_mma_launch
     ptrs = [x.data_ptr() if x is not None else None
             for x in (r, k, v, w, u, state, dout, dstate, dr, dk, dv, dw, du, ds0, scratch)]
     with torch.cuda.device(r.device):
         stream = torch.cuda.current_stream(r.device).cuda_stream
-        err = lib.wkv6_bwd_launch(*ptrs, _DTYPES[r.dtype], _DTYPES[w.dtype], _DTYPES[u.dtype],
-                                  b, t, h, m, chunk, stream)
+        err = fn(*ptrs, _DTYPES[r.dtype], _DTYPES[w.dtype], _DTYPES[u.dtype], b, t, h, m, chunk,
+                 stream)
     wkv6_bwd.launches += 1
-    wkv6_bwd.route_launches["split"] += 1
+    wkv6_bwd.route_launches[route] += 1
     if err:
         msg = lib.wkv6_bwd_error_string(err).decode()
-        raise RuntimeError(f"wkv6_bwd launch failed: {msg} ({err})")
+        raise RuntimeError(f"wkv6_bwd {route} launch failed: {msg} ({err})")
     return dr, dk, dv, dw, du, ds0
 
 
-#: the backward kernel's one route: the forward's split design run back
-BWD_ROUTES = ("split",)
 wkv6_bwd.launches = 0
 wkv6_bwd.route_launches = dict.fromkeys(BWD_ROUTES, 0)

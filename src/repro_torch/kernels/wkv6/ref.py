@@ -227,3 +227,110 @@ def wkv6_bwd_split_ref(
     dr, dk, dv, dw = (torch.stack(x, 2).reshape(b, nc * chunk, h, m)[:, :t] for x in grads)
     du = du.sum((0, 1))
     return (dr.to(r.dtype), dk.to(k.dtype), dv.to(v.dtype), dw.to(w.dtype), du.to(u.dtype), g)
+
+
+def wkv6_bwd_mma_ref(
+    r: torch.Tensor,  # (B, T, H, M)
+    k: torch.Tensor,
+    v: torch.Tensor,
+    w: torch.Tensor,  # (B, T, H, M) decay factors in (0, 1)
+    u: torch.Tensor,  # (H, M)
+    state: torch.Tensor | None,  # (B, H, M, M) f32; zeros when None
+    dout: torch.Tensor,  # (B, T, H, M)
+    dstate: torch.Tensor | None = None,  # (B, H, M, M); zeros when None
+    chunk: int = 16,
+) -> tuple[torch.Tensor, ...]:
+    """:func:`wkv6_bwd_ref` as the backward kernel's mma route computes it,
+    with T cut into chunks of ``chunk`` steps and, within a chunk, the
+    forward decay products A_t = prod_{s<t} w_s, Bw_t = prod_{t<s<L} w_s and
+    E(t, s) = prod_{t<q<s} w_q (each <= 1):
+
+    (S) the carries S_in[c + 1] = diag(P[c]) S_in[c] + (k Bw)^T v from
+        ``state`` and G_end[c - 1] = diag(P[c]) G_end[c] + (r A)^T dout from
+        ``dstate``, chunk products (M x L) (L x M);
+    (C) the chunk products X = dout S_in^T, Y = v G_end^T, Z = (k Bw)
+        G_end and VD = v dout^T, then per key row a walk over the steps with
+        P~_t[s] = (S_t dout_s)[i] (P~_0 = X, P~_{t+1}[s] = w_t P~_t[s] + k_t
+        VD[t, s]) and R_t = <S_t[i, :], G_end[i, :]>:
+
+        dr_t = P~_t[t] + u k_t VD[t, t]
+        dk_t = Bw_t Y[t] + sum_{s>t} E(t, s) r_s VD[t, s] + u r_t VD[t, t]
+        dw_t = Bw_t R_t + sum_{s>t} E(t, s) r_s P~_t[s]
+        dv_t = Z[t] + sum_{s>=t} KR[t, s] dout_s
+
+    with KR[t, s] = sum_i k_t E(t, s) r_s (s > t), sum_i r_t u k_t (s = t).
+    No factor divides by a decay.  The last chunk is padded with steps of w
+    = 1 and r = k = v = dout = 0."""
+    b, t, h, m = r.shape
+    f32 = torch.float32
+    nc = -(-t // chunk)
+    pad = nc * chunk - t
+
+    def chunks(x, fill):  # (B, T, H, M) -> (B, NC, L, H, M), padded
+        x = x.to(f32)
+        if pad:
+            x = torch.cat([x, x.new_full((b, pad, h, m), fill)], 1)
+        return x.reshape(b, nc, chunk, h, m)
+
+    rc, kc, vc, dc = (chunks(x, 0.0) for x in (r, k, v, dout))
+    wc = chunks(w, 1.0)
+    uf = u.to(f32)
+    ones = torch.ones((b, nc, h, m), dtype=f32, device=r.device)
+    fwd, back, p = [], [None] * chunk, ones
+    for i in range(chunk):
+        fwd.append(p)
+        p = p * wc[:, :, i]
+    q = ones
+    for i in reversed(range(chunk)):
+        back[i] = q
+        q = q * wc[:, :, i]
+    a_t, bw = torch.stack(fwd, 2), torch.stack(back, 2)  # (B, NC, L, H, M)
+    kb = kc * bw
+    # (S) the carries, each chunk's contribution one product
+    s_loc = torch.einsum("bclhi,bclhj->bchij", kb, vc)
+    g_loc = torch.einsum("bclhi,bclhj->bchij", rc * a_t, dc)
+    s = torch.zeros((b, h, m, m), dtype=f32, device=r.device) if state is None else state.to(f32)
+    g = torch.zeros_like(s) if dstate is None else dstate.to(f32)
+    s_in, g_end = [], [None] * nc
+    for c in range(nc):
+        s_in.append(s)
+        s = p[:, c, ..., None] * s + s_loc[:, c]
+    for c in reversed(range(nc)):
+        g_end[c] = g
+        g = p[:, c, ..., None] * g + g_loc[:, c]
+    st, ge = torch.stack(s_in, 1), torch.stack(g_end, 1)  # (B, NC, H, M, M)
+    # (C) the chunk products, then each key row's walk
+    x = torch.einsum("bclhj,bchij->bclhi", dc, st)
+    y = torch.einsum("bclhj,bchij->bclhi", vc, ge)
+    z = torch.einsum("bclhi,bchij->bclhj", kb, ge)
+    vd = torch.einsum("bcthj,bcshj->bchts", vc, dc)  # (B, NC, H, L, L)
+    rr = (st * ge).sum(-1)  # (B, NC, H, M)
+    pt = [x[:, :, i] for i in range(chunk)]
+    kr = torch.zeros((b, nc, h, chunk, chunk), dtype=f32, device=r.device)
+    grads = [[None] * chunk for _ in range(3)]
+    du = torch.zeros((b, nc, h, m), dtype=f32, device=r.device)
+    for i in range(chunk):
+        r_t, k_t, w_t = rc[:, :, i], kc[:, :, i], wc[:, :, i]
+        vdt = vd[..., i, i, None]
+        uk = uf * k_t
+        dr_t = pt[i] + uk * vdt
+        dk_t = bw[:, :, i] * y[:, :, i] + uf * r_t * vdt
+        dw_t = bw[:, :, i] * rr
+        e_run = ones
+        for j in range(i + 1, chunk):
+            e = e_run * rc[:, :, j]
+            vds = vd[..., i, j, None]
+            dk_t = dk_t + e * vds
+            dw_t = dw_t + e * pt[j]
+            kr[..., i, j] = (k_t * e).sum(-1)
+            pt[j] = w_t * pt[j] + k_t * vds
+            e_run = e_run * wc[:, :, j]
+        kr[..., i, i] = (r_t * uk).sum(-1)
+        du = du + r_t * k_t * vdt
+        rr = w_t * rr + k_t * y[:, :, i]
+        grads[0][i], grads[1][i], grads[2][i] = dr_t, dk_t, dw_t
+    dv = z + torch.einsum("bchts,bcshj->bcthj", kr, dc)
+    dr, dk, dw = (torch.stack(xs, 2).reshape(b, nc * chunk, h, m)[:, :t] for xs in grads)
+    dv = dv.reshape(b, nc * chunk, h, m)[:, :t]
+    return (dr.to(r.dtype), dk.to(k.dtype), dv.to(v.dtype), dw.to(w.dtype),
+            du.sum((0, 1)).to(u.dtype), g)

@@ -29,9 +29,38 @@ if TYPE_CHECKING:
     from ..sharding.mesh import Mesh
 
 
+class _Take(torch.autograd.Function):
+    """Rows of a table at flat ids, ``index_select``'s bits, with a backward
+    that sums each row's cotangents in a fixed order: ``index_put_`` with
+    ``accumulate`` sorts the ids (stably) and adds each id's rows in turn.
+    ``index_select``'s own backward (``index_add_``) adds them with atomics
+    on the card, in an order that changes from run to run, so two runs of
+    one train step would differ in the table's gradient."""
+
+    @staticmethod
+    def forward(ctx, table, ids):
+        ctx.save_for_backward(ids)
+        ctx.rows = table.shape[0]
+        return table.index_select(0, ids)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (ids,) = ctx.saved_tensors
+        if not ctx.needs_input_grad[0]:
+            return None, None
+        out = grad.new_zeros((ctx.rows, grad.shape[1]))
+        return out.index_put_((ids,), grad.contiguous(), accumulate=True), None
+
+
 def embed_plain(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
-    """Rows of ``table`` at ``ids`` (any shape): ``(*ids.shape, D)``."""
-    return table.index_select(0, ids.reshape(-1).long()).reshape(*ids.shape, table.shape[1])
+    """Rows of ``table`` at ``ids`` (any shape): ``(*ids.shape, D)``; the
+    table's gradient is summed in a fixed order (:class:`_Take`)."""
+    flat = ids.reshape(-1).long()
+    if torch.is_grad_enabled() and table.requires_grad:
+        rows = _Take.apply(table, flat)
+    else:
+        rows = table.index_select(0, flat)
+    return rows.reshape(*ids.shape, table.shape[1])
 
 
 def embed_auto(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:

@@ -1094,14 +1094,17 @@ def _rec_bwd_close(got, want):
 
 
 @pytest.mark.parametrize("t", [1, 100, 300], ids=lambda t: f"T{t}")
-@pytest.mark.parametrize("m,dtype", [(32, torch.float32), (64, torch.float32),
-                                     (128, torch.float32), (64, torch.bfloat16)],
-                         ids=["m32", "m64", "m128", "m64_bf16"])
-def test_wkv6_bwd_kernel_matches_plain(card, t, m, dtype):
+@pytest.mark.parametrize("m,dtype,route", [
+    (32, torch.float32, "split"), (64, torch.float32, "split"), (128, torch.float32, "split"),
+    (64, torch.bfloat16, "split"), (32, torch.bfloat16, "mma"), (64, torch.bfloat16, "mma"),
+    (128, torch.bfloat16, "mma"),
+], ids=["m32", "m64", "m128", "m64_bf16", "m32_bf16_mma", "m64_bf16_mma", "m128_bf16_mma"])
+def test_wkv6_bwd_kernel_matches_plain(card, t, m, dtype, route):
     """Every gradient of ``wkv6_bwd`` against ``wkv6_bwd_ref`` on the same
     inputs (decays from 1e-6 to 0.999, a given state and a final-state
-    cotangent), below and above SPLIT_MIN_T; a second call gives the same
-    bits; one launch a call, on the ``split`` route."""
+    cotangent), below and above SPLIT_MIN_T, on each route its dtype takes
+    (bf16: ``mma`` and ``split``); a second call gives the same bits; one
+    launch a call, counted under the route."""
     from repro_torch.kernels.wkv6 import wkv6_bwd, wkv6_bwd_ref
 
     g = torch.Generator(card).manual_seed(t + m)
@@ -1111,13 +1114,36 @@ def test_wkv6_bwd_kernel_matches_plain(card, t, m, dtype):
                   + np.log(0.999))
     u = torch.randn(2, m, generator=g, device=card).to(dtype)
     s0, ds = (torch.randn(2, 2, m, m, generator=g, device=card) for _ in range(2))
-    before = (wkv6_bwd.launches, wkv6_bwd.route_launches["split"])
-    got = wkv6_bwd(r, k, v, w, u, s0, dout, ds)
-    again = wkv6_bwd(r, k, v, w, u, s0, dout, ds)
+    before = (wkv6_bwd.launches, dict(wkv6_bwd.route_launches))
+    got = wkv6_bwd(r, k, v, w, u, s0, dout, ds, route=route)
+    again = wkv6_bwd(r, k, v, w, u, s0, dout, ds, route=route)
     torch.cuda.synchronize()
-    assert (wkv6_bwd.launches, wkv6_bwd.route_launches["split"]) == (before[0] + 2,
-                                                                     before[1] + 2)
+    assert wkv6_bwd.launches == before[0] + 2
+    assert wkv6_bwd.route_launches == {k2: n + 2 * (k2 == route) for k2, n in before[1].items()}
     assert all(torch.equal(a, b) for a, b in zip(got, again))
+    _rec_bwd_close(got, wkv6_bwd_ref(r, k, v, w, u, s0, dout, ds))
+
+
+@pytest.mark.parametrize("w_dtype,u_dtype", [(torch.bfloat16, torch.float32),
+                                             (torch.bfloat16, torch.bfloat16),
+                                             (torch.float32, torch.float32)],
+                         ids=["w_bf16_u_f32", "w_bf16_u_bf16", "w_f32_u_f32"])
+def test_wkv6_bwd_mma_takes_each_decay_and_bonus_dtype(card, w_dtype, u_dtype):
+    """The mma route with bf16 r, k, v and dout and each dtype of w and u it
+    takes (the model passes f32 w): every gradient in its operand's dtype
+    and within the plain version's bounds, on a ragged last chunk."""
+    from repro_torch.kernels.wkv6 import wkv6_bwd, wkv6_bwd_ref
+
+    g = torch.Generator(card).manual_seed(21)
+    b, t, h, m = 2, 45, 2, 64
+    r, k, v, dout = (torch.randn(b, t, h, m, generator=g, device=card).to(torch.bfloat16)
+                     for _ in range(4))
+    w = torch.exp(torch.rand(b, t, h, m, generator=g, device=card) * np.log(1e-6 / 0.999)
+                  + np.log(0.999)).to(w_dtype)
+    u = torch.randn(h, m, generator=g, device=card).to(u_dtype)
+    s0, ds = (torch.randn(b, h, m, m, generator=g, device=card) for _ in range(2))
+    got = wkv6_bwd(r, k, v, w, u, s0, dout, ds, route="mma")
+    assert [x.dtype for x in got] == [torch.bfloat16] * 3 + [w_dtype, u_dtype, torch.float32]
     _rec_bwd_close(got, wkv6_bwd_ref(r, k, v, w, u, s0, dout, ds))
 
 
@@ -1125,11 +1151,13 @@ def test_wkv6_bwd_kernel_matches_plain(card, t, m, dtype):
 @pytest.mark.parametrize("d,n,dtype", [(37, 8, torch.float32), (1600, 16, torch.float32),
                                        (100, 16, torch.bfloat16)],
                          ids=["d37n8", "hymba", "d100_bf16"])
-def test_ssm_scan_bwd_kernel_matches_plain(card, t, d, n, dtype):
+@pytest.mark.parametrize("route", ["split", "regs"])
+def test_ssm_scan_bwd_kernel_matches_plain(card, t, d, n, dtype, route):
     """Every gradient of ``ssm_scan_bwd`` against ``ssm_scan_bwd_ref`` on
     the same inputs (dt in 2-3, so decays down to ~1e-4, a given state and
-    a final-state cotangent), below and above SPLIT_MIN_T; a second call
-    gives the same bits; one launch a call."""
+    a final-state cotangent), below and above SPLIT_MIN_T, on each route; a
+    second call gives the same bits; one launch a call, counted under the
+    route."""
     from repro_torch.kernels.ssm_scan import ssm_scan_bwd, ssm_scan_bwd_ref
 
     g = torch.Generator(card).manual_seed(t + d)
@@ -1138,11 +1166,13 @@ def test_ssm_scan_bwd_kernel_matches_plain(card, t, d, n, dtype):
     a = -torch.rand(d, n, generator=g, device=card) * 3.0 - 0.01
     b, c = (torch.randn(2, t, n, generator=g, device=card).to(dtype) for _ in range(2))
     h0, dh = (torch.randn(2, d, n, generator=g, device=card) for _ in range(2))
-    before = ssm_scan_bwd.launches
-    got = ssm_scan_bwd(x, dt, a, b, c, h0, dy, dh)
-    again = ssm_scan_bwd(x, dt, a, b, c, h0, dy, dh)
+    before = (ssm_scan_bwd.launches, dict(ssm_scan_bwd.route_launches))
+    got = ssm_scan_bwd(x, dt, a, b, c, h0, dy, dh, route=route)
+    again = ssm_scan_bwd(x, dt, a, b, c, h0, dy, dh, route=route)
     torch.cuda.synchronize()
-    assert ssm_scan_bwd.launches == before + 2
+    assert ssm_scan_bwd.launches == before[0] + 2
+    assert ssm_scan_bwd.route_launches == {k: n + 2 * (k == route)
+                                           for k, n in before[1].items()}
     assert all(torch.equal(p, q) for p, q in zip(got, again))
     _rec_bwd_close(got, ssm_scan_bwd_ref(x, dt, a, b, c, h0, dy, dh))
 
@@ -1175,6 +1205,27 @@ def test_recurrent_train_step_launches_the_backward_kernels(card, arch):
     assert counts[rec] == 2 * per and counts[rec + "_bwd"] == per
     want_flash = (0, 0) if arch == "rwkv6-1.6b" else (2 * per, per)
     assert (counts["flash_attention"], counts["flash_attention_bwd"]) == want_flash
+    bf16_route = "mma" if arch == "rwkv6-1.6b" else "regs"
+    routes = kernels.WRAPPERS[rec + "_bwd"].route_launches
+    assert routes == {r: per * (r == bf16_route) for r in routes}
     assert torch.isfinite(metrics["loss"]) and state["step"] == 1
     assert not torch.equal(probe, probe0)
     assert not any(p.requires_grad for p in model.parameters())
+
+
+def test_embedding_backward_is_deterministic(card):
+    """The embedding's table gradient on the card sums each row's
+    cotangents in a fixed order: three backwards over ids that repeat
+    (16,384 ids over 500 rows) give the same bits, and the forward gives
+    index_select's."""
+    from repro_torch.models.embedding import embed_plain
+
+    g = torch.Generator(card).manual_seed(3)
+    table = torch.randn(32000, 512, generator=g, device=card).to(torch.bfloat16)
+    ids = torch.randint(0, 500, (4, 4096), generator=g, device=card)
+    cot = torch.randn(4, 4096, 512, generator=g, device=card).to(torch.bfloat16)
+    leaf = table.clone().requires_grad_()
+    rows = embed_plain(leaf, ids)
+    assert torch.equal(rows, table.index_select(0, ids.reshape(-1)).reshape(4, 4096, 512))
+    grads = [torch.autograd.grad(embed_plain(leaf, ids), leaf, cot)[0] for _ in range(3)]
+    assert all(torch.equal(grads[0], x) for x in grads[1:])

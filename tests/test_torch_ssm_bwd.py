@@ -128,7 +128,7 @@ def test_function_returns_none_for_what_needs_no_gradient():
     torch.testing.assert_close(ga, ssm_scan_bwd_ref(x, dt, a.detach(), bb, cc, h0, dy)[2], **TOL)
     assert x.grad is None and h0.grad is None
     assert (ssm_scan_bwd.launches, ssm_scan_bwd.route_launches) == before
-    assert WRAPPERS["ssm_scan_bwd"] is ssm_scan_bwd and BWD_ROUTES == ("split",)
+    assert WRAPPERS["ssm_scan_bwd"] is ssm_scan_bwd and BWD_ROUTES == ("split", "regs")
     assert BWD_CHUNK == 16
 
 
@@ -191,3 +191,17 @@ def test_bwd_refuses_cotangents_that_do_not_fit(case):
         dh = dh.double()
     with pytest.raises(ValueError, match="ssm_scan_bwd"):
         ssm_scan_bwd(x, dt, a, bb, cc, h0, dy, dh)
+
+
+@pytest.mark.parametrize("route", ["split", "regs", "shared"])
+def test_bwd_takes_its_routes_and_refuses_others(route):
+    """Either route on the CPU is the plain backward; an unknown route
+    raises before any work."""
+    x, dt, a, bb, cc, h0, dy, dh = _torch(_draw(9, 1, 5, 16, 8, state=True, dh=True))
+    if route not in BWD_ROUTES:
+        with pytest.raises(ValueError, match="ssm_scan_bwd route"):
+            ssm_scan_bwd(x, dt, a, bb, cc, h0, dy, dh, route=route)
+        return
+    got = ssm_scan_bwd(x, dt, a, bb, cc, h0, dy, dh, route=route)
+    want = ssm_scan_bwd_ref(x, dt, a, bb, cc, h0, dy, dh)
+    assert all(torch.equal(p, q) for p, q in zip(got, want))
