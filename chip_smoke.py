@@ -1,4 +1,4 @@
-"""Drive the PyTorch port's Gather service, DAPC, Filter pushdown, tree collectives, control layers, compiled SPMD rendering, yi-9b, rwkv6-1.6b and hymba-1.5b serving and training once on an NVIDIA card.
+"""Drive the PyTorch port's Gather service, DAPC, Filter pushdown, tree collectives, control layers, compiled SPMD rendering, yi-9b, rwkv6-1.6b, hymba-1.5b and granite-moe-1b-a400m serving and training, and phi3.5-moe serving, once on an NVIDIA card.
 
 Usage: ``python3 chip_smoke.py [--profile DIR]`` from the root of
 a checkout, on a host with one Hopper card (sm_90) and the CUDA toolkit.
@@ -108,7 +108,14 @@ a checkout, on a host with one Hopper card (sm_90) and the CUDA toolkit.
    and result equal to numpy's f32 arithmetic, the hierarchical sum
    within 3 f32 roundings of the f64 sum, the relative error and the
    int32 payload bytes against f32's logged.  Then one NCCL rank runs
-   DAPC, GBPC and the Gather at the same sizes, oracle-identical.  The
+   DAPC, GBPC and the Gather at the same sizes, oracle-identical.  The MoE
+   dispatch at granite-moe-1b-a400m's width (f32): on the (2, 2) mesh
+   ``moe_block_a2a`` over B = 2, S = 2,048 (each rank its batch row, its
+   1,024 positions and its 16 of the 32 experts) and, at B = 8, S = 1, the
+   eplocal path, both at capacity 8.0, each rank's block within 1e-5 of
+   the largest |y| of ``moe_block_scatter`` on the whole batch here, its aux
+   its own tokens' meaned over the EP and data axes, the all-to-all bytes
+   equal to their closed form; the NCCL rank runs both on a (1, 1) mesh.  The
    chain and the table reach the ranks as ``.npy`` files under
    ``build/chip_smoke/spmd`` (removed after); every rank counts its
    launches by route and its collective bytes from 0 for each arm.  The
@@ -281,6 +288,27 @@ a checkout, on a host with one Hopper card (sm_90) and the CUDA toolkit.
    plain version on the card; each
    step's seconds, tokens/s, peak memory and device seconds by stage, and
    the profiled last step's share of each kernel kind.
+34. The parity phase (12) on a 2-layer granite-moe-1b-a400m at full width
+   (d_model 1,024, 16/8 heads of 64, 32 experts of d_ff 512, top 8): also
+   each layer's experts and drops, card against CPU; a route that flips
+   must have its two experts' logits within ROUTE_FLIP_MARGIN, and its rows
+   are left out of the logit comparison.
+35. Train parity (27) on the same 2-layer granite-moe, the router's
+   gradient among the leaves.
+36. The serving phase (13) on granite-moe-1b-a400m at full width and 8 of
+   its 24 layers (bf16; SERVE_LAYERS): flash launched 8 x (prefills +
+   decode groups), the choices each prefill dropped logged; its profiled
+   bursts with the shares of matmuls and of each MoE stage
+   (:func:`moe_stage_us`).  Then ``launch.serve`` (14), local only, at full
+   granite-moe and at phi3.5-moe-42b-a6.6b's full width with 8 of its 32
+   layers (``--layers 8``; all 32 hold ~84 GB of bf16 weights).
+37. The train phase (33) on granite-moe-1b-a400m at full width and depth,
+   bf16, remat, 4 x 4,096 tokens a step in 2 microbatches, 4 steps: 96
+   flash forward and 48 backward (``wgmma``) launches a step, the aux loss
+   finite and above 0; then steps 0-1 again from the same seed, their
+   losses bit-identical.
+38. Each MoE phase logs the elapsed time after it.  granite's smoke config
+   (head dim 16, no flash instance) is left out of the driver phase (29).
 
 Prints one JSON line of kernel results, then the nvidia-smi line, then
 ``{"ok": true, "device": {...}}`` last.  Any failure exits non-zero with
@@ -296,8 +324,10 @@ the card.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import hashlib
+import itertools
 import json
 import os
 import re
@@ -315,6 +345,9 @@ from torch.profiler import ProfilerActivity, profile, record_function
 
 ROOT = Path(__file__).resolve().parent
 WINDOW = "chip_smoke_window"  # profiled()'s record_function range
+# the profiler ranges whose device-side spans are no work: the window, and
+# the MoE block's stages (models/moe.py STAGES)
+RANGES = frozenset({WINDOW, "moe_route", "moe_dispatch", "moe_experts", "moe_combine"})
 LAUNCH_APIS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3, NVIDIA data sheet
 BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak, NVIDIA data sheet
@@ -368,9 +401,10 @@ SERVE_PROMPT_MIN, SERVE_PROMPT_MAX = 256, 3072
 # the earlier slices' scheduler phases run at a cut depth, so that the whole
 # run stays well inside its 1,200 s limit on a slow host (cut to 8, 6 and 8
 # layers, hymba's global layer 7 kept, when the rwkv6 and hymba training
-# phases came; 16, 12 and 32 before); their launch.serve phases still run
+# phases came; 16, 12 and 32 before; granite-moe at 8 of 24, its decode
+# steps host-bound at ~4 ms a layer); their launch.serve phases still run
 # the full model
-SERVE_LAYERS = {"yi-9b": 8, "rwkv6-1.6b": 6, "hymba-1.5b": 8}
+SERVE_LAYERS = {"yi-9b": 8, "rwkv6-1.6b": 6, "hymba-1.5b": 8, "granite-moe-1b-a400m": 8}
 LAUNCH_BATCH, LAUNCH_PROMPT = 4, 2048  # launch.serve's batch and prompt length
 # timed shapes (B, S, T) with yi's H=32, K=4, d=128 in bf16
 FLASH_TIMING = {"prefill": (1, 2048, 2048), "decode": (8, 1, 2048)}
@@ -384,8 +418,11 @@ PATH_KERNEL = {
     "yi-9b": (("flash_attention", "flash"),),
     "rwkv6-1.6b": (("wkv6", "wkv6"),),
     "hymba-1.5b": (("flash_attention", "flash"), ("ssm_scan", "ssm_scan")),
+    "granite-moe-1b-a400m": (("flash_attention", "flash"),),
+    "phi3.5-moe-42b-a6.6b": (("flash_attention", "flash"),),
 }
-PROFILE_STEM = {"yi-9b": "lm", "rwkv6-1.6b": "rwkv", "hymba-1.5b": "hymba"}
+PROFILE_STEM = {"yi-9b": "lm", "rwkv6-1.6b": "rwkv", "hymba-1.5b": "hymba",
+                "granite-moe-1b-a400m": "granite", "phi3.5-moe-42b-a6.6b": "phi35"}
 # each path kernel's route at prefill and at decode on the serving path
 PATH_ROUTES = {"flash_attention": ("wgmma", "split"), "wkv6": ("split", "step"),
                "ssm_scan": ("split", "step")}
@@ -489,18 +526,49 @@ REC_TRAIN = (2, 4096)  # b, t: rwkv6's and hymba's train microbatch
 # rwkv6 and hymba at full depth (their weights, gradients and moments, ~25
 # and ~22 GB, fit the card), 4 steps each
 TRAIN_DEPTH = {"yi-9b": (TRAIN_LAYERS, TRAIN_STEPS), "rwkv6-1.6b": (24, 4),
-               "hymba-1.5b": (32, 4)}
+               "hymba-1.5b": (32, 4), "granite-moe-1b-a400m": (24, 4)}
 # each arch's path kernels a train step launches, forward and backward
 TRAIN_KERNELS = {"yi-9b": (("flash_attention", "flash_attention_bwd"),),
+                 "granite-moe-1b-a400m": (("flash_attention", "flash_attention_bwd"),),
                  "rwkv6-1.6b": (("wkv6", "wkv6_bwd"),),
                  "hymba-1.5b": (("flash_attention", "flash_attention_bwd"),
                                 ("ssm_scan", "ssm_scan_bwd"))}
 # weights that every step must move, by arch (the last layer's filled in)
 TRAIN_PROBES = {"yi-9b": ("embed.tok", "blocks.0.wq", "blocks.{last}.wo2"),
                 "rwkv6-1.6b": ("embed.tok", "blocks.0.tm.wr", "blocks.{last}.cm.wv"),
-                "hymba-1.5b": ("embed.tok", "blocks.0.ssm.w_in", "blocks.{last}.wo2")}
+                "hymba-1.5b": ("embed.tok", "blocks.0.ssm.w_in", "blocks.{last}.wo2"),
+                "granite-moe-1b-a400m": ("embed.tok", "blocks.0.router", "blocks.{last}.we_o")}
 # the driver phase: launch.train on yi smoke, 12 steps, a checkpoint every 5
 DRIVER_STEPS, DRIVER_CKPT_EVERY, DRIVER_FAIL_AT, DRIVER_RESUME_TO = 12, 5, 8, 17
+# the MoE phases (34-38).  granite-moe-1b-a400m at full width (its smoke
+# config's head dim 16 has no flash instance, so it is left out of the
+# driver phase) and phi3.5-moe-42b-a6.6b at full width and PHI_LAYERS of its
+# 32 layers in launch.serve (all 32 hold ~84 GB of bf16 weights)
+MOE_ARCH, PHI_ARCH, PHI_LAYERS = "granite-moe-1b-a400m", "phi3.5-moe-42b-a6.6b", 8
+# the archs whose launch.serve phase also runs remote-embed (the MoE archs'
+# run local only, for the run's time: each remote token's rows are a gather
+# over the PE fabric on the host, 17-23 s an arch for 32 tokens on a slow
+# host), and so the remote rows' widths that the embed_lookup phases check
+# and time
+REMOTE_ARCHS = ("yi-9b", "rwkv6-1.6b", "hymba-1.5b")
+# a route that flips between card and CPU: the two experts' f32 router
+# logits (|logit| up to ~3: scale 0.02 over d_model 1,024 of rms-normed
+# inputs) lie within what the inputs' f32 rounding moves them, ~1e-6; a flip
+# across a wider gap than ROUTE_FLIP_MARGIN is a fault
+ROUTE_FLIP_MARGIN = 1e-4
+# cuBLAS's matmul kernels, by name
+MATMUL_WORDS = ("gemm", "nvjet", "xmma", "cutlass")
+# the autograd engine's event around a backward node
+EVALUATE = "autograd::engine::evaluate_function: "
+# the train phase's arch whose first TRAIN_REPLAY steps run again from the
+# same seed, with bit-identical losses (dispatch and combine sum in a fixed
+# order)
+TRAIN_REPLAY = {MOE_ARCH: 2}
+# the SPMD MoE arm at granite's width: B x S tokens through moe_block_a2a on
+# the (2, 2) mesh, B_DEC x 1 through the eplocal path, f32, both against
+# moe_block_scatter at capacity 8.0 within MOE_SPMD_RTOL of the largest
+# |y| (the experts' f32 products in other matmul shapes)
+MOE_SPMD_TOKENS, MOE_SPMD_DECODE, MOE_SPMD_CAP, MOE_SPMD_RTOL = (2, 2048), 8, 8.0, 1e-5
 
 
 def log(*args) -> None:
@@ -544,8 +612,7 @@ def profiled(fn, tries: int = 3, edge=None):
         mark = next(e for e in events if e.name == WINDOW and e.device_type == DeviceType.CPU)
         window = [e for e in events
                   if mark.time_range.start <= e.time_range.start <= mark.time_range.end]
-        kernels = sum(1 for e in window if e.device_type == DeviceType.CUDA
-                      and e.name != WINDOW and not e.name.startswith("Mem"))
+        kernels = sum(1 for e in window if device_work(e) and not e.name.startswith("Mem"))
         launches = sum(1 for e in window
                        if e.device_type == DeviceType.CPU and e.name in LAUNCH_APIS)
         if kernels >= launches > 0:
@@ -573,11 +640,67 @@ def device_ms(fn, arg_sets, reps: int = 10) -> float:
     return device_us(window) / 1e3 / reps
 
 
+def device_work(e) -> bool:
+    """Whether profile event ``e`` is a kernel or a copy on the card, not the
+    device-side span of a profiler range (RANGES)."""
+    return e.device_type == DeviceType.CUDA and e.name not in RANGES
+
+
 def device_us(events) -> float:
-    """Summed device time of the kernels and copies among ``events``; the
-    device-side span of :func:`profiled`'s window annotation is no work."""
-    return sum(e.device_time_total for e in events
-               if e.device_type == DeviceType.CUDA and e.name != WINDOW)
+    """Summed device time of the kernels and copies among ``events``."""
+    return sum(e.device_time_total for e in events if device_work(e))
+
+
+def moe_stage_us(events) -> dict[str, float]:
+    """Device time of the kernels that each stage of the MoE block launched
+    among ``events`` (a profile's, with their CPU parents), by stage
+    (``models/moe.py`` STAGES).  A launch is the stage's when a stage's
+    profiler range encloses it, or, in the backward, when the autograd node
+    that encloses it was made by an op inside the stage's range (the node's
+    forward thread and sequence number are that op's).  A forward op met on
+    the way up from a launch to a node is a recompute (remat) outside the
+    block's ranges, not the node's work; the embedding, the loss and the
+    cache writes are never a stage's."""
+    from repro_torch.models.moe import STAGES
+
+    assert RANGES >= set(STAGES), "RANGES must hold every MoE stage"
+
+    def node(e) -> bool:  # a backward node's own event, inside its engine event
+        return e.cpu_parent is not None and e.cpu_parent.name.startswith(EVALUATE)
+
+    def walk(e):
+        """(the stage whose range encloses e, else None; the engine event met
+        first on the way up, None when a forward op came before it)"""
+        forward = False
+        while e is not None:
+            if e.name in STAGES:
+                return e.name, None
+            if e.name.startswith(EVALUATE):
+                return None, None if forward else e
+            forward |= e.sequence_nr >= 0 and not node(e)
+            e = e.cpu_parent
+        return None, None
+
+    cpu = [e for e in events if e.device_type == DeviceType.CPU]
+    made = {}  # (thread, sequence number) of each op inside a stage's range
+    for e in cpu:
+        if e.sequence_nr >= 0 and not node(e) and not e.name.startswith(EVALUATE):
+            stage, _ = walk(e)
+            if stage:
+                made[(e.thread, e.sequence_nr)] = stage
+    by_launch = {}
+    for e in cpu:
+        if e.name in LAUNCH_APIS:
+            stage, engine = walk(e)
+            if stage is None and engine is not None:
+                stage = made.get((engine.fwd_thread, engine.sequence_nr))
+            if stage:
+                by_launch[e.id] = stage
+    out = dict.fromkeys(STAGES, 0.0)
+    for e in events:
+        if device_work(e) and e.id in by_launch:
+            out[by_launch[e.id]] += e.device_time_total
+    return out
 
 
 def event_ms(fn, arg_sets, reps: int = 100) -> float:
@@ -709,7 +832,7 @@ def kernel_phase(dev, rng) -> dict:
     # launch.serve's remote embedding: each LM's d_model f32 rows
     wide_lo = 3 * 8192
     wide_lo_t = torch.tensor([wide_lo], dtype=torch.int32, device=dev)
-    for arch in PATH_KERNEL:
+    for arch in REMOTE_ARCHS:
         dim = get_config(arch).d_model
         wide = torch.randn(8192, dim, device=dev)
         for n in (REMOTE_KEYS, 1024):
@@ -831,7 +954,7 @@ def time_kernel(dev, rng, floor: dict, mean_n: float, filter_mean_n: float) -> d
     timed = [("message", N_KEYS, DIM, 0, None), ("mean", max(1, round(mean_n)), DIM, 0, None),
              ("bucket64", MAX_SLOTS * N_KEYS, DIM, 0, None)]
     timed += [(f"remote {arch}", REMOTE_KEYS, get_config(arch).d_model, 0, None)
-              for arch in PATH_KERNEL]
+              for arch in REMOTE_ARCHS]
     batch = max(1, round(filter_mean_n / FILTER_WINDOW))
     timed += [("filter", FILTER_WINDOW, DIM, 1, None),
               ("filter_batched", batch * FILTER_WINDOW, DIM, batch, None)]
@@ -1652,15 +1775,113 @@ def flash_kernel_phase(dev) -> dict:
             worst["f32_probs"], "max_abs_err_lse": worst["lse"]}
 
 
+class RouteLog:
+    """While open, records each MoE ``route`` call's f32 router logits and
+    expert ids and the ``keep`` of its buckets, on the host, in call order."""
+
+    def __enter__(self):
+        from repro_torch.models import moe
+
+        self.calls, self._moe = [], moe
+        self._route, self._bucket = moe.route, moe._bucket_positions
+
+        def route(x, w, k):
+            gates, idx, aux = self._route(x, w, k)
+            self.calls.append({"logits": (x.float() @ w.float()).cpu(), "idx": idx.cpu()})
+            return gates, idx, aux
+
+        def bucket(dst, n, cap):
+            slot, keep = self._bucket(dst, n, cap)
+            self.calls[-1]["keep"] = keep.cpu()
+            return slot, keep
+
+        moe.route, moe._bucket_positions = route, bucket
+        return self
+
+    def __exit__(self, *exc):
+        self._moe.route, self._moe._bucket_positions = self._route, self._bucket
+
+
+class DropCount:
+    """While open, counts each MoE bucket call's choices and dropped choices
+    (the count kept on the card until :meth:`totals` reads it, so a step
+    waits for nothing).  ``mark(tag)`` tags the calls that follow."""
+
+    def __enter__(self):
+        from repro_torch.models import moe
+
+        self.calls, self.tag, self._moe = [], None, moe
+        self._bucket = moe._bucket_positions
+
+        def bucket(dst, n, cap):
+            slot, keep = self._bucket(dst, n, cap)
+            self.calls.append((self.tag, dst.numel(), (~keep).sum()))
+            return slot, keep
+
+        moe._bucket_positions = bucket
+        return self
+
+    def __exit__(self, *exc):
+        self._moe._bucket_positions = self._bucket
+
+    def mark(self, tag) -> None:
+        self.tag = tag
+
+    def totals(self) -> dict:
+        """{tag: [choices, dropped]} summed over the calls of each tag."""
+        out: dict = {}
+        for tag, n, dropped in self.calls:
+            acc = out.setdefault(tag, [0, 0])
+            acc[0] += n
+            acc[1] += int(dropped)
+        return out
+
+
+def route_flips(card: list, host: list, n_layers: int, seq: list) -> dict:
+    """Card against CPU, call by call (``seq``: the tokens a batch row has
+    in each forward, for the row a token belongs to): every token's
+    experts, in order, and every choice's keep.  A token whose experts
+    differ is a flip, with its margin: the widest CPU logit gap between an
+    expert one side chose and the other side's choice in the same place.
+    Returns the flips (layer, forward, row, token, margin), the calls whose
+    keeps differ, the rows they touch, and the largest card-CPU logit
+    difference by layer."""
+    flips, keeps, rows, dlogit = [], [], set(), [0.0] * n_layers
+    for i, (c, h) in enumerate(zip(card, host, strict=True)):
+        layer, fwd = i % n_layers, i // n_layers
+        dlogit[layer] = max(dlogit[layer], (c["logits"] - h["logits"]).abs().max().item())
+        for t in torch.nonzero((c["idx"] != h["idx"]).any(-1))[:, 0].tolist():
+            lg = h["logits"][t]
+            margin = max(abs(lg[a] - lg[b]).item() for a, b in zip(c["idx"][t], h["idx"][t])
+                         if a != b)
+            flips.append({"layer": layer, "forward": fwd, "row": t // seq[fwd],
+                          "token": t % seq[fwd], "margin": margin})
+            rows.add(t // seq[fwd])
+        if not torch.equal(c["keep"], h["keep"]):
+            k = c["idx"].shape[1]
+            moved = torch.nonzero(c["keep"] != h["keep"])[:, 0] // k
+            keeps.append({"layer": layer, "forward": fwd,
+                          "rows": sorted({t // seq[fwd] for t in moved.tolist()})})
+    return {"flips": flips, "keeps_differ": keeps, "rows": sorted(rows),
+            "max_logit_diff_by_layer": dlogit}
+
+
 def parity_phase(dev, arch: str = "yi-9b") -> dict:
     """A 2-layer ``arch`` at full width (yi-9b: d_model 4,096, 32/4 heads,
     d_ff 11,008, vocab 64,000; rwkv6-1.6b: d_model 2,048, 32 WKV heads,
     d_ff 7,168, vocab 65,536; hymba-1.5b: d_model 1,600, 25/5 heads,
-    d_ff 5,504, vocab 32,001, both layers windowed at 2,048) in f32, one
+    d_ff 5,504, vocab 32,001, both layers windowed at 2,048;
+    granite-moe-1b-a400m: d_model 1,024, 16/8 heads of 64, 32 experts of
+    d_ff 512, top 8, vocab 49,155) in f32, one
     set of weights drawn on the card from seed 0 and copied to the host; a
     128-token prompt (hymba: 2,064, past its window) and 8 teacher-forced
     decode steps on the card (kernel) and on the CPU (plain version).  The
-    logits must agree within PARITY_ATOL and the greedy tokens exactly."""
+    logits must agree within PARITY_ATOL and the greedy tokens exactly.
+    For an MoE arch each layer's experts and drops are compared too
+    (:func:`route_flips`): a flip passes only with its margin below
+    ROUTE_FLIP_MARGIN, keeps may differ only in a call with a flip, and the
+    logits and tokens are then compared on the batch rows without one (at
+    least one)."""
     from repro_torch.configs import get_config
     from repro_torch.models import zoo
     from repro_torch.models.common import ParamFactory
@@ -1690,19 +1911,42 @@ def parity_phase(dev, arch: str = "yi-9b") -> dict:
             out.append(logits.float().cpu())
         return torch.stack(out, 1)  # (B, 1 + steps, Vp)
 
-    card = run(card_model, dev)
-    host = run(host_model, torch.device("cpu"))
-    err = (card - host).abs().max().item()
-    same = torch.equal(card.argmax(-1), host.argmax(-1))
+    moe_arch = cfg.family == "moe"
+    if moe_arch:
+        with RouteLog() as card_routes:
+            card = run(card_model, dev)
+        with RouteLog() as host_routes:
+            host = run(host_model, torch.device("cpu"))
+    else:
+        card = run(card_model, dev)
+        host = run(host_model, torch.device("cpu"))
+    rows, routes = list(range(card.shape[0])), None
+    if moe_arch:
+        routes = route_flips(card_routes.calls, host_routes.calls, cfg.n_layers,
+                             [n_prompt] + [1] * PARITY_STEPS)
+        rows = [r for r in rows if r not in routes["rows"]]
+        wide = [f for f in routes["flips"] if not f["margin"] <= ROUTE_FLIP_MARGIN]
+        stray = [k for k in routes["keeps_differ"]
+                 if not any(f["layer"] == k["layer"] and f["forward"] == k["forward"]
+                            for f in routes["flips"])]
+        log(f"parity {arch} routes: {len(card_routes.calls)} route calls, "
+            f"{len(routes['flips'])} flips (margin bound {ROUTE_FLIP_MARGIN}): "
+            f"{json.dumps(routes)}")
+        if wide or stray or not rows:
+            raise AssertionError(f"parity {arch}: routes differ beyond rounding: flips past the "
+                                 f"margin {wide}, keeps differing without a flip {stray}, "
+                                 f"rows left {rows}")
+    err = (card[rows] - host[rows]).abs().max().item()
+    same = torch.equal(card[rows].argmax(-1), host[rows].argmax(-1))
     log(f"parity: 2-layer {arch} full width f32, prompt {n_prompt} + {PARITY_STEPS} "
         f"teacher-forced steps, card vs CPU logits max_abs_err={err} (tolerance {PARITY_ATOL}), "
-        f"|logit| max {host.abs().max().item()}, greedy tokens equal: {same}, "
-        f"{time.perf_counter() - t:.1f} s")
+        f"|logit| max {host.abs().max().item()}, greedy tokens equal: {same}, rows compared "
+        f"{rows}, {time.perf_counter() - t:.1f} s")
     if not (err <= PARITY_ATOL and same and torch.isfinite(card).all()):
         raise AssertionError("card and CPU logits disagree on the full-width parity model")
     del card_model, host_model
     torch.cuda.empty_cache()
-    return {"max_abs_err": err}
+    return {"max_abs_err": err, "routes": routes}
 
 
 def _finite(fn):
@@ -1716,7 +1960,8 @@ def _finite(fn):
 
 def serving_phase(dev, profile_dir: str | None, arch: str = "yi-9b") -> dict:
     """``arch`` at full width (at the depth of SERVE_LAYERS: yi-9b 8 of 48,
-    rwkv6-1.6b 6 of 24, hymba-1.5b 8 of 32 layers; bf16, random weights
+    rwkv6-1.6b 6 of 24, hymba-1.5b 8 of 32, granite-moe 8 of 24 layers;
+    bf16, random weights
     drawn on the card) behind ServeScheduler(slots 8,
     t_max 4,096): 16 requests with prompts of 256-3,072 tokens
     (default_rng(0)), 32 new tokens each.  Each of the arch's kernels
@@ -1740,12 +1985,18 @@ def serving_phase(dev, profile_dir: str | None, arch: str = "yi-9b") -> dict:
     prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32) for n in lengths]
     sched = ServeScheduler(cfg, model, slots=SERVE_SLOTS, t_max=SERVE_T_MAX)
     sched._prefill, sched._step = _finite(sched._prefill), _finite(sched._step)
+    drops = DropCount() if cfg.family == "moe" else contextlib.nullcontext()
+    if cfg.family == "moe":  # tag each MoE call by the prefill or the decode step it serves
+        prefill, step, n_pre = sched._prefill, sched._step, itertools.count()
+        sched._prefill = lambda *a, **kw: (drops.mark(next(n_pre)), prefill(*a, **kw))[1]
+        sched._step = lambda *a, **kw: (drops.mark("decode"), step(*a, **kw))[1]
     for p in prompts:
         sched.submit(p, SERVE_NEW)
     torch.cuda.synchronize()
     reset_launches()  # the serving path's launches are counted from here
     t = time.perf_counter()
-    done = sched.run()
+    with drops:
+        done = sched.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t
     launches = launch_counts()
@@ -1774,6 +2025,11 @@ def serving_phase(dev, profile_dir: str | None, arch: str = "yi-9b") -> dict:
                tok_s=SERVE_REQUESTS * SERVE_NEW / wall, ttft_s_max=max(ttft),
                **{f"{short}_launches": launches[kernel] for kernel, short in PATH_KERNEL[arch]},
                **{f"{short}_routes": routes[kernel] for kernel, short in PATH_KERNEL[arch]})
+    if cfg.family == "moe":  # the choices each prefill dropped (of prompt x top-k), and decode's
+        totals = drops.totals()
+        rec["moe_prefill_dropped_choices"] = [totals[i][1] for i in range(sched.prefills)]
+        rec["moe_prefill_choices"] = [totals[i][0] for i in range(sched.prefills)]
+        rec["moe_decode_dropped_choices"] = totals.get("decode", [0, 0])
     prefix = line_prefix(arch)
     shorts = " and ".join(short for _, short in PATH_KERNEL[arch])
     log(f"{prefix}serving scheduler: {SERVE_REQUESTS} requests x {SERVE_NEW} tokens, all "
@@ -1841,6 +2097,12 @@ def decode_burst(cfg, model, cache, dev, profile_dir: str | None, arch: str = "y
                       if e.device_type == DeviceType.CPU and e.name in LAUNCH_APIS}
         rec = {"wall_ms": wall * 1e3, "whole_profile": whole,
                "device_busy_pct": 100 * busy / 1e3 / (wall * 1e3) if whole else None}
+        rec["matmul_share_pct"] = 100 * sum(
+            e.device_time_total for e in window if e.device_type == DeviceType.CUDA
+            and any(w in e.name.lower() for w in MATMUL_WORDS)) / busy if whole else None
+        if cfg.family == "moe":
+            rec["moe_stage_share_pct"] = {k: 100 * v / busy for k, v in
+                                          moe_stage_us(window).items()} if whole else None
         for kernel, short in kernels:
             mine = [e for e in window
                     if e.device_type == DeviceType.CUDA and f"{short}_fwd" in e.name]
@@ -1878,26 +2140,38 @@ def decode_burst(cfg, model, cache, dev, profile_dir: str | None, arch: str = "y
     return out
 
 
-def launch_serve_phase(dev, arch: str = "yi-9b") -> dict:
-    """repro_torch.launch.serve at full ``arch``: local, then remote-embed
-    over 2 embedding servers, same seed; the streams must be bit-identical
-    and each of the arch's kernels launched once per layer per forward."""
+def launch_serve_phase(dev, arch: str = "yi-9b", layers: int | None = None) -> dict:
+    """repro_torch.launch.serve at full ``arch`` (or its first ``layers``
+    layers, ``--layers``): local, then (for REMOTE_ARCHS) remote-embed over
+    2 embedding servers, same seed; the streams must be bit-identical and
+    each of the arch's kernels launched once per layer per forward.  For an
+    MoE arch each run also logs the choices its prefill dropped."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import WRAPPERS, launch_counts, reset_launches
     from repro_torch.launch.serve import serve
 
-    n_layers = get_config(arch).n_layers
+    cfg = get_config(arch)
+    n_layers = layers or cfg.n_layers
     argv = ["--arch", arch, "--no-smoke", "--batch", str(LAUNCH_BATCH), "--prompt-len",
             str(LAUNCH_PROMPT), "--gen", str(SERVE_NEW), "--seed", "0", "--device", str(dev)]
+    if layers:
+        argv += ["--layers", str(layers)]
     prefix = line_prefix(arch)
     runs = {}
-    for name, extra in (("local", []), ("remote", ["--remote-embed", "--embed-servers", "2"])):
+    arms = (("local", []), ("remote", ["--remote-embed", "--embed-servers", "2"]))
+    for name, extra in arms[: 2 if arch in REMOTE_ARCHS else 1]:
         reset_launches()
         t = time.perf_counter()
-        rec, toks = serve(argv + extra)
+        drops = DropCount() if cfg.family == "moe" else contextlib.nullcontext()
+        with drops:
+            rec, toks = serve(argv + extra)
         torch.cuda.synchronize()
         launches = launch_counts()
         rec["wall_s"], rec["launches"] = time.perf_counter() - t, launches
+        if cfg.family == "moe":  # the first n_layers calls are the prefill's
+            rec["moe_prefill_dropped_choices"] = sum(int(c[2]) for c in drops.calls[:n_layers])
+            rec["moe_prefill_choices"] = sum(c[1] for c in drops.calls[:n_layers])
+            rec["moe_decode_dropped_choices"] = sum(int(c[2]) for c in drops.calls[n_layers:])
         rec["routes"] = {k: dict(WRAPPERS[k].route_launches)
                          for k in (*(k for k, _ in PATH_KERNEL[arch]), "embed_lookup")}
         runs[name] = (rec, toks)
@@ -1910,6 +2184,8 @@ def launch_serve_phase(dev, arch: str = "yi-9b") -> dict:
             if (routes[pre], routes[dec]) != (n_layers, n_layers * SERVE_NEW):
                 raise AssertionError(f"{prefix}launch.serve {name}: {kernel} routes {routes}")
         torch.cuda.empty_cache()
+    if "remote" not in runs:
+        return {"local": runs["local"][0]}
     if not np.array_equal(runs["local"][1], runs["remote"][1]):
         raise AssertionError(f"{prefix}launch.serve: remote-embed stream differs from the local one")
     if runs["remote"][0]["launches"]["embed_lookup"] == 0:
@@ -2912,6 +3188,47 @@ def grad_bucket(dev, rank: int) -> torch.Tensor:
     return torch.randn(REDUCE_WIDTH, generator=g, device=dev)
 
 
+def moe_spmd_inputs(dev) -> dict[str, torch.Tensor]:
+    """The SPMD MoE arm's f32 inputs at granite-moe-1b-a400m's width (d_model
+    1,024, 32 experts of d_ff 512), drawn on the card from seed 7: hidden
+    states of unit scale for MOE_SPMD_TOKENS and for MOE_SPMD_DECODE
+    one-token rows, the router at the model's init scale 0.02, the experts
+    at 1/sqrt(fan_in)."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(MOE_ARCH)
+    d, e, f = cfg.d_model, cfg.n_experts, cfg.d_ff
+    g = torch.Generator(dev).manual_seed(7)
+    draw = lambda *shape, scale=1.0: torch.randn(*shape, generator=g, device=dev) * scale
+    return {"x": draw(*MOE_SPMD_TOKENS, d), "x_decode": draw(MOE_SPMD_DECODE, 1, d),
+            "router": draw(d, e, scale=0.02), "wi": draw(e, d, f, scale=d**-0.5),
+            "wg": draw(e, d, f, scale=d**-0.5), "wo": draw(e, f, d, scale=f**-0.5)}
+
+
+def moe_spmd_arms(mesh, arm, res: dict) -> None:
+    """One rank of the SPMD MoE arm: its rows of the batch and its experts
+    (over "data" and "model") through ``moe_block_a2a`` at capacity
+    MOE_SPMD_CAP, and its rows of the decode batch through the eplocal path
+    (``_moe_eplocal`` itself on a mesh whose EP axis has one rank, where
+    S = 1 splits)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.moe import _moe_eplocal, moe_block_a2a
+    from repro_torch.sharding import shard_rows
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    topk = get_config(MOE_ARCH).topk
+    d = moe_spmd_inputs(mesh.device)
+    experts = [shard_rows(d[w], mesh, "model") for w in ("wi", "wg", "wo")]
+    for name, x, fn in (("moe_a2a", "x", moe_block_a2a),
+                        ("moe_eplocal", "x_decode",
+                         moe_block_a2a if mesh.axis_size("model") > 1 else _moe_eplocal)):
+        rows = shard_rows(d[x], mesh, "data")
+        kw = {"capacity_factor": MOE_SPMD_CAP} if fn is moe_block_a2a else {}
+        y, aux = arm(name, mesh, lambda: fn(rows, d["router"], *experts, topk, mesh, **kw))
+        res[name] = {"y": y.cpu(), "aux": aux.item()}
+    del d, experts
+
+
 def npy_shard(path: Path, mesh) -> torch.Tensor:
     """This rank's rows of the array saved at ``path`` over ``"model"``, read
     from a memory map, on the mesh's device."""
@@ -2924,9 +3241,9 @@ def npy_shard(path: Path, mesh) -> torch.Tensor:
 def spmd_rank(rank: int, world: int, backend: str, store: str, out_dir: str) -> None:
     """One rank of the compiled SPMD phase, on ``cuda:0`` beside the others.
     Four gloo ranks run every arm: DAPC and GBPC, the Gather on a (1, 4)
-    ("data", "model") mesh; the c2d and gather embeddings, attend_sp and the
-    gradient psums on a (2, 2) one.  One NCCL rank runs DAPC and the
-    Gather.  Each arm starts from launch counts and collective bytes of 0;
+    ("data", "model") mesh; the c2d and gather embeddings, attend_sp, the
+    gradient psums and the MoE dispatch on a (2, 2) one.  One NCCL rank runs
+    DAPC, the Gather and the MoE dispatch.  Each arm starts from launch counts and collective bytes of 0;
     its results (digests where the parent holds the oracle), launches by
     route, bytes and wall go to ``out_dir``."""
     sys.path.insert(0, str(ROOT / "src"))
@@ -2968,6 +3285,8 @@ def spmd_rank(rank: int, world: int, backend: str, store: str, out_dir: str) -> 
     res["gather"] = digest(arm("gather", mesh, lambda: gather_shard_map(shard, keys, mesh)))
     del shard
     torch.cuda.empty_cache()
+    if world == 1:
+        moe_spmd_arms(mesh, arm, res)
     if world > 1:
         m22 = init_mesh((2, world // 2), ("data", "model"), backend=backend, rank=rank,
                         init_method=f"file://{store}", timeout=SPMD_TIMEOUT)
@@ -2996,6 +3315,9 @@ def spmd_rank(rank: int, world: int, backend: str, store: str, out_dir: str) -> 
         res["hierarchical_psum"] = digest(out)
         if rank == 0:
             res["hierarchical_psum_rank0"] = out.cpu().numpy()
+        del grad, out, err, q, k, v
+        torch.cuda.empty_cache()
+        moe_spmd_arms(m22, arm, res)
     torch.save(res, Path(out_dir) / f"{backend}_rank{rank}.pt")
     mesh.close()
 
@@ -3018,6 +3340,81 @@ def expect_launches(run: dict, what: str, want: dict) -> None:
             n for routes in want.values() for n in routes.values()):
         raise AssertionError(f"spmd {what}: launches {run['launches']} by route {got}, "
                              f"want {want}")
+
+
+def wire(psum=0, pmax=0, all_gather=0, all_to_all=0) -> dict:
+    """A rank's collective bytes by kind, as ``Mesh.bytes_by_kind`` counts them."""
+    return {"psum": psum, "pmax": pmax, "all_gather": all_gather, "all_to_all": all_to_all}
+
+
+def spmd_moe_check(dev, ranks: list, what: str) -> dict:
+    """The SPMD MoE arm's ranks (:func:`moe_spmd_arms`; 4 gloo ranks on a
+    (2, 2) mesh or one on (1, 1)) against ``moe_block_scatter`` at
+    MOE_SPMD_CAP on the whole batch, in this process: each rank's block of y
+    within MOE_SPMD_RTOL of the largest |y|; its aux equal (1e-6) to its own
+    tokens' route aux meaned as the dispatch means it (over the EP axis,
+    then the data axis on the a2a path), which is not the scatter's (one
+    estimate over all tokens; logged beside it); its bytes equal to the
+    closed form (the buckets there and back in f32 and their int32 expert
+    ids, two f32 means; on the eplocal path the (N, D) partials' psum and
+    the EP mean); no kernel launch."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.moe import moe_block_scatter, route
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config(MOE_ARCH)
+    topk, dm = cfg.topk, cfg.d_model
+    d = moe_spmd_inputs(dev)
+    data, model = (2, len(ranks) // 2) if len(ranks) > 1 else (1, 1)
+    out = {}
+    for name, x in (("moe_a2a", "x"), ("moe_eplocal", "x_decode")):
+        want, scatter_aux = moe_block_scatter(d[x], d["router"], d["wi"], d["wg"], d["wo"], topk,
+                                              capacity_factor=MOE_SPMD_CAP)
+        b, s, _ = want.shape
+        a2a = name == "moe_a2a"
+        bound = MOE_SPMD_RTOL * want.abs().max().item()
+        blocks = {}
+        for r in range(len(ranks)):
+            i, j = divmod(r, model)
+            cols = slice(j * s // model, (j + 1) * s // model) if a2a else slice(None)
+            blocks[r] = (slice(i * b // data, (i + 1) * b // data), cols)
+        own = {r: route(d[x][blk].reshape(-1, dm), d["router"], topk)[2].item()
+               for r, blk in blocks.items()}
+        errs, auxes = [], []
+        for r, res in enumerate(ranks):
+            i = r // model
+            pair = [own[i * model + j] for j in range(model)]
+            aux = sum(pair) / model  # the EP axis's psum over its size
+            if a2a:  # then the data axis's
+                aux = sum(sum(own[i2 * model + j] for j in range(model)) / model
+                          for i2 in range(data)) / data
+            got = res[name]["y"].to(dev)
+            errs.append((got - want[blocks[r]]).abs().max().item())
+            auxes.append(res[name]["aux"])
+            n_loc = got.shape[0] * got.shape[1]
+            if a2a:
+                c_pair = max(8, -(-int(n_loc * topk * MOE_SPMD_CAP / model) // 8) * 8)
+                b_want = wire(psum=2 * 4, all_to_all=model * c_pair * (2 * dm * 4 + 4))
+            else:
+                b_want = wire(psum=n_loc * dm * 4 + 4)
+            arm = res["arms"][name]
+            if not (errs[-1] <= bound and abs(auxes[-1] - aux) <= 1e-6
+                    and arm["bytes"] == b_want):
+                raise AssertionError(f"spmd {what} rank {r} {name}: max_abs_err {errs[-1]} "
+                                     f"(bound {bound}), aux {auxes[-1]} (want {aux}), bytes "
+                                     f"{arm['bytes']} (want {b_want})")
+            expect_launches(arm, f"{what} rank {r} {name}", {})
+        out[name] = {"max_abs_err": errs, "bound": bound, "aux": auxes,
+                     "scatter_aux": scatter_aux.item(), "bytes": ranks[0]["arms"][name]["bytes"],
+                     "wall_s": max(res["arms"][name]["wall_s"] for res in ranks)}
+    del d
+    torch.cuda.empty_cache()
+    log(f"spmd {what} moe_block_a2a (B, S) = {MOE_SPMD_TOKENS} and the eplocal path at "
+        f"B={MOE_SPMD_DECODE} S=1, granite-moe width f32 (d_model {dm}, {cfg.n_experts} experts "
+        f"of {cfg.d_ff}, top {topk}), capacity {MOE_SPMD_CAP}: every rank within "
+        f"{MOE_SPMD_RTOL} of the largest |y| of moe_block_scatter, aux the ranks' own meaned, "
+        f"bytes the closed form, no kernel launch: {json.dumps(out)}")
+    return out
 
 
 def spmd_phase(dev, table: np.ndarray, chain: np.ndarray, oracle: np.ndarray) -> dict:
@@ -3051,9 +3448,9 @@ def spmd_phase(dev, table: np.ndarray, chain: np.ndarray, oracle: np.ndarray) ->
                 raise AssertionError(f"spmd gloo rank {r} {name}: results differ from the oracle")
         expect_launches(arms["dapc"], f"rank {r} dapc", {"chase_shard": {"spread": DAPC_DEPTH}})
         expect_launches(arms["gbpc"], f"rank {r} gbpc", {})
-        want = {"dapc": {"psum": DAPC_DEPTH * DAPC_CHASES * 4, "pmax": 0, "all_gather": 0},
-                "gbpc": {"psum": 0, "pmax": 0, "all_gather": n_loc * 4},
-                "gather": {"psum": len(keys) * DIM * 4, "pmax": 0, "all_gather": 0}}
+        want = {"dapc": wire(psum=DAPC_DEPTH * DAPC_CHASES * 4),
+                "gbpc": wire(all_gather=n_loc * 4),
+                "gather": wire(psum=len(keys) * DIM * 4)}
         for name, b in want.items():
             if arms[name]["bytes"] != b:
                 raise AssertionError(f"spmd gloo rank {r} {name}: bytes {arms[name]['bytes']}, "
@@ -3164,6 +3561,7 @@ def spmd_phase(dev, table: np.ndarray, chain: np.ndarray, oracle: np.ndarray) ->
         f"model), one {REDUCE_WIDTH * 4 // 2**20} MiB f32 bucket a rank: q, error and result "
         f"equal to numpy's f32 arithmetic on every rank, hierarchical within 3 f32 roundings "
         f"of the f64 sum; {json.dumps(psums)}")
+    out["moe"] = spmd_moe_check(dev, ranks, f"gloo (2, {SPMD_RANKS // 2})")
     out.update(arms=walls, attn=attn, psums=psums, dapc_bytes=dapc_b, gbpc_bytes=gbpc_b)
     out["launches"] = [{k: res["arms"][k]["launches"] for k in res["arms"]} for res in ranks]
     # (e) one NCCL rank: the NCCL code path at (a)'s and (b)'s sizes
@@ -3176,6 +3574,7 @@ def spmd_phase(dev, table: np.ndarray, chain: np.ndarray, oracle: np.ndarray) ->
         raise AssertionError("spmd nccl gather: rows differ from gather_ref")
     expect_launches(nccl["arms"]["dapc"], "nccl dapc", {"chase_shard": {"spread": DAPC_DEPTH}})
     expect_launches(nccl["arms"]["gather"], "nccl gather", {"embed_lookup": {"warp": 1}})
+    out["nccl_moe"] = spmd_moe_check(dev, [nccl], "nccl x1 (1, 1)")
     out["nccl"] = {k: {"wall_s": a["wall_s"], "bytes": a["bytes"], "launches": a["launches"]}
                    for k, a in nccl["arms"].items()}
     shutil.rmtree(SPMD_DIR)
@@ -3423,7 +3822,7 @@ def time_flash_bwd(dev) -> dict:
                                   tries=5)
     name = lambda e: (re.search(r"flash_bwd_\w+", e.name) or re.search(".{0,40}", e.name))[0]
     rec["kernels_ms"] = ({name(e): e.device_time_total / 1e3 for e in window
-                          if e.device_type == DeviceType.CUDA and e.name != WINDOW}
+                          if device_work(e)}
                          if whole else None)
     for k2, (count, routes) in before.items():
         WRAPPERS[k2].launches, WRAPPERS[k2].route_launches = count, routes
@@ -3678,7 +4077,7 @@ def time_rec_bwd(dev, name: str) -> dict:
         _, window, _, whole = profiled(lambda: fn(*sets[0], route=rt), tries=5)
         kernels_ms: dict[str, float] = {}
         for e in window:
-            if e.device_type == DeviceType.CUDA and e.name != WINDOW:
+            if device_work(e):
                 key = (stem.search(e.name) or re.search(".{0,40}", e.name))[0]
                 kernels_ms[key] = kernels_ms.get(key, 0.0) + e.device_time_total / 1e3
         rec["kernels_ms"][rt] = kernels_ms if whole else None
@@ -3976,7 +4375,11 @@ def train_phase(dev, profile_dir: str | None, arch: str = "yi-9b") -> dict:
     memory and the device seconds of forward, loss, backward (with the
     loss's and the blocks' recompute) and optimizer from CUDA events at the
     step's stage marks; the last step runs under torch.profiler for the
-    device's busy share and each kernel kind's device seconds and share."""
+    device's busy share and each kernel kind's device seconds and share (an
+    MoE arch's also by MoE stage, :func:`moe_stage_us`).  An
+    MoE arch's steps log the router's aux loss, which must be above 0; for
+    an arch in TRAIN_REPLAY the first steps then run again from the same
+    seed and must give the same losses bit for bit."""
     from repro_torch import kernels
     from repro_torch.configs import get_config
     from repro_torch.data import DataConfig, TokenPipeline
@@ -4041,7 +4444,7 @@ def train_phase(dev, profile_dir: str | None, arch: str = "yi-9b") -> dict:
     kinds = {"flash_fwd": ("flash_fwd",), "flash_bwd": ("flash_bwd",),
              "wkv6_fwd": ("wkv6_fwd",), "wkv6_bwd": ("wkv6_bwd",),
              "ssm_scan_fwd": ("ssm_scan_fwd",), "ssm_scan_bwd": ("ssm_scan_bwd",),
-             "matmul": ("gemm", "nvjet", "xmma", "cutlass")}
+             "matmul": MATMUL_WORDS}
     # the recurrences' backward kernels take their bf16 route on every launch
     rec_bwd = {"wkv6_bwd": "mma", "ssm_scan_bwd": "regs"}
     want_rec_routes = {k: {r: want[k] * (r == route) for r in kernels.WRAPPERS[k].route_launches}
@@ -4072,12 +4475,16 @@ def train_phase(dev, profile_dir: str | None, arch: str = "yi-9b") -> dict:
             loss = float(metrics["loss"])
             if not np.isfinite(loss):
                 raise AssertionError(f"train phase {arch}: loss {loss} at step {step}")
+            if cfg.family == "moe" and not float(metrics["aux"]) > 0:  # finite and positive
+                raise AssertionError(f"train phase {arch}: aux {float(metrics['aux'])} at step "
+                                     f"{step}")
             losses.append(loss)
             stage_s: dict[str, float] = {}
             for (_, a), (stage, b) in zip(events, events[1:]):
                 stage_s[stage] = stage_s.get(stage, 0.0) + a.elapsed_time(b) / 1e3
             now = kernels.launch_counts()
-            rec = {"arch": arch, "step": step, "loss": loss, "seconds": wall,
+            rec = {"arch": arch, "step": step, "loss": loss, "aux": float(metrics["aux"]),
+                   "seconds": wall,
                    "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / wall,
                    "max_memory_allocated_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
                    "stage_device_s": stage_s,
@@ -4089,7 +4496,7 @@ def train_phase(dev, profile_dir: str | None, arch: str = "yi-9b") -> dict:
                                       for k in rec_bwd}}
             if profiled_step:
                 evs = prof.events()
-                kernels_seen = sum(1 for e in evs if e.device_type == DeviceType.CUDA)
+                kernels_seen = sum(1 for e in evs if device_work(e))
                 launched = sum(1 for e in evs if e.device_type == DeviceType.CPU
                                and e.name in LAUNCH_APIS)
                 busy = device_us(evs)
@@ -4098,10 +4505,13 @@ def train_phase(dev, profile_dir: str | None, arch: str = "yi-9b") -> dict:
                                           if kernels_seen >= launched > 0 else None)
                 by_name: dict[str, float] = {}
                 for e in evs:
-                    if e.device_type == DeviceType.CUDA:
+                    if device_work(e):
                         by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time_total / 1e6
                 rec["kernel_device_s"] = {kind: sum(t for n, t in by_name.items() if any(
                     w in n.lower() for w in words)) for kind, words in kinds.items()}
+                if cfg.family == "moe":  # each MoE stage's kernels, forward and backward
+                    rec["kernel_device_s"].update(
+                        {k: v / 1e6 for k, v in moe_stage_us(evs).items()})
                 rec["kernel_device_s"]["all"] = busy / 1e6
                 rec["kernel_share_pct"] = {kind: 100 * v * 1e6 / busy for kind, v in
                                            rec["kernel_device_s"].items() if kind != "all"}
@@ -4140,6 +4550,19 @@ def train_phase(dev, profile_dir: str | None, arch: str = "yi-9b") -> dict:
            "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / float(np.median(unprofiled)),
            "peak_memory_gb": max(r["max_memory_allocated_gb"] for r in steps),
            "profiled_step": steps[-1], "seconds": time.perf_counter() - t}
+    if arch in TRAIN_REPLAY:  # the first steps again from the same seed: the same bits
+        del state
+        torch.cuda.empty_cache()
+        state = driver.init_state()
+        again = []
+        for step in range(TRAIN_REPLAY[arch]):
+            events.clear()
+            state, metrics = step_fn(state, pipe.batch_at(step))
+            again.append(float(metrics["loss"]))
+        rec["replayed_losses"] = again
+        if again != losses[: len(again)]:
+            raise AssertionError(f"train phase {arch}: steps 0-{len(again) - 1} run again from "
+                                 f"the same seed give losses {again}, first {losses[:len(again)]}")
     log(f"train phase: {json.dumps({k: v for k, v in rec.items() if k != 'profiled_step'})}")
     del state, driver, step_fn
     torch.cuda.empty_cache()
@@ -4282,6 +4705,22 @@ def write_profile(prof, wall: float, path: Path, what: str, busy_us: float | Non
         f"device busy {busy_us / 1e3} ms ({100 * busy_us / 1e6 / wall}%)")
 
 
+def moe_phases(dev, profile_dir: str | None, elapsed) -> dict:
+    """Phases 34-38, each followed by its elapsed time (the SPMD MoE arm runs
+    inside the SPMD phase, 9a)."""
+    out = {"parity": parity_phase(dev, MOE_ARCH)}
+    elapsed("the granite-moe parity phase")
+    out["train_parity"] = train_parity_phase(dev, MOE_ARCH)
+    elapsed("the granite-moe train parity phase")
+    out["serving"] = serving_phase(dev, profile_dir, MOE_ARCH)
+    out["served"] = {MOE_ARCH: launch_serve_phase(dev, MOE_ARCH),
+                     PHI_ARCH: launch_serve_phase(dev, PHI_ARCH, PHI_LAYERS)}
+    elapsed("the granite-moe and phi3.5-moe serving phases")
+    out["trained"] = train_phase(dev, profile_dir, MOE_ARCH)
+    elapsed("the granite-moe train phase")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", metavar="DIR", default=None)
@@ -4389,6 +4828,8 @@ def main() -> int:
     elapsed("the rwkv6 and hymba train phases")
     driver_phase(dev)
     elapsed("the driver phase")
+    moe = moe_phases(dev, args.profile, elapsed)
+    served.update(moe["served"])
     # the path's launches by the shape they come in: per-message dispatches
     # at N = 16 ids and B = 1 chase, batched ones at their arm's mean,
     # launch.serve's remote embedding at N = 8 of each LM's rows, and the
@@ -4399,7 +4840,7 @@ def main() -> int:
     embed_by_shape = {"message": g_arms["per_message"]["kernel_launches"],
                       "mean": sum(g_arms[a]["kernel_launches"] for a in ("batched", "zerocopy")),
                       **{f"remote {arch}": runs["remote"]["launches"]["embed_lookup"]
-                         for arch, runs in served.items()},
+                         for arch, runs in served.items() if "remote" in runs},
                       "filter": sum(c["arms"]["per_message"]["kernel_launches"]
                                     for c in filtered["cells"]),
                       "filter_batched": sum(c["arms"][a]["kernel_launches"]
@@ -4429,9 +4870,9 @@ def main() -> int:
         "launches_filter": filtered["launches"],
         "launches_by_route_filter": filtered["routes"],
         "launches_remote_embed": {arch: runs["remote"]["launches"]["embed_lookup"]
-                                  for arch, runs in served.items()},
+                                  for arch, runs in served.items() if "remote" in runs},
         "launches_by_route_remote_embed": {arch: runs["remote"]["routes"]["embed_lookup"]
-                                           for arch, runs in served.items()},
+                                           for arch, runs in served.items() if "remote" in runs},
         "launches_tenancy": tenancy["launches"],
         "launches_loss": lossy["launches"]["embed_lookup"],
         "launches_sandbox": sandboxed["launches"],
@@ -4478,6 +4919,11 @@ def main() -> int:
         "launches_hymba": hymba_serving["launches"]["flash_attention"],
         "launches_by_route": serving["routes"]["flash_attention"],
         "launches_by_route_hymba": hymba_serving["routes"]["flash_attention"],
+        "launches_granite": moe["serving"]["launches"]["flash_attention"],
+        "launches_by_route_granite": moe["serving"]["routes"]["flash_attention"],
+        "launches_launch_serve": {arch: runs["local"]["launches"]["flash_attention"]
+                                  for arch, runs in served.items()},
+        "launches_granite_training": moe["trained"]["launches"]["flash_attention"],
         "launches_spmd": [r["attend_sp"]["flash_attention"] + r["attend_sp_window"][
             "flash_attention"] for r in spmd["launches"]],
         "max_abs_err": flash_checked["max_abs_err"],
@@ -4536,6 +4982,8 @@ def main() -> int:
                  "(wgmma: delta pass, dK/dV and dQ)",
         "launches_hymba_training": hymba_trained["launches"]["flash_attention_bwd"],
         "launches_by_route_hymba_training": hymba_trained["bwd_routes"],
+        "launches_granite_training": moe["trained"]["launches"]["flash_attention_bwd"],
+        "launches_by_route_granite_training": moe["trained"]["bwd_routes"],
     }]
     for name, stem, checked, timing, run, shape, jax_fn in (
             ("wkv6_bwd", "wkv6", wkv_bwd_checked, wkv_bwd_timing, rwkv_trained,

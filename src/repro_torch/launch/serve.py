@@ -1,9 +1,10 @@
 """Serving launcher: batched prefill + greedy decode loop.
 
-``python -m repro_torch.launch.serve --arch yi-9b|rwkv6-1.6b [--no-smoke]
+``python -m repro_torch.launch.serve --arch <id> [--no-smoke] [--layers N]
 --batch 4 --prompt-len 64 --gen 32 [--remote-embed --embed-servers 2]``
 prefills a batch of random prompts and decodes greedily, printing one JSON line with
-the prefill and decode throughput (the keys of ``repro.launch.serve``).
+the prefill and decode throughput (the keys of ``repro.launch.serve``; with
+``--layers``, the arch's first N layers, also ``layers``).
 It runs on the card; ``--device cpu`` runs it on the host.  With
 ``--remote-embed`` the tokens' embedding rows come from an embedding-shard
 service over the PE fabric instead of a local lookup, and the token stream
@@ -39,6 +40,8 @@ def serve(argv: list[str] | None = None) -> tuple[dict, np.ndarray]:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", required=True)
     ap.add_argument("--smoke", action=argparse.BooleanOptionalAction, default=True)
+    ap.add_argument("--layers", type=int, default=None,
+                    help="serve the arch's first N layers (a model too large for the card)")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=64)
     ap.add_argument("--gen", type=int, default=32)
@@ -55,6 +58,10 @@ def serve(argv: list[str] | None = None) -> tuple[dict, np.ndarray]:
     dev = resolve_device(args.device)
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
     cfg = get_config(args.arch, smoke=args.smoke)
+    if args.layers is not None:
+        if not 1 <= args.layers <= cfg.n_layers:
+            raise ValueError(f"--layers {args.layers}: {cfg.name} has {cfg.n_layers} layers")
+        cfg = cfg.replace(n_layers=args.layers)
     model = build_params(cfg, args.seed, device=dev)
     t_max = args.prompt_len + args.gen
 
@@ -106,6 +113,8 @@ def serve(argv: list[str] | None = None) -> tuple[dict, np.ndarray]:
         "decode_tok_s": round(args.batch * args.gen / t_decode),
         "sample_ids": gen[0, :8].tolist(),
     }
+    if args.layers is not None:
+        out["layers"] = cfg.n_layers
     if embed_client is not None:
         out["remote_embed"] = True
         out["embed_servers"] = args.embed_servers

@@ -27,8 +27,8 @@ def pad_vocab(v: int) -> int:
 @dataclass(frozen=True)
 class ModelConfig:
     """One architecture; the fields of ``repro.models.common.ModelConfig``,
-    with ``dtype`` a ``torch.dtype``.  The port runs the dense, rwkv and
-    hybrid families (``repro_torch.models.zoo.LM`` refuses what it does not
+    with ``dtype`` a ``torch.dtype``.  The port runs the dense, moe, rwkv
+    and hybrid families (``repro_torch.models.zoo.LM`` refuses what it does not
     run yet)."""
 
     name: str = "tiny"
@@ -66,10 +66,13 @@ class ModelConfig:
     dtype: Any = torch.bfloat16
     embed_mult: float = 1.0  # gemma multiplies embeddings by sqrt(d_model)
     # remat and microbatch shape the train step (run_blocks, make_train_step).
-    # Kept so the configs equal the JAX package's field for field, and read
-    # nowhere in the port: c2d_embedding (no mesh through the forward yet)
-    # and attn_chunk (the JAX einsum attention's q-chunk; the flash kernel
-    # tiles queries itself).
+    # c2d_embedding picks an MoE block's dispatch (on: the capacity buffer,
+    # or the all_to_all with a mesh; off: every expert over every token), as
+    # the JAX block does; with no mesh through the forward yet it picks
+    # nothing for the embedding.  Kept so the configs equal the JAX
+    # package's field for field, and read nowhere in the port: attn_chunk
+    # (the JAX einsum attention's q-chunk; the flash kernel tiles queries
+    # itself).
     remat: bool = True
     c2d_embedding: bool = True
     attn_chunk: int = 0

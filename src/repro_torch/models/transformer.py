@@ -1,8 +1,8 @@
-"""The decoder stack: dense blocks (GQA attention + SwiGLU MLP), RWKV6
-blocks and hybrid blocks (parallel GQA attention + SSM heads, then the
-MLP).
+"""The decoder stack: dense blocks (GQA attention + SwiGLU MLP), MoE
+blocks (GQA attention + top-k experts), RWKV6 blocks and hybrid blocks
+(parallel GQA attention + SSM heads, then the MLP).
 
-The counterpart of the dense, rwkv and hybrid families of
+The counterpart of the dense, moe, rwkv and hybrid families of
 ``repro.models.transformer``.  The JAX package stacks layers on a leading
 axis and scans them; the port holds one block module per layer and loops
 over them.  The same ``run_blocks`` serves a full sequence (no cache),
@@ -11,8 +11,11 @@ offset).  Attention is one launch of the ``flash_attention`` kernel on the
 card, over the cache's valid prefix, with the layer's sliding window (0 on
 global layers); an RWKV block's WKV is one launch of the ``wkv6`` kernel
 and a hybrid block's scan one of ``ssm_scan``, each from the layer's
-state.  The MoE and encoder-decoder families wait for their slices
-(ROADMAP.md section 1).  A forward that trains (grad on, weights that
+state.  An MoE block's experts run through ``models/moe.py`` (the
+capacity-buffer dispatch, or every expert over every token when
+``c2d_embedding`` is off), and its router's aux loss is averaged over the
+layers, as the JAX scan sums it.  The encoder-decoder family waits for its
+slice (ROADMAP.md section 1).  A forward that trains (grad on, weights that
 require grad, no cache) with ``cfg.remat`` checkpoints each block, as the
 JAX package wraps its scan body in ``jax.checkpoint``: a block keeps only
 its input and runs again in the backward.
@@ -29,13 +32,14 @@ from torch.utils.checkpoint import checkpoint
 from ..kernels.flash_attention import flash_attention
 from .attention import qkv_proj, update_kv_cache
 from .common import ModelConfig, ParamFactory, mlp, rms_norm, rope
+from .moe import moe_block
 from .rwkv import RWKVBlock, rwkv_block
 from .ssm import SSMHead, ssm_head
 
 
 def require_ported(cfg: ModelConfig) -> None:
     """Refuse what the port's stack does not run yet, naming its slice."""
-    if cfg.family not in ("dense", "rwkv", "hybrid") or cfg.is_encdec:
+    if cfg.family not in ("dense", "moe", "rwkv", "hybrid") or cfg.is_encdec:
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family} family is not ported yet (ROADMAP.md section 1)"
         )
@@ -64,6 +68,14 @@ def add_mlp_params(m: nn.Module, f: ParamFactory, cfg: ModelConfig) -> None:
     m.wo2 = f.new((F, D))
 
 
+def add_moe_params(m: nn.Module, f: ParamFactory, cfg: ModelConfig) -> None:
+    D, F, E = cfg.d_model, cfg.d_ff, cfg.n_experts
+    m.router = f.new((D, E), scale=0.02)
+    m.we_i = f.new((E, D, F))
+    m.we_g = f.new((E, D, F))
+    m.we_o = f.new((E, F, D))
+
+
 def add_block_params(m: nn.Module, f: ParamFactory, cfg: ModelConfig) -> None:
     m.ln1 = f.new((cfg.d_model,), "zeros")
     m.ln2 = f.new((cfg.d_model,), "zeros")
@@ -77,6 +89,19 @@ class DenseBlock(nn.Module):
     def __init__(self, cfg: ModelConfig, f: ParamFactory) -> None:
         super().__init__()
         add_block_params(self, f, cfg)
+
+
+class MoEBlock(nn.Module):
+    """A dense block's norms and attention, with the router ``(D, E)`` and
+    the experts ``we_i``, ``we_g`` ``(E, D, F)`` and ``we_o`` ``(E, F, D)``
+    in place of the MLP (the leaves of the JAX ``add_moe_params``)."""
+
+    def __init__(self, cfg: ModelConfig, f: ParamFactory) -> None:
+        super().__init__()
+        self.ln1 = f.new((cfg.d_model,), "zeros")
+        self.ln2 = f.new((cfg.d_model,), "zeros")
+        add_attn_params(self, f, cfg)
+        add_moe_params(self, f, cfg)
 
 
 class HybridBlock(DenseBlock):
@@ -93,7 +118,7 @@ class HybridBlock(DenseBlock):
 # ------------------------------------------------------------- sublayers
 def attn_sublayer(
     x: torch.Tensor,
-    p: DenseBlock,
+    p: DenseBlock | MoEBlock | HybridBlock,
     cfg: ModelConfig,
     *,
     pos: torch.Tensor,  # (S,) absolute positions of x's tokens
@@ -138,7 +163,7 @@ def _write_state(
 
 def block_apply(
     x: torch.Tensor,
-    p: DenseBlock | RWKVBlock | HybridBlock,
+    p: DenseBlock | MoEBlock | RWKVBlock | HybridBlock,
     cfg: ModelConfig,
     *,
     pos: torch.Tensor,
@@ -146,17 +171,20 @@ def block_apply(
     offset: int,
     rows: torch.Tensor | None = None,
     window: int = 0,
-) -> torch.Tensor:
-    """One decoder block; the cache (if any) is updated in place, only
-    batch ``rows`` of it when given.  A dense block's cache is its layer's
-    ``k`` and ``v``; an RWKV block's its layer's ``tm_shift``, ``cm_shift``
-    and ``wkv`` state, which the block reads and replaces; a hybrid
-    block's ``k`` and ``v`` and the SSM head's ``conv`` and ``h`` state."""
+) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """One decoder block: (x, the MoE router's aux loss, None for the other
+    families).  The cache (if any) is updated in place, only batch ``rows``
+    of it when given.  A dense or MoE block's cache is its layer's ``k`` and
+    ``v``; an RWKV block's its layer's ``tm_shift``, ``cm_shift`` and
+    ``wkv`` state, which the block reads and replaces; a hybrid block's
+    ``k`` and ``v`` and the SSM head's ``conv`` and ``h`` state.  An MoE
+    block routes every row of ``x``, ``rows`` or not: the capacity buffer
+    is shared, so the rows present decide the drops."""
     if cfg.family == "rwkv":
         x, new = rwkv_block(x, p, cfg, cache)
         if cache is not None:
             _write_state(cache, new, rows)
-        return x
+        return x, None
     h = rms_norm(x, p.ln1, cfg.norm_eps)
     kv = None if cache is None else (cache["k"], cache["v"])
     att = attn_sublayer(h, p, cfg, pos=pos, cache=kv, offset=offset, rows=rows, window=window)
@@ -168,7 +196,11 @@ def block_apply(
             _write_state(cache, new, rows)
     x = x + att
     h = rms_norm(x, p.ln2, cfg.norm_eps)
-    return x + mlp(h, p.wi, getattr(p, "wg", None), p.wo2, cfg.act)
+    if cfg.family == "moe":
+        y, aux = moe_block(h, p.router, p.we_i, p.we_g, p.we_o, cfg.topk,
+                           mode="c2d" if cfg.c2d_embedding else "replicated")
+        return x + y, aux
+    return x + mlp(h, p.wi, getattr(p, "wg", None), p.wo2, cfg.act), None
 
 
 def layer_windows(cfg: ModelConfig) -> np.ndarray:
@@ -192,16 +224,23 @@ def run_blocks(
     caches: dict[str, torch.Tensor] | None = None,  # (L, B, ...) leaves, init_kv_cache's
     offset: int = 0,
     rows: torch.Tensor | None = None,
-) -> torch.Tensor:
+) -> tuple[torch.Tensor, torch.Tensor | float]:
+    """(x, aux): the stack's output and its layers' aux losses summed in
+    layer order over ``n_layers`` (the JAX scan's carry), 0.0 for the
+    families without one."""
     windows = layer_windows(cfg)
     remat = cfg.remat and caches is None and torch.is_grad_enabled() and (
         x.requires_grad or any(w.requires_grad for w in blocks.parameters()))
+    aux = None
     for layer, p in enumerate(blocks):
         if remat:
-            x = checkpoint(block_apply, x, p, cfg, pos=pos, cache=None, offset=offset,
-                           window=int(windows[layer]), use_reentrant=False)
-            continue
-        cache = None if caches is None else {name: leaf[layer] for name, leaf in caches.items()}
-        x = block_apply(x, p, cfg, pos=pos, cache=cache, offset=offset, rows=rows,
-                        window=int(windows[layer]))
-    return x
+            x, aux_l = checkpoint(block_apply, x, p, cfg, pos=pos, cache=None, offset=offset,
+                                  window=int(windows[layer]), use_reentrant=False)
+        else:
+            cache = (None if caches is None
+                     else {name: leaf[layer] for name, leaf in caches.items()})
+            x, aux_l = block_apply(x, p, cfg, pos=pos, cache=cache, offset=offset, rows=rows,
+                                   window=int(windows[layer]))
+        if aux_l is not None:
+            aux = aux_l if aux is None else aux + aux_l
+    return x, (0.0 if aux is None else aux / cfg.n_layers)

@@ -1,7 +1,7 @@
 """Model zoo: build the weights, forward, and the prefill/serve steps.
 
-The counterpart of ``repro.models.zoo`` for the dense, rwkv and hybrid
-families:
+The counterpart of ``repro.models.zoo`` for the dense, moe, rwkv and
+hybrid families:
 
 * ``build_params(cfg, seed, device=...)``   -> ``LM`` (weights on the device)
 * ``from_jax_params(cfg, flat, device=...)`` -> ``LM`` holding the JAX
@@ -11,7 +11,7 @@ families:
   ``from_jax_params``
 * ``make_batch(cfg, shape, seed)``          -> random token batch (numpy seed); a
   ``train`` shape adds ``labels`` and ``mask``
-* ``init_kv_cache(cfg, batch, t_max)``      -> dense ``{"k", "v"}``, ``(L, B, T, K, hd)``;
+* ``init_kv_cache(cfg, batch, t_max)``      -> dense and moe ``{"k", "v"}``, ``(L, B, T, K, hd)``;
   rwkv ``{"tm_shift", "cm_shift", "wkv"}``; hybrid ``{"k", "v", "conv", "h"}``
 * ``make_prefill_step(cfg)``                -> (model, batch) -> (logits, cache)
 * ``make_serve_step(cfg)``                  -> (model, cache, tok, pos) -> (logits, cache)
@@ -45,7 +45,7 @@ from .common import ModelConfig, ParamFactory, cross_entropy, rms_norm, softcap
 from .embedding import embed_plain, lm_head
 from .rwkv import RWKVBlock
 from .ssm import CONV_K
-from .transformer import DenseBlock, HybridBlock, require_ported, run_blocks
+from .transformer import DenseBlock, HybridBlock, MoEBlock, require_ported, run_blocks
 
 
 # ------------------------------------------------------------------- shapes
@@ -61,15 +61,17 @@ class ShapeSpec:
 # ------------------------------------------------------------------- params
 class LM(nn.Module):
     """A decoder LM's weights; parameter names follow the JAX flat dict
-    (``embed.tok``, ``blocks.<layer>.wq``, ``blocks.<layer>.tm.wr`` or
-    ``blocks.<layer>.ssm.w_in``, ``final_ln``, ``head.w``)."""
+    (``embed.tok``, ``blocks.<layer>.wq``, ``blocks.<layer>.we_i``,
+    ``blocks.<layer>.tm.wr`` or ``blocks.<layer>.ssm.w_in``, ``final_ln``,
+    ``head.w``)."""
 
     def __init__(self, cfg: ModelConfig, f: ParamFactory) -> None:
         super().__init__()
         require_ported(cfg)
         self.embed = nn.Module()
         self.embed.tok = f.new((cfg.vocab_padded, cfg.d_model), scale=0.02)
-        block = {"rwkv": RWKVBlock, "hybrid": HybridBlock}.get(cfg.family, DenseBlock)
+        block = {"moe": MoEBlock, "rwkv": RWKVBlock, "hybrid": HybridBlock}.get(
+            cfg.family, DenseBlock)
         self.blocks = nn.ModuleList(block(cfg, f) for _ in range(cfg.n_layers))
         self.final_ln = f.new((cfg.d_model,), "zeros")
         if not cfg.tie_embeddings:
@@ -202,7 +204,9 @@ def forward(
     return_hidden: bool = False,
 ):
     """Returns (logits, caches, aux_loss); ``caches`` is updated in place
-    (only batch ``rows`` of it, when given).  ``batch["token_rows"]``, when
+    (only batch ``rows`` of it, when given).  ``aux_loss`` is the MoE
+    router's load-balance loss averaged over the layers (an f32 scalar), 0.0
+    for the other families.  ``batch["token_rows"]``, when
     present, holds embedding rows gathered elsewhere (the serving tier's
     remote embedding) and bypasses the table lookup."""
     tokens = batch["tokens"]
@@ -215,10 +219,10 @@ def forward(
         x = (x.float() * cfg.embed_mult).to(x.dtype)
     off = 0 if offset is None else int(offset)
     pos = off + torch.arange(s, device=x.device)
-    h = run_blocks(cfg, model.blocks, x, pos=pos, caches=caches, offset=off, rows=rows)
+    h, aux = run_blocks(cfg, model.blocks, x, pos=pos, caches=caches, offset=off, rows=rows)
     if return_hidden:
-        return h, caches, 0.0
-    return _head(cfg, model, h), caches, 0.0
+        return h, caches, aux
+    return _head(cfg, model, h), caches, aux
 
 
 # ----------------------------------------------------------------- KV cache
@@ -226,7 +230,7 @@ def init_kv_cache(
     cfg: ModelConfig, batch: int, t_max: int, dtype: torch.dtype = torch.bfloat16,
     device: "torch.device | str | None" = None,
 ) -> dict[str, torch.Tensor]:
-    """The dense family's cache: ``k`` and ``v`` of ``(L, B, T, K, hd)``.
+    """The dense and moe families' cache: ``k`` and ``v`` of ``(L, B, T, K, hd)``.
     The rwkv family's state, whatever ``t_max``: ``tm_shift`` and
     ``cm_shift`` of ``(L, B, 1, D)`` in ``dtype`` and ``wkv`` of
     ``(L, B, H, M, M)`` in f32.  The hybrid family's: ``k`` and ``v``, the
@@ -363,8 +367,9 @@ def _chunked_xent(
 def loss_fn(
     cfg: ModelConfig, model: LM, batch: dict, mark: Callable[[str], None] | None = None
 ) -> tuple[torch.Tensor, dict]:
-    """``(loss, {"nll", "aux"})``: the masked next-token NLL (the port's
-    families have no auxiliary loss: ``aux`` is 0).  ``mark``, when given,
+    """``(loss, {"nll", "aux"})``: the masked next-token NLL plus
+    ``AUX_LOSS_WEIGHT`` times the MoE router's aux loss (0 for the other
+    families).  ``mark``, when given,
     is called with ``"forward"`` and ``"loss"`` as each is queued."""
     h, _, aux = forward(cfg, model, batch, return_hidden=True)
     if mark:

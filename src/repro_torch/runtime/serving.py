@@ -11,7 +11,12 @@ place, so writing every row would overwrite the neighbours' history at
 that position, or advance their rwkv state by a token they did not take
 (the JAX scheduler merges the old rows back instead).  Every attention
 call of a prefill or a group is one launch of the ``flash_attention``
-kernel on the card, one per layer; every WKV call one of ``wkv6``.
+kernel on the card, one per layer; every WKV call one of ``wkv6``.  An MoE
+group's step routes the whole slot batch, as the JAX step does.  Where the
+experts' capacity is below the slot count, the rows present decide the
+drops, so such a step writes every row's K/V at the group's position (the
+other rows then attend over theirs, as in JAX's step before its merge) and
+the other rows' entries there are put back after it.
 """
 
 from __future__ import annotations
@@ -24,6 +29,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from ..models.moe import moe_capacity
 from ..models.zoo import LM, init_kv_cache, make_prefill_step, make_serve_step
 
 
@@ -67,6 +73,10 @@ class ServeScheduler:
         self._tokens = np.zeros((slots, 1), np.int32)
         self._step = make_serve_step(cfg)
         self._prefill = make_prefill_step(cfg)
+        # an MoE step over the slots can drop a choice: its groups write
+        # every row and put the others back (see the module's docstring)
+        self._rows_coupled = (cfg.family == "moe" and cfg.c2d_embedding
+                              and moe_capacity(slots, cfg.n_experts, cfg.topk) < slots)
         self.prefills = 0  # single-sequence prefills run
         self.decode_groups = 0  # serve steps run (one per position group per tick)
 
@@ -84,13 +94,16 @@ class ServeScheduler:
     def _write_slot(self, slot: int, cache1: dict[str, torch.Tensor]) -> None:
         """Copy a 1-batch prompt cache into slot ``slot`` of the shared cache,
         leaf by leaf whatever its shape (dim 1 is batch for every leaf).  A
-        K/V leaf (L, B, T, K, hd) takes the prompt's positions, and positions
-        past the prompt keep stale values (no step reads a position before
-        writing it); a state leaf (rwkv's ``tm_shift``, ``cm_shift``,
+        K/V leaf (L, B, T, K, hd) takes the prompt's positions and zeros
+        past them, as the JAX scheduler's write of a whole ``t_max`` stripe
+        leaves them (a slot's own steps never read a position before writing
+        it, but an MoE step routes every slot, whose rows then read what
+        lies there); a state leaf (rwkv's ``tm_shift``, ``cm_shift``,
         ``wkv``) is the same size in both and is copied whole."""
         for name, full in self.cache.items():
             one = cache1[name]
             full[:, slot, : one.shape[2]] = one[:, 0]
+            full[:, slot, one.shape[2] :] = 0
 
     def _admit(self) -> None:
         free = [s for s in range(self.slots) if s not in self.active]
@@ -142,8 +155,15 @@ class ServeScheduler:
             step_rows = self._on_device(self.embed_client.rows(self._tokens))
         for pos, slots in sorted(groups.items()):
             tokens = self._on_device(self._tokens)
-            rows = self._on_device(np.asarray(slots, np.int64))
-            logits, _ = self._step(self.model, self.cache, tokens, pos, step_rows, rows=rows)
+            if self._rows_coupled and len(slots) < self.slots:
+                others = self._on_device(np.setdiff1d(np.arange(self.slots), slots))
+                kept = {n: self.cache[n][:, others, pos].clone() for n in ("k", "v")}
+                logits, _ = self._step(self.model, self.cache, tokens, pos, step_rows)
+                for n, old in kept.items():
+                    self.cache[n][:, others, pos] = old
+            else:
+                rows = self._on_device(np.asarray(slots, np.int64))
+                logits, _ = self._step(self.model, self.cache, tokens, pos, step_rows, rows=rows)
             self.decode_groups += 1
             toks = torch.argmax(logits, -1).to(torch.int32).cpu().numpy()
             for slot in slots:

@@ -1,6 +1,6 @@
 """A named device mesh over ``torch.distributed``: the port's counterpart of
 ``jax.sharding.Mesh`` and of the axis vocabulary ``shard_map`` bodies use
-(``axis_index``, ``psum``, ``pmax``, ``all_gather``).
+(``axis_index``, ``psum``, ``pmax``, ``all_gather``, ``all_to_all``).
 
 A mesh of shape ``(2, 2)`` named ``("data", "model")`` is four ranks laid
 out row-major, as ``jax.make_mesh`` lays out devices: rank ``r`` sits at
@@ -42,6 +42,8 @@ from ..core.bitcode import resolve_device
 DEFAULT_TIMEOUT = timedelta(seconds=300)
 
 Axes = str | tuple[str, ...]
+#: batch-like mesh axes, outermost first (``repro.sharding.partition``'s)
+DATA_AXES = ("pod", "data")
 
 
 class Mesh:
@@ -62,7 +64,7 @@ class Mesh:
         self.shape = dict(zip(names, shape))  # like jax's Mesh.shape: name -> size
         self.rank = dist.get_rank()
         self.coords = dict(zip(names, _unravel(self.rank, shape)))
-        self.bytes_by_kind = {"psum": 0, "pmax": 0, "all_gather": 0}
+        self.bytes_by_kind = {"psum": 0, "pmax": 0, "all_gather": 0, "all_to_all": 0}
         # every rank creates every group, in one order (new_group is collective);
         # a group's ranks, ascending, run row-major over its axes
         every = [_unravel(r, shape) for r in range(world)]
@@ -124,6 +126,29 @@ class Mesh:
         dist.all_gather(parts, x, group=group)
         return torch.cat(parts, dim)
 
+    def all_to_all(self, x: torch.Tensor, axis: Axes, split_dim: int = 0,
+                   concat_dim: int = 0) -> torch.Tensor:
+        """``x`` cut into as many blocks along ``split_dim`` as ``axis`` has
+        ranks, block ``i`` sent to rank ``i``; the blocks received
+        concatenated on ``concat_dim`` in axis order
+        (``jax.lax.all_to_all(..., tiled=True)``; with one block a rank
+        along dims 0 and 0, also ``tiled=False``).  Under gloo a CUDA tensor
+        goes through the host."""
+        group, n = self._groups[self._key(axis)]
+        if x.shape[split_dim] % n:
+            raise ValueError(f"all_to_all: dim {split_dim} of {tuple(x.shape)} does not split "
+                             f"over {n} ranks")
+        send = x.movedim(split_dim, 0).contiguous()
+        self.bytes_by_kind["all_to_all"] += send.numel() * send.element_size()
+        staged = self.backend == "gloo" and send.device.type != "cpu"
+        if staged:
+            send = send.cpu()
+        recv = torch.empty_like(send)
+        dist.all_to_all_single(recv, send, group=group)
+        if staged:
+            recv = recv.to(x.device)
+        return torch.cat([blk.movedim(0, split_dim) for blk in recv.chunk(n)], concat_dim)
+
     def close(self) -> None:
         """Tear down the process group (every group of every mesh on it)."""
         if dist.is_initialized():
@@ -162,6 +187,11 @@ def init_mesh(shape, names, device=None, backend: str | None = None, *,
     elif dist.get_backend() != backend:
         raise ValueError(f"the running process group is {dist.get_backend()}, not {backend}")
     return Mesh(shape, names, device, backend, timeout)
+
+
+def data_axes(mesh: Mesh) -> tuple[str, ...]:
+    """The mesh's batch-like axes (:data:`DATA_AXES`), outermost first."""
+    return tuple(a for a in DATA_AXES if a in mesh.names)
 
 
 def shard_rows(x: torch.Tensor, mesh: Mesh, axis: Axes = "model", dim: int = 0) -> torch.Tensor:

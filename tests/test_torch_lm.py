@@ -57,19 +57,20 @@ def test_yi_config_equals_jax(smoke):
     assert mine.dtype == torch.bfloat16 and theirs.dtype == jnp.bfloat16
     assert mine.vocab_padded == theirs.vocab_padded == (65_536 if not smoke else 2048)
     assert (mine.qkv_dim, mine.kv_dim) == (theirs.qkv_dim, theirs.kv_dim)
-    assert list_archs() == ("yi-9b", "rwkv6-1.6b", "hymba-1.5b")
+    assert list_archs() == ("yi-9b", "rwkv6-1.6b", "hymba-1.5b", "granite-moe-1b-a400m",
+                            "phi3.5-moe-42b-a6.6b")
 
 
 @pytest.mark.parametrize("arch", [a for a in JAX_ARCH_IDS
-                                  if a not in ("yi-9b", "rwkv6-1.6b", "hymba-1.5b")] + ["nope"])
+                                  if a not in ("yi-9b", "rwkv6-1.6b", "hymba-1.5b",
+                                               "granite-moe-1b-a400m",
+                                               "phi3.5-moe-42b-a6.6b")] + ["nope"])
 def test_unported_arch_raises_naming_roadmap(arch):
     with pytest.raises(KeyError, match="ROADMAP"):
         get_config(arch)
 
 
-@pytest.mark.parametrize("change", [
-    dict(family="moe", n_experts=4, topk=2), dict(enc_layers=2), dict(frontend="patch"),
-])
+@pytest.mark.parametrize("change", [dict(enc_layers=2), dict(frontend="patch")])
 def test_unported_families_raise(change):
     cfg = get_config("yi-9b", smoke=True).replace(**change)
     with pytest.raises(NotImplementedError, match="ROADMAP"):

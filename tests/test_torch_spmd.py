@@ -19,6 +19,7 @@ chases, the gathers and the embeddings exactly; the compressed psum's
 operations in the same order, ``round`` is half-to-even in both, and the
 error's ``g - q * scale`` is rounded once, as XLA fuses it under jit);
 ``hierarchical_psum`` within 1e-6 (f32 sums of 4 values in another order);
+``moe_block_a2a`` within 1e-5 (the experts' products in other orders);
 ``attend_sp`` within 1e-5 of JAX's in f32 (the reference's own bound for
 ``attend_sp`` against ``attend``: softmax and products summed in another
 order).
@@ -48,6 +49,13 @@ ATTN = (2, 16, 5, 8)  # B, S, H (= K), hd
 # kernel takes a window with causal masking only)
 ATTN_CASES = {"causal_w7": (True, 7), "causal": (True, None), "full": (False, None)}
 GRAD_W = 128
+# moe_block_a2a on the (2, 2) mesh: tokens, capacity factor.  S = 8 splits
+# over the 2 EP ranks (the a2a path; at 1.25 every pair's capacity holds all
+# its choices, at 8.0 too, where the scatter keeps every choice as well);
+# S = 1 cannot (the eplocal path); S = 64 at 0.25 overflows the pairs
+MOE_D, MOE_E, MOE_F, MOE_K = 16, 8, 32, 2
+MOE_CASES = {"moe_a2a": ("moe_x", 1.25), "moe_a2a_cap8": ("moe_x", 8.0),
+             "moe_eplocal": ("moe_xd", 1.25), "moe_a2a_drops": ("moe_x64", 0.25)}
 
 
 def inputs() -> dict[str, np.ndarray]:
@@ -70,6 +78,14 @@ def inputs() -> dict[str, np.ndarray]:
         "g1": rng.normal(0, 1, (RANKS, GRAD_W)).astype(np.float32),
         "g2": rng.normal(0, 3, (RANKS, GRAD_W)).astype(np.float32),
         "qx": rng.normal(0, 2, (RANKS, GRAD_W)).astype(np.float32),
+        # the MoE dispatch: test_multidevice.py's widths and scales
+        "moe_x": (rng.normal(0, 1, (2, 8, MOE_D)) * 0.5).astype(np.float32),
+        "moe_wr": (rng.normal(0, 1, (MOE_D, MOE_E)) * 0.3).astype(np.float32),
+        "moe_wi": (rng.normal(0, 1, (MOE_E, MOE_D, MOE_F)) * 0.3).astype(np.float32),
+        "moe_wg": (rng.normal(0, 1, (MOE_E, MOE_D, MOE_F)) * 0.3).astype(np.float32),
+        "moe_wo": (rng.normal(0, 1, (MOE_E, MOE_F, MOE_D)) * 0.3).astype(np.float32),
+        "moe_xd": (rng.normal(0, 1, (8, 1, MOE_D)) * 0.5).astype(np.float32),
+        "moe_x64": (rng.normal(0, 1, (2, 64, MOE_D)) * 0.5).astype(np.float32),
     }
 
 
@@ -133,6 +149,14 @@ q, scale = quantize_int8(d["qx"])
 out["q8"], out["q8_scale"], out["dq8"] = q, scale, dequantize_int8(q, scale)
 fb = init_error_feedback({"w": jnp.ones((3, 5), jnp.bfloat16)})["w"]
 out["feedback"] = fb
+from repro.models.moe import moe_block_a2a, moe_block_scatter
+ma = jax.make_mesh((2, 2), ("data", "model"), axis_types=(AxisType.Auto, AxisType.Auto))
+w = [d[n] for n in ("moe_wr", "moe_wi", "moe_wg", "moe_wo")]
+for name, (xk, cf) in eval(sys.argv[5]).items():
+    out[name], out[name + "_aux"] = jax.jit(lambda x, *w: moe_block_a2a(
+        x, *w, topk=int(sys.argv[6]), mesh=ma, capacity_factor=cf))(d[xk], *w)
+out["moe_scatter"], out["moe_scatter_aux"] = moe_block_scatter(
+    d["moe_x"], *w, int(sys.argv[6]), capacity_factor=8.0)
 np.savez(sys.argv[2], **{k: np.asarray(v) for k, v in out.items()})
 """
 
@@ -197,6 +221,28 @@ def _rank(rank: int, store: str, out_dir: str) -> None:
             refused[name] = False
     res["attend_sp_refused"] = refused
 
+    from repro_torch.models import moe
+
+    moe_w = [d["moe_wr"]] + [shard_rows(d[n], m22, "model") for n in ("moe_wi", "moe_wg",
+                                                                          "moe_wo")]
+    buckets = []  # each call's destinations and capacity
+    bucket_positions = moe._bucket_positions
+    moe._bucket_positions = lambda dst, n, cap: (buckets.append((dst.numpy(), cap)),
+                                                 bucket_positions(dst, n, cap))[1]
+    for name, (xk, cf) in MOE_CASES.items():
+        x = shard_rows(d[xk], m22, "data")
+        m22.reset_counters()
+        y, aux = moe.moe_block_a2a(x, *moe_w, MOE_K, m22, capacity_factor=cf)
+        res[name], res[name + "_aux"] = y.numpy(), aux.item()
+        res[name + "_bytes"] = dict(m22.bytes_by_kind)
+        res[name + "_buckets"] = buckets.pop() if buckets else None
+    moe._bucket_positions = bucket_positions
+    x = shard_rows(d["moe_x"], m22, "data")  # moe_block's c2d switch with a mesh: the a2a
+    res["moe_block_mesh"] = moe.moe_block(x, *moe_w, MOE_K, mode="c2d", mesh=m22)[0].numpy()
+    # a general all_to_all: blocks of dim 1 out, received blocks joined on dim 2
+    res["a2a_dims"] = m22.all_to_all(_a2a_input(rank), "model", split_dim=1,
+                                     concat_dim=2).numpy()
+
     mpd = mesh((2, 2), ("pod", "data"))
     bytes_of(mpd, "hier", lambda: hierarchical_psum({"x": [d["hx"][rank]]}, ("pod", "data"),
                                                     mpd)["x"][0])
@@ -225,7 +271,7 @@ def runs(tmp_path_factory):
     cases = repr(ATTN_CASES)
     jax_side = subprocess.Popen(
         [sys.executable, "-c", _JAX, str(tmp / "in.npz"), str(tmp / "jax.npz"), str(DEPTH),
-         cases], env=env, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+         cases, repr(MOE_CASES), str(MOE_K)], env=env, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
     try:
         torch.multiprocessing.spawn(_rank, args=(str(tmp / "store"), str(tmp)), nprocs=RANKS,
                                     join=True)
@@ -330,6 +376,102 @@ def test_attend_sp_refuses_positions_it_cannot_mask(runs, rank):
         ("2d", "differ", "strided", "short", "off_host"), True)
 
 
+def _a2a_input(rank):
+    return torch.arange(2 * 4 * 3, dtype=torch.float32).reshape(2, 4, 3) + 100 * rank
+
+
+def test_all_to_all_splits_and_joins_any_dims(runs):
+    """``Mesh.all_to_all(x, "model", split_dim=1, concat_dim=2)``: rank (i,
+    j) receives block j of dim 1 from each rank of its model group, joined
+    on dim 2 in the group's order (``jax.lax.all_to_all(..., tiled=True)``)."""
+    port, _ = runs
+    for r in range(RANKS):
+        i, j = divmod(r, 2)
+        want = np.concatenate([_a2a_input(2 * i + src).numpy()[:, 2 * j : 2 * j + 2]
+                               for src in range(2)], axis=2)
+        assert np.array_equal(port[r]["a2a_dims"], want), r
+
+
+def test_moe_block_with_a_mesh_takes_the_a2a(runs):
+    """``moe_block(..., mode="c2d", mesh=)`` with a ``model`` axis that
+    divides the experts dispatches by all_to_all, as the JAX switch does."""
+    port, _ = runs
+    for r in range(RANKS):
+        assert np.array_equal(port[r]["moe_block_mesh"], port[r]["moe_a2a"]), r
+
+
+def _moe_block(name, r, y):
+    """Rank r's block of the global y: batch rows of its data index, and on
+    the a2a path (S splits over the 2 EP ranks) its half of the positions."""
+    i, j = divmod(r, 2)
+    b, s = y.shape[:2]
+    rows = y[i * b // 2 : (i + 1) * b // 2]
+    return rows if s < 2 else rows[:, j * s // 2 : (j + 1) * s // 2]
+
+
+def _last_slot_of_a_full_pair(dst, cap):
+    """The tokens (this rank's, flat) with a choice kept in the last slot of
+    a (source, destination) pair that also dropped choices."""
+    onehot = dst[:, None] == np.arange(dst.max() + 1)
+    pos = np.take_along_axis(np.cumsum(onehot, 0) - 1, dst[:, None], 1)[:, 0]
+    full = np.bincount(dst) > cap
+    return sorted({c // MOE_K for c in np.flatnonzero((pos == cap - 1) & full[dst])})
+
+
+@pytest.mark.parametrize("name", list(MOE_CASES))
+def test_moe_a2a_matches_jax(runs, name):
+    """The port's moe_block_a2a on 4 gloo ranks against JAX's on an Auto
+    (2, 2) mesh: each rank's block within 1e-5 (f32; the experts' products
+    in other orders), the aux (each rank's own, meaned over the EP axis and,
+    on the a2a path, the data axis) within 1e-6 of JAX's.  On the eplocal
+    path JAX means the aux over the EP axis only and returns data row 0's.
+
+    Where a pair overflows (``moe_a2a_drops``), the reference's expert-id
+    scatter (``meta.at[slot].set``) writes the dropped choices' invalid id
+    onto the slot they are clamped to, the pair's last, which a kept choice
+    holds; XLA:CPU applies the duplicate writes in order, so that kept
+    choice runs no expert (ROADMAP.md section 3).  The port keeps it: the
+    two differ exactly on the tokens that hold such a slot."""
+    port, jx = runs
+    for r in range(RANKS):
+        want = _moe_block(name, r, jx[name])
+        got = port[r][name]
+        assert got.shape == want.shape, r
+        lost = []
+        if port[r][name + "_buckets"] is not None:
+            lost = _last_slot_of_a_full_pair(*port[r][name + "_buckets"])
+        assert bool(lost) == (name == "moe_a2a_drops"), (r, lost)
+        flat_got, flat_want = got.reshape(-1, MOE_D), want.reshape(-1, MOE_D)
+        off = np.flatnonzero(np.abs(flat_got - flat_want).max(-1) > 1e-5)
+        assert off.tolist() == lost, (r, off, lost)
+        np.testing.assert_allclose(np.delete(flat_got, lost, 0), np.delete(flat_want, lost, 0),
+                                   atol=1e-5, err_msg=f"rank {r}")
+    aux = [port[r][name + "_aux"] for r in range(RANKS)]
+    assert abs(aux[0] - float(jx[name + "_aux"])) < 1e-6
+    assert aux[0] == aux[1] and aux[2] == aux[3]
+    if name != "moe_eplocal":
+        assert aux[0] == aux[2]
+
+
+def test_moe_a2a_matches_the_scatter_at_capacity_8(runs):
+    """With room for every choice in both, the a2a dispatch and the port's
+    one-process scatter take the same experts: within 1e-5 (the JAX test's
+    own is 1e-4), the aux not (per-rank estimates meaned, against one over
+    all tokens; the reference allows 0.2)."""
+    from repro_torch.models.moe import moe_block_scatter
+
+    port, jx = runs
+    d = inputs()
+    y, aux = moe_block_scatter(*(torch.from_numpy(d[n]) for n in (
+        "moe_x", "moe_wr", "moe_wi", "moe_wg", "moe_wo")), MOE_K, capacity_factor=8.0)
+    np.testing.assert_allclose(y.numpy(), jx["moe_scatter"], atol=1e-5)
+    assert abs(aux.item() - float(jx["moe_scatter_aux"])) < 1e-6
+    for r in range(RANKS):
+        np.testing.assert_allclose(port[r]["moe_a2a_cap8"], _moe_block("moe_x", r, y.numpy()),
+                                   atol=1e-5, err_msg=f"rank {r}")
+    assert abs(port[0]["moe_a2a_cap8_aux"] - aux.item()) < 0.2
+
+
 def test_hierarchical_psum_matches_jax(runs):
     port, jx = runs
     want = inputs()["hx"].sum(0)
@@ -390,19 +532,36 @@ def test_quantize_int8_bit_identical_to_jax(runs):
 
 # the bytes each rank puts on the wire, in closed form
 _B, _S, _H, _HD = ATTN
+
+
+def _wire(psum=0, pmax=0, all_gather=0, all_to_all=0):
+    return {"psum": psum, "pmax": pmax, "all_gather": all_gather, "all_to_all": all_to_all}
+
+
+def _moe_wire(xk, cf):
+    """moe_block_a2a's bytes a rank: the buckets there and back and their
+    int32 expert ids, and the aux's two f32 means (EP, then data); on the
+    eplocal path the (N, D) f32 partials' psum and the aux's EP mean."""
+    b, s, _ = inputs()[xk].shape
+    b_loc, m = b // 2, 2
+    if s % m or s < m:
+        return _wire(psum=b_loc * s * MOE_D * 4 + 4)
+    c_pair = max(8, -(-int(b_loc * s // m * MOE_K * cf / m) // 8) * 8)
+    return _wire(psum=2 * 4, all_to_all=m * c_pair * (2 * MOE_D * 4 + 4))
+
+
 CLOSED_FORM = {
-    "dapc": {"psum": DEPTH * CHASES * 4, "pmax": 0, "all_gather": 0},
-    "gbpc": {"psum": 0, "pmax": 0, "all_gather": CHAIN_N // RANKS * 4},
-    "gather": {"psum": GATHER_KEYS * GATHER_D * 4, "pmax": 0, "all_gather": 0},
-    "embed_c2d": {"psum": EMBED_IDS[0] // 2 * EMBED_IDS[1] * EMBED_D * 4, "pmax": 0,
-                  "all_gather": 0},
-    "embed_gather": {"psum": 0, "pmax": 0, "all_gather": EMBED_V // 2 * EMBED_D * 4},
-    **{"attend_sp_" + c: {"psum": 0, "pmax": 0,
-                          "all_gather": 2 * (_B // 2) * (_S // 2) * _H * _HD * 4}
+    "dapc": _wire(psum=DEPTH * CHASES * 4),
+    "gbpc": _wire(all_gather=CHAIN_N // RANKS * 4),
+    "gather": _wire(psum=GATHER_KEYS * GATHER_D * 4),
+    "embed_c2d": _wire(psum=EMBED_IDS[0] // 2 * EMBED_IDS[1] * EMBED_D * 4),
+    "embed_gather": _wire(all_gather=EMBED_V // 2 * EMBED_D * 4),
+    **{"attend_sp_" + c: _wire(all_gather=2 * (_B // 2) * (_S // 2) * _H * _HD * 4)
        for c in ATTN_CASES},
-    "hier": {"psum": 2 * GRAD_W * 4, "pmax": 0, "all_gather": 0},
-    "cp1": {"psum": GRAD_W * 4, "pmax": 4, "all_gather": 0},
-    "cp2": {"psum": GRAD_W * 4, "pmax": 4, "all_gather": 0},
+    "hier": _wire(psum=2 * GRAD_W * 4),
+    "cp1": _wire(psum=GRAD_W * 4, pmax=4),
+    "cp2": _wire(psum=GRAD_W * 4, pmax=4),
+    **{name: _moe_wire(xk, cf) for name, (xk, cf) in MOE_CASES.items()},
 }
 
 

@@ -49,7 +49,7 @@ JAX_TRAIN_KEYS = {"arch", "steps", "restarts", "restored_steps", "first_loss", "
 #: exact recurrences (``rwkv_chunk=0``, ``ssm_chunk=0``): its chunked jnp
 #: forms clamp the within-chunk log-decay at -60 (ROADMAP.md section 3),
 #: which rwkv6 smoke's init passes within a chunk; the port has no clamp.
-ARCHS = ("yi-9b", "rwkv6-1.6b", "hymba-1.5b")
+ARCHS = ("yi-9b", "rwkv6-1.6b", "hymba-1.5b", "granite-moe-1b-a400m", "phi3.5-moe-42b-a6.6b")
 
 
 def _configs(arch="yi-9b", **change):
