@@ -1,4 +1,4 @@
-"""Drive the PyTorch port's Gather service, DAPC, Filter pushdown, tree collectives, control layers, compiled SPMD rendering, yi-9b, rwkv6-1.6b, hymba-1.5b and granite-moe-1b-a400m serving and training, and phi3.5-moe serving, once on an NVIDIA card.
+"""Drive the PyTorch port's Gather service, DAPC, Filter pushdown, tree collectives, control layers, compiled SPMD rendering, yi-9b, rwkv6-1.6b, hymba-1.5b and granite-moe-1b-a400m serving, training and sharded training, and phi3.5-moe serving, once on an NVIDIA card.
 
 Usage: ``python3 chip_smoke.py [--profile DIR]`` from the root of
 a checkout, on a host with one Hopper card (sm_90) and the CUDA toolkit.
@@ -65,8 +65,9 @@ a checkout, on a host with one Hopper card (sm_90) and the CUDA toolkit.
    credit budget 1; ``poll_budget`` 32, ``credit_window`` 8, 32 slots)
    through ``TenantRouter`` in the solo, shared and qos arms of
    ``benchmarks/tenancy.py``, on the card and on the CPU: equal
-   ``report()`` dicts, logged beside that JSON's; then the same arms over
-   the Gather table.  Every served request bit-identical to the table,
+   ``report()`` dicts, logged beside that JSON's; then the shared and qos
+   arms over the Gather table (without the solo arms, for the run's time;
+   their p95s' ratios logged).  Every served request bit-identical to the table,
    shed ones never served, ``embed_lookup`` launched once per server
    dispatch; the p95 ratios, shed total and the hot tenant's credit stalls
    logged.  (b) loss: DAPC as in 5 at ``BENCH_reliability.json``'s loss
@@ -260,7 +261,10 @@ a checkout, on a host with one Hopper card (sm_90) and the CUDA toolkit.
    clean run to 17 steps that runs 5; then ``--arch rwkv6-1.6b --smoke`` and
    ``--arch hymba-1.5b --smoke``, clean and with ``--fail-at-step 8``, each
    replaying its clean run (the same checks as yi's); every restarted run's
-   first and last losses equal its clean run's bit for bit.
+   first and last losses equal its clean run's bit for bit.  And yi with
+   ``--mesh host`` (one NCCL rank on a (1, 1) mesh), clean and with
+   ``--fail-at-step 8``: the restart replays, and the losses lie within
+   1e-5 relative of the run without a mesh.
 30. wkv6 backward kernel phase: every gradient of ``wkv6_bwd`` (dr, dk, dv,
    dw, du, the initial state's) against ``wkv6_bwd_ref`` on the same inputs
    at rwkv6's train microbatch (B = 2, T = 4,096, H = 32, M = 64) in bf16
@@ -280,11 +284,12 @@ a checkout, on a host with one Hopper card (sm_90) and the CUDA toolkit.
    in f32: each gradient within 1e-4 of its leaf's largest of the CPU's
    (rwkv6: within 2e-4 of an f64 run of the model on the card, the CPU's
    own error against it logged), the AdamW step within what that moves.
-33. The train phase (28) on rwkv6-1.6b (24 layers) and hymba-1.5b (32
-   layers) at full width and depth, bf16, remat, 4 x 4,096 tokens a step in
-   2 microbatches, 4 steps: rwkv 96 ``wkv6`` and 48 ``wkv6_bwd`` launches a
-   step (all ``mma``); hymba 128 ``ssm_scan``, 64 ``ssm_scan_bwd`` (all
-   ``regs``), 128 flash forward and 64 flash backward (all ``wgmma``); no
+33. The train phase (28) on rwkv6-1.6b (12 of its 24 layers) and
+   hymba-1.5b (16 of its 32, its global layers 7 and 15 among them) at
+   full width, bf16, remat, 4 x 4,096 tokens a step in
+   2 microbatches, 4 steps: rwkv 48 ``wkv6`` and 24 ``wkv6_bwd`` launches a
+   step (all ``mma``); hymba 64 ``ssm_scan``, 32 ``ssm_scan_bwd`` (all
+   ``regs``), 64 flash forward and 32 flash backward (all ``wgmma``); no
    plain version on the card; each
    step's seconds, tokens/s, peak memory and device seconds by stage, and
    the profiled last step's share of each kernel kind.
@@ -295,20 +300,37 @@ a checkout, on a host with one Hopper card (sm_90) and the CUDA toolkit.
    are left out of the logit comparison.
 35. Train parity (27) on the same 2-layer granite-moe, the router's
    gradient among the leaves.
-36. The serving phase (13) on granite-moe-1b-a400m at full width and 8 of
-   its 24 layers (bf16; SERVE_LAYERS): flash launched 8 x (prefills +
+36. The serving phase (13) on granite-moe-1b-a400m at full width and 4 of
+   its 24 layers (bf16; SERVE_LAYERS): flash launched 4 x (prefills +
    decode groups), the choices each prefill dropped logged; its profiled
    bursts with the shares of matmuls and of each MoE stage
    (:func:`moe_stage_us`).  Then ``launch.serve`` (14), local only, at full
    granite-moe and at phi3.5-moe-42b-a6.6b's full width with 8 of its 32
    layers (``--layers 8``; all 32 hold ~84 GB of bf16 weights).
-37. The train phase (33) on granite-moe-1b-a400m at full width and depth,
-   bf16, remat, 4 x 4,096 tokens a step in 2 microbatches, 4 steps: 96
-   flash forward and 48 backward (``wgmma``) launches a step, the aux loss
+37. The train phase (33) on granite-moe-1b-a400m at full width and 12 of
+   its 24 layers, bf16, remat, 4 x 4,096 tokens a step in 2 microbatches,
+   4 steps: 48 flash forward and 24 backward (``wgmma``) launches a step, the aux loss
    finite and above 0; then steps 0-1 again from the same seed, their
    losses bit-identical.
 38. Each MoE phase logs the elapsed time after it.  granite's smoke config
    (head dim 16, no flash instance) is left out of the driver phase (29).
+39. Sharded train phase, after the driver phase: 4 gloo ranks sharing the
+   card (spawned after the parent built every kernel) on a (2, 2)
+   ("data", "model") mesh, each family at full width and 2 layers in f32
+   (hymba's heads do not divide the model axis: its attention runs
+   ``attend_sp`` on 64 of the 128 queries a rank, its SSM scan on 800 of
+   1,600 channels), one ZeRO-1 step of 2 x 128 tokens against the
+   unsharded step on the card: the loss within 1e-5 relative, each rank's
+   reduced gradient blocks within 1e-4 of each leaf's largest, weights, m
+   and v within ``train_step_bound`` (rwkv6 also against its f64 run: within
+   2e-4 of a leaf's largest, or twice the unsharded step's own error there);
+   granite-moe against the same sharded step on the CPU (buckets by pair,
+   not by expert), its gap to the unsharded step and each pair's drops
+   logged; every path kernel launched on every rank.  Then each family
+   in bf16 with remat, 2 steps of 2 x 2,048 tokens at 2 layers: each rank's
+   step seconds (host walls: gloo stages every collective through the
+   host), peak memory and collective bytes by kind, forward and backward.
+   The flash backward phase (26) holds ``attend_sp``'s last-rank shapes.
 
 Prints one JSON line of kernel results, then the nvidia-smi line, then
 ``{"ok": true, "device": {...}}`` last.  Any failure exits non-zero with
@@ -326,9 +348,11 @@ from __future__ import annotations
 import argparse
 import contextlib
 import copy
+import dataclasses
 import hashlib
 import itertools
 import json
+import math
 import os
 import re
 import shutil
@@ -402,9 +426,9 @@ SERVE_PROMPT_MIN, SERVE_PROMPT_MAX = 256, 3072
 # run stays well inside its 1,200 s limit on a slow host (cut to 8, 6 and 8
 # layers, hymba's global layer 7 kept, when the rwkv6 and hymba training
 # phases came; 16, 12 and 32 before; granite-moe at 8 of 24, its decode
-# steps host-bound at ~4 ms a layer); their launch.serve phases still run
-# the full model
-SERVE_LAYERS = {"yi-9b": 8, "rwkv6-1.6b": 6, "hymba-1.5b": 8, "granite-moe-1b-a400m": 8}
+# steps host-bound at ~4 ms a layer, and at 4 since the sharded train phase
+# came); their launch.serve phases still run the full model
+SERVE_LAYERS = {"yi-9b": 8, "rwkv6-1.6b": 6, "hymba-1.5b": 8, "granite-moe-1b-a400m": 4}
 LAUNCH_BATCH, LAUNCH_PROMPT = 4, 2048  # launch.serve's batch and prompt length
 # timed shapes (B, S, T) with yi's H=32, K=4, d=128 in bf16
 FLASH_TIMING = {"prefill": (1, 2048, 2048), "decode": (8, 1, 2048)}
@@ -523,10 +547,12 @@ TRAIN_DIR = ROOT / "build" / "chip_smoke" / "train"
 REC_BWD_TOL, REC_BWD_BF16_RTOL = 1e-4, 2.0**-7
 REC_TRAIN = (2, 4096)  # b, t: rwkv6's and hymba's train microbatch
 # the train phase's layers and steps by arch: yi at 8 of its 48 layers;
-# rwkv6 and hymba at full depth (their weights, gradients and moments, ~25
-# and ~22 GB, fit the card), 4 steps each
-TRAIN_DEPTH = {"yi-9b": (TRAIN_LAYERS, TRAIN_STEPS), "rwkv6-1.6b": (24, 4),
-               "hymba-1.5b": (32, 4), "granite-moe-1b-a400m": (24, 4)}
+# rwkv6, hymba and granite-moe at half their depth (12 of 24, 16 of 32 with
+# hymba's global layers 7 and 15, 12 of 24; at full depth their weights,
+# gradients and moments, ~25, ~22 and ~23 GB, fit the card, but the run's
+# time does not, beside the sharded train phase); 4 steps each
+TRAIN_DEPTH = {"yi-9b": (TRAIN_LAYERS, TRAIN_STEPS), "rwkv6-1.6b": (12, 4),
+               "hymba-1.5b": (16, 4), "granite-moe-1b-a400m": (12, 4)}
 # each arch's path kernels a train step launches, forward and backward
 TRAIN_KERNELS = {"yi-9b": (("flash_attention", "flash_attention_bwd"),),
                  "granite-moe-1b-a400m": (("flash_attention", "flash_attention_bwd"),),
@@ -540,6 +566,22 @@ TRAIN_PROBES = {"yi-9b": ("embed.tok", "blocks.0.wq", "blocks.{last}.wo2"),
                 "granite-moe-1b-a400m": ("embed.tok", "blocks.0.router", "blocks.{last}.we_o")}
 # the driver phase: launch.train on yi smoke, 12 steps, a checkpoint every 5
 DRIVER_STEPS, DRIVER_CKPT_EVERY, DRIVER_FAIL_AT, DRIVER_RESUME_TO = 12, 5, 8, 17
+# the sharded train phase (39): 4 gloo ranks sharing the card on a (2, 2)
+# ("data", "model") mesh.  Parity: each family at full width, 2 layers, f32,
+# one step of SHARD_BATCH rows (one a data rank) of SHARD_SEQ positions
+# (SHARD_SEQ / 2 a model rank in hymba's sequence-parallel attention).
+# Timing: bf16, remat, SHARD_TIME_STEPS steps of SHARD_TIME_BATCH rows of
+# SHARD_TIME_SEQ positions at each arch's SHARD_TIME_LAYERS
+SHARD_MESH, SHARD_SEQ, SHARD_BATCH = (2, 2), 128, 2
+SHARD_ARCHS = ("yi-9b", "rwkv6-1.6b", "hymba-1.5b", "granite-moe-1b-a400m")
+SHARD_TIME_SEQ, SHARD_TIME_BATCH, SHARD_TIME_STEPS = 2048, 2, 2
+SHARD_TIME_LAYERS = {"yi-9b": 2, "rwkv6-1.6b": 2, "hymba-1.5b": 2, "granite-moe-1b-a400m": 2}
+SHARD_DIR = ROOT / "build" / "chip_smoke" / "sharded"
+# rwkv6's sharded gradients are held to its f64 run, as phase 32 holds the
+# unsharded ones, within SHARD_F64_RTOL of a leaf's largest: at this draw
+# no f32 step meets phase 32's TRAIN_F64_RTOL (T16; on the H100 the
+# unsharded step reads 1.7e-3 there, the sharded 5.6e-4, PERF.md)
+SHARD_F64_RTOL = 1e-3
 # the MoE phases (34-38).  granite-moe-1b-a400m at full width (its smoke
 # config's head dim 16 has no flash instance, so it is left out of the
 # driver phase) and phi3.5-moe-42b-a6.6b at full width and PHI_LAYERS of its
@@ -1960,7 +2002,7 @@ def _finite(fn):
 
 def serving_phase(dev, profile_dir: str | None, arch: str = "yi-9b") -> dict:
     """``arch`` at full width (at the depth of SERVE_LAYERS: yi-9b 8 of 48,
-    rwkv6-1.6b 6 of 24, hymba-1.5b 8 of 32, granite-moe 8 of 24 layers;
+    rwkv6-1.6b 6 of 24, hymba-1.5b 8 of 32, granite-moe 4 of 24 layers;
     bf16, random weights
     drawn on the card) behind ServeScheduler(slots 8,
     t_max 4,096): 16 requests with prompts of 256-3,072 tokens
@@ -2743,11 +2785,12 @@ def tenancy_arm(dev, classes, plan, cfg: dict, table: np.ndarray | None, n_keys:
 
 
 def tenancy_ab(dev, tenants, plan, cfg: dict, table: np.ndarray | None = None,
-               n_keys: int = 8) -> dict:
+               n_keys: int = 8, solo: bool = True) -> dict:
     """``benchmarks/tenancy.py``'s A/B on the port: each tenant alone, all
     of them sharing one cluster with no QoS, and all of them under the QoS
     classes (the hot tenant's slot quota, queue limit and credit budget; the
-    background tenants on the express lane); the same ratios."""
+    background tenants on the express lane); the same ratios.  Without
+    ``solo``, the shared and qos arms alone, the ratios of their p95s."""
     from repro_torch.runtime import TenantClass
 
     bg = [name for name, _ in tenants if name != "hot"]
@@ -2756,19 +2799,26 @@ def tenancy_ab(dev, tenants, plan, cfg: dict, table: np.ndarray | None = None,
                        credit_budget=cfg["hot_credit_budget"])]
     qos += [TenantClass(name, express=True) for name in bg]
     arm = lambda classes: tenancy_arm(dev, classes, plan, cfg, table, n_keys)
-    solo = {name: arm([TenantClass(name)]) for name, _ in tenants}
+    alone = {name: arm([TenantClass(name)]) for name, _ in tenants} if solo else {}
     shared = arm([TenantClass(name) for name, _ in tenants])
     q = arm(qos)
     p95 = lambda a, n: max(a["tenants"][n]["p95_ticks"], 1.0)
-    return {
-        "solo": solo, "shared": shared, "qos": q,
-        "bg_p95_ratio": round(max(p95(q, n) / p95(solo[n], n) for n in bg), 2),
-        "bg_p95_ratio_unprotected": round(max(p95(shared, n) / p95(solo[n], n) for n in bg), 2),
-        "hot_p95_ratio": round(p95(q, "hot") / p95(solo["hot"], "hot"), 2),
+    out = {
+        "solo": alone, "shared": shared, "qos": q,
         "shed_total": q["shed_total"],
         "hot_credit_stalls": q["tenant_stalls"].get("hot", 0),
-        "launches": sum(a["kernel_launches"] for a in (*solo.values(), shared, q)),
+        "launches": sum(a["kernel_launches"] for a in (*alone.values(), shared, q)),
     }
+    if solo:
+        out.update(
+            bg_p95_ratio=round(max(p95(q, n) / p95(alone[n], n) for n in bg), 2),
+            bg_p95_ratio_unprotected=round(max(p95(shared, n) / p95(alone[n], n) for n in bg),
+                                           2),
+            hot_p95_ratio=round(p95(q, "hot") / p95(alone["hot"], "hot"), 2))
+    else:
+        out["bg_p95_ratio_qos_to_shared"] = round(max(p95(q, n) / p95(shared, n) for n in bg), 2)
+        out["hot_p95_ratio_qos_to_shared"] = round(p95(q, "hot") / p95(shared, "hot"), 2)
+    return out
 
 
 REPORT_KEYS = ("tenants", "drain_ticks", "shed_total", "shed_exactly_once",
@@ -2817,14 +2867,18 @@ def tenancy_phase(dev, table: np.ndarray) -> dict:
     vocab = table.shape[0]
     big_plan = make_schedule(tenants, vocab, TENANCY_N_KEYS, cfg["duration"], 1)
     t = time.perf_counter()
-    big = tenancy_ab(dev, tenants, big_plan, cfg, table=table, n_keys=TENANCY_N_KEYS)
+    big = tenancy_ab(dev, tenants, big_plan, cfg, table=table, n_keys=TENANCY_N_KEYS,
+                     solo=False)
     wall = time.perf_counter() - t
     arms = {name: {k: a[k] for k in ("tenants", "wall_s", "server_dispatches",
                                      "kernel_launches", "tenant_stalls")}
             for name, a in (("shared", big["shared"]), ("qos", big["qos"]))}
+    big_heads = ("bg_p95_ratio_qos_to_shared", "hot_p95_ratio_qos_to_shared", "shed_total",
+                 "hot_credit_stalls")
     log(f"tenancy over the Gather table ({vocab}x{table.shape[1]} f32, {cfg['n_servers']} "
-        f"servers): every served request bit-identical, shed ones unserved; "
-        f"{json.dumps({k: big[k] for k in heads})}; {big['launches']} embed_lookup launches "
+        f"servers; the shared and qos arms): every served request bit-identical, shed ones "
+        f"unserved; {json.dumps({k: big[k] for k in big_heads})}; {big['launches']} "
+        f"embed_lookup launches "
         f"= server dispatches; phase wall_s {wall}; {json.dumps(arms)}")
     launches = launch_counts()["embed_lookup"]
     if launches != card["launches"] + big["launches"]:
@@ -3668,6 +3722,13 @@ def flash_bwd_kernel_phase(dev) -> dict:
         ("softcap 30 S=T=1000", (1, 1000, 1000, 8, 2, 64), dict(softcap=30.0), (f32, bf16)),
         ("S=256 T=1024 window 300", (2, 256, 1024, 8, 4, 128), dict(window=300), (f32, bf16)),
         ("keyless rows S=300 T=200", (1, 300, 200, 4, 2, 32), {}, (f32, bf16)),
+        # attend_sp's last rank on the sharded train phase's (2, 2) mesh:
+        # S / 2 queries end-aligned over all S keys, hymba's heads
+        (f"hymba attend_sp rank 1 of 2 S={SHARD_SEQ // 2} T={SHARD_SEQ} window 2048",
+         (1, SHARD_SEQ // 2, SHARD_SEQ, *HYMBA_HEADS), dict(window=HYMBA_WINDOW), (f32,)),
+        (f"hymba attend_sp rank 1 of 2 S={SHARD_TIME_SEQ // 2} T={SHARD_TIME_SEQ} window 2048",
+         (1, SHARD_TIME_SEQ // 2, SHARD_TIME_SEQ, *HYMBA_HEADS), dict(window=HYMBA_WINDOW),
+         (f32, bf16)),
     ]
     before = {k: (WRAPPERS[k].launches, dict(WRAPPERS[k].route_launches))
               for k in ("flash_attention", "flash_attention_bwd")}
@@ -4095,6 +4156,15 @@ def _grads(cfg, model, batch, raw: bool = False) -> tuple:
     them, by the model's parameter names."""
     from repro_torch.models import zoo
 
+    loss, grads = _dev_grads(cfg, model, batch)
+    host = {k: x.cpu() for k, x in zoo.to_jax_params(cfg, grads).items()}
+    return (loss, host, grads) if raw else (loss, host)
+
+
+def _dev_grads(cfg, model, batch) -> tuple[float, dict]:
+    """The loss and its gradients by parameter name, on the model's device."""
+    from repro_torch.models import zoo
+
     params = zoo.model_params(model)
     for p in params.values():
         p.requires_grad_(True)
@@ -4102,9 +4172,7 @@ def _grads(cfg, model, batch, raw: bool = False) -> tuple:
     grads = torch.autograd.grad(loss, list(params.values()))
     for p in params.values():
         p.requires_grad_(False)
-    named = zoo.to_jax_params(cfg, dict(zip(params, grads)))
-    host = {k: x.cpu() for k, x in named.items()}
-    return (loss.item(), host, dict(zip(params, grads))) if raw else (loss.item(), host)
+    return loss.item(), dict(zip(params, grads))
 
 
 def train_step_bound(g: torch.Tensor, dg: float, scale: float, dscale: float, lr: float,
@@ -4359,8 +4427,8 @@ def route_gradients(cfg, model, batch) -> dict:
 
 def train_phase(dev, profile_dir: str | None, arch: str = "yi-9b") -> dict:
     """TrainDriver's step function and AdamW on ``arch`` at full width (yi-9b
-    at TRAIN_LAYERS of its 48 layers; rwkv6-1.6b and hymba-1.5b at full
-    depth: TRAIN_DEPTH), bf16, remat on, TRAIN_BATCH sequences of TRAIN_SEQ
+    at TRAIN_LAYERS of its 48 layers; rwkv6-1.6b, hymba-1.5b and
+    granite-moe at half their depth: TRAIN_DEPTH), bf16, remat on, TRAIN_BATCH sequences of TRAIN_SEQ
     tokens a step from TokenPipeline in TRAIN_MICROBATCH microbatches.
     Launch counts from 0 just before the steps: a step launches each of the
     arch's forward kernels layers x microbatches x 2 (forward and remat
@@ -4639,8 +4707,18 @@ def driver_phase(dev) -> dict:
         ("yi-9b", kind): ("yi-9b", *steps, "--ckpt-dir", str(base / kind), *flags)
         for kind, flags in fault.items()} | {
         (arch, kind): (arch, *steps, "--ckpt-dir", str(base / arch / kind), *flags)
-        for arch in archs for kind, flags in fault.items()})
+        for arch in archs for kind, flags in fault.items()} | {
+        ("yi-9b mesh", kind): ("yi-9b", *steps, "--mesh", "host", "--ckpt-dir",
+                               str(base / "mesh" / kind), *flags)
+        for kind, flags in fault.items()})
     clean, faulty = done["yi-9b", "clean"], done["yi-9b", "faulty"]
+    meshed = {kind: done["yi-9b mesh", kind] for kind in fault}
+    log(f"driver --mesh host (one NCCL rank): {json.dumps(meshed)}")
+    _replays("yi-9b --mesh host", meshed["clean"], meshed["faulty"])
+    for key in ("first_loss", "last_loss"):
+        if not abs(meshed["clean"][key] - clean[key]) <= 1e-5 * abs(clean[key]):
+            raise AssertionError(f"driver --mesh host: {key} {meshed['clean'][key]} against the "
+                                 f"run without a mesh's {clean[key]}")
     resumed = _launch_train("yi-9b", "--steps", str(DRIVER_RESUME_TO), "--ckpt-dir",
                             str(base / "clean"))
     log(f"driver clean: {json.dumps(clean)}")
@@ -4666,17 +4744,432 @@ def driver_phase(dev) -> dict:
     for arch, runs in recurrent.items():
         log(f"driver {arch}: {json.dumps(runs)}")
         _replays(arch, runs["clean"], runs["faulty"])
-    rec = {"clean": clean, "faulty": faulty, "resumed": resumed,
+    rec = {"clean": clean, "faulty": faulty, "resumed": resumed, "mesh_host": meshed,
            "restored_step_equals_checkpoint": same, "recurrent": recurrent,
            "seconds": time.perf_counter() - t}
     log(f"driver phase: restarts {faulty['restarts']} restored {faulty['restored_steps']}, "
         f"last loss {faulty['last_loss']} vs clean {clean['last_loss']}, step-5 state equals "
         f"its checkpoint (sha256 verified), resumed {resumed['steps']} steps; rwkv6 and hymba "
-        f"restarted runs replay their clean runs; {rec['seconds']:.1f} s")
+        f"restarted runs replay their clean runs; --mesh host on one NCCL rank replays its "
+        f"clean run, within 1e-5 of the run without a mesh; {rec['seconds']:.1f} s")
     del drv, state, tree
     shutil.rmtree(TRAIN_DIR, ignore_errors=True)
     torch.cuda.empty_cache()
     return rec
+
+
+class PairDrops:
+    """While open, records each MoE bucket call's choices a destination and
+    its capacity: the choices each (source, destination) pair drops."""
+
+    def __enter__(self):
+        from repro_torch.models import moe
+
+        self.calls, self._moe, self._bucket = [], moe, moe._bucket_positions
+
+        def bucket(dst, n, cap):
+            self.calls.append({"per_destination": torch.bincount(dst, minlength=n).tolist(),
+                               "capacity": cap})
+            return self._bucket(dst, n, cap)
+
+        moe._bucket_positions = bucket
+        return self
+
+    def __exit__(self, *exc):
+        self._moe._bucket_positions = self._bucket
+
+    def drops(self) -> list:
+        return [[max(0, n - c["capacity"]) for n in c["per_destination"]] for c in self.calls]
+
+
+def _sharded_step(cfg, model, batch, mesh, lay, opt) -> dict:
+    """One sharded train step of ``model`` (this rank's blocks) from fresh
+    moments: its loss and clip norm, its reduced gradient blocks (as the
+    ZeRO-1 update takes them), its param, m and v blocks after, the step's
+    seconds, collective bytes and launches by route."""
+    from repro_torch.kernels import WRAPPERS, launch_counts, reset_launches
+    from repro_torch.models import zoo
+    from repro_torch.sharding.partition import Layout
+
+    reduced = {}
+    reduce_grad = Layout.reduce_grad
+    Layout.reduce_grad = lambda self, name, g: reduced.setdefault(name, reduce_grad(self, name, g))
+    try:
+        state = {"params": model, "step": 0,
+                 "opt": opt.init(zoo.model_params(model), constrain=lay)}
+        stages, marks = {}, [0.0]
+
+        def mark(stage):  # host seconds to each stage's end (a synchronize at each)
+            torch.cuda.synchronize()
+            now = time.perf_counter()
+            stages[stage] = stages.get(stage, 0.0) + now - marks[0]
+            marks[0] = now
+
+        step = zoo.make_train_step(cfg, opt, mark=mark, mesh=mesh)
+        reset_launches()
+        mesh.reset_counters()
+        torch.cuda.synchronize()
+        t = marks[0] = time.perf_counter()
+        _, met = step(state, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    finally:
+        Layout.reduce_grad = reduce_grad
+    params = zoo.model_params(model)
+    return {
+        "loss": float(met["loss"]), "grad_norm": float(met["grad_norm"]), "wall_s": wall,
+        "stage_s": stages,
+        "grads": reduced,
+        "after": {name: (lay.param_block(name, p), state["opt"].m[name], state["opt"].v[name])
+                  for name, p in params.items()},
+        "bytes": dict(mesh.bytes_by_kind), "bwd_bytes": dict(mesh.bwd_bytes_by_kind),
+        "launches": {k: n for k, n in launch_counts().items() if n},
+        "routes": {k: {r: n for r, n in w.route_launches.items() if n}
+                   for k, w in WRAPPERS.items() if any(w.route_launches.values())},
+    }
+
+
+def _hold_blocks(what: str, got: dict, ref_grads: dict, ref_after: dict, leaf_max: dict,
+                 rtol: float, scale: float, dscale: float) -> dict:
+    """This rank's reduced gradient blocks within ``rtol`` of each leaf's
+    largest reference |gradient|, and its param, m and v blocks within
+    :func:`train_step_bound` of the reference step's (plus f32's own
+    rounding, as the train parity phase allows).  Returns the largest
+    errors; the leaves off their bound listed under ``off``."""
+    out = {"grad_rel_err": 0.0, "params": 0.0, "m": 0.0, "v": 0.0, "off": []}
+    for name, g_ref in ref_grads.items():
+        bound = rtol * leaf_max[name]
+        err = (got["grads"][name] - g_ref).abs().max().item()
+        out["grad_rel_err"] = max(out["grad_rel_err"], err / max(leaf_max[name], 1e-30))
+        if not err <= bound:
+            out["off"].append(("grad", name, err / max(leaf_max[name], 1e-30)))
+            continue
+        bounds = train_step_bound(g_ref, bound, scale, dscale, TRAIN_LR)
+        for i, kind in enumerate(("params", "m", "v")):
+            card, ref = got["after"][name][i].double(), ref_after[name][i].double()
+            lim = ({"m": bounds[0], "v": bounds[1], "params": bounds[2]}[kind]
+                   + 1e-6 * ref.abs() + (TRAIN_LR * 1e-6 if kind == "params" else 1e-12))
+            diff = (card - ref).abs()
+            out[kind] = max(out[kind], diff.max().item())
+            if not bool((diff <= lim).all()):
+                out["off"].append((kind, name, diff.max().item()))
+    return out
+
+
+def _reference_blocks(cfg, full, batch, lay, mesh, opt, arch: str) -> dict:
+    """The one-process unsharded step of ``full`` on the card: its loss,
+    and this rank's blocks of the reference gradients and of the weights,
+    m and v after an AdamW step from them (its arithmetic on the blocks,
+    with the whole model's clip factor), each leaf's largest |gradient|,
+    the clip norm, and the gradients' bound relative to a leaf's largest.
+    The reference gradients are the unsharded step's, within
+    TRAIN_GRAD_RTOL; rwkv6's (TRAIN_F64_REF) are its f64 run's, as phase 32
+    holds them, within SHARD_F64_RTOL (the unsharded step's own error
+    against them logged as ``unsharded_vs_f64``), its f32 blocks kept under
+    ``f32``."""
+    from repro_torch.models import zoo
+    from repro_torch.optim import OptState
+    from repro_torch.sharding.partition import leaf_key, local_block
+
+    loss, grads = _dev_grads(cfg, full, batch)
+    out = {"loss": loss, "rtol": TRAIN_GRAD_RTOL}
+    block = lambda name, t: lay.param_block(name, local_block(t, lay.params[leaf_key(name)],
+                                                              mesh))
+    if arch in TRAIN_F64_REF:
+        _, raw = _f64_grads(cfg, full, batch)
+        f64 = {k: g.to(full.device) for k, g in raw.items()}
+        del raw
+        err = max((grads[k] - g).abs().max().item() / max(g.abs().max().item(), 1e-30)
+                  for k, g in f64.items())
+        out.update(unsharded_vs_f64=err, rtol=SHARD_F64_RTOL,
+                   f32={k: block(k, g).float() for k, g in grads.items()})
+        grads = f64
+    norm = float(torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in grads.values())))
+    scale = min(1.0, opt.clip_norm / max(norm, 1e-9))
+    noclip = dataclasses.replace(opt, clip_norm=None)
+    blocks, after, leaf_max = {}, {}, {}
+    for name, p in zoo.model_params(full).items():
+        g = block(name, grads[name]).float()
+        p_blk = block(name, p).clone()
+        st = OptState(m={name: torch.zeros_like(g)}, v={name: torch.zeros_like(g)},
+                      count=torch.zeros((), dtype=torch.int32, device=g.device))
+        noclip.update({name: g * scale}, st, {name: p_blk})
+        blocks[name], after[name] = g, (p_blk, st.m[name], st.v[name])
+        leaf_max[name] = grads[name].abs().max().item()
+    out.update(grad_norm=norm, scale=scale, grads=blocks, after=after, leaf_max=leaf_max)
+    return out
+
+
+def sharded_parity_rank(arch: str, mesh, dev) -> dict:
+    """One rank's part of the sharded parity for ``arch``: the unsharded
+    reference's blocks, then the sharded step, held to them.  granite-moe:
+    the same sharded step on the CPU (its blocks, the same gloo mesh), the
+    card held to it where no route flips, and its gap to the unsharded
+    step logged with the choices each pair drops."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import zoo
+    from repro_torch.optim import AdamW
+
+    cfg = get_config(arch).replace(n_layers=2, dtype=torch.float32)
+    batch = zoo.make_batch(cfg, zoo.ShapeSpec("t", SHARD_SEQ, SHARD_BATCH, "train"), 0,
+                           device=dev)
+    lay, opt = zoo.layout(cfg, mesh), AdamW(lr=TRAIN_LR)
+    t = time.perf_counter()
+    full = zoo.build_params(cfg, 0, device=dev)
+    ref = _reference_blocks(cfg, full, batch, lay, mesh, opt, arch)
+    t_ref = time.perf_counter() - t
+    host = None
+    if arch == MOE_ARCH:
+        host = zoo.shard_params(cfg, copy.deepcopy(full).cpu(), mesh, lay)
+    model = zoo.shard_params(cfg, full, mesh, lay)
+    del full
+    torch.cuda.empty_cache()
+    rec = {"loss_ref": ref["loss"], "grad_norm_ref": ref["grad_norm"], "reference_s": t_ref,
+           "reference": ("f64 on the card" if arch in TRAIN_F64_REF
+                         else "unsharded on the card"), "grad_rtol": ref["rtol"]}
+    if host is None:
+        got = _sharded_step(cfg, model, batch, mesh, lay, opt)
+        dscale = abs(min(1.0, 1.0 / got["grad_norm"]) - ref["scale"])
+        rec["held"] = _hold_blocks(arch, got, ref["grads"], ref["after"], ref["leaf_max"],
+                                   ref["rtol"], ref["scale"], dscale)
+        if "f32" in ref:  # logged: the sharded and unsharded f32 steps apart
+            rec["unsharded_vs_f64"] = ref["unsharded_vs_f64"]
+            rec["sharded_vs_unsharded_f32"] = max(
+                (got["grads"][n] - g).abs().max().item() / max(ref["leaf_max"][n], 1e-30)
+                for n, g in ref["f32"].items())
+    else:
+        with RouteLog() as card_routes, PairDrops() as card_drops:
+            got = _sharded_step(cfg, model, batch, mesh, lay, opt)
+        cpu_batch = {k: v.cpu() for k, v in batch.items()}
+        with RouteLog() as host_routes:
+            cpu = _sharded_step(cfg, host, cpu_batch, mesh, lay, opt)
+        sl = SHARD_SEQ // SHARD_MESH[1]  # a forward's tokens and its remat's
+        routes = route_flips(card_routes.calls, host_routes.calls, cfg.n_layers, [sl, sl])
+        rec["routes"] = {"flips": routes["flips"], "keeps_differ": routes["keeps_differ"]}
+        rec["drops_per_pair"] = card_drops.drops()
+        rec["loss_cpu"] = cpu["loss"]
+        rec["gap_to_unsharded"] = {"loss": got["loss"] - ref["loss"],
+                                   "weights": max((got["after"][n][0] - ref["after"][n][0])
+                                                  .abs().max().item() for n in ref["after"])}
+        if not routes["flips"]:
+            cpu_max = {n: g.abs().max().item() for n, g in cpu["grads"].items()}
+            cpu_norm = cpu["grad_norm"]
+            scale = min(1.0, 1.0 / cpu_norm)
+            dscale = abs(min(1.0, 1.0 / got["grad_norm"]) - scale)
+            cpu_after = {n: tuple(t.to(dev) for t in a) for n, a in cpu["after"].items()}
+            rec["held"] = _hold_blocks(arch, got, {n: g.to(dev) for n, g in cpu["grads"].items()},
+                                       cpu_after, cpu_max, TRAIN_GRAD_RTOL, scale, dscale)
+        rec["loss_vs"], rec["grad_norm_vs"] = cpu["loss"], cpu["grad_norm"]
+    if "loss_vs" not in rec:  # rwkv6: the unsharded f32 loss (its f64 run's is not kept)
+        rec["loss_vs"], rec["grad_norm_vs"] = ref["loss"], ref["grad_norm"]
+    rec.update(loss=got["loss"], grad_norm=got["grad_norm"], wall_s=got["wall_s"],
+               stage_s=got["stage_s"],
+               bytes=got["bytes"], bwd_bytes=got["bwd_bytes"], launches=got["launches"],
+               routes_by_kernel=got["routes"])
+    del model, host, got, ref
+    torch.cuda.empty_cache()
+    return rec
+
+
+def sharded_timing_rank(arch: str, mesh, dev) -> dict:
+    """``arch`` at full width and SHARD_TIME_LAYERS, bf16, remat: this
+    rank's step seconds (host walls: gloo stages every collective through
+    the host), peak memory, collective bytes by kind (the backward's too)
+    and launches by route, SHARD_TIME_STEPS steps."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import WRAPPERS, launch_counts, reset_launches
+    from repro_torch.models import zoo
+    from repro_torch.optim import AdamW
+
+    cfg = get_config(arch).replace(n_layers=SHARD_TIME_LAYERS[arch])
+    lay, opt = zoo.layout(cfg, mesh), AdamW(lr=TRAIN_LR)
+    torch.cuda.reset_peak_memory_stats(dev)
+    model = zoo.shard_params(cfg, zoo.build_params(cfg, 0, device=dev), mesh, lay)
+    torch.cuda.empty_cache()
+    state = {"params": model, "step": 0, "opt": opt.init(zoo.model_params(model), constrain=lay)}
+    stages, marks = {}, [0.0]
+
+    def mark(stage):  # host seconds to each stage's end (a synchronize at each)
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        stages[stage] = stages.get(stage, 0.0) + now - marks[0]
+        marks[0] = now
+
+    step = zoo.make_train_step(cfg, opt, mark=mark, mesh=mesh)
+    batch = zoo.make_batch(cfg, zoo.ShapeSpec("t", SHARD_TIME_SEQ, SHARD_TIME_BATCH, "train"), 0,
+                           device=dev)
+    steps = []
+    for _ in range(SHARD_TIME_STEPS):
+        reset_launches()
+        mesh.reset_counters()
+        stages.clear()
+        torch.cuda.synchronize()
+        t = marks[0] = time.perf_counter()
+        _, met = step(state, batch)
+        torch.cuda.synchronize()
+        steps.append({"s": time.perf_counter() - t, "loss": float(met["loss"]),
+                      "stage_s": dict(stages),
+                      "bytes": dict(mesh.bytes_by_kind), "bwd_bytes": dict(mesh.bwd_bytes_by_kind),
+                      "launches": {k: n for k, n in launch_counts().items() if n},
+                      "routes": {k: {r: n for r, n in w.route_launches.items() if n}
+                                 for k, w in WRAPPERS.items() if any(w.route_launches.values())}})
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    del model, state
+    torch.cuda.empty_cache()
+    return {"layers": cfg.n_layers, "tokens": SHARD_TIME_SEQ * SHARD_TIME_BATCH,
+            "peak_gb": peak, "steps": steps}
+
+
+def sharded_rank(rank: int, store: str, out_dir: str) -> None:
+    """One rank of the sharded train phase, on ``cuda:0`` beside the others
+    (the kernels built by the parent): every family's parity, then its
+    timing; results to ``out_dir``."""
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.sharding import init_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = init_mesh(SHARD_MESH, ("data", "model"), backend="gloo", rank=rank,
+                     init_method=f"file://{store}", timeout=SPMD_TIMEOUT)
+    dev = mesh.device
+    res = {"parity": {}, "timing": {}}
+    for arch in SHARD_ARCHS:
+        res["parity"][arch] = sharded_parity_rank(arch, mesh, dev)
+    for arch in SHARD_ARCHS:
+        res["timing"][arch] = sharded_timing_rank(arch, mesh, dev)
+    torch.save(res, Path(out_dir) / f"rank{rank}.pt")
+    mesh.close()
+
+
+def shard_launches(arch: str, cfg, dtype: torch.dtype, batch: int, seq: int) -> dict:
+    """``{kernel: {route: launches}}`` that one rank's sharded train step of
+    ``arch`` (``cfg``'s layers, ``batch`` x ``seq`` tokens in ``dtype``) must
+    make: each forward kernel once a layer a microbatch, and once more
+    under remat, its backward once, ``embed_lookup`` once a microbatch, on
+    the routes their wrappers pick for these shapes."""
+    from repro_torch.kernels.embed_lookup import embed_route
+    from repro_torch.kernels.flash_attention.kernel import bwd_route as flash_bwd_route
+    from repro_torch.kernels.flash_attention.kernel import flash_route
+    from repro_torch.kernels.ssm_scan import ssm_scan_route
+    from repro_torch.kernels.wkv6 import wkv6_route
+    from repro_torch.kernels.wkv6.kernel import bwd_route as wkv6_bwd_route
+
+    data, model = SHARD_MESH
+    mb = cfg.microbatch if cfg.microbatch > 1 and batch % cfg.microbatch == 0 else 1
+    per = cfg.n_layers * mb
+    fwd = (2 if cfg.remat else 1) * per
+    rows = batch // mb // data * seq  # a rank's ids a microbatch
+    routes = {  # attend_sp's S/|model| queries are a call's fewest rows
+        "flash_attention": (flash_route(dtype, seq // model, 1, 1), fwd),
+        "flash_attention_bwd": (flash_bwd_route(dtype), per),
+        "wkv6": (wkv6_route(seq), fwd), "wkv6_bwd": (wkv6_bwd_route(dtype), per),
+        "ssm_scan": (ssm_scan_route(seq), fwd), "ssm_scan_bwd": ("regs", per),
+        "embed_lookup": (embed_route(rows, cfg.d_model * dtype.itemsize, True), mb)}
+    return {k: {routes[k][0]: routes[k][1]} for k in SHARD_KERNELS[arch]}
+
+
+# each path kernel of an arch's sharded train step (forward, backward)
+SHARD_KERNELS = {"yi-9b": ("flash_attention", "flash_attention_bwd", "embed_lookup"),
+                 "granite-moe-1b-a400m": ("flash_attention", "flash_attention_bwd",
+                                          "embed_lookup"),
+                 "rwkv6-1.6b": ("wkv6", "wkv6_bwd", "embed_lookup"),
+                 "hymba-1.5b": ("flash_attention", "flash_attention_bwd", "ssm_scan",
+                                "ssm_scan_bwd", "embed_lookup")}
+
+
+def sharded_train_phase(dev) -> dict:
+    """Phase 39: the sharded train step on 4 gloo ranks sharing the card, a
+    (2, 2) ("data", "model") mesh (:func:`sharded_rank`).  Parity, each
+    family at full width, 2 layers, f32: the loss within 1e-5 relative of
+    the unsharded step's on the card, each rank's reduced gradient blocks
+    within TRAIN_GRAD_RTOL of each leaf's largest, its weight, m and v
+    blocks within train_step_bound (rwkv6's held instead to its f64 run,
+    within SHARD_F64_RTOL);
+    granite-moe against the same sharded step on the CPU (where no route
+    flips; a flip must lie within ROUTE_FLIP_MARGIN), its gap to the
+    unsharded step and each pair's drops logged.  Each rank's launches and
+    their routes in every step exactly those of :func:`shard_launches` (so
+    no plain version ran on the card).  Timing: bf16,
+    remat, each rank's step seconds, peak memory and collective bytes by
+    kind, forward and backward."""
+    from repro_torch.configs import get_config
+
+    t = time.perf_counter()
+    shutil.rmtree(SHARD_DIR, ignore_errors=True)
+    SHARD_DIR.mkdir(parents=True)
+    store = SHARD_DIR / "store"
+    torch.multiprocessing.spawn(sharded_rank, args=(str(store), str(SHARD_DIR)),
+                                nprocs=math.prod(SHARD_MESH), join=True)
+    ranks = [torch.load(SHARD_DIR / f"rank{r}.pt", weights_only=False)
+             for r in range(math.prod(SHARD_MESH))]
+    shutil.rmtree(SHARD_DIR, ignore_errors=True)
+    out = {"parity": {}, "timing": {}}
+    for arch in SHARD_ARCHS:
+        recs = [r["parity"][arch] for r in ranks]
+        loss, want = recs[0]["loss"], recs[0]["loss_vs"]
+        flips = recs[0].get("routes", {}).get("flips", [])
+        wide = [f for r in recs for f in r.get("routes", {}).get("flips", [])
+                if not f["margin"] <= ROUTE_FLIP_MARGIN]
+        off = [(i, r["held"]["off"]) for i, r in enumerate(recs) if r.get("held", {}).get("off")]
+        summary = {
+            "loss": loss, "loss_vs": want, "reference": recs[0]["reference"],
+            "vs": "the sharded step on the CPU" if arch == MOE_ARCH else recs[0]["reference"],
+            "loss_rel_err": abs(loss - want) / abs(want),
+            "grad_norm": recs[0]["grad_norm"], "grad_norm_vs": recs[0]["grad_norm_vs"],
+            "held": [r.get("held") for r in recs],
+            "launches": [r["launches"] for r in recs],
+            "routes": [r["routes_by_kernel"] for r in recs],
+            "bytes": [r["bytes"] for r in recs], "bwd_bytes": [r["bwd_bytes"] for r in recs],
+            "wall_s": [r["wall_s"] for r in recs], "stage_s": recs[0]["stage_s"],
+            "reference_s": recs[0]["reference_s"], "grad_rtol": recs[0]["grad_rtol"],
+            **({"unsharded_vs_f64": recs[0]["unsharded_vs_f64"],
+                "sharded_vs_unsharded_f32": [r["sharded_vs_unsharded_f32"] for r in recs]}
+               if "unsharded_vs_f64" in recs[0] else {})}
+        if arch == MOE_ARCH:
+            summary.update(flips=sum(len(r["routes"]["flips"]) for r in recs),
+                           gap_to_unsharded=[r["gap_to_unsharded"] for r in recs],
+                           drops_per_pair=[r["drops_per_pair"] for r in recs],
+                           loss_unsharded=recs[0]["loss_ref"])
+        log(f"sharded parity {arch}: (2, 2) gloo x4, 2 layers full width f32, B={SHARD_BATCH} "
+            f"S={SHARD_SEQ}: {json.dumps(summary)}")
+        if any(r["loss"] != loss for r in recs):
+            raise AssertionError(f"sharded parity {arch}: the ranks report different losses")
+        if not (flips or abs(loss - want) <= 1e-5 * abs(want)):
+            raise AssertionError(f"sharded parity {arch}: loss {loss} against {want}")
+        if wide or off:
+            raise AssertionError(f"sharded parity {arch}: flips past the margin {wide}, leaves "
+                                 f"off their bounds {off}")
+        cfg = get_config(arch).replace(n_layers=2)
+        want = shard_launches(arch, cfg, torch.float32, SHARD_BATCH, SHARD_SEQ)
+        for i, r in enumerate(recs):
+            expect_launches({"routes": r["routes_by_kernel"], "launches": r["launches"]},
+                            f"sharded parity {arch} rank {i}", want)
+        out["parity"][arch] = summary
+    for arch in SHARD_ARCHS:
+        recs = [r["timing"][arch] for r in ranks]
+        summary = {"layers": recs[0]["layers"], "tokens": recs[0]["tokens"],
+                   "step_s": [[s["s"] for s in r["steps"]] for r in recs],
+                   "peak_gb": [r["peak_gb"] for r in recs],
+                   "bytes": recs[0]["steps"][-1]["bytes"],
+                   "bwd_bytes": recs[0]["steps"][-1]["bwd_bytes"],
+                   "launches": recs[0]["steps"][-1]["launches"],
+                   "routes": recs[0]["steps"][-1]["routes"],
+                   "stage_s": recs[0]["steps"][-1]["stage_s"],
+                   "losses": [s["loss"] for s in recs[0]["steps"]]}
+        log(f"sharded train step {arch}: (2, 2) gloo x4, {summary['layers']} layers full width "
+            f"bf16 remat, {SHARD_TIME_BATCH} x {SHARD_TIME_SEQ} tokens a step: "
+            f"{json.dumps(summary)}")
+        if not all(np.isfinite(summary["losses"])):
+            raise AssertionError(f"sharded train step {arch}: losses {summary['losses']}")
+        cfg = get_config(arch).replace(n_layers=SHARD_TIME_LAYERS[arch])
+        want = shard_launches(arch, cfg, cfg.dtype, SHARD_TIME_BATCH, SHARD_TIME_SEQ)
+        for i, r in enumerate(recs):
+            for j, st in enumerate(r["steps"]):
+                expect_launches(st, f"sharded train step {arch} rank {i} step {j}", want)
+        out["timing"][arch] = summary
+    out["seconds"] = time.perf_counter() - t
+    log(f"sharded train phase: {out['seconds']:.1f} s")
+    return out
 
 
 def profile_burst(svc, reqs, out: Path) -> None:
@@ -4828,6 +5321,8 @@ def main() -> int:
     elapsed("the rwkv6 and hymba train phases")
     driver_phase(dev)
     elapsed("the driver phase")
+    sharded = sharded_train_phase(dev)
+    elapsed("the sharded train phase (host walls: gloo stages through the host)")
     moe = moe_phases(dev, args.profile, elapsed)
     served.update(moe["served"])
     # the path's launches by the shape they come in: per-message dispatches
@@ -5015,6 +5510,13 @@ def main() -> int:
                      "in turns)",
             "train_step_share_pct": run["profiled_step"]["kernel_share_pct"][name],
         })
+    for k in kernels:  # each rank's launches in the sharded phase's parity and timed steps
+        k["launches_sharded"] = {arch: [r.get(k["name"], 0) for r in rec["launches"]]
+                                 for arch, rec in sharded["parity"].items()
+                                 if any(r.get(k["name"]) for r in rec["launches"])}
+        k["launches_sharded_step_rank0"] = {
+            arch: rec["launches"][k["name"]] for arch, rec in sharded["timing"].items()
+            if rec["launches"].get(k["name"])}
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -19,7 +19,11 @@ quotes, with ``']['`` joined by dots (``params.blocks.wq``,
 bf16 is stored as a ``uint16`` view under the dtype name ``bfloat16`` and
 read back with ``torch``'s ``view(torch.bfloat16)``.
 Leaves are saved whole on the host, with a sha256 of each leaf's bytes in
-the manifest, verified on restore.  ``CheckpointStore`` snapshots a state
+the manifest, verified on restore.  On a mesh the state is gathered to
+whole leaves first and one rank writes (``save_state(..., mesh=)``);
+``restore_state(..., specs=, mesh=)`` gives each rank its block of every
+leaf for the mesh it is given, whatever mesh wrote it (the reference's
+elastic reshard).  ``CheckpointStore`` snapshots a state
 to host memory on the caller's thread and writes it on a background thread,
 keeping the last ``keep`` committed steps.
 """
@@ -37,6 +41,7 @@ import numpy as np
 import torch
 
 from ..optim import OptState
+from ..sharding.partition import local_block
 
 COMMIT = "_COMMIT"
 MANIFEST = "MANIFEST.json"
@@ -124,9 +129,16 @@ def snapshot(state: Any) -> dict[str, tuple[np.ndarray, str]]:
     return host
 
 
-def save_state(path: str | Path, state: Any, step: int) -> Path:
-    """Synchronous save of ``state`` under ``path/step_<step>``."""
-    return _write(Path(path), snapshot(state), step)
+def save_state(path: str | Path, state: Any, step: int, mesh=None) -> Path | None:
+    """Synchronous save of ``state`` (whole leaves) under
+    ``path/step_<step>``; with a ``mesh``, rank 0 writes and every rank
+    returns once it has (the others return None)."""
+    out = None
+    if mesh is None or mesh.rank == 0:
+        out = _write(Path(path), snapshot(state), step)
+    if mesh is not None:
+        mesh.barrier()
+    return out
 
 
 def latest_step(path: str | Path) -> int | None:
@@ -147,11 +159,16 @@ def restore_state(
     step: int | None = None,
     verify: bool = True,
     device: "torch.device | str | None" = None,
+    specs: dict[str, tuple] | None = None,
+    mesh=None,
 ) -> tuple[Any, int]:
     """Restore into the structure of ``like`` (the latest committed step by
     default): a tensor leaf comes back as a tensor on ``device`` (default:
     that leaf's device), an int leaf as an int, any other as a numpy array.
-    Raises on a missing leaf and, with ``verify``, on a sha256 mismatch."""
+    With ``specs`` (a spec by leaf name, ``repro_torch.sharding.partition``'s)
+    and a ``mesh``, a tensor leaf with a spec comes back as this rank's
+    block of it.  Raises on a missing leaf and, with ``verify``, on a sha256
+    mismatch."""
     path = Path(path)
     step = latest_step(path) if step is None else step
     if step is None:
@@ -168,7 +185,10 @@ def restore_state(
         if verify and hashlib.sha256(arr.tobytes()).hexdigest() != meta["sha256"]:
             raise IOError(f"checksum mismatch for {name}")
         if isinstance(leaf, torch.Tensor):
-            return _from_saved(arr, meta["dtype"]).to(leaf.device if device is None else device)
+            t = _from_saved(arr, meta["dtype"])
+            if specs is not None and name in specs:
+                t = local_block(t, specs[name], mesh).clone()
+            return t.to(leaf.device if device is None else device)
         if isinstance(leaf, (int, np.integer)) and not isinstance(leaf, bool):
             return int(arr)
         return arr

@@ -4,15 +4,18 @@ Runs the fault-tolerant ``TrainDriver`` (``runtime/driver.py``) over the
 token pipeline with async checkpointing, on the card (``--device cpu`` runs
 it on the host), and prints one JSON line with the keys of
 ``repro.launch.train``.  ``--smoke`` (the default) trains the reduced
-config; ``--no-smoke`` the full one.  ``--mesh host`` raises: a sharded
-train step waits for ``sharding/partition.py`` (ROADMAP.md section 1,
-item 5).
+config; ``--no-smoke`` the full one.  ``--mesh host`` trains on a
+``(data = world, model = 1)`` mesh (``launch/mesh.py``'s ``host_mesh``):
+under ``torchrun`` one NCCL rank a card, without it one rank on this
+process's card, and with ``--device cpu`` on gloo; rank 0 prints the
+record.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import time
 
 from ..configs import get_config
@@ -37,15 +40,16 @@ def train(argv: list[str] | None = None) -> dict:
     ap.add_argument("--data", choices=["synthetic", "memmap"], default="synthetic")
     ap.add_argument("--data-path", default=None)
     ap.add_argument("--mesh", choices=["none", "host"], default="none",
-                    help="host = mesh over this process's devices (not ported yet)")
+                    help="host = mesh over this process group's devices")
     ap.add_argument("--fail-at-step", type=int, default=None,
                     help="inject a simulated host loss (fault-tolerance demo)")
     ap.add_argument("--device", default=None, help="default: the CUDA card")
     args = ap.parse_args(argv)
+    mesh, device = None, args.device
     if args.mesh == "host":
-        raise NotImplementedError(
-            "--mesh host: a sharded train step waits for sharding/partition.py "
-            "(ROADMAP.md section 1, item 5)")
+        from .mesh import host_mesh
+
+        mesh, device = host_mesh(args.device)
 
     cfg = get_config(args.arch, smoke=args.smoke)
     opt = AdamW(lr=cosine_schedule(args.lr, args.warmup, args.steps))
@@ -62,10 +66,15 @@ def train(argv: list[str] | None = None) -> dict:
         opt=opt,
         data=data,
         ckpt_every=args.ckpt_every,
-        device=args.device,
+        mesh=mesh,
+        device=device,
     )
     t0 = time.time()
-    report = driver.run(args.steps, fail_at_step=args.fail_at_step)
+    try:
+        report = driver.run(args.steps, fail_at_step=args.fail_at_step)
+    finally:
+        if mesh is not None:
+            mesh.close()
     return {
         "arch": cfg.name,
         "steps": report.steps_run,
@@ -82,7 +91,9 @@ def train(argv: list[str] | None = None) -> dict:
 
 
 def main() -> int:
-    print(json.dumps(train()))
+    rec = train()
+    if int(os.environ.get("RANK", "0")) == 0:
+        print(json.dumps(rec))
     return 0
 
 

@@ -107,11 +107,16 @@ def attend_sp(
     causal rank ``me`` passes the prefix of ``(me + 1) S/|axis|`` keys (a
     view): its queries are then exactly the last positions, for the causal
     mask and the window alike.  A non-causal call passes all keys (and, as
-    the kernel, takes no window)."""
+    the kernel, takes no window).  K and V are gathered by
+    :func:`~repro_torch.sharding.mesh.gather_from_region`, whose backward
+    reduce-scatters their cotangents (each rank's queries see part of the
+    keys)."""
+    from ..sharding.mesh import gather_from_region
+
     s_loc = q.shape[1]
     _one_range(q_pos, k_pos, s_loc * mesh.axis_size(axis))
-    k_all = mesh.all_gather(k, axis, dim=1)
-    v_all = mesh.all_gather(v, axis, dim=1)
+    k_all = gather_from_region(k, mesh, axis, dim=1, partial=True)
+    v_all = gather_from_region(v, mesh, axis, dim=1, partial=True)
     if causal:
         t = (mesh.axis_index(axis) + 1) * s_loc
         k_all, v_all = k_all[:, :t], v_all[:, :t]

@@ -66,10 +66,10 @@ class ModelConfig:
     dtype: Any = torch.bfloat16
     embed_mult: float = 1.0  # gemma multiplies embeddings by sqrt(d_model)
     # remat and microbatch shape the train step (run_blocks, make_train_step).
-    # c2d_embedding picks an MoE block's dispatch (on: the capacity buffer,
-    # or the all_to_all with a mesh; off: every expert over every token), as
-    # the JAX block does; with no mesh through the forward yet it picks
-    # nothing for the embedding.  Kept so the configs equal the JAX
+    # c2d_embedding picks, as the JAX model does, the embedding (with a mesh
+    # that has a model axis: the vocab-sharded c2d lookup; else the plain
+    # take) and an MoE block's dispatch (on: the capacity buffer, or the
+    # all_to_all with a mesh; off: every expert over every token).  Kept so the configs equal the JAX
     # package's field for field, and read nowhere in the port: attn_chunk
     # (the JAX einsum attention's q-chunk; the flash kernel tiles queries
     # itself).
@@ -124,8 +124,15 @@ class ParamFactory:
         return torch.Generator(self.device).manual_seed(sub)
 
     def new(
-        self, shape: tuple[int, ...], init: str = "normal", scale: float | None = None
+        self, shape: tuple[int, ...], init: str = "normal", scale: float | None = None,
+        axes: tuple[str | None, ...] | None = None,
     ) -> nn.Parameter:
+        """A leaf of ``shape``; ``axes``, its logical axes one a dim (the JAX
+        factory's, without the stacked ``layers`` axis), are kept on the
+        parameter as ``logical_axes`` for the partition rules."""
+        if axes is not None and len(axes) != len(shape):
+            raise ValueError(f"ParamFactory: a leaf of shape {shape} takes one logical axis "
+                             f"a dim, got {axes!r}")
         if init not in ("normal", "zeros", "ones", "const"):
             raise ValueError(f"ParamFactory has no init {init!r}")
         if init == "const" and scale is None:
@@ -150,7 +157,9 @@ class ParamFactory:
             draw.mul_(scale)
             if draw is not arr:
                 arr.copy_(draw)
-        return nn.Parameter(arr, requires_grad=False)
+        leaf = nn.Parameter(arr, requires_grad=False)
+        leaf.logical_axes = None if axes is None else tuple(axes)
+        return leaf
 
 
 # ------------------------------------------------------------------- layers

@@ -52,6 +52,29 @@ class _Take(torch.autograd.Function):
         return out.index_put_((ids,), grad.contiguous(), accumulate=True), None
 
 
+class _LocalLookup(torch.autograd.Function):
+    """This rank's partial rows: ``embed_lookup`` of the flat ids over its
+    vocab slice starting at ``lo`` (zero rows for the ids outside it), with
+    a backward that sums each in-slice id's cotangent rows into the slice in
+    a fixed order, as :class:`_Take` does; the other ids' rows go to a spare
+    row that is cut off."""
+
+    @staticmethod
+    def forward(ctx, table, flat, lo):
+        ctx.save_for_backward(flat, lo)
+        ctx.rows = table.shape[0]
+        return embed_lookup(table, flat, lo)
+
+    @staticmethod
+    def backward(ctx, grad):
+        flat, lo = ctx.saved_tensors
+        v = ctx.rows
+        loc = flat.long() - lo.long()
+        loc = torch.where((loc >= 0) & (loc < v), loc, v)
+        out = grad.new_zeros((v + 1, grad.shape[1]))
+        return out.index_put_((loc,), grad.contiguous(), accumulate=True)[:v], None, None
+
+
 def embed_plain(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     """Rows of ``table`` at ``ids`` (any shape): ``(*ids.shape, D)``; the
     table's gradient is summed in a fixed order (:class:`_Take`)."""
@@ -87,12 +110,16 @@ def embed_c2d(
     ``embed_lookup`` launch on the flattened ids, then a psum over the
     vocab axis.  Returns this rank's batch shard ``(B_loc, S, D)``; however
     the caller split the batch (JAX's ``batch_axes``), the lookup needs no
-    collective over it."""
+    collective over it.  The lookup is :class:`_LocalLookup` and the psum
+    :func:`~repro_torch.sharding.mesh.reduce_from_region`: each rank sums
+    the rows' cotangents into its own slice."""
+    from ..sharding.mesh import reduce_from_region
+
     lo = torch.tensor([mesh.axis_index(vocab_axis) * table.shape[0]], dtype=torch.int32,
                       device=table.device)
     flat = ids.reshape(-1).to(torch.int32).contiguous()
-    part = embed_lookup(table, flat, lo).reshape(*ids.shape, table.shape[1])
-    return mesh.psum(part, vocab_axis)
+    part = _LocalLookup.apply(table, flat, lo).reshape(*ids.shape, table.shape[1])
+    return reduce_from_region(part, mesh, vocab_axis)
 
 
 def embed_tokens(
@@ -111,6 +138,15 @@ def embed_tokens(
     return embed_plain(table, ids)
 
 
-def lm_head(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """h: (B, S, D) @ w: (D, Vp) -> logits (B, S, Vp)."""
+def lm_head(h: torch.Tensor, w: torch.Tensor, mesh: Mesh | None = None,
+            vocab_axis: str = "model") -> torch.Tensor:
+    """h: (B, S, D) @ w: (D, Vp) -> logits (B, S, Vp).  With a ``mesh``,
+    ``w`` is this rank's vocab columns and the logits its block
+    ``(B, S, Vp / |vocab_axis|)`` (vocab parallel: ``h``, whole on every
+    rank, enters through ``copy_to_region``, so its cotangent sums the
+    ranks')."""
+    if mesh is not None:
+        from ..sharding.mesh import copy_to_region
+
+        h = copy_to_region(h, mesh, vocab_axis)
     return h @ w

@@ -20,8 +20,12 @@ baseline).
   :func:`~repro_torch.models.attention.attend_sp` is: the tokens bucketed
   by destination rank and exchanged with ``all_to_all`` over the EP axis,
   or, when the positions cannot split over it (decode), every rank's
-  experts over every token and one psum.  They run forward only (the
-  collectives carry no gradient).
+  experts over every token and one psum.  With grad on and an operand that
+  requires it, their collectives
+  are ``repro_torch.sharding.mesh``'s gradient-carrying ones: the
+  all_to_all's backward sends the cotangents back, the router (whole on
+  every rank, used on the rank's own tokens) sums its gradient over the
+  EP axis, and the aux's means stay in the graph.
 
 Dispatch and combine are gathers both ways: the buffer is written with
 ``index_put`` (its backward a gather) and read by a gather whose backward
@@ -194,10 +198,6 @@ def moe_block_replicated(
 
 
 # ----------------------------------------------------- expert parallelism
-def _pmean(x: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
-    return mesh.psum(x, axis) / mesh.axis_size(axis)
-
-
 def moe_block_a2a(
     x: torch.Tensor,  # (B_loc, S, D): this rank's batch rows, every position
     w_router: torch.Tensor,  # (D, E)
@@ -223,7 +223,9 @@ def moe_block_a2a(
     block, aux the mean of the ranks' own aux over the EP axis, then over
     each data axis.  Otherwise it is :func:`_moe_eplocal`, whose y is
     ``(B_loc, S, D)``."""
-    from ..sharding.mesh import data_axes
+    from ..sharding.mesh import (
+        all_to_all_region, copy_to_region, data_axes, pmean_region, scatter_to_region,
+    )
 
     b, s, d = x.shape
     e = w_router.shape[-1]
@@ -235,10 +237,10 @@ def moe_block_a2a(
         # the positions cannot split over the EP axis (decode, S = 1): eplocal
         return _moe_eplocal(x, w_router, wi, wg, wo, topk, mesh, ep_axis)
     sl = s // m
-    me = mesh.axis_index(ep_axis)
     n = b * sl
     c_pair = max(8, -(-int(n * topk * capacity_factor / m) // 8) * 8)
-    xt = x[:, me * sl : (me + 1) * sl].reshape(n, d)
+    xt = scatter_to_region(x, mesh, ep_axis, dim=1).reshape(n, d)
+    w_router = copy_to_region(w_router, mesh, ep_axis)
     gates, idx, aux = route(xt, w_router, topk)
     dst = (idx // e_loc).reshape(-1)  # destination EP rank of each choice
     e_local_id = (idx % e_loc).reshape(-1)
@@ -248,7 +250,7 @@ def moe_block_a2a(
     meta = torch.full((m * c_pair + 1,), e_loc, dtype=torch.int32, device=x.device)
     meta = meta.index_put((dest.reshape(-1),), e_local_id.to(torch.int32))[: m * c_pair]
 
-    recv = mesh.all_to_all(send.reshape(m, c_pair, d), ep_axis).reshape(m * c_pair, d)
+    recv = all_to_all_region(send.reshape(m, c_pair, d), mesh, ep_axis).reshape(m * c_pair, d)
     meta_r = mesh.all_to_all(meta.reshape(m, c_pair), ep_axis).reshape(m * c_pair)
     y_r = torch.zeros_like(recv)
     for el in range(e_loc):  # local experts, gate-masked over the received tokens
@@ -256,12 +258,12 @@ def moe_block_a2a(
         h = (recv * mask) @ wi[el]
         g = (recv * mask) @ wg[el]
         y_r = y_r + (F.silu(h) * g) @ wo[el] * mask
-    back = mesh.all_to_all(y_r.reshape(m, c_pair, d), ep_axis).reshape(m * c_pair, d)
+    back = all_to_all_region(y_r.reshape(m, c_pair, d), mesh, ep_axis).reshape(m * c_pair, d)
     w = (gates * keep.reshape(n, topk).to(gates.dtype)).reshape(n, topk, 1)
     y = torch.sum(_collect(back, dest) * w, dim=1)
-    aux = _pmean(aux, mesh, ep_axis)
+    aux = pmean_region(aux, mesh, ep_axis)
     for ax in data_axes(mesh):
-        aux = _pmean(aux, mesh, ax)
+        aux = pmean_region(aux, mesh, ax)
     return y.reshape(b, sl, d), aux
 
 
@@ -269,11 +271,16 @@ def _moe_eplocal(x, w_router, wi, wg, wo, topk: int, mesh: Mesh, ep_axis: str = 
     """Each rank: its ``E_loc`` experts over ALL its tokens, gate-masked,
     one psum of the (N, D) partials over the EP axis; aux the mean of the
     ranks' over the EP axis.  Right for S = 1 decode (the tokens cannot
-    split over the EP axis; the compute is tiny)."""
+    split over the EP axis; the compute is tiny).  The tokens and the
+    router enter each rank's own experts through ``copy_to_region`` and
+    the partials leave through ``reduce_from_region``."""
+    from ..sharding.mesh import copy_to_region, pmean_region, reduce_from_region
+
     b, s, d = x.shape
     e_loc = wi.shape[0]
     n = b * s
     xt = x.reshape(n, d)
+    xt, w_router = copy_to_region(xt, mesh, ep_axis), copy_to_region(w_router, mesh, ep_axis)
     gates, idx, aux = route(xt, w_router, topk)
     me = mesh.axis_index(ep_axis)
     y = torch.zeros_like(xt)
@@ -283,8 +290,8 @@ def _moe_eplocal(x, w_router, wi, wg, wo, topk: int, mesh: Mesh, ep_axis: str = 
         h = xt @ wi[el]
         g = xt @ wg[el]
         y = y + (F.silu(h) * g) @ wo[el] * gate_e[:, None]
-    y = mesh.psum(y, ep_axis)
-    return y.reshape(b, s, d), _pmean(aux, mesh, ep_axis)
+    return (reduce_from_region(y, mesh, ep_axis).reshape(b, s, d),
+            pmean_region(aux, mesh, ep_axis))
 
 
 def moe_block(x, w_router, wi, wg, wo, topk: int, mode: str = "c2d", mesh: Mesh | None = None):

@@ -17,6 +17,14 @@ backward on the CPU).  The JAX model's jnp
 ``wkv6_chunked`` (its CPU and dry-run rendering of the chunked kernel) has
 no counterpart: it clamps the within-chunk log-decay (ROADMAP.md section 3)
 and the kernel is exact without it.
+
+On a mesh (:func:`rwkv_block_tp`) the block follows its leaves' specs:
+where the heads divide ``model``, the r, k, v and g projections by
+columns (the rank's heads), ``wkv6`` on those heads, the per-head group
+norm and ``ln_x`` local, ``wo`` by rows and one psum; the token shift and
+the decay's LoRA stay whole on every rank, the decay cut to the rank's
+channels.  The channel mix cuts ``ffn`` and, with the heads, its gate's
+columns.
 """
 
 from __future__ import annotations
@@ -25,6 +33,10 @@ import torch
 from torch import nn
 
 from ..kernels.wkv6 import wkv6
+from ..sharding.mesh import (
+    copy_to_region, gather_from_region, reduce_from_region, reduce_scatter_to_region,
+    scatter_to_region,
+)
 from .common import ModelConfig, ParamFactory, rms_norm
 
 LORA_DIM = 64  # decay LoRA bottleneck
@@ -45,15 +57,15 @@ class TimeMix(nn.Module):
         super().__init__()
         D, m = cfg.d_model, cfg.rwkv_head_dim
         for mu in ("mu_r", "mu_k", "mu_v", "mu_w", "mu_g"):
-            setattr(self, mu, f.new((D,), "zeros"))
-        self.w0 = f.new((D,), "zeros")
-        self.wA = f.new((D, LORA_DIM))
-        self.wB = f.new((LORA_DIM, D))
-        self.u = f.new((D // m, m), "zeros")
+            setattr(self, mu, f.new((D,), "zeros", axes=("embed",)))
+        self.w0 = f.new((D,), "zeros", axes=("embed",))
+        self.wA = f.new((D, LORA_DIM), axes=("embed", None))
+        self.wB = f.new((LORA_DIM, D), axes=(None, "embed"))
+        self.u = f.new((D // m, m), "zeros", axes=("heads", None))
         for w in ("wr", "wk", "wv", "wg"):
-            setattr(self, w, f.new((D, D)))
-        self.wo = f.new((D, D))
-        self.ln_x = f.new((D,), "zeros")
+            setattr(self, w, f.new((D, D), axes=("embed", "q_dim")))
+        self.wo = f.new((D, D), axes=("q_dim", "embed"))
+        self.ln_x = f.new((D,), "zeros", axes=("q_dim",))
 
 
 class ChannelMix(nn.Module):
@@ -62,11 +74,11 @@ class ChannelMix(nn.Module):
     def __init__(self, cfg: ModelConfig, f: ParamFactory) -> None:
         super().__init__()
         D, F_ = cfg.d_model, cfg.d_ff
-        self.mu_k = f.new((D,), "zeros")
-        self.mu_r = f.new((D,), "zeros")
-        self.wk = f.new((D, F_))
-        self.wv = f.new((F_, D))
-        self.wr = f.new((D, D))
+        self.mu_k = f.new((D,), "zeros", axes=("embed",))
+        self.mu_r = f.new((D,), "zeros", axes=("embed",))
+        self.wk = f.new((D, F_), axes=("embed", "ffn"))
+        self.wv = f.new((F_, D), axes=("ffn", "embed"))
+        self.wr = f.new((D, D), axes=("embed", "q_dim"))
 
 
 class RWKVBlock(nn.Module):
@@ -76,8 +88,8 @@ class RWKVBlock(nn.Module):
 
     def __init__(self, cfg: ModelConfig, f: ParamFactory) -> None:
         super().__init__()
-        self.ln1 = f.new((cfg.d_model,), "zeros")
-        self.ln2 = f.new((cfg.d_model,), "zeros")
+        self.ln1 = f.new((cfg.d_model,), "zeros", axes=("embed",))
+        self.ln2 = f.new((cfg.d_model,), "zeros", axes=("embed",))
         self.tm = TimeMix(cfg, f)
         self.cm = ChannelMix(cfg, f)
 
@@ -147,3 +159,56 @@ def rwkv_block(
     ffn, cm_shift = channel_mix(h, p.cm, st.get("cm_shift"))
     x = x + ffn
     return x, {"tm_shift": tm_shift, "cm_shift": cm_shift, "wkv": wkv_state}
+
+
+# ------------------------------------------------------ on a mesh (training)
+def _group_norm(out: torch.Tensor, b: int, t: int) -> torch.Tensor:
+    mean = out.mean(-1, keepdim=True)
+    var = out.var(-1, keepdim=True, unbiased=False)
+    return ((out - mean) * torch.rsqrt(var + 64e-5)).reshape(b, t, -1)
+
+
+def time_mix_tp(x: torch.Tensor, p: TimeMix, cfg: ModelConfig, lay) -> torch.Tensor:
+    """:func:`time_mix` (no state) on this rank's heads when ``tm.wr``'s
+    columns are cut over ``model``, else on every head."""
+    if not lay.split("tm.wr", 1):
+        return time_mix(x, p, cfg)[0]
+    mesh = lay.mesh
+    b, t, _ = x.shape
+    m = cfg.rwkv_head_dim
+    xx = token_shift(x, None) - x
+    xr, xk, xv, xw, xg = (x + xx * mu for mu in (p.mu_r, p.mu_k, p.mu_v, p.mu_w, p.mu_g))
+    dd = torch.tanh(xw @ p.wA) @ p.wB
+    w = scatter_to_region(torch.exp(-torch.exp((p.w0 + dd).float())), mesh, "model", dim=-1)
+    r, k, v, g = (copy_to_region(a, mesh) @ wt
+                  for a, wt in ((xr, p.wr), (xk, p.wk), (xv, p.wv), (xg, p.wg)))
+    hl = r.shape[-1] // m
+    g = g * torch.sigmoid(g)
+    out, _ = wkv6(*(a.reshape(b, t, hl, m) for a in (r, k, v, w)), p.u, None)
+    out = _group_norm(out, b, t) * (1.0 + p.ln_x)
+    return reduce_from_region((out.to(x.dtype) * g) @ p.wo, mesh)
+
+
+def channel_mix_tp(x: torch.Tensor, p: ChannelMix, lay) -> torch.Tensor:
+    """:func:`channel_mix` (no state) on this rank's ``ffn`` columns and,
+    where its columns are cut, the gate's: the value reduce-scattered to
+    the gate's channels, the product gathered back."""
+    mesh = lay.mesh
+    xx = token_shift(x, None) - x
+    xk = x + xx * p.mu_k
+    xr = x + xx * p.mu_r
+    ffn = lay.split("cm.wk", 1)
+    kk = torch.square(torch.relu((copy_to_region(xk, mesh) if ffn else xk) @ p.wk))
+    val = kk @ p.wv  # partial over model when ffn is cut
+    if not lay.split("cm.wr", 1):
+        return torch.sigmoid(xr @ p.wr) * (reduce_from_region(val, mesh) if ffn else val)
+    gate = torch.sigmoid(copy_to_region(xr, mesh) @ p.wr)
+    val = (reduce_scatter_to_region(val, mesh, "model", dim=-1) if ffn
+           else scatter_to_region(val, mesh, "model", dim=-1))
+    return gather_from_region(gate * val, mesh, "model", dim=-1)
+
+
+def rwkv_block_tp(x: torch.Tensor, p: RWKVBlock, cfg: ModelConfig, lay) -> torch.Tensor:
+    """:func:`rwkv_block` (no state) on this rank's weights."""
+    x = x + time_mix_tp(rms_norm(x, p.ln1, cfg.norm_eps), p.tm, cfg, lay)
+    return x + channel_mix_tp(rms_norm(x, p.ln2, cfg.norm_eps), p.cm, lay)

@@ -21,6 +21,14 @@ bf16 follows the JAX dtype order: every operation on bf16 tensors rounds
 to bf16 where JAX's does, and ``jax.nn.silu`` and ``jax.nn.softplus`` are
 written as the operations XLA runs for them, each rounded (ROADMAP.md T10):
 ``g * (1 / (1 + exp(-g)))`` and ``max(x, 0) + log1p(exp(-|x|))``.
+
+On a mesh (:func:`ssm_head_tp`) the scan runs channel parallel, the
+rank's D/|model| channels into ``ssm_scan``.  Where the head's leaves are
+cut over ``model`` (the heads divide it), every channel-wise leaf is the
+rank's; ``w_in``'s flat 2D columns are all-gathered first, since the rule
+cuts them across the x and z halves.  Where the leaves are whole (hymba's
+25 heads), every rank computes the head's inputs whole and scans its own
+channels, as JAX's ``channel_constrain`` lays them out.
 """
 
 from __future__ import annotations
@@ -29,6 +37,9 @@ import torch
 from torch import nn
 
 from ..kernels.ssm_scan import ssm_scan
+from ..sharding.mesh import (
+    copy_to_region, gather_from_region, reduce_from_region, scatter_to_region,
+)
 from .common import ModelConfig, ParamFactory
 
 CONV_K = 4  # short causal conv width
@@ -42,13 +53,13 @@ class SSMHead(nn.Module):
     def __init__(self, cfg: ModelConfig, f: ParamFactory) -> None:
         super().__init__()
         D, N = cfg.d_model, cfg.ssm_state
-        self.w_in = f.new((D, 2 * D))
-        self.conv = f.new((CONV_K, D), scale=0.5)
-        self.w_bcdt = f.new((D, 2 * N + 1))
-        self.dt_bias = f.new((D,), "const", scale=-4.6)
-        self.a_log = f.new((D, N), "zeros")
-        self.d_skip = f.new((D,), "ones")
-        self.w_out = f.new((D, D))
+        self.w_in = f.new((D, 2 * D), axes=("embed", "q_dim"))
+        self.conv = f.new((CONV_K, D), scale=0.5, axes=(None, "q_dim"))
+        self.w_bcdt = f.new((D, 2 * N + 1), axes=("q_dim", None))
+        self.dt_bias = f.new((D,), "const", scale=-4.6, axes=("q_dim",))
+        self.a_log = f.new((D, N), "zeros", axes=("q_dim", None))
+        self.d_skip = f.new((D,), "ones", axes=("q_dim",))
+        self.w_out = f.new((D, D), axes=("q_dim", "embed"))
 
 
 def _silu(g: torch.Tensor) -> torch.Tensor:
@@ -97,3 +108,47 @@ def ssm_head(
     y = y + xc * p.d_skip
     y = y * _silu(z)
     return y @ p.w_out, {"conv": conv_state, "h": h}
+
+
+# ------------------------------------------------------ on a mesh (training)
+def ssm_head_tp(x: torch.Tensor, p: SSMHead, cfg: ModelConfig, lay) -> torch.Tensor:
+    """:func:`ssm_head` (no state) with the scan on this rank's channels."""
+    mesh, m = lay.mesh, lay.model
+    n, d = cfg.ssm_state, cfg.d_model
+    t = x.shape[1]
+    cut = [lay.split(f"ssm.{k}", dim) for k, dim in
+           (("w_in", 1), ("conv", 1), ("w_bcdt", 0), ("dt_bias", 0), ("a_log", 0),
+            ("d_skip", 0), ("w_out", 0))]
+    if any(cut) and not all(cut):
+        raise ValueError(f"{cfg.name}: the SSM head's leaves are cut over model in part "
+                         f"({cut}); the channel-parallel scan takes all or none")
+    if all(cut):
+        dl, me = d // m, mesh.axis_index("model")
+        both = gather_from_region(copy_to_region(x, mesh) @ p.w_in, mesh, "model", dim=-1,
+                                  partial=True)
+        xin, z = both[..., me * dl : (me + 1) * dl], both[..., d + me * dl : d + (me + 1) * dl]
+        xc = _silu(causal_conv(xin, p.conv, None)[0])
+        bcdt = copy_to_region(reduce_from_region(xc @ p.w_bcdt, mesh), mesh)
+        b_in, c_in, dt_raw = bcdt[..., :n], bcdt[..., n : 2 * n], bcdt[..., -1:]
+        dt = _softplus(dt_raw + p.dt_bias) + 1e-4
+        y, _ = ssm_scan(xc, dt, -torch.exp(p.a_log.float()), b_in.contiguous(),
+                        c_in.contiguous(), None)
+        y = (y + xc * p.d_skip) * _silu(z)
+        return reduce_from_region(y @ p.w_out, mesh)
+    xin, z = (x @ p.w_in).chunk(2, dim=-1)
+    xc = _silu(causal_conv(xin, p.conv, None)[0])
+    bcdt = xc @ p.w_bcdt
+    b_in, c_in, dt_raw = bcdt[..., :n], bcdt[..., n : 2 * n], bcdt[..., -1:]
+    dt = _softplus(dt_raw + p.dt_bias) + 1e-4
+    a = -torch.exp(p.a_log.float())
+    if m > 1 and d % m == 0 and t > 1:
+        y, _ = ssm_scan(scatter_to_region(xc, mesh, "model", dim=-1),
+                        scatter_to_region(dt, mesh, "model", dim=-1),
+                        scatter_to_region(a, mesh, "model", dim=0),
+                        copy_to_region(b_in.contiguous(), mesh),
+                        copy_to_region(c_in.contiguous(), mesh), None)
+        y = gather_from_region(y, mesh, "model", dim=-1)
+    else:
+        y, _ = ssm_scan(xc, dt, a, b_in.contiguous(), c_in.contiguous(), None)
+    y = (y + xc * p.d_skip) * _silu(z)
+    return y @ p.w_out

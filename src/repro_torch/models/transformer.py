@@ -19,6 +19,20 @@ slice (ROADMAP.md section 1).  A forward that trains (grad on, weights that
 require grad, no cache) with ``cfg.remat`` checkpoints each block, as the
 JAX package wraps its scan body in ``jax.checkpoint``: a block keeps only
 its input and runs again in the backward.
+
+With a :class:`~repro_torch.sharding.partition.Layout` (``lay``, a mesh and
+the train rules' specs), each block runs on this rank's blocks of the
+weights, with the collectives a GSPMD partitioner puts there written out
+(``repro_torch.sharding.mesh``'s gradient-carrying ones): attention head
+parallel over ``model`` (``wq``/``wk``/``wv`` by columns, ``wo`` by rows
+and one psum) where the heads divide it, else sequence parallel
+(:func:`~repro_torch.models.attention.attend_sp` on the rank's S/|model|
+queries, the weights whole) under the JAX ``sp_attn`` condition, the MLP
+by ``ffn`` the same way, an MoE block's experts by the ``all_to_all``
+dispatch, an RWKV block by heads and a hybrid block's SSM head by
+channels.  The residual stream is whole on every rank of a ``model``
+group; the batch rows are the rank's.  Serving with a mesh waits for a
+later slice.
 """
 
 from __future__ import annotations
@@ -30,11 +44,14 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..kernels.flash_attention import flash_attention
-from .attention import qkv_proj, update_kv_cache
+from ..sharding.mesh import (
+    copy_to_region, gather_from_region, reduce_from_region, scatter_to_region,
+)
+from .attention import attend_sp, qkv_proj, update_kv_cache
 from .common import ModelConfig, ParamFactory, mlp, rms_norm, rope
 from .moe import moe_block
-from .rwkv import RWKVBlock, rwkv_block
-from .ssm import SSMHead, ssm_head
+from .rwkv import RWKVBlock, rwkv_block, rwkv_block_tp
+from .ssm import SSMHead, ssm_head, ssm_head_tp
 
 
 def require_ported(cfg: ModelConfig) -> None:
@@ -50,35 +67,35 @@ def require_ported(cfg: ModelConfig) -> None:
 # ----------------------------------------------------------------- params
 def add_attn_params(m: nn.Module, f: ParamFactory, cfg: ModelConfig) -> None:
     D = cfg.d_model
-    m.wq = f.new((D, cfg.qkv_dim))
-    m.wk = f.new((D, cfg.kv_dim))
-    m.wv = f.new((D, cfg.kv_dim))
-    m.wo = f.new((cfg.qkv_dim, D))
+    m.wq = f.new((D, cfg.qkv_dim), axes=("embed", "q_dim"))
+    m.wk = f.new((D, cfg.kv_dim), axes=("embed", "kv_dim"))
+    m.wv = f.new((D, cfg.kv_dim), axes=("embed", "kv_dim"))
+    m.wo = f.new((cfg.qkv_dim, D), axes=("q_dim", "embed"))
     if cfg.qkv_bias:
-        m.bq = f.new((cfg.qkv_dim,), "zeros")
-        m.bk = f.new((cfg.kv_dim,), "zeros")
-        m.bv = f.new((cfg.kv_dim,), "zeros")
+        m.bq = f.new((cfg.qkv_dim,), "zeros", axes=("q_dim",))
+        m.bk = f.new((cfg.kv_dim,), "zeros", axes=("kv_dim",))
+        m.bv = f.new((cfg.kv_dim,), "zeros", axes=("kv_dim",))
 
 
 def add_mlp_params(m: nn.Module, f: ParamFactory, cfg: ModelConfig) -> None:
     D, F = cfg.d_model, cfg.d_ff
-    m.wi = f.new((D, F))
+    m.wi = f.new((D, F), axes=("embed", "ffn"))
     if cfg.mlp_gated:
-        m.wg = f.new((D, F))
-    m.wo2 = f.new((F, D))
+        m.wg = f.new((D, F), axes=("embed", "ffn"))
+    m.wo2 = f.new((F, D), axes=("ffn", "embed"))
 
 
 def add_moe_params(m: nn.Module, f: ParamFactory, cfg: ModelConfig) -> None:
     D, F, E = cfg.d_model, cfg.d_ff, cfg.n_experts
-    m.router = f.new((D, E), scale=0.02)
-    m.we_i = f.new((E, D, F))
-    m.we_g = f.new((E, D, F))
-    m.we_o = f.new((E, F, D))
+    m.router = f.new((D, E), scale=0.02, axes=("embed", None))
+    m.we_i = f.new((E, D, F), axes=("experts", "embed", "ffn"))
+    m.we_g = f.new((E, D, F), axes=("experts", "embed", "ffn"))
+    m.we_o = f.new((E, F, D), axes=("experts", "ffn", "embed"))
 
 
 def add_block_params(m: nn.Module, f: ParamFactory, cfg: ModelConfig) -> None:
-    m.ln1 = f.new((cfg.d_model,), "zeros")
-    m.ln2 = f.new((cfg.d_model,), "zeros")
+    m.ln1 = f.new((cfg.d_model,), "zeros", axes=("embed",))
+    m.ln2 = f.new((cfg.d_model,), "zeros", axes=("embed",))
     add_attn_params(m, f, cfg)
     add_mlp_params(m, f, cfg)
 
@@ -98,8 +115,8 @@ class MoEBlock(nn.Module):
 
     def __init__(self, cfg: ModelConfig, f: ParamFactory) -> None:
         super().__init__()
-        self.ln1 = f.new((cfg.d_model,), "zeros")
-        self.ln2 = f.new((cfg.d_model,), "zeros")
+        self.ln1 = f.new((cfg.d_model,), "zeros", axes=("embed",))
+        self.ln2 = f.new((cfg.d_model,), "zeros", axes=("embed",))
         add_attn_params(self, f, cfg)
         add_moe_params(self, f, cfg)
 
@@ -111,8 +128,8 @@ class HybridBlock(DenseBlock):
     def __init__(self, cfg: ModelConfig, f: ParamFactory) -> None:
         super().__init__(cfg, f)
         self.ssm = SSMHead(cfg, f)
-        self.beta_attn = f.new((cfg.d_model,), "ones")
-        self.beta_ssm = f.new((cfg.d_model,), "ones")
+        self.beta_attn = f.new((cfg.d_model,), "ones", axes=("embed",))
+        self.beta_ssm = f.new((cfg.d_model,), "ones", axes=("embed",))
 
 
 # ------------------------------------------------------------- sublayers
@@ -171,15 +188,21 @@ def block_apply(
     offset: int,
     rows: torch.Tensor | None = None,
     window: int = 0,
+    lay=None,
 ) -> tuple[torch.Tensor, torch.Tensor | None]:
     """One decoder block: (x, the MoE router's aux loss, None for the other
-    families).  The cache (if any) is updated in place, only batch ``rows``
+    families); with a layout ``lay``, :func:`block_apply_tp` (no cache).  The cache (if any) is updated in place, only batch ``rows``
     of it when given.  A dense or MoE block's cache is its layer's ``k`` and
     ``v``; an RWKV block's its layer's ``tm_shift``, ``cm_shift`` and
     ``wkv`` state, which the block reads and replaces; a hybrid block's
     ``k`` and ``v`` and the SSM head's ``conv`` and ``h`` state.  An MoE
     block routes every row of ``x``, ``rows`` or not: the capacity buffer
     is shared, so the rows present decide the drops."""
+    if lay is not None:
+        if cache is not None:
+            raise NotImplementedError("a cache with a mesh: sharded serving waits for its "
+                                      "slice (ROADMAP.md section 1)")
+        return block_apply_tp(x, p, cfg, lay, pos=pos, window=window)
     if cfg.family == "rwkv":
         x, new = rwkv_block(x, p, cfg, cache)
         if cache is not None:
@@ -203,6 +226,112 @@ def block_apply(
     return x + mlp(h, p.wi, getattr(p, "wg", None), p.wo2, cfg.act), None
 
 
+# ------------------------------------------------------ on a mesh (training)
+def _region_kv(t: torch.Tensor, cfg: ModelConfig, lay, b: int, s: int, hl: int) -> torch.Tensor:
+    """This rank's K (or V) heads for its ``hl`` query heads, from its
+    columns ``t`` of the K (V) projection.  Where the KV heads divide
+    ``model`` the columns are those heads; where ``kv_dim`` divides but the
+    heads do not (the flat dim cut mid-head, as JAX's rule cuts it) the
+    columns are all-gathered and the rank takes the one head its query
+    heads read."""
+    m, kh, hd = lay.model, cfg.n_kv_heads, cfg.head_dim
+    if kh % m == 0:
+        return t.reshape(b, s, kh // m, hd)
+    group = cfg.n_heads // kh  # query heads a KV head
+    if group % hl:
+        raise ValueError(f"{cfg.name}: the {hl} query heads of a rank straddle KV heads "
+                         f"({cfg.n_heads} heads over {kh} KV heads on {m} model ranks)")
+    full = gather_from_region(t, lay.mesh, "model", dim=-1, partial=True)
+    head = lay.mesh.axis_index("model") * hl // group
+    return full.reshape(b, s, kh, hd)[:, :, head : head + 1]
+
+
+def sp_attention(cfg: ModelConfig, lay, s: int) -> bool:
+    """JAX's ``sp_attn``: the heads do not divide ``model`` and the
+    positions do."""
+    return (lay.model > 1 and cfg.n_heads % lay.model != 0 and s % lay.model == 0 and s > 1)
+
+
+def attn_sublayer_tp(x: torch.Tensor, p, cfg: ModelConfig, lay, *, pos: torch.Tensor,
+                     window: int = 0) -> torch.Tensor:
+    """:func:`attn_sublayer` on this rank's weights (no cache)."""
+    b, s, _ = x.shape
+    mesh = lay.mesh
+    bias = [getattr(p, n, None) for n in ("bq", "bk", "bv")]
+    if lay.split("wq", 1):  # head parallel
+        if not lay.split("wk", 1):
+            raise ValueError(f"{cfg.name}: kv_dim {cfg.kv_dim} does not divide over "
+                             f"{lay.model} model ranks, the query heads do")
+        hl = cfg.n_heads // lay.model
+        xin = copy_to_region(x, mesh)
+        q, k, v = xin @ p.wq, xin @ p.wk, xin @ p.wv
+        if bias[0] is not None:
+            q, k, v = q + bias[0], k + bias[1], v + bias[2]
+        q = q.reshape(b, s, hl, cfg.head_dim)
+        k, v = (_region_kv(t, cfg, lay, b, s, hl) for t in (k, v))
+        q, k = rope(q, pos, cfg.rope_theta), rope(k, pos, cfg.rope_theta)
+        out = flash_attention(q, k, v, causal=True, softcap=cfg.attn_softcap, window=window)
+        return reduce_from_region(out.reshape(b, s, -1) @ p.wo, mesh)
+    if not sp_attention(cfg, lay, s):  # weights whole, every rank the same work
+        return attn_sublayer(x, p, cfg, pos=pos, cache=None, offset=0, window=window)
+    # sequence parallel: this rank's S/|model| positions, the weights whole
+    sl, me = s // lay.model, mesh.axis_index("model")
+    xs = scatter_to_region(x, mesh, "model", dim=1)
+    w = [copy_to_region(t, mesh) if t is not None else None
+         for t in (p.wq, p.wk, p.wv, *bias, p.wo)]
+    q, k, v = qkv_proj(xs, *w[:6], n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
+                       head_dim=cfg.head_dim)
+    pl = pos[me * sl : (me + 1) * sl]
+    q, k = rope(q, pl, cfg.rope_theta), rope(k, pl, cfg.rope_theta)
+    hpos = torch.arange(s)  # attend_sp reads the positions on the host
+    out = attend_sp(q, k, v, q_pos=hpos, k_pos=hpos, mesh=mesh, causal=True, window=window,
+                    cap=cfg.attn_softcap)
+    return gather_from_region(out.reshape(b, sl, -1) @ w[6], mesh, "model", dim=1)
+
+
+def mlp_tp(x: torch.Tensor, p, cfg: ModelConfig, lay) -> torch.Tensor:
+    """The MLP on this rank's ``ffn`` columns (``wi``, ``wg``) and rows
+    (``wo2``): one psum; the whole MLP where ``ffn`` does not divide."""
+    wg = getattr(p, "wg", None)
+    if not lay.split("wi", 1):
+        return mlp(x, p.wi, wg, p.wo2, cfg.act)
+    return reduce_from_region(mlp(copy_to_region(x, lay.mesh), p.wi, wg, p.wo2, cfg.act),
+                              lay.mesh)
+
+
+def moe_tp(x: torch.Tensor, p, cfg: ModelConfig, lay) -> tuple[torch.Tensor, torch.Tensor]:
+    """The MoE block on this rank's experts: the ``all_to_all`` dispatch,
+    its output gathered back over the positions (eplocal's is whole).  A
+    model axis of one rank takes it too, as JAX's switch does (one
+    capacity a rank, not an expert)."""
+    if not (cfg.c2d_embedding and (lay.model == 1 or lay.split("we_i", 0))):
+        raise NotImplementedError(
+            f"{cfg.name}: a mesh whose model axis does not cut the experts, or the "
+            "replicated dispatch, has no sharded train path")
+    y, aux = moe_block(x, p.router, p.we_i, p.we_g, p.we_o, cfg.topk, mode="c2d",
+                       mesh=lay.mesh)
+    if y.shape[1] != x.shape[1]:
+        y = gather_from_region(y, lay.mesh, "model", dim=1)
+    return y, aux
+
+
+def block_apply_tp(x: torch.Tensor, p, cfg: ModelConfig, lay, *, pos: torch.Tensor,
+                   window: int = 0) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """:func:`block_apply` on this rank's weights (no cache): (x, aux)."""
+    if cfg.family == "rwkv":
+        return rwkv_block_tp(x, p, cfg, lay), None
+    h = rms_norm(x, p.ln1, cfg.norm_eps)
+    att = attn_sublayer_tp(h, p, cfg, lay, pos=pos, window=window)
+    if cfg.family == "hybrid":
+        att = 0.5 * (att * p.beta_attn + ssm_head_tp(h, p.ssm, cfg, lay) * p.beta_ssm)
+    x = x + att
+    h = rms_norm(x, p.ln2, cfg.norm_eps)
+    if cfg.family == "moe":
+        y, aux = moe_tp(h, p, cfg, lay)
+        return x + y, aux
+    return x + mlp_tp(h, p, cfg, lay), None
+
+
 def layer_windows(cfg: ModelConfig) -> np.ndarray:
     """Per-layer window sizes: 0 = global attention."""
     w = np.zeros(cfg.n_layers, np.int32)
@@ -224,10 +353,11 @@ def run_blocks(
     caches: dict[str, torch.Tensor] | None = None,  # (L, B, ...) leaves, init_kv_cache's
     offset: int = 0,
     rows: torch.Tensor | None = None,
+    lay=None,
 ) -> tuple[torch.Tensor, torch.Tensor | float]:
     """(x, aux): the stack's output and its layers' aux losses summed in
     layer order over ``n_layers`` (the JAX scan's carry), 0.0 for the
-    families without one."""
+    families without one.  ``lay``: each block on this rank's weights."""
     windows = layer_windows(cfg)
     remat = cfg.remat and caches is None and torch.is_grad_enabled() and (
         x.requires_grad or any(w.requires_grad for w in blocks.parameters()))
@@ -235,12 +365,12 @@ def run_blocks(
     for layer, p in enumerate(blocks):
         if remat:
             x, aux_l = checkpoint(block_apply, x, p, cfg, pos=pos, cache=None, offset=offset,
-                                  window=int(windows[layer]), use_reentrant=False)
+                                  window=int(windows[layer]), lay=lay, use_reentrant=False)
         else:
             cache = (None if caches is None
                      else {name: leaf[layer] for name, leaf in caches.items()})
             x, aux_l = block_apply(x, p, cfg, pos=pos, cache=cache, offset=offset, rows=rows,
-                                   window=int(windows[layer]))
+                                   window=int(windows[layer]), lay=lay)
         if aux_l is not None:
             aux = aux_l if aux is None else aux + aux_l
     return x, (0.0 if aux is None else aux / cfg.n_layers)

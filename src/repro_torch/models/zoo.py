@@ -17,9 +17,25 @@ hybrid families:
 * ``make_serve_step(cfg)``                  -> (model, cache, tok, pos) -> (logits, cache)
 * ``loss_fn(cfg, model, batch)``            -> (loss, {"nll", "aux"}), the head and
   softmax cross-entropy in ``LOSS_CHUNK``-position chunks
-* ``make_train_step(cfg, opt)``             -> (state, batch) -> (state, metrics);
+* ``make_train_step(cfg, opt, mesh=None, zero1=True)`` -> (state, batch) -> (state, metrics);
   ``state = {"params": LM, "opt": OptState, "step": int}``, updated in place
-* ``make_eval_step(cfg)``, ``make_steps(cfg, opt)``
+* ``make_eval_step(cfg, mesh=None)``, ``make_steps(cfg, opt)``
+* ``logical_axes(cfg)``                     -> each leaf's logical axes under its JAX
+  name (``build_params(cfg)[1]`` of the JAX package)
+* ``layout(cfg, mesh, zero1=True)``         -> the train rules' specs on a mesh
+  (``repro_torch.sharding.partition.Layout``)
+* ``shard_params(cfg, model, mesh)``        -> the ``LM`` cut, in place, to this
+  rank's blocks; ``gather_params(cfg, model, mesh)`` -> its whole leaves
+
+With a ``mesh`` (``repro_torch.sharding.mesh.Mesh``), ``forward``,
+``loss_fn`` and the train and eval steps take the GLOBAL batch and use this
+rank's rows of it (``batch_shardings``'s: the data ranks' blocks of the
+leading dim, so batch k of a sharded run is batch k of an unsharded one),
+on an ``LM`` that :func:`shard_params` cut.  ``forward`` returns this
+rank's block (its rows; the logits its vocab columns); ``loss_fn`` the
+global loss, whose gradient on each rank is its own part (the optimizer
+sums the parts over the data axes, :class:`~repro_torch.optim.AdamW`'s
+ZeRO-1 update).
 
 PyTorch runs eagerly, so the steps are plain functions (the JAX package
 jits them).  Caches, weights and moments are written in place and returned
@@ -32,6 +48,7 @@ card, and raises without one.
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from typing import Any, Callable
 
@@ -41,8 +58,9 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..core.bitcode import resolve_device
+from ..sharding.partition import Layout, full_leaf, leaf_key, local_block, rules_for_train
 from .common import ModelConfig, ParamFactory, cross_entropy, rms_norm, softcap
-from .embedding import embed_plain, lm_head
+from .embedding import embed_c2d, embed_plain, lm_head
 from .rwkv import RWKVBlock
 from .ssm import CONV_K
 from .transformer import DenseBlock, HybridBlock, MoEBlock, require_ported, run_blocks
@@ -69,14 +87,15 @@ class LM(nn.Module):
         super().__init__()
         require_ported(cfg)
         self.embed = nn.Module()
-        self.embed.tok = f.new((cfg.vocab_padded, cfg.d_model), scale=0.02)
+        self.embed.tok = f.new((cfg.vocab_padded, cfg.d_model), scale=0.02,
+                               axes=("vocab", "embed"))
         block = {"moe": MoEBlock, "rwkv": RWKVBlock, "hybrid": HybridBlock}.get(
             cfg.family, DenseBlock)
         self.blocks = nn.ModuleList(block(cfg, f) for _ in range(cfg.n_layers))
-        self.final_ln = f.new((cfg.d_model,), "zeros")
+        self.final_ln = f.new((cfg.d_model,), "zeros", axes=("embed",))
         if not cfg.tie_embeddings:
             self.head = nn.Module()
-            self.head.w = f.new((cfg.d_model, cfg.vocab_padded))
+            self.head.w = f.new((cfg.d_model, cfg.vocab_padded), axes=("embed", "vocab"))
 
     @property
     def device(self) -> torch.device:
@@ -186,6 +205,93 @@ def param_count(model: nn.Module) -> int:
     return sum(p.numel() for p in model.parameters())
 
 
+# ------------------------------------------------------------- on a mesh
+@functools.lru_cache(maxsize=32)
+def _leaves(cfg: ModelConfig) -> tuple[dict[str, tuple], dict[str, tuple]]:
+    """``(shapes, logical axes)`` of one layer's leaves, under
+    ``blocks.<leaf>``, and of the others, from a model on the meta device."""
+    meta = LM(cfg.replace(n_layers=1), ParamFactory(0, cfg.dtype, torch.device("meta"),
+                                                    fill=False))
+    shapes, axes = {}, {}
+    for name, leaf in meta.named_parameters():
+        if leaf.logical_axes is None:
+            raise ValueError(f"{cfg.name}: leaf {name} has no logical axes")
+        shapes[leaf_key(name)], axes[leaf_key(name)] = tuple(leaf.shape), leaf.logical_axes
+    return shapes, axes
+
+
+def logical_axes(cfg: ModelConfig) -> tuple[dict[str, tuple], dict[str, tuple]]:
+    """``(shapes, axes)`` of every leaf under its JAX name: a ``blocks.*``
+    leaf stacked over the layers, its axes led by ``"layers"`` (the JAX
+    package's ``build_params(cfg, abstract=True)``, shapes and axes)."""
+    shapes, axes = _leaves(cfg)
+    stacked = lambda key: key.startswith("blocks.")  # noqa: E731
+    return ({k: (cfg.n_layers, *s) if stacked(k) else s for k, s in shapes.items()},
+            {k: ("layers", *a) if stacked(k) else a for k, a in axes.items()})
+
+
+def layout(cfg: ModelConfig, mesh, zero1: bool = True) -> Layout:
+    """The train rules' specs (``rules_for_train``) of every leaf on
+    ``mesh``, a layer's leaves under ``blocks.<leaf>`` without the layer
+    axis."""
+    return Layout(mesh, *_leaves(cfg), rules_for_train(cfg, mesh), zero1=zero1)
+
+
+@torch.no_grad()
+def shard_params(cfg: ModelConfig, model: LM, mesh, lay: Layout | None = None) -> LM:
+    """Cut ``model`` (whole on every rank, built from one seed) to this
+    rank's blocks, in place; returns it."""
+    lay = lay or layout(cfg, mesh)
+    for name, leaf in model.named_parameters():
+        leaf.data = local_block(leaf.data, lay.params[leaf_key(name)], mesh).clone()
+    return model
+
+
+def gather_params(cfg: ModelConfig, model: "LM | dict[str, torch.Tensor]", mesh,
+                  lay: Layout | None = None, moments: bool = False) -> dict[str, torch.Tensor]:
+    """The whole leaves of a sharded ``model`` (or of a dict of its blocks
+    by name; ``moments``: blocks under the ZeRO-1 moment specs), by name;
+    every rank of the mesh calls it."""
+    lay = lay or layout(cfg, mesh)
+    specs = lay.moments if moments else lay.params
+    named = model_params(model) if isinstance(model, nn.Module) else model
+    return {k: full_leaf(t.detach(), specs[leaf_key(k)], mesh) for k, t in named.items()}
+
+
+def _cut(cfg: ModelConfig, model: LM, lay: Layout) -> tuple[torch.Tensor, bool]:
+    """The LM head's weight block and whether its vocab is cut over model."""
+    if cfg.tie_embeddings:
+        return model.embed.tok.T, lay.split("embed.tok", 0)
+    return model.head.w, lay.split("head.w", 1)
+
+
+def _head_tp(cfg: ModelConfig, model: LM, h: torch.Tensor, lay: Layout) -> torch.Tensor:
+    """This rank's vocab columns of the logits (all of them where the
+    vocab is whole)."""
+    w, cut = _cut(cfg, model, lay)
+    h = rms_norm(h, model.final_ln, cfg.norm_eps)
+    return softcap(lm_head(h, w, lay.mesh if cut else None), cfg.final_softcap)
+
+
+def _forward_tp(cfg: ModelConfig, model: LM, batch: dict, lay: Layout,
+                return_hidden: bool):
+    """:func:`forward` on this rank's rows ``batch`` and weight blocks."""
+    if "token_rows" in batch:
+        raise NotImplementedError("token_rows with a mesh: sharded serving waits for its slice")
+    tokens = batch["tokens"]
+    if lay.split("embed.tok", 0):
+        x = embed_c2d(model.embed.tok, tokens, lay.mesh)
+    else:
+        x = embed_plain(model.embed.tok, tokens)
+    if cfg.embed_mult != 1.0:
+        x = (x.float() * cfg.embed_mult).to(x.dtype)
+    pos = torch.arange(tokens.shape[1], device=x.device)
+    h, aux = run_blocks(cfg, model.blocks, x, pos=pos, lay=lay)
+    if return_hidden:
+        return h, None, aux
+    return _head_tp(cfg, model, h, lay), None, aux
+
+
 # ------------------------------------------------------------------ forward
 def _head(cfg: ModelConfig, model: LM, h: torch.Tensor) -> torch.Tensor:
     h = rms_norm(h, model.final_ln, cfg.norm_eps)
@@ -202,13 +308,24 @@ def forward(
     offset: int | None = None,
     rows: torch.Tensor | None = None,
     return_hidden: bool = False,
+    mesh=None,
 ):
     """Returns (logits, caches, aux_loss); ``caches`` is updated in place
-    (only batch ``rows`` of it, when given).  ``aux_loss`` is the MoE
+    (only batch ``rows`` of it, when given).  With a ``mesh`` (no cache),
+    ``batch`` is the global batch, ``model`` this rank's blocks
+    (:func:`shard_params`), and the result this rank's block: its rows,
+    the logits its vocab columns.  ``aux_loss`` is the MoE
     router's load-balance loss averaged over the layers (an f32 scalar), 0.0
     for the other families.  ``batch["token_rows"]``, when
     present, holds embedding rows gathered elsewhere (the serving tier's
     remote embedding) and bypasses the table lookup."""
+    if mesh is not None:
+        if caches is not None:
+            raise NotImplementedError("a cache with a mesh: sharded serving waits for its slice")
+        lay = layout(cfg, mesh)
+        rows_of = lay.rows(batch["tokens"].shape[0])
+        return _forward_tp(cfg, model, {k: v[rows_of] for k, v in batch.items()}, lay,
+                           return_hidden)
     tokens = batch["tokens"]
     s = tokens.shape[1]
     if "token_rows" in batch:
@@ -364,13 +481,92 @@ def _chunked_xent(
     return nll / torch.clamp(cnt, min=1.0)
 
 
+def _nll_sum_tp(cfg: ModelConfig, model: LM, h: torch.Tensor, labels: torch.Tensor,
+                mask: torch.Tensor, lay: Layout) -> torch.Tensor:
+    """Summed masked NLL of one chunk of this rank's rows, the softmax over
+    the vocab cut over ``model``: the row max (pmax) and the sum of
+    exponentials (psum) over the ranks, the label's logit from the rank
+    that holds it (psum), the padded columns of the last block masked."""
+    from ..sharding.mesh import reduce_from_region
+
+    logits = _head_tp(cfg, model, h, lay)
+    _, cut = _cut(cfg, model, lay)
+    v_loc = logits.shape[-1]
+    lo = lay.mesh.axis_index("model") * v_loc if cut else 0
+    if lo + v_loc > cfg.vocab:
+        cols = lo + torch.arange(v_loc, device=h.device)
+        logits = logits.masked_fill(cols >= cfg.vocab, -1e9)
+    logits = logits.float()
+    if not cut:
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+        return torch.sum((lse - gold) * mask)
+    mesh = lay.mesh
+    mx = mesh.pmax(logits.detach().amax(-1), "model")
+    lse = torch.log(reduce_from_region(torch.exp(logits - mx[..., None]).sum(-1), mesh)) + mx
+    loc = labels.long() - lo
+    mine = (loc >= 0) & (loc < v_loc)
+    g = torch.gather(logits, -1, loc.clamp(0, v_loc - 1)[..., None])[..., 0]
+    gold = reduce_from_region(torch.where(mine, g, torch.zeros_like(g)), mesh)
+    return torch.sum((lse - gold) * mask)
+
+
+def _loss_tp(cfg: ModelConfig, model: LM, batch: dict, lay: Layout,
+             mark: Callable[[str], None] | None = None):
+    """``(part, value, {"nll", "aux"})`` on this rank's rows of ``batch``:
+    ``part`` is its share of the loss (its rows' summed NLL over the whole
+    batch's count, plus the aux term, whose means over the ranks are in
+    the graph), whose gradient summed over the data ranks is the loss's;
+    ``value`` the whole loss."""
+    mesh = lay.mesh
+    rows = lay.rows(batch["tokens"].shape[0])
+    local = {k: v[rows] for k, v in batch.items()}
+    h, _, aux = _forward_tp(cfg, model, local, lay, return_hidden=True)
+    if mark:
+        mark("forward")
+    labels = local["labels"]
+    mask = local.get("mask")
+    if mask is None:
+        mask = torch.ones(labels.shape, dtype=torch.float32, device=h.device)
+    b, s, _ = h.shape
+    c = LOSS_CHUNK
+    if s % c or s <= c:
+        nll = _nll_sum_tp(cfg, model, h, labels, mask, lay)
+    else:
+        nll = torch.zeros((), dtype=torch.float32, device=h.device)
+        for i in range(s // c):
+            part = (h[:, i * c : (i + 1) * c], labels[:, i * c : (i + 1) * c],
+                    mask[:, i * c : (i + 1) * c])
+            if torch.is_grad_enabled():
+                nll = nll + checkpoint(_nll_sum_tp, cfg, model, *part, lay, use_reentrant=False)
+            else:
+                nll = nll + _nll_sum_tp(cfg, model, *part, lay)
+    cnt = torch.sum(mask.float())
+    if lay.data:
+        cnt = mesh.psum(cnt, lay.data)
+    nll = nll / torch.clamp(cnt, min=1.0)
+    whole = mesh.psum(nll.detach(), lay.data) if lay.data else nll.detach()
+    aux_t = torch.as_tensor(aux, dtype=torch.float32, device=h.device)
+    part = nll + AUX_LOSS_WEIGHT * aux_t
+    value = whole + AUX_LOSS_WEIGHT * aux_t.detach()
+    if mark:
+        mark("loss")
+    return part, value, {"nll": whole, "aux": aux_t.detach()}
+
+
 def loss_fn(
-    cfg: ModelConfig, model: LM, batch: dict, mark: Callable[[str], None] | None = None
+    cfg: ModelConfig, model: LM, batch: dict, mark: Callable[[str], None] | None = None,
+    mesh=None,
 ) -> tuple[torch.Tensor, dict]:
     """``(loss, {"nll", "aux"})``: the masked next-token NLL plus
     ``AUX_LOSS_WEIGHT`` times the MoE router's aux loss (0 for the other
     families).  ``mark``, when given,
-    is called with ``"forward"`` and ``"loss"`` as each is queued."""
+    is called with ``"forward"`` and ``"loss"`` as each is queued.  With a
+    ``mesh``, the loss of the global ``batch``, whose gradient on each rank
+    is its own part (:func:`_loss_tp`)."""
+    if mesh is not None:
+        part, value, parts = _loss_tp(cfg, model, batch, layout(cfg, mesh), mark)
+        return part + (value - part).detach(), parts
     h, _, aux = forward(cfg, model, batch, return_hidden=True)
     if mark:
         mark("forward")
@@ -386,8 +582,8 @@ def _on(batch: dict, device: torch.device) -> dict[str, torch.Tensor]:
             for k, v in batch.items()}
 
 
-def make_train_step(cfg: ModelConfig, opt, mark: Callable[[str], None] | None = None
-                    ) -> Callable:
+def make_train_step(cfg: ModelConfig, opt, mark: Callable[[str], None] | None = None,
+                    mesh=None, zero1: bool = True) -> Callable:
     """``(state, batch) -> (state, metrics)``; ``state = {"params": LM,
     "opt": OptState, "step": int}``, updated in place; ``batch`` holds
     ``tokens``, ``labels`` and ``mask`` (numpy or tensors; moved to the
@@ -399,13 +595,27 @@ def make_train_step(cfg: ModelConfig, opt, mark: Callable[[str], None] | None = 
     divides by the microbatch count.  Grad is turned on for the weights only
     inside the step.  ``mark``, when given, is called with ``"forward"``,
     ``"loss"`` and ``"backward"`` as each stage of each microbatch is
-    queued, and with ``"optimizer"`` after the update (a timer's hook)."""
+    queued, and with ``"optimizer"`` after the update (a timer's hook).
+
+    With a ``mesh``, ``state["params"]`` is this rank's blocks
+    (:func:`shard_params`) and ``state["opt"]`` its moment blocks
+    (``opt.init(params, constrain=layout(cfg, mesh, zero1))``); ``batch``
+    is the global batch (a microbatch is its contiguous slice, then this
+    rank's rows of that).  Each rank takes the gradient of its part of the
+    loss and the update is ZeRO-1 (``zero1``; else the moments as the
+    params): gradients reduce-scattered over the data axes, each rank's
+    block of the weight updated, then all-gathered."""
     mark = mark or (lambda stage: None)
+    lay = layout(cfg, mesh, zero1) if mesh is not None else None
 
     def grad_once(model: LM, params: dict, batch: dict):
         with torch.enable_grad():
-            loss, parts = loss_fn(cfg, model, batch, mark)
-            grads = torch.autograd.grad(loss, list(params.values()), allow_unused=True,
+            if lay is None:
+                loss, parts = loss_fn(cfg, model, batch, mark)
+                part = loss
+            else:
+                part, loss, parts = _loss_tp(cfg, model, batch, lay, mark)
+            grads = torch.autograd.grad(part, list(params.values()), allow_unused=True,
                                         materialize_grads=True)
             mark("backward")
         return loss.detach(), {k: v.detach() for k, v in parts.items()}, dict(zip(params, grads))
@@ -441,7 +651,10 @@ def make_train_step(cfg: ModelConfig, opt, mark: Callable[[str], None] | None = 
         finally:
             for p in params.values():
                 p.requires_grad_(False)
-        _, _, om = opt.update(grads, state["opt"], params)
+        if lay is None:
+            _, _, om = opt.update(grads, state["opt"], params)
+        else:
+            _, _, om = opt.update(grads, state["opt"], params, constrain=lay)
         mark("optimizer")
         del grads
         state["step"] += 1
@@ -450,10 +663,10 @@ def make_train_step(cfg: ModelConfig, opt, mark: Callable[[str], None] | None = 
     return train_step
 
 
-def make_eval_step(cfg: ModelConfig) -> Callable:
+def make_eval_step(cfg: ModelConfig, mesh=None) -> Callable:
     @torch.no_grad()
     def eval_step(model: LM, batch: dict):
-        loss, parts = loss_fn(cfg, model, _on(batch, model.device))
+        loss, parts = loss_fn(cfg, model, _on(batch, model.device), mesh=mesh)
         return {"loss": loss, **parts}
 
     return eval_step

@@ -10,8 +10,14 @@ dtype, in the JAX package's order of operations, so the same inputs give
 the same f32 values up to the order of the global norm's sum.
 
 The JAX ``update`` takes ``constrain`` (the ZeRO-1 moment shardings of
-``repro.sharding.partition``); the port has no counterpart until
-``sharding/partition.py`` is ported (ROADMAP.md section 1, item 5).
+``repro.sharding.partition``); the port's takes a
+:class:`~repro_torch.sharding.partition.Layout`, and the params are then a
+rank's blocks and the moments its blocks under the ZeRO-1 specs: the
+gradients are reduce-scattered over the data axes (a psum where a leaf's
+moments are whole), each rank updates its block of the weight, and the
+blocks are all-gathered.  The global norm counts every element once: each
+leaf's sum of squares is weighted by one over the ranks that hold the same
+block, then summed over the mesh.
 """
 
 from __future__ import annotations
@@ -76,12 +82,18 @@ class AdamW:
     clip_norm: float | None = 1.0
     wd_skip: tuple[str, ...] = ("ln", "bias", "norm", ".b")
 
-    def init(self, params: Params) -> OptState:
+    def init(self, params: Params, constrain=None) -> OptState:
+        """Zero moments; with a layout ``constrain``, this rank's ZeRO-1
+        blocks of them (``params`` its param blocks)."""
         first = next(iter(params.values()))
+
+        def shape(k, p):
+            return tuple(p.shape) if constrain is None else constrain.block_shape(k, p.shape)
+
         return OptState(
-            m={k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+            m={k: torch.zeros(shape(k, p), dtype=torch.float32, device=p.device)
                for k, p in params.items()},
-            v={k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+            v={k: torch.zeros(shape(k, p), dtype=torch.float32, device=p.device)
                for k, p in params.items()},
             count=torch.zeros((), dtype=torch.int32, device=first.device),
         )
@@ -91,15 +103,25 @@ class AdamW:
 
     @torch.no_grad()
     def update(
-        self, grads: Params, state: OptState, params: Params
+        self, grads: Params, state: OptState, params: Params, constrain=None
     ) -> tuple[Params, OptState, dict[str, torch.Tensor]]:
         """One step: ``params``, ``state.m``, ``state.v`` and
         ``state.count`` are updated in place and returned, with metrics
-        ``grad_norm`` (before clipping) and ``lr``."""
+        ``grad_norm`` (before clipping) and ``lr``.  ``constrain``: a
+        :class:`~repro_torch.sharding.partition.Layout`, for this rank's
+        part of a ZeRO-1 step (``grads`` its unreduced gradients)."""
         state.count += 1
         count = state.count
         f32 = dict(dtype=torch.float32, device=count.device)
-        gnorm = global_norm(grads[k] for k in params)
+        if constrain is not None:
+            grads = {k: constrain.reduce_grad(k, grads[k]) for k in params}
+            total = None
+            for k in params:
+                sq = torch.sum(torch.square(grads[k])) * constrain.norm_weight(k)
+                total = sq if total is None else total + sq
+            gnorm = torch.sqrt(constrain.psum_all(total))
+        else:
+            gnorm = global_norm(grads[k] for k in params)
         if self.clip_norm is not None:
             scale = torch.minimum(torch.tensor(1.0, **f32), torch.tensor(
                 self.clip_norm, **f32) / torch.maximum(gnorm, torch.tensor(1e-9, **f32)))
@@ -109,7 +131,8 @@ class AdamW:
         c = count.float()
         bc1 = 1.0 - self.b1**c
         bc2 = 1.0 - self.b2**c
-        for k, p in params.items():
+        for k, p_all in params.items():
+            p = p_all if constrain is None else constrain.param_block(k, p_all)
             g = grads[k].float() * scale
             m, v = state.m[k], state.v[k]
             m.copy_(self.b1 * m + (1 - self.b1) * g)
@@ -117,5 +140,6 @@ class AdamW:
             upd = (m / bc1) / (torch.sqrt(v / bc2) + self.eps)
             if self.weight_decay and self._decays(k):
                 upd = upd + self.weight_decay * p.float()
-            p.copy_((p.float() - lr * upd).to(p.dtype))
+            new = (p.float() - lr * upd).to(p.dtype)
+            p_all.copy_(new if constrain is None else constrain.gather_param(k, new))
         return params, state, {"grad_norm": gnorm, "lr": lr}

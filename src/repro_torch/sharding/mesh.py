@@ -14,7 +14,20 @@ collective.
 Each collective adds the bytes of its operand (what this rank puts on the
 wire; an all-gather's local shard) to :attr:`Mesh.bytes_by_kind`, the
 counterpart of the HLO operand bytes that ``benchmarks/dapc_tensor.py``
-reports as ``collective_bytes_per_dev``.
+reports as ``collective_bytes_per_dev``.  A collective run by a backward
+adds its bytes there too, and to :attr:`Mesh.bwd_bytes_by_kind`.
+
+The collectives that carry gradients are ``torch.autograd.Function``
+classes (:func:`copy_to_region`, :func:`reduce_from_region`,
+:func:`gather_from_region`, :func:`scatter_to_region`,
+:func:`reduce_scatter_to_region`, :func:`all_to_all_region`): each is the
+collective a GSPMD partitioner puts at that point, and its backward the
+collective that carries the cotangent back.  They keep one rule: a tensor
+that every rank along the axis holds whole carries, on each rank, the
+whole cotangent, the same on every rank; a rank's block carries its
+block's.  Over an axis of one rank each runs its collective and counts its
+bytes all the same, as :meth:`Mesh.psum` does, so a path counts the same
+bytes with and without a gradient.
 
 The mesh does not choose a backend behind the caller's back.
 :func:`init_mesh` resolves ``backend=None`` from the device (``nccl`` on
@@ -36,14 +49,14 @@ import torch
 import torch.distributed as dist
 
 from ..core.bitcode import resolve_device
+from .partition import DATA_AXES, data_axes  # noqa: F401  (re-exported)
 
 #: how long a collective waits for a rank before the run fails (a dead rank
 #: fails the others instead of hanging them)
 DEFAULT_TIMEOUT = timedelta(seconds=300)
 
 Axes = str | tuple[str, ...]
-#: batch-like mesh axes, outermost first (``repro.sharding.partition``'s)
-DATA_AXES = ("pod", "data")
+_KINDS = ("psum", "pmax", "all_gather", "all_to_all")
 
 
 class Mesh:
@@ -64,7 +77,10 @@ class Mesh:
         self.shape = dict(zip(names, shape))  # like jax's Mesh.shape: name -> size
         self.rank = dist.get_rank()
         self.coords = dict(zip(names, _unravel(self.rank, shape)))
-        self.bytes_by_kind = {"psum": 0, "pmax": 0, "all_gather": 0, "all_to_all": 0}
+        # reduce_scatter joins the kinds the first time one runs
+        self.bytes_by_kind = dict.fromkeys(_KINDS, 0)
+        self.bwd_bytes_by_kind = dict.fromkeys(_KINDS, 0)
+        self._backward = False  # set while a Function's backward runs a collective
         # every rank creates every group, in one order (new_group is collective);
         # a group's ranks, ascending, run row-major over its axes
         every = [_unravel(r, shape) for r in range(world)]
@@ -99,12 +115,19 @@ class Mesh:
         return idx
 
     def reset_counters(self) -> None:
-        self.bytes_by_kind = dict.fromkeys(self.bytes_by_kind, 0)
+        self.bytes_by_kind = dict.fromkeys(_KINDS, 0)
+        self.bwd_bytes_by_kind = dict.fromkeys(_KINDS, 0)
+
+    def _count(self, kind: str, x: torch.Tensor) -> None:
+        n = x.numel() * x.element_size()
+        self.bytes_by_kind[kind] = self.bytes_by_kind.get(kind, 0) + n
+        if self._backward:
+            self.bwd_bytes_by_kind[kind] = self.bwd_bytes_by_kind.get(kind, 0) + n
 
     def _reduce(self, x: torch.Tensor, axis: Axes, op, kind: str) -> torch.Tensor:
         group, _ = self._groups[self._key(axis)]
         y = x.clone(memory_format=torch.contiguous_format)
-        self.bytes_by_kind[kind] += y.numel() * y.element_size()
+        self._count(kind, y)
         dist.all_reduce(y, op=op, group=group)
         return y
 
@@ -122,9 +145,30 @@ class Mesh:
         group, n = self._groups[self._key(axis)]
         x = x.contiguous()
         parts = [torch.empty_like(x) for _ in range(n)]
-        self.bytes_by_kind["all_gather"] += x.numel() * x.element_size()
+        self._count("all_gather", x)
         dist.all_gather(parts, x, group=group)
         return torch.cat(parts, dim)
+
+    def reduce_scatter(self, x: torch.Tensor, axis: Axes, dim: int = 0) -> torch.Tensor:
+        """The sum of ``x`` over the ranks along ``axis``, cut into as many
+        blocks along ``dim`` as the axis has ranks: this rank's block
+        (``jax.lax.psum_scatter(..., tiled=True)``).  Counts the operand's
+        bytes under ``reduce_scatter``.  Under gloo a CUDA tensor goes
+        through pinned host memory."""
+        group, n = self._groups[self._key(axis)]
+        if x.shape[dim] % n:
+            raise ValueError(f"reduce_scatter: dim {dim} of {tuple(x.shape)} does not split "
+                             f"over {n} ranks")
+        send = x.movedim(dim, 0).contiguous()
+        self._count("reduce_scatter", send)
+        staged = self.backend == "gloo" and send.device.type != "cpu"
+        if staged:  # the caching host allocator's pinned memory
+            send = torch.empty(send.shape, dtype=send.dtype, pin_memory=True).copy_(send)
+        out = torch.empty_like(send[: send.shape[0] // n])
+        dist.reduce_scatter(out, list(send.chunk(n)), group=group)
+        if staged:
+            out = out.to(x.device)
+        return out.movedim(0, dim)
 
     def all_to_all(self, x: torch.Tensor, axis: Axes, split_dim: int = 0,
                    concat_dim: int = 0) -> torch.Tensor:
@@ -139,7 +183,7 @@ class Mesh:
             raise ValueError(f"all_to_all: dim {split_dim} of {tuple(x.shape)} does not split "
                              f"over {n} ranks")
         send = x.movedim(split_dim, 0).contiguous()
-        self.bytes_by_kind["all_to_all"] += send.numel() * send.element_size()
+        self._count("all_to_all", send)
         staged = self.backend == "gloo" and send.device.type != "cpu"
         if staged:
             send = send.cpu()
@@ -148,6 +192,14 @@ class Mesh:
         if staged:
             recv = recv.to(x.device)
         return torch.cat([blk.movedim(0, split_dim) for blk in recv.chunk(n)], concat_dim)
+
+    def barrier(self) -> None:
+        """Every rank of the mesh waits here (moves no counted bytes)."""
+        if self.backend == "nccl":
+            index = self.device.index
+            dist.barrier(device_ids=[torch.cuda.current_device() if index is None else index])
+        else:
+            dist.barrier()
 
     def close(self) -> None:
         """Tear down the process group (every group of every mesh on it)."""
@@ -189,11 +241,6 @@ def init_mesh(shape, names, device=None, backend: str | None = None, *,
     return Mesh(shape, names, device, backend, timeout)
 
 
-def data_axes(mesh: Mesh) -> tuple[str, ...]:
-    """The mesh's batch-like axes (:data:`DATA_AXES`), outermost first."""
-    return tuple(a for a in DATA_AXES if a in mesh.names)
-
-
 def shard_rows(x: torch.Tensor, mesh: Mesh, axis: Axes = "model", dim: int = 0) -> torch.Tensor:
     """This rank's block of ``x`` along ``dim`` when ``x`` is split evenly
     over ``axis`` (a view; ``P(axis)`` in JAX's terms)."""
@@ -202,3 +249,149 @@ def shard_rows(x: torch.Tensor, mesh: Mesh, axis: Axes = "model", dim: int = 0) 
         raise ValueError(f"dim {dim} of {tuple(x.shape)} does not split over {n} ranks")
     size = x.shape[dim] // n
     return x.narrow(dim, mesh.axis_index(axis) * size, size)
+
+
+# ------------------------------------------------ collectives with gradients
+class _Backward:
+    """Marks the mesh's collectives as a backward's while it is entered."""
+
+    def __init__(self, mesh: Mesh) -> None:
+        self.mesh = mesh
+
+    def __enter__(self) -> None:
+        self.mesh._backward = True
+
+    def __exit__(self, *exc) -> None:
+        self.mesh._backward = False
+
+
+def _block(x: torch.Tensor, mesh: Mesh, axis: Axes, dim: int) -> torch.Tensor:
+    n = mesh.axis_size(axis)
+    if x.shape[dim] % n:
+        raise ValueError(f"dim {dim} of {tuple(x.shape)} does not split over {n} ranks")
+    size = x.shape[dim] // n
+    return x.narrow(dim, mesh.axis_index(axis) * size, size).contiguous()
+
+
+class _CopyTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        with _Backward(ctx.mesh):
+            return ctx.mesh.psum(g, ctx.axis), None, None
+
+
+class _ReduceFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        return mesh.psum(x, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _GatherFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim, partial):
+        ctx.mesh, ctx.axis, ctx.dim, ctx.partial = mesh, axis, dim, partial
+        return mesh.all_gather(x, axis, dim=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.partial:
+            with _Backward(ctx.mesh):
+                g = ctx.mesh.reduce_scatter(g, ctx.axis, dim=ctx.dim)
+        else:
+            g = _block(g, ctx.mesh, ctx.axis, ctx.dim)
+        return g, None, None, None, None
+
+
+class _ScatterTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim):
+        ctx.mesh, ctx.axis, ctx.dim = mesh, axis, dim
+        return _block(x, mesh, axis, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        with _Backward(ctx.mesh):
+            return ctx.mesh.all_gather(g, ctx.axis, dim=ctx.dim), None, None, None
+
+
+class _ReduceScatterTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim):
+        ctx.mesh, ctx.axis, ctx.dim = mesh, axis, dim
+        return mesh.reduce_scatter(x, axis, dim=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        with _Backward(ctx.mesh):
+            return ctx.mesh.all_gather(g, ctx.axis, dim=ctx.dim), None, None, None
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, split_dim, concat_dim):
+        ctx.mesh, ctx.axis, ctx.dims = mesh, axis, (split_dim, concat_dim)
+        return mesh.all_to_all(x, axis, split_dim, concat_dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        split_dim, concat_dim = ctx.dims
+        with _Backward(ctx.mesh):
+            g = ctx.mesh.all_to_all(g, ctx.axis, concat_dim, split_dim)
+        return g, None, None, None, None
+
+
+def copy_to_region(x: torch.Tensor, mesh: Mesh, axis: Axes = "model") -> torch.Tensor:
+    """Megatron's *f*: ``x`` as it is, for a region whose ranks each use it
+    for their own part; the backward sums the ranks' cotangents (a psum)."""
+    return _CopyTo.apply(x, mesh, axis)
+
+
+def reduce_from_region(x: torch.Tensor, mesh: Mesh, axis: Axes = "model") -> torch.Tensor:
+    """Megatron's *g*: the psum of the ranks' partial ``x``; the whole
+    cotangent goes back to every rank unchanged."""
+    return _ReduceFrom.apply(x, mesh, axis)
+
+
+def gather_from_region(x: torch.Tensor, mesh: Mesh, axis: Axes = "model", dim: int = 0,
+                       partial: bool = False) -> torch.Tensor:
+    """The ranks' blocks ``x`` all-gathered along ``dim``.  The backward
+    takes this rank's block of the cotangent; with ``partial`` (every
+    rank's consumers see only part of the gathered tensor, as ``attend_sp``'s
+    queries see the keys) it reduce-scatters the cotangent instead."""
+    return _GatherFrom.apply(x, mesh, axis, dim, partial)
+
+
+def scatter_to_region(x: torch.Tensor, mesh: Mesh, axis: Axes = "model",
+                      dim: int = 0) -> torch.Tensor:
+    """This rank's block along ``dim`` of a tensor every rank holds whole;
+    the backward all-gathers the blocks' cotangents."""
+    return _ScatterTo.apply(x, mesh, axis, dim)
+
+
+def reduce_scatter_to_region(x: torch.Tensor, mesh: Mesh, axis: Axes = "model",
+                             dim: int = 0) -> torch.Tensor:
+    """This rank's block along ``dim`` of the psum of the ranks' partial
+    ``x``; the backward all-gathers the blocks' cotangents."""
+    return _ReduceScatterTo.apply(x, mesh, axis, dim)
+
+
+def all_to_all_region(x: torch.Tensor, mesh: Mesh, axis: Axes = "model", split_dim: int = 0,
+                      concat_dim: int = 0) -> torch.Tensor:
+    """:meth:`Mesh.all_to_all` with a gradient: the backward sends each
+    block of the cotangent back to the rank it came from."""
+    return _AllToAll.apply(x, mesh, axis, split_dim, concat_dim)
+
+
+def pmean_region(x: torch.Tensor, mesh: Mesh, axis: Axes) -> torch.Tensor:
+    """The mean of the ranks' ``x`` along ``axis``: :func:`reduce_from_region`
+    over the axis's size."""
+    return reduce_from_region(x, mesh, axis) / mesh.axis_size(axis)

@@ -1,0 +1,365 @@
+"""Logical-axis -> mesh partition rules (the port's own copy of
+``repro.sharding.partition``).
+
+Every parameter leaf carries a tuple of *logical* axis names
+(``("layers", "embed", "ffn")`` and so on; ``repro_torch.models.zoo.
+logical_axes``).  This module maps logical axes onto mesh axes with
+divisibility checking: a rule applies only if the dim divides by the mesh
+axis's extent, otherwise the dim stays whole.
+
+Default rules (Megatron-style TP over ``model``):
+
+    vocab   -> model    (c2d embedding + vocab-parallel LM head)
+    ffn     -> model    (MLP column/row parallel, one psum per block)
+    q_dim   -> model    (attention column parallel on the flat head dim)
+    kv_dim  -> model    (GQA K/V projections where kv_dim divides)
+    heads   -> model    (per-head state, e.g. RWKV's u bonus)
+    experts -> model    (EP: the token all_to_all is the X-RDMA dispatch)
+    embed   -> None     (activations stay batch-sharded; no 2D weight TP)
+    layers  -> None     (the layer axis)
+
+ZeRO-1: optimizer moments additionally shard their largest free dim over
+``data``.
+
+A spec is a plain tuple, one entry a dim (trailing ``None`` dropped, as
+``PartitionSpec`` prints): a mesh axis name, a tuple of names (several
+axes on one dim, outermost first), or ``None`` (the dim whole).  The
+builders take any mesh with ``names`` and ``shape`` (name -> size): a
+:class:`~repro_torch.sharding.mesh.Mesh`, or a :class:`MeshShape` that
+holds no ranks.  :func:`local_block` cuts a rank's block of a full leaf
+and :func:`full_leaf` gathers the blocks back.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Any, Mapping
+
+import torch
+
+DATA_AXES = ("pod", "data")  # batch-like mesh axes, outermost first
+
+DEFAULT_RULES: dict[str, str | None] = {
+    "vocab": "model",
+    "ffn": "model",
+    "q_dim": "model",
+    "kv_dim": "model",
+    "heads": "model",
+    "experts": "model",
+    "embed": None,
+    "layers": None,
+}
+
+# Serving: weights stationary, sharded 2-D (TP over model plus embed over data)
+SERVE_RULES: dict[str, str | None] = {**DEFAULT_RULES, "embed": "data"}
+
+Spec = tuple
+
+
+@dataclass(frozen=True)
+class MeshShape:
+    """A mesh's axis names and sizes, with no ranks behind them: what the
+    spec builders read."""
+
+    sizes: tuple[int, ...]
+    names: tuple[str, ...]
+
+    @property
+    def shape(self) -> dict[str, int]:
+        return dict(zip(self.names, self.sizes))
+
+
+def _names(mesh) -> tuple[str, ...]:
+    return tuple(mesh.names)
+
+
+def rules_for_train(cfg, mesh) -> dict[str, str | None]:
+    """Per-arch train rules: where the head count does not divide ``model``
+    (hymba's 25 heads), the attention and SSM projections are not tensor
+    parallel: their weights stay whole over ``model`` and attention runs
+    sequence-parallel (``attend_sp``)."""
+    rules = dict(DEFAULT_RULES)
+    if "model" in _names(mesh) and cfg.n_heads % mesh.shape["model"] != 0:
+        rules["q_dim"] = None
+        rules["kv_dim"] = None
+        rules["heads"] = None
+    return rules
+
+
+def data_axes(mesh) -> tuple[str, ...]:
+    """The mesh's batch-like axes (:data:`DATA_AXES`), outermost first."""
+    return tuple(a for a in DATA_AXES if a in _names(mesh))
+
+
+def axis_size(mesh, axes: str | tuple[str, ...]) -> int:
+    if isinstance(axes, str):
+        axes = (axes,)
+    return math.prod(mesh.shape[a] for a in axes)
+
+
+def divisible(dim: int, mesh, axes: str | tuple[str, ...]) -> bool:
+    return dim % axis_size(mesh, axes) == 0
+
+
+def _strip(parts: list) -> Spec:
+    while parts and parts[-1] is None:
+        parts.pop()
+    return tuple(parts)
+
+
+def spec_for(
+    shape: tuple[int, ...],
+    logical: tuple[str | None, ...],
+    mesh,
+    rules: Mapping[str, str | None] = DEFAULT_RULES,
+) -> Spec:
+    """The spec of one leaf, honouring divisibility; a mesh axis shards at
+    most one dim, the first that asks for it."""
+    parts: list[Any] = []
+    used: set[str] = set()
+    names = _names(mesh)
+    for dim, name in zip(shape, logical):
+        ax = rules.get(name) if name else None
+        if ax is None or ax not in names or ax in used:
+            parts.append(None)
+        elif divisible(dim, mesh, ax):
+            parts.append(ax)
+            used.add(ax)
+        else:
+            parts.append(None)
+    return _strip(parts)
+
+
+def param_specs(
+    shapes: Mapping[str, tuple[int, ...]],
+    axes: Mapping[str, tuple[str | None, ...]],
+    mesh,
+    rules: Mapping[str, str | None] = DEFAULT_RULES,
+) -> dict[str, Spec]:
+    """Each leaf's spec (``param_shardings``)."""
+    return {k: spec_for(tuple(s), axes[k], mesh, rules) for k, s in shapes.items()}
+
+
+def zero1_specs(
+    shapes: Mapping[str, tuple[int, ...]],
+    axes: Mapping[str, tuple[str | None, ...]],
+    mesh,
+    rules: Mapping[str, str | None] = DEFAULT_RULES,
+    enabled: bool = True,
+) -> dict[str, Spec]:
+    """Moment specs (``zero1_shardings``): the param spec plus the data
+    axes on the largest free dim that divides (the last of equal ones)."""
+    d_axes = data_axes(mesh)
+    out = {}
+    for k, shape in shapes.items():
+        shape = tuple(shape)
+        base = spec_for(shape, axes[k], mesh, rules)
+        parts = list(base) + [None] * (len(shape) - len(base))
+        if enabled and d_axes:
+            free = [(dim, i) for i, (dim, s) in enumerate(zip(shape, parts))
+                    if s is None and divisible(dim, mesh, d_axes)]
+            if free:
+                _, i = max(free)
+                parts[i] = d_axes if len(d_axes) > 1 else d_axes[0]
+        out[k] = _strip(parts)
+    return out
+
+
+def fsdp_specs(shapes, axes, mesh, rules: Mapping[str, str | None] = DEFAULT_RULES
+               ) -> dict[str, Spec]:
+    """ZeRO-3/FSDP parameter specs (``fsdp_shardings``): the TP spec plus
+    ``data`` on the largest free dim of every leaf."""
+    return zero1_specs(shapes, axes, mesh, rules, enabled=True)
+
+
+def state_specs(shapes, axes, mesh, rules: Mapping[str, str | None] = DEFAULT_RULES,
+                zero1: bool = True, fsdp: bool = False) -> dict[str, Any]:
+    """Specs of the train state ``{"params", "opt": OptState(m, v, count),
+    "step"}`` (``state_shardings``)."""
+    from ..optim.adamw import OptState
+
+    if fsdp:
+        p_sp = fsdp_specs(shapes, axes, mesh, rules)
+        m_sp = p_sp if zero1 else param_specs(shapes, axes, mesh, rules)
+    else:
+        p_sp = param_specs(shapes, axes, mesh, rules)
+        m_sp = zero1_specs(shapes, axes, mesh, rules, enabled=zero1)
+    return {"params": p_sp, "opt": OptState(m=dict(m_sp), v=dict(m_sp), count=()),
+            "step": ()}
+
+
+def batch_specs(shapes: Mapping[str, tuple[int, ...]], mesh) -> dict[str, Spec]:
+    """Batch inputs (``batch_shardings``): the leading dim over the data
+    axes when it divides."""
+    d = data_axes(mesh)
+    out = {}
+    for k, shape in shapes.items():
+        if d and len(shape) and divisible(shape[0], mesh, d):
+            out[k] = (d if len(d) > 1 else d[0],)
+        else:
+            out[k] = ()
+    return out
+
+
+def cache_specs(shapes: Mapping[str, tuple[int, ...]], mesh) -> dict[str, Spec]:
+    """Decode caches (``cache_shardings``): batch -> data when it divides,
+    time (or heads) -> model when it divides and is longer than 1.  Every
+    dim is listed, as the reference builds its ``PartitionSpec``."""
+    d = data_axes(mesh)
+    d_spec = d if len(d) > 1 else (d[0] if d else None)
+    out = {}
+    for k, shape in shapes.items():
+        parts: list[Any] = [None] * len(shape)
+        if len(shape) >= 2 and d and divisible(shape[1], mesh, d):
+            parts[1] = d_spec
+        if len(shape) >= 3 and shape[2] > 1 and divisible(shape[2], mesh, "model"):
+            parts[2] = "model"
+        out[k] = tuple(parts)
+    return out
+
+
+# ------------------------------------------------------------------ blocks
+def _dim_axes(entry) -> tuple[str, ...]:
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def spec_axes(spec: Spec) -> tuple[str, ...]:
+    """Every mesh axis a spec shards over."""
+    return tuple(a for entry in spec for a in _dim_axes(entry))
+
+
+def local_block(full: torch.Tensor, spec: Spec, mesh) -> torch.Tensor:
+    """This rank's block of ``full`` under ``spec`` (a view; ``mesh`` a
+    :class:`~repro_torch.sharding.mesh.Mesh`)."""
+    out = full
+    for dim, entry in enumerate(spec):
+        axes = _dim_axes(entry)
+        if axes:
+            n = axis_size(mesh, axes)
+            if out.shape[dim] % n:
+                raise ValueError(f"dim {dim} of {tuple(full.shape)} does not split over {axes}")
+            size = out.shape[dim] // n
+            out = out.narrow(dim, mesh.axis_index(axes) * size, size)
+    return out
+
+
+@torch.no_grad()
+def full_leaf(block: torch.Tensor, spec: Spec, mesh) -> torch.Tensor:
+    """The whole leaf from every rank's ``block``: an all-gather over each
+    sharded dim's axes (forward only; every rank of the mesh calls it)."""
+    out = block
+    for dim, entry in enumerate(spec):
+        axes = _dim_axes(entry)
+        if axes:
+            out = mesh.all_gather(out, axes if len(axes) > 1 else axes[0], dim=dim)
+    return out
+
+
+# ------------------------------------------------------------------ layout
+def leaf_key(name: str) -> str:
+    """The key a port parameter's spec is kept under: ``blocks.<layer>.X``
+    is ``blocks.X`` (every layer shares its leaves' specs), any other name
+    is itself."""
+    if name.startswith("blocks."):
+        return "blocks." + name.split(".", 2)[2]
+    return name
+
+
+class Layout:
+    """A model's leaves laid out on a mesh for training: each leaf's param
+    spec and ZeRO-1 moment spec under the train rules, by :func:`leaf_key`,
+    and what the forward and the optimizer do with them.  ``shapes`` and
+    ``axes`` are one layer's leaves (no ``layers`` axis) and the others."""
+
+    def __init__(self, mesh, shapes: Mapping[str, tuple[int, ...]],
+                 axes: Mapping[str, tuple[str | None, ...]], rules: Mapping[str, str | None],
+                 zero1: bool = True) -> None:
+        self.mesh = mesh
+        self.params = param_specs(shapes, axes, mesh, rules)
+        self.moments = zero1_specs(shapes, axes, mesh, rules, enabled=zero1)
+        self.data = data_axes(mesh)
+        self.model = mesh.shape["model"] if "model" in _names(mesh) else 1
+
+    # -------------------------------------------------------------- forward
+    def split(self, name: str, dim: int) -> bool:
+        """Is dim ``dim`` of the leaf ``name`` cut over ``model``?  ``name`` is
+        a port name, a key, or a block's leaf (``wq``, ``tm.wr``).  Over a
+        model axis of one rank nothing is cut: the forward is the
+        unsharded one."""
+        if self.model == 1:
+            return False
+        key = leaf_key(name)
+        spec = self.params[key] if key in self.params else self.params["blocks." + key]
+        return dim < len(spec) and "model" in _dim_axes(spec[dim])
+
+    def rows(self, n: int) -> slice:
+        """This rank's rows of a batch of ``n`` rows (``batch_specs``)."""
+        if not self.data:
+            return slice(0, n)
+        d = axis_size(self.mesh, self.data)
+        if n % d:
+            raise ValueError(f"a batch of {n} rows does not split over the data axes "
+                             f"{self.data} of {d} ranks")
+        i = self.mesh.axis_index(self.data)
+        return slice(i * n // d, (i + 1) * n // d)
+
+    # -------------------------------------------------------------- ZeRO-1
+    def _data_axes(self):
+        return self.data if len(self.data) > 1 else self.data[0]
+
+    def zero_dim(self, name: str) -> int | None:
+        """The dim of ``name``'s moments cut over the data axes (None: whole)."""
+        key = leaf_key(name)
+        p, m = self.params[key], self.moments[key]
+        for dim, entry in enumerate(m):
+            if entry is not None and (dim >= len(p) or p[dim] is None):
+                return dim
+        return None
+
+    def block_shape(self, name: str, shape: tuple[int, ...]) -> tuple[int, ...]:
+        """The moment block's shape of a param block of ``shape``."""
+        d = self.zero_dim(name)
+        if d is None:
+            return tuple(shape)
+        out = list(shape)
+        out[d] //= axis_size(self.mesh, self.data)
+        return tuple(out)
+
+    def reduce_grad(self, name: str, g: torch.Tensor) -> torch.Tensor:
+        """This rank's moment block of the sum of ``g`` over the data axes,
+        in f32: a reduce-scatter where the moments are cut, else a psum,
+        in the gradient's own dtype (a bf16 gradient is summed in bf16, as
+        the JAX step's partitioner sums it)."""
+        if not self.data:
+            return g.float()
+        d = self.zero_dim(name)
+        if d is None:
+            return self.mesh.psum(g, self._data_axes()).float()
+        return self.mesh.reduce_scatter(g, self._data_axes(), dim=d).float()
+
+    def param_block(self, name: str, p: torch.Tensor) -> torch.Tensor:
+        """The block of this rank's param block that its moments cover (a view)."""
+        d = self.zero_dim(name)
+        if d is None:
+            return p
+        n = axis_size(self.mesh, self.data)
+        size = p.shape[d] // n
+        return p.narrow(d, self.mesh.axis_index(self._data_axes()) * size, size)
+
+    def gather_param(self, name: str, blk: torch.Tensor) -> torch.Tensor:
+        """The param block from every data rank's updated ``blk``."""
+        d = self.zero_dim(name)
+        return blk if d is None else self.mesh.all_gather(blk, self._data_axes(), dim=d)
+
+    def norm_weight(self, name: str) -> float:
+        """One over the number of ranks that hold the same moment block of
+        ``name``, so that a sum over every rank counts each element once."""
+        held = set(spec_axes(self.moments[leaf_key(name)]))
+        return 1.0 / math.prod(n for a, n in self.mesh.shape.items() if a not in held)
+
+    def psum_all(self, x: torch.Tensor) -> torch.Tensor:
+        """The sum of ``x`` over every rank of the mesh."""
+        return self.mesh.psum(x, tuple(_names(self.mesh)))

@@ -492,8 +492,11 @@ def test_port_checkpoint_restores_in_jax(tmp_path, arch):
 
 
 def test_driver_refuses_a_mesh(tmp_path):
+    """The driver trains on a ``Mesh`` (tests/test_torch_sharded_train.py
+    runs it on four gloo ranks) and refuses anything else it is handed as
+    one."""
     _, cfg = _configs()
-    with pytest.raises(NotImplementedError, match="partition"):
+    with pytest.raises(TypeError, match="Mesh"):
         TrainDriver(cfg, tmp_path, mesh=object(), device="cpu")
 
 
@@ -528,9 +531,11 @@ def test_launch_train_cli_prints_the_jax_keys(tmp_path, capsys, monkeypatch):
     assert np.isfinite(rec["first_loss"]) and np.isfinite(rec["last_loss"])
 
 
-def test_launch_train_refuses_a_mesh(tmp_path):
+def test_launch_train_refuses_a_mesh(tmp_path, monkeypatch):
+    """``--mesh host`` runs (tests/test_torch_sharded_train.py, on gloo with
+    ``--device cpu``); on the card's default it refuses a host without one."""
     from repro_torch.launch.train import train
 
-    with pytest.raises(NotImplementedError, match="partition"):
-        train(["--arch", "yi-9b", "--device", "cpu", "--mesh", "host",
-               "--ckpt-dir", str(tmp_path)])
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train(["--arch", "yi-9b", "--mesh", "host", "--ckpt-dir", str(tmp_path)])
