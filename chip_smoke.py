@@ -1,4 +1,4 @@
-"""Drive the PyTorch port's Gather service, DAPC, Filter pushdown, tree collectives, control layers, compiled SPMD rendering, yi-9b, rwkv6-1.6b, hymba-1.5b and granite-moe-1b-a400m serving, training and sharded training, and phi3.5-moe serving, once on an NVIDIA card.
+"""Drive the PyTorch port's Gather service, DAPC, Filter pushdown, tree collectives, control layers, compiled SPMD rendering, yi-9b, rwkv6-1.6b, hymba-1.5b and granite-moe-1b-a400m serving, training, sharded training and sharded serving, and phi3.5-moe serving, once on an NVIDIA card.
 
 Usage: ``python3 chip_smoke.py [--profile DIR]`` from the root of
 a checkout, on a host with one Hopper card (sm_90) and the CUDA toolkit.
@@ -153,7 +153,11 @@ a checkout, on a host with one Hopper card (sm_90) and the CUDA toolkit.
    call also against the plain version on f32 copies of its inputs, within
    atol 1e-4 and rtol 1e-2.  Each line names the route the call took: bf16
    prefill on the tensor cores (``wgmma``), bf16 decode split over keys
-   (``split``), f32 on the CUDA-core kernel (``simt``).
+   (``split``), f32 on the CUDA-core kernel (``simt``).  Then the calls
+   of a slice of a KV cache cut over T (``diag``, the sharded serving
+   phase's): a decode row over a slice, the slice after the query, a prompt
+   with keyless rows and hymba's window cutting a slice, output and lse
+   against the plain version, keyless rows 0 and -inf.
 12. Parity phase: a 2-layer yi-9b at full width in f32, one set of weights
    from seed 0, 128 prompt tokens and 8 teacher-forced decode steps on the
    card (kernel) and on the CPU (plain version): logits within 1e-3, equal
@@ -170,7 +174,10 @@ a checkout, on a host with one Hopper card (sm_90) and the CUDA toolkit.
    --embed-servers 2``: the two token streams bit-identical,
    ``embed_lookup`` launched in the remote run.
 15. Times ``flash_attention`` at the prefill (S = T = 2,048) and decode
-   (B = 8, T = 2,048) shapes, and at hymba's and attend_sp's, beside its plain version,
+   (B = 8, T = 2,048) shapes, and at hymba's and attend_sp's, and a (2, 2)
+   rank's sliced decode call (B = 2 rows, yi's heads, 1,040 keys, with
+   ``diag`` and the lse, in turns with the end-aligned call on the same
+   keys), beside its plain version,
    ``scaled_dot_product_attention`` and its bound (operations or bytes),
    and logs each tensor-core and split instance's registers and spills
    from the build's ptxas report.
@@ -331,6 +338,23 @@ a checkout, on a host with one Hopper card (sm_90) and the CUDA toolkit.
    step seconds (host walls: gloo stages every collective through the
    host), peak memory and collective bytes by kind, forward and backward.
    The flash backward phase (26) holds ``attend_sp``'s last-rank shapes.
+40. Sharded serving phase, after phase 39: the same 4 gloo ranks' mesh,
+   the weights cut by ``zoo.serve_layout`` (``SERVE_RULES``: the embed dim
+   over "data" too) and never moved, the caches by ``cache_specs`` (the KV
+   cache's T over "model": each decode query visits every slice and the
+   slices' partial softmax stats are summed back).  Parity, each family at
+   full width and 2 layers in f32: a prompt of 4 x 128 written into a
+   session cache of 160 from offset 0 (``make_prefill_step(cfg, mesh=,
+   t_max=)``), then 8 greedy ``make_serve_step(cfg, mesh=)`` steps, each
+   rank's logits within 1e-3 of a row's largest of the unsharded steps on
+   the card with equal greedy tokens, its cache blocks within 1e-3 of the
+   unsharded cache's (granite-moe against the same sharded steps on the
+   CPU, where no route flips); each rank's launches and routes in the
+   prefill and the decode steps exact (one a layer a forward, embed_lookup
+   one a forward).  Then each family in bf16 at 2 layers: a prompt of 4 x
+   2,048 into a cache of 2,080, 32 greedy steps: rank 0's prefill s and
+   decode ms a token (host walls), a decode step's bytes by kind (each
+   step's the same), each rank's peak memory.
 
 Prints one JSON line of kernel results, then the nvidia-smi line, then
 ``{"ok": true, "device": {...}}`` last.  Any failure exits non-zero with
@@ -582,6 +606,22 @@ SHARD_DIR = ROOT / "build" / "chip_smoke" / "sharded"
 # no f32 step meets phase 32's TRAIN_F64_RTOL (T16; on the H100 the
 # unsharded step reads 1.7e-3 there, the sharded 5.6e-4, PERF.md)
 SHARD_F64_RTOL = 1e-3
+# the sharded serving phase (40): 4 gloo ranks sharing the card on the same
+# (2, 2) mesh, weights cut by zoo.serve_layout (SERVE_RULES), caches by
+# cache_specs (the KV cache's T over "model").  Parity: each family at full
+# width, 2 layers, f32, a prompt of SERVE_BATCH x SERVE_PROMPT written into a
+# session cache of SERVE_T from offset 0, then SERVE_STEPS greedy decode
+# steps, within SERVE_RTOL of a row's largest logit.  Timing: bf16, 2 layers,
+# a prompt of SERVE_BATCH x SERVE_TIME_PROMPT into a cache of SERVE_TIME_T
+# (hymba's window of 2,048 then leaves part of rank 0's slice of 1,040
+# positions behind its last queries), then SERVE_TIME_STEPS decode steps
+SERVE_BATCH, SERVE_PROMPT, SERVE_T, SERVE_STEPS, SERVE_RTOL = 4, 128, 160, 8, 1e-3
+SERVE_TIME_PROMPT, SERVE_TIME_T, SERVE_TIME_STEPS = 2048, 2080, 32
+SERVE_DIR = ROOT / "build" / "chip_smoke" / "sharded_serve"
+# the flash phase's sliced calls (a rank's slice of a KV cache cut over T):
+# yi's decode rows of a (2, 2) rank over its 1,040 keys, timed beside the
+# end-aligned call on the same keys (DIAG_SETS caches: more than the L2)
+FLASH_SLICE, FLASH_SLICE_DIAG, DIAG_SETS = (2, 1, 1040), 2100, 16
 # the MoE phases (34-38).  granite-moe-1b-a400m at full width (its smoke
 # config's head dim 16 has no flash instance, so it is left out of the
 # driver phase) and phi3.5-moe-42b-a6.6b at full width and PHI_LAYERS of its
@@ -630,6 +670,12 @@ def gpu_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+# host waits that a slow host adds to the timing phases: event_ms's sleeps
+# doubled (the host could not queue its calls inside the sleep) and
+# profiled's windows run again (the profiler lost a kernel)
+HOST_WAITS = {"sleep_doublings": 0, "profile_retries": 0}
+
+
 def profiled(fn, tries: int = 3, edge=None):
     """Runs ``fn`` under torch.profiler, with a run of ``edge`` (default
     ``fn``) before and one after it in the same trace, and keeps the events
@@ -660,6 +706,7 @@ def profiled(fn, tries: int = 3, edge=None):
         if kernels >= launches > 0:
             return prof, window, wall, True
         log(f"profiled: {kernels} kernels recorded for {launches} launches; again")
+        HOST_WAITS["profile_retries"] += 1
     return prof, window, wall, False
 
 
@@ -772,6 +819,7 @@ def event_ms(fn, arg_sets, reps: int = 100) -> float:
         if queued_in_time:
             return start.elapsed_time(end) / reps
         cycles *= 2
+        HOST_WAITS["sleep_doublings"] += 1
     raise RuntimeError(f"event_ms: the host could not queue {reps} calls of "
                        f"{getattr(fn, '__name__', fn)} inside the sleep")
 
@@ -1745,7 +1793,15 @@ def flash_kernel_phase(dev) -> dict:
     Each call must raise its route's launch count (``flash_route``) by one.
     Each call is made again writing each row's log-sum-exp, as the train
     step's forward does: the output bit-identical, the lse within
-    FLASH_LSE_ATOL of the plain one (``flash_attention_lse_ref``)."""
+    FLASH_LSE_ATOL of the plain one (``flash_attention_lse_ref``).  Then
+    calls on a slice of a KV cache cut over T (``diag`` = offset - lo, the
+    lse returned as the sharded serving phase takes it), each in f32 and
+    bf16 on its route: a decode row over a slice it sees whole, the same
+    slice lying after the query (every row keyless), a prompt whose first
+    100 rows see none of its slice, and hymba's window cutting a slice at
+    decode and at prefill (rank 1's slice of a 2,048-token prompt: its first
+    1,040 rows keyless); the output and the lse within the same bounds,
+    keyless rows 0 and -inf as the plain version's."""
     from repro_torch.kernels.flash_attention import (
         flash_attention, flash_attention_lse_ref, flash_attention_ref, flash_route,
     )
@@ -1811,25 +1867,66 @@ def flash_kernel_phase(dev) -> dict:
         worst["lse"] = max(worst["lse"], lse_err)
         log(f"{line}; with lse: output bit-identical, lse max_abs_err={lse_err} "
             f"(within {FLASH_LSE_ATOL})")
+    yi = (32, 4, 128)
+    diag_cases = [
+        ("slice decode B=4 T=1040 diag=1100", (4, 1, 1040, *yi), dict(diag=1100)),
+        ("slice after the query B=4 T=1040 diag=-5", (4, 1, 1040, *yi), dict(diag=-5)),
+        ("slice prompt S=300 T=160 diag=-100", (2, 300, 160, *yi), dict(diag=-100)),
+        ("hymba slice decode B=4 T=1040 diag=2079 window 2048", (4, 1, 1040, h, kh, d),
+         dict(diag=2079, window=HYMBA_WINDOW)),
+        ("hymba slice prompt S=2048 T=1040 diag=-1040 window 2048", (1, 2048, 1040, h, kh, d),
+         dict(diag=-1040, window=HYMBA_WINDOW)),
+    ]
+    for label, (b, s, t, hh, kk, dd), kw in diag_cases:
+        for dtype in (f32, bf16):
+            q, k, v = _flash_case(dev, g, b, s, t, hh, kk, dd, dtype)
+            route = flash_route(dtype, s, hh, kk)
+            at = flash_attention.route_launches[route]
+            got, lse = flash_attention(q, k, v, return_lse=True, **kw)
+            if flash_attention.route_launches[route] != at + 1:
+                raise AssertionError(f"flash_attention {label}: no launch on the {route} route")
+            want32 = (flash_attention_ref(q.float(), k.float(), v.float(), **kw)
+                      if dtype == bf16 else None)
+            line, err, err32 = flash_within(
+                f"kernel flash_attention {label} {str(dtype)[6:]} ({route})", dtype, got,
+                flash_attention_ref(q, k, v, **kw), want32)
+            want_lse = flash_attention_lse_ref(q, k, **kw)
+            keyless = torch.isinf(want_lse)
+            if not torch.equal(torch.isinf(lse), keyless) or bool((lse[keyless] > 0).any()):
+                raise AssertionError(f"flash_attention {label} {dtype} ({route}): keyless rows "
+                                     "differ from the plain version's")
+            lse_err = ((lse[~keyless] - want_lse[~keyless]).abs().max().item()
+                       if bool((~keyless).any()) else 0.0)
+            if not lse_err <= FLASH_LSE_ATOL:
+                raise AssertionError(f"flash_attention {label} {dtype} ({route}): lse off the "
+                                     f"plain one by {lse_err}")
+            worst[dtype] = max(worst[dtype], err)
+            worst["f32_probs"] = max(worst["f32_probs"], err32)
+            worst["lse"] = max(worst["lse"], lse_err)
+            worst["diag"] = max(worst.get("diag", 0.0), err)
+            log(f"{line}; lse max_abs_err={lse_err} (within {FLASH_LSE_ATOL}), keyless rows "
+                f"{int(keyless.sum())} of {keyless.numel()} (0 and -inf)")
     # checking launches are not main-path launches
     flash_attention.launches, flash_attention.route_launches = before
     return {"max_abs_err": max(worst[f32], worst[bf16]), "max_abs_err_f32_probs":
-            worst["f32_probs"], "max_abs_err_lse": worst["lse"]}
+            worst["f32_probs"], "max_abs_err_lse": worst["lse"], "max_abs_err_diag": worst["diag"]}
 
 
 class RouteLog:
-    """While open, records each MoE ``route`` call's f32 router logits and
-    expert ids and the ``keep`` of its buckets, on the host, in call order."""
+    """While open, records each MoE routing's f32 router logits
+    (``route_logits``, which ``route`` calls) and expert ids and the ``keep``
+    of its buckets (None where the routing buckets nothing: the eplocal
+    path), on the host, in call order."""
 
     def __enter__(self):
         from repro_torch.models import moe
 
         self.calls, self._moe = [], moe
-        self._route, self._bucket = moe.route, moe._bucket_positions
+        self._route, self._bucket = moe.route_logits, moe._bucket_positions
 
-        def route(x, w, k):
-            gates, idx, aux = self._route(x, w, k)
-            self.calls.append({"logits": (x.float() @ w.float()).cpu(), "idx": idx.cpu()})
+        def route(logits, k, dtype):
+            gates, idx, aux = self._route(logits, k, dtype)
+            self.calls.append({"logits": logits.float().cpu(), "idx": idx.cpu(), "keep": None})
             return gates, idx, aux
 
         def bucket(dst, n, cap):
@@ -1837,11 +1934,11 @@ class RouteLog:
             self.calls[-1]["keep"] = keep.cpu()
             return slot, keep
 
-        moe.route, moe._bucket_positions = route, bucket
+        moe.route_logits, moe._bucket_positions = route, bucket
         return self
 
     def __exit__(self, *exc):
-        self._moe.route, self._moe._bucket_positions = self._route, self._bucket
+        self._moe.route_logits, self._moe._bucket_positions = self._route, self._bucket
 
 
 class DropCount:
@@ -1899,7 +1996,7 @@ def route_flips(card: list, host: list, n_layers: int, seq: list) -> dict:
             flips.append({"layer": layer, "forward": fwd, "row": t // seq[fwd],
                           "token": t % seq[fwd], "margin": margin})
             rows.add(t // seq[fwd])
-        if not torch.equal(c["keep"], h["keep"]):
+        if c["keep"] is not None and not torch.equal(c["keep"], h["keep"]):
             k = c["idx"].shape[1]
             moved = torch.nonzero(c["keep"] != h["keep"])[:, 0] // k
             keeps.append({"layer": layer, "forward": fwd,
@@ -2326,6 +2423,42 @@ def time_flash(dev) -> dict:
         out[name] = rec
         log(f"timing flash_attention {name} B={b} S={s} T={t} H={h} K={kh} d={d} window {w} "
             f"bf16: {json.dumps(rec)}")
+    # a rank's decode call in the sharded serving phase: yi's 32/4 heads of
+    # B_loc = 2 rows over its slice of 1,040 keys (diag past the slice: every
+    # key visible, the same work as the end-aligned calls timed beside it,
+    # without and with the lse)
+    h, kh, d = 32, 4, 128
+    b, s, t = FLASH_SLICE
+    sets = [_flash_case(dev, g, b, s, t, h, kh, d, torch.bfloat16) for _ in range(DIAG_SETS)]
+    lib_sets = [tuple(x.transpose(1, 2).contiguous() for x in qkv) for qkv in sets]
+    flops = 4 * b * h * d * s * t
+    moved = 2 * (2 * b * s * h * d + 2 * b * t * kh * d) + 4 * b * h * s  # and the f32 lse
+    bounds = {"operations": flops / BF16_FLOPS * 1e3, "bytes": moved / HBM_BYTES_PER_S * 1e3}
+    bound_by = max(bounds, key=bounds.get)
+    sliced = lambda q, k, v: flash_attention(q, k, v, diag=FLASH_SLICE_DIAG,  # noqa: E731
+                                             return_lse=True)
+    turns = ab_ms({"diag": sliced, "default": flash_attention,
+                   "default_lse": lambda q, k, v: flash_attention(q, k, v, return_lse=True)},
+                  sets, 200, 3)
+    rec = {
+        "ms": turns["diag"]["median"],
+        "default_ms": turns["default"]["median"],
+        "default_lse_ms": turns["default_lse"]["median"],
+        "turns": turns,
+        "plain_ms": event_ms(lambda q, k, v: flash_attention_ref(q, k, v, diag=FLASH_SLICE_DIAG),
+                             sets, 20),
+        "library_ms": event_ms(lambda q, k, v: sdpa(q, k, v, enable_gqa=True), lib_sets, 200),
+        "bound_ms": bounds[bound_by],
+        "bound_by": bound_by,
+        "flops": flops,
+        "bytes": moved,
+        "route": flash_route(torch.bfloat16, s, h, kh),
+    }
+    out["decode_slice"] = rec
+    log(f"timing flash_attention decode_slice B={b} S={s} T={t} H={h} K={kh} d={d} "
+        f"diag={FLASH_SLICE_DIAG} with lse, in turns with the end-aligned call without and with "
+        f"the lse (default_ms, default_lse_ms) "
+        f"bf16: {json.dumps(rec)}")
     # timing launches are not main-path launches
     flash_attention.launches, flash_attention.route_launches = before
     return out
@@ -2333,7 +2466,8 @@ def time_flash(dev) -> dict:
 
 def flash_instances() -> list[dict]:
     """ptxas's report of each ``flash_fwd_wgmma`` and ``flash_fwd_split``
-    instance (head dim, registers, spilled bytes, static shared memory), from
+    instance (head dim, the split's two diagonals, registers, spilled bytes,
+    static shared memory), from
     the build log of this process; empty when the library was built before."""
     from repro_torch.kernels import build
 
@@ -2346,6 +2480,7 @@ def flash_instances() -> list[dict]:
             continue
         smem = re.search(r"(\d+) bytes smem", block)
         out.append({"kernel": name.group(1), "d": int(re.findall(r"Li(\d+)E", name.group(2))[0]),
+                    "general_diag": "Lb1E" in name.group(2),
                     "registers": int(used.group(1)), "spill_stores": int(spill.group(1)),
                     "spill_loads": int(spill.group(2)),
                     "static_smem": int(smem.group(1)) if smem else 0})
@@ -5172,6 +5307,284 @@ def sharded_train_phase(dev) -> dict:
     return out
 
 
+def serve_flips(card: list, host: list) -> dict:
+    """Card against CPU, routing by routing: each token whose experts differ
+    is a flip, with its margin (the widest CPU logit gap between an expert
+    one side chose and the other side's choice in its place); the calls
+    whose keeps differ; the largest card-CPU router logit difference."""
+    flips, keeps, dlogit = [], [], 0.0
+    for i, (c, h) in enumerate(zip(card, host, strict=True)):
+        dlogit = max(dlogit, (c["logits"] - h["logits"]).abs().max().item())
+        for t in torch.nonzero((c["idx"] != h["idx"]).any(-1))[:, 0].tolist():
+            lg = h["logits"][t]
+            flips.append({"call": i, "token": t, "margin": max(
+                abs(lg[a] - lg[b]).item() for a, b in zip(c["idx"][t], h["idx"][t]) if a != b)})
+        if c["keep"] is not None and not torch.equal(c["keep"], h["keep"]):
+            keeps.append(i)
+    return {"flips": flips, "keeps_differ": keeps, "max_logit_diff": dlogit}
+
+
+@torch.no_grad()
+def serve_run(cfg, model, batch, mesh, t_max: int, steps: int) -> dict:
+    """A prompt written into a session cache of ``t_max`` from offset 0
+    (``make_prefill_step(cfg, mesh=, t_max=)``), then ``steps`` greedy
+    ``make_serve_step`` steps, on ``mesh`` (None: unsharded): each step's
+    logits (this rank's rows, f32, on the host) and greedy tokens, the last
+    cache, the prefill's and each decode step's seconds (host walls,
+    synchronized), each decode step's collective bytes by kind, and the
+    sharded run's launches by kernel and route, prefill and decode."""
+    from repro_torch.kernels import WRAPPERS, reset_launches
+    from repro_torch.models import zoo
+
+    prefill = zoo.make_prefill_step(cfg, mesh=mesh, t_max=t_max)
+    step = zoo.make_serve_step(cfg, mesh=mesh)
+    lay = zoo.serve_layout(cfg, mesh) if mesh is not None else None
+    b = batch["tokens"].shape[0]
+    counted = lambda: {k: {r: n for r, n in w.route_launches.items() if n}  # noqa: E731
+                       for k, w in WRAPPERS.items() if any(w.route_launches.values())}
+    reset_launches()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    logits, cache = prefill(model, batch)
+    torch.cuda.synchronize()
+    out = {"prefill_s": time.perf_counter() - t, "decode_s": [], "bytes": [],
+           "launches_prefill": counted()}
+    reset_launches()
+    seen = [logits.float().cpu()]
+    for i in range(steps):
+        tok = logits.argmax(-1, keepdim=True).to(torch.int32)
+        if lay is not None:  # every row's token: the rank holds its rows' logits
+            tok = lay.all_rows(tok, b)
+            mesh.reset_counters()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        logits, cache = step(model, cache, tok, batch["tokens"].shape[1] + i)
+        torch.cuda.synchronize()
+        out["decode_s"].append(time.perf_counter() - t)
+        if mesh is not None:
+            out["bytes"].append({k: n for k, n in mesh.bytes_by_kind.items() if n})
+        seen.append(logits.float().cpu())
+    out["launches_decode"] = counted()
+    out["logits"] = torch.stack(seen)
+    out["cache"] = cache
+    return out
+
+
+def serve_launches(cfg, dtype: torch.dtype, prompt: int, steps: int, batch: int) -> dict:
+    """``{"prefill" | "decode": {kernel: {route: launches}}}`` that a rank's
+    sharded serving run must make: each path kernel once a layer in the
+    prefill and in each decode step, ``embed_lookup`` once a forward (each
+    rank looks up every row's ids), on the routes their wrappers pick."""
+    from repro_torch.kernels.embed_lookup import embed_route
+    from repro_torch.kernels.flash_attention import flash_route
+    from repro_torch.kernels.ssm_scan import ssm_scan_route
+    from repro_torch.kernels.wkv6 import wkv6_route
+
+    g = cfg.n_heads // cfg.n_kv_heads
+    row_bytes = cfg.d_model // SHARD_MESH[0] * dtype.itemsize
+    kernels = {"dense": ("flash_attention",), "moe": ("flash_attention",), "rwkv": ("wkv6",),
+               "hybrid": ("flash_attention", "ssm_scan")}[cfg.family]
+    out = {}
+    for name, s, n in (("prefill", prompt, 1), ("decode", 1, steps)):
+        routes = {"flash_attention": flash_route(dtype, s, g, 1), "wkv6": wkv6_route(s),
+                  "ssm_scan": ssm_scan_route(s)}
+        want = {k: {routes[k]: cfg.n_layers * n} for k in kernels}
+        want["embed_lookup"] = {embed_route(batch * s, row_bytes, True): n}
+        out[name] = want
+    return out
+
+
+def serve_parity_rank(arch: str, mesh, dev) -> dict:
+    """One rank's part of the sharded serving parity for ``arch`` (full
+    width, 2 layers, f32): the unsharded steps on the card, then the
+    sharded ones, their logits (the rank's rows) within SERVE_RTOL of a
+    row's largest with equal greedy tokens, its cache blocks within
+    SERVE_RTOL of the leaf's largest of the unsharded cache's.  granite:
+    the same sharded steps on the CPU (its dispatch buckets by pair, not by
+    expert), held where no route flips; a flip must lie within
+    ROUTE_FLIP_MARGIN."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import zoo
+    from repro_torch.sharding.partition import local_block
+
+    t0 = time.perf_counter()
+    cfg = get_config(arch).replace(n_layers=2, dtype=torch.float32)
+    batch = zoo.make_batch(cfg, zoo.ShapeSpec("p", SERVE_PROMPT, SERVE_BATCH, "prefill"), 0,
+                           device=dev)
+    lay = zoo.serve_layout(cfg, mesh)
+    rows = lay.serve_rows(SERVE_BATCH)
+    full = zoo.build_params(cfg, 0, device=dev)
+    host, ref, routes = None, None, None
+    if arch == MOE_ARCH:
+        host = zoo.shard_params(cfg, copy.deepcopy(full).cpu(), mesh, lay)
+    else:
+        ref = serve_run(cfg, full, batch, None, SERVE_T, SERVE_STEPS)
+    model = zoo.shard_params(cfg, full, mesh, lay)
+    del full
+    torch.cuda.empty_cache()
+    if host is None:
+        got = serve_run(cfg, model, batch, mesh, SERVE_T, SERVE_STEPS)
+        want_logits, want_cache = ref["logits"][:, rows], {
+            k: local_block(v, got["cache"].specs[k], mesh) for k, v in ref["cache"].items()}
+        whole_max = {k: v.abs().max().item() for k, v in ref["cache"].items()}
+        vs = "the unsharded steps on the card"
+    else:
+        with RouteLog() as card_routes:
+            got = serve_run(cfg, model, batch, mesh, SERVE_T, SERVE_STEPS)
+        with RouteLog() as host_routes:
+            cpu = serve_run(cfg, host, {k: v.cpu() for k, v in batch.items()}, mesh, SERVE_T,
+                            SERVE_STEPS)
+        routes = serve_flips(card_routes.calls, host_routes.calls)
+        want_logits, want_cache = cpu["logits"], {k: v.to(dev) for k, v in cpu["cache"].items()}
+        whole_max = {k: mesh.pmax(v.abs().max().reshape(1).to(dev), ("data", "model")).item()
+                     for k, v in want_cache.items()}
+        vs = "the sharded steps on the CPU"
+    rel = ((got["logits"] - want_logits).abs().amax(-1)
+           / want_logits.abs().amax(-1)).max().item()
+    same = torch.equal(got["logits"].argmax(-1), want_logits.argmax(-1))
+    cache_rel = max((got["cache"][k] - want_cache[k]).abs().max().item()
+                    / max(whole_max[k], 1e-30) for k in want_cache)
+    rec = {"vs": vs, "logit_rel_err": rel, "tokens_equal": same, "cache_rel_err": cache_rel,
+           "finite": bool(torch.isfinite(got["logits"]).all()), "routes": routes,
+           "prefill_s": got["prefill_s"], "decode_s": got["decode_s"], "bytes": got["bytes"],
+           "launches": {"prefill": got["launches_prefill"], "decode": got["launches_decode"]},
+           "seconds": time.perf_counter() - t0}
+    del model, host, got, ref
+    torch.cuda.empty_cache()
+    return rec
+
+
+def serve_timing_rank(arch: str, mesh, dev) -> dict:
+    """``arch`` at full width, 2 layers, bf16 on the serving layout: a
+    prompt of SERVE_BATCH x SERVE_TIME_PROMPT into a cache of SERVE_TIME_T,
+    then SERVE_TIME_STEPS greedy decode steps: this rank's prefill seconds,
+    decode seconds a step (host walls: gloo stages every collective through
+    the host), a decode step's collective bytes by kind, peak memory and
+    launches by route."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import zoo
+
+    t0 = time.perf_counter()
+    cfg = get_config(arch).replace(n_layers=2)
+    torch.cuda.reset_peak_memory_stats(dev)
+    model = zoo.shard_params(cfg, zoo.build_params(cfg, 0, device=dev), mesh,
+                             zoo.serve_layout(cfg, mesh))
+    torch.cuda.empty_cache()
+    batch = zoo.make_batch(cfg, zoo.ShapeSpec("p", SERVE_TIME_PROMPT, SERVE_BATCH, "prefill"), 0,
+                           device=dev)
+    run = serve_run(cfg, model, batch, mesh, SERVE_TIME_T, SERVE_TIME_STEPS)
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    rec = {"prefill_s": run["prefill_s"], "decode_s": run["decode_s"], "bytes": run["bytes"][-1],
+           "bytes_steady": all(b == run["bytes"][-1] for b in run["bytes"]),
+           "launches": {"prefill": run["launches_prefill"], "decode": run["launches_decode"]},
+           "finite": bool(torch.isfinite(run["logits"]).all()), "peak_gb": peak,
+           "seconds": time.perf_counter() - t0}
+    del model, run
+    torch.cuda.empty_cache()
+    return rec
+
+
+def serve_rank(rank: int, store: str, out_dir: str) -> None:
+    """One rank of the sharded serving phase, on ``cuda:0`` beside the
+    others (the kernels built by the parent): every family's parity, then
+    its timing; results to ``out_dir``."""
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.sharding import init_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_num_threads(2)
+    mesh = init_mesh(SHARD_MESH, ("data", "model"), backend="gloo", rank=rank,
+                     init_method=f"file://{store}", timeout=SPMD_TIMEOUT)
+    dev = mesh.device
+    res = {"parity": {arch: serve_parity_rank(arch, mesh, dev) for arch in SHARD_ARCHS},
+           "timing": {arch: serve_timing_rank(arch, mesh, dev) for arch in SHARD_ARCHS}}
+    torch.save(res, Path(out_dir) / f"rank{rank}.pt")
+    mesh.close()
+
+
+def sharded_serve_phase(dev) -> dict:
+    """Phase 40: sharded serving on 4 gloo ranks sharing the card, a (2, 2)
+    ("data", "model") mesh (:func:`serve_rank`): the weights stay where
+    ``SERVE_RULES`` cut them, the KV cache's T is cut over "model" and each
+    decode query visits every slice.  Parity, each family at full width, 2
+    layers, f32: a prompt of 4 x 128 into a session cache of 160, then 8
+    greedy steps, every rank's logits within SERVE_RTOL of a row's largest
+    of the unsharded steps on the card, with equal greedy tokens, its cache
+    blocks within SERVE_RTOL of the unsharded cache's (granite against the
+    same sharded steps on the CPU, where no route flips; a flip within
+    ROUTE_FLIP_MARGIN).  Each rank's launches and routes in the prefill
+    and the decode steps exactly :func:`serve_launches` (so no plain version
+    ran on the card).  Timing: bf16, 2 layers, a prompt of 4 x 2,048 into
+    a cache of 2,080, then 32 steps: rank 0's prefill s and decode ms a
+    token, a decode step's bytes by kind (every step's the same), each
+    rank's peak GB."""
+    from repro_torch.configs import get_config
+
+    t = time.perf_counter()
+    shutil.rmtree(SERVE_DIR, ignore_errors=True)
+    SERVE_DIR.mkdir(parents=True)
+    torch.multiprocessing.spawn(serve_rank, args=(str(SERVE_DIR / "store"), str(SERVE_DIR)),
+                                nprocs=math.prod(SHARD_MESH), join=True)
+    ranks = [torch.load(SERVE_DIR / f"rank{r}.pt", weights_only=False)
+             for r in range(math.prod(SHARD_MESH))]
+    shutil.rmtree(SERVE_DIR, ignore_errors=True)
+    out = {"parity": {}, "timing": {}}
+    for arch in SHARD_ARCHS:
+        recs = [r["parity"][arch] for r in ranks]
+        flips = [f for r in recs for f in (r["routes"] or {}).get("flips", [])]
+        wide = [f for f in flips if not f["margin"] <= ROUTE_FLIP_MARGIN]
+        summary = {"vs": recs[0]["vs"], "logit_rel_err": [r["logit_rel_err"] for r in recs],
+                   "tokens_equal": [r["tokens_equal"] for r in recs],
+                   "cache_rel_err": [r["cache_rel_err"] for r in recs], "flips": len(flips),
+                   "routes": [r["routes"] and {k: v for k, v in r["routes"].items()
+                                               if k != "flips"} for r in recs],
+                   "launches": [r["launches"] for r in recs],
+                   "bytes_decode": recs[0]["bytes"][-1], "prefill_s": recs[0]["prefill_s"],
+                   "decode_s": recs[0]["decode_s"], "seconds": recs[0]["seconds"]}
+        log(f"sharded serving parity {arch}: (2, 2) gloo x4, 2 layers full width f32, "
+            f"B={SERVE_BATCH} prompt {SERVE_PROMPT} into a cache of {SERVE_T} + {SERVE_STEPS} "
+            f"greedy steps: {json.dumps(summary)}")
+        if wide or not all(r["finite"] for r in recs):
+            raise AssertionError(f"sharded serving parity {arch}: flips past the margin {wide}")
+        if not flips and not all(r["logit_rel_err"] <= SERVE_RTOL and r["tokens_equal"]
+                                 and r["cache_rel_err"] <= SERVE_RTOL for r in recs):
+            raise AssertionError(f"sharded serving parity {arch}: off {recs[0]['vs']}")
+        want = serve_launches(get_config(arch).replace(n_layers=2), torch.float32, SERVE_PROMPT,
+                              SERVE_STEPS, SERVE_BATCH)
+        for i, r in enumerate(recs):
+            for stage in ("prefill", "decode"):
+                if r["launches"][stage] != want[stage]:
+                    raise AssertionError(f"sharded serving parity {arch} rank {i} {stage}: "
+                                         f"launches {r['launches'][stage]}, want {want[stage]}")
+        out["parity"][arch] = summary
+    for arch in SHARD_ARCHS:
+        recs = [r["timing"][arch] for r in ranks]
+        dec = recs[0]["decode_s"][1:]  # the first step's collectives set up gloo's buffers
+        summary = {"prefill_s": recs[0]["prefill_s"],
+                   "decode_ms_per_token": 1e3 * sum(dec) / len(dec),
+                   "decode_ms": [1e3 * x for x in recs[0]["decode_s"]],
+                   "bytes_decode_step": recs[0]["bytes"],
+                   "peak_gb": [r["peak_gb"] for r in recs],
+                   "launches": recs[0]["launches"], "seconds": recs[0]["seconds"]}
+        log(f"sharded serving {arch}: (2, 2) gloo x4, 2 layers full width bf16, "
+            f"B={SERVE_BATCH} prompt {SERVE_TIME_PROMPT} into a cache of {SERVE_TIME_T} + "
+            f"{SERVE_TIME_STEPS} greedy steps, rank 0: {json.dumps(summary)}")
+        if not all(r["finite"] and r["bytes_steady"] for r in recs):
+            raise AssertionError(f"sharded serving {arch}: non-finite logits or a decode step's "
+                                 "bytes off the others'")
+        want = serve_launches(get_config(arch).replace(n_layers=2), torch.bfloat16,
+                              SERVE_TIME_PROMPT, SERVE_TIME_STEPS, SERVE_BATCH)
+        for i, r in enumerate(recs):
+            if r["launches"] != want:
+                raise AssertionError(f"sharded serving {arch} rank {i}: launches "
+                                     f"{r['launches']}, want {want}")
+        out["timing"][arch] = summary
+    out["seconds"] = time.perf_counter() - t
+    log(f"sharded serving phase: {out['seconds']:.1f} s")
+    return out
+
+
 def profile_burst(svc, reqs, out: Path) -> None:
     """torch.profiler over one batched burst; its tables go to ``out``."""
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -5275,12 +5688,22 @@ def main() -> int:
     del table
     torch.cuda.empty_cache()
     elapsed("the compiled SPMD phase (host walls: gloo stages through the host)")
+    # each timing's seconds and the host waits inside them, so that a slow
+    # run of this phase shows where its time went
+    waits, parts = dict(HOST_WAITS), {}
+    t = time.perf_counter()
     floor = time_floor(dev, rng, tables)
+    parts["floor"], t = time.perf_counter() - t, time.perf_counter()
     timing = time_kernel(dev, rng, floor, service["mean_n"], filtered["mean_n"])
+    parts["embed_lookup"], t = time.perf_counter() - t, time.perf_counter()
     chase_timing = time_chase(dev, rng, tables, floor, dapc["mean_b"], app.table)
+    parts["chase_shard"], t = time.perf_counter() - t, time.perf_counter()
     host_launch = time_host_launch(dev, rng, tables, timing, chase_timing)
+    parts["host_launch"] = time.perf_counter() - t
     del app, tables
     torch.cuda.empty_cache()
+    log(f"timing phase seconds: {json.dumps(parts)}, host waits in it: "
+        f"{json.dumps({k: HOST_WAITS[k] - n for k, n in waits.items()})}")
     elapsed("the embed_lookup and chase_shard timings")
     flash_checked = flash_kernel_phase(dev)
     flash_timing = time_flash(dev)
@@ -5323,6 +5746,8 @@ def main() -> int:
     elapsed("the driver phase")
     sharded = sharded_train_phase(dev)
     elapsed("the sharded train phase (host walls: gloo stages through the host)")
+    sharded_serving = sharded_serve_phase(dev)
+    elapsed("the sharded serving phase (host walls: gloo stages through the host)")
     moe = moe_phases(dev, args.profile, elapsed)
     served.update(moe["served"])
     # the path's launches by the shape they come in: per-message dispatches
@@ -5431,6 +5856,9 @@ def main() -> int:
         "hymba_decode": {k: flash_timing["hymba_decode"][k] for k in keys},
         "shapes_spmd": {k.removeprefix("spmd "): {k2: v[k2] for k2 in (*keys, "route", "call_ms")}
                         for k, v in flash_timing.items() if k.startswith("spmd")},
+        "max_abs_err_diag": flash_checked["max_abs_err_diag"],
+        "decode_slice": {k: flash_timing["decode_slice"][k]
+                         for k in (*keys, "default_ms", "default_lse_ms", "route")},
     }, {
         "name": "wkv6",
         "route": "cuda",
@@ -5510,6 +5938,17 @@ def main() -> int:
                      "in turns)",
             "train_step_share_pct": run["profiled_step"]["kernel_share_pct"][name],
         })
+    for k in kernels:  # each rank's launches in the sharded serving phase, by stage and route
+        k["launches_sharded_serving"] = {
+            arch: [{stage: r[stage][k["name"]] for stage in ("prefill", "decode")}
+                   for r in rec["launches"]]
+            for arch, rec in sharded_serving["parity"].items()
+            if any(k["name"] in r["decode"] for r in rec["launches"])}
+        k["launches_sharded_serving_timed_rank0"] = {
+            arch: {"prefill": rec["launches"]["prefill"][k["name"]],
+                   "decode": rec["launches"]["decode"][k["name"]]}
+            for arch, rec in sharded_serving["timing"].items()
+            if rec["launches"]["decode"].get(k["name"])}
     for k in kernels:  # each rank's launches in the sharded phase's parity and timed steps
         k["launches_sharded"] = {arch: [r.get(k["name"], 0) for r in rec["launches"]]
                                  for arch, rec in sharded["parity"].items()

@@ -20,6 +20,18 @@
 // their strides, so a cache prefix k_cache[:, :pos+1] goes in without a
 // copy.  The output is contiguous (B, S, H, d).  Head dims 32, 64, 128.
 //
+// The diagonal is an argument, diag: query i sees key j iff j <= i + diag
+// (and i + diag - j < window).  The wrapper passes T - S unless asked
+// otherwise, so the end-aligned calls above are diag's default.  A slice
+// of a KV cache cut over T (keys at absolute positions lo..lo+T-1, queries
+// at offset..offset+S-1) takes diag = offset - lo; its queries may then see
+// none of its keys.  A row that sees no key (its range [max(0, i + diag -
+// window + 1), min(T - 1, i + diag)] empty) writes zeros and lse = -inf on
+// every route, so that partials merged by the log-sum-exp rule weigh it 0.
+// Routes B and C are compiled twice, for the end-aligned diagonal (GENERAL
+// false: the code before the argument existed, constant-folded, so the
+// default calls keep their speed) and for any other (GENERAL true).
+//
 // Three routes; the wrapper (kernels/flash_attention/kernel.py) picks one
 // and plans the split of route B:
 //
@@ -59,7 +71,9 @@
 //    (a threadfence and an atomic ticket, which it resets) merges the
 //    partials by the log-sum-exp rule into the output.  A partial whose row
 //    saw no visible key has m = -2**30 and merges with weight
-//    exp(-2**30 - m) = 0; the plan makes no split without a visible key.
+//    exp(-2**30 - m) = 0; the plan makes no split without a visible key,
+//    but where no row sees a key at all (a cache slice wholly after the
+//    queries) it makes one, whose rows all write zeros.
 // C. flash_fwd: f32 calls, the first version's kernel, now for f32 only: f32
 //    products on the CUDA cores, so f32 agrees with the plain version to
 //    rounding.  One block of 256 threads per (batch, KV head, tile of BM
@@ -102,6 +116,9 @@
 //   flash_fwd_split<128>   102         55,040 B     4 (128 threads each)
 //   flash_fwd_split<64>     64         30,464 B     7
 //   flash_fwd_split<32>     56         18,176 B     9
+//
+// (the split rows are the end-aligned instances; chip_smoke.py logs the
+// general-diagonal ones beside them, ``general_diag`` in its instance lines)
 
 #include "hopper.cuh"
 
@@ -154,6 +171,14 @@ struct Strides {
   long long b, s, h;  // elements; the head dim is contiguous
 };
 
+// Does query row s see any key of T under the diagonal and window?
+__device__ __forceinline__ bool row_sees(long long s, int T_len, int diag, int causal,
+                                         int window) {
+  const long long hi = causal ? min((long long)T_len - 1, s + diag) : T_len - 1;
+  const long long lo = window > 0 ? max(0LL, s + diag - window + 1) : 0;
+  return hi >= lo;
+}
+
 // Shared memory, in floats: Q [BM][D+4], then K [BN][D+4] with room for
 // P [BM][BN+4] over it once the scores are done, then V [BN][D+4].
 template <int D, int BM>
@@ -165,12 +190,12 @@ __host__ __device__ constexpr int smem_floats() {
   return BM * (D + 4) + k_floats<D, BM>() + BN * (D + 4);
 }
 
-template <int D, int BM>
+template <int D, int BM, bool GENERAL>
 __global__ void __launch_bounds__(THREADS, 2)
     flash_fwd(const float* __restrict__ q, const float* __restrict__ k,
               const float* __restrict__ v, float* __restrict__ o, float* __restrict__ lse,
               int S, int T_len, int H, int KH, Strides qs, Strides ks, Strides vs, float scale,
-              float softcap, int causal, int window) {
+              float softcap, int causal, int window, int diag) {
   constexpr int RM = BM / 16;  // rows per thread
   constexpr int CN = BN / 16;  // score columns per thread
   constexpr int CD = D / 16;   // output columns per thread (contiguous)
@@ -187,8 +212,6 @@ __global__ void __launch_bounds__(THREADS, 2)
   const int b = blockIdx.y / KH, kh = blockIdx.y % KH;
   const long long rows = (long long)S * G;
   const long long r0 = (long long)blockIdx.x * BM;
-  const int off = T_len - S;  // end-aligned causal offset (the wrapper keeps it >= 0)
-
   // Stage the block's query rows; row r is query s = R / G of head kh G + R % G.
   {
     Tile<BM, D> qt;
@@ -200,15 +223,19 @@ __global__ void __launch_bounds__(THREADS, 2)
     qt.store(Qs, LDQ);
   }
 
-  // The last key each of this thread's rows may see (keys past T included);
-  // with a window, the first is lim - window + 1 (causal: lim = s + off).
+  // The last key each of this thread's rows may see under the diagonal, lim
+  // (causal: s + diag; with a general diagonal it may lie past the last key
+  // T - 1, and keys past T are masked on their own, else it never does);
+  // with a window the first is lim - window + 1.
+  if (!GENERAL) diag = T_len - S;
   int lim[RM];
   float m[RM], l[RM], acc[RM][CD];
 #pragma unroll
   for (int i = 0; i < RM; ++i) {
     const long long R = r0 + ty + 16 * i;
     const long long s = R < rows ? R / G : S - 1;
-    lim[i] = causal ? (int)min((long long)T_len - 1, s + off) : T_len - 1;
+    lim[i] = !causal ? T_len - 1 : GENERAL ? (int)(s + diag)
+                                           : (int)min((long long)T_len - 1, s + diag);
     m[i] = NEG;
     l[i] = 0.f;
 #pragma unroll
@@ -217,8 +244,8 @@ __global__ void __launch_bounds__(THREADS, 2)
   // Keys past the block's last visible key, and tiles below its first
   // row's first visible key, are never loaded.
   const long long s_last = min((long long)S - 1, (r0 + BM - 1) / G);
-  const int n_keys = causal ? (int)min((long long)T_len, s_last + off + 1) : T_len;
-  const int key0 = window > 0 ? (int)max(0LL, r0 / G + off - window + 1) : 0;
+  const int n_keys = causal ? (int)min((long long)T_len, s_last + diag + 1) : T_len;
+  const int key0 = window > 0 ? (int)max(0LL, r0 / G + diag - window + 1) : 0;
 
   for (int t0 = key0 / BN * BN; t0 < n_keys; t0 += BN) {
     __syncthreads();  // the last tile's readers are done
@@ -272,7 +299,8 @@ __global__ void __launch_bounds__(THREADS, 2)
         float x = sc[i][j] * scale;
         if (softcap > 0.f) x = tanhf(x / softcap) * softcap;
         const int key = t0 + tx + 16 * j;
-        if (key > lim[i] || (window > 0 && lim[i] - key >= window)) x = NEG;
+        if (key > lim[i] || (GENERAL && key >= T_len) || (window > 0 && lim[i] - key >= window))
+          x = NEG;
         sc[i][j] = x;
         mx = fmaxf(mx, x);
       }
@@ -335,58 +363,72 @@ __global__ void __launch_bounds__(THREADS, 2)
     if (R >= rows) continue;
     const long long s = R / G;
     const long long h = (long long)kh * G + R % G;
+    const bool sees = !GENERAL || row_sees(s, T_len, diag, causal, window);
     const float den = fmaxf(l[i], 1e-20f);
     float* orow = o + ((long long)b * S + s) * ((long long)H * D) + h * D + CD * tx;
 #pragma unroll
-    for (int c = 0; c < CD; ++c) orow[c] = acc[i][c] / den;
-    if (lse != nullptr && tx == 0) lse[((long long)b * H + h) * S + s] = m[i] + logf(den);
+    for (int c = 0; c < CD; ++c) orow[c] = sees ? acc[i][c] / den : 0.f;
+    if (lse != nullptr && tx == 0)
+      lse[((long long)b * H + h) * S + s] = sees ? m[i] + logf(den) : -INFINITY;
   }
 }
 
-template <int D, int BM>
-int launch(const void* q, const void* k, const void* v, void* o, float* lse, int B, int S,
-           int T_len, int H, int KH, Strides qs, Strides ks, Strides vs, float scale,
-           float softcap, int causal, int window, cudaStream_t stream) {
+template <int D, int BM, bool GENERAL>
+int launch_diag(const void* q, const void* k, const void* v, void* o, float* lse, int B, int S,
+                int T_len, int H, int KH, Strides qs, Strides ks, Strides vs, float scale,
+                float softcap, int causal, int window, int diag, cudaStream_t stream) {
   constexpr int smem = smem_floats<D, BM>() * (int)sizeof(float);
   static bool ready = false;  // one attribute call per instance (above 48 KB needs it)
   if (!ready) {
     const cudaError_t err = cudaFuncSetAttribute(
-        flash_fwd<D, BM>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        flash_fwd<D, BM, GENERAL>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
     ready = true;
   }
   const long long rows = (long long)S * (H / KH);
   const dim3 grid((unsigned)((rows + BM - 1) / BM), (unsigned)(B * KH));
-  flash_fwd<D, BM><<<grid, THREADS, smem, stream>>>(
+  flash_fwd<D, BM, GENERAL><<<grid, THREADS, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(o), lse, S, T_len, H, KH, qs, ks, vs, scale, softcap, causal, window);
+      static_cast<float*>(o), lse, S, T_len, H, KH, qs, ks, vs, scale, softcap, causal, window,
+      diag);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int D, int BM>
+int launch(const void* q, const void* k, const void* v, void* o, float* lse, int B, int S,
+           int T_len, int H, int KH, Strides qs, Strides ks, Strides vs, float scale,
+           float softcap, int causal, int window, int diag, cudaStream_t stream) {
+  if (diag == T_len - S)
+    return launch_diag<D, BM, false>(q, k, v, o, lse, B, S, T_len, H, KH, qs, ks, vs, scale,
+                                     softcap, causal, window, diag, stream);
+  return launch_diag<D, BM, true>(q, k, v, o, lse, B, S, T_len, H, KH, qs, ks, vs, scale,
+                                  softcap, causal, window, diag, stream);
 }
 
 template <int D>
 int launch_rows(const void* q, const void* k, const void* v, void* o, float* lse, int B, int S,
                 int T_len, int H, int KH, Strides qs, Strides ks, Strides vs, float scale,
-                float softcap, int causal, int window, cudaStream_t stream) {
+                float softcap, int causal, int window, int diag, cudaStream_t stream) {
   if ((long long)S * (H / KH) <= 16)
     return launch<D, 16>(q, k, v, o, lse, B, S, T_len, H, KH, qs, ks, vs, scale, softcap,
-                         causal, window, stream);
+                         causal, window, diag, stream);
   return launch<D, 64>(q, k, v, o, lse, B, S, T_len, H, KH, qs, ks, vs, scale, softcap, causal,
-                       window, stream);
+                       window, diag, stream);
 }
 
 int launch_dim(const void* q, const void* k, const void* v, void* o, float* lse, int B, int S,
                int T_len, int H, int KH, int D, Strides qs, Strides ks, Strides vs, float scale,
-               float softcap, int causal, int window, cudaStream_t stream) {
+               float softcap, int causal, int window, int diag, cudaStream_t stream) {
   switch (D) {
     case 32:
       return launch_rows<32>(q, k, v, o, lse, B, S, T_len, H, KH, qs, ks, vs, scale, softcap,
-                             causal, window, stream);
+                             causal, window, diag, stream);
     case 64:
       return launch_rows<64>(q, k, v, o, lse, B, S, T_len, H, KH, qs, ks, vs, scale, softcap,
-                             causal, window, stream);
+                             causal, window, diag, stream);
     case 128:
       return launch_rows<128>(q, k, v, o, lse, B, S, T_len, H, KH, qs, ks, vs, scale, softcap,
-                              causal, window, stream);
+                              causal, window, diag, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -434,7 +476,7 @@ struct Cfg {
 struct Params {
   int S, T, H, KH, n_qtiles;
   float scale, softcap;
-  int causal, window;
+  int causal, window, diag;
   float* lse;  // (B, H, S) or null
 };
 
@@ -457,13 +499,13 @@ __global__ void __launch_bounds__(THREADS, 1)
   const int h = blockIdx.x, b = blockIdx.z;
   const int s0 = (p.n_qtiles - 1 - (int)blockIdx.y) * NWG * ROWS;  // longest tiles first
   const int kh = h / (p.H / p.KH);
-  const int off = p.T - p.S;  // end-aligned causal offset (the wrapper keeps it >= 0)
-  // the keys any row of the tile sees, in whole tiles
+  const int off = p.diag;  // query s sees keys up to s + off
+  // the keys any row of the tile sees, in whole tiles (none: a tile of keyless rows)
   const int s_last = min(p.S - 1, s0 + NWG * ROWS - 1);
   const int key_end = p.causal ? min(p.T, s_last + off + 1) : p.T;
   const int key_beg = p.window > 0 ? max(0, s0 + off - p.window + 1) : 0;
   const int kt0 = key_beg / BN;
-  const int n_tiles = (key_end + BN - 1) / BN - kt0;
+  const int n_tiles = key_end > key_beg ? (key_end + BN - 1) / BN - kt0 : 0;
 
   if (threadIdx.x == 0) {
     for (int i = 0; i < STAGES; ++i) {
@@ -615,14 +657,16 @@ __global__ void __launch_bounds__(THREADS, 1)
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
     const int s = row + 8 * r;
     if (s >= p.S) continue;
-    const float inv = 1.f / fmaxf(l[r], 1e-20f);
+    const bool sees = row_sees(s, p.T, off, p.causal, p.window);
+    const float inv = sees ? 1.f / fmaxf(l[r], 1e-20f) : 0.f;
     __nv_bfloat16* orow = o + (((long long)b * p.S + s) * p.H + h) * D + col;
 #pragma unroll
     for (int j = 0; j < D / 8; ++j)
       *reinterpret_cast<uint32_t*>(orow + 8 * j) =
           pack_bf16(oacc[4 * j + 2 * r] * inv, oacc[4 * j + 2 * r + 1] * inv);
     if (p.lse != nullptr && col == 0)  // m is in log2 units
-      p.lse[((long long)b * p.H + h) * p.S + s] = (m[r] + log2f(fmaxf(l[r], 1e-20f))) * LN2;
+      p.lse[((long long)b * p.H + h) * p.S + s] =
+          sees ? (m[r] + log2f(fmaxf(l[r], 1e-20f))) * LN2 : -INFINITY;
   }
 }
 
@@ -632,7 +676,7 @@ constexpr int ERR_TENSOR_MAP = -2;
 template <int D>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse, int B, int S,
            int T_len, int H, int KH, Strides qs, Strides ks, Strides vs, float scale,
-           float softcap, int causal, int window, cudaStream_t stream) {
+           float softcap, int causal, int window, int diag, cudaStream_t stream) {
   using C = Cfg<D>;
   static bool ready = false;
   if (!ready) {
@@ -648,7 +692,7 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse, int
       !tensor_map(&vm, v, D, T_len, KH, B, vs.s, vs.h, vs.b, C::BN, C::SW))
     return ERR_TENSOR_MAP;
   const int n_qtiles = (S + NWG * ROWS - 1) / (NWG * ROWS);
-  const Params p{S, T_len, H, KH, n_qtiles, scale, softcap, causal, window, lse};
+  const Params p{S, T_len, H, KH, n_qtiles, scale, softcap, causal, window, diag, lse};
   flash_fwd_wgmma<D><<<dim3(H, n_qtiles, B), THREADS, C::SMEM, stream>>>(
       qm, km, vm, static_cast<__nv_bfloat16*>(o), p);
   return static_cast<int>(cudaGetLastError());
@@ -669,7 +713,7 @@ struct Params {
   int S, T, H, KH;
   Strides qs, ks, vs;
   float scale, softcap;
-  int causal, window;
+  int causal, window, diag;
   int key0, chunk, n_splits;
   float* lse;  // (B, H, S) or null
 };
@@ -710,7 +754,7 @@ __device__ __forceinline__ void ldsm4_t(uint32_t* r, const void* row) {  // tran
 // g = lane / 4 and g + 8.  Scores: warp w takes keys 8 w .. 8 w + 7 of
 // the tile; the tile's row maxima meet in shared memory; P (bf16) goes
 // through shared memory; P V: warp w takes output columns w D/4 ..
-template <int D>
+template <int D, bool GENERAL>
 __global__ void __launch_bounds__(THREADS)
     flash_fwd_split(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                     const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
@@ -726,7 +770,7 @@ __global__ void __launch_bounds__(THREADS)
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, g = lane / 4, t4 = lane % 4;
   const int split = blockIdx.x, bk = blockIdx.y, b = bk / p.KH, kh = bk % p.KH;
-  const int G = p.H / p.KH, rows = p.S * G, off = p.T - p.S;
+  const int G = p.H / p.KH, rows = p.S * G, off = GENERAL ? p.diag : p.T - p.S;
   const int c0 = p.key0 + split * p.chunk;
   const int c1 = min(c0 + p.chunk, p.T);
   const int n_tiles = (c1 - c0 + BK - 1) / BK;
@@ -884,7 +928,8 @@ __global__ void __launch_bounds__(THREADS)
     for (int r = 0; r < 2; ++r) {
       const int row = g + 8 * r;
       if (row >= rows) continue;
-      const float inv = 1.f / fmaxf(lsum[r], 1e-20f);
+      const bool sees = !GENERAL || row_sees(row / G, p.T, off, p.causal, p.window);
+      const float inv = sees ? 1.f / fmaxf(lsum[r], 1e-20f) : 0.f;
       __nv_bfloat16* orow =
           o + (((long long)b * p.S + row / G) * p.H + kh * G + row % G) * D + col;
 #pragma unroll
@@ -893,7 +938,7 @@ __global__ void __launch_bounds__(THREADS)
             pack_bf16(oacc[n][2 * r] * inv, oacc[n][2 * r + 1] * inv);
       if (p.lse != nullptr && col == 0)
         p.lse[((long long)b * p.H + kh * G + row % G) * p.S + row / G] =
-            m[r] + logf(fmaxf(lsum[r], 1e-20f));
+            sees ? m[r] + logf(fmaxf(lsum[r], 1e-20f)) : -INFINITY;
     }
     return;
   }
@@ -940,10 +985,11 @@ __global__ void __launch_bounds__(THREADS)
     }
 #pragma unroll
     for (int w = 16; w > 0; w >>= 1) lg += __shfl_xor_sync(0xffffffffu, lg, w);
-    if (lane == 0) red[row] = 1.f / fmaxf(lg, 1e-20f);  // red is spent too
+    const bool sees = !GENERAL || row_sees(row / G, p.T, off, p.causal, p.window);
+    if (lane == 0) red[row] = sees ? 1.f / fmaxf(lg, 1e-20f) : 0.f;  // red is spent too
     if (lane == 0 && p.lse != nullptr)
       p.lse[((long long)b * p.H + kh * G + row % G) * p.S + row / G] =
-          mg + logf(fmaxf(lg, 1e-20f));
+          sees ? mg + logf(fmaxf(lg, 1e-20f)) : -INFINITY;
   }
   __syncthreads();
   // thread tid sums column tid % D of rows tid / D + e THREADS / D
@@ -971,22 +1017,30 @@ __global__ void __launch_bounds__(THREADS)
   if (tid == 0) tickets[bk] = 0;  // ready for the next launch on the stream
 }
 
-template <int D>
-int launch(const void* q, const void* k, const void* v, void* o, int B, const Params& p,
-           float* part, float* ml, int* tickets, cudaStream_t stream) {
+template <int D, bool GENERAL>
+int launch_diag(const void* q, const void* k, const void* v, void* o, int B, const Params& p,
+                float* part, float* ml, int* tickets, cudaStream_t stream) {
   constexpr int smem = smem_bytes<D>();
   static bool ready = false;
   if (!ready) {
     const cudaError_t err = cudaFuncSetAttribute(
-        flash_fwd_split<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        flash_fwd_split<D, GENERAL>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
     ready = true;
   }
-  flash_fwd_split<D><<<dim3(p.n_splits, B * p.KH), THREADS, smem, stream>>>(
+  flash_fwd_split<D, GENERAL><<<dim3(p.n_splits, B * p.KH), THREADS, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), part, ml, tickets,
       p);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int launch(const void* q, const void* k, const void* v, void* o, int B, const Params& p,
+           float* part, float* ml, int* tickets, cudaStream_t stream) {
+  if (p.diag == p.T - p.S)
+    return launch_diag<D, false>(q, k, v, o, B, p, part, ml, tickets, stream);
+  return launch_diag<D, true>(q, k, v, o, B, p, part, ml, tickets, stream);
 }
 
 }  // namespace split
@@ -995,14 +1049,14 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, const Pa
 namespace {
 
 bool shape_ok(int B, int S, int T_len, int H, int KH, int causal, int window) {
-  return B > 0 && S > 0 && T_len > 0 && KH > 0 && H % KH == 0 && !(causal && T_len < S) &&
-         !(window > 0 && !causal);
+  return B > 0 && S > 0 && T_len > 0 && KH > 0 && H % KH == 0 && !(window > 0 && !causal);
 }
 
 }  // namespace
 
 // Route C, f32 only.  Strides are in elements; softcap <= 0 means none;
-// window <= 0 means global; lse, when not null, receives each row's
+// window <= 0 means global; query i sees key j iff j <= i + diag (causal;
+// T - S end-aligns them); lse, when not null, receives each row's
 // log-sum-exp, f32 (B, H, S).  Returns the launch's cudaError_t (0 on
 // success).
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v, void* o,
@@ -1011,12 +1065,12 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
                                       long long k_sb, long long k_st, long long k_sh,
                                       long long v_sb, long long v_st, long long v_sh,
                                       float scale, float softcap, int causal, int window,
-                                      void* lse, void* stream) {
+                                      int diag, void* lse, void* stream) {
   if (!shape_ok(B, S, T_len, H, KH, causal, window) || B * KH > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   const Strides qs{q_sb, q_ss, q_sh}, ks{k_sb, k_st, k_sh}, vs{v_sb, v_st, v_sh};
   return launch_dim(q, k, v, o, static_cast<float*>(lse), B, S, T_len, H, KH, D, qs, ks, vs,
-                    scale, softcap, causal, window, static_cast<cudaStream_t>(stream));
+                    scale, softcap, causal, window, diag, static_cast<cudaStream_t>(stream));
 }
 
 // Route A, bf16 only; the arguments as for route C.
@@ -1026,7 +1080,7 @@ extern "C" int flash_attention_wgmma_launch(const void* q, const void* k, const 
                                             long long k_sb, long long k_st, long long k_sh,
                                             long long v_sb, long long v_st, long long v_sh,
                                             float scale, float softcap, int causal, int window,
-                                            void* lse, void* stream) {
+                                            int diag, void* lse, void* stream) {
   if (!shape_ok(B, S, T_len, H, KH, causal, window) || B > 65535 || H > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   const Strides qs{q_sb, q_ss, q_sh}, ks{k_sb, k_st, k_sh}, vs{v_sb, v_st, v_sh};
@@ -1035,13 +1089,13 @@ extern "C" int flash_attention_wgmma_launch(const void* q, const void* k, const 
   switch (D) {
     case 32:
       return wg::launch<32>(q, k, v, o, ls, B, S, T_len, H, KH, qs, ks, vs, scale, softcap,
-                            causal, window, s);
+                            causal, window, diag, s);
     case 64:
       return wg::launch<64>(q, k, v, o, ls, B, S, T_len, H, KH, qs, ks, vs, scale, softcap,
-                            causal, window, s);
+                            causal, window, diag, s);
     case 128:
       return wg::launch<128>(q, k, v, o, ls, B, S, T_len, H, KH, qs, ks, vs, scale, softcap,
-                             causal, window, s);
+                             causal, window, diag, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -1057,7 +1111,7 @@ extern "C" int flash_attention_split_launch(const void* q, const void* k, const 
                                             long long k_sb, long long k_st, long long k_sh,
                                             long long v_sb, long long v_st, long long v_sh,
                                             float scale, float softcap, int causal, int window,
-                                            int key0, int chunk, int n_splits, void* part,
+                                            int diag, int key0, int chunk, int n_splits, void* part,
                                             void* ml, void* tickets, void* lse, void* stream) {
   if (!shape_ok(B, S, T_len, H, KH, causal, window) || S * (H / KH) > split::ROWS ||
       B * KH > 65535 || n_splits < 1 || n_splits > split::MAX_SPLITS || chunk < 1 ||
@@ -1065,8 +1119,8 @@ extern "C" int flash_attention_split_launch(const void* q, const void* k, const 
       (n_splits > 1 && (part == nullptr || ml == nullptr || tickets == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   const split::Params p{S, T_len, H, KH, {q_sb, q_ss, q_sh}, {k_sb, k_st, k_sh},
-                        {v_sb, v_st, v_sh}, scale, softcap, causal, window, key0, chunk,
-                        n_splits, static_cast<float*>(lse)};
+                        {v_sb, v_st, v_sh}, scale, softcap, causal, window, diag, key0,
+                        chunk, n_splits, static_cast<float*>(lse)};
   float* pt = static_cast<float*>(part);
   float* mlp = static_cast<float*>(ml);
   int* tk = static_cast<int*>(tickets);

@@ -45,6 +45,15 @@ output (f32 ``(B, H, S)``, saved for the backward), and whose backward is
 Without an lse (a direct call) each route recomputes it in a row pass.
 With grad off the serving path is unchanged: the same launches, no lse
 written and nothing saved.
+
+``diag`` moves the causal diagonal (query i sees key j iff ``j <= i +
+diag``; ``T - S`` by default, the end-aligned mask above), for a slice of a
+KV cache cut over T (keys at absolute positions ``lo`` on, queries at
+``offset`` on: ``diag = offset - lo``), whose rows may see no key; such a
+row gives zeros and a log-sum-exp of ``-inf``.  With grad off a caller may
+ask for the rows' log-sum-exp beside the output (``return_lse``), which is
+how a slice hands back its partial softmax.  Every forward route takes
+``diag``; the backward takes only the default.
 """
 
 from __future__ import annotations
@@ -114,18 +123,25 @@ def bwd_route_forced(route: str):
 
 @functools.lru_cache(maxsize=1024)
 def split_plan(b: int, s: int, t: int, h: int, kh: int, d: int, window: int = 0,
-               causal: bool = True, sms: int = H100_SMS) -> tuple[int, int, int]:
+               causal: bool = True, sms: int = H100_SMS,
+               diag: int | None = None) -> tuple[int, int, int]:
     """``(key0, chunk, n)``: split ``j`` of ``n`` covers keys ``[key0 + j
     chunk, min(key0 + (j + 1) chunk, t))``, the same for every (batch, KV
     head).  Together the splits cover exactly the keys some query sees
-    (``[t - s - window + 1, t)`` under a window, else ``[0, t)``), each
-    split holds at least one of them, and each chunk at least
+    (causal: ``[diag - window + 1, s + diag)`` under a window, else ``[0,
+    s + diag)``, cut to ``[0, t)``; ``diag`` is ``t - s`` unless given),
+    each split holds at least one of them, and each chunk at least
     :data:`SPLIT_MIN_KEYS` keys where there are that many; there are enough
     for about :data:`SPLIT_BLOCKS_PER_SM` x 64 / ``d`` blocks per SM, at
     most :data:`SPLIT_MAX`.  ``h`` does not move the plan: the G rows of a
-    KV head share a block."""
-    key0 = max(0, t - s - window + 1) if causal and window > 0 else 0
-    keys = t - key0
+    KV head share a block.  Where no query sees a key the plan is one
+    split of the first 32 keys, whose rows all write zeros."""
+    diag = t - s if diag is None else diag
+    key0 = max(0, diag - window + 1) if causal and window > 0 else 0
+    key_end = min(t, s + diag) if causal else t
+    if key_end <= key0:
+        return 0, 32, 1
+    keys = key_end - key0
     want = -(-SPLIT_BLOCKS_PER_SM * 64 * sms // (d * b * kh))
     n = max(1, min(want, SPLIT_MAX, keys // SPLIT_MIN_KEYS))
     chunk = -(-keys // n)
@@ -159,9 +175,9 @@ def _library() -> ctypes.CDLL:
     if not lib.flash_attention_launch.argtypes:
         p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
         for fn in (lib.flash_attention_launch, lib.flash_attention_wgmma_launch):
-            fn.argtypes = [p, p, p, p, i, i, i, i, i, i, *[ll] * 9, f, f, i, i, p, p]
+            fn.argtypes = [p, p, p, p, i, i, i, i, i, i, *[ll] * 9, f, f, i, i, i, p, p]
         lib.flash_attention_split_launch.argtypes = [p, p, p, p, i, i, i, i, i, i, *[ll] * 9,
-                                                     f, f, i, i, i, i, i, p, p, p, p, p]
+                                                     f, f, i, i, i, i, i, i, p, p, p, p, p]
         for fn in (lib.flash_attention_launch, lib.flash_attention_wgmma_launch,
                    lib.flash_attention_split_launch):
             fn.restype = ctypes.c_int
@@ -220,29 +236,41 @@ def flash_attention(
     softcap: float | None = None,
     scale: float | None = None,
     window: int = 0,
-) -> torch.Tensor:
+    diag: int | None = None,
+    return_lse: bool = False,
+):
     """Attention of q over k, v; query head h reads KV head ``h // (H/K)``.
-    With ``causal``, query i sees key j iff ``j <= i + T - S``; with a
-    ``window`` > 0 (causal only) also iff ``i + T - S - j < window``.
-    Returns a contiguous ``(B, S, H, d)`` tensor in q's dtype."""
-    _check(q, k, v, causal, window)
+    With ``causal``, query i sees key j iff ``j <= i + diag`` (``diag`` by
+    default ``T - S``: the ends aligned); with a ``window`` > 0 (causal
+    only) also iff ``i + diag - j < window``.  Returns a contiguous ``(B, S,
+    H, d)`` tensor in q's dtype, and with ``return_lse`` (grad off) also
+    each row's log-sum-exp, f32 ``(B, H, S)``.  A row that sees no key (only
+    with ``diag`` given) gives zeros and ``-inf``."""
+    _check(q, k, v, causal, window, keyless_rows=diag is not None)
+    if diag is not None and (isinstance(diag, bool) or not isinstance(diag, int) or not causal):
+        raise ValueError(f"flash_attention takes an int diag with causal masking, got {diag!r}")
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        if return_lse or diag not in (None, k.shape[1] - q.shape[1]):
+            raise ValueError("flash_attention with grad takes the end-aligned diagonal and "
+                             "returns no lse: its backward has no other")
         return _FlashAttention.apply(q, k, v, causal, softcap, scale, window)
-    return _forward(q, k, v, causal, softcap, scale, window)[0]
+    out, lse = _forward(q, k, v, causal, softcap, scale, window, save_lse=return_lse, diag=diag)
+    return (out, lse) if return_lse else out
 
 
-def _forward(q, k, v, causal, softcap, scale, window,
-             save_lse: bool = False) -> tuple[torch.Tensor, torch.Tensor | None]:
+def _forward(q, k, v, causal, softcap, scale, window, save_lse: bool = False,
+             diag: int | None = None) -> tuple[torch.Tensor, torch.Tensor | None]:
     """The output and, with ``save_lse``, each row's log-sum-exp (f32
     ``(B, H, S)``), else None."""
     if q.device.type == "cpu":
-        opts = dict(causal=causal, softcap=softcap, scale=scale, window=window)
+        opts = dict(causal=causal, softcap=softcap, scale=scale, window=window, diag=diag)
         return (flash_attention_ref(q, k, v, **opts),
                 flash_attention_lse_ref(q, k, **opts) if save_lse else None)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention has no kernel for device {q.device}")
     b, s, h, d = q.shape
     t, kh = k.shape[1], k.shape[2]
+    diag = t - s if diag is None else diag
     if d not in HEAD_DIMS:
         raise ValueError(f"flash_attention kernel takes head dims {HEAD_DIMS}, got {d}")
     for x in (q, k, v):
@@ -263,7 +291,7 @@ def _forward(q, k, v, causal, softcap, scale, window,
     lib = _library()
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
     shape = (b, s, t, h, kh, d, *_strides(q), *_strides(k), *_strides(v),
-             scale, float(softcap or 0.0), int(causal), window)
+             scale, float(softcap or 0.0), int(causal), window, diag)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         if route == "simt":
@@ -272,7 +300,7 @@ def _forward(q, k, v, causal, softcap, scale, window,
             err = lib.flash_attention_wgmma_launch(*args, *shape, lse_ptr, stream)
         else:
             key0, chunk, n = split_plan(b, s, t, h, kh, d, window, causal,
-                                        _sm_count(q.device.index))
+                                        _sm_count(q.device.index), diag)
             part = ml = tickets = None
             if n > 1:  # scratch: each chunk's (acc, then m and l) per row, f32
                 acc = b * kh * n * SPLIT_ROWS * d

@@ -7,6 +7,10 @@ flash_attention_ref``, in the model's layout: q ``(B, S, H, d)``, k and v
 positions).  Any S and T: causal masking is end-aligned, so query i sees
 key j iff ``j <= i + T - S``; with a ``window`` > 0 also iff
 ``i + T - S - j < window`` (the JAX model's ``q_pos - k_pos < window``).
+A ``diag`` other than ``T - S`` moves the diagonal: query i sees key j iff
+``j <= i + diag`` (and ``i + diag - j < window``), as a slice of a KV
+cache cut over T sees its queries (``diag = offset - lo``).  A row that
+sees no key gives zeros and a log-sum-exp of ``-inf``.
 
 :func:`flash_attention_bwd_ref` is the plain version of the backward kernel
 (``csrc/flash_attention_bwd.cu``), written as the kernel computes it, and
@@ -23,13 +27,16 @@ import torch
 NEG = -(2.0**30)
 
 
-def visible(s: int, t: int, causal: bool, window: int, device) -> torch.Tensor:
-    """``(S, T)``: True where query i sees key j."""
+def visible(s: int, t: int, causal: bool, window: int, device,
+            diag: int | None = None) -> torch.Tensor:
+    """``(S, T)``: True where query i sees key j (``j <= i + diag``, the
+    diagonal ``T - S`` unless given)."""
+    diag = t - s if diag is None else diag
     mask = torch.ones(s, t, dtype=torch.bool, device=device)
     if causal:
-        mask = mask.tril(t - s)
+        mask = mask.tril(diag)
     if window > 0:
-        mask = mask.triu(t - s - window + 1)
+        mask = mask.triu(diag - window + 1)
     return mask
 
 
@@ -42,6 +49,7 @@ def flash_attention_ref(
     softcap: float | None = None,
     scale: float | None = None,
     window: int = 0,
+    diag: int | None = None,
 ) -> torch.Tensor:
     b, s, h, d = q.shape
     t, kh = k.shape[1], k.shape[2]
@@ -52,13 +60,18 @@ def flash_attention_ref(
     if softcap is not None:
         logits = torch.tanh(logits / softcap) * softcap
     if causal or window > 0:
-        logits = logits.masked_fill(~visible(s, t, causal, window, q.device), NEG)
-    att = torch.softmax(logits, dim=-1).to(v.dtype)
+        mask = visible(s, t, causal, window, q.device, diag)
+        logits = logits.masked_fill(~mask, NEG)
+    att = torch.softmax(logits, dim=-1)
+    d0 = t - s if diag is None else diag
+    if causal and (d0 < 0 or (window > 0 and s + d0 - window > t - 1)):
+        att = att * mask.any(-1)[:, None]  # a row that sees no key gives zeros
+    att = att.to(v.dtype)
     out = torch.einsum("bkgst,btkd->bskgd", att, v)
     return out.reshape(b, s, h, d)
 
 
-def _logits(q, k, causal, softcap, scale, window):
+def _logits(q, k, causal, softcap, scale, window, diag=None):
     """The capped f32 logits ``c`` (B, K, G, S, T), ``tanh`` of the scaled
     ones (None without a softcap) and the ``(S, T)`` visibility mask."""
     b, s, h, d = q.shape
@@ -66,7 +79,8 @@ def _logits(q, k, causal, softcap, scale, window):
     x = torch.einsum("bskgd,btkd->bkgst", q.reshape(b, s, kh, h // kh, d).float(),
                      k.float()) * scale
     th = torch.tanh(x / softcap) if softcap is not None else None
-    return (x if th is None else th * softcap), th, visible(s, t, causal, window, q.device)
+    return (x if th is None else th * softcap), th, visible(s, t, causal, window, q.device,
+                                                             diag)
 
 
 def flash_attention_lse_ref(
@@ -77,13 +91,14 @@ def flash_attention_lse_ref(
     softcap: float | None = None,
     scale: float | None = None,
     window: int = 0,
+    diag: int | None = None,
 ) -> torch.Tensor:
     """Each (query, head) row's log-sum-exp over its visible keys, f32
     ``(B, H, S)``: what the forward kernel writes for the backward.  A row
     that sees no key has ``-inf``."""
     b, s, h, d = q.shape
     scale = 1.0 / math.sqrt(d) if scale is None else scale
-    c, _, mask = _logits(q, k, causal, softcap, scale, window)
+    c, _, mask = _logits(q, k, causal, softcap, scale, window, diag)
     return torch.logsumexp(c.masked_fill(~mask, -math.inf), dim=-1).reshape(b, h, s)
 
 
@@ -135,8 +150,7 @@ def flash_attention_bwd_ref(
     rounded to bf16 before dV and dS before dQ and dK, the kernel's
     rounding points (the ``wgmma`` route's); f32 inputs round nothing.  A
     row that sees no key (causal with S > T) has P = 0 and adds nothing, so
-    its dQ is 0, where the forward's masked softmax (``flash_attention_ref``)
-    would spread it evenly over all T keys."""
+    its dQ is 0, as the forward (``flash_attention_ref``) gives it zeros."""
     b, s, h, d = q.shape
     scale = 1.0 / math.sqrt(d) if scale is None else scale
     p, ds, qf, kf, do = _bwd_terms(q, k, v, out, dout, causal, softcap, scale, window, lse)

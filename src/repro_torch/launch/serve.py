@@ -22,15 +22,7 @@ import torch
 
 from ..configs import get_config
 from ..core.bitcode import resolve_device
-from ..models.zoo import (
-    ShapeSpec,
-    _head,
-    build_params,
-    forward,
-    init_kv_cache,
-    make_batch,
-    make_serve_step,
-)
+from ..models.zoo import ShapeSpec, build_params, make_batch, make_prefill_step, make_serve_step
 from ..runtime.tenancy import RemoteEmbedClient
 
 
@@ -68,7 +60,7 @@ def serve(argv: list[str] | None = None) -> tuple[dict, np.ndarray]:
     # prefill against a cache sized for the whole session
     spec = ShapeSpec("serve", args.prompt_len, args.batch, "prefill")
     batch = make_batch(cfg, spec, seed=args.seed, device=dev)
-    serve_step = make_serve_step(cfg)
+    prefill_step, serve_step = make_prefill_step(cfg, t_max=t_max), make_serve_step(cfg)
 
     embed_client = None
     if args.remote_embed:
@@ -80,9 +72,7 @@ def serve(argv: list[str] | None = None) -> tuple[dict, np.ndarray]:
 
     sync()
     t0 = time.perf_counter()
-    cache = init_kv_cache(cfg, args.batch, t_max, dtype=cfg.dtype, device=dev)
-    h, cache, _ = forward(cfg, model, batch, caches=cache, offset=0, return_hidden=True)
-    logits = _head(cfg, model, h[:, -1:, :])[:, -1, :]
+    logits, cache = prefill_step(model, batch)
     sync()
     t_prefill = time.perf_counter() - t0
 

@@ -170,19 +170,35 @@ def rms_norm(x: torch.Tensor, gain: torch.Tensor, eps: float) -> torch.Tensor:
     return (x * (1.0 + gain.float())).to(dt)
 
 
+def rms_norm_serve(x: torch.Tensor, gain: torch.Tensor, eps: float, lay) -> torch.Tensor:
+    """:func:`rms_norm` of an embed-cut ``x`` (every row's slice of the
+    embed dim, a serving :class:`~repro_torch.sharding.partition.Layout`'s
+    residual stream) with the gain's matching block: the rows' sums of
+    squares summed over the data axes, the gain never moved."""
+    dt = x.dtype
+    x = x.float()
+    ss = lay.sum_data(torch.sum(x * x, dim=-1, keepdim=True))
+    x = x * torch.rsqrt(ss / (x.shape[-1] * lay.dn) + eps)
+    return (x * (1.0 + gain.float())).to(dt)
+
+
 def softcap(x: torch.Tensor, cap: float | None) -> torch.Tensor:
     if cap is None:
         return x
     return torch.tanh(x / cap) * cap
 
 
+def activation(h: torch.Tensor, act: str) -> torch.Tensor:
+    """The MLP's activation: silu, or gelu in its tanh form (``jax.nn.gelu``'s
+    default)."""
+    return F.silu(h) if act == "silu" else F.gelu(h, approximate="tanh")
+
+
 def mlp(
     x: torch.Tensor, wi: torch.Tensor, wg: torch.Tensor | None, wo: torch.Tensor, act: str
 ) -> torch.Tensor:
-    """SwiGLU when wg is present, plain act-MLP otherwise (gelu is the tanh
-    form, as ``jax.nn.gelu``'s default)."""
-    h = x @ wi
-    a = F.silu(h) if act == "silu" else F.gelu(h, approximate="tanh")
+    """SwiGLU when wg is present, plain act-MLP otherwise."""
+    a = activation(x @ wi, act)
     if wg is not None:
         a = a * (x @ wg)
     return a @ wo

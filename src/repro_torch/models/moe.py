@@ -64,15 +64,19 @@ def route(x: torch.Tensor, w_router: torch.Tensor, topk: int):
     ``jax.lax.top_k``'s order: descending, equal probabilities by the lower
     expert first (a stable sort), since that order ranks the choices in
     their buckets and so decides the drops."""
-    logits = x.float() @ w_router.float()  # (N, E)
+    return route_logits(x.float() @ w_router.float(), topk, x.dtype)
+
+
+def route_logits(logits: torch.Tensor, topk: int, dtype: torch.dtype):
+    """:func:`route` from the f32 router logits (N, E); gates in ``dtype``."""
     probs = torch.softmax(logits, dim=-1)
     top, order = torch.sort(probs, dim=-1, descending=True, stable=True)
     gates, idx = top[:, :topk], order[:, :topk]
     gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
-    e = w_router.shape[-1]
+    e = logits.shape[-1]
     onehot = F.one_hot(idx[:, 0], e).float()  # the primary expert
     aux = e * torch.mean(torch.mean(onehot, dim=0) * torch.mean(probs, dim=0))
-    return gates.to(x.dtype), idx, aux
+    return gates.to(dtype), idx, aux
 
 
 def _bucket_positions(dst: torch.Tensor, n_buckets: int, capacity: int):
@@ -292,6 +296,102 @@ def _moe_eplocal(x, w_router, wi, wg, wo, topk: int, mesh: Mesh, ep_axis: str = 
         y = y + (F.silu(h) * g) @ wo[el] * gate_e[:, None]
     return (reduce_from_region(y, mesh, ep_axis).reshape(b, s, d),
             pmean_region(aux, mesh, ep_axis))
+
+
+def _experts_cut(recv: torch.Tensor, meta: torch.Tensor, wi, wg, wo, lay) -> torch.Tensor:
+    """Each received token (rows of ``recv``, the rank's embed slice)
+    through its local expert ``meta`` (``E_loc``: an empty slot, zeros),
+    the expert's embed dim cut over ``data``: each token's products with its
+    expert's blocks, the hidden (N, 2F) summed over ``data`` in one psum,
+    then the output block.  The JAX rank runs every local expert over every
+    token gate-masked; a token's own expert gives the same products."""
+    f = wi.shape[2]
+    rows = [torch.nonzero(meta == el)[:, 0] for el in range(wi.shape[0])]
+    hid = recv.new_zeros((recv.shape[0], 2 * f))
+    for el, r in enumerate(rows):
+        if r.numel():
+            x = recv.index_select(0, r)
+            hid[r] = torch.cat([x @ wi[el], x @ wg[el]], dim=-1)
+    hid = lay.sum_data(hid)
+    act = F.silu(hid[:, :f]) * hid[:, f:]
+    y = recv.new_zeros((recv.shape[0], wo.shape[2]))
+    for el, r in enumerate(rows):
+        if r.numel():
+            y[r] = act.index_select(0, r) @ wo[el]
+    return y
+
+
+def moe_block_serve(x, w_router, wi, wg, wo, topk: int, lay, ep_axis: str = "model",
+                    capacity_factor: float = 1.25):
+    """:func:`moe_block_a2a` on a serving layout, whose experts' embed dims
+    are cut over ``data`` too: ``x`` (B, S, D / dn) every row's embed slice
+    (the serving residual stream), ``w_router`` (D / dn, E), ``wi`` and
+    ``wg`` (E_loc, D / dn, F), ``wo`` (E_loc, F, D / dn).  The router logits
+    are summed over ``data``, so every data rank routes every row alike.
+    Where S splits over the EP axis, the rank routes its S / m positions of
+    each data rank's rows and buckets each data rank's choices by
+    destination with that rank's capacity, as the reference's source ranks
+    do (``c_pair`` from B / dn x S / m tokens), exchanges its embed slice of
+    every data rank's buckets over the EP axis, runs its experts with the
+    hidden summed over ``data`` (:func:`_experts_cut`), sends them back,
+    combines and gathers the positions.  Otherwise (decode) it is the
+    eplocal path: every local expert over every token, gate-masked, the
+    hidden summed over ``data`` and the output over the EP axis.  No
+    weight moves.  Returns ``(y, aux)``: y (B, S, D / dn), aux the mean of
+    the sources' aux over the EP axis and the data ranks."""
+    mesh = lay.mesh
+    b, s, d = x.shape
+    e = w_router.shape[-1]
+    m = mesh.axis_size(ep_axis)
+    e_loc = wi.shape[0]
+    if e_loc * m != e:
+        raise ValueError(f"moe_block_serve: {e_loc} experts a rank over {m} ranks, want {e}")
+    if not (s % m == 0 and s >= m):  # eplocal
+        xt = x.reshape(b * s, d)
+        gates, idx, aux = route_logits(lay.sum_data(xt.float() @ w_router.float()), topk,
+                                       x.dtype)
+        me = mesh.axis_index(ep_axis)
+        zero = torch.zeros((), dtype=gates.dtype, device=x.device)
+        f = wi.shape[2]
+        hid = lay.sum_data(torch.cat([torch.cat([xt @ wi[el], xt @ wg[el]], dim=-1)
+                                      for el in range(e_loc)], dim=-1))
+        y = torch.zeros_like(xt)
+        for el in range(e_loc):
+            gate_e = torch.sum(torch.where(idx == me * e_loc + el, gates, zero), dim=-1)
+            h = hid[:, 2 * f * el : 2 * f * el + 2 * f]
+            y = y + (F.silu(h[:, :f]) * h[:, f:]) @ wo[el] * gate_e[:, None]
+        return lay.sum_model(y).reshape(b, s, d), mesh.psum(aux, ep_axis) / m
+    sl = s // m
+    groups = lay.dn if lay.row_split(b) else 1  # the data ranks whose rows are sources
+    n = b // groups * sl
+    c_pair = max(8, -(-int(n * topk * capacity_factor / m) // 8) * 8)
+    xs = lay.model_block(x, dim=1)  # this rank's positions of every row
+    logits = lay.sum_data(xs.reshape(b * sl, d).float() @ w_router.float())
+    sends, metas, dests, weights, auxes = [], [], [], [], []
+    for g in range(groups):
+        xt = xs[g * (b // groups) : (g + 1) * (b // groups)].reshape(n, d)
+        gates, idx, aux = route_logits(logits[g * n : (g + 1) * n], topk, x.dtype)
+        dst = (idx // e_loc).reshape(-1)
+        slot, keep = _bucket_positions(dst, m, c_pair)
+        dest = torch.where(keep, slot, m * c_pair).reshape(n, topk)
+        sends.append(_dispatch(xt, dest, m * c_pair))
+        meta = torch.full((m * c_pair + 1,), e_loc, dtype=torch.int32, device=x.device)
+        metas.append(meta.index_put((dest.reshape(-1),),
+                                    (idx % e_loc).reshape(-1).to(torch.int32))[: m * c_pair])
+        dests.append(dest)
+        weights.append((gates * keep.reshape(n, topk).to(gates.dtype)).reshape(n, topk, 1))
+        auxes.append(aux)
+    recv = mesh.all_to_all(torch.stack(sends).reshape(groups, m, c_pair, d), ep_axis,
+                           split_dim=1, concat_dim=1)
+    meta_r = mesh.all_to_all(torch.stack(metas).reshape(groups, m, c_pair), ep_axis,
+                             split_dim=1, concat_dim=1)
+    y_r = _experts_cut(recv.reshape(-1, d), meta_r.reshape(-1), wi, wg, wo, lay)
+    back = mesh.all_to_all(y_r.reshape(groups, m, c_pair, d), ep_axis, split_dim=1,
+                           concat_dim=1).reshape(groups, m * c_pair, d)
+    y = torch.cat([torch.sum(_collect(back[g], dests[g]) * weights[g], dim=1)
+                   for g in range(groups)])
+    aux = mesh.psum(torch.stack(auxes).mean(), ep_axis) / m
+    return lay.gather_model(y.reshape(b, sl, d), dim=1), aux
 
 
 def moe_block(x, w_router, wi, wg, wo, topk: int, mode: str = "c2d", mesh: Mesh | None = None):

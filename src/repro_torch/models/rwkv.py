@@ -25,6 +25,16 @@ norm and ``ln_x`` local, ``wo`` by rows and one psum; the token shift and
 the decay's LoRA stay whole on every rank, the decay cut to the rank's
 channels.  The channel mix cuts ``ffn`` and, with the heads, its gate's
 columns.
+
+On a serving layout (:func:`rwkv_block_serve`) the block carries its
+state.  Its input is embed-cut (every row's slice of the embed dim), so the
+token shift, the mixes with ``mu_*`` and the decay's LoRA run on the rank's
+slice with its blocks of those leaves; the carried shifts are the rank's
+rows with the whole embed dim and go to and from the embed cut by an
+all-to-all over ``data``.  The r, k, v and g products are summed over
+``data`` to the rank's rows; ``wkv6`` runs on the rank's heads and its
+block of the ``wkv`` state where the heads divide ``model``, else (the
+rule cuts the columns mid-head) on every head, the columns gathered.
 """
 
 from __future__ import annotations
@@ -37,7 +47,7 @@ from ..sharding.mesh import (
     copy_to_region, gather_from_region, reduce_from_region, reduce_scatter_to_region,
     scatter_to_region,
 )
-from .common import ModelConfig, ParamFactory, rms_norm
+from .common import ModelConfig, ParamFactory, rms_norm, rms_norm_serve
 
 LORA_DIM = 64  # decay LoRA bottleneck
 
@@ -212,3 +222,63 @@ def rwkv_block_tp(x: torch.Tensor, p: RWKVBlock, cfg: ModelConfig, lay) -> torch
     """:func:`rwkv_block` (no state) on this rank's weights."""
     x = x + time_mix_tp(rms_norm(x, p.ln1, cfg.norm_eps), p.tm, cfg, lay)
     return x + channel_mix_tp(rms_norm(x, p.ln2, cfg.norm_eps), p.cm, lay)
+
+
+# ------------------------------------------------------- on a mesh (serving)
+def _time_mix_serve(x, p: TimeMix, cfg: ModelConfig, lay, shift_prev, wkv_state):
+    """:func:`time_mix` of an embed-cut ``x`` from the rank's state blocks:
+    ``(y embed-cut, the new shift (its rows), the new WKV state block)``."""
+    n, t, _ = x.shape
+    m = cfg.rwkv_head_dim
+    xx = token_shift(x, lay.rows_to_embed(shift_prev, n)) - x
+    xr, xk, xv, xw, xg = (x + xx * mu for mu in (p.mu_r, p.mu_k, p.mu_v, p.mu_w, p.mu_g))
+    dd = torch.tanh(lay.sum_data(xw @ p.wA)) @ p.wB
+    w = lay.embed_to_rows(torch.exp(-torch.exp((p.w0 + dd).float())), n)  # rows, every channel
+    r, k, v, g = lay.sum_rows_parts(xr @ p.wr, xk @ p.wk, xv @ p.wv, xg @ p.wg)
+    heads, cols = lay.split("tm.u", 0), lay.split("tm.wr", 1)
+    if heads:  # the rank's heads: its channels of the decay
+        w = lay.model_block(w)
+    elif cols:  # the columns cut mid-head: every head on every rank
+        r, k, v = lay.gather_model_parts(r, k, v)
+    b, hl = r.shape[0], r.shape[-1] // m
+    g = g * torch.sigmoid(g)
+    out, wkv_state = wkv6(*(a.reshape(b, t, hl, m).contiguous() for a in (r, k, v, w)), p.u,
+                          wkv_state)
+    out = _group_norm(out, b, t)
+    if cols and not heads:
+        out = lay.model_block(out)
+    out = out * (1.0 + p.ln_x)
+    y = lay.all_rows(out.to(x.dtype) * g, n) @ p.wo
+    return (lay.sum_model(y) if lay.split("tm.wo", 0) else y,
+            lay.embed_to_rows(x[:, -1:], n), wkv_state)
+
+
+def _channel_mix_serve(x, p: ChannelMix, lay, shift_prev):
+    """:func:`channel_mix` of an embed-cut ``x``: ``(y embed-cut, the new
+    shift (its rows))``."""
+    n = x.shape[0]
+    xx = token_shift(x, lay.rows_to_embed(shift_prev, n)) - x
+    xk = x + xx * p.mu_k
+    xr = x + xx * p.mu_r
+    val = torch.square(torch.relu(lay.sum_data(xk @ p.wk))) @ p.wv
+    if lay.split("cm.wk", 1):
+        val = lay.sum_model(val)
+    gate = torch.sigmoid(lay.sum_data(xr @ p.wr))  # every row, the rank's columns
+    if lay.split("cm.wr", 1):
+        gate = lay.gather_model(gate)
+    return lay.embed_slice(gate) * val, lay.embed_to_rows(x[:, -1:], n)
+
+
+def rwkv_block_serve(x: torch.Tensor, p: RWKVBlock, cfg: ModelConfig, lay,
+                     state: dict[str, torch.Tensor]) -> tuple[torch.Tensor, dict]:
+    """:func:`rwkv_block` on a serving layout: ``x`` embed-cut, ``state``
+    the rank's blocks of the layer's ``tm_shift``, ``cm_shift`` (its rows,
+    the whole embed dim) and ``wkv`` (its rows, its heads where
+    ``cache_specs`` cuts them); returns the block's output and the new
+    state blocks."""
+    att, tm_shift, wkv_state = _time_mix_serve(rms_norm_serve(x, p.ln1, cfg.norm_eps, lay),
+                                               p.tm, cfg, lay, state["tm_shift"], state["wkv"])
+    x = x + att
+    ffn, cm_shift = _channel_mix_serve(rms_norm_serve(x, p.ln2, cfg.norm_eps, lay), p.cm, lay,
+                                       state["cm_shift"])
+    return x + ffn, {"tm_shift": tm_shift, "cm_shift": cm_shift, "wkv": wkv_state}

@@ -29,6 +29,12 @@ rank's; ``w_in``'s flat 2D columns are all-gathered first, since the rule
 cuts them across the x and z halves.  Where the leaves are whole (hymba's
 25 heads), every rank computes the head's inputs whole and scans its own
 channels, as JAX's ``channel_constrain`` lays them out.
+
+On a serving layout (:func:`ssm_head_serve`) the head carries its state:
+``w_in``'s product of the embed-cut input is summed over ``data`` to the
+rank's rows and its columns gathered over ``model``; the conv state
+(whole, the rank's rows) is carried on every channel, the scan and its
+``h`` state block on the rank's channels.
 """
 
 from __future__ import annotations
@@ -152,3 +158,41 @@ def ssm_head_tp(x: torch.Tensor, p: SSMHead, cfg: ModelConfig, lay) -> torch.Ten
         y, _ = ssm_scan(xc, dt, a, b_in.contiguous(), c_in.contiguous(), None)
     y = (y + xc * p.d_skip) * _silu(z)
     return y @ p.w_out
+
+
+# ------------------------------------------------------- on a mesh (serving)
+def ssm_head_serve(x: torch.Tensor, p: SSMHead, cfg: ModelConfig, lay,
+                   state: dict[str, torch.Tensor]) -> tuple[torch.Tensor, dict]:
+    """:func:`ssm_head` of an embed-cut ``x`` (normed) from the rank's state
+    blocks (``conv`` (B_loc, K-1, D), ``h`` (B_loc, D / |model|, N) where
+    ``cache_specs`` cuts D): ``(out embed-cut, {"conv", "h"})``."""
+    n = x.shape[0]
+    nst, d = cfg.ssm_state, cfg.d_model
+    cut = [lay.split(f"ssm.{k}", dim) for k, dim in
+           (("w_in", 1), ("conv", 1), ("w_bcdt", 0), ("dt_bias", 0), ("a_log", 0),
+            ("d_skip", 0), ("w_out", 0))]
+    if any(cut) and not all(cut):
+        raise ValueError(f"{cfg.name}: the SSM head's leaves are cut over model in part "
+                         f"({cut}); the channel-parallel scan takes all or none")
+    both = lay.sum_rows(x @ p.w_in)
+    if all(cut):  # the rule cuts w_in's columns across the x and z halves
+        both = lay.gather_model(both)
+    xin, z = both[..., :d], both[..., d:]
+    prev = state["conv"]
+    if prev.shape[1] != CONV_K - 1 or state["h"].shape[1] != p.a_log.shape[0]:
+        raise ValueError(f"{cfg.name}: the conv state {tuple(prev.shape)} and h state "
+                         f"{tuple(state['h'].shape)} do not fit the head's channel blocks")
+    conv_state = torch.cat([prev.to(xin.dtype), xin], dim=1)[:, -(CONV_K - 1):]
+    if all(cut):
+        xin, z, prev = (lay.model_block(a) for a in (xin, z, prev))
+    xc = _silu(causal_conv(xin, p.conv, prev)[0])
+    bcdt = xc @ p.w_bcdt
+    if all(cut):
+        bcdt = lay.sum_model(bcdt)
+    b_in, c_in, dt_raw = bcdt[..., :nst], bcdt[..., nst : 2 * nst], bcdt[..., -1:]
+    dt = _softplus(dt_raw + p.dt_bias) + 1e-4
+    y, h = ssm_scan(xc, dt, -torch.exp(p.a_log.float()), b_in.contiguous(), c_in.contiguous(),
+                    state["h"])
+    y = (y + xc * p.d_skip) * _silu(z)
+    out = lay.all_rows(y, n) @ p.w_out
+    return (lay.sum_model(out) if all(cut) else out), {"conv": conv_state, "h": h}

@@ -31,8 +31,26 @@ queries, the weights whole) under the JAX ``sp_attn`` condition, the MLP
 by ``ffn`` the same way, an MoE block's experts by the ``all_to_all``
 dispatch, an RWKV block by heads and a hybrid block's SSM head by
 channels.  The residual stream is whole on every rank of a ``model``
-group; the batch rows are the rank's.  Serving with a mesh waits for a
-later slice.
+group; the batch rows are the rank's.
+
+With a serving layout (``SERVE_RULES``: the embed dim cut over ``data``
+too) and a cache, :func:`block_apply_tp` serves: the weights stay where
+their specs put them and the activations move.  The residual stream is
+embed-cut (every batch row, the rank's slice of the embed dim); a product
+with a weight whose embed dim is cut sums its rows over ``data`` (to the
+rank's rows, or to every row), and one whose embed dim is its output takes
+every row's input and sums over ``model`` where its rows are cut.  The KV
+cache's T is cut over ``model`` (``cache_specs``): decode and a prompt
+written into a session cache gather every query head and the new K/V to
+each rank of the ``model`` group, each rank writes the positions it owns,
+attends over its slice (``flash_attention`` with ``diag = offset - lo``)
+and the slices' partial softmax stats come back over ``model`` to be
+merged (:func:`merge_slices`).  A prefill that fills the whole cache from offset
+0 with the heads tensor parallel attends over the fresh K/V on the rank's
+heads, as JAX does, and re-lays K and V from heads to T-slices with one
+all-to-all; where the heads are not tensor parallel (hymba's 25 heads,
+whose columns the rule cuts mid-head) it takes the sliced path, whose
+gathered heads make the sequence-parallel split unnecessary.
 """
 
 from __future__ import annotations
@@ -48,10 +66,12 @@ from ..sharding.mesh import (
     copy_to_region, gather_from_region, reduce_from_region, scatter_to_region,
 )
 from .attention import attend_sp, qkv_proj, update_kv_cache
-from .common import ModelConfig, ParamFactory, mlp, rms_norm, rope
-from .moe import moe_block
-from .rwkv import RWKVBlock, rwkv_block, rwkv_block_tp
-from .ssm import SSMHead, ssm_head, ssm_head_tp
+from .common import (
+    ModelConfig, ParamFactory, activation, mlp, rms_norm, rms_norm_serve, rope,
+)
+from .moe import moe_block, moe_block_serve
+from .rwkv import RWKVBlock, rwkv_block, rwkv_block_serve, rwkv_block_tp
+from .ssm import SSMHead, ssm_head, ssm_head_serve, ssm_head_tp
 
 
 def require_ported(cfg: ModelConfig) -> None:
@@ -191,7 +211,8 @@ def block_apply(
     lay=None,
 ) -> tuple[torch.Tensor, torch.Tensor | None]:
     """One decoder block: (x, the MoE router's aux loss, None for the other
-    families); with a layout ``lay``, :func:`block_apply_tp` (no cache).  The cache (if any) is updated in place, only batch ``rows``
+    families); with a layout ``lay``, :func:`block_apply_tp` (a cache only
+    with a serving layout).  The cache (if any) is updated in place, only batch ``rows``
     of it when given.  A dense or MoE block's cache is its layer's ``k`` and
     ``v``; an RWKV block's its layer's ``tm_shift``, ``cm_shift`` and
     ``wkv`` state, which the block reads and replaces; a hybrid block's
@@ -199,10 +220,8 @@ def block_apply(
     block routes every row of ``x``, ``rows`` or not: the capacity buffer
     is shared, so the rows present decide the drops."""
     if lay is not None:
-        if cache is not None:
-            raise NotImplementedError("a cache with a mesh: sharded serving waits for its "
-                                      "slice (ROADMAP.md section 1)")
-        return block_apply_tp(x, p, cfg, lay, pos=pos, window=window)
+        return block_apply_tp(x, p, cfg, lay, pos=pos, window=window, cache=cache,
+                              offset=offset, rows=rows)
     if cfg.family == "rwkv":
         x, new = rwkv_block(x, p, cfg, cache)
         if cache is not None:
@@ -316,8 +335,20 @@ def moe_tp(x: torch.Tensor, p, cfg: ModelConfig, lay) -> tuple[torch.Tensor, tor
 
 
 def block_apply_tp(x: torch.Tensor, p, cfg: ModelConfig, lay, *, pos: torch.Tensor,
-                   window: int = 0) -> tuple[torch.Tensor, torch.Tensor | None]:
-    """:func:`block_apply` on this rank's weights (no cache): (x, aux)."""
+                   window: int = 0, cache: dict[str, torch.Tensor] | None = None,
+                   offset: int = 0, rows: torch.Tensor | None = None,
+                   ) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """:func:`block_apply` on this rank's weights: (x, aux).  A train
+    layout takes no cache; a serving layout takes this rank's blocks of the
+    layer's cache, written in place (only the rank's ``rows``, a mask of
+    its batch rows, when given), and an embed-cut ``x``."""
+    if lay.serving:
+        if cache is None:
+            raise ValueError("a serving layout runs with a cache (init_kv_cache(mesh=))")
+        return block_serve(x, p, cfg, lay, pos=pos, cache=cache, offset=offset, rows=rows,
+                           window=window)
+    if cache is not None:
+        raise ValueError("a train layout takes no cache: serve with zoo.serve_layout's specs")
     if cfg.family == "rwkv":
         return rwkv_block_tp(x, p, cfg, lay), None
     h = rms_norm(x, p.ln1, cfg.norm_eps)
@@ -330,6 +361,134 @@ def block_apply_tp(x: torch.Tensor, p, cfg: ModelConfig, lay, *, pos: torch.Tens
         y, aux = moe_tp(h, p, cfg, lay)
         return x + y, aux
     return x + mlp_tp(h, p, cfg, lay), None
+
+
+# ------------------------------------------------------- on a mesh (serving)
+def merge_slices(out: torch.Tensor, lse: torch.Tensor, mesh) -> torch.Tensor:
+    """The attention of every key from each ``model`` rank's attention over
+    its T-slice: ``out`` (B, S, H, d) and ``lse`` (B, H, S) f32, a row that
+    saw none of the slice's keys 0 and -inf.  The partial softmax stats come
+    back in one all-gather of ``out`` beside ``lse``, B S H (d + 1) f32 a
+    rank, and every rank merges them: weights ``exp(lse_r - max_r lse)``
+    (a keyless slice's 0), the weighted outputs summed over the slices and
+    divided by the weights' sum.  A pmax of the lse and a psum of the
+    weighted outputs give the same sums in two collectives; an all-to-all
+    of head groups would move as many bytes and needs the heads to divide
+    ``model``, which hymba's do not."""
+    both = mesh.all_gather(torch.cat([out.float(), lse.permute(0, 2, 1)[..., None]],
+                                     dim=-1)[None], "model", dim=0)  # (m, B, S, H, d + 1)
+    w = torch.exp(both[..., -1:] - both[..., -1:].amax(0))
+    return ((both[..., :-1] * w).sum(0) / w.sum(0)).to(out.dtype)
+
+
+def attn_serve(h: torch.Tensor, p, cfg: ModelConfig, lay, *, pos: torch.Tensor,
+               cache: dict[str, torch.Tensor], offset: int, rows: torch.Tensor | None,
+               window: int) -> torch.Tensor:
+    """:func:`attn_sublayer` with a cache on a serving layout: ``h`` the
+    embed-cut normed input of every row, ``cache`` the rank's ``k`` and
+    ``v`` blocks (its rows; its T-slice where ``cache_specs`` cuts T over
+    ``model``).  Returns the sublayer's embed-cut output, summed."""
+    mesh, m = lay.mesh, lay.model
+    n, s, _ = h.shape
+    hd, nh, nk = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
+    q, k, v = lay.sum_rows_parts(h @ p.wq, h @ p.wk, h @ p.wv)  # its rows, its columns
+    if cfg.qkv_bias:
+        q, k, v = q + p.bq, k + p.bk, v + p.bv
+    b = q.shape[0]
+    k_cache, v_cache = cache["k"], cache["v"]
+    t_loc = k_cache.shape[1]
+    t_cut = lay.cache_specs["k"][2] == "model"
+    lo = mesh.axis_index("model") * t_loc if t_cut else 0
+    t_max = t_loc * m if t_cut else t_loc
+    if lay.split("wq", 1) and nh % m == 0 and offset == 0 and s == t_max:
+        # the fresh K/V on the rank's heads, then K and V re-laid from
+        # heads to this rank's positions: one all-to-all each (JAX's s == t_max)
+        if not lay.split("wk", 1):
+            raise ValueError(f"{cfg.name}: kv_dim {cfg.kv_dim} does not divide over {m} model "
+                             "ranks, the query heads do")
+        hl = nh // m
+        qh = rope(q.reshape(b, s, hl, hd), pos, cfg.rope_theta)
+        kh, vh = (_region_kv(t, cfg, lay, b, s, hl) for t in (k, v))
+        out = flash_attention(qh, rope(kh, pos, cfg.rope_theta), vh, causal=True,
+                              softcap=cfg.attn_softcap, window=window).reshape(b, s, -1)
+        km, vm = ((mesh.all_to_all(t, "model", split_dim=1, concat_dim=2) if t_cut
+                   else lay.gather_model(t)).reshape(b, t_loc, nk, hd) for t in (k, v))
+        update_kv_cache(k_cache, v_cache, rope(km, pos[lo : lo + t_loc], cfg.rope_theta), vm,
+                        0, rows)
+    else:
+        # every query head and the new K/V on each model rank; the rank
+        # writes the positions it owns and attends over its slice
+        if not (lay.split("wq", 1) == lay.split("wk", 1) == lay.split("wv", 1)):
+            raise ValueError(f"{cfg.name}: the q, k and v columns are cut over model in part")
+        qa, ka, va = lay.gather_model_parts(q, k, v) if lay.split("wq", 1) else (q, k, v)
+        qa = rope(qa.reshape(b, s, nh, hd), pos, cfg.rope_theta)
+        ka = rope(ka.reshape(b, s, nk, hd), pos, cfg.rope_theta)
+        va = va.reshape(b, s, nk, hd)
+        a, e = max(offset, lo), min(offset + s, lo + t_loc)
+        if a < e:
+            update_kv_cache(k_cache, v_cache, ka[:, a - offset : e - offset],
+                            va[:, a - offset : e - offset], a - lo, rows)
+        kk, vv = (c if c.dtype == qa.dtype else c.to(qa.dtype) for c in (k_cache, v_cache))
+        out, lse = flash_attention(qa, kk, vv, causal=True, softcap=cfg.attn_softcap,
+                                   window=window, diag=offset - lo, return_lse=True)
+        if t_cut and m > 1:
+            out = merge_slices(out, lse, mesh)
+        out = out.reshape(b, s, nh * hd)
+        if lay.split("wo", 0):
+            out = lay.model_block(out)
+    y = lay.all_rows(out, n) @ p.wo
+    return lay.sum_model(y) if lay.split("wo", 0) else y
+
+
+def mlp_serve(h: torch.Tensor, p, cfg: ModelConfig, lay) -> torch.Tensor:
+    """:func:`mlp` of an embed-cut ``h``: ``wi`` and ``wg`` summed over
+    ``data`` in one psum (every row), ``wo2`` over ``model``."""
+    wg = getattr(p, "wg", None)
+    both = h @ p.wi if wg is None else torch.cat([h @ p.wi, h @ wg], dim=-1)
+    both = lay.sum_data(both)
+    f = p.wi.shape[1]
+    a = activation(both[..., :f], cfg.act)
+    if wg is not None:
+        a = a * both[..., f:]
+    y = a @ p.wo2
+    return lay.sum_model(y) if lay.split("wo2", 0) else y
+
+
+def moe_serve(h: torch.Tensor, p, cfg: ModelConfig, lay) -> tuple[torch.Tensor, torch.Tensor]:
+    """The MoE block of an embed-cut ``h`` on the rank's experts
+    (:func:`~repro_torch.models.moe.moe_block_serve`: ``moe_block_a2a``'s
+    dispatch and buckets, or its eplocal path in decode, with each
+    expert's embed dim cut over ``data``)."""
+    if not (cfg.c2d_embedding and (lay.model == 1 or lay.split("we_i", 0))):
+        raise NotImplementedError(
+            f"{cfg.name}: a mesh whose model axis does not cut the experts, or the "
+            "replicated dispatch, has no sharded serving path")
+    return moe_block_serve(h, p.router, p.we_i, p.we_g, p.we_o, cfg.topk, lay)
+
+
+def block_serve(x: torch.Tensor, p, cfg: ModelConfig, lay, *, pos: torch.Tensor,
+                cache: dict[str, torch.Tensor], offset: int, rows: torch.Tensor | None,
+                window: int) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """:func:`block_apply` on a serving layout: ``x`` the embed-cut
+    residual stream of every row, ``cache`` the rank's blocks of the
+    layer's cache (written in place)."""
+    if cfg.family == "rwkv":
+        x, new = rwkv_block_serve(x, p, cfg, lay, cache)
+        _write_state(cache, new, rows)
+        return x, None
+    h = rms_norm_serve(x, p.ln1, cfg.norm_eps, lay)
+    att = attn_serve(h, p, cfg, lay, pos=pos, cache=cache, offset=offset, rows=rows,
+                     window=window)
+    if cfg.family == "hybrid":
+        out, new = ssm_head_serve(h, p.ssm, cfg, lay, {"conv": cache["conv"], "h": cache["h"]})
+        att = 0.5 * (att * p.beta_attn + out * p.beta_ssm)
+        _write_state(cache, new, rows)
+    x = x + att
+    h = rms_norm_serve(x, p.ln2, cfg.norm_eps, lay)
+    if cfg.family == "moe":
+        y, aux = moe_serve(h, p, cfg, lay)
+        return x + y, aux
+    return x + mlp_serve(h, p, cfg, lay), None
 
 
 def layer_windows(cfg: ModelConfig) -> np.ndarray:

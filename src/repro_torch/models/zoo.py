@@ -11,31 +11,40 @@ hybrid families:
   ``from_jax_params``
 * ``make_batch(cfg, shape, seed)``          -> random token batch (numpy seed); a
   ``train`` shape adds ``labels`` and ``mask``
-* ``init_kv_cache(cfg, batch, t_max)``      -> dense and moe ``{"k", "v"}``, ``(L, B, T, K, hd)``;
-  rwkv ``{"tm_shift", "cm_shift", "wkv"}``; hybrid ``{"k", "v", "conv", "h"}``
-* ``make_prefill_step(cfg)``                -> (model, batch) -> (logits, cache)
-* ``make_serve_step(cfg)``                  -> (model, cache, tok, pos) -> (logits, cache)
+* ``init_kv_cache(cfg, batch, t_max, mesh=None)`` -> dense and moe ``{"k", "v"}``,
+  ``(L, B, T, K, hd)``; rwkv ``{"tm_shift", "cm_shift", "wkv"}``; hybrid
+  ``{"k", "v", "conv", "h"}``; with a ``mesh``, this rank's blocks
+  (:class:`CacheBlocks`, under ``cache_specs``)
+* ``make_prefill_step(cfg, mesh=None, t_max=None)`` -> (model, batch) -> (logits, cache)
+* ``make_serve_step(cfg, mesh=None)``       -> (model, cache, tok, pos) -> (logits, cache)
 * ``loss_fn(cfg, model, batch)``            -> (loss, {"nll", "aux"}), the head and
   softmax cross-entropy in ``LOSS_CHUNK``-position chunks
 * ``make_train_step(cfg, opt, mesh=None, zero1=True)`` -> (state, batch) -> (state, metrics);
   ``state = {"params": LM, "opt": OptState, "step": int}``, updated in place
-* ``make_eval_step(cfg, mesh=None)``, ``make_steps(cfg, opt)``
+* ``make_eval_step(cfg, mesh=None)``, ``make_steps(cfg, opt, mesh=None)``
 * ``logical_axes(cfg)``                     -> each leaf's logical axes under its JAX
   name (``build_params(cfg)[1]`` of the JAX package)
 * ``layout(cfg, mesh, zero1=True)``         -> the train rules' specs on a mesh
-  (``repro_torch.sharding.partition.Layout``)
-* ``shard_params(cfg, model, mesh)``        -> the ``LM`` cut, in place, to this
-  rank's blocks; ``gather_params(cfg, model, mesh)`` -> its whole leaves
+  (``repro_torch.sharding.partition.Layout``); ``serve_layout(cfg, mesh)``
+  -> ``SERVE_RULES``' specs (the embed dim cut over ``data`` too)
+* ``shard_params(cfg, model, mesh, lay=None)`` -> the ``LM`` cut, in place, to
+  this rank's blocks (the train layout's unless ``lay``);
+  ``gather_params(cfg, model, mesh)`` -> its whole leaves
 
 With a ``mesh`` (``repro_torch.sharding.mesh.Mesh``), ``forward``,
 ``loss_fn`` and the train and eval steps take the GLOBAL batch and use this
 rank's rows of it (``batch_shardings``'s: the data ranks' blocks of the
 leading dim, so batch k of a sharded run is batch k of an unsharded one),
-on an ``LM`` that :func:`shard_params` cut.  ``forward`` returns this
-rank's block (its rows; the logits its vocab columns); ``loss_fn`` the
-global loss, whose gradient on each rank is its own part (the optimizer
-sums the parts over the data axes, :class:`~repro_torch.optim.AdamW`'s
-ZeRO-1 update).
+on an ``LM`` that :func:`shard_params` cut.  Without a cache, ``forward``
+runs on the train layout and returns this rank's block (its rows; the
+logits its vocab columns); ``loss_fn`` the global loss, whose gradient on
+each rank is its own part (the optimizer sums the parts over the data
+axes, :class:`~repro_torch.optim.AdamW`'s ZeRO-1 update).  With a cache
+(``init_kv_cache(..., mesh=)``'s blocks) it serves on the serving layout:
+the weights cut by :func:`serve_layout`, stationary, the activations
+moving (``repro_torch.sharding.partition``), and returns this rank's rows
+of the logits with every vocab column; so do the prefill and serve steps
+with a mesh.
 
 PyTorch runs eagerly, so the steps are plain functions (the JAX package
 jits them).  Caches, weights and moments are written in place and returned
@@ -58,8 +67,11 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..core.bitcode import resolve_device
-from ..sharding.partition import Layout, full_leaf, leaf_key, local_block, rules_for_train
-from .common import ModelConfig, ParamFactory, cross_entropy, rms_norm, softcap
+from ..sharding.partition import (
+    SERVE_RULES, Layout, block_shape, cache_specs, full_leaf, leaf_key, local_block,
+    rules_for_train,
+)
+from .common import ModelConfig, ParamFactory, cross_entropy, rms_norm, rms_norm_serve, softcap
 from .embedding import embed_c2d, embed_plain, lm_head
 from .rwkv import RWKVBlock
 from .ssm import CONV_K
@@ -237,6 +249,23 @@ def layout(cfg: ModelConfig, mesh, zero1: bool = True) -> Layout:
     return Layout(mesh, *_leaves(cfg), rules_for_train(cfg, mesh), zero1=zero1)
 
 
+def serve_layout(cfg: ModelConfig, mesh, caches: "CacheBlocks | None" = None) -> Layout:
+    """:data:`SERVE_RULES`' specs of every leaf on ``mesh`` (the embed dim
+    cut over ``data`` as well), with ``caches``' specs when given.  Every
+    ``embed`` dim must split over the data axes: the serving forward keeps
+    the residual stream embed-cut."""
+    lay = Layout(mesh, *_leaves(cfg), SERVE_RULES, zero1=False,
+                 cache_specs=None if caches is None else caches.specs)
+    _, axes = _leaves(cfg)
+    for key, spec in lay.params.items():
+        for dim, name in enumerate(axes[key]):
+            if name == "embed" and lay.data and (dim >= len(spec) or spec[dim] is None):
+                raise NotImplementedError(
+                    f"{cfg.name}: {key}'s embed dim does not split over the data axes "
+                    f"{lay.data}; the serving layout needs d_model {cfg.d_model} to")
+    return lay
+
+
 @torch.no_grad()
 def shard_params(cfg: ModelConfig, model: LM, mesh, lay: Layout | None = None) -> LM:
     """Cut ``model`` (whole on every rank, built from one seed) to this
@@ -276,10 +305,10 @@ def _head_tp(cfg: ModelConfig, model: LM, h: torch.Tensor, lay: Layout) -> torch
 def _forward_tp(cfg: ModelConfig, model: LM, batch: dict, lay: Layout,
                 return_hidden: bool):
     """:func:`forward` on this rank's rows ``batch`` and weight blocks."""
-    if "token_rows" in batch:
-        raise NotImplementedError("token_rows with a mesh: sharded serving waits for its slice")
     tokens = batch["tokens"]
-    if lay.split("embed.tok", 0):
+    if "token_rows" in batch:  # the rank's rows of the rows gathered elsewhere
+        x = batch["token_rows"].to(cfg.dtype)
+    elif lay.split("embed.tok", 0):
         x = embed_c2d(model.embed.tok, tokens, lay.mesh)
     else:
         x = embed_plain(model.embed.tok, tokens)
@@ -290,6 +319,43 @@ def _forward_tp(cfg: ModelConfig, model: LM, batch: dict, lay: Layout,
     if return_hidden:
         return h, None, aux
     return _head_tp(cfg, model, h, lay), None, aux
+
+
+def _head_serve(cfg: ModelConfig, model: LM, h: torch.Tensor, lay: Layout) -> torch.Tensor:
+    """The LM head of an embed-cut ``h`` (every row) on a serving layout:
+    this rank's rows of the logits, every vocab column (summed over
+    ``data``, then all-gathered over ``model`` where the vocab is cut)."""
+    w, cut = _cut(cfg, model, lay)
+    logits = lay.sum_rows(rms_norm_serve(h, model.final_ln, cfg.norm_eps, lay) @ w)
+    return softcap(lay.gather_model(logits) if cut else logits, cfg.final_softcap)
+
+
+def _forward_serve(cfg: ModelConfig, model: LM, batch: dict, lay: Layout, caches: "CacheBlocks",
+                   offset: int, rows: torch.Tensor | None, return_hidden: bool):
+    """:func:`forward` with a cache on a serving layout: ``batch`` global,
+    ``model`` and ``caches`` this rank's blocks; ``rows`` (global batch
+    rows whose cache is written) becomes a mask of the rank's rows.  The
+    hidden state is embed-cut (every row); the logits this rank's rows."""
+    tokens = batch["tokens"]
+    n, s = tokens.shape
+    if "token_rows" in batch:  # rows gathered elsewhere: every row's embed slice
+        x = lay.embed_slice(batch["token_rows"]).to(cfg.dtype)
+    elif lay.split("embed.tok", 0):
+        x = embed_c2d(model.embed.tok, tokens, lay.mesh)  # the (model, data) block
+    else:
+        x = embed_plain(model.embed.tok, tokens)
+    if cfg.embed_mult != 1.0:
+        x = (x.float() * cfg.embed_mult).to(x.dtype)
+    if rows is not None:
+        mask = torch.zeros(n, dtype=torch.bool, device=x.device)
+        mask[rows] = True
+        rows = mask[lay.serve_rows(n)]
+    pos = offset + torch.arange(s, device=x.device)
+    h, aux = run_blocks(cfg, model.blocks, x, pos=pos, caches=caches, offset=offset, rows=rows,
+                        lay=lay)
+    if return_hidden:
+        return h, caches, aux
+    return _head_serve(cfg, model, h, lay), caches, aux
 
 
 # ------------------------------------------------------------------ forward
@@ -311,17 +377,24 @@ def forward(
     mesh=None,
 ):
     """Returns (logits, caches, aux_loss); ``caches`` is updated in place
-    (only batch ``rows`` of it, when given).  With a ``mesh`` (no cache),
+    (only batch ``rows`` of it, when given).  With a ``mesh`` and no cache,
     ``batch`` is the global batch, ``model`` this rank's blocks
     (:func:`shard_params`), and the result this rank's block: its rows,
-    the logits its vocab columns.  ``aux_loss`` is the MoE
+    the logits its vocab columns.  With a ``mesh`` and ``caches`` (this
+    rank's :class:`CacheBlocks`), ``model`` is cut by :func:`serve_layout`
+    and the result is this rank's rows of the logits, every vocab column
+    (the hidden state, with ``return_hidden``, embed-cut: every row, the
+    rank's slice of the embed dim).  ``aux_loss`` is the MoE
     router's load-balance loss averaged over the layers (an f32 scalar), 0.0
     for the other families.  ``batch["token_rows"]``, when
     present, holds embedding rows gathered elsewhere (the serving tier's
     remote embedding) and bypasses the table lookup."""
+    if mesh is not None and caches is not None:
+        if not isinstance(caches, CacheBlocks):
+            raise ValueError("a cache on a mesh is a rank's blocks: init_kv_cache(..., mesh=)")
+        return _forward_serve(cfg, model, batch, serve_layout(cfg, mesh, caches), caches,
+                              0 if offset is None else int(offset), rows, return_hidden)
     if mesh is not None:
-        if caches is not None:
-            raise NotImplementedError("a cache with a mesh: sharded serving waits for its slice")
         lay = layout(cfg, mesh)
         rows_of = lay.rows(batch["tokens"].shape[0])
         return _forward_tp(cfg, model, {k: v[rows_of] for k, v in batch.items()}, lay,
@@ -343,35 +416,47 @@ def forward(
 
 
 # ----------------------------------------------------------------- KV cache
+class CacheBlocks(dict):
+    """A rank's blocks of a cache on a mesh, by leaf (``init_kv_cache(...,
+    mesh=)``), with each leaf's spec under ``cache_specs`` in ``specs``."""
+
+    def __init__(self, blocks: dict[str, torch.Tensor], specs: dict[str, tuple]) -> None:
+        super().__init__(blocks)
+        self.specs = specs
+
+
 def init_kv_cache(
     cfg: ModelConfig, batch: int, t_max: int, dtype: torch.dtype = torch.bfloat16,
-    device: "torch.device | str | None" = None,
+    device: "torch.device | str | None" = None, mesh=None,
 ) -> dict[str, torch.Tensor]:
     """The dense and moe families' cache: ``k`` and ``v`` of ``(L, B, T, K, hd)``.
     The rwkv family's state, whatever ``t_max``: ``tm_shift`` and
     ``cm_shift`` of ``(L, B, 1, D)`` in ``dtype`` and ``wkv`` of
     ``(L, B, H, M, M)`` in f32.  The hybrid family's: ``k`` and ``v``, the
     SSM head's ``conv`` of ``(L, B, K-1, D)`` in ``dtype`` and ``h`` of
-    ``(L, B, D, N)`` in f32."""
+    ``(L, B, D, N)`` in f32.  With a ``mesh``, this rank's blocks of each
+    under ``cache_specs`` (a :class:`CacheBlocks`): B over the data axes
+    and T (``wkv``'s heads, ``h``'s channels) over ``model`` where they
+    divide, every other dim whole."""
     require_ported(cfg)
     dev = resolve_device(device)
-    if cfg.family == "rwkv":
-        L, D, m = cfg.n_layers, cfg.d_model, cfg.rwkv_head_dim
-        return {
-            "tm_shift": torch.zeros((L, batch, 1, D), dtype=dtype, device=dev),
-            "cm_shift": torch.zeros((L, batch, 1, D), dtype=dtype, device=dev),
-            "wkv": torch.zeros((L, batch, D // m, m, m), dtype=torch.float32, device=dev),
-        }
-    shape = (cfg.n_layers, batch, t_max, cfg.n_kv_heads, cfg.head_dim)
-    cache = {
-        "k": torch.zeros(shape, dtype=dtype, device=dev),
-        "v": torch.zeros(shape, dtype=dtype, device=dev),
-    }
+    L, D = cfg.n_layers, cfg.d_model
+    if cfg.family == "rwkv":  # (shape, held in f32) by leaf
+        m = cfg.rwkv_head_dim
+        shapes = {"tm_shift": ((L, batch, 1, D), False), "cm_shift": ((L, batch, 1, D), False),
+                  "wkv": ((L, batch, D // m, m, m), True)}
+    else:
+        kv = (L, batch, t_max, cfg.n_kv_heads, cfg.head_dim)
+        shapes = {"k": (kv, False), "v": (kv, False)}
     if cfg.family == "hybrid":
-        L, D = cfg.n_layers, cfg.d_model
-        cache["conv"] = torch.zeros((L, batch, CONV_K - 1, D), dtype=dtype, device=dev)
-        cache["h"] = torch.zeros((L, batch, D, cfg.ssm_state), dtype=torch.float32, device=dev)
-    return cache
+        shapes.update(conv=((L, batch, CONV_K - 1, D), False),
+                      h=((L, batch, D, cfg.ssm_state), True))
+    specs = (None if mesh is None
+             else cache_specs({k: shape for k, (shape, _) in shapes.items()}, mesh))
+    blocks = {k: torch.zeros(shape if mesh is None else block_shape(shape, specs[k], mesh),
+                             dtype=torch.float32 if f32 else dtype, device=dev)
+              for k, (shape, f32) in shapes.items()}
+    return blocks if mesh is None else CacheBlocks(blocks, specs)
 
 
 def make_batch(
@@ -394,24 +479,36 @@ def make_batch(
 
 
 # -------------------------------------------------------------------- steps
-def make_prefill_step(cfg: ModelConfig) -> Callable:
+def make_prefill_step(cfg: ModelConfig, mesh=None, t_max: int | None = None) -> Callable:
     """Fill a prompt-length cache (the recurrent state) from the prompt;
-    logits for the last token."""
+    logits for the last token.  ``t_max`` sizes the cache for a whole
+    session instead (the prompt written from offset 0, as ``launch.serve``
+    prefills; the JAX step has no such option).  With a ``mesh``, ``batch``
+    is global, ``model`` cut by :func:`serve_layout`, and the step returns
+    this rank's rows of the logits (every vocab column) and its cache
+    blocks."""
 
     def prefill_step(model: LM, batch: dict):
         b, s = batch["tokens"].shape
-        cache = init_kv_cache(cfg, b, s, dtype=cfg.dtype, device=model.device)
-        h, cache, _ = forward(cfg, model, batch, caches=cache, offset=0, return_hidden=True)
+        cache = init_kv_cache(cfg, b, t_max or s, dtype=cfg.dtype, device=model.device,
+                              mesh=mesh)
+        h, cache, _ = forward(cfg, model, batch, caches=cache, offset=0, return_hidden=True,
+                              mesh=mesh)
         # head over the LAST position only
-        logits = _head(cfg, model, h[:, -1:, :])
+        if mesh is None:
+            logits = _head(cfg, model, h[:, -1:, :])
+        else:
+            logits = _head_serve(cfg, model, h[:, -1:, :], serve_layout(cfg, mesh, cache))
         return logits[:, -1, :], cache
 
     return prefill_step
 
 
-def make_serve_step(cfg: ModelConfig) -> Callable:
+def make_serve_step(cfg: ModelConfig, mesh=None) -> Callable:
     """One decode step: next-token logits, the cache written at ``pos`` (the
-    rwkv state replaced).
+    rwkv state replaced).  With a ``mesh``, ``tokens`` (and ``token_rows``)
+    are global, ``model`` and ``cache`` this rank's blocks, and the logits
+    this rank's rows, every vocab column.
 
     The one step covers both of the JAX package's variants: given
     ``token_rows`` (``(B, S, D)``, the tokens' embedding rows gathered by
@@ -428,7 +525,8 @@ def make_serve_step(cfg: ModelConfig) -> Callable:
         batch = {"tokens": tokens}
         if token_rows is not None:
             batch["token_rows"] = token_rows
-        logits, cache, _ = forward(cfg, model, batch, caches=cache, offset=pos, rows=rows)
+        logits, cache, _ = forward(cfg, model, batch, caches=cache, offset=pos, rows=rows,
+                                   mesh=mesh)
         return logits[:, -1, :], cache
 
     return serve_step
@@ -672,13 +770,16 @@ def make_eval_step(cfg: ModelConfig, mesh=None) -> Callable:
     return eval_step
 
 
-def make_steps(cfg: ModelConfig, opt=None) -> dict[str, Callable]:
+def make_steps(cfg: ModelConfig, opt=None, mesh=None) -> dict[str, Callable]:
+    """The train, eval, prefill and serve steps, each on ``mesh`` when given
+    (the train and eval steps on its train layout, the serving steps on
+    its serving layout)."""
     from ..optim import AdamW
 
     opt = opt or AdamW()
     return {
-        "train": make_train_step(cfg, opt),
-        "eval": make_eval_step(cfg),
-        "prefill": make_prefill_step(cfg),
-        "serve": make_serve_step(cfg),
+        "train": make_train_step(cfg, opt, mesh=mesh),
+        "eval": make_eval_step(cfg, mesh=mesh),
+        "prefill": make_prefill_step(cfg, mesh=mesh),
+        "serve": make_serve_step(cfg, mesh=mesh),
     }

@@ -3,7 +3,8 @@ X-RDMA multi-hop tree collectives, and the compiled SPMD rendering over
 ``torch.distributed`` (a named :class:`Mesh` and its collectives that carry
 gradients, the compute-to-data DAPC and Gather programs, and the
 compiled-mesh gradient reductions), and the logical-axis partition rules
-(``partition.py``) that lay a model's leaves out on a mesh for training."""
+(``partition.py``) that lay a model's leaves out on a mesh for training and
+for serving (``SERVE_RULES``, the KV cache's ``cache_specs``)."""
 
 from .collectives import (
     PropagateReport,

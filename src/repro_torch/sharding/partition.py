@@ -28,6 +28,14 @@ builders take any mesh with ``names`` and ``shape`` (name -> size): a
 :class:`~repro_torch.sharding.mesh.Mesh`, or a :class:`MeshShape` that
 holds no ranks.  :func:`local_block` cuts a rank's block of a full leaf
 and :func:`full_leaf` gathers the blocks back.
+
+A :class:`Layout` holds a model's specs under one set of rules: the train
+rules (:func:`rules_for_train`) or :data:`SERVE_RULES`, whose ``embed``
+dims are cut over ``data`` as well.  Serving keeps the weights where those
+specs put them and moves activations instead: the residual stream is held
+as every batch row's slice of the embed dim that the rank's data index
+owns, a product with a weight whose embed dim is cut sums its partial rows
+over ``data``, and the KV cache's blocks follow :func:`cache_specs`.
 """
 
 from __future__ import annotations
@@ -220,6 +228,16 @@ def cache_specs(shapes: Mapping[str, tuple[int, ...]], mesh) -> dict[str, Spec]:
 
 
 # ------------------------------------------------------------------ blocks
+def block_shape(shape: tuple[int, ...], spec: Spec, mesh) -> tuple[int, ...]:
+    """The shape of a rank's block of a leaf of ``shape`` under ``spec``."""
+    out = list(shape)
+    for dim, entry in enumerate(spec):
+        axes = _dim_axes(entry)
+        if axes:
+            out[dim] //= axis_size(mesh, axes)
+    return tuple(out)
+
+
 def _dim_axes(entry) -> tuple[str, ...]:
     if entry is None:
         return ()
@@ -269,19 +287,28 @@ def leaf_key(name: str) -> str:
 
 
 class Layout:
-    """A model's leaves laid out on a mesh for training: each leaf's param
-    spec and ZeRO-1 moment spec under the train rules, by :func:`leaf_key`,
-    and what the forward and the optimizer do with them.  ``shapes`` and
-    ``axes`` are one layer's leaves (no ``layers`` axis) and the others."""
+    """A model's leaves laid out on a mesh under ``rules``: each leaf's
+    param spec and ZeRO-1 moment spec, by :func:`leaf_key`, and what the
+    forward and the optimizer do with them.  ``shapes`` and ``axes`` are one
+    layer's leaves (no ``layers`` axis) and the others.  Under rules that
+    cut ``embed`` (:data:`SERVE_RULES`) the layout is a serving one
+    (``serving``); ``cache_specs``, the specs of the KV cache's blocks by
+    leaf (a layer's, with its ``layers`` dim), is what its forward reads of
+    the cache's layout."""
 
     def __init__(self, mesh, shapes: Mapping[str, tuple[int, ...]],
                  axes: Mapping[str, tuple[str | None, ...]], rules: Mapping[str, str | None],
-                 zero1: bool = True) -> None:
+                 zero1: bool = True, cache_specs: Mapping[str, Spec] | None = None) -> None:
         self.mesh = mesh
+        self.rules = dict(rules)
         self.params = param_specs(shapes, axes, mesh, rules)
         self.moments = zero1_specs(shapes, axes, mesh, rules, enabled=zero1)
         self.data = data_axes(mesh)
         self.model = mesh.shape["model"] if "model" in _names(mesh) else 1
+        self.serving = self.rules.get("embed") is not None
+        # the ranks the embed dim is cut over: a serving layout's data axes
+        self.dn = axis_size(mesh, self.data) if self.serving and self.data else 1
+        self.cache_specs = dict(cache_specs or {})
 
     # -------------------------------------------------------------- forward
     def split(self, name: str, dim: int) -> bool:
@@ -363,3 +390,99 @@ class Layout:
     def psum_all(self, x: torch.Tensor) -> torch.Tensor:
         """The sum of ``x`` over every rank of the mesh."""
         return self.mesh.psum(x, tuple(_names(self.mesh)))
+
+    # ------------------------------------------------------------- serving
+    # An activation is either "embed-cut": (B, ..., D / dn), every batch row,
+    # the embed slice of this rank's data index (the residual stream), or
+    # "rows": (B_loc, ..., X), this rank's batch rows (batch_specs') with a
+    # dim X that is whole or this rank's model block (attention, the
+    # recurrences and the caches).  Over a data axis of one rank, or for a
+    # batch the data axes do not split, the rows are every row.
+    def row_split(self, n: int) -> bool:
+        """Do the data axes cut a batch of ``n`` rows (a serving layout)?"""
+        return self.dn > 1 and n % self.dn == 0
+
+    def serve_rows(self, n: int) -> slice:
+        """This rank's rows of a batch of ``n`` rows: its block where the
+        data axes cut the batch, else every row."""
+        if not self.row_split(n):
+            return slice(0, n)
+        i = self.mesh.axis_index(self.data)
+        return slice(i * n // self.dn, (i + 1) * n // self.dn)
+
+    def embed_slice(self, x: torch.Tensor) -> torch.Tensor:
+        """The embed slice of this rank's data index of ``x``'s last dim (a view)."""
+        if self.dn == 1:
+            return x
+        size = x.shape[-1] // self.dn
+        return x.narrow(-1, self.mesh.axis_index(self.data) * size, size)
+
+    def sum_rows(self, y: torch.Tensor) -> torch.Tensor:
+        """Partial products of every row, summed over the data axes, this
+        rank's rows of the sum: a reduce-scatter of dim 0 (a psum where
+        the rows do not split)."""
+        if self.dn == 1:
+            return y
+        if not self.row_split(y.shape[0]):
+            return self.mesh.psum(y, self._data_axes())
+        return self.mesh.reduce_scatter(y, self._data_axes(), dim=0)
+
+    def sum_data(self, y: torch.Tensor) -> torch.Tensor:
+        """Partial products summed over the data axes, every row."""
+        return y if self.dn == 1 else self.mesh.psum(y, self._data_axes())
+
+    def all_rows(self, y: torch.Tensor, n: int) -> torch.Tensor:
+        """This rank's rows ``y`` of a batch of ``n`` rows, every row: an
+        all-gather of dim 0 over the data axes."""
+        if not self.row_split(n):
+            return y
+        return self.mesh.all_gather(y, self._data_axes(), dim=0)
+
+    def rows_to_embed(self, t: torch.Tensor, n: int) -> torch.Tensor:
+        """A "rows" tensor whose last dim is the whole embed dim, embed-cut:
+        an all-to-all over the data axes (each rank keeps its slice of
+        every row)."""
+        if not self.row_split(n):
+            return self.embed_slice(t)
+        return self.mesh.all_to_all(t, self._data_axes(), split_dim=-1, concat_dim=0)
+
+    def embed_to_rows(self, t: torch.Tensor, n: int) -> torch.Tensor:
+        """An embed-cut tensor of ``n`` rows as this rank's rows with the
+        whole embed dim: the inverse all-to-all (an all-gather of the last
+        dim where the rows do not split)."""
+        if self.dn == 1:
+            return t
+        if not self.row_split(n):
+            return self.mesh.all_gather(t, self._data_axes(), dim=-1)
+        return self.mesh.all_to_all(t, self._data_axes(), split_dim=0, concat_dim=-1)
+
+    def sum_model(self, y: torch.Tensor) -> torch.Tensor:
+        """Partial products summed over ``model`` (none over one rank)."""
+        return y if self.model == 1 else self.mesh.psum(y, "model")
+
+    def gather_model(self, y: torch.Tensor, dim: int = -1) -> torch.Tensor:
+        """The model ranks' blocks of ``y`` along ``dim``, whole."""
+        return y if self.model == 1 else self.mesh.all_gather(y, "model", dim=dim)
+
+    def sum_rows_parts(self, *parts: torch.Tensor) -> list[torch.Tensor]:
+        """:meth:`sum_rows` of each of ``parts`` (one last dim each) in one
+        collective: their concatenation's."""
+        widths = [t.shape[-1] for t in parts]
+        return list(self.sum_rows(torch.cat(parts, dim=-1)).split(widths, dim=-1))
+
+    def gather_model_parts(self, *parts: torch.Tensor) -> list[torch.Tensor]:
+        """:meth:`gather_model` of the last dim of each of ``parts`` in one
+        all-gather: each rank's blocks side by side, then each part's
+        blocks in rank order."""
+        if self.model == 1:
+            return list(parts)
+        widths = [t.shape[-1] for t in parts]
+        both = self.mesh.all_gather(torch.cat(parts, dim=-1).unsqueeze(-2), "model", dim=-2)
+        return [t.flatten(-2) for t in both.split(widths, dim=-1)]
+
+    def model_block(self, x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+        """This rank's model block of ``x`` along ``dim`` (a view)."""
+        if self.model == 1:
+            return x
+        size = x.shape[dim] // self.model
+        return x.narrow(dim, self.mesh.axis_index("model") * size, size)

@@ -425,6 +425,44 @@ def test_flash_routes_match_plain(card, case, dtype):
     assert torch.equal(again, got)
 
 
+FLASH_DIAG_CASES = [
+    # (name, b, s, t, h, kh, d, diag, window): a slice of a KV cache cut over
+    # T, queries at offset, keys at lo: diag = offset - lo
+    ("decode_slice", 4, 1, 1040, 32, 4, 128, 1500, 0),   # yi decode on its owner's slice
+    ("decode_after", 4, 1, 1040, 32, 4, 128, -5, 0),     # the slice lies after the query
+    ("prompt_keyless_rows", 2, 300, 160, 8, 2, 64, -100, 0),  # rows 0-99 see no key
+    ("prompt_after", 2, 64, 96, 8, 2, 64, -200, 0),      # no row sees a key
+    ("window_slice", 2, 1, 1040, 25, 5, 64, 2100, 2048),  # part of the slice out of the window
+    ("window_prompt", 1, 200, 256, 4, 1, 32, 100, 64),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", FLASH_DIAG_CASES, ids=lambda c: c[0])
+def test_flash_diag_matches_plain(card, case, dtype):
+    """Each route with a diagonal other than T - S (a slice of a T-cut
+    cache) against the plain version, output and lse: rows that see no key
+    give zeros and -inf."""
+    from repro_torch.kernels.flash_attention import flash_attention_lse_ref
+
+    _, b, s, t, h, kh, d, diag, window = case
+    q, k, v = _flash_inputs(card, [(b, s, h, d), (b, t, kh, d), (b, t, kh, d)], dtype, t + s)
+    kw = dict(diag=diag, window=window)
+    route = flash_route(dtype, s, h, kh)
+    before = flash_attention.route_launches[route]
+    got, lse = flash_attention(q, k, v, return_lse=True, **kw)
+    torch.cuda.synchronize()
+    assert flash_attention.route_launches[route] == before + 1
+    want = flash_attention_ref(q, k, v, **kw)
+    want_lse = flash_attention_lse_ref(q, k, **kw)
+    tol = FLASH_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    keyless = torch.isinf(want_lse)
+    assert torch.equal(torch.isinf(lse), keyless) and bool((lse[keyless] < 0).all())
+    torch.testing.assert_close(lse[~keyless], want_lse[~keyless], atol=1e-4, rtol=0)
+    assert not got.transpose(1, 2)[keyless].any()
+
+
 def test_flash_split_decodes_on_two_streams(card):
     """yi's decode shape (B = 8, T = 2,048 of a 4,096-slot cache) on the
     split route from two streams at once, over and over: each stream's
