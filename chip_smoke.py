@@ -1,4 +1,4 @@
-"""Drive the PyTorch port's Gather service, DAPC, Filter pushdown, tree collectives, control layers, compiled SPMD rendering, yi-9b, rwkv6-1.6b, hymba-1.5b and granite-moe-1b-a400m serving, training, sharded training and sharded serving, and phi3.5-moe serving, once on an NVIDIA card.
+"""Drive the PyTorch port's Gather service, DAPC, Filter pushdown, tree collectives, control layers, compiled SPMD rendering, yi-9b, rwkv6-1.6b, hymba-1.5b and granite-moe-1b-a400m serving, training, sharded (ZeRO-1 and FSDP) training and sharded serving, phi3.5-moe serving, and qwen2.5-14b and starcoder2-15b, once on an NVIDIA card.
 
 Usage: ``python3 chip_smoke.py [--profile DIR]`` from the root of
 a checkout, on a host with one Hopper card (sm_90) and the CUDA toolkit.
@@ -64,10 +64,10 @@ a checkout, on a host with one Hopper card (sm_90) and the CUDA toolkit.
    ticks, 64 rows a shard of 16 f32; hot slot quota 2, queue limit 10,
    credit budget 1; ``poll_budget`` 32, ``credit_window`` 8, 32 slots)
    through ``TenantRouter`` in the solo, shared and qos arms of
-   ``benchmarks/tenancy.py``, on the card and on the CPU: equal
-   ``report()`` dicts, logged beside that JSON's; then the shared and qos
-   arms over the Gather table (without the solo arms, for the run's time;
-   their p95s' ratios logged).  Every served request bit-identical to the table,
+   ``benchmarks/tenancy.py``, on the card: ``report()`` dicts equal to that
+   JSON's (the JAX package's run); then the shared and qos
+   arms over the Gather table for 20 of the 40 ticks (without the solo
+   arms, for the run's time; their p95s' ratios logged).  Every served request bit-identical to the table,
    shed ones never served, ``embed_lookup`` launched once per server
    dispatch; the p95 ratios, shed total and the hot tenant's credit stalls
    logged.  (b) loss: DAPC as in 5 at ``BENCH_reliability.json``'s loss
@@ -162,17 +162,18 @@ a checkout, on a host with one Hopper card (sm_90) and the CUDA toolkit.
    from seed 0, 128 prompt tokens and 8 teacher-forced decode steps on the
    card (kernel) and on the CPU (plain version): logits within 1e-3, equal
    greedy tokens.
-13. Serving phase: yi-9b at full width and 8 of its 48 layers (bf16,
+13. Serving phase: yi-9b at full width and 4 of its 48 layers (bf16,
    random weights drawn on the card) behind ``ServeScheduler(slots=8,
-   t_max=4096)``: 16 requests with prompts of 256-3,072 tokens, 32 new
-   tokens each, every logit finite, ``flash_attention`` launched 8 x
-   (prefills + decode groups) times, 8 x prefills on the ``wgmma`` route
-   and 8 x decode groups on the ``split`` route; then a profiled decode
+   t_max=4096)``: 16 requests with prompts of 256-3,072 tokens, 16 new
+   tokens each, every logit finite, ``flash_attention`` launched 4 x
+   (prefills + decode groups) times, 4 x prefills on the ``wgmma`` route
+   and 4 x decode groups on the ``split`` route; then a profiled decode
    burst and prefill (busy share, the kernel's share).
 14. ``repro_torch.launch.serve --no-smoke --batch 4 --prompt-len 2048
-   --gen 32`` at full yi-9b (48 layers), local and with ``--remote-embed
-   --embed-servers 2``: the two token streams bit-identical,
-   ``embed_lookup`` launched in the remote run.
+   --gen 32`` at full yi-9b (48 layers), local, and ``--gen 8`` with
+   ``--remote-embed --embed-servers 2``: the remote stream bit-identical to
+   the local one's first 8 tokens, ``embed_lookup`` launched in the remote
+   run.
 15. Times ``flash_attention`` at the prefill (S = T = 2,048) and decode
    (B = 8, T = 2,048) shapes, and at hymba's and attend_sp's, and a (2, 2)
    rank's sliced decode call (B = 2 rows, yi's heads, 1,040 keys, with
@@ -198,14 +199,14 @@ a checkout, on a host with one Hopper card (sm_90) and the CUDA toolkit.
    over B 1 and 4 and T 128-3,072.
 18. The parity phase again on a 2-layer rwkv6-1.6b at full width (d_model
    2,048, 32 WKV heads, d_ff 7,168, vocab 65,536).
-19. The serving phase on rwkv6-1.6b at full width and 6 of its 24 layers
-   (bf16): the same 16 requests, ``wkv6`` launched 6 x (prefills + decode
-   groups) times, 6 x prefills on the ``split`` route and 6 x decode
+19. The serving phase on rwkv6-1.6b at full width and 4 of its 24 layers
+   (bf16): the same 16 requests, ``wkv6`` launched 4 x (prefills + decode
+   groups) times, 4 x prefills on the ``split`` route and 4 x decode
    groups on ``step``, and its profiled decode burst and prefill (the
    split's three device kernels a launch, each kernel's time by name).
-20. ``launch.serve`` at full rwkv6-1.6b, local and remote-embed: streams
-   bit-identical, ``wkv6`` launched 24 x (1 + 32) times in each, the
-   prefill's on ``split`` and the steps' on ``step``.
+20. ``launch.serve`` at full rwkv6-1.6b, local and remote-embed (8
+   tokens): streams bit-identical, ``wkv6`` launched 24 x (1 + 32) and 24
+   x (1 + 8) times, the prefill's on ``split`` and the steps' on ``step``.
 21. ssm_scan kernel phase: ``ssm_scan`` against its plain version on both
    routes at hymba-1.5b's prefill (B = 1, T = 2,048, D = 1,600, N = 16) and
    decode (B = 8, T = 1 from a state) shapes, T = 777 from a state and T a
@@ -233,8 +234,9 @@ a checkout, on a host with one Hopper card (sm_90) and the CUDA toolkit.
    line also logs, per kernel, the kernels recorded in the window, those
    matched to a launch in it by correlation id, the wrapper's launches in
    it and the names matched (ROADMAP T12).
-25. ``launch.serve`` at full hymba-1.5b, local and remote-embed: streams
-   bit-identical, each kernel launched 32 x (1 + 32) times in each.
+25. ``launch.serve`` at full hymba-1.5b, local and remote-embed (8
+   tokens): streams bit-identical, each kernel launched 32 x (1 + 32) and
+   32 x (1 + 8) times.
 26. Flash backward kernel phase: dQ, dK and dV of ``flash_attention_bwd``
    against its plain version on the same inputs, on the ``wgmma`` route
    (bf16: dK/dV and dQ on the tensor cores, P and dS rounded to bf16 in
@@ -253,10 +255,10 @@ a checkout, on a host with one Hopper card (sm_90) and the CUDA toolkit.
    weights: the loss and every gradient on the card against the CPU, and
    after one AdamW step every weight, m and v.
 28. Train phase: ``TrainDriver``'s step function and AdamW on yi-9b at full
-   width, 8 of its 48 layers, bf16, remat, 4 sequences of 4,096 tokens a
+   width, 4 of its 48 layers, bf16, remat, 4 sequences of 4,096 tokens a
    step in 2 microbatches, 6 steps over ``TokenPipeline`` batches: finite
-   losses, weights that move, 32 flash forward and 16 backward launches a
-   step, all 16 on ``wgmma``, and no plain version on the card; first,
+   losses, weights that move, 16 flash forward and 8 backward launches a
+   step, all 8 on ``wgmma``, and no plain version on the card; first,
    step 0's gradients on one microbatch through ``wgmma`` and through
    ``simt`` (global norm within 1%, each leaf's error logged); each step's
    seconds, tokens/s, peak memory and device seconds by stage, the last
@@ -291,12 +293,12 @@ a checkout, on a host with one Hopper card (sm_90) and the CUDA toolkit.
    in f32: each gradient within 1e-4 of its leaf's largest of the CPU's
    (rwkv6: within 2e-4 of an f64 run of the model on the card, the CPU's
    own error against it logged), the AdamW step within what that moves.
-33. The train phase (28) on rwkv6-1.6b (12 of its 24 layers) and
-   hymba-1.5b (16 of its 32, its global layers 7 and 15 among them) at
+33. The train phase (28) on rwkv6-1.6b (6 of its 24 layers) and
+   hymba-1.5b (8 of its 32, its global layer 7 among them) at
    full width, bf16, remat, 4 x 4,096 tokens a step in
-   2 microbatches, 4 steps: rwkv 48 ``wkv6`` and 24 ``wkv6_bwd`` launches a
-   step (all ``mma``); hymba 64 ``ssm_scan``, 32 ``ssm_scan_bwd`` (all
-   ``regs``), 64 flash forward and 32 flash backward (all ``wgmma``); no
+   2 microbatches, 4 steps: rwkv 24 ``wkv6`` and 12 ``wkv6_bwd`` launches a
+   step (all ``mma``); hymba 32 ``ssm_scan``, 16 ``ssm_scan_bwd`` (all
+   ``regs``), 32 flash forward and 16 flash backward (all ``wgmma``); no
    plain version on the card; each
    step's seconds, tokens/s, peak memory and device seconds by stage, and
    the profiled last step's share of each kernel kind.
@@ -314,9 +316,9 @@ a checkout, on a host with one Hopper card (sm_90) and the CUDA toolkit.
    (:func:`moe_stage_us`).  Then ``launch.serve`` (14), local only, at full
    granite-moe and at phi3.5-moe-42b-a6.6b's full width with 8 of its 32
    layers (``--layers 8``; all 32 hold ~84 GB of bf16 weights).
-37. The train phase (33) on granite-moe-1b-a400m at full width and 12 of
+37. The train phase (33) on granite-moe-1b-a400m at full width and 6 of
    its 24 layers, bf16, remat, 4 x 4,096 tokens a step in 2 microbatches,
-   4 steps: 48 flash forward and 24 backward (``wgmma``) launches a step, the aux loss
+   4 steps: 24 flash forward and 12 backward (``wgmma``) launches a step, the aux loss
    finite and above 0; then steps 0-1 again from the same seed, their
    losses bit-identical.
 38. Each MoE phase logs the elapsed time after it.  granite's smoke config
@@ -352,9 +354,29 @@ a checkout, on a host with one Hopper card (sm_90) and the CUDA toolkit.
    CPU, where no route flips); each rank's launches and routes in the
    prefill and the decode steps exact (one a layer a forward, embed_lookup
    one a forward).  Then each family in bf16 at 2 layers: a prompt of 4 x
-   2,048 into a cache of 2,080, 32 greedy steps: rank 0's prefill s and
+   2,048 into a cache of 2,080, 8 greedy steps: rank 0's prefill s and
    decode ms a token (host walls), a decode step's bytes by kind (each
    step's the same), each rank's peak memory.
+41. FSDP phase, in phase 39's ranks after its timed steps, on the same
+   (2, 2) mesh: the four families and qwen2.5-14b and starcoder2-15b at
+   full width and 2 layers in f32, one ``make_train_step(..., fsdp=True)``
+   step of 2 x 128 tokens (one microbatch) on each rank's ``fsdp_specs``
+   blocks (each layer's weights all-gathered over "data" where it runs,
+   its gradients reduce-scattered by those gathers' backwards), held as
+   phase 39 holds its step: against the unsharded step on the card (its
+   reference computed in turns of the ranks for qwen and starcoder, so
+   that one or two whole f32 models at a time lie on the card; rwkv6
+   against its f64 run), granite-moe against the same FSDP step on the
+   CPU; yi's blocks also against phase 39's ZeRO-1 step's (whether bit for
+   bit is logged); every rank's launches and routes exact.  Then yi and
+   qwen in bf16 with remat, 2 steps of 2 x 2,048 tokens at 2 layers: each
+   rank's step seconds, peak memory (yi's beside phase 39's ZeRO-1 peak)
+   and collective bytes by kind.
+42. The dense archs' phases, after the MoE phases: qwen2.5-14b (Q, K and
+   V biases) and starcoder2-15b (an ungated gelu MLP) at full width, phase
+   12's parity and phase 27's train parity at 2 layers in f32 (card
+   against CPU), then ``launch.serve`` in bf16, local, at 8 layers, each
+   layer's flash launches exact; the elapsed time after each arch.
 
 Prints one JSON line of kernel results, then the nvidia-smi line, then
 ``{"ok": true, "device": {...}}`` last.  Any failure exits non-zero with
@@ -445,14 +467,19 @@ PARITY_ATOL, PARITY_PROMPT, PARITY_STEPS = 1e-3, 128, 8
 # at prefill and at every decode step
 PARITY_PROMPT_BY_ARCH = {"hymba-1.5b": 2064}
 SERVE_SLOTS, SERVE_T_MAX, SERVE_REQUESTS, SERVE_NEW = 8, 4096, 16, 32
+# the schedulers' new tokens a request (32 through PR 29; cut for the run's
+# time, the decode groups halved, the 16 requests still queueing for 8 slots)
+SCHED_NEW = 16
 SERVE_PROMPT_MIN, SERVE_PROMPT_MAX = 256, 3072
 # the earlier slices' scheduler phases run at a cut depth, so that the whole
 # run stays well inside its 1,200 s limit on a slow host (cut to 8, 6 and 8
 # layers, hymba's global layer 7 kept, when the rwkv6 and hymba training
 # phases came; 16, 12 and 32 before; granite-moe at 8 of 24, its decode
 # steps host-bound at ~4 ms a layer, and at 4 since the sharded train phase
-# came); their launch.serve phases still run the full model
-SERVE_LAYERS = {"yi-9b": 8, "rwkv6-1.6b": 6, "hymba-1.5b": 8, "granite-moe-1b-a400m": 4}
+# came; yi and rwkv6 at 4 since the FSDP and dense-arch phases came, hymba
+# kept at 8 for its global layer 7); their launch.serve phases still run
+# the full model
+SERVE_LAYERS = {"yi-9b": 4, "rwkv6-1.6b": 4, "hymba-1.5b": 8, "granite-moe-1b-a400m": 4}
 LAUNCH_BATCH, LAUNCH_PROMPT = 4, 2048  # launch.serve's batch and prompt length
 # timed shapes (B, S, T) with yi's H=32, K=4, d=128 in bf16
 FLASH_TIMING = {"prefill": (1, 2048, 2048), "decode": (8, 1, 2048)}
@@ -468,6 +495,8 @@ PATH_KERNEL = {
     "hymba-1.5b": (("flash_attention", "flash"), ("ssm_scan", "ssm_scan")),
     "granite-moe-1b-a400m": (("flash_attention", "flash"),),
     "phi3.5-moe-42b-a6.6b": (("flash_attention", "flash"),),
+    "qwen2.5-14b": (("flash_attention", "flash"),),
+    "starcoder2-15b": (("flash_attention", "flash"),),
 }
 PROFILE_STEM = {"yi-9b": "lm", "rwkv6-1.6b": "rwkv", "hymba-1.5b": "hymba",
                 "granite-moe-1b-a400m": "granite", "phi3.5-moe-42b-a6.6b": "phi35"}
@@ -512,6 +541,10 @@ SPLIT_GRID_B, SPLIT_GRID_T = (1, 4), (128, 192, 256, 384, 512, 1024, 2048, 3072)
 # Filter's requests; the loss model's seed
 TENANCY_ROWS, TENANCY_DIM, TENANCY_N_KEYS = 64, 16, 8
 SANDBOX_REQUESTS, LOSS_SEED = 256, 1
+# for the run's time since the FSDP and dense-arch phases came (PR 30): the
+# tenant mix over the Gather table for TENANCY_TABLE_TICKS of the config's
+# 40 ticks
+TENANCY_TABLE_TICKS = 20
 # the compiled SPMD phase: 4 gloo ranks sharing the card, yi-9b's vocab
 # table, hymba's longest prompt (768 queries a rank); a dead rank fails the
 # others after SPMD_TIMEOUT
@@ -554,9 +587,10 @@ TRAIN_PARITY_SEQ, TRAIN_PARITY_BATCH, TRAIN_GRAD_RTOL, TRAIN_LR = 128, 1, 1e-4, 
 # largest, set between the kernels' and the plain versions' readings; the
 # CPU's error against it is logged
 TRAIN_F64_REF, TRAIN_F64_RTOL = ("rwkv6-1.6b",), 2e-4
-# the train phase: yi-9b at full width and 8 of its 48 layers, bf16, remat,
+# the train phase: yi-9b at full width and 4 of its 48 layers (8 through
+# PR 29), bf16, remat,
 # train_4k's 4,096 tokens, 4 sequences a step in 2 microbatches
-TRAIN_LAYERS, TRAIN_SEQ, TRAIN_BATCH, TRAIN_MICROBATCH, TRAIN_STEPS = 8, 4096, 4, 2, 6
+TRAIN_LAYERS, TRAIN_SEQ, TRAIN_BATCH, TRAIN_MICROBATCH, TRAIN_STEPS = 4, 4096, 4, 2, 6
 # step 0's gradients through the backward's two routes: bf16 P and dS
 # (wgmma) against f32 ones (simt) move the global norm by far less than 1%
 TRAIN_ROUTE_RTOL = 0.01
@@ -570,13 +604,13 @@ TRAIN_DIR = ROOT / "build" / "chip_smoke" / "train"
 # bf16 step, REC_BWD_BF16_RTOL of the value
 REC_BWD_TOL, REC_BWD_BF16_RTOL = 1e-4, 2.0**-7
 REC_TRAIN = (2, 4096)  # b, t: rwkv6's and hymba's train microbatch
-# the train phase's layers and steps by arch: yi at 8 of its 48 layers;
-# rwkv6, hymba and granite-moe at half their depth (12 of 24, 16 of 32 with
-# hymba's global layers 7 and 15, 12 of 24; at full depth their weights,
-# gradients and moments, ~25, ~22 and ~23 GB, fit the card, but the run's
-# time does not, beside the sharded train phase); 4 steps each
-TRAIN_DEPTH = {"yi-9b": (TRAIN_LAYERS, TRAIN_STEPS), "rwkv6-1.6b": (12, 4),
-               "hymba-1.5b": (16, 4), "granite-moe-1b-a400m": (12, 4)}
+# the train phase's layers and steps by arch: yi at 4 of its 48 layers;
+# rwkv6, hymba and granite-moe at a quarter of their depth (6 of 24, 8 of
+# 32 with hymba's global layer 7, 6 of 24; half through PR 29; at full
+# depth their weights, gradients and moments, ~25, ~22 and ~23 GB, fit the
+# card, but the run's time does not, beside the sharded phases); 4 steps
+TRAIN_DEPTH = {"yi-9b": (TRAIN_LAYERS, TRAIN_STEPS), "rwkv6-1.6b": (6, 4),
+               "hymba-1.5b": (8, 4), "granite-moe-1b-a400m": (6, 4)}
 # each arch's path kernels a train step launches, forward and backward
 TRAIN_KERNELS = {"yi-9b": (("flash_attention", "flash_attention_bwd"),),
                  "granite-moe-1b-a400m": (("flash_attention", "flash_attention_bwd"),),
@@ -599,8 +633,31 @@ DRIVER_STEPS, DRIVER_CKPT_EVERY, DRIVER_FAIL_AT, DRIVER_RESUME_TO = 12, 5, 8, 17
 SHARD_MESH, SHARD_SEQ, SHARD_BATCH = (2, 2), 128, 2
 SHARD_ARCHS = ("yi-9b", "rwkv6-1.6b", "hymba-1.5b", "granite-moe-1b-a400m")
 SHARD_TIME_SEQ, SHARD_TIME_BATCH, SHARD_TIME_STEPS = 2048, 2, 2
-SHARD_TIME_LAYERS = {"yi-9b": 2, "rwkv6-1.6b": 2, "hymba-1.5b": 2, "granite-moe-1b-a400m": 2}
+SHARD_TIME_LAYERS = {"yi-9b": 2, "rwkv6-1.6b": 2, "hymba-1.5b": 2, "granite-moe-1b-a400m": 2,
+                     "qwen2.5-14b": 2}
 SHARD_DIR = ROOT / "build" / "chip_smoke" / "sharded"
+# the FSDP phase (41), in phase 39's ranks after its ZeRO-1 steps: each arch
+# at full width, 2 layers, f32, one FSDP step of SHARD_BATCH x SHARD_SEQ,
+# one microbatch (FSDP_MICROBATCH: qwen2.5's and starcoder2's configs take
+# two, whose one row each would not split over the data axis); the
+# blocks cut, and the unsharded reference computed and held to, in
+# FSDP_TURNS turns of the ranks where four whole f32 models at once would
+# not fit the card beside the ranks' step results (qwen 2.11 B, starcoder
+# 1.37 B and yi 0.94 B parameters at 2 layers, yi beside phase 39's blocks;
+# four qwen ranks' references on the host outgrew its 96 GiB); yi's step also held
+# to phase 39's ZeRO-1 step within FSDP_ZERO1_RTOL of a leaf's largest
+# gradient (the same sums; f32's rounding of another order at most).
+# Then FSDP_TIME_ARCHS in bf16 with remat, phase 39's timing shapes
+FSDP_ARCHS = (*SHARD_ARCHS, "qwen2.5-14b", "starcoder2-15b")
+FSDP_TIME_ARCHS = ("yi-9b", "qwen2.5-14b")
+FSDP_MICROBATCH, FSDP_VS_ZERO1, FSDP_ZERO1_RTOL = 1, "yi-9b", 1e-6
+FSDP_TURNS = {"yi-9b": 2, "qwen2.5-14b": 4, "starcoder2-15b": 2}
+# a bound's f64 temporaries per piece of a leaf (chunks())
+HOLD_CHUNK = 1 << 24
+# the dense archs' phases (42): qwen2.5-14b and starcoder2-15b at full width,
+# phase 12's parity and phase 27's train parity at 2 layers, launch.serve in
+# bf16 at DENSE_SERVE_LAYERS of their 48 and 40 layers
+DENSE_ARCHS, DENSE_SERVE_LAYERS = ("qwen2.5-14b", "starcoder2-15b"), 8
 # rwkv6's sharded gradients are held to its f64 run, as phase 32 holds the
 # unsharded ones, within SHARD_F64_RTOL of a leaf's largest: at this draw
 # no f32 step meets phase 32's TRAIN_F64_RTOL (T16; on the H100 the
@@ -616,7 +673,7 @@ SHARD_F64_RTOL = 1e-3
 # (hymba's window of 2,048 then leaves part of rank 0's slice of 1,040
 # positions behind its last queries), then SERVE_TIME_STEPS decode steps
 SERVE_BATCH, SERVE_PROMPT, SERVE_T, SERVE_STEPS, SERVE_RTOL = 4, 128, 160, 8, 1e-3
-SERVE_TIME_PROMPT, SERVE_TIME_T, SERVE_TIME_STEPS = 2048, 2080, 32
+SERVE_TIME_PROMPT, SERVE_TIME_T, SERVE_TIME_STEPS = 2048, 2080, 8  # 32 through PR 29
 SERVE_DIR = ROOT / "build" / "chip_smoke" / "sharded_serve"
 # the flash phase's sliced calls (a rank's slice of a KV cache cut over T):
 # yi's decode rows of a (2, 2) rank over its 1,040 keys, timed beside the
@@ -633,6 +690,10 @@ MOE_ARCH, PHI_ARCH, PHI_LAYERS = "granite-moe-1b-a400m", "phi3.5-moe-42b-a6.6b",
 # host), and so the remote rows' widths that the embed_lookup phases check
 # and time
 REMOTE_ARCHS = ("yi-9b", "rwkv6-1.6b", "hymba-1.5b")
+# the remote arm's tokens (PR 30; 32 before, ~13-17 s an arch on a slow
+# host, each token's rows a gather over the PE fabric on the host), held to
+# the local arm's first REMOTE_NEW
+REMOTE_NEW = 8
 # a route that flips between card and CPU: the two experts' f32 router
 # logits (|logit| up to ~3: scale 0.02 over d_model 1,024 of rms-normed
 # inputs) lie within what the inputs' f32 rounding moves them, ~1e-6; a flip
@@ -2098,12 +2159,12 @@ def _finite(fn):
 
 
 def serving_phase(dev, profile_dir: str | None, arch: str = "yi-9b") -> dict:
-    """``arch`` at full width (at the depth of SERVE_LAYERS: yi-9b 8 of 48,
-    rwkv6-1.6b 6 of 24, hymba-1.5b 8 of 32, granite-moe 4 of 24 layers;
+    """``arch`` at full width (at the depth of SERVE_LAYERS: yi-9b 4 of 48,
+    rwkv6-1.6b 4 of 24, hymba-1.5b 8 of 32, granite-moe 4 of 24 layers;
     bf16, random weights
     drawn on the card) behind ServeScheduler(slots 8,
     t_max 4,096): 16 requests with prompts of 256-3,072 tokens
-    (default_rng(0)), 32 new tokens each.  Each of the arch's kernels
+    (default_rng(0)), SCHED_NEW new tokens each.  Each of the arch's kernels
     (PATH_KERNEL) must launch once per layer per prefill and per decode
     group."""
     from repro_torch.configs import get_config
@@ -2130,7 +2191,7 @@ def serving_phase(dev, profile_dir: str | None, arch: str = "yi-9b") -> dict:
         sched._prefill = lambda *a, **kw: (drops.mark(next(n_pre)), prefill(*a, **kw))[1]
         sched._step = lambda *a, **kw: (drops.mark("decode"), step(*a, **kw))[1]
     for p in prompts:
-        sched.submit(p, SERVE_NEW)
+        sched.submit(p, SCHED_NEW)
     torch.cuda.synchronize()
     reset_launches()  # the serving path's launches are counted from here
     t = time.perf_counter()
@@ -2139,7 +2200,7 @@ def serving_phase(dev, profile_dir: str | None, arch: str = "yi-9b") -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t
     launches = launch_counts()
-    if len(done) != SERVE_REQUESTS or any(len(r.out) != SERVE_NEW for r in done):
+    if len(done) != SERVE_REQUESTS or any(len(r.out) != SCHED_NEW for r in done):
         raise AssertionError(f"serving: {len(done)} requests done, lengths "
                              f"{sorted(len(r.out) for r in done)}")
     want = cfg.n_layers * (sched.prefills + sched.decode_groups)
@@ -2160,8 +2221,8 @@ def serving_phase(dev, profile_dir: str | None, arch: str = "yi-9b") -> dict:
                                  f"{cfg.n_layers} x {sched.decode_groups}")
     ttft = [r.t_first - r.t_submit for r in done]
     rec = dict(wall_s=wall, prefills=sched.prefills, decode_groups=sched.decode_groups,
-               prompt_tokens=int(lengths.sum()), new_tokens=SERVE_REQUESTS * SERVE_NEW,
-               tok_s=SERVE_REQUESTS * SERVE_NEW / wall, ttft_s_max=max(ttft),
+               prompt_tokens=int(lengths.sum()), new_tokens=SERVE_REQUESTS * SCHED_NEW,
+               tok_s=SERVE_REQUESTS * SCHED_NEW / wall, ttft_s_max=max(ttft),
                **{f"{short}_launches": launches[kernel] for kernel, short in PATH_KERNEL[arch]},
                **{f"{short}_routes": routes[kernel] for kernel, short in PATH_KERNEL[arch]})
     if cfg.family == "moe":  # the choices each prefill dropped (of prompt x top-k), and decode's
@@ -2171,7 +2232,7 @@ def serving_phase(dev, profile_dir: str | None, arch: str = "yi-9b") -> dict:
         rec["moe_decode_dropped_choices"] = totals.get("decode", [0, 0])
     prefix = line_prefix(arch)
     shorts = " and ".join(short for _, short in PATH_KERNEL[arch])
-    log(f"{prefix}serving scheduler: {SERVE_REQUESTS} requests x {SERVE_NEW} tokens, all "
+    log(f"{prefix}serving scheduler: {SERVE_REQUESTS} requests x {SCHED_NEW} tokens, all "
         f"finite, {shorts} launches = {cfg.n_layers} x (prefills + decode groups): "
         f"{json.dumps(rec)}")
     rec["burst"] = decode_burst(cfg, model, sched.cache, dev, profile_dir, arch)
@@ -2281,9 +2342,11 @@ def decode_burst(cfg, model, cache, dev, profile_dir: str | None, arch: str = "y
 
 def launch_serve_phase(dev, arch: str = "yi-9b", layers: int | None = None) -> dict:
     """repro_torch.launch.serve at full ``arch`` (or its first ``layers``
-    layers, ``--layers``): local, then (for REMOTE_ARCHS) remote-embed over
-    2 embedding servers, same seed; the streams must be bit-identical and
-    each of the arch's kernels launched once per layer per forward.  For an
+    layers, ``--layers``): local (SERVE_NEW tokens), then (for
+    REMOTE_ARCHS) remote-embed over 2 embedding servers, same seed,
+    REMOTE_NEW tokens; the remote stream must be the local one's first
+    tokens bit for bit and each of the arch's kernels launched once per
+    layer per forward.  For an
     MoE arch each run also logs the choices its prefill dropped."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import WRAPPERS, launch_counts, reset_launches
@@ -2292,18 +2355,19 @@ def launch_serve_phase(dev, arch: str = "yi-9b", layers: int | None = None) -> d
     cfg = get_config(arch)
     n_layers = layers or cfg.n_layers
     argv = ["--arch", arch, "--no-smoke", "--batch", str(LAUNCH_BATCH), "--prompt-len",
-            str(LAUNCH_PROMPT), "--gen", str(SERVE_NEW), "--seed", "0", "--device", str(dev)]
+            str(LAUNCH_PROMPT), "--seed", "0", "--device", str(dev)]
     if layers:
         argv += ["--layers", str(layers)]
     prefix = line_prefix(arch)
     runs = {}
-    arms = (("local", []), ("remote", ["--remote-embed", "--embed-servers", "2"]))
-    for name, extra in arms[: 2 if arch in REMOTE_ARCHS else 1]:
+    arms = (("local", SERVE_NEW, []),
+            ("remote", REMOTE_NEW, ["--remote-embed", "--embed-servers", "2"]))
+    for name, new, extra in arms[: 2 if arch in REMOTE_ARCHS else 1]:
         reset_launches()
         t = time.perf_counter()
         drops = DropCount() if cfg.family == "moe" else contextlib.nullcontext()
         with drops:
-            rec, toks = serve(argv + extra)
+            rec, toks = serve(argv + ["--gen", str(new)] + extra)
         torch.cuda.synchronize()
         launches = launch_counts()
         rec["wall_s"], rec["launches"] = time.perf_counter() - t, launches
@@ -2315,22 +2379,23 @@ def launch_serve_phase(dev, arch: str = "yi-9b", layers: int | None = None) -> d
                          for k in (*(k for k, _ in PATH_KERNEL[arch]), "embed_lookup")}
         runs[name] = (rec, toks)
         log(f"{prefix}launch.serve {name}: {json.dumps(rec)}")
-        if any(launches[k] != n_layers * (1 + SERVE_NEW) for k, _ in PATH_KERNEL[arch]):
+        if any(launches[k] != n_layers * (1 + new) for k, _ in PATH_KERNEL[arch]):
             raise AssertionError(f"{prefix}launch.serve {name}: {launches} launches")
         for kernel, _ in PATH_KERNEL[arch]:  # the prefill on one route, each step on another
             pre, dec = PATH_ROUTES[kernel]
             routes = rec["routes"][kernel]
-            if (routes[pre], routes[dec]) != (n_layers, n_layers * SERVE_NEW):
+            if (routes[pre], routes[dec]) != (n_layers, n_layers * new):
                 raise AssertionError(f"{prefix}launch.serve {name}: {kernel} routes {routes}")
         torch.cuda.empty_cache()
     if "remote" not in runs:
         return {"local": runs["local"][0]}
-    if not np.array_equal(runs["local"][1], runs["remote"][1]):
+    # greedy decode: the remote stream is the local one's first REMOTE_NEW tokens
+    if not np.array_equal(runs["local"][1][:, :REMOTE_NEW], runs["remote"][1]):
         raise AssertionError(f"{prefix}launch.serve: remote-embed stream differs from the local one")
     if runs["remote"][0]["launches"]["embed_lookup"] == 0:
         raise AssertionError(f"{prefix}launch.serve remote: no embed_lookup launch")
-    log(f"{prefix}launch.serve: local and remote-embed token streams bit-identical "
-        f"({runs['local'][1].size} tokens)")
+    log(f"{prefix}launch.serve: remote-embed token stream bit-identical to the local one's "
+        f"first {REMOTE_NEW} tokens ({runs['remote'][1].size} tokens)")
     return {name: rec for name, (rec, _) in runs.items()}
 
 
@@ -2968,9 +3033,12 @@ def tenancy_reports(ab: dict) -> dict:
 
 
 def tenancy_phase(dev, table: np.ndarray) -> dict:
-    """``BENCH_tenancy.json``'s config on the card and on the CPU in this
-    process, equal reports; then the same tenant mix over the Gather
-    phase's table on the card."""
+    """``BENCH_tenancy.json``'s config on the card, its reports equal to
+    that JSON's (the JAX package's run of the config;
+    ``tests/test_torch_tenancy.py`` holds the port's CPU run to the JAX
+    router's on the tiny config; through PR 29 the card was held to a CPU
+    run of the port here, ~50 s of the run);
+    then the same tenant mix over the Gather phase's table on the card."""
     from repro_torch.kernels import launch_counts, reset_launches
 
     ref = json.loads((ROOT / "BENCH_tenancy.json").read_text())
@@ -2982,25 +3050,21 @@ def tenancy_phase(dev, table: np.ndarray) -> dict:
     t = time.perf_counter()
     card = tenancy_ab(dev, tenants, plan, cfg, n_keys=TENANCY_N_KEYS)
     wall_card = time.perf_counter() - t
-    t = time.perf_counter()
-    host = tenancy_ab(torch.device("cpu"), tenants, plan, cfg, n_keys=TENANCY_N_KEYS)
-    wall_host = time.perf_counter() - t
-    if tenancy_reports(card) != tenancy_reports(host):
-        raise AssertionError(f"tenancy: card reports {json.dumps(tenancy_reports(card))} "
-                             f"differ from the CPU's {json.dumps(tenancy_reports(host))}")
     bench = {f"solo {n}": a for n, a in ref["solo"].items()} | {
         "shared": ref["shared"], "qos": ref["qos"]}
     bench = {name: {k: a[k] for k in REPORT_KEYS} for name, a in bench.items()}
+    if tenancy_reports(card) != bench:
+        raise AssertionError(f"tenancy: card reports {json.dumps(tenancy_reports(card))} "
+                             f"differ from BENCH_tenancy.json's {json.dumps(bench)}")
     heads = ("bg_p95_ratio", "bg_p95_ratio_unprotected", "hot_p95_ratio", "shed_total",
              "hot_credit_stalls")
-    log(f"tenancy BENCH_tenancy.json config: card and CPU reports equal; wall_s card "
-        f"{wall_card}, CPU {wall_host}; {card['launches']} embed_lookup launches = server "
+    log(f"tenancy BENCH_tenancy.json config: card reports equal to BENCH_tenancy.json's; "
+        f"wall_s card {wall_card}; {card['launches']} embed_lookup launches = server "
         f"dispatches; "
-        f"reports equal to BENCH_tenancy.json's: {tenancy_reports(card) == bench}; "
         f"{json.dumps({k: card[k] for k in heads})} (BENCH_tenancy.json "
         f"{json.dumps({k: ref[k] for k in heads})}); qos arm {json.dumps(card['qos']['tenants'])}")
     vocab = table.shape[0]
-    big_plan = make_schedule(tenants, vocab, TENANCY_N_KEYS, cfg["duration"], 1)
+    big_plan = make_schedule(tenants, vocab, TENANCY_N_KEYS, TENANCY_TABLE_TICKS, 1)
     t = time.perf_counter()
     big = tenancy_ab(dev, tenants, big_plan, cfg, table=table, n_keys=TENANCY_N_KEYS,
                      solo=False)
@@ -4381,13 +4445,15 @@ def train_parity_phase(dev, arch: str = "yi-9b") -> dict:
     TRAIN_GRAD_RTOL of its largest of the CPU's (rwkv6: within
     TRAIN_F64_RTOL of an f64 run's, TRAIN_F64_REF); then one AdamW step of
     ``make_train_step`` on the card against AdamW.update of the reference
-    gradients on the host (as make_train_step applies them): every weight,
+    gradients (as make_train_step applies them): every weight,
     m and v within :func:`train_step_bound` of the gradient bound and the
-    two clip factors."""
+    two clip factors (the reference step leaf by leaf on the card)."""
     from repro_torch.configs import get_config
     from repro_torch.models import zoo
     from repro_torch.models.common import ParamFactory
-    from repro_torch.optim import AdamW
+    from repro_torch.optim import AdamW, OptState
+    from repro_torch.optim.adamw import global_norm
+    from repro_torch.sharding.partition import leaf_key
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -4399,14 +4465,18 @@ def train_parity_phase(dev, arch: str = "yi-9b") -> dict:
     batch = zoo.make_batch(cfg, zoo.ShapeSpec("t", TRAIN_PARITY_SEQ, TRAIN_PARITY_BATCH,
                                               "train"), 0, device="cpu")
     card_batch = {k: x.to(dev) for k, x in batch.items()}
-    card_loss, card_g = _grads(cfg, card_model, card_batch)
+    # the card's gradients stay on the card (qwen2.5's 8.4 GB would join the
+    # host's copy of the model, its gradients and moments there)
+    card_loss, card_g = _dev_grads(cfg, card_model, card_batch)
+    card_g = zoo.to_jax_params(cfg, card_g)
     host_loss, host_g, host_raw = _grads(cfg, host_model, batch, raw=True)
     rec = {"loss_card": card_loss, "loss_cpu": host_loss, "reference": "cpu",
            "grad_rel_err": {}}
     if not abs(card_loss - host_loss) <= PARITY_ATOL:
         raise AssertionError(f"train parity {arch}: loss {card_loss} on the card, {host_loss} "
                              "on the CPU")
-    rel = lambda g, ref: (g - ref).abs().max().item() / max(ref.abs().max().item(), 1e-30)
+    rel = lambda g, ref: (g - ref.to(g.device)).abs().max().item() / max(
+        ref.abs().max().item(), 1e-30)
     ref_g, ref_raw, rtol = host_g, host_raw, TRAIN_GRAD_RTOL
     if arch in TRAIN_F64_REF:
         ref_g, ref_raw = _f64_grads(cfg, card_model, card_batch)
@@ -4417,62 +4487,71 @@ def train_parity_phase(dev, arch: str = "yi-9b") -> dict:
     for name, g in ref_g.items():
         rec["grad_rel_err"][name] = rel(card_g[name], g)
     off = {name: rec["grad_rel_err"][name] for name, g in ref_g.items()
-           if not (card_g[name] - g).abs().max().item() <= grad_bound[name]}
+           if not (card_g[name] - g.to(dev)).abs().max().item() <= grad_bound[name]}
     if off:
         log(f"train parity {arch}: gradient relative errors {json.dumps(rec)}")
         raise AssertionError(f"train parity {arch}: gradients off by more than {rtol} of each "
                              f"leaf's largest (relative errors): {off}")
-    opts = AdamW(lr=TRAIN_LR), AdamW(lr=TRAIN_LR)
-    states = [{"params": m, "opt": o.init(zoo.model_params(m)), "step": 0}
-              for m, o in zip((card_model, host_model), opts)]
-    _, card_m = zoo.make_train_step(cfg, opts[0])(states[0], {k: x.to(dev) for k, x in
-                                                             batch.items()})
-    # on the host the same step from the reference gradients: make_train_step
-    # with one microbatch on the CPU takes the CPU's again (the same sums,
-    # bit for bit) and hands them to AdamW.update
-    with torch.no_grad():
-        *_, host_m = opts[1].update(ref_raw, states[1]["opt"], zoo.model_params(host_model))
-    del ref_raw
-    scale = min(1.0, 1.0 / float(host_m["grad_norm"]))
+    del card_g
+    opt = AdamW(lr=TRAIN_LR)
+    state = {"params": card_model, "opt": opt.init(zoo.model_params(card_model)), "step": 0}
+    _, card_m = zoo.make_train_step(cfg, opt)(state, card_batch)
+    # the reference step: AdamW.update of the reference gradients from the
+    # same weights (the host's copy), as make_train_step hands a one-
+    # microbatch step's gradients to it, with their global-norm clip; leaf
+    # by leaf on the card (the same f32 elementwise arithmetic as on the
+    # host, where a whole f32 AdamW and its copies took qwen2.5 most of a
+    # minute), each leaf held to the card's step at once
+    host_params = zoo.model_params(host_model)
+    ref_norm = float(global_norm(ref_raw[k] for k in host_params))
+    scale = min(1.0, opt.clip_norm / max(ref_norm, 1e-9))
     # the clip factors differ where the gradients' bound lets the global
     # norms differ (rwkv6: by ~1.2e-4 of the norm)
     dscale = abs(min(1.0, 1.0 / float(card_m["grad_norm"])) - scale)
-    rec["grad_norm_card"], rec["grad_norm_ref"] = (float(card_m["grad_norm"]),
-                                                   float(host_m["grad_norm"]))
-    trees = [(zoo.to_jax_params(cfg, st["params"]), zoo.to_jax_params(cfg, st["opt"].m),
-              zoo.to_jax_params(cfg, st["opt"].v)) for st in states]
+    rec["grad_norm_card"], rec["grad_norm_ref"] = float(card_m["grad_norm"]), ref_norm
+    noclip = dataclasses.replace(opt, clip_norm=None)
+    card_params = zoo.model_params(card_model)
     worst = {"params": 0.0, "m": 0.0, "v": 0.0}
     # the bounds and comparisons on the card (f64 over yi's 0.9 B weights
-    # takes the host ~1 min)
-    for name, g in ref_g.items():
-        g = g.to(dev)
-        bounds = train_step_bound(g, grad_bound[name], scale, dscale, TRAIN_LR)
-        for i, what in enumerate(("params", "m", "v")):
-            card, host = trees[0][i][name], trees[1][i][name].to(dev)
-            lim = {"m": bounds[0], "v": bounds[1], "params": bounds[2]}[what]
-            # and f32's own rounding: 1e-6 of a value; a weight's update is
-            # lr times an O(1) quotient, good to ~1e-6 of lr, which a weight
-            # that the step brings near 0 does not scale down
-            lim = lim + 1e-6 * host.abs() + (TRAIN_LR * 1e-6 if what == "params" else 1e-12)
-            bad = ((card - host).abs() > lim).flatten().nonzero()[:, 0].cpu()
-            worst[what] = max(worst[what], (card - host).abs().max().item())
-            if len(bad):
-                at = bad[:6]
-                show = {"g_ref": g.cpu().flatten()[at], "g_card": card_g[name].flatten()[at],
-                        **{f"{w}_{side}": trees[j][i2][name].cpu().flatten()[at]
-                           for j, side in enumerate(("card", "ref"))
-                           for i2, w in enumerate(("params", "m", "v"))}}
-                log(f"train parity {arch}: {len(bad)} elements of {what} {name} past the "
-                    f"bound; first: {({k: v.tolist() for k, v in show.items()})}, "
-                    f"scale {scale}")
-                raise AssertionError(f"train parity {arch}: {len(bad)} elements of {what} "
-                                     f"{name} past the bound the gradient tolerance allows")
-        del g, bounds, card, host, lim
+    # takes the host ~1 min), in HOLD_CHUNK pieces of a leaf (qwen's table
+    # alone is 0.78 G elements)
+    for name, p0 in host_params.items():
+        g = ref_raw.pop(name).to(dev)
+        ref = {"params": p0.to(dev, copy=True), "m": torch.zeros_like(g),
+               "v": torch.zeros_like(g)}
+        noclip.update({name: g * scale}, OptState(
+            m={name: ref["m"]}, v={name: ref["v"]},
+            count=torch.zeros((), dtype=torch.int32, device=dev)), {name: ref["params"]})
+        card = {"params": card_params[name], "m": state["opt"].m[name],
+                "v": state["opt"].v[name]}
+        kinds = ("params", "m", "v")
+        for at, (*pairs, gc) in chunks(*(card[k] for k in kinds), *(ref[k] for k in kinds), g):
+            bounds = train_step_bound(gc, grad_bound[leaf_key(name)], scale, dscale, TRAIN_LR)
+            for i, what in enumerate(kinds):
+                got, want = pairs[i], pairs[3 + i]
+                lim = {"m": bounds[0], "v": bounds[1], "params": bounds[2]}[what]
+                # and f32's own rounding: 1e-6 of a value; a weight's update is
+                # lr times an O(1) quotient, good to ~1e-6 of lr, which a weight
+                # that the step brings near 0 does not scale down
+                lim = lim + 1e-6 * want.abs() + (TRAIN_LR * 1e-6 if what == "params" else 1e-12)
+                bad = ((got - want).abs() > lim).nonzero()[:, 0]
+                worst[what] = max(worst[what], (got - want).abs().max().item())
+                if len(bad):
+                    idx = bad[:6]
+                    show = {"at": (idx + at).tolist(), "g_ref": gc[idx].tolist(),
+                            **{f"{w}_{side}": pairs[3 * j + i2][idx].tolist()
+                               for j, side in enumerate(("card", "ref"))
+                               for i2, w in enumerate(kinds)}}
+                    log(f"train parity {arch}: {len(bad)} elements of {what} {name} past the "
+                        f"bound; first: {show}, scale {scale}")
+                    raise AssertionError(f"train parity {arch}: {len(bad)} elements of {what} "
+                                         f"{name} past the bound the gradient tolerance allows")
+        del g, ref, card, bounds, lim
     rec["max_abs_err_after_step"] = worst
     rec["seconds"] = time.perf_counter() - t
     log(f"train parity: 2-layer {arch} full width f32, B={TRAIN_PARITY_BATCH} "
         f"S={TRAIN_PARITY_SEQ}, card vs {rec['reference']}: {json.dumps(rec)}")
-    del card_model, host_model, states, trees
+    del card_model, host_model, state
     torch.cuda.empty_cache()
     return rec
 
@@ -4918,10 +4997,11 @@ class PairDrops:
 
 
 def _sharded_step(cfg, model, batch, mesh, lay, opt) -> dict:
-    """One sharded train step of ``model`` (this rank's blocks) from fresh
-    moments: its loss and clip norm, its reduced gradient blocks (as the
-    ZeRO-1 update takes them), its param, m and v blocks after, the step's
-    seconds, collective bytes and launches by route."""
+    """One sharded train step of ``model`` (this rank's blocks under
+    ``lay``, ZeRO-1's or FSDP's) from fresh moments: its loss and clip
+    norm, its reduced gradient blocks (as the update takes them), its
+    param, m and v blocks after, the step's seconds, collective bytes and
+    launches by route."""
     from repro_torch.kernels import WRAPPERS, launch_counts, reset_launches
     from repro_torch.models import zoo
     from repro_torch.sharding.partition import Layout
@@ -4940,7 +5020,7 @@ def _sharded_step(cfg, model, batch, mesh, lay, opt) -> dict:
             stages[stage] = stages.get(stage, 0.0) + now - marks[0]
             marks[0] = now
 
-        step = zoo.make_train_step(cfg, opt, mark=mark, mesh=mesh)
+        step = zoo.make_train_step(cfg, opt, mark=mark, mesh=mesh, fsdp=lay.fsdp)
         reset_launches()
         mesh.reset_counters()
         torch.cuda.synchronize()
@@ -4964,30 +5044,43 @@ def _sharded_step(cfg, model, batch, mesh, lay, opt) -> dict:
     }
 
 
+def chunks(*ts: torch.Tensor):
+    """``(offset, pieces)`` of the flattened ``ts`` in HOLD_CHUNK pieces, on
+    the first one's device (an elementwise bound's f64 temporaries over
+    a whole 0.8 G-element leaf would not fit beside the state)."""
+    dev = ts[0].device
+    flat = [t.reshape(-1) for t in ts]
+    for i in range(0, flat[0].numel(), HOLD_CHUNK):
+        yield i, [f[i : i + HOLD_CHUNK].to(dev) for f in flat]
+
+
 def _hold_blocks(what: str, got: dict, ref_grads: dict, ref_after: dict, leaf_max: dict,
                  rtol: float, scale: float, dscale: float) -> dict:
     """This rank's reduced gradient blocks within ``rtol`` of each leaf's
     largest reference |gradient|, and its param, m and v blocks within
     :func:`train_step_bound` of the reference step's (plus f32's own
-    rounding, as the train parity phase allows).  Returns the largest
-    errors; the leaves off their bound listed under ``off``."""
+    rounding, as the train parity phase allows), leaf by leaf in
+    HOLD_CHUNK pieces on the card (the reference may lie on the host).
+    Returns the largest errors; the leaves off their bound listed under
+    ``off``."""
     out = {"grad_rel_err": 0.0, "params": 0.0, "m": 0.0, "v": 0.0, "off": []}
     for name, g_ref in ref_grads.items():
         bound = rtol * leaf_max[name]
-        err = (got["grads"][name] - g_ref).abs().max().item()
+        err = max((a - b).abs().max().item() for _, (a, b) in chunks(got["grads"][name], g_ref))
         out["grad_rel_err"] = max(out["grad_rel_err"], err / max(leaf_max[name], 1e-30))
         if not err <= bound:
             out["off"].append(("grad", name, err / max(leaf_max[name], 1e-30)))
             continue
-        bounds = train_step_bound(g_ref, bound, scale, dscale, TRAIN_LR)
-        for i, kind in enumerate(("params", "m", "v")):
-            card, ref = got["after"][name][i].double(), ref_after[name][i].double()
-            lim = ({"m": bounds[0], "v": bounds[1], "params": bounds[2]}[kind]
-                   + 1e-6 * ref.abs() + (TRAIN_LR * 1e-6 if kind == "params" else 1e-12))
-            diff = (card - ref).abs()
-            out[kind] = max(out[kind], diff.max().item())
-            if not bool((diff <= lim).all()):
-                out["off"].append((kind, name, diff.max().item()))
+        for _, (*pairs, g) in chunks(*got["after"][name], *ref_after[name], g_ref):
+            bounds = train_step_bound(g, bound, scale, dscale, TRAIN_LR)
+            for i, kind in enumerate(("params", "m", "v")):
+                card, ref = pairs[i].double(), pairs[3 + i].double()
+                lim = ({"m": bounds[0], "v": bounds[1], "params": bounds[2]}[kind]
+                       + 1e-6 * ref.abs() + (TRAIN_LR * 1e-6 if kind == "params" else 1e-12))
+                diff = (card - ref).abs()
+                out[kind] = max(out[kind], diff.max().item())
+                if not bool((diff <= lim).all()):
+                    out["off"].append((kind, name, diff.max().item()))
     return out
 
 
@@ -5035,12 +5128,14 @@ def _reference_blocks(cfg, full, batch, lay, mesh, opt, arch: str) -> dict:
     return out
 
 
-def sharded_parity_rank(arch: str, mesh, dev) -> dict:
+def sharded_parity_rank(arch: str, mesh, dev, keep: bool = False) -> dict:
     """One rank's part of the sharded parity for ``arch``: the unsharded
     reference's blocks, then the sharded step, held to them.  granite-moe:
     the same sharded step on the CPU (its blocks, the same gloo mesh), the
     card held to it where no route flips, and its gap to the unsharded
-    step logged with the choices each pair drops."""
+    step logged with the choices each pair drops.  ``keep``: the step's
+    reduced gradient blocks and its param, m and v blocks after, on the
+    card under ``"blocks"`` (phase 41 holds its FSDP step to them)."""
     from repro_torch.configs import get_config
     from repro_torch.models import zoo
     from repro_torch.optim import AdamW
@@ -5101,27 +5196,42 @@ def sharded_parity_rank(arch: str, mesh, dev) -> dict:
                stage_s=got["stage_s"],
                bytes=got["bytes"], bwd_bytes=got["bwd_bytes"], launches=got["launches"],
                routes_by_kernel=got["routes"])
+    if keep:  # copies on the card (a param block is a view of the TP block)
+        rec["blocks"] = {"grads": {n: g.clone() for n, g in got["grads"].items()},
+                         "after": {n: tuple(t.clone() for t in a)
+                                   for n, a in got["after"].items()}}
     del model, host, got, ref
     torch.cuda.empty_cache()
     return rec
 
 
-def sharded_timing_rank(arch: str, mesh, dev) -> dict:
-    """``arch`` at full width and SHARD_TIME_LAYERS, bf16, remat: this
-    rank's step seconds (host walls: gloo stages every collective through
-    the host), peak memory, collective bytes by kind (the backward's too)
-    and launches by route, SHARD_TIME_STEPS steps."""
+def sharded_timing_rank(arch: str, mesh, dev, fsdp: bool = False) -> dict:
+    """``arch`` at full width and SHARD_TIME_LAYERS, bf16, remat (with
+    ``fsdp`` on FSDP blocks, one microbatch: FSDP_MICROBATCH): this rank's
+    step seconds (host walls: gloo stages every collective through the
+    host), peak memory (``peak_gb`` from before the weights are built and
+    cut, as phase 39 has logged it; ``step_peak_gb`` over the steps alone;
+    both less what the rank held before, ``held_gb``: phase 39's kept
+    blocks), collective bytes by kind (the backward's too) and launches by
+    route, SHARD_TIME_STEPS steps."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import WRAPPERS, launch_counts, reset_launches
     from repro_torch.models import zoo
     from repro_torch.optim import AdamW
 
     cfg = get_config(arch).replace(n_layers=SHARD_TIME_LAYERS[arch])
-    lay, opt = zoo.layout(cfg, mesh), AdamW(lr=TRAIN_LR)
+    if fsdp:
+        cfg = cfg.replace(microbatch=FSDP_MICROBATCH)
+    lay, opt = zoo.layout(cfg, mesh, fsdp=fsdp), AdamW(lr=TRAIN_LR)
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated(dev)
     torch.cuda.reset_peak_memory_stats(dev)
     model = zoo.shard_params(cfg, zoo.build_params(cfg, 0, device=dev), mesh, lay)
     torch.cuda.empty_cache()
     state = {"params": model, "step": 0, "opt": opt.init(zoo.model_params(model), constrain=lay)}
+    torch.cuda.synchronize()
+    built_gb = (torch.cuda.max_memory_allocated(dev) - held) / 1e9
+    torch.cuda.reset_peak_memory_stats(dev)
     stages, marks = {}, [0.0]
 
     def mark(stage):  # host seconds to each stage's end (a synchronize at each)
@@ -5130,7 +5240,7 @@ def sharded_timing_rank(arch: str, mesh, dev) -> dict:
         stages[stage] = stages.get(stage, 0.0) + now - marks[0]
         marks[0] = now
 
-    step = zoo.make_train_step(cfg, opt, mark=mark, mesh=mesh)
+    step = zoo.make_train_step(cfg, opt, mark=mark, mesh=mesh, fsdp=fsdp)
     batch = zoo.make_batch(cfg, zoo.ShapeSpec("t", SHARD_TIME_SEQ, SHARD_TIME_BATCH, "train"), 0,
                            device=dev)
     steps = []
@@ -5148,11 +5258,120 @@ def sharded_timing_rank(arch: str, mesh, dev) -> dict:
                       "launches": {k: n for k, n in launch_counts().items() if n},
                       "routes": {k: {r: n for r, n in w.route_launches.items() if n}
                                  for k, w in WRAPPERS.items() if any(w.route_launches.values())}})
-    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    step_peak = (torch.cuda.max_memory_allocated(dev) - held) / 1e9
     del model, state
     torch.cuda.empty_cache()
     return {"layers": cfg.n_layers, "tokens": SHARD_TIME_SEQ * SHARD_TIME_BATCH,
-            "peak_gb": peak, "steps": steps}
+            "microbatch": cfg.microbatch, "peak_gb": max(built_gb, step_peak),
+            "step_peak_gb": step_peak, "held_gb": held / 1e9, "steps": steps}
+
+
+def _in_turns(mesh, turns: int, fn) -> None:
+    """``fn()`` on each rank in ``turns`` turns of the ranks (rank r in turn
+    r % turns), a barrier after each: at most one turn's whole model on the
+    card at a time."""
+    for turn in range(turns):
+        if mesh.rank % turns == turn:
+            fn()
+            torch.cuda.empty_cache()
+        mesh.barrier()
+
+
+def fsdp_parity_rank(arch: str, mesh, dev, zero1: dict | None = None,
+                     zero1_norm: float | None = None) -> dict:
+    """Phase 41, one rank: ``arch`` at full width, 2 layers, f32, one FSDP
+    step (``make_train_step(..., fsdp=True)``) of SHARD_BATCH x SHARD_SEQ on
+    the FSDP blocks, held as phase 39 holds its ZeRO-1 step.  The blocks are
+    cut from a whole model built, and the unsharded reference computed on
+    the card and held to at once, in FSDP_TURNS[arch] turns of the ranks
+    (each rank's step results stay on the card meanwhile; nothing whole is
+    kept on the host); granite-moe against the same FSDP step on the CPU.
+    ``zero1`` (yi-9b): phase 39's ZeRO-1 step's blocks on the card, whose
+    moment blocks are these FSDP blocks, held within FSDP_ZERO1_RTOL of a
+    leaf's largest gradient (the same sums; whether bit for bit is logged)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import zoo
+    from repro_torch.optim import AdamW
+
+    cfg = get_config(arch).replace(n_layers=2, dtype=torch.float32, microbatch=FSDP_MICROBATCH)
+    batch = zoo.make_batch(cfg, zoo.ShapeSpec("t", SHARD_SEQ, SHARD_BATCH, "train"), 0,
+                           device=dev)
+    lay, opt = zoo.layout(cfg, mesh, fsdp=True), AdamW(lr=TRAIN_LR)
+    turns = FSDP_TURNS.get(arch, 1)
+    own = {}
+
+    def cut():
+        full = zoo.build_params(cfg, 0, device=dev)
+        if arch == MOE_ARCH:
+            own["host"] = zoo.shard_params(cfg, copy.deepcopy(full).cpu(), mesh, lay)
+        own["model"] = zoo.shard_params(cfg, full, mesh, lay)
+
+    _in_turns(mesh, turns, cut)
+    model, host = own["model"], own.get("host")
+    rec = {"turns": turns}
+    if host is None:
+        got = _sharded_step(cfg, model, batch, mesh, lay, opt)
+    else:
+        with RouteLog() as card_routes, PairDrops() as card_drops:
+            got = _sharded_step(cfg, model, batch, mesh, lay, opt)
+        cpu_batch = {k: v.cpu() for k, v in batch.items()}
+        with RouteLog() as host_routes:
+            cpu = _sharded_step(cfg, host, cpu_batch, mesh, lay, opt)
+        sl = SHARD_SEQ // SHARD_MESH[1]  # a forward's tokens and its remat's
+        routes = route_flips(card_routes.calls, host_routes.calls, cfg.n_layers, [sl, sl])
+        rec["routes"] = {"flips": routes["flips"], "keeps_differ": routes["keeps_differ"]}
+        rec["drops_per_pair"] = card_drops.drops()
+        if not routes["flips"]:
+            cpu_max = {n: g.abs().max().item() for n, g in cpu["grads"].items()}
+            scale = min(1.0, 1.0 / cpu["grad_norm"])
+            dscale = abs(min(1.0, 1.0 / got["grad_norm"]) - scale)
+            rec["held"] = _hold_blocks(arch, got, cpu["grads"], cpu["after"], cpu_max,
+                                       TRAIN_GRAD_RTOL, scale, dscale)
+        rec["loss_vs"], rec["grad_norm_vs"] = cpu["loss"], cpu["grad_norm"]
+        del cpu
+    if zero1 is not None:
+        scale = min(1.0, 1.0 / zero1_norm)
+        dscale = abs(min(1.0, 1.0 / got["grad_norm"]) - scale)
+        leaf_max = {n: g.abs().max().item() for n, g in zero1["grads"].items()}
+        rec["vs_zero1"] = _hold_blocks(arch, got, zero1["grads"], zero1["after"], leaf_max,
+                                       FSDP_ZERO1_RTOL, scale, dscale)
+        rec["vs_zero1"]["bit_equal"] = all(
+            torch.equal(got["grads"][n], g) and all(
+                torch.equal(a, b) for a, b in zip(got["after"][n], zero1["after"][n]))
+            for n, g in zero1["grads"].items())
+    t = time.perf_counter()
+
+    def reference():  # the unsharded step on the card, held to at once
+        full = zoo.build_params(cfg, 0, device=dev)
+        ref = _reference_blocks(cfg, full, batch, lay, mesh, opt, arch)
+        del full
+        rec.update(loss_ref=ref["loss"], grad_norm_ref=ref["grad_norm"], grad_rtol=ref["rtol"],
+                   reference=("f64 on the card" if arch in TRAIN_F64_REF
+                              else "unsharded on the card"))
+        if host is None:
+            dscale = abs(min(1.0, 1.0 / got["grad_norm"]) - ref["scale"])
+            rec["held"] = _hold_blocks(arch, got, ref["grads"], ref["after"], ref["leaf_max"],
+                                       ref["rtol"], ref["scale"], dscale)
+            rec["loss_vs"], rec["grad_norm_vs"] = ref["loss"], ref["grad_norm"]
+        else:
+            rec["gap_to_unsharded"] = {
+                "loss": got["loss"] - ref["loss"],
+                "weights": max((got["after"][n][0] - ref["after"][n][0]).abs().max().item()
+                               for n in ref["after"])}
+
+    _in_turns(mesh, turns, reference)
+    rec["reference_s"] = time.perf_counter() - t
+    shapes = {n: tuple(p.shape) for n, p in zoo.model_params(model).items()}
+    rec.update(loss=got["loss"], grad_norm=got["grad_norm"], wall_s=got["wall_s"],
+               stage_s=got["stage_s"], bytes=got["bytes"], bwd_bytes=got["bwd_bytes"],
+               launches=got["launches"], routes_by_kernel=got["routes"],
+               blocks_are_fsdp=all(shapes[n] == tuple(g.shape) == tuple(got["after"][n][1].shape)
+                                   for n, g in got["grads"].items()),
+               param_gb=sum(p.numel() * p.element_size()
+                            for p in zoo.model_params(model).values()) / 1e9)
+    del model, host, got, own
+    torch.cuda.empty_cache()
+    return rec
 
 
 def sharded_rank(rank: int, store: str, out_dir: str) -> None:
@@ -5167,11 +5386,25 @@ def sharded_rank(rank: int, store: str, out_dir: str) -> None:
     mesh = init_mesh(SHARD_MESH, ("data", "model"), backend="gloo", rank=rank,
                      init_method=f"file://{store}", timeout=SPMD_TIMEOUT)
     dev = mesh.device
-    res = {"parity": {}, "timing": {}}
+    res = {"parity": {}, "timing": {}, "fsdp": {}, "fsdp_timing": {}, "seconds": {}}
+    t = time.perf_counter()
     for arch in SHARD_ARCHS:
-        res["parity"][arch] = sharded_parity_rank(arch, mesh, dev)
+        res["parity"][arch] = sharded_parity_rank(arch, mesh, dev, keep=arch == FSDP_VS_ZERO1)
+    zero1 = res["parity"][FSDP_VS_ZERO1].pop("blocks")
     for arch in SHARD_ARCHS:
         res["timing"][arch] = sharded_timing_rank(arch, mesh, dev)
+    res["seconds"]["39"], t = time.perf_counter() - t, time.perf_counter()
+    for arch in FSDP_ARCHS:  # phase 41
+        vs = zero1 if arch == FSDP_VS_ZERO1 else None
+        res["fsdp"][arch] = fsdp_parity_rank(arch, mesh, dev, vs,
+                                             res["parity"].get(arch, {}).get("grad_norm"))
+        if vs is not None:  # its blocks off the card before the next arch
+            del vs
+            zero1 = None
+            torch.cuda.empty_cache()
+    for arch in FSDP_TIME_ARCHS:
+        res["fsdp_timing"][arch] = sharded_timing_rank(arch, mesh, dev, fsdp=True)
+    res["seconds"]["41"] = time.perf_counter() - t
     torch.save(res, Path(out_dir) / f"rank{rank}.pt")
     mesh.close()
 
@@ -5205,6 +5438,8 @@ def shard_launches(arch: str, cfg, dtype: torch.dtype, batch: int, seq: int) -> 
 
 # each path kernel of an arch's sharded train step (forward, backward)
 SHARD_KERNELS = {"yi-9b": ("flash_attention", "flash_attention_bwd", "embed_lookup"),
+                 "qwen2.5-14b": ("flash_attention", "flash_attention_bwd", "embed_lookup"),
+                 "starcoder2-15b": ("flash_attention", "flash_attention_bwd", "embed_lookup"),
                  "granite-moe-1b-a400m": ("flash_attention", "flash_attention_bwd",
                                           "embed_lookup"),
                  "rwkv6-1.6b": ("wkv6", "wkv6_bwd", "embed_lookup"),
@@ -5285,6 +5520,8 @@ def sharded_train_phase(dev) -> dict:
         summary = {"layers": recs[0]["layers"], "tokens": recs[0]["tokens"],
                    "step_s": [[s["s"] for s in r["steps"]] for r in recs],
                    "peak_gb": [r["peak_gb"] for r in recs],
+                   "step_peak_gb": [r["step_peak_gb"] for r in recs],
+                   "held_gb": [r["held_gb"] for r in recs],
                    "bytes": recs[0]["steps"][-1]["bytes"],
                    "bwd_bytes": recs[0]["steps"][-1]["bwd_bytes"],
                    "launches": recs[0]["steps"][-1]["launches"],
@@ -5302,9 +5539,112 @@ def sharded_train_phase(dev) -> dict:
             for j, st in enumerate(r["steps"]):
                 expect_launches(st, f"sharded train step {arch} rank {i} step {j}", want)
         out["timing"][arch] = summary
+    out["fsdp"] = fsdp_summary(ranks, out["timing"])
     out["seconds"] = time.perf_counter() - t
-    log(f"sharded train phase: {out['seconds']:.1f} s")
+    log(f"sharded train phase: {out['seconds']:.1f} s (in the ranks: phase 39 "
+        f"{ranks[0]['seconds']['39']:.1f} s, phase 41 {ranks[0]['seconds']['41']:.1f} s)")
     return out
+
+
+def fsdp_summary(ranks: list, zero1_timing: dict) -> dict:
+    """Phase 41's checks and lines from the ranks' records
+    (:func:`fsdp_parity_rank`, :func:`sharded_timing_rank` with ``fsdp``):
+    every rank's loss the same and within 1e-5 relative of the reference's
+    (granite: where no route flips), no leaf off its bound, yi's blocks
+    within FSDP_ZERO1_RTOL of phase 39's ZeRO-1 step's, every rank's blocks
+    FSDP's, and every rank's launches and routes exactly
+    :func:`shard_launches`'; the bf16 steps' seconds, peaks (yi's beside
+    phase 39's ZeRO-1 peak) and bytes by kind logged."""
+    from repro_torch.configs import get_config
+
+    out = {"parity": {}, "timing": {}}
+    for arch in FSDP_ARCHS:
+        recs = [r["fsdp"][arch] for r in ranks]
+        loss, want = recs[0]["loss"], recs[0]["loss_vs"]
+        flips = recs[0].get("routes", {}).get("flips", [])
+        wide = [f for r in recs for f in r.get("routes", {}).get("flips", [])
+                if not f["margin"] <= ROUTE_FLIP_MARGIN]
+        off = [(i, r["held"]["off"]) for i, r in enumerate(recs) if r.get("held", {}).get("off")]
+        off += [(i, "vs ZeRO-1", r["vs_zero1"]["off"]) for i, r in enumerate(recs)
+                if r.get("vs_zero1", {}).get("off")]
+        summary = {
+            "loss": loss, "loss_vs": want, "reference": recs[0]["reference"],
+            "vs": "the FSDP step on the CPU" if arch == MOE_ARCH else recs[0]["reference"],
+            "loss_rel_err": abs(loss - want) / abs(want), "turns": recs[0]["turns"],
+            "grad_norm": recs[0]["grad_norm"], "grad_norm_vs": recs[0]["grad_norm_vs"],
+            "held": [r.get("held") for r in recs],
+            "vs_zero1": [r.get("vs_zero1") for r in recs] if "vs_zero1" in recs[0] else None,
+            "param_gb": [r["param_gb"] for r in recs],
+            "launches": [r["launches"] for r in recs],
+            "routes": [r["routes_by_kernel"] for r in recs],
+            "bytes": [r["bytes"] for r in recs], "bwd_bytes": [r["bwd_bytes"] for r in recs],
+            "wall_s": [r["wall_s"] for r in recs], "stage_s": recs[0]["stage_s"],
+            "reference_s": recs[0]["reference_s"], "grad_rtol": recs[0]["grad_rtol"]}
+        if arch == MOE_ARCH:
+            summary.update(flips=sum(len(r["routes"]["flips"]) for r in recs),
+                           gap_to_unsharded=[r["gap_to_unsharded"] for r in recs],
+                           drops_per_pair=[r["drops_per_pair"] for r in recs],
+                           loss_unsharded=recs[0]["loss_ref"])
+        log(f"fsdp parity {arch}: (2, 2) gloo x4, 2 layers full width f32, B={SHARD_BATCH} "
+            f"S={SHARD_SEQ}: {json.dumps(summary)}")
+        if any(r["loss"] != loss for r in recs):
+            raise AssertionError(f"fsdp parity {arch}: the ranks report different losses")
+        if not (flips or abs(loss - want) <= 1e-5 * abs(want)):
+            raise AssertionError(f"fsdp parity {arch}: loss {loss} against {want}")
+        if wide or off or not all(r["blocks_are_fsdp"] for r in recs):
+            raise AssertionError(f"fsdp parity {arch}: flips past the margin {wide}, leaves "
+                                 f"off their bounds {off}, or blocks not FSDP's")
+        cfg = get_config(arch).replace(n_layers=2, microbatch=FSDP_MICROBATCH)
+        want = shard_launches(arch, cfg, torch.float32, SHARD_BATCH, SHARD_SEQ)
+        for i, r in enumerate(recs):
+            expect_launches({"routes": r["routes_by_kernel"], "launches": r["launches"]},
+                            f"fsdp parity {arch} rank {i}", want)
+        out["parity"][arch] = summary
+    for arch in FSDP_TIME_ARCHS:
+        recs = [r["fsdp_timing"][arch] for r in ranks]
+        summary = {"layers": recs[0]["layers"], "tokens": recs[0]["tokens"],
+                   "microbatch": recs[0]["microbatch"],
+                   "step_s": [[s["s"] for s in r["steps"]] for r in recs],
+                   "peak_gb": [r["peak_gb"] for r in recs],
+                   "step_peak_gb": [r["step_peak_gb"] for r in recs],
+                   "held_gb": [r["held_gb"] for r in recs],
+                   **({"zero1_peak_gb": zero1_timing[arch]["peak_gb"],
+                       "zero1_step_peak_gb": zero1_timing[arch]["step_peak_gb"],
+                       "zero1_step_s": zero1_timing[arch]["step_s"]}
+                      if arch in zero1_timing else {}),
+                   "bytes": recs[0]["steps"][-1]["bytes"],
+                   "bwd_bytes": recs[0]["steps"][-1]["bwd_bytes"],
+                   "launches": recs[0]["steps"][-1]["launches"],
+                   "routes": recs[0]["steps"][-1]["routes"],
+                   "stage_s": recs[0]["steps"][-1]["stage_s"],
+                   "losses": [s["loss"] for s in recs[0]["steps"]]}
+        log(f"fsdp train step {arch}: (2, 2) gloo x4, {summary['layers']} layers full width "
+            f"bf16 remat, {SHARD_TIME_BATCH} x {SHARD_TIME_SEQ} tokens a step: "
+            f"{json.dumps(summary)}")
+        if not all(np.isfinite(summary["losses"])):
+            raise AssertionError(f"fsdp train step {arch}: losses {summary['losses']}")
+        cfg = get_config(arch).replace(n_layers=SHARD_TIME_LAYERS[arch],
+                                       microbatch=FSDP_MICROBATCH)
+        want = shard_launches(arch, cfg, cfg.dtype, SHARD_TIME_BATCH, SHARD_TIME_SEQ)
+        for i, r in enumerate(recs):
+            for j, st in enumerate(r["steps"]):
+                expect_launches(st, f"fsdp train step {arch} rank {i} step {j}", want)
+        out["timing"][arch] = summary
+    return out
+
+
+def dense_phases(dev, elapsed) -> dict:
+    """Phase 42: qwen2.5-14b and starcoder2-15b at full width: phase 12's
+    parity and phase 27's train parity at 2 layers in f32 (card against
+    CPU), then ``launch.serve`` in bf16, local, at DENSE_SERVE_LAYERS
+    layers."""
+    served = {}
+    for arch in DENSE_ARCHS:
+        parity_phase(dev, arch)
+        train_parity_phase(dev, arch)
+        served[arch] = launch_serve_phase(dev, arch, DENSE_SERVE_LAYERS)
+        elapsed(f"the {arch} phases")
+    return served
 
 
 def serve_flips(card: list, host: list) -> dict:
@@ -5516,7 +5856,7 @@ def sharded_serve_phase(dev) -> dict:
     ROUTE_FLIP_MARGIN).  Each rank's launches and routes in the prefill
     and the decode steps exactly :func:`serve_launches` (so no plain version
     ran on the card).  Timing: bf16, 2 layers, a prompt of 4 x 2,048 into
-    a cache of 2,080, then 32 steps: rank 0's prefill s and decode ms a
+    a cache of 2,080, then 8 steps: rank 0's prefill s and decode ms a
     token, a decode step's bytes by kind (every step's the same), each
     rank's peak GB."""
     from repro_torch.configs import get_config
@@ -5750,6 +6090,7 @@ def main() -> int:
     elapsed("the sharded serving phase (host walls: gloo stages through the host)")
     moe = moe_phases(dev, args.profile, elapsed)
     served.update(moe["served"])
+    served.update(dense_phases(dev, elapsed))
     # the path's launches by the shape they come in: per-message dispatches
     # at N = 16 ids and B = 1 chase, batched ones at their arm's mean,
     # launch.serve's remote embedding at N = 8 of each LM's rows, and the
@@ -5955,6 +6296,13 @@ def main() -> int:
                                  if any(r.get(k["name"]) for r in rec["launches"])}
         k["launches_sharded_step_rank0"] = {
             arch: rec["launches"][k["name"]] for arch, rec in sharded["timing"].items()
+            if rec["launches"].get(k["name"])}
+        # and in the FSDP phase's (41)
+        k["launches_fsdp"] = {arch: [r.get(k["name"], 0) for r in rec["launches"]]
+                              for arch, rec in sharded["fsdp"]["parity"].items()
+                              if any(r.get(k["name"]) for r in rec["launches"])}
+        k["launches_fsdp_step_rank0"] = {
+            arch: rec["launches"][k["name"]] for arch, rec in sharded["fsdp"]["timing"].items()
             if rec["launches"].get(k["name"])}
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -31,7 +31,13 @@ queries, the weights whole) under the JAX ``sp_attn`` condition, the MLP
 by ``ffn`` the same way, an MoE block's experts by the ``all_to_all``
 dispatch, an RWKV block by heads and a hybrid block's SSM head by
 channels.  The residual stream is whole on every rank of a ``model``
-group; the batch rows are the rank's.
+group; the batch rows are the rank's.  Under an FSDP layout (``lay.fsdp``)
+a rank holds its blocks of the weights cut over ``data`` too: each block's
+leaves are all-gathered to their TP blocks inside the function that
+``checkpoint`` recomputes (:func:`gather_block` in :func:`block_apply`),
+so with ``remat`` the backward gathers a layer's weights again and no
+layer's whole weights outlive it; each gather's backward reduce-scatters
+the gradient.
 
 With a serving layout (``SERVE_RULES``: the embed dim cut over ``data``
 too) and a cache, :func:`block_apply_tp` serves: the weights stay where
@@ -54,6 +60,8 @@ gathered heads make the sequence-parallel split unnecessary.
 """
 
 from __future__ import annotations
+
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -209,10 +217,12 @@ def block_apply(
     rows: torch.Tensor | None = None,
     window: int = 0,
     lay=None,
+    layer: int = 0,
 ) -> tuple[torch.Tensor, torch.Tensor | None]:
     """One decoder block: (x, the MoE router's aux loss, None for the other
     families); with a layout ``lay``, :func:`block_apply_tp` (a cache only
-    with a serving layout).  The cache (if any) is updated in place, only batch ``rows``
+    with a serving layout; on an FSDP layout, on ``layer``'s leaves gathered
+    by :func:`gather_block`).  The cache (if any) is updated in place, only batch ``rows``
     of it when given.  A dense or MoE block's cache is its layer's ``k`` and
     ``v``; an RWKV block's its layer's ``tm_shift``, ``cm_shift`` and
     ``wkv`` state, which the block reads and replaces; a hybrid block's
@@ -220,6 +230,8 @@ def block_apply(
     block routes every row of ``x``, ``rows`` or not: the capacity buffer
     is shared, so the rows present decide the drops."""
     if lay is not None:
+        if lay.fsdp:
+            p = gather_block(p, lay, layer)
         return block_apply_tp(x, p, cfg, lay, pos=pos, window=window, cache=cache,
                               offset=offset, rows=rows)
     if cfg.family == "rwkv":
@@ -361,6 +373,28 @@ def block_apply_tp(x: torch.Tensor, p, cfg: ModelConfig, lay, *, pos: torch.Tens
         y, aux = moe_tp(h, p, cfg, lay)
         return x + y, aux
     return x + mlp_tp(h, p, cfg, lay), None
+
+
+def as_leaves(leaves: dict[str, torch.Tensor]) -> SimpleNamespace:
+    """Tensors by dotted name (``wq``, ``tm.wr``) as attributes, nested as
+    the module holds them: what the block functions read of a block."""
+    root = SimpleNamespace()
+    for name, t in leaves.items():
+        *path, leaf = name.split(".")
+        node = root
+        for part in path:
+            if not hasattr(node, part):
+                setattr(node, part, SimpleNamespace())
+            node = getattr(node, part)
+        setattr(node, leaf, t)
+    return root
+
+
+def gather_block(p: nn.Module, lay, layer: int) -> SimpleNamespace:
+    """Layer ``layer``'s leaves on an FSDP layout: each of this rank's
+    blocks (cut over ``data``) all-gathered to its TP block, in the block's
+    parameter order (:meth:`~repro_torch.sharding.partition.Layout.gather`)."""
+    return as_leaves({n: lay.gather(f"blocks.{layer}.{n}", t) for n, t in p.named_parameters()})
 
 
 # ------------------------------------------------------- on a mesh (serving)
@@ -524,12 +558,13 @@ def run_blocks(
     for layer, p in enumerate(blocks):
         if remat:
             x, aux_l = checkpoint(block_apply, x, p, cfg, pos=pos, cache=None, offset=offset,
-                                  window=int(windows[layer]), lay=lay, use_reentrant=False)
+                                  window=int(windows[layer]), lay=lay, layer=layer,
+                                  use_reentrant=False)
         else:
             cache = (None if caches is None
                      else {name: leaf[layer] for name, leaf in caches.items()})
             x, aux_l = block_apply(x, p, cfg, pos=pos, cache=cache, offset=offset, rows=rows,
-                                   window=int(windows[layer]), lay=lay)
+                                   window=int(windows[layer]), lay=lay, layer=layer)
         if aux_l is not None:
             aux = aux_l if aux is None else aux + aux_l
     return x, (0.0 if aux is None else aux / cfg.n_layers)

@@ -19,17 +19,19 @@ hybrid families:
 * ``make_serve_step(cfg, mesh=None)``       -> (model, cache, tok, pos) -> (logits, cache)
 * ``loss_fn(cfg, model, batch)``            -> (loss, {"nll", "aux"}), the head and
   softmax cross-entropy in ``LOSS_CHUNK``-position chunks
-* ``make_train_step(cfg, opt, mesh=None, zero1=True)`` -> (state, batch) -> (state, metrics);
+* ``make_train_step(cfg, opt, mesh=None, zero1=True, fsdp=False)`` -> (state, batch) ->
+  (state, metrics);
   ``state = {"params": LM, "opt": OptState, "step": int}``, updated in place
 * ``make_eval_step(cfg, mesh=None)``, ``make_steps(cfg, opt, mesh=None)``
 * ``logical_axes(cfg)``                     -> each leaf's logical axes under its JAX
   name (``build_params(cfg)[1]`` of the JAX package)
-* ``layout(cfg, mesh, zero1=True)``         -> the train rules' specs on a mesh
-  (``repro_torch.sharding.partition.Layout``); ``serve_layout(cfg, mesh)``
+* ``layout(cfg, mesh, zero1=True, fsdp=False)`` -> the train rules' specs on a
+  mesh (``repro_torch.sharding.partition.Layout``; ``fsdp``: the params cut
+  over ``data`` too); ``serve_layout(cfg, mesh)``
   -> ``SERVE_RULES``' specs (the embed dim cut over ``data`` too)
 * ``shard_params(cfg, model, mesh, lay=None)`` -> the ``LM`` cut, in place, to
-  this rank's blocks (the train layout's unless ``lay``);
-  ``gather_params(cfg, model, mesh)`` -> its whole leaves
+  this rank's blocks (the ZeRO-1 train layout's unless ``lay``, such as an
+  FSDP one); ``gather_params(cfg, model, mesh, lay=None)`` -> its whole leaves
 
 With a ``mesh`` (``repro_torch.sharding.mesh.Mesh``), ``forward``,
 ``loss_fn`` and the train and eval steps take the GLOBAL batch and use this
@@ -75,7 +77,9 @@ from .common import ModelConfig, ParamFactory, cross_entropy, rms_norm, rms_norm
 from .embedding import embed_c2d, embed_plain, lm_head
 from .rwkv import RWKVBlock
 from .ssm import CONV_K
-from .transformer import DenseBlock, HybridBlock, MoEBlock, require_ported, run_blocks
+from .transformer import (
+    DenseBlock, HybridBlock, MoEBlock, as_leaves, require_ported, run_blocks,
+)
 
 
 # ------------------------------------------------------------------- shapes
@@ -242,11 +246,12 @@ def logical_axes(cfg: ModelConfig) -> tuple[dict[str, tuple], dict[str, tuple]]:
             {k: ("layers", *a) if stacked(k) else a for k, a in axes.items()})
 
 
-def layout(cfg: ModelConfig, mesh, zero1: bool = True) -> Layout:
+def layout(cfg: ModelConfig, mesh, zero1: bool = True, fsdp: bool = False) -> Layout:
     """The train rules' specs (``rules_for_train``) of every leaf on
     ``mesh``, a layer's leaves under ``blocks.<leaf>`` without the layer
-    axis."""
-    return Layout(mesh, *_leaves(cfg), rules_for_train(cfg, mesh), zero1=zero1)
+    axis; ``fsdp``: the params at the moments' specs (``fsdp_specs``), which
+    needs ``zero1``."""
+    return Layout(mesh, *_leaves(cfg), rules_for_train(cfg, mesh), zero1=zero1, fsdp=fsdp)
 
 
 def serve_layout(cfg: ModelConfig, mesh, caches: "CacheBlocks | None" = None) -> Layout:
@@ -304,14 +309,15 @@ def _head_tp(cfg: ModelConfig, model: LM, h: torch.Tensor, lay: Layout) -> torch
 
 def _forward_tp(cfg: ModelConfig, model: LM, batch: dict, lay: Layout,
                 return_hidden: bool):
-    """:func:`forward` on this rank's rows ``batch`` and weight blocks."""
+    """:func:`forward` on this rank's rows ``batch`` and weight blocks (the
+    table gathered to its TP block under FSDP)."""
     tokens = batch["tokens"]
     if "token_rows" in batch:  # the rank's rows of the rows gathered elsewhere
         x = batch["token_rows"].to(cfg.dtype)
     elif lay.split("embed.tok", 0):
-        x = embed_c2d(model.embed.tok, tokens, lay.mesh)
+        x = embed_c2d(lay.gather("embed.tok", model.embed.tok), tokens, lay.mesh)
     else:
-        x = embed_plain(model.embed.tok, tokens)
+        x = embed_plain(lay.gather("embed.tok", model.embed.tok), tokens)
     if cfg.embed_mult != 1.0:
         x = (x.float() * cfg.embed_mult).to(x.dtype)
     pos = torch.arange(tokens.shape[1], device=x.device)
@@ -609,6 +615,17 @@ def _nll_sum_tp(cfg: ModelConfig, model: LM, h: torch.Tensor, labels: torch.Tens
     return torch.sum((lse - gold) * mask)
 
 
+def _head_leaves(cfg: ModelConfig, model: LM, lay: Layout):
+    """What the LM head reads of ``model`` (``final_ln`` and the head's
+    weight): under FSDP each gathered to its TP block, once for every
+    chunk of positions; else ``model``."""
+    if not lay.fsdp:
+        return model
+    names = ("final_ln", "embed.tok" if cfg.tie_embeddings else "head.w")
+    params = model_params(model)
+    return as_leaves({n: lay.gather(n, params[n]) for n in names})
+
+
 def _loss_tp(cfg: ModelConfig, model: LM, batch: dict, lay: Layout,
              mark: Callable[[str], None] | None = None):
     """``(part, value, {"nll", "aux"})`` on this rank's rows of ``batch``:
@@ -622,6 +639,7 @@ def _loss_tp(cfg: ModelConfig, model: LM, batch: dict, lay: Layout,
     h, _, aux = _forward_tp(cfg, model, local, lay, return_hidden=True)
     if mark:
         mark("forward")
+    model = _head_leaves(cfg, model, lay)
     labels = local["labels"]
     mask = local.get("mask")
     if mask is None:
@@ -681,7 +699,7 @@ def _on(batch: dict, device: torch.device) -> dict[str, torch.Tensor]:
 
 
 def make_train_step(cfg: ModelConfig, opt, mark: Callable[[str], None] | None = None,
-                    mesh=None, zero1: bool = True) -> Callable:
+                    mesh=None, zero1: bool = True, fsdp: bool = False) -> Callable:
     """``(state, batch) -> (state, metrics)``; ``state = {"params": LM,
     "opt": OptState, "step": int}``, updated in place; ``batch`` holds
     ``tokens``, ``labels`` and ``mask`` (numpy or tensors; moved to the
@@ -702,9 +720,16 @@ def make_train_step(cfg: ModelConfig, opt, mark: Callable[[str], None] | None = 
     rank's rows of that).  Each rank takes the gradient of its part of the
     loss and the update is ZeRO-1 (``zero1``; else the moments as the
     params): gradients reduce-scattered over the data axes, each rank's
-    block of the weight updated, then all-gathered."""
+    block of the weight updated, then all-gathered.  With ``fsdp`` (JAX's
+    ZeRO-3: ``fsdp_shardings``; needs ``zero1``) the params are this rank's
+    blocks under ``layout(cfg, mesh, fsdp=True)``, as the moments are: each
+    layer's weights are all-gathered to their TP blocks where the layer
+    runs, each microbatch's gradients come reduce-scattered by those
+    gathers' backwards (accumulated in f32 on the rank's blocks), and each
+    rank updates its blocks with no collective after.  Without a mesh
+    ``fsdp`` does nothing, as in the JAX step."""
     mark = mark or (lambda stage: None)
-    lay = layout(cfg, mesh, zero1) if mesh is not None else None
+    lay = layout(cfg, mesh, zero1, fsdp) if mesh is not None else None
 
     def grad_once(model: LM, params: dict, batch: dict):
         with torch.enable_grad():

@@ -15,7 +15,10 @@ The JAX ``update`` takes ``constrain`` (the ZeRO-1 moment shardings of
 rank's blocks and the moments its blocks under the ZeRO-1 specs: the
 gradients are reduce-scattered over the data axes (a psum where a leaf's
 moments are whole), each rank updates its block of the weight, and the
-blocks are all-gathered.  The global norm counts every element once: each
+blocks are all-gathered.  Under an FSDP layout (``Layout.fsdp``) the params
+are the rank's blocks at the moments' specs: a cut leaf's gradient arrives
+reduce-scattered by the forward's gather, and each rank updates its own
+block with no collective after.  The global norm counts every element once: each
 leaf's sum of squares is weighted by one over the ranks that hold the same
 block, then summed over the mesh.
 """
@@ -84,7 +87,7 @@ class AdamW:
 
     def init(self, params: Params, constrain=None) -> OptState:
         """Zero moments; with a layout ``constrain``, this rank's ZeRO-1
-        blocks of them (``params`` its param blocks)."""
+        (or FSDP) blocks of them (``params`` its param blocks)."""
         first = next(iter(params.values()))
 
         def shape(k, p):
@@ -109,7 +112,8 @@ class AdamW:
         ``state.count`` are updated in place and returned, with metrics
         ``grad_norm`` (before clipping) and ``lr``.  ``constrain``: a
         :class:`~repro_torch.sharding.partition.Layout`, for this rank's
-        part of a ZeRO-1 step (``grads`` its unreduced gradients)."""
+        part of a ZeRO-1 step (``grads`` its unreduced gradients) or of an
+        FSDP step (``grads`` its blocks, reduced where the leaf is cut)."""
         state.count += 1
         count = state.count
         f32 = dict(dtype=torch.float32, device=count.device)

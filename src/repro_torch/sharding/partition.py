@@ -19,7 +19,8 @@ Default rules (Megatron-style TP over ``model``):
     layers  -> None     (the layer axis)
 
 ZeRO-1: optimizer moments additionally shard their largest free dim over
-``data``.
+``data``.  FSDP (ZeRO-3): the parameters themselves too, the moments with
+them.
 
 A spec is a plain tuple, one entry a dim (trailing ``None`` dropped, as
 ``PartitionSpec`` prints): a mesh axis name, a tuple of names (several
@@ -30,9 +31,11 @@ holds no ranks.  :func:`local_block` cuts a rank's block of a full leaf
 and :func:`full_leaf` gathers the blocks back.
 
 A :class:`Layout` holds a model's specs under one set of rules: the train
-rules (:func:`rules_for_train`) or :data:`SERVE_RULES`, whose ``embed``
-dims are cut over ``data`` as well.  Serving keeps the weights where those
-specs put them and moves activations instead: the residual stream is held
+rules (:func:`rules_for_train`), with the parameters kept at their TP
+blocks (ZeRO-1) or cut over ``data`` as well (``fsdp``), or
+:data:`SERVE_RULES`, whose ``embed`` dims are cut over ``data`` as well.
+Serving keeps the weights where those specs put them and moves
+activations instead: the residual stream is held
 as every batch row's slice of the embed dim that the rank's data index
 owns, a product with a weight whose embed dim is cut sums its partial rows
 over ``data``, and the KV cache's blocks follow :func:`cache_specs`.
@@ -288,21 +291,36 @@ def leaf_key(name: str) -> str:
 
 class Layout:
     """A model's leaves laid out on a mesh under ``rules``: each leaf's
-    param spec and ZeRO-1 moment spec, by :func:`leaf_key`, and what the
-    forward and the optimizer do with them.  ``shapes`` and ``axes`` are one
-    layer's leaves (no ``layers`` axis) and the others.  Under rules that
-    cut ``embed`` (:data:`SERVE_RULES`) the layout is a serving one
+    param spec and moment spec, by :func:`leaf_key`, and what the forward
+    and the optimizer do with them.  ``shapes`` and ``axes`` are one
+    layer's leaves (no ``layers`` axis) and the others.  ``tp`` holds each
+    leaf's TP spec (the rules' alone), the block a layer computes with.
+    Under ZeRO-1 the params are those blocks and the moments cut a free dim
+    over the data axes as well (``zero1_specs``).  With ``fsdp`` the params
+    are cut like the moments (``fsdp_specs``): a leaf's block is
+    all-gathered to its TP block where it is used (:meth:`gather`), whose
+    backward reduce-scatters the gradient.  Where JAX's spec of a stacked
+    leaf cuts its ``layers`` dim, the port's per-layer leaf cuts its own
+    largest free dim that divides, or stays whole.  Under rules that cut
+    ``embed`` (:data:`SERVE_RULES`) the layout is a serving one
     (``serving``); ``cache_specs``, the specs of the KV cache's blocks by
     leaf (a layer's, with its ``layers`` dim), is what its forward reads of
     the cache's layout."""
 
     def __init__(self, mesh, shapes: Mapping[str, tuple[int, ...]],
                  axes: Mapping[str, tuple[str | None, ...]], rules: Mapping[str, str | None],
-                 zero1: bool = True, cache_specs: Mapping[str, Spec] | None = None) -> None:
+                 zero1: bool = True, cache_specs: Mapping[str, Spec] | None = None,
+                 fsdp: bool = False) -> None:
+        if fsdp and not zero1:
+            raise ValueError("fsdp=True needs zero1=True: FSDP parameters with moments at "
+                             "the TP specs is a layout JAX reaches only through GSPMD "
+                             "(constrain=None), and the port does not build it (ROADMAP.md)")
         self.mesh = mesh
         self.rules = dict(rules)
-        self.params = param_specs(shapes, axes, mesh, rules)
+        self.fsdp = fsdp
+        self.tp = param_specs(shapes, axes, mesh, rules)
         self.moments = zero1_specs(shapes, axes, mesh, rules, enabled=zero1)
+        self.params = self.moments if fsdp else self.tp
         self.data = data_axes(mesh)
         self.model = mesh.shape["model"] if "model" in _names(mesh) else 1
         self.serving = self.rules.get("embed") is not None
@@ -319,7 +337,7 @@ class Layout:
         if self.model == 1:
             return False
         key = leaf_key(name)
-        spec = self.params[key] if key in self.params else self.params["blocks." + key]
+        spec = self.tp[key] if key in self.tp else self.tp["blocks." + key]
         return dim < len(spec) and "model" in _dim_axes(spec[dim])
 
     def rows(self, n: int) -> slice:
@@ -333,43 +351,67 @@ class Layout:
         i = self.mesh.axis_index(self.data)
         return slice(i * n // d, (i + 1) * n // d)
 
-    # -------------------------------------------------------------- ZeRO-1
+    # ------------------------------------------------------- ZeRO-1, FSDP
     def _data_axes(self):
         return self.data if len(self.data) > 1 else self.data[0]
 
     def zero_dim(self, name: str) -> int | None:
-        """The dim of ``name``'s moments cut over the data axes (None: whole)."""
+        """The dim of ``name``'s moments (and FSDP params) cut over the data
+        axes (None: whole over them)."""
         key = leaf_key(name)
-        p, m = self.params[key], self.moments[key]
+        p, m = self.tp[key], self.moments[key]
         for dim, entry in enumerate(m):
             if entry is not None and (dim >= len(p) or p[dim] is None):
                 return dim
         return None
 
+    def _update_dim(self, name: str) -> int | None:
+        """The dim of ``name``'s param block that the update cuts to the
+        moment block: ZeRO-1's data dim; none under FSDP, whose param block
+        is the moment block."""
+        return None if self.fsdp else self.zero_dim(name)
+
     def block_shape(self, name: str, shape: tuple[int, ...]) -> tuple[int, ...]:
         """The moment block's shape of a param block of ``shape``."""
-        d = self.zero_dim(name)
+        d = self._update_dim(name)
         if d is None:
             return tuple(shape)
         out = list(shape)
         out[d] //= axis_size(self.mesh, self.data)
         return tuple(out)
 
+    def gather(self, name: str, blk: torch.Tensor) -> torch.Tensor:
+        """The TP block of ``name`` from this rank's param block ``blk``: under
+        FSDP an all-gather over the data axes whose backward reduce-scatters
+        the cotangent (FSDP's gradient reduce-scatter, in the gradient's
+        dtype); else ``blk`` itself."""
+        d = self.zero_dim(name) if self.fsdp else None
+        if d is None:
+            return blk
+        from .mesh import gather_from_region
+
+        return gather_from_region(blk, self.mesh, self._data_axes(), dim=d, partial=True)
+
     def reduce_grad(self, name: str, g: torch.Tensor) -> torch.Tensor:
         """This rank's moment block of the sum of ``g`` over the data axes,
         in f32: a reduce-scatter where the moments are cut, else a psum,
         in the gradient's own dtype (a bf16 gradient is summed in bf16, as
-        the JAX step's partitioner sums it)."""
+        the JAX step's partitioner sums it).  Under FSDP a cut leaf's
+        gradient comes reduce-scattered by :meth:`gather`'s backward and is
+        only cast."""
         if not self.data:
             return g.float()
         d = self.zero_dim(name)
         if d is None:
             return self.mesh.psum(g, self._data_axes()).float()
+        if self.fsdp:
+            return g.float()
         return self.mesh.reduce_scatter(g, self._data_axes(), dim=d).float()
 
     def param_block(self, name: str, p: torch.Tensor) -> torch.Tensor:
-        """The block of this rank's param block that its moments cover (a view)."""
-        d = self.zero_dim(name)
+        """The block of this rank's param block that its moments cover (a
+        view; under FSDP the param block itself)."""
+        d = self._update_dim(name)
         if d is None:
             return p
         n = axis_size(self.mesh, self.data)
@@ -377,8 +419,9 @@ class Layout:
         return p.narrow(d, self.mesh.axis_index(self._data_axes()) * size, size)
 
     def gather_param(self, name: str, blk: torch.Tensor) -> torch.Tensor:
-        """The param block from every data rank's updated ``blk``."""
-        d = self.zero_dim(name)
+        """The param block from every data rank's updated ``blk`` (under
+        FSDP ``blk`` is the param block: no collective)."""
+        d = self._update_dim(name)
         return blk if d is None else self.mesh.all_gather(blk, self._data_axes(), dim=d)
 
     def norm_weight(self, name: str) -> float:

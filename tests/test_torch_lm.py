@@ -58,13 +58,14 @@ def test_yi_config_equals_jax(smoke):
     assert mine.vocab_padded == theirs.vocab_padded == (65_536 if not smoke else 2048)
     assert (mine.qkv_dim, mine.kv_dim) == (theirs.qkv_dim, theirs.kv_dim)
     assert list_archs() == ("yi-9b", "rwkv6-1.6b", "hymba-1.5b", "granite-moe-1b-a400m",
-                            "phi3.5-moe-42b-a6.6b")
+                            "phi3.5-moe-42b-a6.6b", "qwen2.5-14b", "starcoder2-15b")
 
 
 @pytest.mark.parametrize("arch", [a for a in JAX_ARCH_IDS
                                   if a not in ("yi-9b", "rwkv6-1.6b", "hymba-1.5b",
                                                "granite-moe-1b-a400m",
-                                               "phi3.5-moe-42b-a6.6b")] + ["nope"])
+                                               "phi3.5-moe-42b-a6.6b", "qwen2.5-14b",
+                                               "starcoder2-15b")] + ["nope"])
 def test_unported_arch_raises_naming_roadmap(arch):
     with pytest.raises(KeyError, match="ROADMAP"):
         get_config(arch)

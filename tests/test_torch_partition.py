@@ -8,7 +8,9 @@ checkpoint's reshard.
   :class:`~repro_torch.sharding.partition.MeshShape`: the logical axes
   and shapes (``logical_axes`` against ``build_params(abstract=True)``),
   ``spec_for`` under the default, serve and train rules,
-  ``zero1_shardings`` and ``cache_shardings`` equal entry for entry.
+  ``zero1_shardings``, ``fsdp_shardings`` and ``cache_shardings`` equal
+  entry for entry, and the train layout's per-layer specs, ZeRO-1's and
+  FSDP's, against JAX's stacked ones.
 - Collectives: one 4-rank gloo job on a ``(2, 2)`` mesh; each
   differentiable collective inside a small function whose unsharded form
   runs in the same rank, gradients against autograd of that form within
@@ -57,6 +59,8 @@ def _jax_side(arch, smoke, shape):
         out[name] = {k: tuple(jp.spec_for(tuple(v.shape), axes[k], mesh, r)) for k, v in p.items()}
     out["zero1"] = {k: tuple(s.spec) for k, s in
                     jp.zero1_shardings(p, axes, mesh, rules["train"]).items()}
+    out["fsdp"] = {k: tuple(s.spec) for k, s in
+                   jp.fsdp_shardings(p, axes, mesh, rules["train"]).items()}
     cache = init_kv_cache(cfg, CACHE_B, CACHE_T, as_specs=True)
     out["cache_shapes"] = {k: tuple(v.shape) for k, v in cache.items()}
     out["cache"] = {k: tuple(s.spec) for k, s in jp.cache_shardings(cache, mesh).items()}
@@ -77,6 +81,7 @@ def test_specs_equal_jax(arch, smoke, shape):
     for name, r in rules.items():
         assert pt.param_specs(shapes, axes, mesh, r) == want[name], name
     assert pt.zero1_specs(shapes, axes, mesh, rules["train"]) == want["zero1"]
+    assert pt.fsdp_specs(shapes, axes, mesh, rules["train"]) == want["fsdp"]
     cache = zoo.init_kv_cache(cfg, CACHE_B, CACHE_T, dtype=torch.bfloat16, device="cpu") \
         if smoke else None
     cache_shapes = ({k: tuple(v.shape) for k, v in cache.items()} if cache is not None
@@ -91,16 +96,19 @@ def test_specs_equal_jax(arch, smoke, shape):
     for key, spec in lay.params.items():
         full = want["train"][key]
         assert spec == (full[1:] if key.startswith("blocks.") else full), key
-    for key, spec in lay.moments.items():
-        full = want["zero1"][key]
-        if not key.startswith("blocks."):
-            assert spec == full, key
-        elif not full or full[0] is None:
-            assert spec == full[1:], key
-        else:
-            own = pt.zero1_specs({key: shapes[key][1:]}, {key: axes[key][1:]}, mesh,
-                                 rules["train"])
-            assert spec == own[key], key
+    fsdp = zoo.layout(cfg, mesh, fsdp=True)
+    assert fsdp.params == fsdp.moments == lay.moments and fsdp.tp == lay.params
+    for kind, specs in (("zero1", lay.moments), ("fsdp", fsdp.params)):
+        for key, spec in specs.items():
+            full = want[kind][key]
+            if not key.startswith("blocks."):
+                assert spec == full, (kind, key)
+            elif not full or full[0] is None:
+                assert spec == full[1:], (kind, key)
+            else:
+                own = pt.zero1_specs({key: shapes[key][1:]}, {key: axes[key][1:]}, mesh,
+                                     rules["train"])
+                assert spec == own[key], (kind, key)
 
 
 def test_state_and_batch_specs():

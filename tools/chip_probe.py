@@ -4,14 +4,15 @@ Usage, from the root of a checkout on a host with a Hopper card::
 
     python3 tools/chip_probe.py            # the flash phase, its timings, phase 40
     python3 tools/chip_probe.py serve      # phase 40 (sharded serving) alone
+    python3 tools/chip_probe.py train      # phases 39 and 41 (ZeRO-1 and FSDP), then 42
     python3 tools/chip_probe.py flash-ab PARENT
         # tools/flash_ab.py on PARENT (another commit's tree) and on this
         # checkout in turns (parent, this, this, parent), then the card's
         # flash tests (tests/test_torch_cuda.py -k flash)
 
 Builds the kernels the phases run first; prints chip_smoke's log lines.
-The sharded serving phase spawns its ranks, which import this module's
-caller by name, so it runs under ``if __name__ == "__main__"``.
+The sharded phases spawn their ranks, which import this module's caller
+by name, so they run under ``if __name__ == "__main__"``.
 """
 
 import json
@@ -49,6 +50,17 @@ def main(argv: list[str]) -> int:
     dev = torch.device("cuda", 0)
     cs.log(f"card: {cs.gpu_line()}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     t = time.perf_counter()
+    if argv[:1] == ["train"]:
+        build.build_all()
+        cs.log(f"built in {time.perf_counter() - t:.1f} s")
+
+        def elapsed(done: str) -> None:
+            cs.log(f"elapsed after {done}: {time.perf_counter() - t:.1f} s")
+
+        cs.sharded_train_phase(dev)
+        elapsed("phases 39 and 41")
+        cs.dense_phases(dev, elapsed)
+        return 0
     build.build_all(["flash_attention", "embed_lookup", "wkv6", "ssm_scan"])
     cs.log(f"built in {time.perf_counter() - t:.1f} s")
     if argv[:1] != ["serve"]:
