@@ -467,8 +467,8 @@ PARITY_ATOL, PARITY_PROMPT, PARITY_STEPS = 1e-3, 128, 8
 # at prefill and at every decode step
 PARITY_PROMPT_BY_ARCH = {"hymba-1.5b": 2064}
 SERVE_SLOTS, SERVE_T_MAX, SERVE_REQUESTS, SERVE_NEW = 8, 4096, 16, 32
-# the schedulers' new tokens a request (32 through PR 29; cut for the run's
-# time, the decode groups halved, the 16 requests still queueing for 8 slots)
+# the schedulers' new tokens a request (cut from 32 for the run's time, the
+# decode groups halved, the 16 requests still queueing for 8 slots)
 SCHED_NEW = 16
 SERVE_PROMPT_MIN, SERVE_PROMPT_MAX = 256, 3072
 # the earlier slices' scheduler phases run at a cut depth, so that the whole
@@ -541,9 +541,8 @@ SPLIT_GRID_B, SPLIT_GRID_T = (1, 4), (128, 192, 256, 384, 512, 1024, 2048, 3072)
 # Filter's requests; the loss model's seed
 TENANCY_ROWS, TENANCY_DIM, TENANCY_N_KEYS = 64, 16, 8
 SANDBOX_REQUESTS, LOSS_SEED = 256, 1
-# for the run's time since the FSDP and dense-arch phases came (PR 30): the
-# tenant mix over the Gather table for TENANCY_TABLE_TICKS of the config's
-# 40 ticks
+# for the run's time beside the FSDP and dense-arch phases: the tenant mix
+# over the Gather table for TENANCY_TABLE_TICKS of the config's 40 ticks
 TENANCY_TABLE_TICKS = 20
 # the compiled SPMD phase: 4 gloo ranks sharing the card, yi-9b's vocab
 # table, hymba's longest prompt (768 queries a rank); a dead rank fails the
@@ -587,8 +586,8 @@ TRAIN_PARITY_SEQ, TRAIN_PARITY_BATCH, TRAIN_GRAD_RTOL, TRAIN_LR = 128, 1, 1e-4, 
 # largest, set between the kernels' and the plain versions' readings; the
 # CPU's error against it is logged
 TRAIN_F64_REF, TRAIN_F64_RTOL = ("rwkv6-1.6b",), 2e-4
-# the train phase: yi-9b at full width and 4 of its 48 layers (8 through
-# PR 29), bf16, remat,
+# the train phase: yi-9b at full width and 4 of its 48 layers (cut from 8),
+# bf16, remat,
 # train_4k's 4,096 tokens, 4 sequences a step in 2 microbatches
 TRAIN_LAYERS, TRAIN_SEQ, TRAIN_BATCH, TRAIN_MICROBATCH, TRAIN_STEPS = 4, 4096, 4, 2, 6
 # step 0's gradients through the backward's two routes: bf16 P and dS
@@ -606,7 +605,7 @@ REC_BWD_TOL, REC_BWD_BF16_RTOL = 1e-4, 2.0**-7
 REC_TRAIN = (2, 4096)  # b, t: rwkv6's and hymba's train microbatch
 # the train phase's layers and steps by arch: yi at 4 of its 48 layers;
 # rwkv6, hymba and granite-moe at a quarter of their depth (6 of 24, 8 of
-# 32 with hymba's global layer 7, 6 of 24; half through PR 29; at full
+# 32 with hymba's global layer 7, 6 of 24; cut from half; at full
 # depth their weights, gradients and moments, ~25, ~22 and ~23 GB, fit the
 # card, but the run's time does not, beside the sharded phases); 4 steps
 TRAIN_DEPTH = {"yi-9b": (TRAIN_LAYERS, TRAIN_STEPS), "rwkv6-1.6b": (6, 4),
@@ -673,7 +672,7 @@ SHARD_F64_RTOL = 1e-3
 # (hymba's window of 2,048 then leaves part of rank 0's slice of 1,040
 # positions behind its last queries), then SERVE_TIME_STEPS decode steps
 SERVE_BATCH, SERVE_PROMPT, SERVE_T, SERVE_STEPS, SERVE_RTOL = 4, 128, 160, 8, 1e-3
-SERVE_TIME_PROMPT, SERVE_TIME_T, SERVE_TIME_STEPS = 2048, 2080, 8  # 32 through PR 29
+SERVE_TIME_PROMPT, SERVE_TIME_T, SERVE_TIME_STEPS = 2048, 2080, 8  # steps cut from 32
 SERVE_DIR = ROOT / "build" / "chip_smoke" / "sharded_serve"
 # the flash phase's sliced calls (a rank's slice of a KV cache cut over T):
 # yi's decode rows of a (2, 2) rank over its 1,040 keys, timed beside the
@@ -690,7 +689,7 @@ MOE_ARCH, PHI_ARCH, PHI_LAYERS = "granite-moe-1b-a400m", "phi3.5-moe-42b-a6.6b",
 # host), and so the remote rows' widths that the embed_lookup phases check
 # and time
 REMOTE_ARCHS = ("yi-9b", "rwkv6-1.6b", "hymba-1.5b")
-# the remote arm's tokens (PR 30; 32 before, ~13-17 s an arch on a slow
+# the remote arm's tokens (cut from 32, ~13-17 s an arch on a slow
 # host, each token's rows a gather over the PE fabric on the host), held to
 # the local arm's first REMOTE_NEW
 REMOTE_NEW = 8
@@ -3036,8 +3035,8 @@ def tenancy_phase(dev, table: np.ndarray) -> dict:
     """``BENCH_tenancy.json``'s config on the card, its reports equal to
     that JSON's (the JAX package's run of the config;
     ``tests/test_torch_tenancy.py`` holds the port's CPU run to the JAX
-    router's on the tiny config; through PR 29 the card was held to a CPU
-    run of the port here, ~50 s of the run);
+    router's on the tiny config; a CPU run of the port here took ~50 s of
+    the run);
     then the same tenant mix over the Gather phase's table on the card."""
     from repro_torch.kernels import launch_counts, reset_launches
 
@@ -5292,6 +5291,7 @@ def fsdp_parity_rank(arch: str, mesh, dev, zero1: dict | None = None,
     from repro_torch.configs import get_config
     from repro_torch.models import zoo
     from repro_torch.optim import AdamW
+    from repro_torch.sharding import partition as pt
 
     cfg = get_config(arch).replace(n_layers=2, dtype=torch.float32, microbatch=FSDP_MICROBATCH)
     batch = zoo.make_batch(cfg, zoo.ShapeSpec("t", SHARD_SEQ, SHARD_BATCH, "train"), 0,
@@ -5361,12 +5361,23 @@ def fsdp_parity_rank(arch: str, mesh, dev, zero1: dict | None = None,
 
     _in_turns(mesh, turns, reference)
     rec["reference_s"] = time.perf_counter() - t
-    shapes = {n: tuple(p.shape) for n, p in zoo.model_params(model).items()}
+    # fsdp_specs' blocks and the TP blocks, from the whole leaves (a layer's)
+    whole, axes = zoo.logical_axes(cfg)
+    one = lambda k, t: t[1:] if k.startswith("blocks.") else t  # noqa: E731
+    whole, axes = ({k: one(k, t) for k, t in tree.items()} for tree in (whole, axes))
+    rules = pt.rules_for_train(cfg, mesh)
+    want, tp = ({k: pt.block_shape(whole[k], spec, mesh) for k, spec in specs.items()}
+                for specs in (pt.fsdp_specs(whole, axes, mesh, rules),
+                              pt.param_specs(whole, axes, mesh, rules)))
+    blocks = {n: {tuple(p.shape), tuple(got["grads"][n].shape),
+                  *(tuple(t.shape) for t in got["after"][n])}
+              for n, p in zoo.model_params(model).items()}
     rec.update(loss=got["loss"], grad_norm=got["grad_norm"], wall_s=got["wall_s"],
                stage_s=got["stage_s"], bytes=got["bytes"], bwd_bytes=got["bwd_bytes"],
                launches=got["launches"], routes_by_kernel=got["routes"],
-               blocks_are_fsdp=all(shapes[n] == tuple(g.shape) == tuple(got["after"][n][1].shape)
-                                   for n, g in got["grads"].items()),
+               blocks_are_fsdp=set(blocks) == set(got["grads"]) and all(
+                   b == {want[pt.leaf_key(n)]} for n, b in blocks.items()),
+               leaves_cut_over_data=sum(math.prod(want[k]) < math.prod(tp[k]) for k in want),
                param_gb=sum(p.numel() * p.element_size()
                             for p in zoo.model_params(model).values()) / 1e9)
     del model, host, got, own
@@ -5575,6 +5586,7 @@ def fsdp_summary(ranks: list, zero1_timing: dict) -> dict:
             "held": [r.get("held") for r in recs],
             "vs_zero1": [r.get("vs_zero1") for r in recs] if "vs_zero1" in recs[0] else None,
             "param_gb": [r["param_gb"] for r in recs],
+            "leaves_cut_over_data": recs[0]["leaves_cut_over_data"],
             "launches": [r["launches"] for r in recs],
             "routes": [r["routes_by_kernel"] for r in recs],
             "bytes": [r["bytes"] for r in recs], "bwd_bytes": [r["bwd_bytes"] for r in recs],
@@ -5591,9 +5603,11 @@ def fsdp_summary(ranks: list, zero1_timing: dict) -> dict:
             raise AssertionError(f"fsdp parity {arch}: the ranks report different losses")
         if not (flips or abs(loss - want) <= 1e-5 * abs(want)):
             raise AssertionError(f"fsdp parity {arch}: loss {loss} against {want}")
-        if wide or off or not all(r["blocks_are_fsdp"] for r in recs):
+        if wide or off or not all(r["blocks_are_fsdp"] and r["leaves_cut_over_data"]
+                                  for r in recs):
             raise AssertionError(f"fsdp parity {arch}: flips past the margin {wide}, leaves "
-                                 f"off their bounds {off}, or blocks not FSDP's")
+                                 f"off their bounds {off}, or blocks not fsdp_specs' (or none "
+                                 f"smaller than its TP block)")
         cfg = get_config(arch).replace(n_layers=2, microbatch=FSDP_MICROBATCH)
         want = shard_launches(arch, cfg, torch.float32, SHARD_BATCH, SHARD_SEQ)
         for i, r in enumerate(recs):

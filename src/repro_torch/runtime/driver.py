@@ -17,8 +17,7 @@ Responsibilities:
 
 With a ``mesh`` (``repro_torch.sharding.mesh.Mesh``; every rank of it runs
 the driver), the state is each rank's blocks under the train rules'
-specs (``models.zoo.layout``; moments under ZeRO-1, and the params too
-with ``fsdp``), every rank reads the
+specs (``models.zoo.layout``; moments under ZeRO-1), every rank reads the
 same global batch and takes its rows of it, a checkpoint is gathered one
 leaf at a time (no rank holds more than one whole leaf on its device) to
 rank 0's host and written by rank 0 alone, and a restore takes each rank's
@@ -70,15 +69,13 @@ class TrainDriver:
         ckpt_every: int = 10,
         seed: int = 0,
         device: "torch.device | str | None" = None,
-        fsdp: bool = False,
     ):
         if mesh is not None and not isinstance(mesh, Mesh):
             raise TypeError(f"TrainDriver takes a repro_torch.sharding.mesh.Mesh, got "
                             f"{type(mesh).__name__}")
         self.cfg = cfg
         self.mesh = mesh
-        self.fsdp = fsdp
-        self.lay = None if mesh is None else layout(cfg, mesh, fsdp=fsdp)
+        self.lay = None if mesh is None else layout(cfg, mesh)
         self.device = resolve_device(device)
         self.opt = opt or AdamW(lr=1e-3)
         self.ckpt = CheckpointStore(ckpt_dir, keep=3)
@@ -174,7 +171,7 @@ class TrainDriver:
 
     def _compile(self):
         # eager PyTorch: the step function is built once, not traced
-        self._step_fn = make_train_step(self.cfg, self.opt, mesh=self.mesh, fsdp=self.fsdp)
+        self._step_fn = make_train_step(self.cfg, self.opt, mesh=self.mesh)
 
     def _barrier(self) -> None:
         """Every rank of the mesh waits here (rank 0's checkpoint committed)."""

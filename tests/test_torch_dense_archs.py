@@ -31,6 +31,7 @@ both packages, so that a bias added twice (or not at all) shows.
 Run alone: ``PYTHONPATH=src python -m pytest -q tests/test_torch_dense_archs.py``.
 """
 
+import functools
 import importlib.util
 import os
 import subprocess
@@ -154,6 +155,18 @@ def test_prefill_and_decode_match_jax(arch_f32):
         np.testing.assert_allclose(tc[k].numpy(), np.asarray(jc[k]), atol=1e-5)
 
 
+@pytest.fixture(autouse=True)
+def one_thread():
+    """Each test's port calls and checks on one intra-op thread: the smoke
+    tensors are small, and a pool of threads beside the other test
+    processes of a parallel run slows each small op many times over."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+@functools.cache
 def _chip_smoke():
     spec = importlib.util.spec_from_file_location("chip_smoke_bounds", ROOT / "chip_smoke.py")
     mod = importlib.util.module_from_spec(spec)
@@ -206,7 +219,10 @@ def test_train_step_matches_jax(arch_f32):
 # ----------------------------------------------------------- sharded serving
 _JAX = r"""
 import os, sys
-os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
+# LLVM at -O0: a third less compile time for these one-call steps (XLA's
+# graph passes run as before; only the machine code is less optimized)
+os.environ["XLA_FLAGS"] = ("--xla_force_host_platform_device_count=4 "
+                           "--xla_backend_optimization_level=0")
 import jax, jax.numpy as jnp, numpy as np
 from jax.sharding import AxisType, NamedSharding, PartitionSpec as P
 from repro.configs import get_config

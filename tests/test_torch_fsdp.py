@@ -3,8 +3,10 @@ package's FSDP step, the port's ZeRO-1 step and its unsharded step.
 
 One input set: the smoke configs of yi-9b, rwkv6-1.6b, hymba-1.5b,
 granite-moe-1b-a400m, qwen2.5-14b and starcoder2-15b in f32, each with
-microbatch 1 and 2, weights from seed 0 (drawn once by the port and handed
-to JAX), one ``train``-shape batch from numpy seed 7, AdamW at lr 1e-3.
+microbatch 1 and 2, and yi-9b's with ``remat`` on (2, 2) (``REMAT``; every
+smoke config runs without), weights from seed 0 (drawn once by the port
+and handed to JAX), one ``train``-shape batch from numpy seed 7, AdamW at
+lr 1e-3.
 
 - The port: one 4-rank gloo job (``torch.multiprocessing``, a
   ``FileStore`` under the test's temporary directory) on the ``(2, 2)``
@@ -14,12 +16,12 @@ to JAX), one ``train``-shape batch from numpy seed 7, AdamW at lr 1e-3.
   qwen2.5's smoke config has 5 heads: on both meshes its attention runs
   sequence parallel (``attend_sp``), the biases riding in
   ``copy_to_region``.
-- JAX: one subprocess on 4 host devices, ``make_train_step(cfg, opt,
+- JAX: two subprocesses on 4 host devices each, ``make_train_step(cfg, opt,
   mesh=, fsdp=True)`` on a mesh of ``AxisType.Auto`` axes with
   ``state_shardings(..., fsdp=True)`` and ``batch_shardings``,
   ``rwkv_chunk`` and ``ssm_chunk`` 0: every arch on both meshes with one
   microbatch, qwen2.5 and starcoder2 (whose configs take two) with two on
-  (2, 2) (``JAX_CASES``).
+  (2, 2), and both remat cases (``JAX_CASES``).
 
 Bounds (``tests/test_torch_sharded_train.py``'s): the loss within 1e-5
 relative; each gradient, as the FSDP update takes it (reduced over the
@@ -42,6 +44,7 @@ restores onto ZeRO-1 blocks and back bit for bit.
 Run alone: ``PYTHONPATH=src python -m pytest -q tests/test_torch_fsdp.py``.
 """
 
+import functools
 import importlib.util
 import math
 import os
@@ -68,29 +71,33 @@ SMALL_S = 8
 LR, SEED, BATCH_SEED = 1e-3, 0, 7
 LOSS_RTOL, GRAD_RTOL, ORDER_RTOL = 1e-5, 1e-4, 1e-6
 REF_LOSS, REF_WEIGHT = 0.05, 5e-3  # tests/test_multidevice.py's sharded-step bounds
-CASES = [(mesh, arch, mb) for mesh in MESHES for arch in ARCHS for mb in MBS]
+# yi with remat: the backward gathers each layer's blocks again inside
+# checkpoint's recompute, and the gradients come from the recomputed graph
+REMAT = "yi-9b"
+CASES = ([(mesh, arch, mb, False) for mesh in MESHES for arch in ARCHS for mb in MBS]
+         + [("2x2", REMAT, mb, True) for mb in MBS])
 # JAX's side, one jit a case (~4 s of the fixture's time each): every arch
-# on both meshes with one microbatch, and the two archs whose configs take
-# two microbatches with two on (2, 2); the port's other two-microbatch
-# cases are held to its unsharded and ZeRO-1 steps
-JAX_CASES = [c for c in CASES if c[2] == 1 or (
+# on both meshes with one microbatch, the two archs whose configs take two
+# microbatches with two on (2, 2), and the remat cases; the port's other
+# two-microbatch cases are held to its unsharded and ZeRO-1 steps
+JAX_CASES = [c for c in CASES if c[2] == 1 or c[3] or (
     c[0] == "2x2" and c[1] in ("qwen2.5-14b", "starcoder2-15b"))]
 STAGES = ("fwd", "bwd", "opt")
 KINDS = ("psum", "pmax", "all_gather", "all_to_all", "reduce_scatter")
 
 
-def _case(mesh, arch, mb) -> str:
-    return f"{mesh}|{arch}|mb{mb}"
+def _case(mesh, arch, mb, remat=False) -> str:
+    return f"{mesh}|{arch}|mb{mb}" + ("|remat" if remat else "")
 
 
-def _shape(mesh: str, arch: str, mb: int) -> tuple[int, int]:
+def _shape(mesh: str, arch: str, mb: int, remat: bool = False) -> tuple[int, int]:
     return (SMALL[mesh] * mb, SMALL_S) if arch == MOE else (B, S)
 
 
-def _cfg(arch, mb):
+def _cfg(arch, mb, remat=False):
     from repro_torch.configs import get_config
 
-    return get_config(arch, smoke=True).replace(dtype=torch.float32, microbatch=mb)
+    return get_config(arch, smoke=True).replace(dtype=torch.float32, microbatch=mb, remat=remat)
 
 
 def _batch(cfg, shape):
@@ -102,7 +109,10 @@ def _batch(cfg, shape):
 
 _JAX = r"""
 import os, sys
-os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
+# LLVM at -O0: a third less compile time for these one-call steps (XLA's
+# graph passes run as before; only the machine code is less optimized)
+os.environ["XLA_FLAGS"] = ("--xla_force_host_platform_device_count=4 "
+                           "--xla_backend_optimization_level=0")
 import jax, jax.numpy as jnp, numpy as np
 from jax.sharding import AxisType
 from repro.configs import get_config
@@ -112,10 +122,10 @@ from repro.sharding.partition import batch_shardings, rules_for_train, state_sha
 w = np.load(sys.argv[1])
 cases, meshes, lr, seed = eval(sys.argv[3]), eval(sys.argv[4]), float(sys.argv[5]), int(sys.argv[6])
 out = {}
-for tag, (mesh_name, arch, mb, b, s) in cases.items():
+for tag, (mesh_name, arch, mb, remat, b, s) in cases.items():
     mesh = jax.make_mesh(meshes[mesh_name], ("data", "model"), axis_types=(AxisType.Auto,) * 2)
     cfg = get_config(arch, smoke=True).replace(dtype=jnp.float32, rwkv_chunk=0, ssm_chunk=0,
-                                               microbatch=mb)
+                                               microbatch=mb, remat=remat)
     _, axes = build_params(cfg, abstract=True)
     params = {k.split("|", 1)[1]: jnp.asarray(w[k]) for k in w.files if k.startswith(arch + "|")}
     opt = AdamW(lr=lr)
@@ -204,43 +214,69 @@ def _step(cfg, mesh, batch, fsdp: bool, rank: int) -> dict:
     return out
 
 
+def _ckpt_specs(lay) -> dict:
+    """Each checkpoint leaf's spec under ``lay``, by leaf name (a stacked
+    ``blocks.*`` leaf's layer dim whole), as ``restore_state(specs=)``
+    takes them."""
+    stack = lambda key, spec: (None, *spec) if key.startswith("blocks.") else spec  # noqa: E731
+    out = {f"params.{k}": stack(k, spec) for k, spec in lay.params.items()}
+    for i in (0, 1):  # m and v, under OptState's flat indices
+        out |= {f"opt'][<flat index {i}>]['{k}": stack(k, spec) for k, spec in lay.moments.items()}
+    return out
+
+
 def _round_trip(mesh, out_dir: Path) -> dict:
     """yi smoke on (2, 2): an FSDP state after one step, saved whole,
-    restored onto ZeRO-1 blocks, saved again, restored onto FSDP blocks.
-    Every block of each restore against the blocks it should be."""
+    restored onto ZeRO-1 blocks (a ``TrainDriver`` on the mesh), saved
+    again, restored onto FSDP blocks with ``restore_state(specs=)`` and
+    ``layout(cfg, mesh, fsdp=True)``'s specs.  Every block of each restore
+    against the blocks it should be."""
     from repro_torch.checkpoint import restore_state, save_state
     from repro_torch.configs import get_config
     from repro_torch.data import DataConfig, TokenPipeline
     from repro_torch.models import zoo
+    from repro_torch.optim import OptState
     from repro_torch.runtime.driver import TrainDriver
-    from repro_torch.sharding.partition import leaf_key, local_block
+    from repro_torch.sharding.partition import full_leaf, leaf_key, local_block
 
     cfg = get_config("yi-9b", smoke=True)
     data = DataConfig(seq_len=16, global_batch=4, vocab=cfg.vocab)
-    drv = {name: TrainDriver(cfg, out_dir / f"rt_{name}", mesh=mesh, data=data, device="cpu",
-                             fsdp=name == "fsdp") for name in ("fsdp", "zero1")}
-    state = drv["fsdp"].init_state()
-    zoo.make_train_step(cfg, drv["fsdp"].opt, mesh=mesh, fsdp=True)(
-        state, TokenPipeline(data).batch_at(0))
-    whole = drv["fsdp"].tree(state)  # rank 0's; None elsewhere
-    save_state(out_dir / "rt", whole, 1, mesh=mesh)
+    drv = TrainDriver(cfg, out_dir / "rt_zero1", mesh=mesh, data=data, device="cpu")
+    lay = zoo.layout(cfg, mesh, fsdp=True)
+
+    def fsdp_state() -> dict:
+        model = zoo.shard_params(cfg, zoo.build_params(cfg, SEED, device="cpu"), mesh, lay)
+        return {"params": model, "step": 0,
+                "opt": drv.opt.init(zoo.model_params(model), constrain=lay)}
+
+    def whole(named: dict, specs: dict) -> dict:
+        return zoo.to_jax_params(cfg, {n: full_leaf(t, specs[leaf_key(n)], mesh)
+                                       for n, t in named.items()})
+
+    state = fsdp_state()
+    zoo.make_train_step(cfg, drv.opt, mesh=mesh, fsdp=True)(state, TokenPipeline(data).batch_at(0))
+    opt = state["opt"]
+    save_state(out_dir / "rt", {
+        "params": whole(zoo.model_params(state["params"]), lay.params),
+        "opt": OptState(m=whole(opt.m, lay.moments), v=whole(opt.v, lay.moments),
+                        count=opt.count),
+        "step": 1}, 1, mesh=mesh)
     res = {}
-    z_state = drv["zero1"].init_state()
-    tree, _ = restore_state(out_dir / "rt", drv["zero1"].like(z_state), device="cpu",
-                            specs=drv["zero1"].specs(), mesh=mesh)
-    drv["zero1"].load_tree(z_state, tree)
+    z_state = drv.init_state()
+    tree, _ = restore_state(out_dir / "rt", drv.like(z_state), device="cpu", specs=drv.specs(),
+                            mesh=mesh)
+    drv.load_tree(z_state, tree)
     # the ZeRO-1 blocks are the saved leaves' blocks under the ZeRO-1 specs
-    saved, _ = restore_state(out_dir / "rt", drv["zero1"].like(z_state), device="cpu")
-    lay = drv["zero1"].lay
+    saved, _ = restore_state(out_dir / "rt", drv.like(z_state), device="cpu")
     named = zoo.from_jax_names(cfg, saved["params"])
     res["zero1_params_equal"] = all(
-        torch.equal(p, local_block(named[k], lay.params[leaf_key(k)], mesh))
+        torch.equal(p, local_block(named[k], drv.lay.params[leaf_key(k)], mesh))
         for k, p in zoo.model_params(z_state["params"]).items())
-    save_state(out_dir / "rt", drv["zero1"].tree(z_state), 2, mesh=mesh)
-    back = drv["fsdp"].init_state()
-    tree, _ = restore_state(out_dir / "rt", drv["fsdp"].like(back), step=2, device="cpu",
-                            specs=drv["fsdp"].specs(), mesh=mesh)
-    drv["fsdp"].load_tree(back, tree)
+    save_state(out_dir / "rt", drv.tree(z_state), 2, mesh=mesh)
+    back = fsdp_state()
+    tree, _ = restore_state(out_dir / "rt", drv.like(back), step=2, device="cpu",
+                            specs=_ckpt_specs(lay), mesh=mesh)
+    drv.load_tree(back, tree)
     pairs = [(zoo.model_params(state["params"]), zoo.model_params(back["params"])),
              (state["opt"].m, back["opt"].m), (state["opt"].v, back["opt"].v)]
     res["fsdp_equal"] = all(torch.equal(a[k], b[k]) for a, b in pairs for k in a)
@@ -265,14 +301,14 @@ def _rank(rank: int, store: str, out_dir: str) -> None:
                               init_method=f"file://{store}", timeout=timedelta(seconds=180))
               for name, shape in MESHES.items()}
     res = {}
-    for mesh_name, arch, mb in CASES:
-        mesh, cfg = meshes[mesh_name], _cfg(arch, mb)
+    for mesh_name, arch, mb, remat in CASES:
+        mesh, cfg = meshes[mesh_name], _cfg(arch, mb, remat)
         batch = _batch(cfg, _shape(mesh_name, arch, mb))
         calls["attend_sp"] = 0
         got = {"fsdp": _step(cfg, mesh, batch, True, rank)}
         got["attend_sp"] = calls["attend_sp"]
         got["zero1"] = _step(cfg, mesh, batch, False, rank)
-        res[_case(mesh_name, arch, mb)] = got
+        res[_case(mesh_name, arch, mb, remat)] = got
     transformer.attend_sp = attend_sp
     res["round_trip"] = _round_trip(meshes["2x2"], Path(out_dir))
     meshes["2x2"].close()  # the one process group under every mesh
@@ -292,12 +328,13 @@ def runs(tmp_path_factory):
         for k, v in zoo.to_jax_params(cfg, zoo.build_params(cfg, SEED, device="cpu")).items():
             weights[f"{arch}|{k}"] = v.numpy()
     np.savez(tmp / "w.npz", **weights)
-    cases = {_case(*c): (*c, *_shape(*c)) for c in JAX_CASES}
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu")
-    jax_side = subprocess.Popen(
-        [sys.executable, "-c", _JAX, str(tmp / "w.npz"), str(tmp / "jax.npz"), repr(cases),
-         repr(MESHES), str(LR), str(BATCH_SEED)],
+    jax_side = [subprocess.Popen(  # JAX's cases in two processes, beside the ranks
+        [sys.executable, "-c", _JAX, str(tmp / "w.npz"), str(tmp / f"jax{i}.npz"),
+         repr({_case(*c): (*c, *_shape(*c)) for c in JAX_CASES[i::2]}), repr(MESHES), str(LR),
+         str(BATCH_SEED)],
         env=env, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for i in range(2)]
     threads = torch.get_num_threads()
     try:
         ranks = torch.multiprocessing.spawn(_rank, args=(str(tmp / "store"), str(tmp)),
@@ -305,21 +342,34 @@ def runs(tmp_path_factory):
         torch.set_num_threads(2)  # the unsharded steps, here while the ranks run
         refs = {}
         for c in CASES:
-            cfg = _cfg(c[1], c[2])
+            cfg = _cfg(*c[1:])
             refs[_case(*c)] = _unsharded(cfg, _batch(cfg, _shape(*c)))
         while not ranks.join():
             pass
     finally:
         torch.set_num_threads(threads)
-        _, err = jax_side.communicate(timeout=900)
-    assert jax_side.returncode == 0, err[-3000:]
+        errs = [p.communicate(timeout=900)[1] for p in jax_side]
+    for p, err in zip(jax_side, errs):
+        assert p.returncode == 0, err[-3000:]
     port = [torch.load(tmp / f"rank{r}.pt", weights_only=False) for r in range(RANKS)]
     for tag, ref in refs.items():
         port[0][tag]["unsharded"] = ref
-    jx = np.load(tmp / "jax.npz")
-    return port, {k: jx[k] for k in jx.files}
+    jx = [np.load(tmp / f"jax{i}.npz") for i in range(2)]
+    return port, {k: j[k] for j in jx for k in j.files}
 
 
+@pytest.fixture(autouse=True)
+def one_thread():
+    """Each test's checks on one intra-op thread: the leaves are small, and
+    a pool of threads beside the other test processes of a parallel run
+    slows each small op many times over."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+@functools.cache
 def _chip_smoke():
     spec = importlib.util.spec_from_file_location("chip_smoke_bounds", ROOT / "chip_smoke.py")
     mod = importlib.util.module_from_spec(spec)
@@ -347,9 +397,9 @@ def _hold_step(got: dict, want: dict, grads: dict, got_norm: float, want_norm: f
 def _jax_tree(jx: dict, tag: str) -> dict:
     out = {"params": {}, "m": {}, "v": {}}
     for k, v in jx.items():
-        parts = k.split("|")
-        if k.startswith(tag + "|") and len(parts) == 5:
-            out[parts[3]][parts[4]] = v
+        what, _, name = k.removeprefix(tag + "|").partition("|")
+        if k.startswith(tag + "|") and what in out:
+            out[what][name] = v
     return out
 
 
@@ -444,16 +494,20 @@ def _fsdp_bytes(arch: str, mesh: str) -> dict:
     the leaves ``fsdp_specs`` cuts over the data axes (a data axis of one
     rank too: the collective runs over its group of one and counts):
     ``gather`` each one's block (a microbatch's forward all-gather, and
-    ZeRO-1's all-gather after the update), ``scatter`` each one's TP block
-    (a microbatch's backward reduce-scatter, and ZeRO-1's in the update)."""
+    ZeRO-1's all-gather after the update), ``regather`` the layers' part of
+    it (what remat's recompute gathers again in a microbatch's backward;
+    the table, ``final_ln`` and the head are gathered outside the
+    checkpointed blocks), ``scatter`` each one's TP block (a microbatch's
+    backward reduce-scatter, and ZeRO-1's in the update)."""
     from repro_torch.sharding.partition import block_shape
 
     shapes, fsdp, tp, m = _specs(arch, mesh)
     layers = _cfg(arch, 1).n_layers
     cut = [k for k in shapes if fsdp[k] != tp[k]]
     count = {k: layers if k.startswith("blocks.") else 1 for k in cut}
-    return {"gather": sum(count[k] * math.prod(block_shape(shapes[k], fsdp[k], m)) * 4
-                          for k in cut),
+    gather = {k: count[k] * math.prod(block_shape(shapes[k], fsdp[k], m)) * 4 for k in cut}
+    return {"gather": sum(gather.values()),
+            "regather": sum(b for k, b in gather.items() if k.startswith("blocks.")),
             "scatter": sum(count[k] * math.prod(block_shape(shapes[k], tp[k], m)) * 4
                            for k in cut)}
 
@@ -463,9 +517,11 @@ def test_fsdp_collective_bytes_equal_closed_forms(runs, case):
     """FSDP less ZeRO-1, a rank's bytes by stage and kind: the forward
     all-gathers ``mb`` x the cut leaves' blocks, the backward
     reduce-scatters ``mb`` x their TP blocks (all of it under
-    ``bwd_bytes_by_kind``), and the update moves neither (ZeRO-1's
-    reduce-scatter and all-gather there are gone); every other collective
-    the same.  (Smoke configs run without remat: no gather is recomputed.)"""
+    ``bwd_bytes_by_kind``) and, with remat, all-gathers ``mb`` x the
+    layers' blocks again in checkpoint's recompute (a forward's gather,
+    not a backward ``Function``'s: none of it under ``bwd_bytes_by_kind``),
+    and the update moves neither (ZeRO-1's reduce-scatter and all-gather
+    there are gone); every other collective the same."""
     port, _ = runs
     tag = _case(*case)
     mb = case[2]
@@ -476,12 +532,14 @@ def test_fsdp_collective_bytes_equal_closed_forms(runs, case):
         expect = {s: dict.fromkeys(KINDS, 0) for s in STAGES}
         expect["fwd"]["all_gather"] = mb * want["gather"]
         expect["bwd"]["reduce_scatter"] = mb * want["scatter"]
+        expect["bwd"]["all_gather"] = mb * want["regather"] if case[3] else 0
         expect["opt"]["all_gather"] = -want["gather"]
         expect["opt"]["reduce_scatter"] = -want["scatter"]
         assert delta == expect, (r, delta, expect)
         assert f["wire"]["opt"]["all_gather"] == f["wire"]["opt"]["reduce_scatter"] == 0
         bwd = {s: {k: f["bwd_wire"][s][k] - z["bwd_wire"][s][k] for k in KINDS} for s in STAGES}
         assert bwd["bwd"]["reduce_scatter"] == mb * want["scatter"], (r, bwd)
+        assert bwd["bwd"]["all_gather"] == 0, (r, bwd)
 
 
 @pytest.mark.parametrize("mesh", MESHES)
