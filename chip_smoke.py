@@ -1,4 +1,4 @@
-"""Drive the PyTorch port's Gather service, DAPC, Filter pushdown, tree collectives, control layers, compiled SPMD rendering, yi-9b, rwkv6-1.6b, hymba-1.5b and granite-moe-1b-a400m serving, training, sharded (ZeRO-1 and FSDP) training and sharded serving, phi3.5-moe serving, and qwen2.5-14b and starcoder2-15b, once on an NVIDIA card.
+"""Drive the PyTorch port's Gather service, DAPC, Filter pushdown, tree collectives, control layers, compiled SPMD rendering, yi-9b, rwkv6-1.6b, hymba-1.5b and granite-moe-1b-a400m serving, training, sharded (ZeRO-1 and FSDP) training and sharded serving, phi3.5-moe serving, qwen2.5-14b and starcoder2-15b, and gemma2-2b (head dim 256) and internvl2-26b (patch frontend), once on an NVIDIA card.
 
 Usage: ``python3 chip_smoke.py [--profile DIR]`` from the root of
 a checkout, on a host with one Hopper card (sm_90) and the CUDA toolkit.
@@ -164,13 +164,13 @@ a checkout, on a host with one Hopper card (sm_90) and the CUDA toolkit.
    greedy tokens.
 13. Serving phase: yi-9b at full width and 4 of its 48 layers (bf16,
    random weights drawn on the card) behind ``ServeScheduler(slots=8,
-   t_max=4096)``: 16 requests with prompts of 256-3,072 tokens, 16 new
+   t_max=4096)``: 16 requests with prompts of 256-3,072 tokens, 8 new
    tokens each, every logit finite, ``flash_attention`` launched 4 x
    (prefills + decode groups) times, 4 x prefills on the ``wgmma`` route
    and 4 x decode groups on the ``split`` route; then a profiled decode
    burst and prefill (busy share, the kernel's share).
 14. ``repro_torch.launch.serve --no-smoke --batch 4 --prompt-len 2048
-   --gen 32`` at full yi-9b (48 layers), local, and ``--gen 8`` with
+   --gen 16`` at full yi-9b (48 layers), local, and ``--gen 8`` with
    ``--remote-embed --embed-servers 2``: the remote stream bit-identical to
    the local one's first 8 tokens, ``embed_lookup`` launched in the remote
    run.
@@ -205,7 +205,7 @@ a checkout, on a host with one Hopper card (sm_90) and the CUDA toolkit.
    groups on ``step``, and its profiled decode burst and prefill (the
    split's three device kernels a launch, each kernel's time by name).
 20. ``launch.serve`` at full rwkv6-1.6b, local and remote-embed (8
-   tokens): streams bit-identical, ``wkv6`` launched 24 x (1 + 32) and 24
+   tokens): streams bit-identical, ``wkv6`` launched 24 x (1 + 16) and 24
    x (1 + 8) times, the prefill's on ``split`` and the steps' on ``step``.
 21. ssm_scan kernel phase: ``ssm_scan`` against its plain version on both
    routes at hymba-1.5b's prefill (B = 1, T = 2,048, D = 1,600, N = 16) and
@@ -235,7 +235,7 @@ a checkout, on a host with one Hopper card (sm_90) and the CUDA toolkit.
    matched to a launch in it by correlation id, the wrapper's launches in
    it and the names matched (ROADMAP T12).
 25. ``launch.serve`` at full hymba-1.5b, local and remote-embed (8
-   tokens): streams bit-identical, each kernel launched 32 x (1 + 32) and
+   tokens): streams bit-identical, each kernel launched 32 x (1 + 16) and
    32 x (1 + 8) times.
 26. Flash backward kernel phase: dQ, dK and dV of ``flash_attention_bwd``
    against its plain version on the same inputs, on the ``wgmma`` route
@@ -256,7 +256,7 @@ a checkout, on a host with one Hopper card (sm_90) and the CUDA toolkit.
    after one AdamW step every weight, m and v.
 28. Train phase: ``TrainDriver``'s step function and AdamW on yi-9b at full
    width, 4 of its 48 layers, bf16, remat, 4 sequences of 4,096 tokens a
-   step in 2 microbatches, 6 steps over ``TokenPipeline`` batches: finite
+   step in 2 microbatches, 4 steps over ``TokenPipeline`` batches: finite
    losses, weights that move, 16 flash forward and 8 backward launches a
    step, all 8 on ``wgmma``, and no plain version on the card; first,
    step 0's gradients on one microbatch through ``wgmma`` and through
@@ -296,7 +296,7 @@ a checkout, on a host with one Hopper card (sm_90) and the CUDA toolkit.
 33. The train phase (28) on rwkv6-1.6b (6 of its 24 layers) and
    hymba-1.5b (8 of its 32, its global layer 7 among them) at
    full width, bf16, remat, 4 x 4,096 tokens a step in
-   2 microbatches, 4 steps: rwkv 24 ``wkv6`` and 12 ``wkv6_bwd`` launches a
+   2 microbatches, 3 steps: rwkv 24 ``wkv6`` and 12 ``wkv6_bwd`` launches a
    step (all ``mma``); hymba 32 ``ssm_scan``, 16 ``ssm_scan_bwd`` (all
    ``regs``), 32 flash forward and 16 flash backward (all ``wgmma``); no
    plain version on the card; each
@@ -318,7 +318,7 @@ a checkout, on a host with one Hopper card (sm_90) and the CUDA toolkit.
    layers (``--layers 8``; all 32 hold ~84 GB of bf16 weights).
 37. The train phase (33) on granite-moe-1b-a400m at full width and 6 of
    its 24 layers, bf16, remat, 4 x 4,096 tokens a step in 2 microbatches,
-   4 steps: 24 flash forward and 12 backward (``wgmma``) launches a step, the aux loss
+   3 steps: 24 flash forward and 12 backward (``wgmma``) launches a step, the aux loss
    finite and above 0; then steps 0-1 again from the same seed, their
    losses bit-identical.
 38. Each MoE phase logs the elapsed time after it.  granite's smoke config
@@ -354,7 +354,7 @@ a checkout, on a host with one Hopper card (sm_90) and the CUDA toolkit.
    CPU, where no route flips); each rank's launches and routes in the
    prefill and the decode steps exact (one a layer a forward, embed_lookup
    one a forward).  Then each family in bf16 at 2 layers: a prompt of 4 x
-   2,048 into a cache of 2,080, 8 greedy steps: rank 0's prefill s and
+   2,048 into a cache of 2,080, 4 greedy steps: rank 0's prefill s and
    decode ms a token (host walls), a decode step's bytes by kind (each
    step's the same), each rank's peak memory.
 41. FSDP phase, in phase 39's ranks after its timed steps, on the same
@@ -377,6 +377,24 @@ a checkout, on a host with one Hopper card (sm_90) and the CUDA toolkit.
    12's parity and phase 27's train parity at 2 layers in f32 (card
    against CPU), then ``launch.serve`` in bf16, local, at 8 layers, each
    layer's flash launches exact; the elapsed time after each arch.
+43. Head dim 256 and the last dense archs, after phase 42: the flash
+   forward on each route at gemma2's heads (8 over 4 of 256, softcap 50,
+   its 4,096 window) against the plain version, as phase 12 holds yi's, and
+   the backward on both routes, as phase 26 holds yi's (the train shape B =
+   2, S = T = 4,096, and a local layer at S = T = 8,192 where the window
+   bites); the d = 256 instances' ptxas reports (registers, spills, shared
+   memory) and times in turns beside their plain versions, SDPA (without
+   the softcap: a yardstick) and the bound: a prefill B = 1 S = T = 2,048,
+   a decode B = 8 T = 2,048, the train shape's forward and backward, the
+   local layer's, and the f32 instances at the parity shapes.  Then
+   gemma2-2b at full width: phase 12's parity and phase 27's train parity
+   at 2 layers in f32 (a local and a global layer), ``launch.serve`` at all
+   26 layers, a scheduler run (4 layers) and bf16 remat train steps at 6
+   layers whose backward launches are all ``wgmma`` (layers x
+   microbatches), its first two steps replayed bit for bit; and
+   internvl2-26b at full width with its patch embeddings: parity and train
+   parity at 2 layers in f32, ``launch.serve`` at 8 of 48 layers.  The
+   phase's seconds are logged.
 
 Prints one JSON line of kernel results, then the nvidia-smi line, then
 ``{"ok": true, "device": {...}}`` last.  Any failure exits non-zero with
@@ -466,10 +484,13 @@ PARITY_ATOL, PARITY_PROMPT, PARITY_STEPS = 1e-3, 128, 8
 # hymba's parity prompt passes its 2,048-token window, so the window bites
 # at prefill and at every decode step
 PARITY_PROMPT_BY_ARCH = {"hymba-1.5b": 2064}
-SERVE_SLOTS, SERVE_T_MAX, SERVE_REQUESTS, SERVE_NEW = 8, 4096, 16, 32
+# launch.serve's local arms generate SERVE_NEW tokens (cut from 32 beside
+# the head-dim-256 phase, 43)
+SERVE_SLOTS, SERVE_T_MAX, SERVE_REQUESTS, SERVE_NEW = 8, 4096, 16, 16
 # the schedulers' new tokens a request (cut from 32 for the run's time, the
-# decode groups halved, the 16 requests still queueing for 8 slots)
-SCHED_NEW = 16
+# decode groups halved, then from 16 beside phase 43; the 16 requests still
+# queueing for 8 slots)
+SCHED_NEW = 8
 SERVE_PROMPT_MIN, SERVE_PROMPT_MAX = 256, 3072
 # the earlier slices' scheduler phases run at a cut depth, so that the whole
 # run stays well inside its 1,200 s limit on a slow host (cut to 8, 6 and 8
@@ -479,7 +500,8 @@ SERVE_PROMPT_MIN, SERVE_PROMPT_MAX = 256, 3072
 # came; yi and rwkv6 at 4 since the FSDP and dense-arch phases came, hymba
 # kept at 8 for its global layer 7); their launch.serve phases still run
 # the full model
-SERVE_LAYERS = {"yi-9b": 4, "rwkv6-1.6b": 4, "hymba-1.5b": 8, "granite-moe-1b-a400m": 4}
+SERVE_LAYERS = {"yi-9b": 4, "rwkv6-1.6b": 4, "hymba-1.5b": 8, "granite-moe-1b-a400m": 4,
+                "gemma2-2b": 4}
 LAUNCH_BATCH, LAUNCH_PROMPT = 4, 2048  # launch.serve's batch and prompt length
 # timed shapes (B, S, T) with yi's H=32, K=4, d=128 in bf16
 FLASH_TIMING = {"prefill": (1, 2048, 2048), "decode": (8, 1, 2048)}
@@ -497,9 +519,12 @@ PATH_KERNEL = {
     "phi3.5-moe-42b-a6.6b": (("flash_attention", "flash"),),
     "qwen2.5-14b": (("flash_attention", "flash"),),
     "starcoder2-15b": (("flash_attention", "flash"),),
+    "gemma2-2b": (("flash_attention", "flash"),),
+    "internvl2-26b": (("flash_attention", "flash"),),
 }
 PROFILE_STEM = {"yi-9b": "lm", "rwkv6-1.6b": "rwkv", "hymba-1.5b": "hymba",
-                "granite-moe-1b-a400m": "granite", "phi3.5-moe-42b-a6.6b": "phi35"}
+                "granite-moe-1b-a400m": "granite", "phi3.5-moe-42b-a6.6b": "phi35",
+                "gemma2-2b": "gemma2"}
 # each path kernel's route at prefill and at decode on the serving path
 PATH_ROUTES = {"flash_attention": ("wgmma", "split"), "wkv6": ("split", "step"),
                "ssm_scan": ("split", "step")}
@@ -541,9 +566,10 @@ SPLIT_GRID_B, SPLIT_GRID_T = (1, 4), (128, 192, 256, 384, 512, 1024, 2048, 3072)
 # Filter's requests; the loss model's seed
 TENANCY_ROWS, TENANCY_DIM, TENANCY_N_KEYS = 64, 16, 8
 SANDBOX_REQUESTS, LOSS_SEED = 256, 1
-# for the run's time beside the FSDP and dense-arch phases: the tenant mix
-# over the Gather table for TENANCY_TABLE_TICKS of the config's 40 ticks
-TENANCY_TABLE_TICKS = 20
+# for the run's time beside the FSDP, dense-arch and head-dim-256 phases: the
+# tenant mix over the Gather table for TENANCY_TABLE_TICKS of the config's
+# 40 ticks (20 until phase 43 came)
+TENANCY_TABLE_TICKS = 10
 # the compiled SPMD phase: 4 gloo ranks sharing the card, yi-9b's vocab
 # table, hymba's longest prompt (768 queries a rank); a dead rank fails the
 # others after SPMD_TIMEOUT
@@ -588,8 +614,9 @@ TRAIN_PARITY_SEQ, TRAIN_PARITY_BATCH, TRAIN_GRAD_RTOL, TRAIN_LR = 128, 1, 1e-4, 
 TRAIN_F64_REF, TRAIN_F64_RTOL = ("rwkv6-1.6b",), 2e-4
 # the train phase: yi-9b at full width and 4 of its 48 layers (cut from 8),
 # bf16, remat,
-# train_4k's 4,096 tokens, 4 sequences a step in 2 microbatches
-TRAIN_LAYERS, TRAIN_SEQ, TRAIN_BATCH, TRAIN_MICROBATCH, TRAIN_STEPS = 4, 4096, 4, 2, 6
+# train_4k's 4,096 tokens, 4 sequences a step in 2 microbatches, 4 steps
+# (cut from 6 beside phase 43)
+TRAIN_LAYERS, TRAIN_SEQ, TRAIN_BATCH, TRAIN_MICROBATCH, TRAIN_STEPS = 4, 4096, 4, 2, 4
 # step 0's gradients through the backward's two routes: bf16 P and dS
 # (wgmma) against f32 ones (simt) move the global norm by far less than 1%
 TRAIN_ROUTE_RTOL = 0.01
@@ -607,11 +634,14 @@ REC_TRAIN = (2, 4096)  # b, t: rwkv6's and hymba's train microbatch
 # rwkv6, hymba and granite-moe at a quarter of their depth (6 of 24, 8 of
 # 32 with hymba's global layer 7, 6 of 24; cut from half; at full
 # depth their weights, gradients and moments, ~25, ~22 and ~23 GB, fit the
-# card, but the run's time does not, beside the sharded phases); 4 steps
-TRAIN_DEPTH = {"yi-9b": (TRAIN_LAYERS, TRAIN_STEPS), "rwkv6-1.6b": (6, 4),
-               "hymba-1.5b": (8, 4), "granite-moe-1b-a400m": (6, 4)}
+# card, but the run's time does not, beside the sharded phases); gemma2-2b
+# at 6 of 26 (three local and three global layers); 3 steps (cut from 4
+# beside phase 43: the first, one timed, the profiled last)
+TRAIN_DEPTH = {"yi-9b": (TRAIN_LAYERS, TRAIN_STEPS), "rwkv6-1.6b": (6, 3),
+               "hymba-1.5b": (8, 3), "granite-moe-1b-a400m": (6, 3), "gemma2-2b": (6, 3)}
 # each arch's path kernels a train step launches, forward and backward
 TRAIN_KERNELS = {"yi-9b": (("flash_attention", "flash_attention_bwd"),),
+                 "gemma2-2b": (("flash_attention", "flash_attention_bwd"),),
                  "granite-moe-1b-a400m": (("flash_attention", "flash_attention_bwd"),),
                  "rwkv6-1.6b": (("wkv6", "wkv6_bwd"),),
                  "hymba-1.5b": (("flash_attention", "flash_attention_bwd"),
@@ -620,7 +650,8 @@ TRAIN_KERNELS = {"yi-9b": (("flash_attention", "flash_attention_bwd"),),
 TRAIN_PROBES = {"yi-9b": ("embed.tok", "blocks.0.wq", "blocks.{last}.wo2"),
                 "rwkv6-1.6b": ("embed.tok", "blocks.0.tm.wr", "blocks.{last}.cm.wv"),
                 "hymba-1.5b": ("embed.tok", "blocks.0.ssm.w_in", "blocks.{last}.wo2"),
-                "granite-moe-1b-a400m": ("embed.tok", "blocks.0.router", "blocks.{last}.we_o")}
+                "granite-moe-1b-a400m": ("embed.tok", "blocks.0.router", "blocks.{last}.we_o"),
+                "gemma2-2b": ("embed.tok", "blocks.0.wq", "blocks.{last}.wo2")}
 # the driver phase: launch.train on yi smoke, 12 steps, a checkpoint every 5
 DRIVER_STEPS, DRIVER_CKPT_EVERY, DRIVER_FAIL_AT, DRIVER_RESUME_TO = 12, 5, 8, 17
 # the sharded train phase (39): 4 gloo ranks sharing the card on a (2, 2)
@@ -672,7 +703,7 @@ SHARD_F64_RTOL = 1e-3
 # (hymba's window of 2,048 then leaves part of rank 0's slice of 1,040
 # positions behind its last queries), then SERVE_TIME_STEPS decode steps
 SERVE_BATCH, SERVE_PROMPT, SERVE_T, SERVE_STEPS, SERVE_RTOL = 4, 128, 160, 8, 1e-3
-SERVE_TIME_PROMPT, SERVE_TIME_T, SERVE_TIME_STEPS = 2048, 2080, 8  # steps cut from 32
+SERVE_TIME_PROMPT, SERVE_TIME_T, SERVE_TIME_STEPS = 2048, 2080, 4  # steps cut from 32, 8
 SERVE_DIR = ROOT / "build" / "chip_smoke" / "sharded_serve"
 # the flash phase's sliced calls (a rank's slice of a KV cache cut over T):
 # yi's decode rows of a (2, 2) rank over its 1,040 keys, timed beside the
@@ -705,12 +736,25 @@ EVALUATE = "autograd::engine::evaluate_function: "
 # the train phase's arch whose first TRAIN_REPLAY steps run again from the
 # same seed, with bit-identical losses (dispatch and combine sum in a fixed
 # order)
-TRAIN_REPLAY = {MOE_ARCH: 2}
+TRAIN_REPLAY = {MOE_ARCH: 2, "gemma2-2b": 2}
 # the SPMD MoE arm at granite's width: B x S tokens through moe_block_a2a on
 # the (2, 2) mesh, B_DEC x 1 through the eplocal path, f32, both against
 # moe_block_scatter at capacity 8.0 within MOE_SPMD_RTOL of the largest
 # |y| (the experts' f32 products in other matmul shapes)
 MOE_SPMD_TOKENS, MOE_SPMD_DECODE, MOE_SPMD_CAP, MOE_SPMD_RTOL = (2, 2048), 8, 8.0, 1e-5
+# phase 43: gemma2-2b (its attention: 8 query heads over 4 KV heads of 256,
+# softcap 50, a 4,096-token window on even layers) and internvl2-26b (served
+# at INTERNVL_SERVE_LAYERS of its 48 layers: all 48 hold ~40 GB of bf16
+# weights, which one card holds, but the phase's time is the run's)
+GEMMA_ARCH, INTERNVL_ARCH, INTERNVL_SERVE_LAYERS = "gemma2-2b", "internvl2-26b", 8
+GEMMA_HEADS, GEMMA_SOFTCAP, GEMMA_WINDOW = (8, 4, 256), 50.0, 4096
+# the d = 256 timings, (B, S, T, window): prefill and decode as phase 13's
+# yi shapes, the train shape's forward and backward, a local layer of 8,192
+# tokens (twice the window)
+D256_TIMING = {"prefill": (1, 2048, 2048, 0), "decode": (8, 1, 2048, 0),
+               "train": (2, 4096, 4096, 0), "local": (1, 8192, 8192, GEMMA_WINDOW)}
+# the f32 instances at the parity phases' shapes: 2 x 128 forward, 1 x 128 backward
+D256_PARITY = {"forward": (2, 128, 128), "backward": (1, 128, 128)}
 
 
 def log(*args) -> None:
@@ -1839,8 +1883,9 @@ def flash_within(what: str, dtype, got, want, want32=None) -> tuple[str, float, 
     return line, err, err32
 
 
-def flash_kernel_phase(dev) -> dict:
-    """flash_attention on the card against its plain version: yi's prefill
+def flash_kernel_phase(dev, cases: list | None = None, diag_cases: list | None = None) -> dict:
+    """flash_attention on the card against its plain version (``cases`` and
+    ``diag_cases`` as built below, by default these): yi's prefill
     (S = T = 300, 1,000 and 2,048; S = 256 on a 1,024-token view of a
     2,048-slot cache) and decode (B = 8, S = 1 on cache views of T = 1,
     129, 777 and 4,096 of a 4,096-slot cache: ragged splits) shapes, the five shapes of
@@ -1869,7 +1914,7 @@ def flash_kernel_phase(dev) -> dict:
 
     g = torch.Generator(dev).manual_seed(3)
     bf16, f32 = torch.bfloat16, torch.float32
-    cases = []
+    given, cases = cases, []
     for dtype in (f32, bf16):
         cases += [(f"prefill S=T={n}", (1, n, n, 32, 4, 128, dtype), dict(causal=True))
                   for n in (300, 1000, 2048)]
@@ -1891,6 +1936,7 @@ def flash_kernel_phase(dev) -> dict:
             ("hymba decode B=8 T=4096 global", (8, 1, 4096, h, kh, d, dtype, 4096),
              dict(causal=True)),
         ]
+    cases = given if given is not None else cases
     worst = {f32: 0.0, bf16: 0.0, "f32_probs": 0.0, "lse": 0.0}
     before = flash_attention.launches, dict(flash_attention.route_launches)
     for label, shape, kw in cases:
@@ -1928,7 +1974,7 @@ def flash_kernel_phase(dev) -> dict:
         log(f"{line}; with lse: output bit-identical, lse max_abs_err={lse_err} "
             f"(within {FLASH_LSE_ATOL})")
     yi = (32, 4, 128)
-    diag_cases = [
+    diag_cases = diag_cases if diag_cases is not None else [
         ("slice decode B=4 T=1040 diag=1100", (4, 1, 1040, *yi), dict(diag=1100)),
         ("slice after the query B=4 T=1040 diag=-5", (4, 1, 1040, *yi), dict(diag=-5)),
         ("slice prompt S=300 T=160 diag=-100", (2, 300, 160, *yi), dict(diag=-100)),
@@ -2094,13 +2140,17 @@ def parity_phase(dev, arch: str = "yi-9b") -> dict:
     host_model.load_state_dict(card_model.state_dict())
     rng = np.random.default_rng(0)
     n_prompt = PARITY_PROMPT_BY_ARCH.get(arch, PARITY_PROMPT)
-    prompt = rng.integers(0, cfg.vocab, (2, n_prompt)).astype(np.int32)
+    prompt = {"tokens": rng.integers(0, cfg.vocab, (2, n_prompt)).astype(np.int32)}
     fed = rng.integers(0, cfg.vocab, (2, PARITY_STEPS)).astype(np.int32)
+    if cfg.frontend == "patch":  # make_batch's draw: the prompt's first positions
+        prompt["patch_embeds"] = rng.normal(0, 0.02, (2, zoo.frontend_len(cfg, n_prompt),
+                                                      cfg.d_model)).astype(np.float32)
 
     def run(model, device):
         t_max = n_prompt + PARITY_STEPS
         cache = zoo.init_kv_cache(cfg, 2, t_max, dtype=cfg.dtype, device=device)
-        logits, _, _ = zoo.forward(cfg, model, {"tokens": torch.from_numpy(prompt).to(device)},
+        logits, _, _ = zoo.forward(cfg, model, {k: torch.from_numpy(x).to(device)
+                                                for k, x in prompt.items()},
                                    caches=cache, offset=0)
         out = [logits[:, -1].float().cpu()]
         step = zoo.make_serve_step(cfg)
@@ -2137,7 +2187,9 @@ def parity_phase(dev, arch: str = "yi-9b") -> dict:
                                  f"rows left {rows}")
     err = (card[rows] - host[rows]).abs().max().item()
     same = torch.equal(card[rows].argmax(-1), host[rows].argmax(-1))
-    log(f"parity: 2-layer {arch} full width f32, prompt {n_prompt} + {PARITY_STEPS} "
+    patches = (f" (its first {prompt['patch_embeds'].shape[1]} positions patch embeddings)"
+               if "patch_embeds" in prompt else "")
+    log(f"parity: 2-layer {arch} full width f32, prompt {n_prompt}{patches} + {PARITY_STEPS} "
         f"teacher-forced steps, card vs CPU logits max_abs_err={err} (tolerance {PARITY_ATOL}), "
         f"|logit| max {host.abs().max().item()}, greedy tokens equal: {same}, rows compared "
         f"{rows}, {time.perf_counter() - t:.1f} s")
@@ -2350,6 +2402,7 @@ def launch_serve_phase(dev, arch: str = "yi-9b", layers: int | None = None) -> d
     from repro_torch.configs import get_config
     from repro_torch.kernels import WRAPPERS, launch_counts, reset_launches
     from repro_torch.launch.serve import serve
+    from repro_torch.models import zoo
 
     cfg = get_config(arch)
     n_layers = layers or cfg.n_layers
@@ -2370,6 +2423,8 @@ def launch_serve_phase(dev, arch: str = "yi-9b", layers: int | None = None) -> d
         torch.cuda.synchronize()
         launches = launch_counts()
         rec["wall_s"], rec["launches"] = time.perf_counter() - t, launches
+        if cfg.frontend == "patch":  # make_batch's patches, over the prompt's first positions
+            rec["patch_positions"] = zoo.frontend_len(cfg, LAUNCH_PROMPT)
         if cfg.family == "moe":  # the first n_layers calls are the prefill's
             rec["moe_prefill_dropped_choices"] = sum(int(c[2]) for c in drops.calls[:n_layers])
             rec["moe_prefill_choices"] = sum(c[1] for c in drops.calls[:n_layers])
@@ -3876,7 +3931,7 @@ def _bwd_within(what: str, dtype, got, want, want32=None, own32=None,
     return f"{what}: " + "; ".join(parts), worst, use
 
 
-def flash_bwd_kernel_phase(dev) -> dict:
+def flash_bwd_kernel_phase(dev, cases: list | None = None) -> dict:
     """The flash backward kernel on the card against its plain version on
     the same inputs (``flash_attention_bwd_ref``), and that against
     ``torch.autograd`` of the plain forward on f32 copies: the JAX flash
@@ -3910,6 +3965,7 @@ def flash_bwd_kernel_phase(dev) -> dict:
     g = torch.Generator(dev).manual_seed(5)
     bf16, f32 = torch.bfloat16, torch.float32
     default = {bf16: "wgmma", f32: "simt"}
+    given = cases
     cases = [(f"sweep {(b, h, kh, s, t, d)} causal={causal} softcap={cap}",
               (b, s, t, h, kh, d), dict(causal=causal, softcap=cap), (f32, bf16))
              for b, h, kh, s, t, d, _, _, causal, cap in SWEEP]
@@ -3928,6 +3984,7 @@ def flash_bwd_kernel_phase(dev) -> dict:
          (1, SHARD_TIME_SEQ // 2, SHARD_TIME_SEQ, *HYMBA_HEADS), dict(window=HYMBA_WINDOW),
          (f32, bf16)),
     ]
+    cases = given if given is not None else cases
     before = {k: (WRAPPERS[k].launches, dict(WRAPPERS[k].route_launches))
               for k in ("flash_attention", "flash_attention_bwd")}
     worst, worst_lse, use, taken = 0.0, 0.0, 0.0, {}
@@ -5661,6 +5718,231 @@ def dense_phases(dev, elapsed) -> dict:
     return served
 
 
+def d256_instances() -> list[dict]:
+    """ptxas's report of every d = 256 instance of the flash forward and
+    backward (kernel, its other template arguments, registers, spilled
+    bytes, static shared memory), from this process's build logs; empty
+    where the libraries were built before."""
+    from repro_torch.kernels import build
+
+    out = []
+    for lib in ("flash_attention", "flash_attention_bwd"):
+        for block in build.build_logs.get(lib, "").split("Compiling entry function")[1:]:
+            name = re.search(r"(flash_(?:fwd|bwd)\w*?)I(.*?)EEv", block)
+            used = re.search(r"Used (\d+) registers", block)
+            spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", block)
+            if not (name and used and spill and "Li256E" in name.group(2)):
+                continue
+            smem = re.search(r"(\d+) bytes smem", block)
+            out.append({"kernel": name.group(1), "args": name.group(2),
+                        "registers": int(used.group(1)), "spill_stores": int(spill.group(1)),
+                        "spill_loads": int(spill.group(2)),
+                        "static_smem": int(smem.group(1)) if smem else 0})
+    return out
+
+
+def _bound(flops: float, moved: float) -> dict:
+    """The least time for ``flops`` bf16 tensor-core operations and
+    ``moved`` bytes: the larger of the two at the card's peaks."""
+    bounds = {"operations": flops / BF16_FLOPS * 1e3, "bytes": moved / HBM_BYTES_PER_S * 1e3}
+    by = max(bounds, key=bounds.get)
+    return {"bound_ms": bounds[by], "bound_by": by, "flops": flops, "bytes": moved}
+
+
+def time_flash_d256(dev) -> dict:
+    """The d = 256 instances at gemma2's heads (8 over 4 of 256, softcap
+    50), bf16: the forward at a prefill (B = 1, S = T = 2,048; ``wgmma``), a
+    decode (B = 8, T = 2,048 on views of 4,096-slot caches, 8 cache sets
+    so the 537 MB of K/V exceed the L2; ``split``), the train shape (B = 2,
+    S = T = 4,096, writing the lse as the train step does) and a local
+    layer (B = 1, S = T = 8,192, window 4,096), and the backward given the
+    forward's lse at the last two, ``wgmma`` and ``simt`` in turns
+    (:func:`ab_ms`); the f32 ``simt`` forward and backward at the parity
+    phases' shapes.  Beside each: the plain version, SDPA without the
+    softcap (a yardstick the port never calls; the window as a boolean
+    mask), and the bound: the forward's 4 B H d operations a visible pair,
+    the backward's 10, against the bytes of q, k, v, out (dO, the
+    gradients, the lse), at the bf16 tensor-core peak (f32's 67 TFLOP/s
+    for the f32 instances) and the HBM rate."""
+    from repro_torch.kernels import WRAPPERS
+    from repro_torch.kernels.flash_attention import (
+        flash_attention, flash_attention_bwd, flash_attention_bwd_ref, flash_attention_ref,
+        flash_route,
+    )
+    from repro_torch.kernels.flash_attention import kernel as flash_kernel
+
+    for inst in d256_instances():
+        log(f"ptxas flash d=256 instance {json.dumps(inst)}")
+    before = {k: (WRAPPERS[k].launches, dict(WRAPPERS[k].route_launches))
+              for k in ("flash_attention", "flash_attention_bwd")}
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    g = torch.Generator(dev).manual_seed(7)
+    h, kh, d = GEMMA_HEADS
+    cap = GEMMA_SOFTCAP
+    out = {}
+
+    def visible(s, t, w):  # the pairs a window leaves, and the K/V rows any query sees
+        win = w or t
+        pairs = sum(min(i + t - s + 1, win) for i in range(s))
+        return pairs, t - max(0, t - s - win + 1)
+
+    def sdpa_mask(s, t, w):
+        if not w:
+            return dict(is_causal=s > 1)
+        pos = torch.arange(t, device=dev)
+        qpos = pos[t - s:, None]
+        return dict(attn_mask=(pos[None, :] <= qpos) & (qpos - pos[None, :] < w))
+
+    for name, (b, s, t, w) in D256_TIMING.items():
+        sets = [_flash_case(dev, g, b, s, t, h, kh, d, torch.bfloat16, None if s > 1 else 2 * t)
+                for _ in range(1 if s > 1 else 8)]
+        lib_sets = [tuple(x.transpose(1, 2).contiguous() for x in qkv) for qkv in sets]
+        pairs, keys = visible(s, t, w)
+        save = name in ("train", "local")  # the train step's forward writes the lse
+        fwd = lambda q, k, v, w=w, save=save: flash_kernel._forward(  # noqa: E731
+            q, k, v, True, cap, None, w, save_lse=save)
+        mask = sdpa_mask(s, t, w)
+        reps = 200 if s == 1 else 20 if s <= 4096 else 10
+        rec = {
+            "ms": event_ms(fwd, sets, reps),
+            "plain_ms": event_ms(lambda q, k, v, w=w: flash_attention_ref(
+                q, k, v, softcap=cap, window=w), sets, 3),
+            "library_ms": event_ms(lambda q, k, v: sdpa(q, k, v, enable_gqa=True, **mask),
+                                   lib_sets, 10),
+            **_bound(4 * b * h * d * pairs,
+                     2 * (2 * b * s * h * d + 2 * b * keys * kh * d) + (4 * b * h * s if save
+                                                                         else 0)),
+            "route": flash_route(torch.bfloat16, s, h, kh),
+        }
+        out[name] = rec
+        log(f"timing flash_attention d=256 {name} B={b} S={s} T={t} H={h} K={kh} window {w} "
+            f"softcap {cap} bf16{' with lse' if save else ''}: {json.dumps(rec)}")
+        if not save:
+            continue
+        q, k, v = sets[0]
+        dout = torch.randn(q.shape, generator=g, device=dev).to(torch.bfloat16)
+        o, lse = fwd(q, k, v)
+        bsets = [(q, k, v, o, dout)]
+        kw = dict(softcap=cap, window=w, lse=lse)
+        turns = ab_ms({route: (lambda q, k, v, o, do, route=route: flash_attention_bwd(
+            q, k, v, o, do, route=route, **kw)) for route in ("wgmma", "simt")}, bsets, 3, 2)
+        lq, lk, lv, ldo = (x.transpose(1, 2).contiguous() for x in (q, k, v, dout))
+        lq, lk, lv = (x.requires_grad_() for x in (lq, lk, lv))
+        fb = event_ms(lambda *a: torch.autograd.grad(
+            sdpa(lq, lk, lv, enable_gqa=True, **mask), (lq, lk, lv), ldo), bsets, 5)
+        fw = event_ms(lambda *a: sdpa(lq, lk, lv, enable_gqa=True, **mask), bsets, 5)
+        brec = {
+            "ms": turns["wgmma"]["median"], "simt_ms": turns["simt"]["median"],
+            "route_ms": turns,
+            "plain_ms": event_ms(lambda *a: flash_attention_bwd_ref(*a, **kw), bsets, 2),
+            "library_ms": fb - fw, "library_fwd_bwd_ms": fb, "library_fwd_ms": fw,
+            "forward_ms": rec["ms"],
+            **_bound(10 * b * h * d * pairs,
+                     2 * (4 * b * s * h * d + 4 * b * keys * kh * d) + 4 * b * h * s),
+            "design_floor_ms": 16 * b * h * d * pairs / BF16_FLOPS * 1e3,
+            "route": "wgmma",
+        }
+        out[f"{name}_bwd"] = brec
+        log(f"timing flash_attention_bwd d=256 {name} B={b} S=T={s} H={h} K={kh} window {w} "
+            f"softcap {cap} bf16, given the forward's lse (the design's floor: its 16 B H d "
+            f"a pair): {json.dumps(brec)}")
+        del sets, lib_sets, bsets, q, k, v, o, lse, dout, lq, lk, lv, ldo
+        torch.cuda.empty_cache()
+    # the f32 instances (simt) at the parity phases' shapes, softcap 50
+    b, s, t = D256_PARITY["forward"]
+    sets = [_flash_case(dev, g, b, s, t, h, kh, d, torch.float32)]
+    pairs, keys = visible(s, t, 0)
+    rec = {"ms": event_ms(lambda q, k, v: flash_attention(q, k, v, softcap=cap), sets, 50),
+           "plain_ms": event_ms(lambda q, k, v: flash_attention_ref(q, k, v, softcap=cap),
+                                sets, 10),
+           "library_ms": event_ms(lambda q, k, v: sdpa(q, k, v, is_causal=True, enable_gqa=True),
+                                  [tuple(x.transpose(1, 2).contiguous() for x in sets[0])], 10),
+           "bound_ms": max(4 * b * h * d * pairs / F32_FLOPS,
+                           4 * (2 * b * s * h * d + 2 * b * keys * kh * d) / HBM_BYTES_PER_S) * 1e3,
+           "bound_by": "f32 operations or bytes", "route": flash_route(torch.float32, s, h, kh)}
+    out["parity_f32"] = rec
+    log(f"timing flash_attention d=256 parity B={b} S=T={s} f32: {json.dumps(rec)}")
+    b, s, t = D256_PARITY["backward"]
+    q, k, v, dout = (torch.randn(shape, generator=g, device=dev) for shape in (
+        (b, s, h, d), (b, t, kh, d), (b, t, kh, d), (b, s, h, d)))
+    o, lse = flash_kernel._forward(q, k, v, True, cap, None, 0, save_lse=True)
+    bsets = [(q, k, v, o, dout)]
+    pairs, keys = visible(s, t, 0)
+    rec = {"ms": event_ms(lambda *a: flash_attention_bwd(*a, softcap=cap, lse=lse), bsets, 50),
+           "plain_ms": event_ms(lambda *a: flash_attention_bwd_ref(*a, softcap=cap, lse=lse),
+                                bsets, 10),
+           "library_ms": None,
+           "bound_ms": max(10 * b * h * d * pairs / F32_FLOPS,
+                           4 * (4 * b * s * h * d + 4 * b * keys * kh * d) / HBM_BYTES_PER_S) * 1e3,
+           "bound_by": "f32 operations or bytes", "route": "simt"}
+    out["parity_f32_bwd"] = rec
+    log(f"timing flash_attention_bwd d=256 parity B={b} S=T={s} f32: {json.dumps(rec)}")
+    for name, (count, routes) in before.items():  # timing launches are not main-path ones
+        WRAPPERS[name].launches, WRAPPERS[name].route_launches = count, routes
+    torch.cuda.empty_cache()
+    return out
+
+
+def d256_phases(dev, profile_dir: str | None, elapsed) -> dict:
+    """Phase 43: the flash kernels at head dim 256 (checks and timings),
+    then gemma2-2b and internvl2-26b at full width; its seconds logged."""
+    t = time.perf_counter()
+    bf16, f32 = torch.bfloat16, torch.float32
+    h, kh, d = GEMMA_HEADS
+    cap = dict(causal=True, softcap=GEMMA_SOFTCAP)
+    local = dict(cap, window=GEMMA_WINDOW)
+    cases = []
+    for dtype in (f32, bf16):
+        cases += [(f"gemma2 prefill S=T={n} softcap 50", (1, n, n, h, kh, d, dtype), cap)
+                  for n in (300, 2048)]
+        cases += [
+            ("gemma2 prefill S=256 T=1024 of a 2048-slot cache",
+             (2, 256, 1024, h, kh, d, dtype, 2048), cap),
+            ("gemma2 local prefill S=T=5000 window 4096", (1, 5000, 5000, h, kh, d, dtype), local),
+            ("gemma2 local decode B=8 T=4097 window 4096", (8, 1, 4097, h, kh, d, dtype, 8192),
+             local),
+            ("gemma2 prefill non-causal S=100 T=300", (1, 100, 300, 4, 2, d, dtype),
+             dict(causal=False)),
+        ]
+        cases += [(f"gemma2 decode B=8 T={n}", (8, 1, n, h, kh, d, dtype, 4096), cap)
+                  for n in (1, 129, 777, 4096)]
+    diag = [
+        ("gemma2 slice decode B=4 T=1040 diag=1100", (4, 1, 1040, h, kh, d), dict(diag=1100)),
+        ("gemma2 slice prompt S=300 T=160 diag=-100", (2, 300, 160, h, kh, d), dict(diag=-100)),
+        ("gemma2 slice decode B=4 T=1040 diag=4500 window 4096", (4, 1, 1040, h, kh, d),
+         dict(diag=4500, window=GEMMA_WINDOW)),
+    ]
+    bwd = [
+        ("gemma2 train B=2 S=T=4096 softcap 50", (2, 4096, 4096, h, kh, d),
+         dict(softcap=GEMMA_SOFTCAP), (bf16,)),
+        ("gemma2 local S=T=8192 window 4096 softcap 50", (1, 8192, 8192, h, kh, d),
+         dict(softcap=GEMMA_SOFTCAP, window=GEMMA_WINDOW), (bf16,)),
+        ("gemma2 S=T=1000 softcap 50", (1, 1000, 1000, h, kh, d), dict(softcap=GEMMA_SOFTCAP),
+         (f32, bf16)),
+        ("gemma2 S=256 T=1024 window 300", (2, 256, 1024, h, kh, d), dict(window=300),
+         (f32, bf16)),
+        ("keyless rows S=300 T=200 d=256", (1, 300, 200, 4, 2, d), {}, (f32, bf16)),
+        ("non-causal S=200 T=300 d=256", (1, 200, 300, 4, 2, d), dict(causal=False), (f32, bf16)),
+    ]
+    out = {"checked": flash_kernel_phase(dev, cases, diag),
+           "bwd_checked": flash_bwd_kernel_phase(dev, bwd),
+           "timing": time_flash_d256(dev)}
+    elapsed("phase 43's flash kernels at d = 256")
+    parity_phase(dev, GEMMA_ARCH)
+    train_parity_phase(dev, GEMMA_ARCH)
+    out["served"] = {GEMMA_ARCH: launch_serve_phase(dev, GEMMA_ARCH)}
+    out["serving"] = serving_phase(dev, profile_dir, GEMMA_ARCH)
+    out["trained"] = train_phase(dev, profile_dir, GEMMA_ARCH)
+    elapsed(f"the {GEMMA_ARCH} phases")
+    parity_phase(dev, INTERNVL_ARCH)
+    train_parity_phase(dev, INTERNVL_ARCH)
+    out["served"][INTERNVL_ARCH] = launch_serve_phase(dev, INTERNVL_ARCH, INTERNVL_SERVE_LAYERS)
+    elapsed(f"the {INTERNVL_ARCH} phases")
+    out["seconds"] = time.perf_counter() - t
+    log(f"phase 43 (head dim 256, gemma2-2b, internvl2-26b): {out['seconds']:.1f} s")
+    return out
+
+
 def serve_flips(card: list, host: list) -> dict:
     """Card against CPU, routing by routing: each token whose experts differ
     is a flip, with its margin (the widest CPU logit gap between an expert
@@ -5870,7 +6152,7 @@ def sharded_serve_phase(dev) -> dict:
     ROUTE_FLIP_MARGIN).  Each rank's launches and routes in the prefill
     and the decode steps exactly :func:`serve_launches` (so no plain version
     ran on the card).  Timing: bf16, 2 layers, a prompt of 4 x 2,048 into
-    a cache of 2,080, then 8 steps: rank 0's prefill s and decode ms a
+    a cache of 2,080, then 4 steps: rank 0's prefill s and decode ms a
     token, a decode step's bytes by kind (every step's the same), each
     rank's peak GB."""
     from repro_torch.configs import get_config
@@ -6105,6 +6387,8 @@ def main() -> int:
     moe = moe_phases(dev, args.profile, elapsed)
     served.update(moe["served"])
     served.update(dense_phases(dev, elapsed))
+    d256 = d256_phases(dev, args.profile, elapsed)
+    served.update(d256["served"])
     # the path's launches by the shape they come in: per-message dispatches
     # at N = 16 ids and B = 1 chase, batched ones at their arm's mean,
     # launch.serve's remote embedding at N = 8 of each LM's rows, and the
@@ -6214,6 +6498,13 @@ def main() -> int:
         "max_abs_err_diag": flash_checked["max_abs_err_diag"],
         "decode_slice": {k: flash_timing["decode_slice"][k]
                          for k in (*keys, "default_ms", "default_lse_ms", "route")},
+        "launches_gemma2": d256["serving"]["launches"]["flash_attention"],
+        "launches_by_route_gemma2": d256["serving"]["routes"]["flash_attention"],
+        "launches_gemma2_training": d256["trained"]["launches"]["flash_attention"],
+        "max_abs_err_d256": d256["checked"]["max_abs_err"],
+        "d256": {name: {k: rec[k] for k in (*keys, "route")}
+                 for name, rec in d256["timing"].items() if not name.endswith("_bwd")},
+        "ptxas_d256": [i for i in d256_instances() if i["kernel"].startswith("flash_fwd")],
     }, {
         "name": "wkv6",
         "route": "cuda",
@@ -6262,6 +6553,15 @@ def main() -> int:
         "launches_by_route_hymba_training": hymba_trained["bwd_routes"],
         "launches_granite_training": moe["trained"]["launches"]["flash_attention_bwd"],
         "launches_by_route_granite_training": moe["trained"]["bwd_routes"],
+        "launches_gemma2_training": d256["trained"]["launches"]["flash_attention_bwd"],
+        "launches_by_route_gemma2_training": d256["trained"]["bwd_routes"],
+        "max_abs_err_d256": d256["bwd_checked"]["max_abs_err"],
+        "bound_share_d256": d256["bwd_checked"]["bound_share"],
+        "d256": {name: {k: rec[k] for k in (*keys, "route")}
+                 for name, rec in d256["timing"].items() if name.endswith("_bwd")},
+        "simt_ms_d256": {name: rec["simt_ms"] for name, rec in d256["timing"].items()
+                         if "simt_ms" in rec},
+        "ptxas_d256": [i for i in d256_instances() if i["kernel"].startswith("flash_bwd")],
     }]
     for name, stem, checked, timing, run, shape, jax_fn in (
             ("wkv6_bwd", "wkv6", wkv_bwd_checked, wkv_bwd_timing, rwkv_trained,

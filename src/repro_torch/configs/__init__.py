@@ -16,7 +16,8 @@ from repro_torch.models.common import ModelConfig
 #: the archs the port runs, by id (the JAX registry's ids)
 _MODULES = {"yi-9b": "yi_9b", "rwkv6-1.6b": "rwkv6_1_6b", "hymba-1.5b": "hymba_1_5b",
             "granite-moe-1b-a400m": "granite_moe", "phi3.5-moe-42b-a6.6b": "phi35_moe",
-            "qwen2.5-14b": "qwen25_14b", "starcoder2-15b": "starcoder2_15b"}
+            "qwen2.5-14b": "qwen25_14b", "starcoder2-15b": "starcoder2_15b",
+            "gemma2-2b": "gemma2_2b", "internvl2-26b": "internvl2_26b"}
 ARCH_IDS: tuple[str, ...] = tuple(_MODULES)
 
 

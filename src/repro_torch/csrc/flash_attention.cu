@@ -18,7 +18,8 @@
 // which no tile size divides), masking the ragged last key tile, and it
 // reads q (B, S, H, d) and k, v (B, T, K, d) in the model's layout through
 // their strides, so a cache prefix k_cache[:, :pos+1] goes in without a
-// copy.  The output is contiguous (B, S, H, d).  Head dims 32, 64, 128.
+// copy.  The output is contiguous (B, S, H, d).  Head dims 32, 64, 128 and
+// 256 (gemma2's).
 //
 // The diagonal is an argument, diag: query i sees key j iff j <= i + diag
 // (and i + diag - j < window).  The wrapper passes T - S unless asked
@@ -55,11 +56,17 @@
 //    mbarrier.  Query tiles are launched longest first; key tiles above
 //    the tile's causal diagonal or below its window are never loaded, and
 //    a warpgroup skips those wholly outside its own 64 rows (it still takes
-//    part in the ring).  Tiles of BN = 64 keys, 128 at d = 32.
+//    part in the ring).  Tiles of BN = 64 keys, 128 at d = 32.  At d = 256
+//    the O accumulator alone is 64 x 256 f32 over a warpgroup's 128 threads,
+//    128 registers a thread, where a 288-thread CTA gets 168: that instance
+//    has one consumer warpgroup beside the producer warp (160 threads, up
+//    to 255 registers), 32-key tiles and a two-stage ring (the table below),
+//    and runs O += P V as two products of 128 columns.
 // B. flash_fwd_split: bf16 with at most 16 rows per (batch, KV head):
 //    decode.  Bound by the bytes of the visible K/V.  The visible key range
 //    is cut into n_splits chunks of at least 128 keys (planned by the
-//    wrapper: about four blocks an SM at d = 64, two at d = 128); one block of
+//    wrapper: about four blocks an SM at d = 64, two at d = 128, one at
+//    d = 256); one block of
 //    four warps per (chunk, batch, KV head) streams its chunk through a
 //    three-stage cp.async ring of 32-key tiles.  The G rows of the KV head
 //    (padded to 16) meet each tile in two mma.sync products (m16n8k16,
@@ -86,7 +93,10 @@
 //    as f32 with 16-byte loads, all issued before the first store; the
 //    probabilities go through shared memory, over the K tile, for the P V
 //    product.  Key tiles wholly above the block's last visible key, or wholly
-//    below its first row's first visible key, are never loaded.  A later row
+//    below its first row's first visible key, are never loaded (at d = 256
+//    BM is 32, so the accumulators stay as many a thread as at d = 128, and
+//    a block of 166,400 B of shared memory takes an SM alone: its instance
+//    may use 255 registers).  A later row
 //    of the block may find a loaded tile wholly outside its window: its
 //    probabilities there come out as exp(NEG - NEG) = 1, and the first tile
 //    that holds one of its visible keys scales them by exp(NEG - m) = 0
@@ -110,15 +120,32 @@
 // it did before routes A and B):
 //
 //   instance               registers  dynamic smem  blocks an SM
+//   flash_fwd_wgmma<256>   205         99,328 B     1 (160 threads each)
 //   flash_fwd_wgmma<128>   168        132,096 B     1 (288 threads each)
 //   flash_fwd_wgmma<64>    161         66,560 B     1
 //   flash_fwd_wgmma<32>    168         58,368 B     1
+//   flash_fwd_split<256>   167        104,192 B     2 (128 threads each)
 //   flash_fwd_split<128>   102         55,040 B     4 (128 threads each)
 //   flash_fwd_split<64>     64         30,464 B     7
 //   flash_fwd_split<32>     56         18,176 B     9
 //
 // (the split rows are the end-aligned instances; chip_smoke.py logs the
-// general-diagonal ones beside them, ``general_diag`` in its instance lines)
+// general-diagonal ones beside them, ``general_diag`` in its instance lines;
+// route C's f32 d = 256 instances, BM = 32 and 16, take 244 and 215)
+//
+// flash_fwd_wgmma<256> has a configuration of its own (Cfg below).  The
+// d = 128 one's, 3 stages of 64-key K and V tiles beside two warpgroups'
+// Q, comes to 263,168 B, over the 232,448 a block may have, and its O
+// accumulator would take 128 of the 168 registers a 288-thread CTA
+// allows, so S, P and the addresses would spill.  Chosen: one consumer
+// warpgroup (a 160-thread CTA, which ptxas may give 255 registers a
+// thread), so nothing spills and no setmaxnreg is needed; 32-key tiles and
+// two stages, 99,328 B, room for two CTAs an SM, whose warpgroups would
+// overlap one's softmax with the other's products; but ptxas takes 205
+// registers, over the 200 two 160-thread CTAs may each have, so one runs
+// an SM (__launch_bounds__(160, 2) would ask for 200).  setmaxnreg
+// (FlashAttention-3's producer warpgroup at ~40 registers, two consumer
+// warpgroups at ~232) is the faster design, left to a later change.
 
 #include "hopper.cuh"
 
@@ -191,7 +218,7 @@ __host__ __device__ constexpr int smem_floats() {
 }
 
 template <int D, int BM, bool GENERAL>
-__global__ void __launch_bounds__(THREADS, 2)
+__global__ void __launch_bounds__(THREADS, D == 256 ? 1 : 2)
     flash_fwd(const float* __restrict__ q, const float* __restrict__ k,
               const float* __restrict__ v, float* __restrict__ o, float* __restrict__ lse,
               int S, int T_len, int H, int KH, Strides qs, Strides ks, Strides vs, float scale,
@@ -405,6 +432,8 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse, int
                                   softcap, causal, window, diag, stream);
 }
 
+// BM: 16 rows for a block that holds at most 16, else 64, or 32 at d = 256
+// (a thread's accumulators then number BM / 16 x D / 16 = 32, as at d = 128)
 template <int D>
 int launch_rows(const void* q, const void* k, const void* v, void* o, float* lse, int B, int S,
                 int T_len, int H, int KH, Strides qs, Strides ks, Strides vs, float scale,
@@ -412,7 +441,8 @@ int launch_rows(const void* q, const void* k, const void* v, void* o, float* lse
   if ((long long)S * (H / KH) <= 16)
     return launch<D, 16>(q, k, v, o, lse, B, S, T_len, H, KH, qs, ks, vs, scale, softcap,
                          causal, window, diag, stream);
-  return launch<D, 64>(q, k, v, o, lse, B, S, T_len, H, KH, qs, ks, vs, scale, softcap, causal,
+  constexpr int BM = D == 256 ? 32 : 64;
+  return launch<D, BM>(q, k, v, o, lse, B, S, T_len, H, KH, qs, ks, vs, scale, softcap, causal,
                        window, diag, stream);
 }
 
@@ -428,6 +458,9 @@ int launch_dim(const void* q, const void* k, const void* v, void* o, float* lse,
                              causal, window, diag, stream);
     case 128:
       return launch_rows<128>(q, k, v, o, lse, B, S, T_len, H, KH, qs, ks, vs, scale, softcap,
+                              causal, window, diag, stream);
+    case 256:
+      return launch_rows<256>(q, k, v, o, lse, B, S, T_len, H, KH, qs, ks, vs, scale, softcap,
                               causal, window, diag, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
@@ -454,16 +487,18 @@ __device__ __forceinline__ void split_bf16(float a, float b, uint32_t& hi, uint3
 // ------------------------------------------------ route A: wgmma prefill
 namespace wg {
 
-constexpr int ROWS = 64;                     // query rows of a consumer warpgroup
-constexpr int NWG = 2;                       // consumer warpgroups
-constexpr int THREADS = (NWG * 4 + 1) * 32;  // and one producer warp
-constexpr int STAGES = 3;                    // K/V ring
+constexpr int ROWS = 64;  // query rows of a consumer warpgroup
 
 template <int D>
 struct Cfg {
+  // consumer warpgroups: two, or one at d = 256 (its O accumulator alone is
+  // 128 registers a thread: the source's note)
+  static constexpr int NWG = D == 256 ? 1 : 2;
+  static constexpr int THREADS = (NWG * 4 + 1) * 32;  // and one producer warp
+  static constexpr int STAGES = D == 256 ? 2 : 3;     // K/V ring
   // keys per tile: at d = 64, 128 keys spill at the 168 registers ptxas
-  // allows 288 threads
-  static constexpr int BN = D == 32 ? 128 : 64;
+  // allows 288 threads; at d = 256, 32 keep two CTAs' rings within an SM
+  static constexpr int BN = D == 32 ? 128 : D == 256 ? 32 : 64;
   static constexpr int SW = D * 2 < 128 ? D * 2 : 128;  // swizzle span: the bytes of a tile row
   static constexpr int PANELS = D * 2 / SW;     // column panels of SW bytes
   static constexpr int KSTEPS = SW / 32;        // k-steps of 16 elements in a panel
@@ -472,6 +507,7 @@ struct Cfg {
   static constexpr int SMEM = Q_BYTES + STAGES * 2 * KV_BYTES + 1024;  // + alignment slack
   static constexpr uint64_t LAYOUT = SW == 128 ? 1 : 2;
 };
+static_assert(Cfg<256>::SMEM <= 232448 && Cfg<128>::SMEM <= 232448, "a block's shared memory");
 
 struct Params {
   int S, T, H, KH, n_qtiles;
@@ -481,13 +517,13 @@ struct Params {
 };
 
 template <int D>
-__global__ void __launch_bounds__(THREADS, 1)
+__global__ void __launch_bounds__(Cfg<D>::THREADS, 1)
     flash_fwd_wgmma(const __grid_constant__ CUtensorMap qmap,
                     const __grid_constant__ CUtensorMap kmap,
                     const __grid_constant__ CUtensorMap vmap, __nv_bfloat16* __restrict__ o,
                     Params p) {
   using C = Cfg<D>;
-  constexpr int BN = C::BN, SW = C::SW, PANELS = C::PANELS;
+  constexpr int BN = C::BN, SW = C::SW, PANELS = C::PANELS, NWG = C::NWG, STAGES = C::STAGES;
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t bars[2 * STAGES + 1];  // full[STAGES], empty[STAGES], q
   // swizzled tiles start on 1,024-byte boundaries (the swizzle pattern's period)
@@ -641,8 +677,15 @@ __global__ void __launch_bounds__(THREADS, 1)
 #pragma unroll
       for (int kk = 0; kk < BN / 16; ++kk) {  // V: 16 key rows per k-step, panels of SW bytes
         const uint64_t dv = gmma_desc(vs + kk * 16 * SW, BN * SW, 8 * SW, C::LAYOUT);
-        wgmma_rs<D>(oacc, &pa[4 * kk], dv);
-        wgmma_rs<D>(oacc, &pl[4 * kk], dv);
+        if constexpr (D == 256) {  // V's panels 0-1, then 2-3
+          const uint64_t dv2 = gmma_desc(vs + 2 * BN * SW + kk * 16 * SW, BN * SW, 8 * SW,
+                                         C::LAYOUT);
+          wgmma_rs_n256(oacc, &pa[4 * kk], dv, dv2);
+          wgmma_rs_n256(oacc, &pl[4 * kk], dv, dv2);
+        } else {
+          wgmma_rs<D>(oacc, &pa[4 * kk], dv);
+          wgmma_rs<D>(oacc, &pl[4 * kk], dv);
+        }
       }
       wgmma_commit();
       wgmma_wait0();
@@ -691,9 +734,9 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse, int
       !tensor_map(&km, k, D, T_len, KH, B, ks.s, ks.h, ks.b, C::BN, C::SW) ||
       !tensor_map(&vm, v, D, T_len, KH, B, vs.s, vs.h, vs.b, C::BN, C::SW))
     return ERR_TENSOR_MAP;
-  const int n_qtiles = (S + NWG * ROWS - 1) / (NWG * ROWS);
+  const int n_qtiles = (S + C::NWG * ROWS - 1) / (C::NWG * ROWS);
   const Params p{S, T_len, H, KH, n_qtiles, scale, softcap, causal, window, diag, lse};
-  flash_fwd_wgmma<D><<<dim3(H, n_qtiles, B), THREADS, C::SMEM, stream>>>(
+  flash_fwd_wgmma<D><<<dim3(H, n_qtiles, B), C::THREADS, C::SMEM, stream>>>(
       qm, km, vm, static_cast<__nv_bfloat16*>(o), p);
   return static_cast<int>(cudaGetLastError());
 }
@@ -992,24 +1035,25 @@ __global__ void __launch_bounds__(THREADS)
           sees ? mg + logf(fmaxf(lg, 1e-20f)) : -INFINITY;
   }
   __syncthreads();
-  // thread tid sums column tid % D of rows tid / D + e THREADS / D
+  // thread tid sums element e THREADS + tid of the ROWS x D partials, for
+  // each e (at D <= THREADS: column tid % D of rows tid / D + e THREADS / D;
+  // at D = 256, columns tid and tid + 128 of each row)
   constexpr int E = ROWS * D / THREADS;
-  const int c = tid % D;
   float x[E];
 #pragma unroll
   for (int e = 0; e < E; ++e) x[e] = 0.f;
 #pragma unroll 4  // four chunks' loads in flight
   for (int i = 0; i < p.n_splits; ++i) {
-    const float* src = part + (first + i) * ROWS * D + c;
+    const float* src = part + (first + i) * ROWS * D + tid;
 #pragma unroll
     for (int e = 0; e < E; ++e) {
-      const int row = e * (THREADS / D) + tid / D;
-      if (row < rows) x[e] = fmaf(W[i * ROWS + row], __ldcg(src + row * D), x[e]);
+      const int row = (e * THREADS + tid) / D;
+      if (row < rows) x[e] = fmaf(W[i * ROWS + row], __ldcg(src + e * THREADS), x[e]);
     }
   }
 #pragma unroll
   for (int e = 0; e < E; ++e) {
-    const int row = e * (THREADS / D) + tid / D;
+    const int row = (e * THREADS + tid) / D, c = (e * THREADS + tid) % D;
     if (row < rows)
       o[(((long long)b * p.S + row / G) * p.H + kh * G + row % G) * D + c] =
           __float2bfloat16(x[e] * red[row]);
@@ -1096,6 +1140,9 @@ extern "C" int flash_attention_wgmma_launch(const void* q, const void* k, const 
     case 128:
       return wg::launch<128>(q, k, v, o, ls, B, S, T_len, H, KH, qs, ks, vs, scale, softcap,
                              causal, window, diag, s);
+    case 256:
+      return wg::launch<256>(q, k, v, o, ls, B, S, T_len, H, KH, qs, ks, vs, scale, softcap,
+                             causal, window, diag, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -1132,6 +1179,8 @@ extern "C" int flash_attention_split_launch(const void* q, const void* k, const 
       return split::launch<64>(q, k, v, o, B, p, pt, mlp, tk, s);
     case 128:
       return split::launch<128>(q, k, v, o, B, p, pt, mlp, tk, s);
+    case 256:
+      return split::launch<256>(q, k, v, o, B, p, pt, mlp, tk, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -38,7 +38,8 @@
 // accumulators; tiles arrive by TMA into 64- or 128-byte-swizzled shared
 // memory, a ring of them guarded by mbarriers, beside two consumer
 // warpgroups, as in the forward's route A.
-//   flash_bwd_dkdv_wgmma: one CTA a (batch x KV head, tile of 128 keys),
+//   flash_bwd_dkdv_wgmma: one CTA a (batch x KV head, tile of 128 keys; 64
+//     at d = 256),
 //     key tile 0 first (under causal masking it sees the most rows).  K and
 //     V arrive once; a three-stage ring carries Q, dO, lse and delta tiles
 //     of 64 rows of one query head, for every head of the group and every
@@ -69,13 +70,26 @@
 //   neighbouring bf16 value: a gradient row then moves by one bf16 step of
 //   that term (flash_attention_bwd_step_ref states the room).
 //
+//   At d = 256 (gemma2) the accumulators do not fit: dK and dV for a
+//   warpgroup's 64 keys are 2 x 64 x 256 f32, 256 registers a thread, and
+//   dQ's 128 beside S and dP pass the 168 a 288-thread CTA gets.  There each
+//   kernel has one consumer warpgroup (Cfg::NWG), and dK/dV takes two passes
+//   over the Q / dO ring: the CTAs of grid z = 0 form dV (S^T and P^T, then
+//   dV += P^T dO), those of z = 1 dK (S^T and dP^T, then dK += dS^T Q), each
+//   with one 64 x 256 accumulator, 128 registers; every gradient element is
+//   still written by one CTA, so there are no atomics and a step replays bit
+//   for bit.  The price: S^T is formed twice, 16 B H d FLOP a visible pair
+//   in all against 14.  A product of 256 columns runs as two of 128.
+//
 //   Each instance, from ptxas (sm_90a, -O3; chip_smoke.py logs the report
 //   of a fresh build) and the shared-memory formulas below; none spills:
 //
 //   instance                     registers  dynamic smem  threads
+//   flash_bwd_dkdv_wgmma<256>    232        199,680 B     128, two passes
 //   flash_bwd_dkdv_wgmma<128>    232        167,936 B     256
 //   flash_bwd_dkdv_wgmma<64>     171         86,016 B     256
 //   flash_bwd_dkdv_wgmma<32>     138         45,056 B     256
+//   flash_bwd_dq_wgmma<256>      242        197,632 B     160
 //   flash_bwd_dq_wgmma<128>      168        132,096 B     288
 //   flash_bwd_dq_wgmma<64>       144         66,560 B     288
 //   flash_bwd_dq_wgmma<32>       128         33,792 B     288
@@ -92,9 +106,12 @@
 //     accumulates dK and dV in registers.
 //   flash_bwd_dq: one block a (batch, KV head, tile of BM rows), longest
 //     first; loops over the visible key tiles and accumulates dQ.
+//   BM = BN = 64, and 32 at d = 256 (simt_tile), where 64-row tiles would
+//   take 301,568 B of shared memory in dK/dV and 283,648 B in dQ, and a
+//   thread would hold twice d = 128's accumulators; at 32 it holds as many.
 //
 // Inputs are contiguous: q, dO, O (B, S, H, D), k, v (B, T, KH, D); outputs
-// likewise.  Head dims 32, 64, 128.
+// likewise.  Head dims 32, 64, 128, 256.
 
 #include <math.h>
 
@@ -102,8 +119,11 @@
 
 namespace {
 
-constexpr int BM = 64;  // rows a tile
-constexpr int BN = 64;  // keys a tile
+// rows (BM) and keys (BN) a tile of the simt passes and the row pass
+template <int D>
+__host__ __device__ constexpr int simt_tile() {
+  return D > 128 ? 32 : 64;
+}
 constexpr int THREADS = 256;
 constexpr float NEG = -1073741824.0f;  // -2**30: the running max before any visible key
 
@@ -194,7 +214,7 @@ __device__ __forceinline__ const T* key_of(const T* x, int b, int kh, long long 
 }
 
 // ------------------------------------------------------------------ pass 1
-template <typename T, int D>
+template <typename T, int D, int BM, int BN>
 __global__ void __launch_bounds__(THREADS, 2)
     flash_bwd_rows(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ o,
                    const T* __restrict__ dout, float* __restrict__ lse,
@@ -303,12 +323,12 @@ __global__ void __launch_bounds__(THREADS, 2)
 }
 
 // ------------------------------------------------------------------ pass 2
-template <int D>
+template <int D, int BM, int BN>
 __host__ __device__ constexpr int dkdv_floats() {
   return 2 * BN * (D + 4) + 2 * BM * (D + 4) + 2 * BN * (BM + 4) + 2 * BM;
 }
 
-template <typename T, int D>
+template <typename T, int D, int BM, int BN>
 __global__ void __launch_bounds__(THREADS, 1)
     flash_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                    const T* __restrict__ dout, const float* __restrict__ lse,
@@ -451,12 +471,12 @@ __global__ void __launch_bounds__(THREADS, 1)
 }
 
 // ------------------------------------------------------------------ pass 3
-template <int D>
+template <int D, int BM, int BN>
 __host__ __device__ constexpr int dq_floats() {
   return 2 * BM * (D + 4) + 2 * BN * (D + 4) + BM * (BN + 4);
 }
 
-template <typename T, int D>
+template <typename T, int D, int BM, int BN>
 __global__ void __launch_bounds__(THREADS, 1)
     flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                  const T* __restrict__ dout, const float* __restrict__ lse,
@@ -589,23 +609,33 @@ __global__ void __launch_bounds__(THREADS, 1)
 // ------------------------------------------------------------------ delta
 // delta = rowsum(dO * O) alone, when the forward saved lse: a read of dO and
 // O, bound by their bytes.  Each row (contiguous (B, S, H) order) is read
-// by D / VEC threads of 16 bytes each, which meet by shuffles.
+// by delta_lanes threads of 16 bytes a word (D / VEC, at most 32: f32 at
+// d = 256 takes two words a thread), which meet by shuffles.
+template <typename T, int D>
+__host__ __device__ constexpr int delta_lanes() {
+  return D / (16 / (int)sizeof(T)) < 32 ? D / (16 / (int)sizeof(T)) : 32;
+}
+
 template <typename T, int D>
 __global__ void __launch_bounds__(THREADS)
     flash_bwd_delta(const T* __restrict__ o, const T* __restrict__ dout,
                     float* __restrict__ delta, Shape p, long long n_rows) {
   constexpr int VEC = 16 / (int)sizeof(T);
-  constexpr int LANES = D / VEC;  // threads a row: 4 to 32, a power of two
+  constexpr int LANES = delta_lanes<T, D>();  // threads a row: 4 to 32, a power of two
+  constexpr int WORDS = D / (VEC * LANES);     // 16-byte words a thread
   const long long n = ((long long)blockIdx.x * THREADS + threadIdx.x) / LANES;
   const int c = threadIdx.x % LANES;
   float acc = 0.f;
   if (n < n_rows) {
-    const T* orow = o + n * D + c * VEC;
-    const T* drow = dout + n * D + c * VEC;
 #pragma unroll
-    for (int e = 0; e < VEC; e += 4) {
-      const float4 a = load4(orow + e), d = load4(drow + e);
-      acc = fmaf(a.x, d.x, fmaf(a.y, d.y, fmaf(a.z, d.z, fmaf(a.w, d.w, acc))));
+    for (int w = 0; w < WORDS; ++w) {
+      const T* orow = o + n * D + (w * LANES + c) * VEC;
+      const T* drow = dout + n * D + (w * LANES + c) * VEC;
+#pragma unroll
+      for (int e = 0; e < VEC; e += 4) {
+        const float4 a = load4(orow + e), d = load4(drow + e);
+        acc = fmaf(a.x, d.x, fmaf(a.y, d.y, fmaf(a.z, d.z, fmaf(a.w, d.w, acc))));
+      }
     }
   }
 #pragma unroll
@@ -629,20 +659,21 @@ int stats_launch(const void* q, const void* k, const void* o, const void* dout, 
                  float* delta, int have_lse, int B, const Shape& p, cudaStream_t stream) {
   if (have_lse) {
     const long long n_rows = (long long)B * p.S * p.H;
-    constexpr int LANES = D * (int)sizeof(T) / 16;
+    constexpr int LANES = delta_lanes<T, D>();
     const long long blocks = (n_rows * LANES + THREADS - 1) / THREADS;
     flash_bwd_delta<T, D><<<(unsigned)blocks, THREADS, 0, stream>>>(
         static_cast<const T*>(o), static_cast<const T*>(dout), delta, p, n_rows);
     return static_cast<int>(cudaGetLastError());
   }
+  constexpr int BM = simt_tile<D>(), BN = BM;
   constexpr int rows_smem = (BM + BN) * (D + 4) * (int)sizeof(float);
   static bool ready = false;  // one attribute call per instance
   if (!ready) {
-    if (const int err = allow_smem(flash_bwd_rows<T, D>, rows_smem)) return err;
+    if (const int err = allow_smem(flash_bwd_rows<T, D, BM, BN>, rows_smem)) return err;
     ready = true;
   }
   const dim3 grid((unsigned)((p.rows + BM - 1) / BM), (unsigned)(B * p.KH));
-  flash_bwd_rows<T, D><<<grid, THREADS, rows_smem, stream>>>(
+  flash_bwd_rows<T, D, BM, BN><<<grid, THREADS, rows_smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(o),
       static_cast<const T*>(dout), lse, delta, p);
   return static_cast<int>(cudaGetLastError());
@@ -653,12 +684,13 @@ template <typename T, int D>
 int simt_launch(const void* q, const void* k, const void* v, const void* dout, void* dq,
                 void* dk, void* dv, const float* lse, const float* delta, int B, const Shape& p,
                 cudaStream_t stream) {
-  constexpr int dkdv_smem = dkdv_floats<D>() * (int)sizeof(float);
-  constexpr int dq_smem = dq_floats<D>() * (int)sizeof(float);
+  constexpr int BM = simt_tile<D>(), BN = BM;
+  constexpr int dkdv_smem = dkdv_floats<D, BM, BN>() * (int)sizeof(float);
+  constexpr int dq_smem = dq_floats<D, BM, BN>() * (int)sizeof(float);
   static bool ready = false;  // one attribute call per instance
   if (!ready) {
-    int err = allow_smem(flash_bwd_dkdv<T, D>, dkdv_smem);
-    if (!err) err = allow_smem(flash_bwd_dq<T, D>, dq_smem);
+    int err = allow_smem(flash_bwd_dkdv<T, D, BM, BN>, dkdv_smem);
+    if (!err) err = allow_smem(flash_bwd_dq<T, D, BM, BN>, dq_smem);
     if (err) return err;
     ready = true;
   }
@@ -668,12 +700,13 @@ int simt_launch(const void* q, const void* k, const void* v, const void* dout, v
   const T* dt = static_cast<const T*>(dout);
   const dim3 row_grid((unsigned)((p.rows + BM - 1) / BM), (unsigned)(B * p.KH));
   const dim3 key_grid((unsigned)((p.T + BN - 1) / BN), (unsigned)(B * p.KH));
-  flash_bwd_dkdv<T, D><<<key_grid, THREADS, dkdv_smem, stream>>>(
+  flash_bwd_dkdv<T, D, BM, BN><<<key_grid, THREADS, dkdv_smem, stream>>>(
       qt, kt, vt, dt, lse, delta, static_cast<T*>(dk), static_cast<T*>(dv), p);
   const int err = static_cast<int>(cudaGetLastError());
   if (err) return err;
-  flash_bwd_dq<T, D><<<row_grid, THREADS, dq_smem, stream>>>(qt, kt, vt, dt, lse, delta,
-                                                             static_cast<T*>(dq), p);
+  flash_bwd_dq<T, D, BM, BN><<<row_grid, THREADS, dq_smem, stream>>>(qt, kt, vt, dt, lse,
+                                                                     delta, static_cast<T*>(dq),
+                                                                     p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -682,19 +715,22 @@ int simt_launch(const void* q, const void* k, const void* v, const void* dout, v
 // ------------------------------------------------------------------ route wgmma
 namespace wgb {
 
-constexpr int ROWS = 64;                     // keys (dK/dV) or queries (dQ) of a consumer warpgroup
-constexpr int NWG = 2;                       // consumer warpgroups
-constexpr int THREADS = (NWG * 4 + 1) * 32;  // and one producer warp
-constexpr int STAGES = 2;                    // dQ's ring depth
-constexpr int BN = 64;                       // keys of a dQ ring tile
-constexpr int BR = 64;                       // rows (query, head) of a dK/dV ring tile
-constexpr int DKDV_THREADS = NWG * 4 * 32;   // dK/dV: the consumer warpgroups alone
-constexpr int DKDV_STAGES = 3;               // and its ring depth
-constexpr int STAT = 128;                    // f32 slots of a stage's lse or delta box (BR + 4,
-                                             // 512 bytes: each box 128-byte aligned)
+constexpr int ROWS = 64;    // keys (dK/dV) or queries (dQ) of a consumer warpgroup
+constexpr int STAGES = 2;   // dQ's ring depth
+constexpr int BN = 64;      // keys of a dQ ring tile
+constexpr int BR = 64;      // rows (query, head) of a dK/dV ring tile
+constexpr int STAT = 128;   // f32 slots of a stage's lse or delta box (BR + 4,
+                            // 512 bytes: each box 128-byte aligned)
 
 template <int D>
 struct Cfg {
+  // consumer warpgroups a CTA: two, or one at d = 256, whose dK/dV then
+  // takes two passes (TWO_PASS: grid z 0 forms dV, z 1 dK; the source's note)
+  static constexpr int NWG = D == 256 ? 1 : 2;
+  static constexpr bool TWO_PASS = D == 256;
+  static constexpr int THREADS = (NWG * 4 + 1) * 32;  // dQ: and one producer warp
+  static constexpr int DKDV_THREADS = NWG * 4 * 32;   // dK/dV: the consumer warpgroups alone
+  static constexpr int DKDV_STAGES = D == 256 ? 2 : 3;  // and its ring depth
   static constexpr int SW = D * 2 < 128 ? D * 2 : 128;  // swizzle span: the bytes of a tile row
   static constexpr int PANELS = D * 2 / SW;              // column panels of SW bytes
   static constexpr int KSTEPS = SW / 32;                 // k-steps of 16 elements in a panel
@@ -706,6 +742,8 @@ struct Cfg {
   // Q and dO of both warpgroups, then the K / V ring
   static constexpr int DQ_SMEM = 2 * NWG * TILE + STAGES * 2 * TILE + 1024;
 };
+static_assert(Cfg<256>::DKDV_SMEM <= 232448 && Cfg<256>::DQ_SMEM <= 232448 &&
+                  Cfg<128>::DKDV_SMEM <= 232448, "a block's shared memory");
 static_assert(BR == 64 && BN == 64, "every tile is 64 rows: one box size for all tensor maps");
 static_assert(STAT >= BR + 4 && STAT % 32 == 0, "a stats box and its 128-byte alignment");
 
@@ -730,11 +768,22 @@ __device__ __forceinline__ uint64_t desc_mn(uint32_t tile, int kk) {
   return gmma_desc(tile + kk * 16 * C::SW, 64 * C::SW, 8 * C::SW, C::LAYOUT);
 }
 
-__device__ __forceinline__ void init_bars(uint64_t* bars) {
+// acc (64 x D) += a (64 x 16, registers) times k-step kk of a 64-row tile
+// read MN-major (transposed); at d = 256 as two products of 128 columns, the
+// second on the tile's panels 2 and 3
+template <int D>
+__device__ __forceinline__ void rs_product(float* acc, const uint32_t* a, uint32_t tile, int kk) {
+  if constexpr (D == 256)
+    wgmma_rs_n256(acc, a, desc_mn<D>(tile, kk), desc_mn<D>(tile + 2 * 64 * Cfg<D>::SW, kk));
+  else
+    wgmma_rs<D>(acc, a, desc_mn<D>(tile, kk));
+}
+
+__device__ __forceinline__ void init_bars(uint64_t* bars, int consumer_warps) {
   if (threadIdx.x == 0) {
     for (int i = 0; i < STAGES; ++i) {
       mbar_init(smem_u32(&bars[i]), 1);
-      mbar_init(smem_u32(&bars[STAGES + i]), NWG * 4);  // every consumer warp releases a stage
+      mbar_init(smem_u32(&bars[STAGES + i]), consumer_warps);  // each releases a stage
     }
     mbar_init(smem_u32(&bars[2 * STAGES]), 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
@@ -743,7 +792,8 @@ __device__ __forceinline__ void init_bars(uint64_t* bars) {
 }
 
 // dK and dV.  One CTA per (batch x KV head, tile of NWG x 64 keys), key
-// tile 0 first (under causal masking it sees the most rows), and no
+// tile 0 first (under causal masking it sees the most rows; at d = 256 one
+// CTA a pass, grid z: 0 forms dV, 1 dK), and no
 // producer warp: a 9-warp CTA is allocated registers as 12 warps, 168 a
 // thread, where this kernel's accumulators at d = 128 spill; with 8 warps
 // it has 255.  Thread 0 loads K and V once and the first STAGES ring tiles;
@@ -756,7 +806,7 @@ __device__ __forceinline__ void init_bars(uint64_t* bars) {
 // accumulator layout this thread holds keys r and r + 8 (r = 16 warp +
 // lane / 4) and tile rows 8 j + 2 (lane % 4) + {0, 1}.
 template <int D>
-__global__ void __launch_bounds__(DKDV_THREADS, 1)
+__global__ void __launch_bounds__(Cfg<D>::DKDV_THREADS, 1)
     flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap qmap,
                          const __grid_constant__ CUtensorMap kmap,
                          const __grid_constant__ CUtensorMap vmap,
@@ -766,8 +816,10 @@ __global__ void __launch_bounds__(DKDV_THREADS, 1)
                          __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
                          Params p) {
   using C = Cfg<D>;
-  constexpr int SW = C::SW, PANELS = C::PANELS;
-  constexpr int WARPS = DKDV_THREADS / 32;
+  constexpr int SW = C::SW, PANELS = C::PANELS, NWG = C::NWG, DKDV_STAGES = C::DKDV_STAGES;
+  constexpr int WARPS = C::DKDV_THREADS / 32;
+  constexpr bool TWO = C::TWO_PASS;
+  const bool dk_pass = TWO && blockIdx.z == 1;  // a two-pass CTA forming dK, not dV
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t bars[DKDV_STAGES + 1];  // full[DKDV_STAGES], K/V
   __shared__ int released[DKDV_STAGES];  // warps done with each stage, over all its uses
@@ -834,9 +886,12 @@ __global__ void __launch_bounds__(DKDV_THREADS, 1)
   const float cap_scale = p.softcap * LOG2E;
   const uint32_t kt = k_s + wgi * C::TILE, vt = v_s + wgi * C::TILE;
 
-  float dvacc[D / 2], dkacc[D / 2];
+  // dV and dK; a two-pass CTA holds only its pass's, in dvacc
+  float dvacc[D / 2], dkacc[TWO ? 1 : D / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) dvacc[i] = 0.f, dkacc[i] = 0.f;
+  for (int i = 0; i < D / 2; ++i) dvacc[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < (TWO ? 1 : D / 2); ++i) dkacc[i] = 0.f;
 
   mbar_wait(kvbar, 0);
   for (int i = 0; i < n_tiles; ++i) {
@@ -852,8 +907,10 @@ __global__ void __launch_bounds__(DKDV_THREADS, 1)
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) wgmma_ss<BR>(sacc, desc_k<D>(kt, kk), desc_k<D>(qt, kk), kk > 0);
+      if (!TWO || dk_pass) {  // dV's pass needs no dP^T
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) wgmma_ss<BR>(pacc, desc_k<D>(vt, kk), desc_k<D>(dt, kk), kk > 0);
+        for (int kk = 0; kk < D / 16; ++kk) wgmma_ss<BR>(pacc, desc_k<D>(vt, kk), desc_k<D>(dt, kk), kk > 0);
+      }
       wgmma_commit();
       wgmma_wait0();
       pin<BR / 2>(sacc);
@@ -884,32 +941,47 @@ __global__ void __launch_bounds__(DKDV_THREADS, 1)
             if (s >= p.S || (p.causal && kj > s + off) || (p.window > 0 && s + off - kj >= p.window))
               pr = 0.f;
           }
-          sacc[4 * j + e] = pr;
-          pacc[4 * j + e] = pr * (pacc[4 * j + e] - (e & 1 ? d2.y : d2.x)) * dcap;
+          float ds = 0.f;  // (dV's pass of a two-pass CTA formed no dP^T)
+          if (!TWO || dk_pass) ds = pr * (pacc[4 * j + e] - (e & 1 ? d2.y : d2.x)) * dcap;
+          if (TWO) {  // the one operand this pass takes: P^T (dV) or dS^T (dK)
+            sacc[4 * j + e] = dk_pass ? ds : pr;
+          } else {
+            sacc[4 * j + e] = pr;
+            pacc[4 * j + e] = ds;
+          }
         }
       }
       // P^T and dS^T rounded to bf16, in registers as the A operand: k-step
-      // kk of 16 rows is accumulator chunks 2 kk and 2 kk + 1
-      uint32_t pa[BR / 4], pd[BR / 4];
+      // kk of 16 rows is accumulator chunks 2 kk and 2 kk + 1 (a two-pass
+      // CTA: its pass's operand, in pa)
+      uint32_t pa[BR / 4], pd[TWO ? 1 : BR / 4];
 #pragma unroll
       for (int u = 0; u < BR / 4; ++u) {
         pa[u] = pack_bf16(sacc[2 * u], sacc[2 * u + 1]);
-        pd[u] = pack_bf16(pacc[2 * u], pacc[2 * u + 1]);
+        if (!TWO) pd[u] = pack_bf16(pacc[2 * u], pacc[2 * u + 1]);
       }
       pin<D / 2>(dvacc);
-      pin<D / 2>(dkacc);
       pin<BR / 4>(pa);
-      pin<BR / 4>(pd);
+      if constexpr (!TWO) {
+        pin<D / 2>(dkacc);
+        pin<BR / 4>(pd);
+      }
       wgmma_fence();
+      if constexpr (TWO) {  // dV += P^T dO, or dK += dS^T Q
+        const uint32_t bt = dk_pass ? qt : dt;
 #pragma unroll
-      for (int kk = 0; kk < BR / 16; ++kk) {  // dV += P^T dO, dK += dS^T Q
-        wgmma_rs<D>(dvacc, &pa[4 * kk], desc_mn<D>(dt, kk));
-        wgmma_rs<D>(dkacc, &pd[4 * kk], desc_mn<D>(qt, kk));
+        for (int kk = 0; kk < BR / 16; ++kk) rs_product<D>(dvacc, &pa[4 * kk], bt, kk);
+      } else {
+#pragma unroll
+        for (int kk = 0; kk < BR / 16; ++kk) {  // dV += P^T dO, dK += dS^T Q
+          rs_product<D>(dvacc, &pa[4 * kk], dt, kk);
+          rs_product<D>(dkacc, &pd[4 * kk], qt, kk);
+        }
       }
       wgmma_commit();
       wgmma_wait0();
       pin<D / 2>(dvacc);
-      pin<D / 2>(dkacc);
+      if constexpr (!TWO) pin<D / 2>(dkacc);
     }
     // this warp is done with the stage; the last of the WARPS refills it
     __syncwarp();
@@ -927,12 +999,21 @@ __global__ void __launch_bounds__(DKDV_THREADS, 1)
   for (int r = 0; r < 2; ++r) {
     if (key[r] >= p.T) continue;
     const long long at = (((long long)b * p.T + key[r]) * p.KH + kh) * D + cq;
+    if constexpr (TWO) {  // this pass's gradient: dK times scale, or dV
+      const float f = dk_pass ? p.scale : 1.f;
+      __nv_bfloat16* out = (dk_pass ? dk : dv) + at;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
-      *reinterpret_cast<uint32_t*>(dk + at + 8 * j) =
-          pack_bf16(dkacc[4 * j + 2 * r] * p.scale, dkacc[4 * j + 2 * r + 1] * p.scale);
-      *reinterpret_cast<uint32_t*>(dv + at + 8 * j) =
-          pack_bf16(dvacc[4 * j + 2 * r], dvacc[4 * j + 2 * r + 1]);
+      for (int j = 0; j < D / 8; ++j)
+        *reinterpret_cast<uint32_t*>(out + 8 * j) =
+            pack_bf16(dvacc[4 * j + 2 * r] * f, dvacc[4 * j + 2 * r + 1] * f);
+    } else {
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        *reinterpret_cast<uint32_t*>(dk + at + 8 * j) =
+            pack_bf16(dkacc[4 * j + 2 * r] * p.scale, dkacc[4 * j + 2 * r + 1] * p.scale);
+        *reinterpret_cast<uint32_t*>(dv + at + 8 * j) =
+            pack_bf16(dvacc[4 * j + 2 * r], dvacc[4 * j + 2 * r + 1]);
+      }
     }
   }
 }
@@ -943,7 +1024,7 @@ __global__ void __launch_bounds__(DKDV_THREADS, 1)
 // Consumer warpgroup w takes queries s0 + 64 w ..: this thread holds rows
 // r and r + 8 and keys 8 j + 2 (lane % 4) + {0, 1} of each tile.
 template <int D>
-__global__ void __launch_bounds__(THREADS, 1)
+__global__ void __launch_bounds__(Cfg<D>::THREADS, 1)
     flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap qmap,
                        const __grid_constant__ CUtensorMap kmap,
                        const __grid_constant__ CUtensorMap vmap,
@@ -951,7 +1032,7 @@ __global__ void __launch_bounds__(THREADS, 1)
                        const float* __restrict__ delta, __nv_bfloat16* __restrict__ dq,
                        Params p) {
   using C = Cfg<D>;
-  constexpr int SW = C::SW, PANELS = C::PANELS;
+  constexpr int SW = C::SW, PANELS = C::PANELS, NWG = C::NWG;
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t bars[2 * STAGES + 1];  // full[STAGES], empty[STAGES], Q/dO
   const uint32_t q_s = (smem_u32(smem_raw) + 1023u) & ~1023u;  // [NWG][PANELS][64][SW]
@@ -970,7 +1051,7 @@ __global__ void __launch_bounds__(THREADS, 1)
   const int kt0 = key_beg / BN;
   const int n_tiles = key_end > key_beg ? (key_end + BN - 1) / BN - kt0 : 0;
 
-  init_bars(bars);
+  init_bars(bars, NWG * 4);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   if (warp == NWG * 4) {  // the producer: one thread issues every copy
     if (lane == 0) {
@@ -1069,7 +1150,7 @@ __global__ void __launch_bounds__(THREADS, 1)
       pin<BN / 4>(pd);
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < BN / 16; ++kk) wgmma_rs<D>(dqacc, &pd[4 * kk], desc_mn<D>(ks, kk));
+      for (int kk = 0; kk < BN / 16; ++kk) rs_product<D>(dqacc, &pd[4 * kk], ks, kk);
       wgmma_commit();
       wgmma_wait0();
       pin<D / 2>(dqacc);
@@ -1127,16 +1208,17 @@ int launch(const void* q, const void* k, const void* v, const void* dout, void* 
       !tensor_map_1d(&lm, lse, (long long)B * H * S) ||
       !tensor_map_1d(&dm, delta, (long long)B * H * S))
     return ERR_TENSOR_MAP;
-  const int n_kt = (T_len + NWG * ROWS - 1) / (NWG * ROWS);
-  const int n_qt = (S + NWG * ROWS - 1) / (NWG * ROWS);
+  const int n_kt = (T_len + C::NWG * ROWS - 1) / (C::NWG * ROWS);
+  const int n_qt = (S + C::NWG * ROWS - 1) / (C::NWG * ROWS);
   const Params pk{S, T_len, H, KH, H / KH, n_kt, scale, softcap, causal, window};
-  flash_bwd_dkdv_wgmma<D><<<dim3(B * KH, n_kt), DKDV_THREADS, C::DKDV_SMEM, stream>>>(
+  const dim3 kv_grid(B * KH, n_kt, C::TWO_PASS ? 2 : 1);
+  flash_bwd_dkdv_wgmma<D><<<kv_grid, C::DKDV_THREADS, C::DKDV_SMEM, stream>>>(
       qm, km, vm, dom, lm, dm, static_cast<__nv_bfloat16*>(dk),
       static_cast<__nv_bfloat16*>(dv), pk);
   const int err = static_cast<int>(cudaGetLastError());
   if (err) return err;
   const Params pq{S, T_len, H, KH, H / KH, n_qt, scale, softcap, causal, window};
-  flash_bwd_dq_wgmma<D><<<dim3(B * H, n_qt), THREADS, C::DQ_SMEM, stream>>>(
+  flash_bwd_dq_wgmma<D><<<dim3(B * H, n_qt), C::THREADS, C::DQ_SMEM, stream>>>(
       qm, km, vm, dom, lse, delta, static_cast<__nv_bfloat16*>(dq), pq);
   return static_cast<int>(cudaGetLastError());
 }
@@ -1170,6 +1252,8 @@ int run_dim(int D, int route, int have_lse, const void* q, const void* k, const 
       return run<T, 64>(route, have_lse, q, k, v, o, dout, dq, dk, dv, lse, delta, B, p, s);
     case 128:
       return run<T, 128>(route, have_lse, q, k, v, o, dout, dq, dk, dv, lse, delta, B, p, s);
+    case 256:
+      return run<T, 256>(route, have_lse, q, k, v, o, dout, dq, dk, dv, lse, delta, B, p, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -1192,7 +1276,7 @@ extern "C" int flash_attention_bwd_launch(const void* q, const void* k, const vo
                                           int have_lse, void* stream) {
   if (B < 1 || S < 1 || T_len < 1 || KH < 1 || H % KH || B * KH > 65535 || window < 0 ||
       (window > 0 && !causal) || route < 0 || route > 1 || (route == 1 && !bf16) ||
-      (route == 1 && (B * H > 65535 || (T_len + 127) / 128 > 65535)))
+      (route == 1 && (B * H > 65535 || (T_len + 63) / 64 > 65535)))
     return static_cast<int>(cudaErrorInvalidValue);
   const Shape p{S, T_len, H, KH, H / KH, (long long)S * (H / KH), scale, softcap, causal, window};
   float* ls = static_cast<float*>(lse);

@@ -240,6 +240,16 @@ __device__ __forceinline__ void wgmma_rs_n128(float* d, const uint32_t* a, uint6
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
+// d (64 x 256, f32) += a (64 x 16, bf16 pairs in registers) b (16 x 256): two
+// products of 128 columns, b_lo the descriptor of b's first 128 and b_hi of
+// its last; d's second half starts at d + 64 (the accumulator layout repeats
+// every 8 columns, so this is m64n256k16's layout)
+__device__ __forceinline__ void wgmma_rs_n256(float* d, const uint32_t* a, uint64_t b_lo,
+                                              uint64_t b_hi) {
+  wgmma_rs_n128(d, a, b_lo);
+  wgmma_rs_n128(d + 64, a, b_hi);
+}
+
 template <int N>
 __device__ __forceinline__ void wgmma_ss(float* d, uint64_t a, uint64_t b, int acc) {
   if constexpr (N == 32) wgmma_ss_n32(d, a, b, acc);

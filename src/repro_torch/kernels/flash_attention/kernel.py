@@ -68,9 +68,9 @@ import torch
 from ..build import load
 from .ref import flash_attention_bwd_ref, flash_attention_lse_ref, flash_attention_ref
 
-#: head dims the kernels are instantiated for (yi's 128, the sweep's 64,
-#: the smoke config's 32)
-HEAD_DIMS = (32, 64, 128)
+#: head dims the kernels are instantiated for (gemma2's 256, yi's 128, the
+#: sweep's 64, the smoke config's 32)
+HEAD_DIMS = (32, 64, 128, 256)
 _DTYPES = (torch.float32, torch.bfloat16)
 ROUTES = ("wgmma", "split", "simt")
 #: the backward's routes: the f32 CUDA cores, and the tensor cores for bf16

@@ -4,7 +4,10 @@
 --batch 4 --prompt-len 64 --gen 32 [--remote-embed --embed-servers 2]``
 prefills a batch of random prompts and decodes greedily, printing one JSON line with
 the prefill and decode throughput (the keys of ``repro.launch.serve``; with
-``--layers``, the arch's first N layers, also ``layers``).
+``--layers``, the arch's first N layers, also ``layers``).  The prompts are
+``make_batch``'s, patch embeddings included for an arch with a patch
+frontend (internvl2-26b), as JAX's launcher hands them to its prefill; the
+decode steps take tokens only.
 It runs on the card; ``--device cpu`` runs it on the host.  With
 ``--remote-embed`` the tokens' embedding rows come from an embedding-shard
 service over the PE fabric instead of a local lookup, and the token stream

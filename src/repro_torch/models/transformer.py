@@ -83,13 +83,18 @@ from .ssm import SSMHead, ssm_head, ssm_head_serve, ssm_head_tp
 
 
 def require_ported(cfg: ModelConfig) -> None:
-    """Refuse what the port's stack does not run yet, naming its slice."""
+    """Refuse what the port's stack does not run yet, naming its slice: the
+    encoder-decoder family and the audio frontend come with seamless-m4t's
+    (the patch frontend is ported: ``zoo.frontend_len``)."""
     if cfg.family not in ("dense", "moe", "rwkv", "hybrid") or cfg.is_encdec:
         raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family is not ported yet (ROADMAP.md section 1)"
+            f"{cfg.name}: the {cfg.family} family is not ported yet (ROADMAP.md section 1: "
+            "seamless-m4t's encoder-decoder slice)"
         )
-    if cfg.frontend is not None:
-        raise NotImplementedError(f"{cfg.name}: modality frontends are not ported yet (ROADMAP.md)")
+    if cfg.frontend not in (None, "patch"):
+        raise NotImplementedError(
+            f"{cfg.name}: the {cfg.frontend} frontend is not ported yet (ROADMAP.md section 1: "
+            "seamless-m4t's slice)")
 
 
 # ----------------------------------------------------------------- params

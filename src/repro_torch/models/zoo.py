@@ -10,7 +10,9 @@ hybrid families:
   dict keyed by its parameter names, such as AdamW's moments): the inverse of
   ``from_jax_params``
 * ``make_batch(cfg, shape, seed)``          -> random token batch (numpy seed); a
-  ``train`` shape adds ``labels`` and ``mask``
+  ``train`` shape adds ``labels`` and ``mask``, a ``patch`` frontend
+  ``patch_embeds`` (``frontend_len(cfg, seq_len)`` of them, which overwrite
+  the first positions in ``forward`` and carry no loss)
 * ``init_kv_cache(cfg, batch, t_max, mesh=None)`` -> dense and moe ``{"k", "v"}``,
   ``(L, B, T, K, hd)``; rwkv ``{"tm_shift", "cm_shift", "wkv"}``; hybrid
   ``{"k", "v", "conv", "h"}``; with a ``mesh``, this rank's blocks
@@ -90,6 +92,24 @@ class ShapeSpec:
     global_batch: int
     kind: str  # train | prefill | decode
 
+
+def frontend_len(cfg: ModelConfig, seq_len: int) -> int:
+    """Stub modality frontends: how many positions the frontend occupies
+    (the JAX package's ``frontend_len``)."""
+    if cfg.frontend == "patch":  # ViT patch embeds (internvl2)
+        return min(256, seq_len // 4)
+    if cfg.frontend == "audio":  # downsampled audio frames (seamless)
+        return max(seq_len // 4, 16)
+    return 0
+
+
+def _no_frontend(cfg: ModelConfig, what: str) -> None:
+    """A sharded forward takes no frontend yet: refuse rather than drop the
+    patches."""
+    if cfg.frontend is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: the {what} forward takes no {cfg.frontend} frontend yet "
+            "(ROADMAP.md section 1)")
 
 
 # ------------------------------------------------------------------- params
@@ -311,6 +331,7 @@ def _forward_tp(cfg: ModelConfig, model: LM, batch: dict, lay: Layout,
                 return_hidden: bool):
     """:func:`forward` on this rank's rows ``batch`` and weight blocks (the
     table gathered to its TP block under FSDP)."""
+    _no_frontend(cfg, "sharded train")
     tokens = batch["tokens"]
     if "token_rows" in batch:  # the rank's rows of the rows gathered elsewhere
         x = batch["token_rows"].to(cfg.dtype)
@@ -342,6 +363,7 @@ def _forward_serve(cfg: ModelConfig, model: LM, batch: dict, lay: Layout, caches
     ``model`` and ``caches`` this rank's blocks; ``rows`` (global batch
     rows whose cache is written) becomes a mask of the rank's rows.  The
     hidden state is embed-cut (every row); the logits this rank's rows."""
+    _no_frontend(cfg, "sharded serving")
     tokens = batch["tokens"]
     n, s = tokens.shape
     if "token_rows" in batch:  # rows gathered elsewhere: every row's embed slice
@@ -394,7 +416,10 @@ def forward(
     router's load-balance loss averaged over the layers (an f32 scalar), 0.0
     for the other families.  ``batch["token_rows"]``, when
     present, holds embedding rows gathered elsewhere (the serving tier's
-    remote embedding) and bypasses the table lookup."""
+    remote embedding) and bypasses the table lookup.  With a ``patch``
+    frontend, ``batch["patch_embeds"]`` (B, P, D), when present, replaces
+    the first P positions after ``embed_mult`` (a sharded forward refuses
+    a frontend)."""
     if mesh is not None and caches is not None:
         if not isinstance(caches, CacheBlocks):
             raise ValueError("a cache on a mesh is a rank's blocks: init_kv_cache(..., mesh=)")
@@ -413,6 +438,9 @@ def forward(
         x = embed_plain(model.embed.tok, tokens)
     if cfg.embed_mult != 1.0:
         x = (x.float() * cfg.embed_mult).to(x.dtype)
+    if cfg.frontend == "patch" and "patch_embeds" in batch:
+        pe = batch["patch_embeds"].to(x.dtype)
+        x = torch.cat([pe, x[:, pe.shape[1]:]], dim=1)
     off = 0 if offset is None else int(offset)
     pos = off + torch.arange(s, device=x.device)
     h, aux = run_blocks(cfg, model.blocks, x, pos=pos, caches=caches, offset=off, rows=rows)
@@ -470,17 +498,24 @@ def make_batch(
     device: "torch.device | str | None" = None,
 ) -> dict[str, torch.Tensor]:
     """Random tokens of a prefill or train shape (a train shape adds random
-    ``labels`` and a ``mask`` of ones), from the numpy draws the JAX package
-    makes (so both packages see the same batch)."""
+    ``labels`` and a ``mask`` of ones, 0 on the frontend's positions; a
+    ``patch`` frontend adds ``patch_embeds``, f32 normal(0, 0.02) of
+    ``(B, frontend_len, D)``), from the numpy draws the JAX package makes,
+    in its order (so both packages see the same batch)."""
     if shape.kind not in ("prefill", "train"):
         raise ValueError(f"make_batch makes prefill and train batches, not {shape.kind!r}")
+    require_ported(cfg)
     dev = resolve_device(device)
     rng = np.random.default_rng(seed)
     b, s = shape.global_batch, shape.seq_len
+    fl = frontend_len(cfg, s)
     batch = {"tokens": rng.integers(0, cfg.vocab, (b, s)).astype(np.int32)}
-    if shape.kind == "train":  # the port's families have no frontend positions to mask
+    if shape.kind == "train":
         batch["labels"] = rng.integers(0, cfg.vocab, (b, s)).astype(np.int32)
         batch["mask"] = np.ones((b, s), np.float32)
+        batch["mask"][:, :fl] = 0.0  # frontend positions carry no LM loss
+    if cfg.frontend == "patch":
+        batch["patch_embeds"] = rng.normal(0, 0.02, (b, fl, cfg.d_model)).astype(np.float32)
     return {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
 
 

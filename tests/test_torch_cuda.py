@@ -8,6 +8,8 @@ Marked ``cuda``: skipped on a host without a Hopper card.  On the card:
 This file imports nothing of JAX, so it runs where only the port is
 installed."""
 
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -396,6 +398,14 @@ def test_lm_launches_one_flash_kernel_per_layer(card):
     ("prefill_d64_cap30", 1, 128, 256, 256, 6, 2, 64, True, 30.0, 0),
     ("prefill_noncausal_S256_T512", 2, 256, 512, 512, 4, 1, 32, False, None, 0),
     ("prefill_hymba_S1000_w300", 1, 1000, 1000, 1000, 25, 5, 64, True, None, 300),
+    # gemma2's heads: 8 over 4 KV heads of d 256, softcap 50, window 4,096 on local layers
+    ("decode_gemma_T2049_cap50", 8, 1, 2049, 4096, 8, 4, 256, True, 50.0, 0),
+    ("decode_gemma_T4096_w2048_cap50", 4, 1, 4096, 4096, 8, 4, 256, True, 50.0, 2048),
+    ("decode_2q_T777_w300_d256", 2, 2, 777, 1024, 8, 4, 256, True, None, 300),
+    ("prefill_gemma_S300_cap50", 1, 300, 300, 300, 8, 4, 256, True, 50.0, 0),
+    ("prefill_gemma_S1000_w300_cap50", 1, 1000, 1000, 1000, 8, 4, 256, True, 50.0, 300),
+    ("prefill_gemma_S256_T1024", 2, 256, 1024, 2048, 8, 4, 256, True, None, 0),
+    ("prefill_noncausal_S100_T200_d256", 1, 100, 200, 200, 4, 2, 256, False, None, 0),
 ], ids=lambda c: c[0] if isinstance(c, tuple) else None)
 def test_flash_routes_match_plain(card, case, dtype):
     """Each route against the plain version: bf16 decode (at most 16 rows per
@@ -434,6 +444,9 @@ FLASH_DIAG_CASES = [
     ("prompt_after", 2, 64, 96, 8, 2, 64, -200, 0),      # no row sees a key
     ("window_slice", 2, 1, 1040, 25, 5, 64, 2100, 2048),  # part of the slice out of the window
     ("window_prompt", 1, 200, 256, 4, 1, 32, 100, 64),
+    ("decode_slice_d256", 4, 1, 1040, 8, 4, 256, 1500, 0),   # gemma2's heads
+    ("prompt_keyless_rows_d256", 2, 300, 160, 8, 4, 256, -100, 0),
+    ("window_prompt_d256", 1, 200, 256, 8, 4, 256, 100, 64),
 ]
 
 
@@ -944,6 +957,11 @@ BWD_CASES = [
     ("window_softcap_S_lt_T_d64", 2, 77, 333, 6, 2, 64, {"window": 50, "softcap": 30.0}),
     ("non_causal_d32", 1, 200, 130, 4, 1, 32, {"causal": False}),
     ("keyless_rows_d32", 1, 150, 100, 4, 2, 32, {}),  # rows of queries 0-49 see no key
+    # gemma2's heads at d 256: the simt passes' 32-row tiles, wgmma's two dK/dV passes
+    ("gemma_window_softcap_d256", 1, 300, 300, 8, 4, 256, {"window": 100, "softcap": 50.0}),
+    ("gqa_S_lt_T_d256", 2, 77, 333, 8, 4, 256, {}),
+    ("non_causal_d256", 1, 100, 130, 4, 1, 256, {"causal": False}),
+    ("keyless_rows_d256", 1, 150, 100, 4, 2, 256, {}),
 ]
 
 
@@ -1012,6 +1030,19 @@ def test_flash_bwd_is_deterministic(card, route):
         assert all(torch.equal(a, b) for a, b in zip(first, again))
 
 
+@pytest.mark.parametrize("route", ["wgmma", "simt"])
+def test_flash_bwd_d256_is_deterministic(card, route):
+    """At d = 256 too (wgmma's dK and dV each from their own pass, simt's
+    32-row tiles): bit-identical gradients call after call."""
+    from repro_torch.kernels.flash_attention import flash_attention_bwd
+
+    q, k, v, out, dout, kw, _ = _bwd_case(card, BWD_CASES[4], torch.bfloat16, seed=14)
+    first = flash_attention_bwd(q, k, v, out, dout, route=route, **kw)
+    for _ in range(3):
+        again = flash_attention_bwd(q, k, v, out, dout, route=route, **kw)
+        assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
 @pytest.mark.parametrize("case", [
     # (route, dtype, b, s, t, h, kh, d, kwargs)
     ("wgmma", torch.bfloat16, 1, 300, 300, 32, 4, 128, {}),
@@ -1020,6 +1051,9 @@ def test_flash_bwd_is_deterministic(card, route):
     ("split", torch.bfloat16, 1, 2, 40, 8, 4, 32, {}),  # one chunk
     ("simt", torch.float32, 1, 300, 300, 32, 4, 128, {}),
     ("simt", torch.float32, 1, 40, 100, 6, 2, 64, {"window": 20, "softcap": 5.0}),
+    ("wgmma", torch.bfloat16, 1, 300, 300, 8, 4, 256, {"softcap": 50.0}),
+    ("split", torch.bfloat16, 2, 1, 1000, 8, 4, 256, {}),
+    ("simt", torch.float32, 1, 300, 300, 8, 4, 256, {"window": 100}),
 ], ids=lambda c: f"{c[0]}_S{c[3]}_T{c[4]}_d{c[7]}")
 def test_flash_forward_lse(card, case):
     """Each forward route's log-sum-exp against the plain one on the same
@@ -1086,6 +1120,35 @@ def test_train_step_launches_the_backward_kernel(card):
     assert torch.isfinite(metrics["loss"]) and state["step"] == 1
     assert not torch.equal(model.blocks[0].wq, before)
     assert not any(p.requires_grad for p in model.parameters())
+
+
+def test_d256_train_step_launches_each_backward_route(card):
+    """gemma2 smoke at head dim 256 (its own 16 has no instance) on the
+    card, bf16, remat, 2 microbatches: the backward once a layer a
+    microbatch on ``wgmma``, and on ``simt`` under ``bwd_route_forced``;
+    both steps' losses equal (the same forward) and finite."""
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import bwd_route_forced, flash_attention_bwd
+    from repro_torch.models import zoo
+    from repro_torch.optim import AdamW
+
+    cfg = get_config("gemma2-2b", smoke=True).replace(head_dim=256, remat=True, microbatch=2)
+    batch = zoo.make_batch(cfg, zoo.ShapeSpec("t", 128, 4, "train"), 0, device=card)
+    losses = []
+    for forced, route in ((None, "wgmma"), ("simt", "simt")):
+        model = zoo.build_params(cfg, 0, device=card)
+        opt = AdamW(lr=1e-3)
+        state = {"params": model, "opt": opt.init(zoo.model_params(model)), "step": 0}
+        kernels.reset_launches()
+        with bwd_route_forced(forced) if forced else contextlib.nullcontext():
+            state, metrics = zoo.make_train_step(cfg, opt)(state, batch)
+        torch.cuda.synchronize()
+        assert flash_attention_bwd.route_launches[route] == cfg.n_layers * 2
+        assert kernels.launch_counts()["flash_attention"] == cfg.n_layers * 2 * 2
+        assert torch.isfinite(metrics["loss"])
+        losses.append(float(metrics["loss"]))
+    assert losses[0] == losses[1]
 
 
 def test_forced_route_takes_a_whole_backward(card):

@@ -122,7 +122,7 @@ def test_cpu_wrapper_takes_the_plain_version_and_counts_nothing():
     assert torch.equal(got, flash_attention_ref(q, k, v, softcap=20.0, scale=0.3))
     assert WRAPPERS["flash_attention"] is flash_attention
     assert build.SOURCES["flash_attention"] == "flash_attention.cu"
-    assert (build.CSRC / "flash_attention.cu").exists() and HEAD_DIMS == (32, 64, 128)
+    assert (build.CSRC / "flash_attention.cu").exists() and HEAD_DIMS == (32, 64, 128, 256)
 
 
 @pytest.mark.parametrize("case", ["rank", "batch", "groups", "empty", "causal_t_lt_s",
