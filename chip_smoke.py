@@ -170,10 +170,10 @@ a checkout, on a host with one Hopper card (sm_90) and the CUDA toolkit.
    and 4 x decode groups on the ``split`` route; then a profiled decode
    burst and prefill (busy share, the kernel's share).
 14. ``repro_torch.launch.serve --no-smoke --batch 4 --prompt-len 2048
-   --gen 16`` at full yi-9b (48 layers), local, and ``--gen 8`` with
-   ``--remote-embed --embed-servers 2``: the remote stream bit-identical to
-   the local one's first 8 tokens, ``embed_lookup`` launched in the remote
-   run.
+   --gen 16`` at full yi-9b (48 layers), local, then ``--prompt-len 512
+   --gen 8`` local and with ``--remote-embed --embed-servers 2``: the
+   remote stream bit-identical to that local one, ``embed_lookup``
+   launched in the remote run.
 15. Times ``flash_attention`` at the prefill (S = T = 2,048) and decode
    (B = 8, T = 2,048) shapes, and at hymba's and attend_sp's, and a (2, 2)
    rank's sliced decode call (B = 2 rows, yi's heads, 1,040 keys, with
@@ -204,9 +204,9 @@ a checkout, on a host with one Hopper card (sm_90) and the CUDA toolkit.
    groups) times, 4 x prefills on the ``split`` route and 4 x decode
    groups on ``step``, and its profiled decode burst and prefill (the
    split's three device kernels a launch, each kernel's time by name).
-20. ``launch.serve`` at full rwkv6-1.6b, local and remote-embed (8
-   tokens): streams bit-identical, ``wkv6`` launched 24 x (1 + 16) and 24
-   x (1 + 8) times, the prefill's on ``split`` and the steps' on ``step``.
+20. ``launch.serve`` at full rwkv6-1.6b, local and remote-embed (a
+   512-token prompt, 8 tokens): streams bit-identical, ``wkv6`` launched
+   24 x (1 + 16) and 24 x (1 + 8) times, the prefill's on ``split`` and the steps' on ``step``.
 21. ssm_scan kernel phase: ``ssm_scan`` against its plain version on both
    routes at hymba-1.5b's prefill (B = 1, T = 2,048, D = 1,600, N = 16) and
    decode (B = 8, T = 1 from a state) shapes, T = 777 from a state and T a
@@ -234,8 +234,8 @@ a checkout, on a host with one Hopper card (sm_90) and the CUDA toolkit.
    line also logs, per kernel, the kernels recorded in the window, those
    matched to a launch in it by correlation id, the wrapper's launches in
    it and the names matched (ROADMAP T12).
-25. ``launch.serve`` at full hymba-1.5b, local and remote-embed (8
-   tokens): streams bit-identical, each kernel launched 32 x (1 + 16) and
+25. ``launch.serve`` at full hymba-1.5b, local and remote-embed (a
+   512-token prompt, 8 tokens): streams bit-identical, each kernel launched 32 x (1 + 16) and
    32 x (1 + 8) times.
 26. Flash backward kernel phase: dQ, dK and dV of ``flash_attention_bwd``
    against its plain version on the same inputs, on the ``wgmma`` route
@@ -395,6 +395,22 @@ a checkout, on a host with one Hopper card (sm_90) and the CUDA toolkit.
    internvl2-26b at full width with its patch embeddings: parity and train
    parity at 2 layers in f32, ``launch.serve`` at 8 of 48 layers.  The
    phase's seconds are logged.
+44. The encoder-decoder family, after phase 43: the flash forward at
+   seamless-m4t-medium's heads (16 over 16 of 64, no softcap) non-causal
+   on each route against the plain version (the encoder's S = T = 512,
+   cross-attention's S = 2,048 over T = 512 frames at a prefill and S =
+   4,096 over 1,024 in training, and a decode's S = 1 over 512 on
+   ``split``), the backward non-causal at the train shape on both routes,
+   and each timed in turns with SDPA (non-causal with no softcap is exactly
+   SDPA's function) beside the plain version and the bound.  Then
+   seamless-m4t-medium at full width: parity and train parity at 2 + 2
+   layers in f32 with its audio frames, ``launch.serve`` at all 12 + 12
+   layers (a prefill launches flash 36 times on ``wgmma``: 12 encoder, 12
+   decoder self, 12 cross; each decode step 24 on ``split``), and bf16
+   remat train steps on ``make_batch``'s batches (the driver's pipeline
+   makes no frames) at full depth, 144 forward and 72 backward launches a
+   step on ``wgmma``, the first two replayed bit for bit.  The phase's
+   seconds are logged.
 
 Prints one JSON line of kernel results, then the nvidia-smi line, then
 ``{"ok": true, "device": {...}}`` last.  Any failure exits non-zero with
@@ -521,6 +537,7 @@ PATH_KERNEL = {
     "starcoder2-15b": (("flash_attention", "flash"),),
     "gemma2-2b": (("flash_attention", "flash"),),
     "internvl2-26b": (("flash_attention", "flash"),),
+    "seamless-m4t-medium": (("flash_attention", "flash"),),
 }
 PROFILE_STEM = {"yi-9b": "lm", "rwkv6-1.6b": "rwkv", "hymba-1.5b": "hymba",
                 "granite-moe-1b-a400m": "granite", "phi3.5-moe-42b-a6.6b": "phi35",
@@ -721,9 +738,12 @@ MOE_ARCH, PHI_ARCH, PHI_LAYERS = "granite-moe-1b-a400m", "phi3.5-moe-42b-a6.6b",
 # and time
 REMOTE_ARCHS = ("yi-9b", "rwkv6-1.6b", "hymba-1.5b")
 # the remote arm's tokens (cut from 32, ~13-17 s an arch on a slow
-# host, each token's rows a gather over the PE fabric on the host), held to
-# the local arm's first REMOTE_NEW
+# host, each token's rows a gather over the PE fabric on the host)
 REMOTE_NEW = 8
+# the remote arm's prompt (cut from LAUNCH_PROMPT beside phase 44: its
+# 4 x 2,048 rows gathered over the PE fabric on the host took 10-13 s an
+# arch), held bit for bit to a local arm of the same prompt and tokens
+REMOTE_PROMPT = 512
 # a route that flips between card and CPU: the two experts' f32 router
 # logits (|logit| up to ~3: scale 0.02 over d_model 1,024 of rms-normed
 # inputs) lie within what the inputs' f32 rounding moves them, ~1e-6; a flip
@@ -755,6 +775,18 @@ D256_TIMING = {"prefill": (1, 2048, 2048, 0), "decode": (8, 1, 2048, 0),
                "train": (2, 4096, 4096, 0), "local": (1, 8192, 8192, GEMMA_WINDOW)}
 # the f32 instances at the parity phases' shapes: 2 x 128 forward, 1 x 128 backward
 D256_PARITY = {"forward": (2, 128, 128), "backward": (1, 128, 128)}
+# phase 44: seamless-m4t-medium, 16 query heads over 16 KV heads of 64, no
+# softcap; its flash calls (B, S, T), all non-causal: the encoder over a
+# 2,048-token prompt's 512 frames, cross-attention at that prefill and at a
+# train_4k microbatch (2 x 4,096 tokens over 1,024 frames, forward and
+# backward), and a decode step's cross-attention over 512 frames
+SEAMLESS_ARCH, SEAMLESS_HEADS = "seamless-m4t-medium", (16, 16, 64)
+SEAMLESS_FLASH = {"encoder": (4, 512, 512), "cross": (4, 2048, 512),
+                  "train_cross": (2, 4096, 1024), "decode_cross": (8, 1, 512)}
+# its training at full depth (12 + 12 layers), TRAIN_BATCH x TRAIN_SEQ tokens
+# in TRAIN_MICROBATCH microbatches, SEAMLESS_TRAIN_STEPS steps, the first
+# SEAMLESS_REPLAY run again from the same seed
+SEAMLESS_TRAIN_STEPS, SEAMLESS_REPLAY = 3, 2
 
 
 def log(*args) -> None:
@@ -2015,7 +2047,8 @@ def flash_kernel_phase(dev, cases: list | None = None, diag_cases: list | None =
     # checking launches are not main-path launches
     flash_attention.launches, flash_attention.route_launches = before
     return {"max_abs_err": max(worst[f32], worst[bf16]), "max_abs_err_f32_probs":
-            worst["f32_probs"], "max_abs_err_lse": worst["lse"], "max_abs_err_diag": worst["diag"]}
+            worst["f32_probs"], "max_abs_err_lse": worst["lse"],
+            "max_abs_err_diag": worst.get("diag")}
 
 
 class RouteLog:
@@ -2133,7 +2166,7 @@ def parity_phase(dev, arch: str = "yi-9b") -> dict:
 
     torch.backends.cuda.matmul.allow_tf32 = False  # full f32 products on both sides
     torch.backends.cudnn.allow_tf32 = False
-    cfg = get_config(arch).replace(n_layers=2, dtype=torch.float32)
+    cfg = zoo.first_layers(get_config(arch), 2).replace(dtype=torch.float32)
     t = time.perf_counter()
     card_model = zoo.build_params(cfg, 0, device=dev)
     host_model = zoo.LM(cfg, ParamFactory(0, torch.float32, torch.device("cpu"), fill=False))
@@ -2142,13 +2175,15 @@ def parity_phase(dev, arch: str = "yi-9b") -> dict:
     n_prompt = PARITY_PROMPT_BY_ARCH.get(arch, PARITY_PROMPT)
     prompt = {"tokens": rng.integers(0, cfg.vocab, (2, n_prompt)).astype(np.int32)}
     fed = rng.integers(0, cfg.vocab, (2, PARITY_STEPS)).astype(np.int32)
+    fl = zoo.frontend_len(cfg, n_prompt)
     if cfg.frontend == "patch":  # make_batch's draw: the prompt's first positions
-        prompt["patch_embeds"] = rng.normal(0, 0.02, (2, zoo.frontend_len(cfg, n_prompt),
-                                                      cfg.d_model)).astype(np.float32)
+        prompt["patch_embeds"] = rng.normal(0, 0.02, (2, fl, cfg.d_model)).astype(np.float32)
+    if cfg.frontend == "audio":  # make_batch's draw: the encoder's frames
+        prompt["frames"] = rng.normal(0, 0.02, (2, fl, cfg.d_model)).astype(np.float32)
 
     def run(model, device):
         t_max = n_prompt + PARITY_STEPS
-        cache = zoo.init_kv_cache(cfg, 2, t_max, dtype=cfg.dtype, device=device)
+        cache = zoo.init_kv_cache(cfg, 2, t_max, dtype=cfg.dtype, device=device, enc_len=fl)
         logits, _, _ = zoo.forward(cfg, model, {k: torch.from_numpy(x).to(device)
                                                 for k, x in prompt.items()},
                                    caches=cache, offset=0)
@@ -2187,8 +2222,9 @@ def parity_phase(dev, arch: str = "yi-9b") -> dict:
                                  f"rows left {rows}")
     err = (card[rows] - host[rows]).abs().max().item()
     same = torch.equal(card[rows].argmax(-1), host[rows].argmax(-1))
-    patches = (f" (its first {prompt['patch_embeds'].shape[1]} positions patch embeddings)"
-               if "patch_embeds" in prompt else "")
+    patches = (f" (its first {fl} positions patch embeddings)" if "patch_embeds" in prompt
+               else f" ({fl} audio frames through {cfg.enc_layers} encoder layers)"
+               if "frames" in prompt else "")
     log(f"parity: 2-layer {arch} full width f32, prompt {n_prompt}{patches} + {PARITY_STEPS} "
         f"teacher-forced steps, card vs CPU logits max_abs_err={err} (tolerance {PARITY_ATOL}), "
         f"|logit| max {host.abs().max().item()}, greedy tokens equal: {same}, rows compared "
@@ -2393,12 +2429,14 @@ def decode_burst(cfg, model, cache, dev, profile_dir: str | None, arch: str = "y
 
 def launch_serve_phase(dev, arch: str = "yi-9b", layers: int | None = None) -> dict:
     """repro_torch.launch.serve at full ``arch`` (or its first ``layers``
-    layers, ``--layers``): local (SERVE_NEW tokens), then (for
-    REMOTE_ARCHS) remote-embed over 2 embedding servers, same seed,
-    REMOTE_NEW tokens; the remote stream must be the local one's first
-    tokens bit for bit and each of the arch's kernels launched once per
-    layer per forward.  For an
-    MoE arch each run also logs the choices its prefill dropped."""
+    layers, ``--layers``): local (LAUNCH_PROMPT tokens of prompt, SERVE_NEW
+    new), then (for REMOTE_ARCHS) local and remote-embed over 2 embedding
+    servers at REMOTE_PROMPT and REMOTE_NEW, same seed: the remote stream
+    must be that local one bit for bit.  Each run launches each of the
+    arch's kernels once per layer per forward (an encoder-decoder's flash
+    three times a layer a prefill, twice a decode step), and logs its peak
+    memory.  For an MoE arch each run also logs the choices its prefill
+    dropped."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import WRAPPERS, launch_counts, reset_launches
     from repro_torch.launch.serve import serve
@@ -2406,25 +2444,33 @@ def launch_serve_phase(dev, arch: str = "yi-9b", layers: int | None = None) -> d
 
     cfg = get_config(arch)
     n_layers = layers or cfg.n_layers
-    argv = ["--arch", arch, "--no-smoke", "--batch", str(LAUNCH_BATCH), "--prompt-len",
-            str(LAUNCH_PROMPT), "--seed", "0", "--device", str(dev)]
+    # flash calls a prefill and a decode step: one a layer, an
+    # encoder-decoder's three (encoder, self, cross) and two (self, cross)
+    pre_calls, dec_calls = (3 * n_layers, 2 * n_layers) if cfg.is_encdec else (n_layers, n_layers)
+    argv = ["--arch", arch, "--no-smoke", "--batch", str(LAUNCH_BATCH), "--seed", "0",
+            "--device", str(dev)]
     if layers:
         argv += ["--layers", str(layers)]
     prefix = line_prefix(arch)
     runs = {}
-    arms = (("local", SERVE_NEW, []),
-            ("remote", REMOTE_NEW, ["--remote-embed", "--embed-servers", "2"]))
-    for name, new, extra in arms[: 2 if arch in REMOTE_ARCHS else 1]:
+    arms = (("local", LAUNCH_PROMPT, SERVE_NEW, []),
+            ("local_remote_prompt", REMOTE_PROMPT, REMOTE_NEW, []),
+            ("remote", REMOTE_PROMPT, REMOTE_NEW, ["--remote-embed", "--embed-servers", "2"]))
+    for name, prompt, new, extra in arms[: 3 if arch in REMOTE_ARCHS else 1]:
         reset_launches()
+        torch.cuda.reset_peak_memory_stats(dev)
         t = time.perf_counter()
         drops = DropCount() if cfg.family == "moe" else contextlib.nullcontext()
         with drops:
-            rec, toks = serve(argv + ["--gen", str(new)] + extra)
+            rec, toks = serve(argv + ["--prompt-len", str(prompt), "--gen", str(new)] + extra)
         torch.cuda.synchronize()
         launches = launch_counts()
         rec["wall_s"], rec["launches"] = time.perf_counter() - t, launches
+        rec["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
         if cfg.frontend == "patch":  # make_batch's patches, over the prompt's first positions
-            rec["patch_positions"] = zoo.frontend_len(cfg, LAUNCH_PROMPT)
+            rec["patch_positions"] = zoo.frontend_len(cfg, prompt)
+        if cfg.frontend == "audio":  # make_batch's frames, the encoder's input
+            rec["frames"] = zoo.frontend_len(cfg, prompt)
         if cfg.family == "moe":  # the first n_layers calls are the prefill's
             rec["moe_prefill_dropped_choices"] = sum(int(c[2]) for c in drops.calls[:n_layers])
             rec["moe_prefill_choices"] = sum(c[1] for c in drops.calls[:n_layers])
@@ -2433,23 +2479,23 @@ def launch_serve_phase(dev, arch: str = "yi-9b", layers: int | None = None) -> d
                          for k in (*(k for k, _ in PATH_KERNEL[arch]), "embed_lookup")}
         runs[name] = (rec, toks)
         log(f"{prefix}launch.serve {name}: {json.dumps(rec)}")
-        if any(launches[k] != n_layers * (1 + new) for k, _ in PATH_KERNEL[arch]):
+        if any(launches[k] != pre_calls + dec_calls * new for k, _ in PATH_KERNEL[arch]):
             raise AssertionError(f"{prefix}launch.serve {name}: {launches} launches")
         for kernel, _ in PATH_KERNEL[arch]:  # the prefill on one route, each step on another
             pre, dec = PATH_ROUTES[kernel]
             routes = rec["routes"][kernel]
-            if (routes[pre], routes[dec]) != (n_layers, n_layers * new):
+            if (routes[pre], routes[dec]) != (pre_calls, dec_calls * new):
                 raise AssertionError(f"{prefix}launch.serve {name}: {kernel} routes {routes}")
         torch.cuda.empty_cache()
     if "remote" not in runs:
         return {"local": runs["local"][0]}
-    # greedy decode: the remote stream is the local one's first REMOTE_NEW tokens
-    if not np.array_equal(runs["local"][1][:, :REMOTE_NEW], runs["remote"][1]):
+    # greedy decode from the same prompt: the remote stream is the local one
+    if not np.array_equal(runs["local_remote_prompt"][1], runs["remote"][1]):
         raise AssertionError(f"{prefix}launch.serve: remote-embed stream differs from the local one")
     if runs["remote"][0]["launches"]["embed_lookup"] == 0:
         raise AssertionError(f"{prefix}launch.serve remote: no embed_lookup launch")
-    log(f"{prefix}launch.serve: remote-embed token stream bit-identical to the local one's "
-        f"first {REMOTE_NEW} tokens ({runs['remote'][1].size} tokens)")
+    log(f"{prefix}launch.serve: remote-embed token stream bit-identical to the local one at "
+        f"prompt {REMOTE_PROMPT} ({runs['remote'][1].size} tokens)")
     return {name: rec for name, (rec, _) in runs.items()}
 
 
@@ -4514,7 +4560,7 @@ def train_parity_phase(dev, arch: str = "yi-9b") -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t = time.perf_counter()
-    cfg = get_config(arch).replace(n_layers=2, dtype=torch.float32)
+    cfg = zoo.first_layers(get_config(arch), 2).replace(dtype=torch.float32)
     card_model = zoo.build_params(cfg, 0, device=dev)
     host_model = zoo.LM(cfg, ParamFactory(0, torch.float32, torch.device("cpu"), fill=False))
     host_model.load_state_dict(card_model.state_dict())
@@ -5943,6 +5989,203 @@ def d256_phases(dev, profile_dir: str | None, elapsed) -> dict:
     return out
 
 
+def time_flash_seamless(dev) -> dict:
+    """Phase 44's flash calls at seamless's heads (16 over 16 of 64, no
+    softcap, non-causal), bf16: the encoder B = 4, S = T = 512, a prefill's
+    cross-attention B = 4, S = 2,048 over T = 512 frames, a train
+    microbatch's B = 2, S = 4,096 over 1,024 (writing the lse, as the train
+    step's forward does) and its backward given that lse, and a decode
+    step's B = 8, S = 1 over 512 (8 sets of the frames' K/V, 134 MB, more
+    than the L2).  The kernel and SDPA (non-causal with no softcap: exactly
+    the kernel's function, a yardstick the port never calls) in turns
+    (:func:`ab_ms`; the backward's ``wgmma`` and ``simt`` routes too, and
+    SDPA's backward as its forward and backward less its forward), beside
+    the plain version and the bound: 4 B H S T d operations a forward call
+    and 10 B H S T d a backward one at the bf16 tensor-core peak, against
+    the bytes of q, k, v and the output (dO, the gradients, the lse) at the
+    HBM rate."""
+    from repro_torch.kernels import WRAPPERS
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_bwd, flash_attention_bwd_ref, flash_attention_ref, flash_route,
+    )
+    from repro_torch.kernels.flash_attention import kernel as flash_kernel
+
+    before = {k: (WRAPPERS[k].launches, dict(WRAPPERS[k].route_launches))
+              for k in ("flash_attention", "flash_attention_bwd")}
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    g = torch.Generator(dev).manual_seed(8)
+    h, kh, d = SEAMLESS_HEADS
+    out = {}
+    for name, (b, s, t) in SEAMLESS_FLASH.items():
+        save = name == "train_cross"  # the train step's forward writes the lse
+        sets = []
+        for _ in range(1 if s > 1 else 8):
+            qkv = _flash_case(dev, g, b, s, t, h, kh, d, torch.bfloat16)
+            sets.append((*qkv, *(x.transpose(1, 2).contiguous() for x in qkv)))
+        reps = 200 if s == 1 else 20
+        turns = ab_ms({
+            "kernel": lambda q, k, v, *_: flash_kernel._forward(
+                q, k, v, False, None, None, 0, save_lse=save),
+            "sdpa": lambda _q, _k, _v, q, k, v: sdpa(q, k, v)}, sets, reps, 2)
+        rec = {
+            "ms": turns["kernel"]["median"],
+            "plain_ms": event_ms(lambda q, k, v, *_: flash_attention_ref(q, k, v, causal=False),
+                                 sets, 3),
+            "library_ms": turns["sdpa"]["median"], "turns": turns,
+            **_bound(4 * b * h * s * t * d, 2 * (2 * b * s * h * d + 2 * b * t * kh * d)
+                     + (4 * b * h * s if save else 0)),
+            "route": flash_route(torch.bfloat16, s, h, kh),
+        }
+        out[name] = rec
+        log(f"timing flash_attention seamless {name} B={b} S={s} T={t} H={h} K={kh} d={d} "
+            f"non-causal bf16{' with lse' if save else ''}, in turns with SDPA: "
+            f"{json.dumps(rec)}")
+        if not save:
+            continue
+        q, k, v = sets[0][:3]
+        dout = torch.randn(q.shape, generator=g, device=dev).to(torch.bfloat16)
+        o, lse = flash_kernel._forward(q, k, v, False, None, None, 0, save_lse=True)
+        lq, lk, lv = (x.requires_grad_() for x in sets[0][3:])
+        ldo = dout.transpose(1, 2).contiguous()
+        bsets = [(q, k, v, o, dout)]
+        kw = dict(causal=False, lse=lse)
+        turns = ab_ms({
+            **{route: (lambda q, k, v, o, do, route=route: flash_attention_bwd(
+                q, k, v, o, do, route=route, **kw)) for route in ("wgmma", "simt")},
+            "sdpa_fwd_bwd": lambda *a: torch.autograd.grad(sdpa(lq, lk, lv), (lq, lk, lv), ldo),
+            "sdpa_fwd": lambda *a: sdpa(lq, lk, lv)}, bsets, 3, 2)
+        fb, fw = turns["sdpa_fwd_bwd"]["median"], turns["sdpa_fwd"]["median"]
+        brec = {
+            "ms": turns["wgmma"]["median"], "simt_ms": turns["simt"]["median"],
+            "plain_ms": event_ms(lambda *a: flash_attention_bwd_ref(*a, **kw), bsets, 2),
+            "library_ms": fb - fw, "library_fwd_bwd_ms": fb, "library_fwd_ms": fw,
+            "forward_ms": rec["ms"], "turns": turns,
+            **_bound(10 * b * h * s * t * d,
+                     2 * (4 * b * s * h * d + 4 * b * t * kh * d) + 4 * b * h * s),
+            "route": "wgmma",
+        }
+        out[f"{name}_bwd"] = brec
+        log(f"timing flash_attention_bwd seamless {name} B={b} S={s} T={t} H={h} K={kh} d={d} "
+            f"non-causal bf16, given the forward's lse, in turns with simt and SDPA: "
+            f"{json.dumps(brec)}")
+        del q, k, v, o, lse, dout, lq, lk, lv, ldo, bsets
+    del sets
+    for name, (count, routes) in before.items():  # timing launches are not main-path ones
+        WRAPPERS[name].launches, WRAPPERS[name].route_launches = count, routes
+    torch.cuda.empty_cache()
+    return out
+
+
+def seamless_train_phase(dev) -> dict:
+    """seamless-m4t-medium at full width and depth (12 + 12 layers), bf16,
+    remat on, ``make_train_step`` on ``make_batch``'s batches (TRAIN_BATCH
+    x TRAIN_SEQ tokens and frontend_len(TRAIN_SEQ) frames a row, a seed a
+    step; the driver's token pipeline makes no frames), TRAIN_MICROBATCH
+    microbatches, SEAMLESS_TRAIN_STEPS steps.  Launch counts from 0 just
+    before each step: the flash forward 3 x layers x microbatches x 2
+    (encoder, decoder self and cross; forward and remat recompute), all on
+    ``wgmma``, the backward 3 x layers x microbatches, all on ``wgmma``.
+    Each step logs its seconds, tokens/s and peak memory; the first
+    SEAMLESS_REPLAY steps then run again from the same seed and must give
+    the same losses bit for bit, and the weights must have moved."""
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.models import zoo
+    from repro_torch.optim import AdamW, cosine_schedule
+
+    cfg = get_config(SEAMLESS_ARCH).replace(microbatch=TRAIN_MICROBATCH)
+    assert cfg.remat and cfg.dtype == torch.bfloat16
+    spec = zoo.ShapeSpec("train", TRAIN_SEQ, TRAIN_BATCH, "train")
+    per = 3 * cfg.n_layers * TRAIN_MICROBATCH
+    want = {"flash_attention": {"wgmma": 2 * per, "split": 0, "simt": 0},
+            "flash_attention_bwd": {"wgmma": per, "simt": 0}}
+    probes = ("embed.tok", "enc.0.wq", "blocks.0.wq_x", f"blocks.{cfg.n_layers - 1}.wo2")
+    t = time.perf_counter()
+
+    def fresh():  # launch.train's default schedule: peak 3e-4 after 20 warm-up steps of 100
+        model = zoo.build_params(cfg, 0, device=dev)
+        opt = AdamW(lr=cosine_schedule(3e-4, 20, 100))
+        return {"params": model, "opt": opt.init(zoo.model_params(model)), "step": 0}, \
+            zoo.make_train_step(cfg, opt)
+
+    state, step_fn = fresh()
+    probe = {n: state["params"].get_parameter(n).detach().float().sum().item() for n in probes}
+    n_params = zoo.param_count(state["params"])
+    steps, losses = [], []
+    for step in range(SEAMLESS_TRAIN_STEPS):
+        batch = zoo.make_batch(cfg, spec, step, device=dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        loss = float(metrics["loss"])
+        routes = {k: dict(kernels.WRAPPERS[k].route_launches) for k in want}
+        rec = {"arch": SEAMLESS_ARCH, "step": step, "loss": loss, "seconds": wall,
+               "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / wall,
+               "max_memory_allocated_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+               "grad_norm": float(metrics["grad_norm"]), "routes": routes}
+        log(f"train step: {json.dumps(rec)}")
+        if not np.isfinite(loss) or routes != want:
+            raise AssertionError(f"train phase {SEAMLESS_ARCH} step {step}: loss {loss}, "
+                                 f"launches by route {routes}, want {want}")
+        steps.append(rec)
+        losses.append(loss)
+    moved = {n: state["params"].get_parameter(n).detach().float().sum().item() != v
+             for n, v in probe.items()}
+    del state, step_fn
+    torch.cuda.empty_cache()
+    state, step_fn = fresh()
+    again = []
+    for step in range(SEAMLESS_REPLAY):
+        state, metrics = step_fn(state, zoo.make_batch(cfg, spec, step, device=dev))
+        again.append(float(metrics["loss"]))
+    rec = {"arch": SEAMLESS_ARCH, "layers": cfg.n_layers, "enc_layers": cfg.enc_layers,
+           "weights": n_params, "frames": zoo.frontend_len(cfg, TRAIN_SEQ),
+           "steps": SEAMLESS_TRAIN_STEPS, "losses": losses, "replayed_losses": again,
+           "weights_moved": moved, "launches_per_step": [r["routes"] for r in steps],
+           "median_step_s": float(np.median([r["seconds"] for r in steps[1:]])),
+           "peak_memory_gb": max(r["max_memory_allocated_gb"] for r in steps),
+           "seconds": time.perf_counter() - t}
+    log(f"train phase: {json.dumps(rec)}")
+    if again != losses[:SEAMLESS_REPLAY] or not all(moved.values()):
+        raise AssertionError(f"train phase {SEAMLESS_ARCH}: steps 0-{SEAMLESS_REPLAY - 1} run "
+                             f"again give {again}, first {losses}; weights moved {moved}")
+    del state, step_fn
+    torch.cuda.empty_cache()
+    return rec
+
+
+def seamless_phases(dev, elapsed) -> dict:
+    """Phase 44: the flash kernels at seamless-m4t-medium's non-causal
+    shapes (checks against the plain version and timings), then the model
+    at full width: parity and train parity at 2 + 2 layers, ``launch.serve``
+    and training at full depth; its seconds logged."""
+    t = time.perf_counter()
+    bf16, f32 = torch.bfloat16, torch.float32
+    h, kh, d = SEAMLESS_HEADS
+    cases = [(f"seamless {name} B={b} S={s} T={t_} non-causal", (b, s, t_, h, kh, d, dtype),
+              dict(causal=False))
+             for dtype in (f32, bf16) for name, (b, s, t_) in SEAMLESS_FLASH.items()]
+    b, s, t_ = SEAMLESS_FLASH["train_cross"]
+    bwd = [(f"seamless train_cross B={b} S={s} T={t_} non-causal", (b, s, t_, h, kh, d),
+            dict(causal=False), (f32, bf16))]
+    out = {"checked": flash_kernel_phase(dev, cases, []),
+           "bwd_checked": flash_bwd_kernel_phase(dev, bwd),
+           "timing": time_flash_seamless(dev)}
+    elapsed("phase 44's flash kernels at seamless's shapes")
+    out["parity"] = parity_phase(dev, SEAMLESS_ARCH)
+    out["train_parity"] = train_parity_phase(dev, SEAMLESS_ARCH)
+    out["served"] = {SEAMLESS_ARCH: launch_serve_phase(dev, SEAMLESS_ARCH)}
+    out["trained"] = seamless_train_phase(dev)
+    elapsed(f"the {SEAMLESS_ARCH} phases")
+    out["seconds"] = time.perf_counter() - t
+    log(f"phase 44 (seamless-m4t-medium, the encoder-decoder family): {out['seconds']:.1f} s")
+    return out
+
+
 def serve_flips(card: list, host: list) -> dict:
     """Card against CPU, routing by routing: each token whose experts differ
     is a flip, with its margin (the widest CPU logit gap between an expert
@@ -6389,6 +6632,8 @@ def main() -> int:
     served.update(dense_phases(dev, elapsed))
     d256 = d256_phases(dev, args.profile, elapsed)
     served.update(d256["served"])
+    seamless = seamless_phases(dev, elapsed)
+    served.update(seamless["served"])
     # the path's launches by the shape they come in: per-message dispatches
     # at N = 16 ids and B = 1 chase, batched ones at their arm's mean,
     # launch.serve's remote embedding at N = 8 of each LM's rows, and the
@@ -6505,6 +6750,11 @@ def main() -> int:
         "d256": {name: {k: rec[k] for k in (*keys, "route")}
                  for name, rec in d256["timing"].items() if not name.endswith("_bwd")},
         "ptxas_d256": [i for i in d256_instances() if i["kernel"].startswith("flash_fwd")],
+        "launches_seamless_training_per_step": [
+            r["flash_attention"] for r in seamless["trained"]["launches_per_step"]],
+        "max_abs_err_seamless": seamless["checked"]["max_abs_err"],
+        "seamless": {name: {k: rec[k] for k in (*keys, "route")}
+                     for name, rec in seamless["timing"].items() if not name.endswith("_bwd")},
     }, {
         "name": "wkv6",
         "route": "cuda",
@@ -6562,6 +6812,12 @@ def main() -> int:
         "simt_ms_d256": {name: rec["simt_ms"] for name, rec in d256["timing"].items()
                          if "simt_ms" in rec},
         "ptxas_d256": [i for i in d256_instances() if i["kernel"].startswith("flash_bwd")],
+        "launches_seamless_training_per_step": [
+            r["flash_attention_bwd"] for r in seamless["trained"]["launches_per_step"]],
+        "max_abs_err_seamless": seamless["bwd_checked"]["max_abs_err"],
+        "bound_share_seamless": seamless["bwd_checked"]["bound_share"],
+        "seamless": {name: {k: rec[k] for k in (*keys, "simt_ms", "route")}
+                     for name, rec in seamless["timing"].items() if name.endswith("_bwd")},
     }]
     for name, stem, checked, timing, run, shape, jax_fn in (
             ("wkv6_bwd", "wkv6", wkv_bwd_checked, wkv_bwd_timing, rwkv_trained,

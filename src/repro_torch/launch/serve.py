@@ -7,7 +7,11 @@ the prefill and decode throughput (the keys of ``repro.launch.serve``; with
 ``--layers``, the arch's first N layers, also ``layers``).  The prompts are
 ``make_batch``'s, patch embeddings included for an arch with a patch
 frontend (internvl2-26b), as JAX's launcher hands them to its prefill; the
-decode steps take tokens only.
+decode steps take tokens only.  An encoder-decoder (seamless-m4t-medium)
+prefills with ``make_batch``'s audio frames (``frontend_len`` of them, the
+encoder's input; its session cache holds their cross K/V) and decodes over
+the cached cross K/V; ``--layers N`` cuts both of its stacks to N, and the
+JSON gives ``enc_layers`` beside ``layers``.
 It runs on the card; ``--device cpu`` runs it on the host.  With
 ``--remote-embed`` the tokens' embedding rows come from an embedding-shard
 service over the PE fabric instead of a local lookup, and the token stream
@@ -25,7 +29,9 @@ import torch
 
 from ..configs import get_config
 from ..core.bitcode import resolve_device
-from ..models.zoo import ShapeSpec, build_params, make_batch, make_prefill_step, make_serve_step
+from ..models.zoo import (
+    ShapeSpec, build_params, first_layers, make_batch, make_prefill_step, make_serve_step,
+)
 from ..runtime.tenancy import RemoteEmbedClient
 
 
@@ -56,7 +62,7 @@ def serve(argv: list[str] | None = None) -> tuple[dict, np.ndarray]:
     if args.layers is not None:
         if not 1 <= args.layers <= cfg.n_layers:
             raise ValueError(f"--layers {args.layers}: {cfg.name} has {cfg.n_layers} layers")
-        cfg = cfg.replace(n_layers=args.layers)
+        cfg = first_layers(cfg, args.layers)
     model = build_params(cfg, args.seed, device=dev)
     t_max = args.prompt_len + args.gen
 
@@ -108,6 +114,8 @@ def serve(argv: list[str] | None = None) -> tuple[dict, np.ndarray]:
     }
     if args.layers is not None:
         out["layers"] = cfg.n_layers
+        if cfg.is_encdec:
+            out["enc_layers"] = cfg.enc_layers
     if embed_client is not None:
         out["remote_embed"] = True
         out["embed_servers"] = args.embed_servers

@@ -8,7 +8,8 @@ config; ``--no-smoke`` the full one.  ``--mesh host`` trains on a
 ``(data = world, model = 1)`` mesh (``launch/mesh.py``'s ``host_mesh``):
 under ``torchrun`` one NCCL rank a card, without it one rank on this
 process's card, and with ``--device cpu`` on gloo; rank 0 prints the
-record.
+record.  An encoder-decoder (seamless-m4t-medium) is refused: the token
+pipeline makes no frames for its encoder.
 """
 
 from __future__ import annotations
@@ -21,7 +22,7 @@ import time
 from ..configs import get_config
 from ..data import DataConfig
 from ..optim import AdamW, cosine_schedule
-from ..runtime.driver import TrainDriver
+from ..runtime.driver import TrainDriver, refuse_unfed
 
 
 def train(argv: list[str] | None = None) -> dict:
@@ -45,13 +46,14 @@ def train(argv: list[str] | None = None) -> dict:
                     help="inject a simulated host loss (fault-tolerance demo)")
     ap.add_argument("--device", default=None, help="default: the CUDA card")
     args = ap.parse_args(argv)
+    cfg = get_config(args.arch, smoke=args.smoke)
+    refuse_unfed(cfg)  # before a mesh exists
     mesh, device = None, args.device
     if args.mesh == "host":
         from .mesh import host_mesh
 
         mesh, device = host_mesh(args.device)
 
-    cfg = get_config(args.arch, smoke=args.smoke)
     opt = AdamW(lr=cosine_schedule(args.lr, args.warmup, args.steps))
     data = DataConfig(
         seq_len=args.seq_len,

@@ -1,7 +1,7 @@
-"""The LM framework of the port: configs' models, the dense decoder stack
-and its serving and train steps (sharded over a mesh too), and the sequence-parallel
-attention and vocab-sharded embeddings of the compiled SPMD rendering (the counterpart of
-``repro.models``)."""
+"""The LM framework of the port: configs' models, the decoder stacks and the
+encoder-decoder, and their serving and train steps (sharded over a mesh
+too), and the sequence-parallel attention and vocab-sharded embeddings of the
+compiled SPMD rendering (the counterpart of ``repro.models``)."""
 
 from .attention import attend_sp
 from .common import ModelConfig, ParamFactory, cross_entropy, pad_vocab

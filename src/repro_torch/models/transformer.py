@@ -14,11 +14,12 @@ and a hybrid block's scan one of ``ssm_scan``, each from the layer's
 state.  An MoE block's experts run through ``models/moe.py`` (the
 capacity-buffer dispatch, or every expert over every token when
 ``c2d_embedding`` is off), and its router's aux loss is averaged over the
-layers, as the JAX scan sums it.  The encoder-decoder family waits for its
-slice (ROADMAP.md section 1).  A forward that trains (grad on, weights that
-require grad, no cache) with ``cfg.remat`` checkpoints each block, as the
-JAX package wraps its scan body in ``jax.checkpoint``: a block keeps only
-its input and runs again in the backward.
+layers, as the JAX scan sums it.  The encoder-decoder family's blocks are
+``models/encdec.py``'s, on the same attention sublayer.  A forward that
+trains (grad on, weights that require grad, no cache) with ``cfg.remat``
+checkpoints each block, as the JAX package wraps its scan body in
+``jax.checkpoint``: a block keeps only its input and runs again in the
+backward.
 
 With a :class:`~repro_torch.sharding.partition.Layout` (``lay``, a mesh and
 the train rules' specs), each block runs on this rank's blocks of the
@@ -83,18 +84,24 @@ from .ssm import SSMHead, ssm_head, ssm_head_serve, ssm_head_tp
 
 
 def require_ported(cfg: ModelConfig) -> None:
-    """Refuse what the port's stack does not run yet, naming its slice: the
-    encoder-decoder family and the audio frontend come with seamless-m4t's
-    (the patch frontend is ported: ``zoo.frontend_len``)."""
-    if cfg.family not in ("dense", "moe", "rwkv", "hybrid") or cfg.is_encdec:
+    """Refuse a config the port's stacks do not run: a family it has no
+    blocks for, encoder layers outside the encoder-decoder family (or that
+    family without them), and the audio frontend outside it (its frames are
+    the encoder's input; the JAX package's decoder-only forward would drop
+    them)."""
+    if cfg.family not in ("dense", "moe", "rwkv", "hybrid", "encdec"):
         raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family is not ported yet (ROADMAP.md section 1: "
-            "seamless-m4t's encoder-decoder slice)"
-        )
-    if cfg.frontend not in (None, "patch"):
+            f"{cfg.name}: the port has no {cfg.family} family (ROADMAP.md section 1)")
+    if cfg.is_encdec != (cfg.family == "encdec"):
         raise NotImplementedError(
-            f"{cfg.name}: the {cfg.frontend} frontend is not ported yet (ROADMAP.md section 1: "
-            "seamless-m4t's slice)")
+            f"{cfg.name}: the port runs encoder layers in the encdec family only, and that "
+            f"family with them (family {cfg.family}, enc_layers {cfg.enc_layers}; ROADMAP.md "
+            "section 1)")
+    if cfg.frontend not in (None, "patch", "audio") or (
+            cfg.frontend == "audio" and not cfg.is_encdec):
+        raise NotImplementedError(
+            f"{cfg.name}: the port runs the {cfg.frontend} frontend only on the encoder-decoder "
+            "family, whose encoder reads the frames (ROADMAP.md section 1)")
 
 
 # ----------------------------------------------------------------- params
@@ -176,6 +183,7 @@ def attn_sublayer(
     offset: int,
     rows: torch.Tensor | None = None,  # batch rows whose cache is written
     window: int = 0,  # 0: global attention
+    causal: bool = True,  # False: every query sees every key (the encoder's)
 ) -> torch.Tensor:
     q, k, v = qkv_proj(
         x, p.wq, p.wk, p.wv, getattr(p, "bq", None), getattr(p, "bk", None),
@@ -195,7 +203,7 @@ def attn_sublayer(
             k = k_cache[:, : offset + s].to(q.dtype)
             v = v_cache[:, : offset + s].to(q.dtype)
         # else prefill from offset 0: the fresh K/V are that prefix
-    out = flash_attention(q, k, v, causal=True, softcap=cfg.attn_softcap, window=window)
+    out = flash_attention(q, k, v, causal=causal, softcap=cfg.attn_softcap, window=window)
     return out.reshape(*x.shape[:2], -1) @ p.wo
 
 

@@ -1,23 +1,28 @@
 """Model zoo: build the weights, forward, and the prefill/serve steps.
 
-The counterpart of ``repro.models.zoo`` for the dense, moe, rwkv and
-hybrid families:
+The counterpart of ``repro.models.zoo`` for the dense, moe, rwkv, hybrid
+and encdec families:
 
 * ``build_params(cfg, seed, device=...)``   -> ``LM`` (weights on the device)
 * ``from_jax_params(cfg, flat, device=...)`` -> ``LM`` holding the JAX
-  package's flat weights (``"blocks.wq"`` stacked ``(L, D, q_dim)`` and so on)
+  package's flat weights (``"blocks.wq"`` stacked ``(L, D, q_dim)``, an
+  encoder's ``"enc.wq"`` over its ``enc_layers``, and so on)
 * ``to_jax_params(cfg, named)``             -> the JAX flat dict of an ``LM`` (or of a
   dict keyed by its parameter names, such as AdamW's moments): the inverse of
   ``from_jax_params``
 * ``make_batch(cfg, shape, seed)``          -> random token batch (numpy seed); a
   ``train`` shape adds ``labels`` and ``mask``, a ``patch`` frontend
   ``patch_embeds`` (``frontend_len(cfg, seq_len)`` of them, which overwrite
-  the first positions in ``forward`` and carry no loss)
-* ``init_kv_cache(cfg, batch, t_max, mesh=None)`` -> dense and moe ``{"k", "v"}``,
-  ``(L, B, T, K, hd)``; rwkv ``{"tm_shift", "cm_shift", "wkv"}``; hybrid
-  ``{"k", "v", "conv", "h"}``; with a ``mesh``, this rank's blocks
+  the first positions in ``forward`` and carry no loss), an ``audio`` one
+  ``frames`` (as many, the encoder's input; the train mask is 0 on as many
+  first positions, as JAX's is)
+* ``init_kv_cache(cfg, batch, t_max, mesh=None, enc_len=0)`` -> dense and moe
+  ``{"k", "v"}``, ``(L, B, T, K, hd)``; rwkv ``{"tm_shift", "cm_shift", "wkv"}``;
+  hybrid ``{"k", "v", "conv", "h"}``; encdec ``{"k", "v", "xk", "xv"}`` (the
+  cross K/V ``(L, B, enc_len, K, hd)``); with a ``mesh``, this rank's blocks
   (:class:`CacheBlocks`, under ``cache_specs``)
-* ``make_prefill_step(cfg, mesh=None, t_max=None)`` -> (model, batch) -> (logits, cache)
+* ``make_prefill_step(cfg, mesh=None, t_max=None)`` -> (model, batch) -> (logits, cache);
+  an encoder-decoder's batch must carry ``frames``, as JAX's step requires
 * ``make_serve_step(cfg, mesh=None)``       -> (model, cache, tok, pos) -> (logits, cache)
 * ``loss_fn(cfg, model, batch)``            -> (loss, {"nll", "aux"}), the head and
   softmax cross-entropy in ``LOSS_CHUNK``-position chunks
@@ -72,11 +77,12 @@ from torch.utils.checkpoint import checkpoint
 
 from ..core.bitcode import resolve_device
 from ..sharding.partition import (
-    SERVE_RULES, Layout, block_shape, cache_specs, full_leaf, leaf_key, local_block,
-    rules_for_train,
+    DEPTH_FIELD, SERVE_RULES, Layout, block_shape, cache_specs, full_leaf, leaf_key, local_block,
+    rules_for_train, split_layer,
 )
 from .common import ModelConfig, ParamFactory, cross_entropy, rms_norm, rms_norm_serve, softcap
 from .embedding import embed_c2d, embed_plain, lm_head
+from .encdec import DecoderBlock, Encoder, encode, run_decoder
 from .rwkv import RWKVBlock
 from .ssm import CONV_K
 from .transformer import (
@@ -103,21 +109,32 @@ def frontend_len(cfg: ModelConfig, seq_len: int) -> int:
     return 0
 
 
+def first_layers(cfg: ModelConfig, n: int) -> ModelConfig:
+    """``cfg`` cut to its first ``n`` layers; an encoder-decoder's to the
+    first ``n`` of each of its stacks."""
+    return cfg.replace(n_layers=n, enc_layers=min(n, cfg.enc_layers))
+
+
 def _no_frontend(cfg: ModelConfig, what: str) -> None:
-    """A sharded forward takes no frontend yet: refuse rather than drop the
-    patches."""
+    """A sharded forward takes no frontend and no encoder yet: refuse rather
+    than drop the patches or the frames."""
     if cfg.frontend is not None:
         raise NotImplementedError(
             f"{cfg.name}: the {what} forward takes no {cfg.frontend} frontend yet "
+            "(ROADMAP.md section 1)")
+    if cfg.is_encdec:
+        raise NotImplementedError(
+            f"{cfg.name}: the {what} forward has no encoder-decoder path yet "
             "(ROADMAP.md section 1)")
 
 
 # ------------------------------------------------------------------- params
 class LM(nn.Module):
-    """A decoder LM's weights; parameter names follow the JAX flat dict
+    """An LM's weights; parameter names follow the JAX flat dict
     (``embed.tok``, ``blocks.<layer>.wq``, ``blocks.<layer>.we_i``,
-    ``blocks.<layer>.tm.wr`` or ``blocks.<layer>.ssm.w_in``, ``final_ln``,
-    ``head.w``)."""
+    ``blocks.<layer>.tm.wr`` or ``blocks.<layer>.ssm.w_in``, an
+    encoder-decoder's ``enc.<layer>.wq``, ``enc.final_ln`` and
+    ``blocks.<layer>.wq_x``, ``final_ln``, ``head.w``)."""
 
     def __init__(self, cfg: ModelConfig, f: ParamFactory) -> None:
         super().__init__()
@@ -125,8 +142,10 @@ class LM(nn.Module):
         self.embed = nn.Module()
         self.embed.tok = f.new((cfg.vocab_padded, cfg.d_model), scale=0.02,
                                axes=("vocab", "embed"))
-        block = {"moe": MoEBlock, "rwkv": RWKVBlock, "hybrid": HybridBlock}.get(
-            cfg.family, DenseBlock)
+        if cfg.is_encdec:
+            self.enc = Encoder(cfg, f)
+        block = {"moe": MoEBlock, "rwkv": RWKVBlock, "hybrid": HybridBlock,
+                 "encdec": DecoderBlock}.get(cfg.family, DenseBlock)
         self.blocks = nn.ModuleList(block(cfg, f) for _ in range(cfg.n_layers))
         self.final_ln = f.new((cfg.d_model,), "zeros", axes=("embed",))
         if not cfg.tie_embeddings:
@@ -150,32 +169,11 @@ def from_jax_params(
 ) -> LM:
     """An ``LM`` in ``cfg.dtype`` holding the JAX package's weights: ``flat``
     is its flat dict as numpy arrays (f32 or a dtype torch reads); stacked
-    ``blocks.*`` leaves are sliced along their leading layer axis."""
-    dev = resolve_device(device)
-    model = LM(cfg, ParamFactory(0, cfg.dtype, dev, fill=False))
-    want = model_params(model)
-    seen = set()
-    for key, arr in flat.items():
-        arr = torch.tensor(np.asarray(arr))
-        if key.startswith("blocks."):
-            leaf = key[len("blocks."):]
-            names = [f"blocks.{layer}.{leaf}" for layer in range(cfg.n_layers)]
-            parts = list(arr)
-        else:
-            names, parts = [key], [arr]
-        for name, part in zip(names, parts):
-            if name not in want:
-                raise KeyError(f"from_jax_params: {key!r} has no counterpart in the port")
-            if tuple(part.shape) != tuple(want[name].shape):
-                raise ValueError(
-                    f"from_jax_params: {name} is {tuple(part.shape)}, want "
-                    f"{tuple(want[name].shape)}"
-                )
-            want[name].copy_(part)
-            seen.add(name)
-    missing = sorted(set(want) - seen)
-    if missing:
-        raise KeyError(f"from_jax_params: no JAX leaf for {missing}")
+    leaves (``blocks.*``, ``enc.*``) are sliced along their leading layer
+    axis."""
+    model = LM(cfg, ParamFactory(0, cfg.dtype, resolve_device(device), fill=False))
+    load_named(model_params(model), from_jax_names(
+        cfg, {k: torch.tensor(np.asarray(v)) for k, v in flat.items()}), "from_jax_params")
     return model
 
 
@@ -185,15 +183,17 @@ def model_params(model: LM) -> dict[str, torch.Tensor]:
 
 
 def from_jax_names(cfg: ModelConfig, flat: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
-    """A JAX flat dict under the port's names: each stacked ``blocks.<leaf>``
-    ``(L, ...)`` becomes ``blocks.<layer>.<leaf>`` views, one a layer."""
+    """A JAX flat dict under the port's names: each stacked leaf
+    ``<stack>.<leaf>`` ``(L, ...)`` (``blocks.wq``, ``enc.wq``) becomes
+    ``<stack>.<layer>.<leaf>`` views, one a layer."""
+    depths = _depths(cfg)
     out = {}
     for key, arr in flat.items():
-        if key.startswith("blocks."):
-            leaf = key[len("blocks."):]
-            if arr.shape[0] != cfg.n_layers:
-                raise ValueError(f"{key} stacks {arr.shape[0]} layers, want {cfg.n_layers}")
-            out.update({f"blocks.{layer}.{leaf}": arr[layer] for layer in range(cfg.n_layers)})
+        if key in depths:
+            stack, leaf = key.split(".", 1)
+            if arr.shape[0] != depths[key]:
+                raise ValueError(f"{key} stacks {arr.shape[0]} layers, want {depths[key]}")
+            out.update({f"{stack}.{layer}.{leaf}": arr[layer] for layer in range(depths[key])})
         else:
             out[key] = arr
     return out
@@ -203,20 +203,22 @@ def to_jax_params(
     cfg: ModelConfig, named: "LM | dict[str, torch.Tensor]"
 ) -> dict[str, torch.Tensor]:
     """The JAX package's flat dict of ``named`` (an ``LM``, or a dict under
-    its parameter names such as AdamW's moments): ``blocks.<layer>.<leaf>``
-    stacked along a leading layer axis as ``blocks.<leaf>`` (a new tensor),
+    its parameter names such as AdamW's moments): ``<stack>.<layer>.<leaf>``
+    stacked along a leading layer axis as ``<stack>.<leaf>`` (a new tensor),
     every other leaf as it is.  The inverse of :func:`from_jax_params`."""
     if isinstance(named, nn.Module):
         named = model_params(named)
     out, stacks = {}, {}
     for name, t in named.items():
-        if name.startswith("blocks."):
-            _, layer, leaf = name.split(".", 2)
-            stacks.setdefault(f"blocks.{leaf}", {})[int(layer)] = t
-        else:
+        owner = split_layer(name)
+        if owner is None:
             out[name] = t
+        else:
+            stack, layer, leaf = owner
+            stacks.setdefault(f"{stack}.{leaf}", {})[layer] = t
+    depths = _depths(cfg)
     for key, parts in stacks.items():
-        out[key] = torch.stack([parts[layer] for layer in range(cfg.n_layers)]).detach()
+        out[key] = torch.stack([parts[layer] for layer in range(depths[key])]).detach()
     return out
 
 
@@ -243,27 +245,44 @@ def param_count(model: nn.Module) -> int:
 
 # ------------------------------------------------------------- on a mesh
 @functools.lru_cache(maxsize=32)
-def _leaves(cfg: ModelConfig) -> tuple[dict[str, tuple], dict[str, tuple]]:
-    """``(shapes, logical axes)`` of one layer's leaves, under
-    ``blocks.<leaf>``, and of the others, from a model on the meta device."""
-    meta = LM(cfg.replace(n_layers=1), ParamFactory(0, cfg.dtype, torch.device("meta"),
-                                                    fill=False))
-    shapes, axes = {}, {}
+def _meta(cfg: ModelConfig) -> tuple[dict[str, tuple], dict[str, tuple], dict[str, int]]:
+    """``(shapes, logical axes, depths)`` of one layer's leaves, under
+    ``<stack>.<leaf>``, and of the others, from a model on the meta device;
+    ``depths`` holds the layers each stacked leaf's key stacks."""
+    one = cfg.replace(n_layers=1, enc_layers=min(cfg.enc_layers, 1))
+    meta = LM(one, ParamFactory(0, cfg.dtype, torch.device("meta"), fill=False))
+    shapes, axes, depths = {}, {}, {}
     for name, leaf in meta.named_parameters():
         if leaf.logical_axes is None:
             raise ValueError(f"{cfg.name}: leaf {name} has no logical axes")
-        shapes[leaf_key(name)], axes[leaf_key(name)] = tuple(leaf.shape), leaf.logical_axes
-    return shapes, axes
+        key = leaf_key(name)
+        shapes[key], axes[key] = tuple(leaf.shape), leaf.logical_axes
+        owner = split_layer(name)
+        if owner is not None:
+            depths[key] = getattr(cfg, DEPTH_FIELD[owner[0]])
+    return shapes, axes, depths
+
+
+def _leaves(cfg: ModelConfig) -> tuple[dict[str, tuple], dict[str, tuple]]:
+    """``(shapes, logical axes)`` of one layer's leaves and of the others
+    (:func:`_meta`)."""
+    return _meta(cfg)[:2]
+
+
+def _depths(cfg: ModelConfig) -> dict[str, int]:
+    """The layers each stacked JAX leaf holds, by key (``blocks.wq``:
+    ``n_layers``; ``enc.wq``: ``enc_layers``)."""
+    return _meta(cfg)[2]
 
 
 def logical_axes(cfg: ModelConfig) -> tuple[dict[str, tuple], dict[str, tuple]]:
-    """``(shapes, axes)`` of every leaf under its JAX name: a ``blocks.*``
-    leaf stacked over the layers, its axes led by ``"layers"`` (the JAX
-    package's ``build_params(cfg, abstract=True)``, shapes and axes)."""
-    shapes, axes = _leaves(cfg)
-    stacked = lambda key: key.startswith("blocks.")  # noqa: E731
-    return ({k: (cfg.n_layers, *s) if stacked(k) else s for k, s in shapes.items()},
-            {k: ("layers", *a) if stacked(k) else a for k, a in axes.items()})
+    """``(shapes, axes)`` of every leaf under its JAX name: a stacked leaf
+    (``blocks.*``, ``enc.*`` but ``enc.final_ln``) over its stack's layers,
+    its axes led by ``"layers"`` (the JAX package's ``build_params(cfg,
+    abstract=True)``, shapes and axes)."""
+    shapes, axes, depths = _meta(cfg)
+    return ({k: (depths[k], *s) if k in depths else s for k, s in shapes.items()},
+            {k: ("layers", *a) if k in depths else a for k, a in axes.items()})
 
 
 def layout(cfg: ModelConfig, mesh, zero1: bool = True, fsdp: bool = False) -> Layout:
@@ -418,8 +437,11 @@ def forward(
     present, holds embedding rows gathered elsewhere (the serving tier's
     remote embedding) and bypasses the table lookup.  With a ``patch``
     frontend, ``batch["patch_embeds"]`` (B, P, D), when present, replaces
-    the first P positions after ``embed_mult`` (a sharded forward refuses
-    a frontend)."""
+    the first P positions after ``embed_mult``.  An encoder-decoder encodes
+    ``batch["frames"]`` (B, S_enc, D), when present, and its decoder
+    attends over them (written to the cache's ``xk``/``xv`` too); without
+    frames it reads the cross K/V back from the cache.  A sharded forward
+    refuses a frontend and the encoder-decoder."""
     if mesh is not None and caches is not None:
         if not isinstance(caches, CacheBlocks):
             raise ValueError("a cache on a mesh is a rank's blocks: init_kv_cache(..., mesh=)")
@@ -443,7 +465,14 @@ def forward(
         x = torch.cat([pe, x[:, pe.shape[1]:]], dim=1)
     off = 0 if offset is None else int(offset)
     pos = off + torch.arange(s, device=x.device)
-    h, aux = run_blocks(cfg, model.blocks, x, pos=pos, caches=caches, offset=off, rows=rows)
+    if cfg.is_encdec:
+        enc_out = (encode(cfg, model.enc, batch["frames"].to(cfg.dtype))
+                   if "frames" in batch else None)
+        h = run_decoder(cfg, model.blocks, x, enc_out=enc_out, pos=pos, caches=caches,
+                        offset=off, rows=rows)
+        aux = 0.0
+    else:
+        h, aux = run_blocks(cfg, model.blocks, x, pos=pos, caches=caches, offset=off, rows=rows)
     if return_hidden:
         return h, caches, aux
     return _head(cfg, model, h), caches, aux
@@ -461,18 +490,22 @@ class CacheBlocks(dict):
 
 def init_kv_cache(
     cfg: ModelConfig, batch: int, t_max: int, dtype: torch.dtype = torch.bfloat16,
-    device: "torch.device | str | None" = None, mesh=None,
+    device: "torch.device | str | None" = None, mesh=None, enc_len: int = 0,
 ) -> dict[str, torch.Tensor]:
     """The dense and moe families' cache: ``k`` and ``v`` of ``(L, B, T, K, hd)``.
     The rwkv family's state, whatever ``t_max``: ``tm_shift`` and
     ``cm_shift`` of ``(L, B, 1, D)`` in ``dtype`` and ``wkv`` of
     ``(L, B, H, M, M)`` in f32.  The hybrid family's: ``k`` and ``v``, the
     SSM head's ``conv`` of ``(L, B, K-1, D)`` in ``dtype`` and ``h`` of
-    ``(L, B, D, N)`` in f32.  With a ``mesh``, this rank's blocks of each
+    ``(L, B, D, N)`` in f32.  The encdec family's: ``k`` and ``v``, and the
+    cross K/V ``xk`` and ``xv`` of ``(L, B, enc_len, K, hd)`` in ``dtype``
+    (``enc_len`` frames).  With a ``mesh``, this rank's blocks of each
     under ``cache_specs`` (a :class:`CacheBlocks`): B over the data axes
     and T (``wkv``'s heads, ``h``'s channels) over ``model`` where they
     divide, every other dim whole."""
     require_ported(cfg)
+    if mesh is not None:
+        _no_frontend(cfg, "sharded serving")
     dev = resolve_device(device)
     L, D = cfg.n_layers, cfg.d_model
     if cfg.family == "rwkv":  # (shape, held in f32) by leaf
@@ -485,6 +518,9 @@ def init_kv_cache(
     if cfg.family == "hybrid":
         shapes.update(conv=((L, batch, CONV_K - 1, D), False),
                       h=((L, batch, D, cfg.ssm_state), True))
+    if cfg.is_encdec:
+        cross = (L, batch, enc_len, cfg.n_kv_heads, cfg.head_dim)
+        shapes.update(xk=(cross, False), xv=(cross, False))
     specs = (None if mesh is None
              else cache_specs({k: shape for k, (shape, _) in shapes.items()}, mesh))
     blocks = {k: torch.zeros(shape if mesh is None else block_shape(shape, specs[k], mesh),
@@ -499,9 +535,10 @@ def make_batch(
 ) -> dict[str, torch.Tensor]:
     """Random tokens of a prefill or train shape (a train shape adds random
     ``labels`` and a ``mask`` of ones, 0 on the frontend's positions; a
-    ``patch`` frontend adds ``patch_embeds``, f32 normal(0, 0.02) of
-    ``(B, frontend_len, D)``), from the numpy draws the JAX package makes,
-    in its order (so both packages see the same batch)."""
+    ``patch`` frontend adds ``patch_embeds`` and an ``audio`` one
+    ``frames``, each f32 normal(0, 0.02) of ``(B, frontend_len, D)``), from
+    the numpy draws the JAX package makes, in its order (so both packages
+    see the same batch)."""
     if shape.kind not in ("prefill", "train"):
         raise ValueError(f"make_batch makes prefill and train batches, not {shape.kind!r}")
     require_ported(cfg)
@@ -516,6 +553,8 @@ def make_batch(
         batch["mask"][:, :fl] = 0.0  # frontend positions carry no LM loss
     if cfg.frontend == "patch":
         batch["patch_embeds"] = rng.normal(0, 0.02, (b, fl, cfg.d_model)).astype(np.float32)
+    if cfg.frontend == "audio":
+        batch["frames"] = rng.normal(0, 0.02, (b, fl, cfg.d_model)).astype(np.float32)
     return {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
 
 
@@ -524,15 +563,19 @@ def make_prefill_step(cfg: ModelConfig, mesh=None, t_max: int | None = None) -> 
     """Fill a prompt-length cache (the recurrent state) from the prompt;
     logits for the last token.  ``t_max`` sizes the cache for a whole
     session instead (the prompt written from offset 0, as ``launch.serve``
-    prefills; the JAX step has no such option).  With a ``mesh``, ``batch``
-    is global, ``model`` cut by :func:`serve_layout`, and the step returns
-    this rank's rows of the logits (every vocab column) and its cache
-    blocks."""
+    prefills; the JAX step has no such option).  An encoder-decoder's cache
+    holds the cross K/V of ``frontend_len(cfg, S)`` frames, and its batch
+    must carry them (``frames``): the step raises ``ValueError`` without,
+    as JAX's does.  With a ``mesh``, ``batch`` is global, ``model`` cut by
+    :func:`serve_layout`, and the step returns this rank's rows of the
+    logits (every vocab column) and its cache blocks."""
 
     def prefill_step(model: LM, batch: dict):
         b, s = batch["tokens"].shape
+        if cfg.is_encdec and "frames" not in batch:
+            raise ValueError("enc-dec prefill needs frames")
         cache = init_kv_cache(cfg, b, t_max or s, dtype=cfg.dtype, device=model.device,
-                              mesh=mesh)
+                              mesh=mesh, enc_len=frontend_len(cfg, s))
         h, cache, _ = forward(cfg, model, batch, caches=cache, offset=0, return_hidden=True,
                               mesh=mesh)
         # head over the LAST position only
@@ -737,8 +780,9 @@ def make_train_step(cfg: ModelConfig, opt, mark: Callable[[str], None] | None = 
                     mesh=None, zero1: bool = True, fsdp: bool = False) -> Callable:
     """``(state, batch) -> (state, metrics)``; ``state = {"params": LM,
     "opt": OptState, "step": int}``, updated in place; ``batch`` holds
-    ``tokens``, ``labels`` and ``mask`` (numpy or tensors; moved to the
-    model's device).
+    ``tokens``, ``labels`` and ``mask``, and a frontend's inputs
+    (``patch_embeds``, ``frames``; numpy or tensors; moved to the model's
+    device), all cut into the same microbatches.
 
     ``cfg.microbatch > 1`` (dividing the batch) splits the batch into that
     many contiguous slices and accumulates their gradients in f32, then

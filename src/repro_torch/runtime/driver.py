@@ -49,6 +49,19 @@ from ..optim import AdamW, OptState
 from .monitor import HeartbeatMonitor, StepTimer
 
 
+def refuse_unfed(cfg) -> None:
+    """The token pipeline makes tokens, labels and a mask, and no frames: an
+    encoder-decoder has nothing to encode, so the driver refuses it before
+    any step (the JAX driver fails at its first step on the same config,
+    its decoder finding no cross K/V).  ``zoo.make_train_step`` trains it on
+    ``zoo.make_batch``'s batches, which carry the frames."""
+    if cfg.is_encdec:
+        raise NotImplementedError(
+            f"{cfg.name}: the token pipeline makes no audio frames for the encoder, so the "
+            "driver cannot train the encoder-decoder family; train it with "
+            "zoo.make_train_step on zoo.make_batch's batches (ROADMAP.md section 3)")
+
+
 @dataclass
 class TrainReport:
     steps_run: int = 0
@@ -70,6 +83,7 @@ class TrainDriver:
         seed: int = 0,
         device: "torch.device | str | None" = None,
     ):
+        refuse_unfed(cfg)
         if mesh is not None and not isinstance(mesh, Mesh):
             raise TypeError(f"TrainDriver takes a repro_torch.sharding.mesh.Mesh, got "
                             f"{type(mesh).__name__}")

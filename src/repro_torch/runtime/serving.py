@@ -11,7 +11,11 @@ place, so writing every row would overwrite the neighbours' history at
 that position, or advance their rwkv state by a token they did not take
 (the JAX scheduler merges the old rows back instead).  Every attention
 call of a prefill or a group is one launch of the ``flash_attention``
-kernel on the card, one per layer; every WKV call one of ``wkv6``.  An MoE
+kernel on the card, one per layer (an encoder-decoder's two: self and
+cross); every WKV call one of ``wkv6``.  An encoder-decoder's admission runs
+the decoder alone, as the JAX scheduler's ``prefill_one`` does (tokens only,
+no encoder): every request is decoded over a cross cache of
+``frontend_len(cfg, t_max)`` frames that stays all zeros.  An MoE
 group's step routes the whole slot batch, as the JAX step does.  Where the
 experts' capacity is below the slot count, the rows present decide the
 drops, so such a step writes every row's K/V at the group's position (the
@@ -30,7 +34,7 @@ import numpy as np
 import torch
 
 from ..models.moe import moe_capacity
-from ..models.zoo import LM, init_kv_cache, make_prefill_step, make_serve_step
+from ..models.zoo import LM, _head, forward, frontend_len, init_kv_cache, make_serve_step
 
 
 @dataclass
@@ -64,7 +68,9 @@ class ServeScheduler:
         # (RemoteEmbedClient: CQ gathers over the PE fabric) instead of a
         # local table lookup; the steps take the rows as an input
         self.embed_client = embed_client
-        self.cache = init_kv_cache(cfg, slots, t_max, dtype=cfg.dtype, device=self.device)
+        self.enc_len = frontend_len(cfg, t_max)
+        self.cache = init_kv_cache(cfg, slots, t_max, dtype=cfg.dtype, device=self.device,
+                                   enc_len=self.enc_len)
         self.pos = np.zeros(slots, np.int32)  # next position per slot
         self.active: dict[int, Request] = {}  # slot -> request
         self.queue: deque[Request] = deque()
@@ -72,7 +78,6 @@ class ServeScheduler:
         self._next_rid = 0
         self._tokens = np.zeros((slots, 1), np.int32)
         self._step = make_serve_step(cfg)
-        self._prefill = make_prefill_step(cfg)
         # an MoE step over the slots can drop a choice: its groups write
         # every row and put the others back (see the module's docstring)
         self._rows_coupled = (cfg.family == "moe" and cfg.c2d_embedding
@@ -91,6 +96,18 @@ class ServeScheduler:
     def _on_device(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
 
+    def _prefill(self, model: LM, batch: dict) -> tuple[torch.Tensor, dict]:
+        """JAX's ``prefill_one``, for every family: the prompt's cache filled
+        from offset 0 and the last token's logits.  No frames: an
+        encoder-decoder's prompt runs through the decoder alone, over a cross
+        cache of ``enc_len`` zero frames (``make_prefill_step`` refuses such
+        a batch)."""
+        b, s = batch["tokens"].shape
+        cache = init_kv_cache(self.cfg, b, s, dtype=self.cfg.dtype, device=self.device,
+                              enc_len=self.enc_len)
+        h, cache, _ = forward(self.cfg, model, batch, caches=cache, offset=0, return_hidden=True)
+        return _head(self.cfg, model, h[:, -1:, :])[:, -1, :], cache
+
     def _write_slot(self, slot: int, cache1: dict[str, torch.Tensor]) -> None:
         """Copy a 1-batch prompt cache into slot ``slot`` of the shared cache,
         leaf by leaf whatever its shape (dim 1 is batch for every leaf).  A
@@ -99,7 +116,8 @@ class ServeScheduler:
         leaves them (a slot's own steps never read a position before writing
         it, but an MoE step routes every slot, whose rows then read what
         lies there); a state leaf (rwkv's ``tm_shift``, ``cm_shift``,
-        ``wkv``) is the same size in both and is copied whole."""
+        ``wkv``) and the cross K/V (``xk``, ``xv``) are the same size in
+        both and are copied whole."""
         for name, full in self.cache.items():
             one = cache1[name]
             full[:, slot, : one.shape[2]] = one[:, 0]

@@ -280,13 +280,29 @@ def full_leaf(block: torch.Tensor, spec: Spec, mesh) -> torch.Tensor:
 
 
 # ------------------------------------------------------------------ layout
+#: the module lists that hold one module a layer, by the prefix of the JAX
+#: leaves they stack (the decoder's blocks and an encoder's), and the config
+#: field that holds each one's depth
+DEPTH_FIELD = {"blocks": "n_layers", "enc": "enc_layers"}
+LAYER_STACKS = tuple(DEPTH_FIELD)
+
+
+def split_layer(name: str) -> tuple[str, int, str] | None:
+    """``(stack, layer, leaf)`` of a port parameter name that a layer owns
+    (``blocks.3.wq`` -> ``("blocks", 3, "wq")``); None for any other
+    (``enc.final_ln``, ``embed.tok``)."""
+    parts = name.split(".", 2)
+    if len(parts) == 3 and parts[0] in LAYER_STACKS and parts[1].isdigit():
+        return parts[0], int(parts[1]), parts[2]
+    return None
+
+
 def leaf_key(name: str) -> str:
     """The key a port parameter's spec is kept under: ``blocks.<layer>.X``
-    is ``blocks.X`` (every layer shares its leaves' specs), any other name
-    is itself."""
-    if name.startswith("blocks."):
-        return "blocks." + name.split(".", 2)[2]
-    return name
+    is ``blocks.X`` and an encoder's ``enc.<layer>.X`` is ``enc.X`` (every
+    layer shares its leaves' specs), any other name is itself."""
+    owner = split_layer(name)
+    return name if owner is None else f"{owner[0]}.{owner[2]}"
 
 
 class Layout:

@@ -406,6 +406,13 @@ def test_lm_launches_one_flash_kernel_per_layer(card):
     ("prefill_gemma_S1000_w300_cap50", 1, 1000, 1000, 1000, 8, 4, 256, True, 50.0, 300),
     ("prefill_gemma_S256_T1024", 2, 256, 1024, 2048, 8, 4, 256, True, None, 0),
     ("prefill_noncausal_S100_T200_d256", 1, 100, 200, 200, 4, 2, 256, False, None, 0),
+    # seamless-m4t's attention: 16 heads of 64 over 16 KV heads (MHA), non-causal in the
+    # encoder (S = T) and in cross-attention over the frames (S > T; S = 1 in decode)
+    ("encoder_noncausal_S512_d64", 2, 512, 512, 512, 16, 16, 64, False, None, 0),
+    ("cross_noncausal_S2048_T512_d64", 2, 2048, 512, 512, 16, 16, 64, False, None, 0),
+    ("cross_noncausal_S1000_T77_d64", 1, 1000, 77, 77, 16, 16, 64, False, None, 0),
+    ("decode_cross_noncausal_T512_d64", 8, 1, 512, 512, 16, 16, 64, False, None, 0),
+    ("decode_cross_noncausal_T130_d64", 3, 1, 130, 1024, 16, 16, 64, False, None, 0),
 ], ids=lambda c: c[0] if isinstance(c, tuple) else None)
 def test_flash_routes_match_plain(card, case, dtype):
     """Each route against the plain version: bf16 decode (at most 16 rows per
@@ -962,6 +969,10 @@ BWD_CASES = [
     ("gqa_S_lt_T_d256", 2, 77, 333, 8, 4, 256, {}),
     ("non_causal_d256", 1, 100, 130, 4, 1, 256, {"causal": False}),
     ("keyless_rows_d256", 1, 150, 100, 4, 2, 256, {}),
+    # seamless-m4t's cross-attention in training: non-causal S > T, MHA heads of 64
+    ("cross_non_causal_S_gt_T_d64", 2, 1024, 256, 16, 16, 64, {"causal": False}),
+    ("cross_non_causal_S_gt_T_ragged_d64", 1, 700, 77, 16, 16, 64, {"causal": False}),
+    ("encoder_non_causal_S_eq_T_d64", 2, 256, 256, 16, 16, 64, {"causal": False}),
 ]
 
 
@@ -1149,6 +1160,46 @@ def test_d256_train_step_launches_each_backward_route(card):
         assert torch.isfinite(metrics["loss"])
         losses.append(float(metrics["loss"]))
     assert losses[0] == losses[1]
+
+
+def test_encdec_launches_three_flash_kernels_a_layer(card):
+    """seamless smoke at head dim 64 (its own 16 has no instance) on the
+    card, bf16: a prefill with frames launches flash three times a layer
+    (encoder, decoder self, cross) on ``wgmma``, each decode step twice a
+    layer (self, cross) on ``split``; a train step with remat and 2
+    microbatches twice that a microbatch forward (forward and recompute) and
+    three times a layer a microbatch backward, all on ``wgmma``."""
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention_bwd
+    from repro_torch.models import zoo
+    from repro_torch.optim import AdamW
+
+    cfg = get_config("seamless-m4t-medium", smoke=True).replace(head_dim=64)
+    model = zoo.build_params(cfg, 0, device=card)
+    # 128 tokens and 32 frames: more than 16 rows a KV head at every prefill call
+    batch = zoo.make_batch(cfg, zoo.ShapeSpec("p", 128, 2, "prefill"), 0, device=card)
+    kernels.reset_launches()
+    logits, cache = zoo.make_prefill_step(cfg, t_max=132)(model, batch)
+    assert flash_attention.route_launches == {"wgmma": 3 * cfg.n_layers, "split": 0, "simt": 0}
+    step = zoo.make_serve_step(cfg)
+    tok = torch.argmax(logits, -1)[:, None].to(torch.int32)
+    for pos in range(128, 132):
+        logits, cache = step(model, cache, tok, pos)
+        tok = torch.argmax(logits, -1)[:, None].to(torch.int32)
+    torch.cuda.synchronize()
+    assert flash_attention.route_launches["split"] == 4 * 2 * cfg.n_layers
+    assert torch.isfinite(logits.float()).all() and bool(cache["xk"].abs().max() > 0)
+    cfg = cfg.replace(remat=True, microbatch=2)
+    opt = AdamW(lr=1e-3)
+    state = {"params": model, "opt": opt.init(zoo.model_params(model)), "step": 0}
+    batch = zoo.make_batch(cfg, zoo.ShapeSpec("t", 256, 4, "train"), 0, device=card)
+    kernels.reset_launches()
+    state, metrics = zoo.make_train_step(cfg, opt)(state, batch)
+    torch.cuda.synchronize()
+    assert flash_attention.route_launches["wgmma"] == 3 * cfg.n_layers * 2 * 2
+    assert flash_attention_bwd.route_launches == {"simt": 0, "wgmma": 3 * cfg.n_layers * 2}
+    assert torch.isfinite(metrics["loss"])
 
 
 def test_forced_route_takes_a_whole_backward(card):

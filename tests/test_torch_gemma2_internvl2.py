@@ -11,9 +11,9 @@ positions and carry no loss.  Weights come from the JAX package's factory
 (seed 0), in f32.
 
 - Configs: ``get_config`` full and smoke equal JAX's field for field;
-  seamless-m4t still raises ``KeyError``, the audio frontend and the
-  encoder-decoder family ``NotImplementedError``; the sharded forwards
-  refuse a frontend rather than drop it.
+  seamless-m4t resolves (``tests/test_torch_seamless.py`` holds it to JAX),
+  an unknown arch raises ``KeyError``; the sharded forwards refuse a
+  frontend rather than drop it.
 - Smoke configs in f32: ``make_batch`` (tokens, labels, the loss mask,
   the patches) equal to JAX's; ``forward``'s logits (within 1e-4), a prompt
   prefilled into a session cache then 8 teacher-forced ``make_serve_step``
@@ -126,20 +126,18 @@ def test_gemma2_layers_alternate_and_the_head_is_tied():
     assert "head.w" not in shapes and shapes["embed.tok"] == (256_000, 2304)
 
 
-@pytest.mark.parametrize("arch", ["seamless-m4t-medium", "nope"])
+@pytest.mark.parametrize("arch", ["nope"])
 def test_seamless_still_raises(arch):
+    """An arch that no registry holds raises ``KeyError``."""
     with pytest.raises(KeyError, match="ROADMAP"):
         get_config(arch)
 
 
-@pytest.mark.parametrize("change", [dict(frontend="audio"), dict(enc_layers=2)],
-                         ids=["audio", "encdec"])
-def test_the_next_slice_still_raises(change):
-    cfg = get_config("internvl2-26b", smoke=True).replace(**change)
-    for call in (lambda: zoo.build_params(cfg, device="cpu"),
-                 lambda: zoo.make_batch(cfg, zoo.ShapeSpec("p", 8, 1, "prefill"), device="cpu")):
-        with pytest.raises(NotImplementedError, match="seamless"):
-            call()
+def test_seamless_resolves():
+    """seamless-m4t-medium, the last of the JAX registry's archs, resolves:
+    the encoder-decoder family with its audio frontend."""
+    cfg = get_config("seamless-m4t-medium")
+    assert (cfg.family, cfg.frontend, cfg.n_layers, cfg.enc_layers) == ("encdec", "audio", 12, 12)
 
 
 def test_sharded_forwards_refuse_a_frontend():

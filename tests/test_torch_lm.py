@@ -59,7 +59,7 @@ def test_yi_config_equals_jax(smoke):
     assert (mine.qkv_dim, mine.kv_dim) == (theirs.qkv_dim, theirs.kv_dim)
     assert list_archs() == ("yi-9b", "rwkv6-1.6b", "hymba-1.5b", "granite-moe-1b-a400m",
                             "phi3.5-moe-42b-a6.6b", "qwen2.5-14b", "starcoder2-15b",
-                            "gemma2-2b", "internvl2-26b")
+                            "gemma2-2b", "internvl2-26b", "seamless-m4t-medium")
 
 
 @pytest.mark.parametrize("arch", [a for a in JAX_ARCH_IDS if a not in list_archs()] + ["nope"])

@@ -93,15 +93,17 @@ def test_specs_equal_jax(arch, smoke, shape):
     # Where they do (no other free dim as large divides), the port's
     # per-layer leaf cuts its own largest free dim that divides, if any
     lay = zoo.layout(cfg, mesh)
+    # the per-layer leaves: those JAX stacks along a leading "layers" axis
+    stacked = {k for k, a in want["axes"].items() if a and a[0] == "layers"}
     for key, spec in lay.params.items():
         full = want["train"][key]
-        assert spec == (full[1:] if key.startswith("blocks.") else full), key
+        assert spec == (full[1:] if key in stacked else full), key
     fsdp = zoo.layout(cfg, mesh, fsdp=True)
     assert fsdp.params == fsdp.moments == lay.moments and fsdp.tp == lay.params
     for kind, specs in (("zero1", lay.moments), ("fsdp", fsdp.params)):
         for key, spec in specs.items():
             full = want[kind][key]
-            if not key.startswith("blocks."):
+            if key not in stacked:
                 assert spec == full, (kind, key)
             elif not full or full[0] is None:
                 assert spec == full[1:], (kind, key)

@@ -7,6 +7,7 @@ pipeline.  Tolerances are stated with each test: f32 products summed in
 other orders differ by ~1e-7 relative, so losses and gradients are held to
 atol 1e-5 / rtol 1e-4 and the optimizer's moments to 1e-7."""
 
+import functools
 import json
 import shutil
 import subprocess
@@ -50,6 +51,17 @@ JAX_TRAIN_KEYS = {"arch", "steps", "restarts", "restored_steps", "first_loss", "
 #: forms clamp the within-chunk log-decay at -60 (ROADMAP.md section 3),
 #: which rwkv6 smoke's init passes within a chunk; the port has no clamp.
 ARCHS = ("yi-9b", "rwkv6-1.6b", "hymba-1.5b", "granite-moe-1b-a400m", "phi3.5-moe-42b-a6.6b")
+
+
+@pytest.fixture(autouse=True)
+def one_thread():
+    """Each test's port calls on one intra-op thread: the smoke tensors are
+    small, and a pool of threads beside the other test processes of a
+    parallel run slows each small op many times over."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def _configs(arch="yi-9b", **change):
@@ -309,32 +321,42 @@ def _adam_carry(lr, g, scale, eps=1e-8):
     return lr * scale * eps / (np.abs(scale * g) + eps) ** 2 * dg
 
 
-@pytest.mark.parametrize("arch", ARCHS)
-@pytest.mark.parametrize("remat", [False, True], ids=["no_remat", "remat"])
-@pytest.mark.parametrize("microbatch", [1, 2])
-def test_train_step_matches_jax(remat, microbatch, arch):
-    """One step of each ported arch's smoke config in f32 from the same
-    weights, S = 2 x LOSS_CHUNK (the chunked loss runs; rwkv6's and hymba's
-    recurrences through their autograd Functions and plain backwards): the
-    loss, every gradient (from
-    ``jax.value_and_grad(loss_fn)``, averaged over the microbatches as the
-    JAX scan does), and after ``AdamW.update`` every parameter, m and v,
-    within atol 1e-5 / rtol 1e-4; a parameter also within what the
-    gradient tolerance carries through the Adam step (``_adam_carry``)."""
-    jcfg, cfg = _configs(arch, remat=remat, microbatch=microbatch)
-    jp, flat, model = _weights(jcfg, cfg)
-    spec = ("t", 2 * zoo.LOSS_CHUNK, 2, "train")
-    jbatch = jzoo.make_batch(jcfg, jzoo.ShapeSpec(*spec), 3)
-    batch = {k: np.asarray(v) for k, v in jbatch.items()}
-
-    def jax_grads(b):
-        return jax.value_and_grad(lambda p: jzoo.loss_fn(jcfg, p, b)[0])(jp)
-
+@functools.cache
+def _jax_step(arch, remat, microbatch):
+    """JAX's side of :func:`train_step_matches_jax`, kept for the process (a
+    file's cases may share it): the flat weights, the batch, the loss and
+    every gradient (``jax.value_and_grad(loss_fn)`` under one ``jax.jit``
+    for both microbatches, averaged over them as the JAX scan does), and
+    the state and metrics after one ``make_train_step``."""
+    jcfg, _ = _configs(arch, remat=remat, microbatch=microbatch)
+    jp, _ = jzoo.build_params(jcfg, 0)
+    jbatch = jzoo.make_batch(jcfg, jzoo.ShapeSpec("t", 2 * zoo.LOSS_CHUNK, 2, "train"), 3)
+    jax_grads = functools.partial(
+        jax.jit(jax.value_and_grad(lambda p, b: jzoo.loss_fn(jcfg, p, b)[0])), jp)
     halves = [{k: v[i : i + 1] for k, v in jbatch.items()} for i in range(2)] \
         if microbatch == 2 else [jbatch]
     parts = [jax_grads(b) for b in halves]
     jloss = np.mean([float(p[0]) for p in parts])
     jgrads = {k: np.mean([np.asarray(p[1][k], np.float32) for p in parts], axis=0) for k in jp}
+    jopt = JaxAdamW(lr=1e-3)
+    jstate = {"params": jp, "opt": jopt.init(jp), "step": jnp.int32(0)}
+    jstate, jm = jax.jit(jzoo.make_train_step(jcfg, jopt))(jstate, jbatch)
+    return _np(jp), jbatch, jloss, jgrads, jstate, jm
+
+
+def train_step_matches_jax(remat, microbatch, arch, jax_remat=None):
+    """One step of an arch's smoke config in f32 from the same weights, S =
+    2 x LOSS_CHUNK (the chunked loss runs; rwkv6's and hymba's recurrences
+    through their autograd Functions and plain backwards): the loss, every
+    gradient and, after ``AdamW.update``, every parameter, m and v against
+    JAX's (:func:`_jax_step`, with ``remat``, or ``jax_remat`` where given),
+    within atol 1e-5 / rtol 1e-4; a parameter also within what the
+    gradient tolerance carries through the Adam step (``_adam_carry``)."""
+    _, cfg = _configs(arch, remat=remat, microbatch=microbatch)
+    flat, jbatch, jloss, jgrads, jstate, jm = _jax_step(
+        arch, remat if jax_remat is None else jax_remat, microbatch)
+    model = zoo.from_jax_params(cfg, flat, device="cpu")
+    batch = {k: np.asarray(v) for k, v in jbatch.items()}
 
     params = zoo.model_params(model)
     tparts = []
@@ -348,13 +370,11 @@ def test_train_step_matches_jax(remat, microbatch, arch):
             p.requires_grad_(False)
         tparts.append((loss.item(), zoo.to_jax_params(cfg, dict(zip(params, g)))))
     np.testing.assert_allclose(np.mean([p[0] for p in tparts]), jloss, **TOL)
-    for k in jp:
+    for k in flat:
         got = np.mean([p[1][k].numpy() for p in tparts], axis=0)
         np.testing.assert_allclose(got, jgrads[k], **TOL, err_msg=f"grad {k}")
 
-    jopt, opt = JaxAdamW(lr=1e-3), AdamW(lr=1e-3)
-    jstate = {"params": jp, "opt": jopt.init(jp), "step": jnp.int32(0)}
-    jstate, jm = jax.jit(jzoo.make_train_step(jcfg, jopt))(jstate, jbatch)
+    opt = AdamW(lr=1e-3)
     state = {"params": model, "opt": opt.init(zoo.model_params(model)), "step": 0}
     state, m = zoo.make_train_step(cfg, opt)(state, batch)
     np.testing.assert_allclose(float(m["loss"]), float(jm["loss"]), **TOL)
@@ -363,7 +383,7 @@ def test_train_step_matches_jax(remat, microbatch, arch):
     got_p = _np(zoo.to_jax_params(cfg, model))
     got_m, got_v = _np(zoo.to_jax_params(cfg, state["opt"].m)), _np(
         zoo.to_jax_params(cfg, state["opt"].v))
-    for k in jp:
+    for k in flat:
         want = np.asarray(jstate["params"][k], np.float32)
         bound = TOL["atol"] + TOL["rtol"] * np.abs(want) + _adam_carry(1e-3, jgrads[k], scale)
         assert (np.abs(got_p[k] - want) <= bound).all(), f"param {k}"

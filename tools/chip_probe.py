@@ -6,6 +6,7 @@ Usage, from the root of a checkout on a host with a Hopper card::
     python3 tools/chip_probe.py serve      # phase 40 (sharded serving) alone
     python3 tools/chip_probe.py train      # phases 39 and 41 (ZeRO-1 and FSDP), then 42
     python3 tools/chip_probe.py d256       # phase 43 (head dim 256, gemma2, internvl2)
+    python3 tools/chip_probe.py seamless   # phase 44 (seamless-m4t-medium, encoder-decoder)
     python3 tools/chip_probe.py flash-ab PARENT
         # tools/flash_ab.py on PARENT (another commit's tree) and on this
         # checkout in turns (parent, this, this, parent), then the card's
@@ -60,6 +61,11 @@ def main(argv: list[str]) -> int:
         cs.sharded_train_phase(dev)
         elapsed("phases 39 and 41")
         cs.dense_phases(dev, elapsed)
+        return 0
+    if argv[:1] == ["seamless"]:
+        build.build_all(["flash_attention", "flash_attention_bwd", "embed_lookup"])
+        cs.log(f"built in {time.perf_counter() - t:.1f} s")
+        cs.seamless_phases(dev, elapsed)
         return 0
     if argv[:1] == ["d256"]:
         build.build_all(["flash_attention", "flash_attention_bwd", "embed_lookup"])
